@@ -3,36 +3,48 @@
 
     python3 chip_smoke.py
 
-Builds the K1 sweep kernel from csrc/ with nvcc, holds it against its plain
-PyTorch twin, drives the dense SA slice end to end through ``anneal`` at the
-headline shape (SK glass, N=4096, R=1024) and times the kernel against the
-twin. Phases:
+Builds the port's kernels from csrc/ with nvcc (one process per source, all
+at once): K1 (dense sweep), K2 (single-call sparse sweep) and K3 (sparse
+thresholds). Holds each against its plain PyTorch twin, drives the dense SA
+slice (SK glass, N=4096, R=1024) and the sparse slice (10k spins: SA at
+R=1024, time-to-target PT at R=128, PT at R=4096) end to end, and times the
+kernels against the twins. Phases:
 
-  1. device and build: nvidia-smi name and power limit, nvcc build seconds;
-  2. parity with the twin: +-J couplings with h on a quarter grid make
-     every field exact, so spins, dE and counts must be equal bit for bit.
-     N=500 padded to 512, R in {1, 37, 256}, both rules, both block sizes,
-     5 host-uniform sweeps, and Philox sweeps against the twin fed
-     philox_uniforms; at N=4096, R=1024 both rules at block 128 (the size
-     anneal uses) and Metropolis at block 256, in both random modes. Then
-     the SA driver itself: three sweeps of sa.run_chunk through the engine
-     make_engine picks, against the same engine with the kernel swapped for
-     the twin (state bitwise). Gaussian SK at N=4096, R=1024, block 128:
-     energy identity E0 + dE == E1 within 1e-4 relative, and accept counts
-     within 0.5% of the twin's;
+  1. device and build: nvidia-smi name and power limit, build seconds,
+     registers and spills of every kernel;
+  2. parity with the twins. +-J couplings with h on a quarter grid make every
+     field exact, so spins, dE and counts must be equal bit for bit.
+     K1: N=500 padded to 512, R in {1, 37, 256}, both rules, both block
+     sizes, host-uniform and Philox sweeps; N=4096, R=1024 at block 128 (the
+     size anneal uses) and 256; three sweeps of sa.run_chunk through
+     make_engine's engine against the same driver with the twin; Gaussian SK
+     energy identity (1e-4 relative) and counts within 0.5%.
+     K2/K3: sparse N=2000 and the 10k bench graph, R in {128, 256, 1024},
+     both rules, K2 on K3's thresholds and in Philox mode, 3 sweeps; K3 at
+     [10240, 1024] and [10240, 4096]; two PT super-steps through
+     make_engine's engine (K2, R=128) against the same driver with the twin
+     on a +-J planted 10k instance (state bitwise); Gaussian 10k energy
+     identity (1e-4 relative) on K2 (R=1024) and on K3 + the plain sweep
+     (R=4096);
   3. in-kernel Philox, statistically: a 6-spin system sampled for 400 sweeps
-     at beta=0.6 against exact enumeration (TV < 0.05), and the mean
-     acceptance of one sweep at beta=1 on the SK instance within 1% of the
-     host-uniform sweep's;
-  4. the slice: a chunk of sweeps must make no host sync
-     (torch.cuda.set_sync_debug_mode("error")); then
-     anneal(SK 4096, SAConfig(n_sweeps=500, n_replicas=1024)) must pick
-     CudaFusedEngine, launch K1 500 times (the launch count of the engine
-     anneal builds, which starts at 0) and reach E/N <= -0.72, with
-     best_energy == energy(best_spins) within 1e-3 relative;
-  5. timing: bench_dense (K1) at blocks 128 and 256, one sweep of the twin
-     at block 128, in us/sweep, and profile_chunk's device breakdown of one
-     chunk of anneal's loop.
+     at beta=0.6 against exact enumeration (TV < 0.05), through K1 and
+     through K2; K1's SK acceptance within 1% of the host-uniform sweep's;
+  4. the slices: a chunk of sweeps must make no host sync
+     (torch.cuda.set_sync_debug_mode("error")), dense and sparse; then
+     anneal(SK 4096, R=1024, 500 sweeps) must run K1 500 times and reach
+     E/N <= -0.72; anneal(10k sparse, R=1024, 500 sweeps) must run
+     SortedSparseTEngine with K2 500 times; time_to_target on the
+     ttt_provenance.json instance (hash checked) must hit its threshold for
+     seeds 42, 43, 44 within 20000 sweeps; pt.run with R=4096 (32 chains of
+     128) must take the threshold path, K3 200 times. Each run's
+     best_energy must equal the energy of its best_spins (1e-3 relative).
+     The launch counts are those of the engine each run builds, so they
+     start at 0 and count only that run's launches;
+  5. timing: bench_dense (K1) at blocks 128 and 256 and one twin sweep;
+     profile_chunk's device breakdown of anneal's loop; bench_sparse (K2),
+     K2 alone at R=128, one sweep of K2's twin at R=1024; K3 and its twin
+     at [10240, 4096]; the TTT median; bench_pt10k; the device breakdown of
+     a sparse SA chunk and of the TTT loop.
 
 Any failed check exits non-zero. The last line is the JSON status
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -51,6 +63,12 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SA_BLOCK = 128  # SAConfig's block_size: the K1 build anneal launches
+# kernel (csrc/<name>.cu) -> the Pallas TPU kernel it replaces
+KERNELS = {
+    "metropolis_sweep": "spinglass_tpu/kernels/metropolis_pallas.py:73",
+    "sparse_sweep": "spinglass_tpu/kernels/sparse.py:756",
+    "sparse_thresholds": "spinglass_tpu/kernels/sparse.py:523",
+}
 TF32_NOTE = "torch.backends.cuda.matmul.allow_tf32 = False (full float32 matmuls)"
 
 
@@ -177,12 +195,13 @@ def driver_parity(torch, mc, problem):
     the same driver with the kernel swapped for the twin on the kernel's
     Philox stream: every piece of the state must be equal bit for bit."""
     from spinglass_tpu_torch.anneal import sa
-    from spinglass_tpu_torch.anneal.engines import CudaFusedEngine, _draw_seed
+    from spinglass_tpu_torch.anneal.engines import CudaFusedEngine
+    from spinglass_tpu_torch.kernels.sweeps import draw_seed
 
     class TwinEngine(CudaFusedEngine):
         def sweep(self, spins_t, beta, generator):
             f = self.fused
-            u = mc.philox_uniforms(_draw_seed(generator), *spins_t.shape,
+            u = mc.philox_uniforms(draw_seed(generator), *spins_t.shape,
                                    device=spins_t.device)
             return mc.fused_sweep_reference(
                 self.problem.j, self.problem.h, self.problem.active_mask,
@@ -205,7 +224,8 @@ def driver_parity(torch, mc, problem):
     diff = [k for k in fields if not torch.equal(getattr(a, k), getattr(b, k))]
     if not torch.equal(a.sched.temp, b.sched.temp):
         diff.append("sched.temp")
-    check(not diff and engine.launches == 3 and twin.launches == 0,
+    check(not diff and engine.launches == {mc.KERNEL_NAME: 3}
+          and twin.launches == {mc.KERNEL_NAME: 0},
           f"+-J N=4096 R=1024: 3 sweeps of sa.run_chunk, kernel engine == "
           f"twin engine bitwise in {', '.join(fields)}, sched.temp "
           f"(differ: {diff or 'none'}; acceptance of the last sweep "
@@ -281,7 +301,7 @@ def phase_slice(torch, mc, stats):
     t0 = time.perf_counter()
     res = anneal(problem, cfg)
     wall = time.perf_counter() - t0
-    launches = res.metadata["kernel_launches"]
+    launches = res.metadata["kernel_launches"].get(mc.KERNEL_NAME, 0)
     stats["launches"] = launches
     print(f"  anneal wall {wall:.3f} s (engine selection and set-up included); "
           f"sweep loop {res.total_time:.3f} s, {res.sweeps_per_second:.1f} "
@@ -339,6 +359,331 @@ def phase_timing(torch, mc, stats, card):
     stats["plain_ms"] = us_p / 1e3
 
 
+# ---------------------------------------------------------------------------
+# The sparse slice: K2 (single-call sparse sweep) and K3 (thresholds)
+# ---------------------------------------------------------------------------
+
+def pm_j_ell(n: int, seed: int):
+    """Sparse +-1 couplings (average degree 6) with h on a quarter grid, as an
+    EllProblem on the card: every field and dE is exact in float32."""
+    import numpy as np
+
+    from spinglass_tpu_torch.core import topology
+    from spinglass_tpu_torch.kernels.sparse import EllProblem
+
+    coo = topology.sparse_random_graph_coo(n, avg_degree=6.0, dist="binary",
+                                           seed=seed)
+    h = np.random.default_rng(seed).integers(-8, 9, n) / 4.0
+    return EllProblem.from_coo(n, *coo, h=h, device="cuda")
+
+
+def _finite_diff(a, b) -> float:
+    """max |a - b| where both are finite; raises unless the infinities agree."""
+    import torch
+
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb) or not torch.equal(a[~fa], b[~fb]):
+        raise CheckFailed("infinite entries differ")
+    return float((a[fa] - b[fb]).abs().max()) if bool(fa.any()) else 0.0
+
+
+def sparse_parity(torch, stats):
+    """Phase 2 (sparse): K2 and K3 against their twins on identical inputs."""
+    from spinglass_tpu_torch.core.problem import random_spins
+    from spinglass_tpu_torch.kernels import sparse_cuda as sc
+    from spinglass_tpu_torch.kernels.sparse import SortedSparseTEngine
+
+    gen = torch.Generator().manual_seed(17)
+    worst = {"k2": 0.0, "k3": 0.0}
+    for n in (2000, 10000):
+        ell = pm_j_ell(n, 42 if n == 10000 else 5)
+        for rule in ("metropolis", "glauber"):
+            eng = SortedSparseTEngine(ell, rule=rule, accept_kernel="single")
+            for r in (128, 256, 1024):
+                s_k = eng.to_layout(random_spins(gen, (r, ell.n_padded),
+                                                 ell.active_mask))
+                s_p = s_k.clone()
+                beta = (torch.rand(r, generator=gen) * 2.0 + 0.1).cuda()
+                for k in range(3):
+                    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+                    th_k = eng.kernels.thresholds(beta, seed, r)      # K3
+                    th = sc.thresholds_reference(eng.mask_col, beta, seed, r,
+                                                 rule)
+                    worst["k3"] = max(worst["k3"], _finite_diff(th_k, th))
+                    if not torch.equal(th_k, th):
+                        raise CheckFailed(f"K3 != twin at [{eng.n_sorted}, {r}]")
+                    if k == 0:   # host-threshold mode on K3's output
+                        _, de_k, c_k = eng.kernels.single_sweep(s_k, beta, th=th_k)
+                    else:        # in-kernel Philox mode: K2(seed)
+                        _, de_k, c_k = eng.kernels.single_sweep(s_k, beta, seed=seed)
+                    # the twin on K3(seed)
+                    _, de_p, c_p = sc.single_sweep_reference(eng.groups, s_p, th_k)
+                    torch.cuda.synchronize()
+                    worst["k2"] = max(worst["k2"], float((de_k - de_p).abs().max()))
+                    if not (torch.equal(s_k, s_p) and torch.equal(c_k, c_p)
+                            and torch.equal(de_k, de_p)):
+                        raise CheckFailed(
+                            f"K2 != twin: N={n} R={r} {rule} sweep {k}: "
+                            f"{int((s_k != s_p).sum())} spins, "
+                            f"{int((c_k != c_p).sum())} counts differ")
+    check(True, "+-J sparse N=2000 and the 10k bench graph, R in {128, 256, "
+                "1024}, both rules, 3 sweeps: K2 on K3(seed) and K2(seed) in "
+                "Philox mode == the plain sweep on K3(seed), spins, dE, counts "
+                "bitwise; K3(seed) == its twin")
+    ell = pm_j_ell(10000, 42)
+    eng = SortedSparseTEngine(ell, accept_kernel="single")
+    for r in (1024, 4096):
+        beta = torch.linspace(0.05, 3.0, r, device="cuda")
+        th_k = eng.kernels.thresholds(beta, 2 ** 63 + r, r)
+        th_p = sc.thresholds_reference(eng.mask_col, beta, 2 ** 63 + r, r,
+                                       "metropolis")
+        torch.cuda.synchronize()
+        check(torch.equal(th_k, th_p), f"K3 == twin bitwise at "
+                                       f"[{eng.n_sorted}, {r}] (64-bit seed)")
+    stats["k2_max_abs_err"], stats["k3_max_abs_err"] = worst["k2"], worst["k3"]
+    pt_driver_parity(torch)
+    gaussian_identity(torch)
+
+
+def pt_driver_parity(torch):
+    """Two super-steps of pt.run's step through make_engine's engine (K2 at
+    the TTT shape, R=128) against the same driver whose engine runs the twin
+    on the kernel's Philox stream: the state must be equal bit for bit."""
+    from spinglass_tpu_torch.anneal import pt
+    from spinglass_tpu_torch.benchmarks import planted
+    from spinglass_tpu_torch.benchmarks.headline import ttt_config
+    from spinglass_tpu_torch.kernels import sparse_cuda as sc
+    from spinglass_tpu_torch.kernels.sparse import EllProblem, SortedSparseTEngine
+    from spinglass_tpu_torch.kernels.sweeps import draw_seed
+
+    class TwinEngine(SortedSparseTEngine):
+        def sweep(self, spins_t, beta, generator):
+            th = sc.thresholds_reference(self.mask_col, beta, draw_seed(generator),
+                                         spins_t.shape[1], self.rule)
+            return sc.single_sweep_reference(self.groups, spins_t, th)
+
+    inst = planted.planted_gauge_coo(10000, 6.0, seed=42, frustration=0.3,
+                                     magnitude="ones")
+    ell = EllProblem.from_coo(inst.n_spins, inst.rows, inst.cols, inst.vals,
+                              device="cuda")
+    cfg = ttt_config()
+    step, _, engine = pt.make_pt_step(ell, cfg)
+    check(type(engine) is SortedSparseTEngine and engine._takes_single(128),
+          "make_engine picks SortedSparseTEngine (K2 path) for the 128-replica PT")
+    twin = TwinEngine(ell)
+    twin_step, _, _ = pt.make_pt_step(ell, cfg, engine=twin)
+    out = []
+    for st_fn, eng in ((step, engine), (twin_step, twin)):
+        state = pt.init_state(ell, cfg, torch.Generator().manual_seed(3), eng)
+        for _ in range(2):
+            state, _ = st_fn(state)
+        out.append(state)
+    a, b = out
+    torch.cuda.synchronize()
+    fields = ("spins", "slot", "energy", "best_energy", "best_spins",
+              "exch_attempts", "exch_accepts", "acc_rate")
+    diff = [k for k in fields if not torch.equal(getattr(a, k), getattr(b, k))]
+    check(not diff and engine.launches["sparse_sweep"] == 20
+          and twin.launches["sparse_sweep"] == 0,
+          f"+-J planted 10k, 128 replicas: 2 super-steps of pt's step, kernel "
+          f"engine == twin engine bitwise in {', '.join(fields)} (differ: "
+          f"{diff or 'none'}; exchanges accepted {int(a.exch_accepts.sum())})")
+
+
+def gaussian_identity(torch):
+    """Gaussian couplings: E0 + dE == E1 after one sweep, on K2 (R=1024) and
+    on the threshold path (K3 + the plain sweep, R=4096)."""
+    from spinglass_tpu_torch.anneal.engines import make_engine
+    from spinglass_tpu_torch.benchmarks.headline import sparse_bench_problem
+    from spinglass_tpu_torch.core.problem import random_spins
+
+    ell = sparse_bench_problem()
+    eng = make_engine(ell, r_hint=1024)
+    gen = torch.Generator().manual_seed(5)
+    for r, path in ((1024, "K2"), (4096, "K3 + plain sweep")):
+        s = eng.to_layout(random_spins(gen, (r, ell.n_padded), ell.active_mask))
+        e0 = eng.energy(s)
+        before = dict(eng.launches)
+        s, de, cnt = eng.sweep(s, torch.full((r,), 1.0, device="cuda"), gen)
+        e1 = eng.energy(s)
+        torch.cuda.synchronize()
+        rel = float(((e0 + de - e1).abs() / e1.abs().clamp(min=1.0)).max())
+        key = "sparse_sweep" if r == 1024 else "sparse_thresholds"
+        check(rel <= 1e-4 and eng.launches[key] == before[key] + 1,
+              f"Gaussian 10k R={r} ({path}): E0 + dE == E1, max rel err "
+              f"{rel:.3e} <= 1e-4; acceptance {float(cnt.sum()) / (r * 1e4):.4f}")
+
+
+def sparse_philox(torch):
+    """Phase 3 (sparse): K2's Philox stream against exact enumeration."""
+    import itertools as it
+
+    import numpy as np
+
+    from spinglass_tpu_torch.core import topology
+    from spinglass_tpu_torch.core.problem import IsingProblem, random_spins
+    from spinglass_tpu_torch.kernels.sparse import EllProblem, SortedSparseTEngine
+
+    n, beta_v, r, sweeps = 6, 0.6, 512, 400
+    j = topology.fully_connected(n, dist="gaussian", scale=0.4, seed=11)
+    h = np.random.default_rng(11).normal(0, 0.2, n)
+    ell = EllProblem.from_problem(IsingProblem.from_dense(j, h, device="cuda"))
+    eng = SortedSparseTEngine(ell)
+    states = np.array(list(it.product([-1.0, 1.0], repeat=n)))
+    logw = -beta_v * np.array([-0.5 * s @ j @ s - h @ s for s in states])
+    probs = np.exp(logw - logw.max())
+    probs /= probs.sum()
+    gen = torch.Generator().manual_seed(1)
+    s = eng.to_layout(random_spins(gen, (r, ell.n_padded), ell.active_mask))
+    beta = torch.full((r,), beta_v, device="cuda")
+    trace = []
+    for k in range(sweeps):
+        s, _, _ = eng.sweep(s, beta, gen)
+        if k >= 100:
+            trace.append(eng.from_layout(s)[:, :n].clone())
+    samples = torch.cat(trace).cpu().numpy()
+    codes = ((samples > 0) * (2 ** np.arange(n))).sum(axis=1).astype(int)
+    state_codes = ((states > 0) * (2 ** np.arange(n))).sum(axis=1).astype(int)
+    emp = np.bincount(codes, minlength=2 ** n) / len(codes)
+    tv = 0.5 * np.abs(emp[state_codes] - probs).sum()
+    check(tv < 0.05 and eng.launches["sparse_sweep"] == sweeps,
+          f"6-spin EllProblem ({eng.n_colors} colours), R=512, 400 K2 Philox "
+          f"sweeps, beta=0.6: TV {tv:.4f} < 0.05")
+
+
+def sparse_slice(torch, stats):
+    """Phase 4 (sparse): sparse SA, time-to-target and the K3 path of PT,
+    through the user's entry points."""
+    import numpy as np
+
+    from spinglass_tpu_torch import SAConfig, anneal
+    from spinglass_tpu_torch.anneal import pt, sa
+    from spinglass_tpu_torch.benchmarks import headline
+    from spinglass_tpu_torch.benchmarks.planted import time_to_target
+    from spinglass_tpu_torch.kernels.sparse import sparse_energy
+
+    ell = headline.sparse_bench_problem()
+    cfg = SAConfig(n_sweeps=500, n_replicas=1024)
+    eng = sa.make_sweep_engine(ell, cfg)
+    state = sa.init_state(ell, cfg, eng)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sa.run_chunk(ell, cfg, eng, state, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(True, "a chunk of sparse sweeps (K2) runs under "
+                "set_sync_debug_mode('error'): no host sync inside a chunk")
+
+    def best_check(res, what):
+        s = torch.ones(1, ell.n_padded, device="cuda")
+        s[0, :ell.n_spins] = torch.as_tensor(res.best_spins, device="cuda")
+        e = float(sparse_energy(ell, s)[0])
+        rel = abs(e - res.best_energy) / abs(e)
+        check(rel <= 1e-3 and np.isfinite(res.energy_history).all(),
+              f"{what}: best_energy {res.best_energy:.4f} == energy(best_spins) "
+              f"{e:.4f} (rel {rel:.2e} <= 1e-3), finite history")
+
+    # the counts are those of the engine each run builds: they start at 0
+    t0 = time.perf_counter()
+    res = anneal(ell, cfg)
+    wall = time.perf_counter() - t0
+    k2 = res.metadata["kernel_launches"].get("sparse_sweep", 0)
+    stats["k2_launches"] = k2
+    print(f"  sparse anneal wall {wall:.3f} s (set-up included); sweep loop "
+          f"{res.total_time:.3f} s, {res.sweeps_per_second:.1f} sweeps/s, "
+          f"{res.spin_flips_per_second:.4e} flips/s, E/N "
+          f"{res.best_energy / ell.n_spins:.5f}")
+    check(res.metadata["engine"] == "sparse_sorted_t" and k2 == 500,
+          f"anneal(10k sparse, R=1024, 500 sweeps) ran SortedSparseTEngine, "
+          f"K2 launched {k2} times (500 expected), K3 "
+          f"{res.metadata['kernel_launches'].get('sparse_thresholds')}")
+    best_check(res, "sparse anneal")
+
+    ttt = headline.bench_ttt(max_sweeps=20000)
+    stats["ttt"] = ttt
+    ex = ttt["extras"]
+    for run in ex["per_seed"]:
+        print(f"    seed run: {run['seconds']:.4f} s, {run['sweeps']} sweeps, "
+              f"best {run['best_energy']:.3f}, hit {run['hit']}")
+    check(ex["all_hit"] and ex["engine"] == "sparse_sorted_t",
+          f"time_to_target on the provenance instance (hash checked), 3 seeds, "
+          f"<= 20000 sweeps: all hit threshold {ex['threshold']:.3f}; median "
+          f"{ttt['value']:.4f} s")
+
+    cfg = pt.PTConfig(n_replicas=128, n_chains=32, n_sweeps=200,
+                      exchange_interval=10, min_temp=0.05, max_temp=3.0)
+    res = pt.run(ell, cfg)
+    k3 = res.metadata["kernel_launches"]
+    stats["k3_launches"] = k3.get("sparse_thresholds", 0)
+    print(f"  PT R=4096: {res.total_time:.3f} s for 200 sweeps, "
+          f"{res.spin_flips_per_second:.4e} flips/s, exchange rate "
+          f"{pt.exchange_rate_summary(res)['mean_exchange_rate']:.3f}")
+    check(res.metadata["engine"] == "sparse_sorted_t"
+          and k3 == {"sparse_sweep": 0, "sparse_thresholds": 200},
+          f"pt.run(n_chains=32, R=4096, 200 sweeps) took the threshold path: "
+          f"launches {k3}")
+    best_check(res, "PT R=4096")
+
+
+def sparse_timing(torch, stats, card):
+    """Phase 5 (sparse): K2, K3 and their twins; TTT; bench_pt10k."""
+    from spinglass_tpu_torch.benchmarks import headline
+    from spinglass_tpu_torch.core.problem import random_spins
+    from spinglass_tpu_torch.kernels import sparse_cuda as sc
+    from spinglass_tpu_torch.kernels.sparse import SortedSparseTEngine
+
+    b = headline.bench_sparse(sweeps=1000)
+    us_k2 = b["extras"]["us_per_sweep"]
+    print(f"  K2 bench_sparse 10k R=1024: {us_k2:.1f} us/sweep, "
+          f"{b['value']:.4e} flips/s, engine {b['extras']['engine']} [{card}]")
+    ell = headline.sparse_bench_problem()
+    eng = SortedSparseTEngine(ell, accept_kernel="single")
+    gen = torch.Generator().manual_seed(9)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def timed(fn, reps):
+        fn()
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) * 1e3 / reps
+
+    s = eng.to_layout(random_spins(gen, (128, ell.n_padded), ell.active_mask))
+    beta = torch.ones(128, device="cuda")
+    us_128 = timed(lambda: eng.kernels.single_sweep(s, beta, seed=7), 200)
+    s = eng.to_layout(random_spins(gen, (1024, ell.n_padded), ell.active_mask))
+    beta = torch.ones(1024, device="cuda")
+    th = eng.kernels.thresholds(beta, 7, 1024)
+    us_twin = timed(lambda: sc.single_sweep_reference(eng.groups, s, th), 5)
+    print(f"  K2 alone at R=128 (the TTT shape): {us_128:.1f} us/sweep; twin "
+          f"(per-colour sweep) at R=1024: {us_twin:.1f} us/sweep [{card}]")
+    beta = torch.ones(4096, device="cuda")
+    us_k3 = timed(lambda: eng.kernels.thresholds(beta, 11, 4096), 50)
+    us_k3_twin = timed(lambda: sc.thresholds_reference(eng.mask_col, beta, 11,
+                                                       4096, "metropolis"), 5)
+    print(f"  K3 [{eng.n_sorted}, 4096]: {us_k3:.1f} us/call; twin "
+          f"{us_k3_twin:.1f} us/call [{card}]")
+    ttt = stats["ttt"]
+    print(f"  TTT median {ttt['value']:.4f} s (min {ttt['extras']['seconds_min']:.4f},"
+          f" max {ttt['extras']['seconds_max']:.4f}) [{card}]")
+    p = headline.bench_pt10k()
+    print(f"  bench_pt10k (16 replicas, 1000 sweeps, {p['extras']['engine']}): "
+          f"{p['value']:.4f} s, best {p['extras']['best_energy']:.3f} [{card}]")
+    for name, prof in (("sparse SA chunk (R=1024)", headline.profile_sparse_chunk()),
+                       ("TTT loop (R=128, 20 super-steps)", headline.profile_ttt())):
+        print(f"  profile {name}: {prof['us_per_sweep']:.1f} us/sweep, kernels "
+              f"{prof['device_us_per_sweep']:.1f} us/sweep, device busy "
+              f"{100 * prof['device_busy_share']:.1f}% [{card}]")
+        for k in prof["kernels"][:4]:
+            print(f"    {k['us_per_sweep']:9.2f} us/sweep  {k['calls']:5d} calls  "
+                  f"{k['name'][:80]}")
+    stats.update(k2_ms=us_k2 / 1e3, k2_plain_ms=us_twin / 1e3,
+                 k3_ms=us_k3 / 1e3, k3_plain_ms=us_k3_twin / 1e3)
+
+
 def main() -> int:
     try:
         import torch
@@ -361,39 +706,52 @@ def main() -> int:
         from spinglass_tpu_torch.benchmarks.headline import device_description
         from spinglass_tpu_torch.kernels import build
         from spinglass_tpu_torch.kernels import metropolis_cuda as mc
+        from spinglass_tpu_torch.kernels import sparse_cuda as sc
 
         card = device_description()
         print(card)
         print(f"torch {torch.__version__} cuda {torch.version.cuda}; {TF32_NOTE}")
-        print("phase 1: build")
+        print("phase 1: build (one nvcc per source, all at once)")
         t0 = time.perf_counter()
-        lib = build.build(mc.KERNEL_NAME)
-        print(f"  built {os.path.relpath(lib, HERE)} in "
-              f"{time.perf_counter() - t0:.2f} s")
-        with open(lib + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line or "seconds" in line:
-                    print("  " + line.strip())
+        libs = build.build_many(list(KERNELS))
+        print(f"  built {len(libs)} libraries in {time.perf_counter() - t0:.2f} s")
+        for lib in libs:
+            print(f"  {os.path.relpath(lib, HERE)}")
+            with open(lib + ".log") as f:
+                for line in f:
+                    if "registers" in line or "spill" in line or "seconds" in line:
+                        print("    " + line.strip())
         mc.load_kernel()
-        for name, phase in (("phase 2: parity with the twin", phase_parity),
-                            ("phase 3: in-kernel Philox", phase_philox),
-                            ("phase 4: dense SA slice", phase_slice)):
+        sc.load_kernels()
+        for name, phase in (
+                ("phase 2: parity with the twins (K1)", lambda: phase_parity(torch, mc, stats)),
+                ("phase 2: parity with the twins (K2, K3)", lambda: sparse_parity(torch, stats)),
+                ("phase 3: in-kernel Philox (K1)", lambda: phase_philox(torch, mc, stats)),
+                ("phase 3: in-kernel Philox (K2)", lambda: sparse_philox(torch)),
+                ("phase 4: dense SA slice", lambda: phase_slice(torch, mc, stats)),
+                ("phase 4: sparse SA, TTT and PT slice", lambda: sparse_slice(torch, stats)),
+                ("phase 5: timing (K1)", lambda: phase_timing(torch, mc, stats, card)),
+                ("phase 5: timing (K2, K3)", lambda: sparse_timing(torch, stats, card))):
             print(name)
             t0 = time.perf_counter()
-            phase(torch, mc, stats)
+            phase()
             print(f"  ({time.perf_counter() - t0:.1f} s)")
-        print("phase 5: timing")
-        phase_timing(torch, mc, stats, card)
     except Exception:  # report any failure of any phase, then exit non-zero
         traceback.print_exc()
         print("FAIL", file=sys.stderr)
         return 1
+    rows = [(mc.KERNEL_NAME, stats["launches"], stats["max_abs_err"],
+             stats["ms"], stats["plain_ms"]),
+            ("sparse_sweep", stats["k2_launches"], stats["k2_max_abs_err"],
+             stats["k2_ms"], stats["k2_plain_ms"]),
+            ("sparse_thresholds", stats["k3_launches"], stats["k3_max_abs_err"],
+             stats["k3_ms"], stats["k3_plain_ms"])]
     print(json.dumps({"kernels": [{
-        "name": mc.KERNEL_NAME, "route": "cuda",
-        "source": "spinglass_tpu_torch/csrc/metropolis_sweep.cu",
-        "replaces": "spinglass_tpu/kernels/metropolis_pallas.py:73",
-        "launches": stats["launches"], "max_abs_err": stats["max_abs_err"],
-        "ms": stats["ms"], "plain_ms": stats["plain_ms"]}]}))
+        "name": name, "route": "cuda",
+        "source": f"spinglass_tpu_torch/csrc/{name}.cu",
+        "replaces": KERNELS[name], "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms}
+        for name, launches, err, ms, plain_ms in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

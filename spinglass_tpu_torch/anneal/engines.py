@@ -1,25 +1,32 @@
-"""Sweep engines shared by the SA driver, and the policy that picks one.
+"""Sweep engines shared by the SA and PT drivers, and the policy that picks one.
 
 The counterpart of ``spinglass_tpu.anneal.engines``. An engine declares a
 spin layout:
   * "rn": spins [R, Np] (replica-major), the plain PyTorch engines;
-  * "nr": spins [Np, R] (spin-major), the fused CUDA kernel, which updates
-    them in place.
-The driver keeps annealing state in the engine's layout and converts only at
+  * "nr": spins [Np, R] (spin-major), the fused CUDA kernel K1, and
+    [NS, R] in a colour-sorted order for the sparse engine of
+    ``kernels/sparse.py`` (K2/K3); both kernels update them in place.
+The drivers keep annealing state in the engine's layout and convert only at
 the edges of a run.
 
-Engine selection (make_engine):
-  1. sweep_method="colored", or "auto" with a colouring of at most
-     ``max_colors`` colours: colored sweeps (one matmul per colour).
-  2. otherwise, on a CUDA device: the fused K1 kernel (CudaFusedEngine).
-  3. otherwise: the blocked sweep in plain PyTorch (BlockedEngine).
-Sparse layouts are not ported yet (slice 2): asking for one, or an "auto"
-problem sparse enough that the JAX package would pick one, raises.
+Engine selection (make_engine), as in the JAX package with "the problem
+lies on a CUDA device" where it tests for a TPU:
+  1. an ``EllProblem``, sweep_method "sparse"/"sparse_t", or an "auto" dense
+     problem of at least SPARSE_MIN_SPINS spins with density below
+     SPARSE_DENSITY_THRESHOLD: a sorted sparse engine, the transposed
+     SortedSparseTEngine for "sparse_t" or for r_hint >= SPARSE_T_MIN_REPLICAS
+     on a CUDA device, else the [R, N] SortedSparseEngine;
+  2. sweep_method="colored", or "auto" with a colouring of at most
+     ``max_colors`` colours: colored sweeps (one matmul per colour);
+  3. otherwise, on a CUDA device: the fused K1 kernel (CudaFusedEngine);
+  4. otherwise: the blocked sweep in plain PyTorch (BlockedEngine).
+"sparse_compact" (the JAX package's SparseEngine) is not ported yet and
+raises.
 
 Randomness: ``sweep(spins, beta, generator)`` takes the driver's host
-``torch.Generator`` and draws one seed from it per sweep: the fused engine
-hands it to the kernel's Philox stream, the plain engines seed a generator on
-the spins' device with it and draw their uniforms there.
+``torch.Generator`` and draws one seed from it per sweep: the kernels take
+it as their Philox key, the plain engines seed a generator on the spins'
+device with it and draw their uniforms there.
 """
 
 from __future__ import annotations
@@ -31,17 +38,30 @@ from spinglass_tpu_torch.core import energy as energy_ops
 from spinglass_tpu_torch.core import topology
 from spinglass_tpu_torch.core.problem import IsingProblem
 from spinglass_tpu_torch.kernels import sweeps as sweep_kernels
-from spinglass_tpu_torch.kernels.metropolis_cuda import FusedSweep
+from spinglass_tpu_torch.kernels.metropolis_cuda import KERNEL_NAME, FusedSweep
 
 SPARSE_DENSITY_THRESHOLD = 0.05
 SPARSE_MIN_SPINS = 2048
-_SPARSE_TODO = ("sparse sweeps are not ported yet (slice 2 of the port: "
-                "EllProblem, SortedSparseTEngine and the K2/K3 kernels)")
+# the transposed sparse engine (K2/K3) takes runs of at least this many
+# replicas on a CUDA device; R % 128 == 0 is also K2's dispatch condition
+SPARSE_T_MIN_REPLICAS = 128
+_SPARSE_COMPACT_TODO = ("sweep_method='sparse_compact' (the compact colored "
+                        "SparseEngine) is not ported yet; it waits for a later "
+                        "PR of the port")
 
 
-def _draw_seed(generator: torch.Generator) -> int:
-    """One 62-bit seed from the driver's host generator (no device sync)."""
-    return int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+def kernel_launches(engine) -> dict:
+    """Kernel name -> launches made through ``engine`` (empty for the plain
+    PyTorch engines)."""
+    return dict(getattr(engine, "launches", {}))
+
+
+def best_row(engine, spins: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Replica ``r`` (a 0-d index tensor on the spins' device) of spins in
+    ``engine``'s layout, as an [Np] row: only that replica is converted, and
+    nothing waits for the device."""
+    dim = 1 if engine.layout == "nr" else 0
+    return engine.from_layout(spins.index_select(dim, r.reshape(1)))[0]
 
 
 class SweepEngine:
@@ -68,11 +88,8 @@ class SweepEngine:
         return energy_ops.energy(self.problem, spins)
 
     def _uniforms(self, spins: torch.Tensor, generator: torch.Generator):
-        """Uniforms drawn on the spins' device, from a generator there seeded
-        by the host generator (no host-to-device copy)."""
-        local = torch.Generator(device=spins.device).manual_seed(
-            _draw_seed(generator))
-        return torch.rand(spins.shape, generator=local, device=spins.device)
+        """Uniforms drawn on the spins' device (no host-to-device copy)."""
+        return sweep_kernels.device_uniforms(generator, spins.shape, spins.device)
 
     def sweep(self, spins, beta, generator):
         raise NotImplementedError
@@ -128,40 +145,56 @@ class CudaFusedEngine(SweepEngine):
         self.fused = FusedSweep(problem, block_size=block_size, rule=rule)
 
     @property
-    def launches(self) -> int:
+    def launches(self) -> dict:
         """K1 launches made through this engine."""
-        return self.fused.launches
+        return {KERNEL_NAME: self.fused.launches}
 
     def sweep(self, spins_t, beta, generator):
-        return self.fused(spins_t, beta, _draw_seed(generator))
+        return self.fused(spins_t, beta, sweep_kernels.draw_seed(generator))
 
 
-def make_engine(problem: IsingProblem, *, sweep_method: str = "auto",
+def make_engine(problem, *, sweep_method: str = "auto",
                 update_rule: str = "metropolis", block_size: int = 0,
                 use_kernel: str = "auto", max_colors: int = 8,
-                r_hint: int = 0) -> SweepEngine:
-    """Pick the sweep engine for ``problem``.
+                r_hint: int = 0):
+    """Pick the sweep engine for ``problem`` (an IsingProblem or an
+    EllProblem).
 
-    ``use_kernel``: "auto" runs the fused CUDA kernel when the problem lies
-    on a CUDA device, "always" demands it (a CPU problem raises: the kernel
-    has no interpret mode), "never" keeps the plain blocked sweep.
-    ``r_hint`` (expected replica count) only steers the sparse engines of
-    the JAX package, which are not ported yet.
+    ``use_kernel`` (dense problems): "auto" runs the fused CUDA kernel when
+    the problem lies on a CUDA device, "always" demands it (a CPU problem
+    raises: the kernel has no interpret mode), "never" keeps the plain
+    blocked sweep. ``r_hint`` is the expected replica count: sparse problems
+    on a CUDA device with r_hint >= SPARSE_T_MIN_REPLICAS take the
+    transposed engine and its kernels.
     """
-    del r_hint
+    from spinglass_tpu_torch.kernels.sparse import (EllProblem,
+                                                    SortedSparseEngine,
+                                                    SortedSparseTEngine)
+
     update_rule = sweep_kernels.canonical_rule(update_rule)
     if use_kernel not in ("auto", "always", "never"):
         raise ValueError(f"use_kernel must be auto|always|never, got {use_kernel!r}")
-    if not isinstance(problem, IsingProblem):
-        raise NotImplementedError(_SPARSE_TODO)
-    if sweep_method in ("sparse", "sparse_t", "sparse_compact"):
-        raise NotImplementedError(_SPARSE_TODO)
+
+    def _sorted(p):
+        if sweep_method == "sparse_t" or (
+                sweep_method in ("auto", "sparse")
+                and r_hint >= SPARSE_T_MIN_REPLICAS
+                and p.device.type == "cuda"):
+            return SortedSparseTEngine(p, rule=update_rule)
+        return SortedSparseEngine(p, rule=update_rule)
+
+    if sweep_method == "sparse_compact":
+        raise NotImplementedError(_SPARSE_COMPACT_TODO)
+    if isinstance(problem, EllProblem):
+        return _sorted(problem)
     n = problem.n_spins
     j_np = None
+    if sweep_method in ("sparse", "sparse_t"):
+        return _sorted(problem)
     if sweep_method == "auto" and n >= SPARSE_MIN_SPINS:
         j_np = problem.j[:n, :n].cpu().numpy()
         if topology.density(j_np) < SPARSE_DENSITY_THRESHOLD:
-            raise NotImplementedError(_SPARSE_TODO)
+            return _sorted(problem)
     if sweep_method in ("auto", "colored"):
         if j_np is None:
             j_np = problem.j[:n, :n].cpu().numpy()

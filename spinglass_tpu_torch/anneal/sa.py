@@ -8,9 +8,11 @@ host ``torch.Generator`` in the state, and the chunk's statistics are read
 back once, at its end. The exact energy is recomputed at the end of every
 chunk, which removes the float32 drift of the incremental energies.
 
-Annealing state lives in the engine's layout (see ``engines``). The fused
-CUDA engine updates ``SAState.spins`` in place; ``best_spins`` is always a
-separate tensor.
+Annealing state lives in the engine's layout (see ``engines``). The kernel
+engines (K1, and K2 for sparse problems) update ``SAState.spins`` in place;
+``best_spins`` is always a separate tensor. ``anneal`` takes a dense
+``IsingProblem`` or a sparse ``kernels.sparse.EllProblem``: anything with
+``n_padded``, ``active_mask``, ``n_spins`` and ``device``.
 
 Early stopping: relative std of the last 20 recorded best energies below
 ``convergence_tolerance``, checked between chunks.
@@ -27,7 +29,8 @@ import numpy as np
 import torch
 
 from spinglass_tpu_torch.anneal import schedules
-from spinglass_tpu_torch.anneal.engines import SweepEngine, make_engine
+from spinglass_tpu_torch.anneal.engines import (SweepEngine, best_row,
+                                                kernel_launches, make_engine)
 from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.anneal.schedules import ScheduleConfig, ScheduleState
 from spinglass_tpu_torch.core.problem import IsingProblem, random_spins
@@ -42,7 +45,7 @@ class SAConfig:
     n_replicas: int = 32
     schedule: ScheduleConfig = dfield(default_factory=ScheduleConfig)
     update_rule: str = "metropolis"          # metropolis | glauber
-    sweep_method: str = "auto"               # auto | colored | blocked
+    sweep_method: str = "auto"               # auto | colored | blocked | sparse | sparse_t
     block_size: int = 128
     max_colors_for_colored: int = 8          # auto: colored if coloring is this small
     record_interval: int = 50
@@ -205,9 +208,9 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
     _sync(problem.device)
     total = time.perf_counter() - t0
 
-    best_r = int(torch.argmin(state.best_energy))
-    best_spins = (engine.from_layout(state.best_spins)[best_r]
-                  .cpu().numpy()[: problem.n_spins])
+    best_r = torch.argmin(state.best_energy)
+    best_spins = best_row(engine, state.best_spins, best_r).cpu().numpy()[
+        : problem.n_spins]
     flips = sweeps_done * config.n_replicas * problem.n_spins
     return AnnealResult(
         best_spins=best_spins,
@@ -229,7 +232,7 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
         convergence_sweep=conv_sweep,
         metadata={"schedule": config.schedule.schedule_type.value,
                   "engine": engine.name,
-                  "kernel_launches": getattr(engine, "launches", 0)},
+                  "kernel_launches": kernel_launches(engine)},
     )
 
 

@@ -2,7 +2,7 @@
 
 The caller turns the JAX arrays into numpy (``np.asarray``) and passes them
 here, so this module needs no JAX. Tests use it to make both packages anneal
-the identical instance from the identical state.
+the identical instance (dense or ELL) from the identical SA or PT state.
 """
 
 from __future__ import annotations
@@ -31,11 +31,24 @@ def problem_from_numpy(j, h, active_mask, n_spins: int,
     )
 
 
-def _in_layout(x, src_layout: str, layout: str, device) -> torch.Tensor:
+def ell_from_numpy(idx, val, h, active_mask, n_spins: int, device="cpu"):
+    """Port ``EllProblem`` from a JAX ``EllProblem``'s arrays, unchanged."""
+    from spinglass_tpu_torch.kernels.sparse import EllProblem
+
+    def t(x, dtype):
+        return torch.tensor(np.asarray(x, dtype), device=device)
+
+    return EllProblem(idx=t(idx, np.int32), val=t(val, np.float32),
+                      h=t(h, np.float32), active_mask=t(active_mask, np.float32),
+                      n_spins=int(n_spins))
+
+
+def _in_layout(x, src_layout: str, layout: str, device,
+               dtype=np.float32) -> torch.Tensor:
     for lay in (src_layout, layout):
         if lay not in ("rn", "nr"):
             raise ValueError(f"unknown spin layout {lay!r}")
-    t = torch.tensor(np.asarray(x, np.float32), device=device)
+    t = torch.tensor(np.asarray(x, dtype), device=device)
     if src_layout != layout:
         t = t.t()
     return t.contiguous()
@@ -71,6 +84,42 @@ def sa_state_from_numpy(spins, energy, best_energy, best_spins, temp,
                             acc_ema=vec(acc_ema).reshape(())),
         generator=generator,
         sweep=int(sweep),
+        acc_rate=(torch.zeros_like(energy) if acc_rate is None
+                  else vec(acc_rate)),
+    )
+
+
+def pt_state_from_numpy(spins, slot, energy, best_energy, best_spins,
+                        sweep: int, exch_attempts, exch_accepts,
+                        acc_rate=None, *, src_layout: str = "rn",
+                        layout: str = "rn", spin_dtype=np.float32,
+                        device="cpu",
+                        generator: Optional[torch.Generator] = None):
+    """Port ``PTState`` from a JAX ``PTState``'s arrays.
+
+    Layouts as in ``sa_state_from_numpy``; a sorted [NS, R] state of the
+    transposed sparse engine is "nr" on both sides. ``spin_dtype`` is the
+    port engine's (int8 for the sparse engine's threshold path). The state
+    gets ``generator``, or a new CPU generator seeded with 0."""
+    from spinglass_tpu_torch.anneal.pt import PTState
+
+    def vec(x, dtype=np.float32):
+        return torch.tensor(np.asarray(x, dtype), device=device)
+
+    energy = vec(energy)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return PTState(
+        spins=_in_layout(spins, src_layout, layout, device, spin_dtype),
+        slot=vec(slot, np.int32),
+        energy=energy,
+        best_energy=vec(best_energy),
+        best_spins=_in_layout(best_spins, src_layout, layout, device,
+                              spin_dtype),
+        generator=generator,
+        sweep=int(sweep),
+        exch_attempts=vec(exch_attempts, np.int32),
+        exch_accepts=vec(exch_accepts, np.int32),
         acc_rate=(torch.zeros_like(energy) if acc_rate is None
                   else vec(acc_rate)),
     )

@@ -49,19 +49,20 @@
 // are work for later versions.
 //
 // Randomness. With u == nullptr the kernel draws its own uniforms with
-// Philox4x32-10 keyed by the 64-bit sweep seed; the counter is (global spin
-// index, global replica index, 0, 0), so the stream does not depend on RT or
-// B. Word 0 of the output gives u = (2 * (x >> 9) + 1) / 2^24, exact in
-// float32 and strictly inside (0, 1). Otherwise u is the caller's [Np, R]
-// array. Either way rows with mask == 0 get u = 2, whose threshold is -inf.
+// Philox4x32-10 keyed by the 64-bit sweep seed (philox.cuh); the counter is
+// (global spin index, global replica index, 0, 0), so the stream does not
+// depend on RT or B. Otherwise u is the caller's [Np, R] array. Either way
+// rows with mask == 0 get u = 2, whose threshold is -inf.
 //
 // Precision. Exact float32 throughout; built without --use_fast_math so
 // logf/log1pf match torch's CUDA log/log1p. Glauber clamps u at 0.999999 in
-// the log1p term, as the Pallas kernel does.
+// the log1p term, as the Pallas kernel does (philox.cuh: threshold).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -69,25 +70,7 @@ constexpr int RT = 8;          // replica columns per thread block (= warps)
 constexpr int THREADS = 32 * RT;
 constexpr int JC = 1024;       // spin rows per staged chunk in the field phase
 constexpr int SCRATCH = 8192;  // floats of shared scratch (32 KB), see below
-constexpr float kGlauberUMax = 0.999999f;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float philox_uniform(uint32_t c0, uint32_t c1,
-                                                uint32_t k0, uint32_t k1) {
-  uint32_t c2 = 0u, c3 = 0u;
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return (float)(((c0 >> 9) << 1) | 1u) * 5.9604644775390625e-08f;  // 2^-24
-}
 
 template <int B, int RULE>  // RULE 0: metropolis, 1: glauber
 __global__ void __launch_bounds__(THREADS, 1)
@@ -197,15 +180,9 @@ metropolis_sweep_kernel(const float* __restrict__ J,
         f[t] = h_blk[lane + 32 * t][warp];
         s[t] = spins[(size_t)row * R + col];
         float uu = u ? u[(size_t)row * R + col]
-                     : philox_uniform((uint32_t)row, (uint32_t)col, k0, k1);
+                     : sgt::philox_uniform((uint32_t)row, (uint32_t)col, k0, k1);
         if (!(mask[row] > 0.f)) uu = 2.f;
-        float tv;
-        if (RULE == 0) {
-          tv = logf(uu) * nib;
-        } else {
-          tv = (logf(uu) - log1pf(-fminf(uu, kGlauberUMax))) * nib;
-        }
-        th[t] = uu < 1.f ? tv : -INFINITY;
+        th[t] = sgt::threshold<RULE>(uu, nib);
       }
     }
 #pragma unroll

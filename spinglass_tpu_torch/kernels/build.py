@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first use
 into ``build/<name>-<hash>.so`` inside the package directory (listed in
-``.gitignore``). The hash covers the source and the nvcc command, so an
-edited source or flag builds anew and an unchanged one is reused. Nothing
-here runs at import time; a failed build raises.
+``.gitignore``). The hash covers the source, the ``csrc/`` headers it
+includes, and the nvcc command, so an edited source, header or flag builds
+anew and an unchanged one is reused. ``build_many`` starts one nvcc per
+source, all at once. Nothing here runs at import time; a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,6 +28,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _LIBS: dict = {}
 
 
@@ -44,36 +48,71 @@ def nvcc_command(source: str, output: str, nvcc: str = "nvcc") -> list:
     return [nvcc, *NVCC_FLAGS, "-o", output, source]
 
 
+def local_headers(source: str) -> list:
+    """The csrc/ headers ``source`` includes with quotes, transitively."""
+    seen, todo = [], [source]
+    while todo:
+        with open(todo.pop(), encoding="utf-8") as f:
+            text = f.read()
+        for name in _INCLUDE.findall(text):
+            path = os.path.join(CSRC_DIR, name)
+            if path not in seen and os.path.exists(path):
+                seen.append(path)
+                todo.append(path)
+    return sorted(seen)
+
+
 def library_path(name: str) -> str:
     """Content-hashed path of the shared library built from csrc/<name>.cu."""
     source = os.path.join(CSRC_DIR, f"{name}.cu")
     digest = hashlib.sha256()
-    with open(source, "rb") as f:
-        digest.update(f.read())
+    for path in [source] + local_headers(source):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
+def build_many(names) -> list:
+    """Compile each csrc/<name>.cu whose hashed library is missing, one nvcc
+    process per source, all started together; returns the library paths.
+    The compiler's report (seconds, registers, spills) is kept beside each
+    library as ``<lib>.log``."""
+    outs = [library_path(n) for n in names]
+    jobs = []
+    for name, out in zip(names, outs):
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = nvcc_command(os.path.join(CSRC_DIR, f"{name}.cu"), tmp, nvcc_path())
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((name, out, tmp, cmd, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, cmd, proc, t0 in jobs:
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                          f"{stderr[-4000:]}")
+            continue
+        with open(out + ".log", "w") as f:
+            f.write(f"{' '.join(cmd)}\nseconds: {seconds:.3f}\n{stdout}{stderr}")
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless its hashed library exists; returns the
-    library path. The compiler's report (registers, spills) is kept beside
-    it as ``<lib>.log``."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = nvcc_command(os.path.join(CSRC_DIR, f"{name}.cu"), tmp, nvcc_path())
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    with open(out + ".log", "w") as f:
-        f.write(f"{' '.join(cmd)}\nseconds: {seconds:.3f}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    library path."""
+    return build_many([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -65,6 +65,18 @@ def accept_threshold(uniforms: torch.Tensor, beta, rule: str) -> torch.Tensor:
     return torch.where(uniforms < 1.0, th, torch.full_like(th, -torch.inf))
 
 
+def draw_seed(generator: torch.Generator) -> int:
+    """One 62-bit seed from a host generator (no device sync)."""
+    return int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+
+
+def device_uniforms(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Uniforms in [0, 1) drawn on ``device``, from a generator there seeded
+    by one draw of the host ``generator`` (no host-to-device copy)."""
+    local = torch.Generator(device=device).manual_seed(draw_seed(generator))
+    return torch.rand(shape, generator=local, device=device)
+
+
 def _as_replica_beta(beta, r: int, device) -> torch.Tensor:
     beta = torch.as_tensor(beta, dtype=torch.float32, device=device)
     if beta.ndim == 0:

@@ -1,5 +1,6 @@
-"""K1 against its plain twin on a CUDA device (the smoke script's parity
-phase at a small size). Needs a GPU and nvcc; skips elsewhere.
+"""K1, K2 and K3 against their plain twins on a CUDA device (the smoke
+script's parity phase at a small size). Needs a GPU and nvcc; skips
+elsewhere.
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q      # on the GPU machine
 """
@@ -15,6 +16,8 @@ torch.set_num_threads(1)
 from spinglass_tpu_torch.core import topology  # noqa: E402
 from spinglass_tpu_torch.core.problem import IsingProblem  # noqa: E402
 from spinglass_tpu_torch.kernels import metropolis_cuda as MC  # noqa: E402
+from spinglass_tpu_torch.kernels import sparse as S  # noqa: E402
+from spinglass_tpu_torch.kernels import sparse_cuda as SC  # noqa: E402
 
 
 @pytest.fixture
@@ -54,3 +57,59 @@ def test_kernel_matches_twin_bitwise(cuda, r, rule, block):
         assert torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
         assert torch.equal(de, de_p)
     assert fused.launches == 3
+
+
+def _pm_j_ell(n, seed, device):
+    coo = topology.sparse_random_graph_coo(n, avg_degree=6.0, dist="binary",
+                                           seed=seed)
+    h = np.random.default_rng(seed).integers(-8, 9, n) / 4.0
+    return S.EllProblem.from_coo(n, *coo, h=h, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,rule", list(itertools.product(
+    (128, 256), ("metropolis", "glauber"))))
+def test_sparse_kernels_match_twins_bitwise(cuda, r, rule):
+    """K3 equals its twin; K2 in both modes equals the per-colour sweep on
+    the same thresholds, bit for bit in spins, dE and counts."""
+    ell = _pm_j_ell(500, 3, cuda)
+    eng = S.SortedSparseTEngine(ell, rule=rule, accept_kernel="single")
+    gen = torch.Generator().manual_seed(r)
+    s = eng.to_layout(torch.where(torch.rand(r, ell.n_padded, generator=gen)
+                                  < 0.5, -1.0, 1.0).to(cuda))
+    beta = (torch.rand(r, generator=gen) * 2.0 + 0.1).to(cuda)
+    for k in range(3):
+        s_ref = s.clone()
+        seed = 1000 + k
+        th = SC.thresholds_reference(eng.mask_col, beta, seed, r, rule)
+        if k == 0:
+            assert torch.equal(eng.kernels.thresholds(beta, seed, r), th)
+            _, de, cnt = eng.kernels.single_sweep(s, beta, th=th)
+        else:
+            _, de, cnt = eng.kernels.single_sweep(s, beta, seed=seed)
+        _, de_p, cnt_p = SC.single_sweep_reference(eng.groups, s_ref, th)
+        torch.cuda.synchronize()
+        assert torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
+        assert torch.equal(de, de_p)
+    assert eng.launches == {"sparse_sweep": 3, "sparse_thresholds": 1}
+
+
+@pytest.mark.gpu
+def test_sparse_engine_dispatch_on_cuda(cuda):
+    """make_engine takes the transposed engine for r_hint >= 128 on the
+    card; R=128 runs K2, R=4096 at a layout too large for the budget runs
+    K3 and the plain per-colour sweep."""
+    from spinglass_tpu_torch.anneal.engines import make_engine
+
+    ell = _pm_j_ell(500, 4, cuda)
+    eng = make_engine(ell, r_hint=128)
+    assert eng.name == "sparse_sorted_t" and eng.spin_dtype == torch.float32
+    assert make_engine(ell, r_hint=16).name == "sparse_sorted"
+    gen = torch.Generator().manual_seed(0)
+    s = eng.to_layout(torch.ones(128, ell.n_padded, device=cuda))
+    eng.sweep(s, torch.full((128,), 0.5, device=cuda), gen)
+    eng.SINGLE_VMEM_SPIN_BYTES = eng.n_sorted * 128 * 4  # R=256 no longer fits
+    s = eng.to_layout(torch.ones(256, ell.n_padded, device=cuda))
+    eng.sweep(s, torch.full((256,), 0.5, device=cuda), gen)
+    torch.cuda.synchronize()
+    assert eng.launches == {"sparse_sweep": 1, "sparse_thresholds": 1}

@@ -1,5 +1,6 @@
 """The port's boundary: it runs without JAX and without spinglass_tpu, it
-never launches (or builds) its CUDA kernel for CPU tensors, and the smoke
+never launches (or builds) its CUDA kernels for CPU tensors, its builds
+target sm_90a and rebuild when a source or a header changes, and the smoke
 script refuses to report without a GPU."""
 
 import ast
@@ -13,9 +14,12 @@ import torch
 
 torch.set_num_threads(1)
 
+from spinglass_tpu_torch.core import topology  # noqa: E402
 from spinglass_tpu_torch.core.problem import IsingProblem  # noqa: E402
 from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.kernels import metropolis_cuda as MC  # noqa: E402
+from spinglass_tpu_torch.kernels import sparse as S  # noqa: E402
+from spinglass_tpu_torch.kernels import sparse_cuda as SC  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "spinglass_tpu_torch"
@@ -32,11 +36,20 @@ from spinglass_tpu_torch.core import topology
 p = sgt.IsingProblem.from_dense(topology.fully_connected(12, dist="binary"))
 res = sgt.anneal(p, sgt.SAConfig(n_sweeps=2, n_replicas=2, record_interval=1))
 assert res.n_sweeps == 2 and np.isfinite(res.best_energy)
+from spinglass_tpu_torch.anneal import pt
+from spinglass_tpu_torch.benchmarks import planted
+from spinglass_tpu_torch.kernels.sparse import EllProblem
+ell = EllProblem.from_coo(60, *topology.sparse_random_graph_coo(60, seed=2))
+sp = sgt.anneal(ell, sgt.SAConfig(n_sweeps=2, n_replicas=2, record_interval=1))
+inst = planted.planted_gauge_coo(60, 4.0, seed=1)
+ell = EllProblem.from_coo(60, inst.rows, inst.cols, inst.vals)
+ptr = pt.run(ell, pt.PTConfig(n_replicas=4, n_sweeps=5, exchange_interval=5))
+assert sp.n_sweeps == 2 and ptr.n_sweeps == 5 and np.isfinite(ptr.best_energy)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "spinglass_tpu")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
-print("ok", res.algorithm)
+print("ok", res.algorithm, sp.algorithm, ptr.algorithm)
 """
 
 
@@ -50,7 +63,8 @@ def _run(args, cwd, env_extra=None):
 def test_port_runs_with_jax_unimportable(tmp_path):
     proc = _run([sys.executable, "-c", _NO_JAX], cwd=tmp_path)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.strip() == "ok sa/blocked/metropolis"
+    assert proc.stdout.strip() == ("ok sa/blocked/metropolis "
+                                   "sa/sparse_sorted/metropolis pt/metropolis")
 
 
 def test_port_sources_import_no_jax():
@@ -88,6 +102,26 @@ def test_fused_sweep_on_cpu_never_launches_or_builds(monkeypatch):
     assert fused.block_size == 128  # Np = 128: 256 does not divide it
 
 
+def test_sparse_kernels_on_cpu_never_launch_or_build(monkeypatch):
+    """K2 and K3 forced on (accept_kernel="single", threshold_rng="kernel")
+    run their twins for CPU tensors: no compiler, no launches counted."""
+    def no_subprocess(*a, **k):
+        raise AssertionError("a CPU sweep must not invoke a compiler")
+
+    monkeypatch.setattr(build.subprocess, "Popen", no_subprocess)
+    monkeypatch.setattr(build.subprocess, "run", no_subprocess)
+    coo = topology.sparse_random_graph_coo(100, avg_degree=4.0, seed=1)
+    ell = S.EllProblem.from_coo(100, *coo)
+    gen = torch.Generator().manual_seed(0)
+    for kw in (dict(accept_kernel="single"), dict(threshold_rng="kernel")):
+        eng = S.SortedSparseTEngine(ell, **kw)
+        s = eng.to_layout(torch.ones(128, ell.n_padded))
+        for _ in range(2):
+            s, _, _ = eng.sweep(s, torch.full((128,), 0.5), gen)
+        assert eng.launches == {"sparse_sweep": 0, "sparse_thresholds": 0}
+        assert eng.kernels._libs is None
+
+
 def test_nvcc_command_targets_sm90a_and_build_dir_is_ignored():
     cmd = build.nvcc_command("k.cu", "k.so")
     joined = " ".join(cmd)
@@ -100,6 +134,44 @@ def test_nvcc_command_targets_sm90a_and_build_dir_is_ignored():
     assert os.path.exists(os.path.join(build.CSRC_DIR, "metropolis_sweep.cu"))
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "spinglass_tpu_torch/build/" in ignored
+    for name in (SC.SWEEP_KERNEL, SC.THRESHOLD_KERNEL):
+        src = os.path.join(build.CSRC_DIR, f"{name}.cu")
+        assert "arch=compute_90a,code=sm_90a" in " ".join(
+            build.nvcc_command(src, "x.so"))
+        assert os.path.basename(build.library_path(name)).startswith(name + "-")
+        assert build.local_headers(src) == [os.path.join(build.CSRC_DIR,
+                                                         "philox.cuh")]
+
+
+def test_library_hash_covers_headers_and_builds_run_together(tmp_path,
+                                                             monkeypatch):
+    """An edited header gives every source that includes it a new library
+    path; build_many starts one compiler per missing library and keeps each
+    compiler report beside its library."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "common.cuh").write_text("// v1\n")
+    for name in ("a", "b"):
+        (csrc / f"{name}.cu").write_text('#include "common.cuh"\n')
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    before = build.library_path("a")
+    (csrc / "common.cuh").write_text("// v2\n")
+    assert build.library_path("a") != before
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\nwhile [ $# -gt 1 ]; do [ \"$1\" = -o ] && "
+                    "touch \"$2\"; shift; done\necho ptxas info: 8 registers\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(fake))
+    started = []
+    real_popen = build.subprocess.Popen
+    monkeypatch.setattr(build.subprocess, "Popen",
+                        lambda *a, **k: started.append(a[0][-1])
+                        or real_popen(*a, **k))
+    libs = build.build_many(["a", "b"])
+    assert len(started) == 2 and all(os.path.exists(p) for p in libs)
+    assert "registers" in open(libs[1] + ".log").read()
+    assert build.build_many(["a", "b"]) == libs and len(started) == 2
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):

@@ -142,7 +142,7 @@ def test_ferromagnet_reaches_ground_state():
     assert len(res.energy_history) == len(res.temperature_history) == 10
     assert res.replica_best_energy.shape == (4,)
     assert res.metadata == {"schedule": "geometric", "engine": "blocked",
-                            "kernel_launches": 0}
+                            "kernel_launches": {}}
     assert res.sweeps_per_second > 0 and res.spin_flips_per_second > 0
 
 
@@ -191,13 +191,15 @@ def test_make_engine_choices():
     assert isinstance(engines.make_engine(grid), engines.ColoredEngine)
     with pytest.raises(ValueError, match="no CPU mode"):
         engines.make_engine(dense, use_kernel="always")
-    for method in ("sparse", "sparse_t", "sparse_compact"):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            engines.make_engine(dense, sweep_method=method)
+    for method, name in (("sparse", "sparse_sorted"),
+                         ("sparse_t", "sparse_sorted_t")):
+        assert engines.make_engine(dense, sweep_method=method).name == name
+    with pytest.raises(NotImplementedError, match="sparse_compact"):
+        engines.make_engine(dense, sweep_method="sparse_compact")
     sparse = IsingProblem.from_dense(topology.random_graph(
         engines.SPARSE_MIN_SPINS, density=0.002, dist="binary", seed=1))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        engines.make_engine(sparse)
+    # sparse enough for the sorted sparse engine; on the CPU the [R, N] one
+    assert engines.make_engine(sparse, r_hint=1024).name == "sparse_sorted"
     assert isinstance(engines.make_engine(sparse, sweep_method="blocked"),
                       engines.BlockedEngine)
 
