@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from csrc/ with nvcc (one process per source, all
-at once): K1 (dense sweep), K2 (single-call sparse sweep) and K3 (sparse
-thresholds). Holds each against its plain PyTorch twin, drives the dense SA
-slice (SK glass, N=4096, R=1024) and the sparse slice (10k spins: SA at
-R=1024, time-to-target PT at R=128, PT at R=4096) end to end, and times the
-kernels against the twins. Phases:
+at once): K1 (dense sweep), its variants K5 (pipelined), K6 (interleaved)
+and K7 (folded), K2 (single-call sparse sweep), K3 (sparse thresholds) and
+K4 (fused sparse accept). Holds each against its plain PyTorch twin, drives
+the dense SA slice (SK glass, N=4096, R=1024; K1 and each variant) and the
+sparse slice (10k spins: SA at R=1024, time-to-target PT at R=128, PT at
+R=4096 on K3 and on K4) end to end, and times the kernels against the
+twins. Phases:
 
   1. device and build: nvidia-smi name and power limit, build seconds,
      registers and spills of every kernel;
@@ -16,7 +18,7 @@ kernels against the twins. Phases:
      field exact, so spins, dE and counts must be equal bit for bit.
      K1: N=500 padded to 512, R in {1, 37, 256}, both rules, both block
      sizes, host-uniform and Philox sweeps; N=4096, R=1024 at block 128 (the
-     size anneal uses) and 256; three sweeps of sa.run_chunk through
+     size anneal uses) and 256, both rules, both modes; three sweeps of sa.run_chunk through
      make_engine's engine against the same driver with the twin; Gaussian SK
      energy identity (1e-4 relative) and counts within 0.5%.
      K2/K3: sparse N=2000 and the 10k bench graph, R in {128, 256, 1024},
@@ -25,7 +27,15 @@ kernels against the twins. Phases:
      make_engine's engine (K2, R=128) against the same driver with the twin
      on a +-J planted 10k instance (state bitwise); Gaussian 10k energy
      identity (1e-4 relative) on K2 (R=1024) and on K3 + the plain sweep
-     (R=4096);
+     (R=4096).
+     K5, K6 (2 and 4 chains), K7: each against its own twin and against K1
+     on +-J N=500 (R in {1, 37, 256, 1024}, both rules, both blocks,
+     host-uniform and Philox sweeps), and at N=4096, R=1024 against its
+     twin and K1 (block 128, Philox) and against K1 (block 256, host
+     uniforms): spins, dE, counts bitwise.
+     K4: one colour against its twin on the 10k +-J graph, int8 and float32
+     spins, R in {128, 4096}; one K4-path sweep == one K3-path sweep == one
+     K2 sweep at [10240, 1024] under one seed, bitwise;
   3. in-kernel Philox, statistically: a 6-spin system sampled for 400 sweeps
      at beta=0.6 against exact enumeration (TV < 0.05), through K1 and
      through K2; K1's SK acceptance within 1% of the host-uniform sweep's;
@@ -38,13 +48,24 @@ kernels against the twins. Phases:
      seeds 42, 43, 44 within 20000 sweeps; pt.run with R=4096 (32 chains of
      128) must take the threshold path, K3 200 times. Each run's
      best_energy must equal the energy of its best_spins (1e-3 relative).
-     The launch counts are those of the engine each run builds, so they
-     start at 0 and count only that run's launches;
-  5. timing: bench_dense (K1) at blocks 128 and 256 and one twin sweep;
+     Then each dense variant runs the SK anneal's 500 sweeps (its seeds,
+     its schedule, sa's sweep step): E/N <= -0.72, energy identity within
+     1e-4 relative per 50-sweep chunk; on a +-J N=4096 instance the same
+     500 sweeps must end bitwise equal to K1's spins. PT at R=4096 through
+     make_pt_step with SortedSparseTEngine(accept_kernel="fused") for 200
+     sweeps must equal the K3 path under one seed (spins and slots bitwise,
+     energies within 1e-4), with K4 launched and K3 not. The launch counts
+     are those of the engine each run builds, so they start at 0 and count
+     only that run's launches;
+  5. timing: bench_dense (K1) at block 128 and one twin sweep;
      profile_chunk's device breakdown of anneal's loop; bench_sparse (K2),
      K2 alone at R=128, one sweep of K2's twin at R=1024; K3 and its twin
-     at [10240, 4096]; the TTT median; bench_pt10k; the device breakdown of
-     a sparse SA chunk and of the TTT loop.
+     at [10240, 4096]; the TTT median; bench_pt10k (300 sweeps); the device
+     breakdown of a sparse SA chunk and of the TTT loop; K1, K5, K6 (2, 4)
+     and K7 at N=4096, R=1024, blocks 128 and 256, in turns, beside the
+     twins' sweeps at that shape (timed in phase 2); the K4 path and the K3
+     path at R=4096, one run each, and K4 alone against its twin over one
+     sweep's colours.
 
 Any failed check exits non-zero. The last line is the JSON status
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -68,7 +89,14 @@ KERNELS = {
     "metropolis_sweep": "spinglass_tpu/kernels/metropolis_pallas.py:73",
     "sparse_sweep": "spinglass_tpu/kernels/sparse.py:756",
     "sparse_thresholds": "spinglass_tpu/kernels/sparse.py:523",
+    "sparse_accept": "spinglass_tpu/kernels/sparse.py:582",
+    "metropolis_pipelined": "spinglass_tpu/kernels/metropolis_pallas.py:400",
+    "metropolis_interleaved": "spinglass_tpu/kernels/metropolis_pallas.py:281",
+    "metropolis_folded": "spinglass_tpu/kernels/metropolis_pallas.py:179",
 }
+# FusedSweep flags of the dense variants, by label
+VARIANTS = {"K5": dict(pipelined=True), "K6x2": dict(interleave=2),
+            "K6x4": dict(interleave=4), "K7": dict(folded=True)}
 TF32_NOTE = "torch.backends.cuda.matmul.allow_tf32 = False (full float32 matmuls)"
 
 
@@ -144,9 +172,9 @@ def phase_parity(torch, mc, stats):
                                             ("metropolis", "glauber"),
                                             (128, 256)):
         beta = torch.rand(r, generator=gen).cuda() * 2.0 + 0.1
-        compare(small, r, rule, block, 5, beta, philox=False)
+        compare(small, r, rule, block, 3, beta, philox=False)
     check(True, "+-J N=500 (Np=512), R in {1,37,256}, both rules, blocks "
-                "128/256, 5 host-uniform sweeps: spins, dE, counts bitwise")
+                "128/256, 3 host-uniform sweeps: spins, dE, counts bitwise")
     for r in (37, 256):
         beta = torch.rand(r, generator=gen).cuda() * 2.0 + 0.1
         compare(small, r, "metropolis", 256, 3, beta, philox=True)
@@ -154,13 +182,13 @@ def phase_parity(torch, mc, stats):
     check(True, "+-J N=500, Philox mode vs twin on philox_uniforms: bitwise")
     big = pm_j_problem(4096, 5, "cuda")
     beta = torch.full((1024,), 0.05, device="cuda")
-    for rule, block in (("metropolis", 128), ("glauber", 128),
-                        ("metropolis", 256)):
-        for philox in (False, True):
-            compare(big, 1024, rule, block, 1, beta, philox)
-    check(True, "+-J N=4096, R=1024 (the slice's shape), both rules at "
-                "block 128, Metropolis at block 256, host-uniform and Philox "
-                "sweeps: bitwise")
+    for rule, block, philox in (("metropolis", 128, False),
+                                ("glauber", 128, True),
+                                ("metropolis", 256, True)):
+        compare(big, 1024, rule, block, 1, beta, philox)
+    check(True, "+-J N=4096, R=1024 (the slice's shape): Metropolis at block "
+                "128 with host uniforms, Glauber at 128 and Metropolis at 256 "
+                "in Philox mode: bitwise")
     driver_parity(torch, mc, big)
     stats["max_abs_err"] = worst
 
@@ -324,15 +352,14 @@ def phase_slice(torch, mc, stats):
 
 
 def phase_timing(torch, mc, stats, card):
-    """Phase 5: K1 through bench_dense, and one sweep of the twin."""
+    """Phase 5: K1 through bench_dense (block 256 is timed beside the
+    variants), and one sweep of the twin."""
     from spinglass_tpu_torch.benchmarks.headline import bench_dense, profile_chunk
 
-    us_k = {}
-    for block in (SA_BLOCK, 256):
-        b = bench_dense(sweeps=200, block_size=block)
-        us_k[block] = b["extras"]["us_per_sweep"]
-        print(f"  K1 bench_dense N=4096 R=1024 block {b['extras']['block_size']}: "
-              f"{us_k[block]:.1f} us/sweep, {b['value']:.4e} flips/s [{card}]")
+    b = bench_dense(sweeps=200, block_size=SA_BLOCK)
+    us_k = b["extras"]["us_per_sweep"]
+    print(f"  K1 bench_dense N=4096 R=1024 block {b['extras']['block_size']}: "
+          f"{us_k:.1f} us/sweep, {b['value']:.4e} flips/s [{card}]")
     sk = stats["sk"]
     beta = torch.ones(1024, device="cuda")
     u = torch.rand(sk.n_padded, 1024, device="cuda")
@@ -355,8 +382,169 @@ def phase_timing(torch, mc, stats, card):
     for k in prof["kernels"]:
         print(f"    {k['us_per_sweep']:9.2f} us/sweep  {k['calls']:5d} calls  "
               f"{k['name'][:80]}")
-    stats["ms"] = us_k[SA_BLOCK] / 1e3
+    stats["ms"] = us_k / 1e3
     stats["plain_ms"] = us_p / 1e3
+
+
+# ---------------------------------------------------------------------------
+# K1's variants: K5 (pipelined), K6 (interleaved, 2 and 4 chains), K7 (folded)
+# ---------------------------------------------------------------------------
+
+def variant_parity(torch, mc, stats):
+    """Phase 2 (variants): each against its own twin and against K1 on the
+    same inputs, +-J, bit for bit. At the slice's shape the twin's sweep is
+    timed (phase 5 reports it)."""
+    from spinglass_tpu_torch.core.problem import random_spins
+
+    gen = torch.Generator().manual_seed(23)
+    worst = {label: 0.0 for label in VARIANTS}
+    twin_us = {}
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def compare(problem, label, r, rule, block, philox, twin=True, beta=None):
+        fused = mc.FusedSweep(problem, block_size=block, rule=rule,
+                              **VARIANTS[label])
+        flat = mc.FusedSweep(problem, block_size=block, rule=rule)
+        s_k = random_spins(gen, (r, problem.n_padded),
+                           problem.active_mask).t().contiguous()
+        s_p, s_1 = s_k.clone(), s_k.clone()
+        if beta is None:
+            beta = torch.rand(r, generator=gen).cuda() * 2.0 + 0.1
+        if philox:
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+            _, de_k, c_k = fused(s_k, beta, seed)
+            _, de_1, c_1 = flat(s_1, beta, seed)
+            u = mc.philox_uniforms(seed, problem.n_padded, r, device="cuda")
+        else:
+            u = torch.rand(problem.n_padded, r, generator=gen).cuda()
+            _, de_k, c_k = fused.sweep_with_uniforms(s_k, beta, u)
+            _, de_1, c_1 = flat.sweep_with_uniforms(s_1, beta, u)
+        if twin:
+            start.record()
+            _, de_p, c_p = fused.reference(s_p, beta, u)
+            stop.record()
+            stop.synchronize()
+            twin_us[label] = start.elapsed_time(stop) * 1e3
+        else:  # K1 alone is the reference
+            s_p, de_p, c_p = s_1, de_1, c_1
+        torch.cuda.synchronize()
+        worst[label] = max(worst[label], float((de_k - de_p).abs().max()))
+        same = (torch.equal(s_k, s_p) and torch.equal(c_k, c_p)
+                and torch.equal(de_k, de_p))
+        if not (same and torch.equal(s_k, s_1) and torch.equal(c_k, c_1)
+                and torch.equal(de_k, de_1)):
+            raise CheckFailed(
+                f"{label} ({fused.kernel_name}) != twin or K1: N="
+                f"{problem.n_spins} R={r} {rule} block {block} philox="
+                f"{philox}: vs twin {int((s_k != s_p).sum())} spins, vs K1 "
+                f"{int((s_k != s_1).sum())} spins differ")
+
+    small = pm_j_problem(500, 3, "cuda")
+    big = pm_j_problem(4096, 5, "cuda")
+    for label in VARIANTS:
+        for r, rule, block in ((1, "metropolis", 128), (37, "glauber", 256),
+                               (256, "metropolis", 256),
+                               (1024, "glauber", 128)):
+            for philox in (False, True):
+                compare(small, label, r, rule, block, philox)
+        # the slice's shape: against the twin (its sweep timed last) and K1
+        # in Philox mode at block 128, and against K1 with host uniforms at
+        # block 256; beta 0.05 as K1's check there, so replicas flip
+        beta = torch.full((1024,), 0.05, device="cuda")
+        compare(big, label, 1024, "glauber", 256, False, twin=False, beta=beta)
+        compare(big, label, 1024, "metropolis", 128, True, beta=beta)
+    check(True, "K5, K6 (2, 4 chains), K7 on +-J N=500, R in {1, 37, 256, "
+                "1024}, both rules, blocks 128/256, host-uniform and Philox "
+                "sweeps: spins, dE, counts bitwise equal to each variant's "
+                "twin and to K1; at N=4096, R=1024 (the slice's shape) "
+                "bitwise equal to the twin and K1 at block 128 (Philox) and "
+                "to K1 at block 256 (host uniforms)")
+    stats["variant_err"] = worst
+    stats["variant_twin_us"] = twin_us
+
+
+def _variant_run(torch, mc, problem, flags, sweeps, chunk):
+    """sa's sweep step through CudaFusedEngine(**flags) on the SA config of
+    the dense slice (its seeds, its schedule), with the anneal's exact
+    resync every ``chunk`` sweeps. Returns (state, engine, worst relative
+    error of the tracked energy against the exact one at a resync)."""
+    import dataclasses
+
+    from spinglass_tpu_torch.anneal import sa
+    from spinglass_tpu_torch.anneal.engines import CudaFusedEngine
+
+    cfg = sa.SAConfig(n_sweeps=sweeps, n_replicas=1024)
+    engine = CudaFusedEngine(problem, block_size=cfg.block_size, **flags)
+    state = sa.init_state(problem, cfg, engine)
+    worst = 0.0
+    for _ in range(sweeps // chunk):
+        for _ in range(chunk):
+            state = sa._one_sweep(problem, cfg, engine, state)
+        exact = engine.energy(state.spins)
+        worst = max(worst, float(((state.energy - exact).abs()
+                                  / exact.abs().clamp(min=1.0)).max()))
+        state = dataclasses.replace(state, energy=exact)
+    torch.cuda.synchronize()
+    return state, engine, worst
+
+
+def variant_slice(torch, mc, stats):
+    """Phase 4 (variants): the dense slice's 500 sweeps through each
+    variant, on the SK instance and on a +-J instance against K1."""
+    sk = stats["sk"]
+    stats["variant_launches"] = {}
+    for label, flags in VARIANTS.items():
+        state, engine, rel = _variant_run(torch, mc, sk, flags, 500, 50)
+        name = engine.fused.kernel_name
+        launches = engine.launches[name]
+        stats["variant_launches"][name] = (
+            stats["variant_launches"].get(name, 0) + launches)
+        e_n = float(state.best_energy.min()) / 4096
+        check(launches == 500 and e_n <= -0.72 and rel <= 1e-4,
+              f"{label} ({name}): SK N=4096 R=1024, 500 sweeps of the SA "
+              f"schedule: launched {launches} times, best E/N {e_n:.5f} <= "
+              f"-0.72, energy identity max rel err {rel:.3e} <= 1e-4")
+    pm = pm_j_problem(4096, 9, "cuda")
+    ref, _, _ = _variant_run(torch, mc, pm, {}, 500, 50)
+    for label, flags in VARIANTS.items():
+        state, engine, _ = _variant_run(torch, mc, pm, flags, 500, 50)
+        check(torch.equal(state.spins, ref.spins)
+              and torch.equal(state.best_energy, ref.best_energy),
+              f"{label}: +-J N=4096 R=1024, 500 Philox sweeps: spins and "
+              f"best energies bitwise equal to K1's")
+
+
+def variant_timing(torch, mc, stats, card):
+    """Phase 5 (variants): us/sweep of K1 and each variant in turns; the
+    twins' sweeps as phase 2 timed them."""
+    sk = stats["sk"]
+    beta = torch.ones(1024, device="cuda")
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    labels = ["K1"] + list(VARIANTS)
+    us = {}
+    for block in (128, 256):
+        sweeps = {lab: mc.FusedSweep(sk, block_size=block,
+                                     **VARIANTS.get(lab, {}))
+                  for lab in labels}
+        s = stats["sk_spins"].clone()
+        for turn in (labels, labels[::-1]):  # in turns: a b c ... c b a
+            for lab in turn:
+                fused = sweeps[lab]
+                fused(s, beta, 1)
+                start.record()
+                for k in range(20):
+                    fused(s, beta, 2 + k)
+                stop.record()
+                stop.synchronize()
+                us.setdefault((lab, block), []).append(
+                    start.elapsed_time(stop) * 1e3 / 20)
+    for (lab, block), v in sorted(us.items(), key=lambda kv: kv[0][1]):
+        print(f"  {lab:5s} N=4096 R=1024 block {block}: "
+              f"{' / '.join(f'{x:.1f}' for x in v)} us/sweep [{card}]")
+    for lab, t in stats["variant_twin_us"].items():
+        print(f"  {lab} twin, one sweep N=4096 R=1024 block 128 (phase 2): "
+              f"{t:.1f} us [{card}]")
+    stats["variant_us"] = {lab: min(us[(lab, 128)]) for lab in labels}
 
 
 # ---------------------------------------------------------------------------
@@ -484,7 +672,8 @@ def pt_driver_parity(torch):
               "exch_attempts", "exch_accepts", "acc_rate")
     diff = [k for k in fields if not torch.equal(getattr(a, k), getattr(b, k))]
     check(not diff and engine.launches["sparse_sweep"] == 20
-          and twin.launches["sparse_sweep"] == 0,
+          and twin.launches["sparse_sweep"] == 0
+          and engine.launches["sparse_accept"] == 0,
           f"+-J planted 10k, 128 replicas: 2 super-steps of pt's step, kernel "
           f"engine == twin engine bitwise in {', '.join(fields)} (differ: "
           f"{diff or 'none'}; exchanges accepted {int(a.exch_accepts.sum())})")
@@ -620,7 +809,8 @@ def sparse_slice(torch, stats):
           f"{res.spin_flips_per_second:.4e} flips/s, exchange rate "
           f"{pt.exchange_rate_summary(res)['mean_exchange_rate']:.3f}")
     check(res.metadata["engine"] == "sparse_sorted_t"
-          and k3 == {"sparse_sweep": 0, "sparse_thresholds": 200},
+          and k3 == {"sparse_sweep": 0, "sparse_thresholds": 200,
+                     "sparse_accept": 0},
           f"pt.run(n_chains=32, R=4096, 200 sweeps) took the threshold path: "
           f"launches {k3}")
     best_check(res, "PT R=4096")
@@ -669,8 +859,8 @@ def sparse_timing(torch, stats, card):
     ttt = stats["ttt"]
     print(f"  TTT median {ttt['value']:.4f} s (min {ttt['extras']['seconds_min']:.4f},"
           f" max {ttt['extras']['seconds_max']:.4f}) [{card}]")
-    p = headline.bench_pt10k()
-    print(f"  bench_pt10k (16 replicas, 1000 sweeps, {p['extras']['engine']}): "
+    p = headline.bench_pt10k(sweeps=300)
+    print(f"  bench_pt10k (16 replicas, 300 sweeps, {p['extras']['engine']}): "
           f"{p['value']:.4f} s, best {p['extras']['best_energy']:.3f} [{card}]")
     for name, prof in (("sparse SA chunk (R=1024)", headline.profile_sparse_chunk()),
                        ("TTT loop (R=128, 20 super-steps)", headline.profile_ttt())):
@@ -682,6 +872,175 @@ def sparse_timing(torch, stats, card):
                   f"{k['name'][:80]}")
     stats.update(k2_ms=us_k2 / 1e3, k2_plain_ms=us_twin / 1e3,
                  k3_ms=us_k3 / 1e3, k3_plain_ms=us_k3_twin / 1e3)
+
+
+# ---------------------------------------------------------------------------
+# K4: the fused sparse accept, on the threshold path at R=4096
+# ---------------------------------------------------------------------------
+
+def accept_parity(torch, stats):
+    """Phase 2 (K4): one colour against its twin, and one K4-path sweep
+    against one K3-path sweep and one K2 sweep under one seed."""
+    import numpy as np
+
+    from spinglass_tpu_torch.core.problem import random_spins
+    from spinglass_tpu_torch.kernels import sparse as sp
+    from spinglass_tpu_torch.kernels import sparse_cuda as sc
+
+    gen = torch.Generator().manual_seed(29)
+    ell = pm_j_ell(10000, 42)
+    worst = 0.0
+    for dtype in (torch.int8, torch.float32):
+        for rule in ("metropolis", "glauber"):
+            eng = sp.SortedSparseTEngine(ell, rule=rule, spin_dtype=dtype,
+                                         accept_kernel="fused")
+            for r in (128, 4096):
+                s = eng.to_layout(random_spins(gen, (r, ell.n_padded),
+                                               ell.active_mask))
+                beta = (torch.rand(r, generator=gen) * 2.0 + 0.1).cuda()
+                for off, mc_, bs in eng.groups[:2]:
+                    f = sp._colour_fields(s, bs)
+                    s_k, s_p = s.clone(), s.clone()
+                    out = [(torch.zeros(r, device="cuda"),
+                            torch.zeros(r, dtype=torch.int32, device="cuda"))
+                           for _ in range(2)]
+                    eng.kernels.accept(f, s_k, off, beta, 77 + off, *out[0])
+                    sc.accept_reference(f, s_p, off, eng.mask_col, beta,
+                                        77 + off, rule, *out[1])
+                    torch.cuda.synchronize()
+                    worst = max(worst, float((out[0][0] - out[1][0]).abs().max()))
+                    if not (torch.equal(s_k, s_p)
+                            and torch.equal(out[0][1], out[1][1])
+                            and torch.equal(out[0][0], out[1][0])):
+                        raise CheckFailed(
+                            f"K4 != twin: {dtype} {rule} R={r} colour at "
+                            f"{off}+{mc_}: {int((s_k != s_p).sum())} spins "
+                            f"differ")
+    check(True, "K4 on two colours of the 10k +-J graph, int8 and float32 "
+                "spins, both rules, R in {128, 4096}: spins, dE, counts "
+                "bitwise equal to accept_reference")
+    stats["k4_max_abs_err"] = worst
+    r, seed = 1024, 2 ** 63 + 5
+    fused = sp.SortedSparseTEngine(ell, accept_kernel="fused")
+    single = sp.SortedSparseTEngine(ell, accept_kernel="single")
+    check(np.array_equal(fused.perm, single.perm),
+          "the K4, K3 and K2 engines share one colour-sorted layout")
+    s_rn = random_spins(gen, (r, ell.n_padded), ell.active_mask)
+    beta = torch.linspace(0.05, 3.0, r, device="cuda")
+    s4 = fused.to_layout(s_rn)
+    s3, s2 = single.to_layout(s_rn), single.to_layout(s_rn)
+    _, de4, c4 = fused._sweep_fused(s4, beta, seed)
+    th = single.kernels.thresholds(beta, seed, r)
+    _, de3, c3 = sp.make_sorted_t_sweep(single.groups)(s3, th)
+    _, de2, c2 = single.kernels.single_sweep(s2, beta, seed=seed)
+    torch.cuda.synchronize()
+    check(s4.dtype == torch.int8 and torch.equal(s4.float(), s3)
+          and torch.equal(s3, s2) and torch.equal(c4, c3)
+          and torch.equal(c3, c2) and torch.equal(de4, de3)
+          and torch.equal(de3, de2),
+          f"+-J 10k, [{fused.n_sorted}, {r}], one seed: K4 path (int8) == "
+          f"K3 path == K2, spins, dE and counts bitwise (acceptance "
+          f"{float(c4.sum()) / (r * 1e4):.4f})")
+
+
+def _pt_run(torch, ell, cfg, engine, gen_seed, n_super):
+    """n_super super-steps of pt's step through ``engine`` from a fresh
+    state; returns (state, seconds of the super-steps)."""
+    from spinglass_tpu_torch.anneal import pt
+
+    step, _, _ = pt.make_pt_step(ell, cfg, engine=engine)
+    state = pt.init_state(ell, cfg, torch.Generator().manual_seed(gen_seed),
+                          engine)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_super):
+        state, _ = step(state)
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0
+
+
+def pt_accept_config():
+    from spinglass_tpu_torch.anneal import pt
+
+    return pt.PTConfig(n_replicas=128, n_chains=32, n_sweeps=200,
+                       exchange_interval=10, min_temp=0.05, max_temp=3.0)
+
+
+def accept_slice(torch, stats):
+    """Phase 4 (K4): PT at R=4096 through make_pt_step with the fused
+    engine, against the K3 path under the same generator seed."""
+    from spinglass_tpu_torch.benchmarks import headline
+    from spinglass_tpu_torch.kernels.sparse import SortedSparseTEngine
+
+    ell = headline.sparse_bench_problem()
+    cfg = pt_accept_config()
+    # new engines: their launch counts start at 0 and hold only this run's
+    eng4 = SortedSparseTEngine(ell, accept_kernel="fused")
+    eng3 = SortedSparseTEngine(ell)
+    a, sec4 = _pt_run(torch, ell, cfg, eng4, cfg.seed, 20)
+    b, sec3 = _pt_run(torch, ell, cfg, eng3, cfg.seed, 20)
+    stats["k4_launches"] = eng4.launches["sparse_accept"]
+    stats["pt_wide"] = ell, {"K3 path": eng3, "K4 path": eng4}
+    rel = float(((a.best_energy - b.best_energy).abs()
+                 / b.best_energy.abs().clamp(min=1.0)).max())
+    rel_e = float(((a.energy - b.energy).abs()
+                   / b.energy.abs().clamp(min=1.0)).max())
+    print(f"  PT R=4096, 200 sweeps: K4 path {sec4:.3f} s, K3 path "
+          f"{sec3:.3f} s; best E/N {float(a.best_energy.min()) / ell.n_spins:.5f}")
+    # the K3 path carries float32 spins (the engine built K2's tables, which
+    # R=4096 exceeds), the K4 path int8
+    check(a.spins.dtype == torch.int8 and torch.equal(a.spins.float(), b.spins)
+          and torch.equal(a.slot, b.slot) and rel <= 1e-4 and rel_e <= 1e-4,
+          f"make_pt_step(SortedSparseTEngine(accept_kernel='fused')), 32 "
+          f"chains x 128, 200 sweeps == the K3 path under one seed: spins and "
+          f"slots bitwise, energies within {max(rel, rel_e):.2e} <= 1e-4")
+    l4, l3 = eng4.launches, eng3.launches
+    check(l4["sparse_accept"] == 200 * len(eng4.groups)
+          and l4["sparse_thresholds"] == 0 and l4["sparse_sweep"] == 0
+          and l3["sparse_thresholds"] == 200 and l3["sparse_accept"] == 0,
+          f"launches: K4 path {l4}, K3 path {l3}")
+
+
+def accept_timing(torch, stats, card):
+    """Phase 5 (K4): the K4 path against the K3 path at R=4096, one run
+    each (headline.profile_pt_wide has their device breakdowns); K4 alone
+    against its twin over one sweep's colours."""
+    from spinglass_tpu_torch.core.problem import random_spins
+    from spinglass_tpu_torch.kernels import sparse as sp
+    from spinglass_tpu_torch.kernels import sparse_cuda as sc
+
+    ell, engines = stats["pt_wide"]
+    cfg = pt_accept_config()
+    for label in ("K3 path", "K4 path"):
+        _, sec = _pt_run(torch, ell, cfg, engines[label], 7, 5)
+        print(f"  {label} PT R=4096 (5 super-steps): {sec / 50 * 1e3:.3f} "
+              f"ms/sweep [{card}]")
+    eng = engines["K4 path"]
+    r = 4096
+    gen = torch.Generator().manual_seed(3)
+    s = eng.to_layout(random_spins(gen, (r, ell.n_padded), ell.active_mask))
+    beta = torch.ones(r, device="cuda")
+    fields = [(off, sp._colour_fields(s, bs)) for off, _, bs in eng.groups]
+    de = torch.zeros(r, device="cuda")
+    cnt = torch.zeros(r, dtype=torch.int32, device="cuda")
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def one_sweep(fn):
+        start.record()
+        for off, f in fields:
+            fn(f, s, off, beta, 11, de, cnt)
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) * 1e3
+
+    one_sweep(eng.kernels.accept)
+    us_k4 = min(one_sweep(eng.kernels.accept) for _ in range(5))
+    us_twin = one_sweep(lambda f, s_, off, b, seed, d, c: sc.accept_reference(
+        f, s_, off, eng.mask_col, b, seed, "metropolis", d, c))
+    print(f"  K4 alone over one sweep's {len(fields)} colours at "
+          f"[{eng.n_sorted}, {r}] (fields precomputed): {us_k4:.1f} us; twin "
+          f"{us_twin:.1f} us [{card}]")
+    stats.update(k4_ms=us_k4 / 1e3, k4_plain_ms=us_twin / 1e3)
 
 
 def main() -> int:
@@ -702,6 +1061,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     stats: dict = {}
+    t_start = time.perf_counter()
     try:
         from spinglass_tpu_torch.benchmarks.headline import device_description
         from spinglass_tpu_torch.kernels import build
@@ -721,17 +1081,28 @@ def main() -> int:
                 for line in f:
                     if "registers" in line or "spill" in line or "seconds" in line:
                         print("    " + line.strip())
-        mc.load_kernel()
+        for name in (mc.KERNEL_NAME, mc.PIPELINED_KERNEL, mc.INTERLEAVED_KERNEL,
+                     mc.FOLDED_KERNEL):
+            mc.load_kernel(name)
         sc.load_kernels()
+        sc.load_accept_kernel()
         for name, phase in (
                 ("phase 2: parity with the twins (K1)", lambda: phase_parity(torch, mc, stats)),
                 ("phase 2: parity with the twins (K2, K3)", lambda: sparse_parity(torch, stats)),
+                ("phase 2: parity with the twins and K1 (K5, K6, K7)",
+                 lambda: variant_parity(torch, mc, stats)),
+                ("phase 2: parity with the twin, K3 and K2 (K4)", lambda: accept_parity(torch, stats)),
                 ("phase 3: in-kernel Philox (K1)", lambda: phase_philox(torch, mc, stats)),
                 ("phase 3: in-kernel Philox (K2)", lambda: sparse_philox(torch)),
                 ("phase 4: dense SA slice", lambda: phase_slice(torch, mc, stats)),
                 ("phase 4: sparse SA, TTT and PT slice", lambda: sparse_slice(torch, stats)),
+                ("phase 4: dense SA slice through K5, K6, K7",
+                 lambda: variant_slice(torch, mc, stats)),
+                ("phase 4: PT at R=4096 through K4", lambda: accept_slice(torch, stats)),
                 ("phase 5: timing (K1)", lambda: phase_timing(torch, mc, stats, card)),
-                ("phase 5: timing (K2, K3)", lambda: sparse_timing(torch, stats, card))):
+                ("phase 5: timing (K2, K3)", lambda: sparse_timing(torch, stats, card)),
+                ("phase 5: timing (K5, K6, K7)", lambda: variant_timing(torch, mc, stats, card)),
+                ("phase 5: timing (K4)", lambda: accept_timing(torch, stats, card))):
             print(name)
             t0 = time.perf_counter()
             phase()
@@ -745,7 +1116,19 @@ def main() -> int:
             ("sparse_sweep", stats["k2_launches"], stats["k2_max_abs_err"],
              stats["k2_ms"], stats["k2_plain_ms"]),
             ("sparse_thresholds", stats["k3_launches"], stats["k3_max_abs_err"],
-             stats["k3_ms"], stats["k3_plain_ms"])]
+             stats["k3_ms"], stats["k3_plain_ms"]),
+            ("sparse_accept", stats["k4_launches"], stats["k4_max_abs_err"],
+             stats["k4_ms"], stats["k4_plain_ms"])]
+    err, us, twin_us = (stats["variant_err"], stats["variant_us"],
+                        stats["variant_twin_us"])
+    for name, labels in ((mc.PIPELINED_KERNEL, ("K5",)),
+                         (mc.INTERLEAVED_KERNEL, ("K6x2", "K6x4")),
+                         (mc.FOLDED_KERNEL, ("K7",))):
+        # K6's times are those of 2 chains; its launches are both runs'
+        rows.append((name, stats["variant_launches"][name],
+                     max(err[lab] for lab in labels), us[labels[0]] / 1e3,
+                     twin_us[labels[0]] / 1e3))
+    print(f"total {time.perf_counter() - t_start:.1f} s (build included)")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"spinglass_tpu_torch/csrc/{name}.cu",

@@ -38,7 +38,7 @@ from spinglass_tpu_torch.core import energy as energy_ops
 from spinglass_tpu_torch.core import topology
 from spinglass_tpu_torch.core.problem import IsingProblem
 from spinglass_tpu_torch.kernels import sweeps as sweep_kernels
-from spinglass_tpu_torch.kernels.metropolis_cuda import KERNEL_NAME, FusedSweep
+from spinglass_tpu_torch.kernels.metropolis_cuda import FusedSweep
 
 SPARSE_DENSITY_THRESHOLD = 0.05
 SPARSE_MIN_SPINS = 2048
@@ -133,21 +133,23 @@ class BlockedEngine(SweepEngine):
 
 
 class CudaFusedEngine(SweepEngine):
-    """The fused K1 sweep kernel, [Np, R] layout updated in place, in-kernel
-    Philox uniforms (counterpart of the JAX ``PallasEngine``)."""
+    """The fused dense sweep kernel (K1, or with ``FusedSweep``'s variant
+    flags K5-K7), [Np, R] layout updated in place, in-kernel Philox
+    uniforms (counterpart of the JAX ``PallasEngine``)."""
 
     layout = "nr"
     name = "cuda_fused"
 
     def __init__(self, problem: IsingProblem, block_size: int = 0,
-                 rule: str = "metropolis"):
+                 rule: str = "metropolis", **variant):
         super().__init__(problem)
-        self.fused = FusedSweep(problem, block_size=block_size, rule=rule)
+        self.fused = FusedSweep(problem, block_size=block_size, rule=rule,
+                                **variant)
 
     @property
     def launches(self) -> dict:
-        """K1 launches made through this engine."""
-        return {KERNEL_NAME: self.fused.launches}
+        """Launches of the engine's kernel made through this engine."""
+        return {self.fused.kernel_name: self.fused.launches}
 
     def sweep(self, spins_t, beta, generator):
         return self.fused(spins_t, beta, sweep_kernels.draw_seed(generator))

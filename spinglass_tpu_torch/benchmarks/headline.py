@@ -343,10 +343,41 @@ def profile_ttt(super_steps: int = 20, top: int = 8) -> dict:
     return out
 
 
+def profile_pt_wide(accept_kernel: str = "auto", super_steps: int = 3,
+                    top: int = 6) -> dict:
+    """PT at R=4096 (32 chains of 128) on the sparse bench instance, the
+    path beyond K2's budget: ``super_steps`` super-steps of ``pt``'s step
+    through SortedSparseTEngine(accept_kernel=...), "auto" being the K3
+    path and "fused" the K4 path, profiled (``_profile``)."""
+    from spinglass_tpu_torch.anneal import pt as pt_mod
+    from spinglass_tpu_torch.kernels.sparse import SortedSparseTEngine
+
+    _need_cuda()
+    ell = sparse_bench_problem()
+    cfg = pt_mod.PTConfig(n_replicas=128, n_chains=32, exchange_interval=10,
+                          min_temp=0.05, max_temp=3.0)
+    engine = SortedSparseTEngine(ell, accept_kernel=accept_kernel)
+    super_step, _, engine = pt_mod.make_pt_step(ell, cfg, engine=engine)
+    state = pt_mod.init_state(ell, cfg, torch.Generator().manual_seed(SEED),
+                              engine)
+
+    def step():
+        nonlocal state
+        for _ in range(super_steps):
+            state, _ = super_step(state)
+
+    out = _profile(step, super_steps * cfg.exchange_interval, top)
+    out.update(n_spins=ell.n_spins, n_replicas=cfg.n_replicas * cfg.n_chains,
+               accept_kernel=accept_kernel, launches=engine.launches)
+    return out
+
+
 if __name__ == "__main__":
     print(json.dumps(bench_dense(block_size=128)))
     print(json.dumps(profile_chunk()))
     print(json.dumps(profile_sparse_chunk()))
     print(json.dumps(profile_ttt()))
+    for accept_kernel in ("auto", "fused"):
+        print(json.dumps(profile_pt_wide(accept_kernel)))
     for bench in (bench_sparse, bench_pt10k, bench_ttt):
         print(json.dumps(bench()))

@@ -1,5 +1,6 @@
 // Random numbers and acceptance thresholds shared by the port's kernels
-// (K1 metropolis_sweep.cu, K2 sparse_sweep.cu, K3 sparse_thresholds.cu).
+// (the dense sweeps K1, K5, K6, K7 through dense_sweep.cuh, K2
+// sparse_sweep.cu, K3 sparse_thresholds.cu, K4 sparse_accept.cu).
 //
 // Philox4x32-10 keyed by the 64-bit sweep seed (k0 = low word, k1 = high
 // word), counter (row, replica, 0, 0). Word 0 of the output gives

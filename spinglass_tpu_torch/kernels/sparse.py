@@ -18,7 +18,9 @@ Two engines (``anneal.engines.make_engine`` picks):
   replica count is a multiple of 128 and [NS, R] float32 fits
   ``SINGLE_VMEM_SPIN_BYTES`` (the JAX package's dispatch rules, kept as they
   are), else thresholds from the K3 kernel and the per-colour sweep
-  ``make_sorted_t_sweep`` in plain PyTorch. Kernels and twins are in
+  ``make_sorted_t_sweep`` in plain PyTorch. ``accept_kernel="fused"`` runs
+  ``make_sorted_t_sweep_fused`` instead: the per-colour fields in plain
+  PyTorch and the fused accept kernel K4. Kernels and twins are in
   ``kernels/sparse_cuda.py``.
 * ``SortedSparseEngine`` (layout "rn", spins [R, Np]): the per-colour sweep
   in plain PyTorch, for narrow replica counts and CPU problems. It has no
@@ -453,6 +455,28 @@ def build_single_tables(groups, n_sorted: int, rps: int = 32):
     return idx_all, val_all, ks.astype(np.int32), h_all, kmax, krow
 
 
+def _colour_fields(s_t, bs) -> torch.Tensor:
+    """Fields [mc, R] float32 of one colour's buckets, all gathered from the
+    same spin state (one independent set)."""
+    fs = [torch.sum(s_t[b.idx].to(torch.float32) * b.val[:, :, None], dim=1)
+          + b.h[:, None] for b in bs]
+    return torch.cat(fs, dim=0) if len(fs) > 1 else fs[0]
+
+
+def accept_colour(s_t, off: int, f, th, de, cnt) -> None:
+    """One colour's accept on its fields f [mc, R] and thresholds th
+    [mc, R]: rows off .. off+mc-1 of s_t flip in place where s * f < th,
+    and dE (2 * sum of s * f over the flips) and the count are added into
+    de [R] and cnt [R] in place."""
+    mc = f.shape[0]
+    s_c = s_t[off:off + mc]
+    sf = s_c.to(torch.float32) * f
+    acc = sf < th
+    s_t[off:off + mc] = torch.where(acc, -s_c, s_c)
+    de.add_(2.0 * torch.sum(torch.where(acc, sf, 0.0), dim=0))
+    cnt.add_(torch.sum(acc, dim=0, dtype=torch.int32))
+
+
 def make_sorted_t_sweep(groups):
     """The per-colour transposed sorted sweep over device colour groups:
     spins [NS, R] (int8 or float32), thresholds th [NS, R] float32
@@ -463,19 +487,35 @@ def make_sorted_t_sweep(groups):
 
     def sweep(s_t, th_t):
         r = s_t.shape[1]
-        de_acc = torch.zeros(r, dtype=torch.float32, device=s_t.device)
+        de = torch.zeros(r, dtype=torch.float32, device=s_t.device)
         cnt = torch.zeros(r, dtype=torch.int32, device=s_t.device)
         for off, mc, bs in groups:
-            fs = [torch.sum(s_t[b.idx].to(torch.float32) * b.val[:, :, None],
-                            dim=1) + b.h[:, None] for b in bs]
-            f = torch.cat(fs, dim=0) if len(fs) > 1 else fs[0]
-            s_c = s_t[off:off + mc]
-            sf = s_c.to(torch.float32) * f
-            acc = sf < th_t[off:off + mc]
-            s_t[off:off + mc] = torch.where(acc, -s_c, s_c)
-            de_acc = de_acc + 2.0 * torch.sum(torch.where(acc, sf, 0.0), dim=0)
-            cnt = cnt + torch.sum(acc, dim=0, dtype=torch.int32)
-        return s_t, de_acc, cnt
+            accept_colour(s_t, off, _colour_fields(s_t, bs),
+                          th_t[off:off + mc], de, cnt)
+        return s_t, de, cnt
+
+    return sweep
+
+
+def make_sorted_t_sweep_fused(groups, kernels: SparseKernels):
+    """The transposed sorted sweep with the fused accept (K4): per colour,
+    the fields from the same plain gathers as ``make_sorted_t_sweep``, then
+    ``kernels.accept`` draws the colour's Philox thresholds for the sweep
+    seed, compares, flips in place and adds dE / counts (its twin on the
+    CPU). Under one seed it makes the decisions of ``make_sorted_t_sweep``
+    on K3's thresholds. sweep(s_t, beta, seed) -> (s_t, dE[R], count[R])."""
+
+    def sweep(s_t, beta, seed: int):
+        r = s_t.shape[1]
+        beta = torch.broadcast_to(torch.as_tensor(beta, dtype=torch.float32,
+                                                  device=s_t.device),
+                                  (r,)).contiguous()
+        de = torch.zeros(r, dtype=torch.float32, device=s_t.device)
+        cnt = torch.zeros(r, dtype=torch.int32, device=s_t.device)
+        for off, _, bs in groups:
+            kernels.accept(_colour_fields(s_t, bs), s_t, off, beta, seed, de,
+                           cnt)
+        return s_t, de, cnt
 
     return sweep
 
@@ -511,16 +551,20 @@ class SortedSparseTEngine:
     * ``accept_kernel`` "auto" (K2 on a CUDA device) or "single" (K2 always;
       on the CPU its twin); the single path needs R % 128 == 0 and [NS, R]
       float32 within ``SINGLE_VMEM_SPIN_BYTES``, else the threshold path
-      runs. "fused" (the JAX package's K4) is not ported and raises; "none"
-      keeps the threshold path.
+      runs. "fused" runs ``make_sorted_t_sweep_fused`` (K4 per colour on a
+      CUDA device, its twin on the CPU, where the JAX package refuses it
+      for want of its TPU generator); it needs R % 128 == 0. "none" keeps
+      the threshold path.
     * ``threshold_rng`` "auto" (K3 on a CUDA device when R % 128 == 0),
       "kernel" (K3 always; on the CPU its twin) or "host" (uniforms from the
       generator on the spins' device).
     * spins are float32 whenever the single-sweep tables are built, else
       ``spin_dtype`` (int8 by default).
 
-    K2 updates the spins in place; so does the per-colour twin. Launches of
-    K2 and K3 are counted in ``kernels`` (``launches`` reads them)."""
+    * ``bucket_order`` is ``build_sorted_t``'s row order inside a bucket.
+
+    K2 and K4 update the spins in place; so do their twins. Launches of K2,
+    K3 and K4 are counted in ``kernels`` (``launches`` reads them)."""
 
     layout = "nr"
     name = "sparse_sorted_t"
@@ -531,12 +575,9 @@ class SortedSparseTEngine:
     def __init__(self, problem, rule: str = "metropolis",
                  max_colors: int = 256, n_buckets: int = 12,
                  spin_dtype: torch.dtype = torch.int8,
-                 threshold_rng: str = "auto", accept_kernel: str = "auto"):
-        if accept_kernel == "fused":
-            raise NotImplementedError(
-                "accept_kernel='fused' runs K4 (make_accept_call), which is "
-                "not ported yet")
-        if accept_kernel not in ("auto", "single", "none"):
+                 threshold_rng: str = "auto", accept_kernel: str = "auto",
+                 bucket_order: str = "degree"):
+        if accept_kernel not in ("auto", "single", "fused", "none"):
             raise ValueError(f"accept_kernel must be auto|single|none|fused, "
                              f"got {accept_kernel!r}")
         if threshold_rng not in ("auto", "kernel", "host"):
@@ -551,7 +592,8 @@ class SortedSparseTEngine:
         on_cuda = dev.type == "cuda"
         self.n_colors = int(colors.max()) + 1 if colors.size else 1
         (self.perm, self.inv_map, groups_np, mask_np,
-         self.n_sorted) = build_sorted_t(ell, colors, n_buckets=n_buckets)
+         self.n_sorted) = build_sorted_t(ell, colors, n_buckets=n_buckets,
+                                         bucket_order=bucket_order)
         self.groups = _groups_on(groups_np, dev)
         self.mask_col = torch.as_tensor(mask_np, device=dev)
         self._perm_gather = torch.as_tensor(np.where(self.perm >= 0, self.perm, 0),
@@ -584,12 +626,14 @@ class SortedSparseTEngine:
         self.kernels = SparseKernels(self.mask_col, self.rule, self.groups,
                                      tables)
         self._sweep = make_sorted_t_sweep(self.groups)
+        self._sweep_fused = make_sorted_t_sweep_fused(self.groups, self.kernels)
 
     @property
     def launches(self) -> dict:
-        """K2 and K3 launches made through this engine."""
+        """K2, K3 and K4 launches made through this engine."""
         return {"sparse_sweep": self.kernels.sweep_launches,
-                "sparse_thresholds": self.kernels.threshold_launches}
+                "sparse_thresholds": self.kernels.threshold_launches,
+                "sparse_accept": self.kernels.accept_launches}
 
     def _single_fits(self, r: int) -> bool:
         return self.n_sorted * r * 4 <= self.SINGLE_VMEM_SPIN_BYTES
@@ -629,10 +673,11 @@ class SortedSparseTEngine:
 
     def sweep(self, spins_t: torch.Tensor, beta, generator: torch.Generator):
         r = spins_t.shape[1]
-        if self._accept_kernel == "single" and r % 128 != 0:
+        if self._accept_kernel in ("single", "fused") and r % 128 != 0:
             raise ValueError(
-                f"accept_kernel='single' needs replica count % 128 == 0 (got "
-                f"{r}); falling back silently would run the wrong code path")
+                f"accept_kernel='fused'/'single' needs replica count % 128 "
+                f"== 0 (got {r}); falling back silently would run the wrong "
+                f"code path")
         if self._takes_single(r):
             if spins_t.is_cuda:
                 return self.kernels.single_sweep(spins_t, beta,
@@ -641,6 +686,8 @@ class SortedSparseTEngine:
             # package runs its interpret mode
             th = self._thresholds(r, beta, generator, spins_t.device)
             return self.kernels.single_sweep(spins_t, beta, th=th)
+        if self._accept_kernel == "fused":
+            return self._sweep_fused(spins_t, beta, draw_seed(generator))
         th = self._thresholds(r, beta, generator, spins_t.device)
         return self._sweep(spins_t, th)
 
@@ -648,7 +695,9 @@ class SortedSparseTEngine:
                             uniforms_t: torch.Tensor):
         """Deterministic-uniform entry (tests): sorted row p consumes
         uniforms_t[p, :]. On the single path this drives K2's
-        host-threshold mode (its twin on the CPU)."""
+        host-threshold mode (its twin on the CPU); K4 draws its own
+        uniforms, so the fused engine runs the threshold path here, as the
+        JAX engine does."""
         r = spins_t.shape[1]
         beta = torch.broadcast_to(torch.as_tensor(beta, dtype=torch.float32,
                                                   device=spins_t.device), (r,))

@@ -1,4 +1,4 @@
-"""The sparse sweep kernels K2 and K3 and their plain PyTorch twins.
+"""The sparse sweep kernels K2, K3 and K4 and their plain PyTorch twins.
 
 The counterpart of the Pallas half of ``spinglass_tpu.kernels.sparse``:
 
@@ -9,16 +9,21 @@ The counterpart of the Pallas half of ``spinglass_tpu.kernels.sparse``:
   (sorted row, replica).
 * K3, ``csrc/sparse_thresholds.cu`` (replaces ``make_threshold_call``):
   th [NS, R] from the same Philox stream, -inf on padding rows.
+* K4, ``csrc/sparse_accept.cu`` (replaces ``make_accept_call``): one
+  colour's accept on its fields f [mc, R] (computed outside the kernel):
+  the same Philox thresholds, compare, flip in place (int8 or float32
+  spins) and dE / count added into [R] buffers.
 
-``SparseKernels.single_sweep`` and ``SparseKernels.thresholds`` run the
+``SparseKernels.single_sweep``, ``.thresholds`` and ``.accept`` run the
 twins, ``single_sweep_reference`` (the per-colour sweep
-``kernels.sparse.make_sorted_t_sweep`` on th) and ``thresholds_reference``
-(``kernel_threshold(philox_uniforms(seed, NS, R), beta)``, masked), only for
-tensors on the CPU. For CUDA tensors they launch the kernel or raise: a
-failed build or launch is an exception, never a fallback. Each launch adds
-one to ``SparseKernels.sweep_launches`` or ``threshold_launches``, and
-nothing else does. Both kernels and both twins use the clamped Glauber
-threshold of ``metropolis_cuda.kernel_threshold``.
+``kernels.sparse.make_sorted_t_sweep`` on th), ``thresholds_reference``
+(``kernel_threshold(philox_uniforms(seed, NS, R), beta)``, masked) and
+``accept_reference`` (the same on the colour's rows), only for tensors on
+the CPU. For CUDA tensors they launch the kernel or raise: a failed build or
+launch is an exception, never a fallback. Each launch adds one to
+``SparseKernels.sweep_launches``, ``threshold_launches`` or
+``accept_launches``, and nothing else does. The kernels and the twins use
+the clamped Glauber threshold of ``metropolis_cuda.kernel_threshold``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from spinglass_tpu_torch.kernels.sweeps import canonical_rule
 
 SWEEP_KERNEL = "sparse_sweep"
 THRESHOLD_KERNEL = "sparse_thresholds"
+ACCEPT_KERNEL = "sparse_accept"
 
 
 def default_tile(r: int) -> int:
@@ -50,11 +56,12 @@ def default_tile(r: int) -> int:
 
 
 def thresholds_reference(mask: torch.Tensor, beta: torch.Tensor, seed: int,
-                         r: int, rule: str) -> torch.Tensor:
+                         r: int, rule: str, row0: int = 0) -> torch.Tensor:
     """Twin of K3: th [NS, R] for sweep seed ``seed``; mask [NS] or [NS, 1]
-    is 0 on real rows and -inf on padding rows."""
+    is 0 on real rows and -inf on padding rows. ``row0`` is the sorted row
+    of mask's first entry (a colour's slice)."""
     mask = mask.reshape(-1, 1)
-    u = philox_uniforms(seed, mask.shape[0], r, device=mask.device)
+    u = philox_uniforms(seed, mask.shape[0], r, device=mask.device, row0=row0)
     beta = torch.broadcast_to(torch.as_tensor(beta, dtype=torch.float32,
                                               device=mask.device), (r,))
     th = kernel_threshold(u, beta[None, :], rule)
@@ -68,6 +75,21 @@ def single_sweep_reference(groups, spins_t: torch.Tensor, th: torch.Tensor):
     from spinglass_tpu_torch.kernels.sparse import make_sorted_t_sweep
 
     return make_sorted_t_sweep(groups)(spins_t, th)
+
+
+def accept_reference(f: torch.Tensor, spins_t: torch.Tensor, off: int,
+                     mask: torch.Tensor, beta: torch.Tensor, seed: int,
+                     rule: str, de: torch.Tensor, cnt: torch.Tensor) -> None:
+    """Twin of K4: one colour's rows off .. off+mc-1 of spins_t [NS, R]
+    (int8 or float32) accept on their fields f [mc, R] and K3's thresholds
+    for ``seed`` restricted to those rows; flips land in spins_t, and dE
+    and the count are added into de [R] and cnt [R]."""
+    from spinglass_tpu_torch.kernels.sparse import accept_colour
+
+    mc, r = f.shape
+    th = thresholds_reference(mask.reshape(-1)[off:off + mc], beta, seed, r,
+                              rule, row0=off)
+    accept_colour(spins_t, off, f, th, de, cnt)
 
 
 def _bind(lib: ctypes.CDLL, fn: str, argtypes) -> ctypes.CDLL:
@@ -89,6 +111,15 @@ def load_kernels():
     k3 = _bind(build.load(THRESHOLD_KERNEL), "sgt_sparse_thresholds",
                [p, p, u64, p, i, i, i, p])
     return k2, k3
+
+
+def load_accept_kernel() -> ctypes.CDLL:
+    """Build (first use) and bind the K4 library."""
+    from spinglass_tpu_torch.kernels import build
+
+    p, i, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+    return _bind(build.load(ACCEPT_KERNEL), "sgt_sparse_accept",
+                 [p, p, i, p, p, u64, p, p, i, i, i, i, p])
 
 
 def _check(lib, err: int, name: str) -> None:
@@ -122,7 +153,9 @@ class SparseKernels:
                                          device=mask.device)
         self.sweep_launches = 0       # K2 launches made by this instance
         self.threshold_launches = 0   # K3 launches made by this instance
+        self.accept_launches = 0      # K4 launches made by this instance
         self._libs = None             # built and bound at the first launch
+        self._accept_lib = None
 
     def _beta(self, beta, r: int) -> torch.Tensor:
         beta = torch.as_tensor(beta, dtype=torch.float32, device=self.mask.device)
@@ -196,3 +229,46 @@ class SparseKernels:
         _check(lib, err, THRESHOLD_KERNEL)
         self.threshold_launches += 1
         return th
+
+    def accept(self, f: torch.Tensor, spins_t: torch.Tensor, off: int,
+               beta: torch.Tensor, seed: int, de: torch.Tensor,
+               cnt: torch.Tensor) -> None:
+        """K4: one colour's rows off .. off+mc-1 of spins_t [NS, R] (int8 or
+        float32, in place) accept on their fields f [mc, R] float32 with the
+        Philox thresholds of ``seed``; dE and the count are added into de
+        [R] float32 and cnt [R] int32. beta is [R] float32."""
+        if not spins_t.is_cuda:
+            accept_reference(f, spins_t, off, self.mask, beta, seed, self.rule,
+                             de, cnt)
+            return
+        ns, r = spins_t.shape
+        mc = f.shape[0]
+        dev = spins_t.device
+        if (spins_t.dtype not in (torch.int8, torch.float32)
+                or not spins_t.is_contiguous() or ns != self.mask.shape[0]
+                or dev != self.mask.device):
+            raise ValueError(f"spins_t must be contiguous int8 or float32 "
+                             f"[{self.mask.shape[0]}, R] on {self.mask.device}")
+        if not (0 <= off and off + mc <= ns and f.shape == (mc, r)):
+            raise ValueError(f"rows {off}..{off + mc} or fields {tuple(f.shape)} "
+                             f"do not fit spins [{ns}, {r}]")
+        for name, t, dtype in (("f", f, torch.float32), ("beta", beta, torch.float32),
+                               ("de", de, torch.float32), ("cnt", cnt, torch.int32)):
+            if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous {dtype} on {dev}")
+        if beta.shape != (r,) or de.shape != (r,) or cnt.shape != (r,):
+            raise ValueError(f"beta, de and cnt must have shape [{r}]")
+        if not 0 <= seed < 2 ** 64:
+            raise ValueError(f"seed {seed} is not a 64-bit unsigned value")
+        if self._accept_lib is None:
+            self._accept_lib = load_accept_kernel()
+        lib = self._accept_lib
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.sgt_sparse_accept(
+                f.data_ptr(), spins_t.data_ptr(), spins_t.element_size(),
+                self.mask.data_ptr(), beta.data_ptr(), seed, de.data_ptr(),
+                cnt.data_ptr(), off, mc, r,
+                0 if self.rule == "metropolis" else 1, stream)
+        _check(lib, err, ACCEPT_KERNEL)
+        self.accept_launches += 1

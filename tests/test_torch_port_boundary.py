@@ -93,18 +93,21 @@ def test_fused_sweep_on_cpu_never_launches_or_builds(monkeypatch):
     monkeypatch.setattr(build.subprocess, "run", no_subprocess)
     j = np.sign(np.random.default_rng(0).normal(size=(30, 30)))
     p = IsingProblem.from_dense(j)
-    fused = MC.FusedSweep(p)
-    s = torch.ones(p.n_padded, 8)
     u = torch.rand(p.n_padded, 8, generator=torch.Generator().manual_seed(0))
-    fused(s, torch.ones(8), 1234)
-    fused.sweep_with_uniforms(s, 0.5, u)
-    assert fused.launches == 0 and fused._lib is None
-    assert fused.block_size == 128  # Np = 128: 256 does not divide it
+    for flags in ({}, dict(pipelined=True), dict(interleave=2),
+                  dict(interleave=4), dict(folded=True)):
+        fused = MC.FusedSweep(p, **flags)
+        s = torch.ones(p.n_padded, 8)
+        fused(s, torch.ones(8), 1234)
+        fused.sweep_with_uniforms(s, 0.5, u)
+        assert fused.launches == 0 and fused._lib is None, flags
+        assert fused.block_size == 128  # Np = 128: 256 does not divide it
 
 
 def test_sparse_kernels_on_cpu_never_launch_or_build(monkeypatch):
-    """K2 and K3 forced on (accept_kernel="single", threshold_rng="kernel")
-    run their twins for CPU tensors: no compiler, no launches counted."""
+    """K2, K3 and K4 forced on (accept_kernel="single" or "fused",
+    threshold_rng="kernel") run their twins for CPU tensors: no compiler,
+    no launches counted."""
     def no_subprocess(*a, **k):
         raise AssertionError("a CPU sweep must not invoke a compiler")
 
@@ -113,13 +116,15 @@ def test_sparse_kernels_on_cpu_never_launch_or_build(monkeypatch):
     coo = topology.sparse_random_graph_coo(100, avg_degree=4.0, seed=1)
     ell = S.EllProblem.from_coo(100, *coo)
     gen = torch.Generator().manual_seed(0)
-    for kw in (dict(accept_kernel="single"), dict(threshold_rng="kernel")):
+    for kw in (dict(accept_kernel="single"), dict(threshold_rng="kernel"),
+               dict(accept_kernel="fused")):
         eng = S.SortedSparseTEngine(ell, **kw)
         s = eng.to_layout(torch.ones(128, ell.n_padded))
         for _ in range(2):
             s, _, _ = eng.sweep(s, torch.full((128,), 0.5), gen)
-        assert eng.launches == {"sparse_sweep": 0, "sparse_thresholds": 0}
-        assert eng.kernels._libs is None
+        assert eng.launches == {"sparse_sweep": 0, "sparse_thresholds": 0,
+                                "sparse_accept": 0}
+        assert eng.kernels._libs is None and eng.kernels._accept_lib is None
 
 
 def test_nvcc_command_targets_sm90a_and_build_dir_is_ignored():
@@ -134,13 +139,20 @@ def test_nvcc_command_targets_sm90a_and_build_dir_is_ignored():
     assert os.path.exists(os.path.join(build.CSRC_DIR, "metropolis_sweep.cu"))
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "spinglass_tpu_torch/build/" in ignored
-    for name in (SC.SWEEP_KERNEL, SC.THRESHOLD_KERNEL):
+    philox = os.path.join(build.CSRC_DIR, "philox.cuh")
+    dense = os.path.join(build.CSRC_DIR, "dense_sweep.cuh")
+    for name, headers in ((MC.KERNEL_NAME, [dense, philox]),
+                          (SC.SWEEP_KERNEL, [philox]),
+                          (SC.THRESHOLD_KERNEL, [philox]),
+                          (SC.ACCEPT_KERNEL, [philox]),
+                          (MC.PIPELINED_KERNEL, [dense, philox]),
+                          (MC.INTERLEAVED_KERNEL, [dense, philox]),
+                          (MC.FOLDED_KERNEL, [dense, philox])):
         src = os.path.join(build.CSRC_DIR, f"{name}.cu")
         assert "arch=compute_90a,code=sm_90a" in " ".join(
             build.nvcc_command(src, "x.so"))
         assert os.path.basename(build.library_path(name)).startswith(name + "-")
-        assert build.local_headers(src) == [os.path.join(build.CSRC_DIR,
-                                                         "philox.cuh")]
+        assert build.local_headers(src) == headers, name
 
 
 def test_library_hash_covers_headers_and_builds_run_together(tmp_path,

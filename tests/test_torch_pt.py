@@ -199,6 +199,34 @@ def test_super_step_matches_jax(monkeypatch):
     assert tst.best_spins.data_ptr() != tst.spins.data_ptr()
 
 
+def test_super_steps_fused_engine_match_threshold_path():
+    """Two PT super-steps (2 chains of 64 replicas) through
+    SortedSparseTEngine(accept_kernel="fused") equal the same driver through
+    the K3 path (threshold_rng="kernel"), bit for bit: one seed per sweep
+    from the driver's generator, K4's twin and the per-colour sweep on K3's
+    twin make the same decisions."""
+    inst = planted.planted_gauge_coo(200, 5.0, seed=12, frustration=0.3,
+                                     magnitude="ones")
+    _, tell = _ells(inst)
+    cfg = pt.PTConfig(n_replicas=64, n_chains=2, exchange_interval=5,
+                      min_temp=0.2, max_temp=4.0, sweep_method="sparse_t")
+    out = []
+    for kw in (dict(accept_kernel="fused"), dict(threshold_rng="kernel")):
+        eng = S.SortedSparseTEngine(tell, **kw)
+        step, _, eng = pt.make_pt_step(tell, cfg, engine=eng)
+        state = pt.init_state(tell, cfg, torch.Generator().manual_seed(3), eng)
+        for _ in range(2):
+            state, _ = step(state)
+        out.append((state, eng.launches))
+    (a, la), (b, lb) = out
+    for name in ("spins", "slot", "energy", "best_energy", "best_spins",
+                 "exch_attempts", "exch_accepts", "acc_rate"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert a.spins.dtype == torch.int8 and int(a.exch_accepts.sum()) > 0
+    assert la == lb == {"sparse_sweep": 0, "sparse_thresholds": 0,
+                        "sparse_accept": 0}
+
+
 def test_pt_run_reaches_planted_ground_state():
     inst = planted.planted_gauge_coo(200, avg_degree=5.0, seed=11)
     _, tell = _ells(inst)

@@ -276,11 +276,55 @@ def test_thresholds_reference_and_philox_twin():
     a, de_a, c_a = eng.kernels.single_sweep(s0.clone(), beta, seed=seed)
     b, de_b, c_b = SC.single_sweep_reference(eng.groups, s0.clone(), th)
     assert torch.equal(a, b) and torch.equal(c_a, c_b) and torch.equal(de_a, de_b)
-    assert eng.launches == {"sparse_sweep": 0, "sparse_thresholds": 0}
+    assert eng.launches == {"sparse_sweep": 0, "sparse_thresholds": 0,
+                            "sparse_accept": 0}
     with pytest.raises(ValueError, match="exactly one"):
         eng.kernels.single_sweep(s0, beta)
     assert SC.default_tile(128) == 2 and SC.default_tile(1024) == 8
     assert SC.default_tile(8192) == 32 and SC.default_tile(37) == 2
+
+
+@pytest.mark.parametrize("rule", ["metropolis", "glauber"])
+@pytest.mark.parametrize("spin_dtype", [torch.int8, torch.float32])
+def test_fused_sweep_twin_matches_jax_sorted_t_sweep(rule, spin_dtype):
+    """make_sorted_t_sweep_fused's twin under seed s makes the decisions of
+    the JAX per-colour sweep fed the port's Philox thresholds for s (K3's
+    twin), and K4's twin on one colour equals that colour's slice of it:
+    spins, counts and dE bit for bit over two sweeps."""
+    je, te = _pair()
+    r = 128
+    eng = S.SortedSparseTEngine(te, rule=rule, spin_dtype=spin_dtype,
+                                accept_kernel="fused", bucket_order="index")
+    jeng = JS.SortedSparseTEngine(je, rule=rule, bucket_order="index")
+    np.testing.assert_array_equal(eng.perm, jeng.perm)
+    jsweep = jax.jit(JS.make_sorted_t_sweep(jeng.groups))
+    fused = S.make_sorted_t_sweep_fused(eng.groups, eng.kernels)
+    s_rn = _spins(r, te.n_padded, N, seed=7)
+    ts = eng.to_layout(torch.as_tensor(s_rn))
+    js = jeng.to_layout(jnp.asarray(s_rn)).astype(
+        jnp.int8 if spin_dtype == torch.int8 else jnp.float32)
+    beta = torch.linspace(0.2, 2.5, r)
+    for seed in (2 ** 40 + 5, 12345):
+        th = SC.thresholds_reference(eng.mask_col, beta, seed, r, rule)
+        js, jde, jc = jsweep(js, jnp.asarray(th.numpy()))
+        ts, tde, tc = fused(ts, beta, seed)
+        assert ts.dtype == spin_dtype
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(tde.numpy(), np.asarray(jde))
+    assert int(tc.sum()) > 0
+    # one colour through the twin alone
+    off, mc, bs = eng.groups[1]
+    f = S._colour_fields(ts, bs)
+    s_a, s_b = ts.clone(), ts.clone()
+    de = torch.zeros(r)
+    cnt = torch.zeros(r, dtype=torch.int32)
+    SC.accept_reference(f, s_a, off, eng.mask_col, beta, 99, rule, de, cnt)
+    th = SC.thresholds_reference(eng.mask_col, beta, 99, r, rule)[off:off + mc]
+    acc = s_b[off:off + mc].float() * f < th
+    s_b[off:off + mc] = torch.where(acc, -s_b[off:off + mc], s_b[off:off + mc])
+    assert torch.equal(s_a, s_b) and torch.equal(cnt, acc.sum(0, dtype=torch.int32))
+    assert eng.launches["sparse_accept"] == 0
 
 
 def test_t_engine_layout_energy_and_dispatch(monkeypatch):
@@ -300,8 +344,19 @@ def test_t_engine_layout_energy_and_dispatch(monkeypatch):
     np.testing.assert_allclose((e0 + de).numpy(), eng.energy(s1).numpy(),
                                rtol=1e-4, atol=1e-3)
     assert int(cnt.sum()) > 0
-    with pytest.raises(NotImplementedError, match="K4"):
-        S.SortedSparseTEngine(te, accept_kernel="fused")
+    # "fused" runs K4's twin on the CPU (the JAX package refuses it off the
+    # TPU), and needs R % 128 == 0 as in the JAX package
+    fused = S.SortedSparseTEngine(te, accept_kernel="fused")
+    assert fused.spin_dtype == torch.int8 and not fused._use_single
+    s128 = fused.to_layout(torch.as_tensor(_spins(128, te.n_padded, N, seed=6)))
+    e0 = fused.energy(s128)
+    s128, de, cnt = fused.sweep(s128, 0.7, gen)
+    np.testing.assert_allclose((e0 + de).numpy(), fused.energy(s128).numpy(),
+                               rtol=1e-4, atol=1e-3)
+    assert int(cnt.sum()) > 0 and fused.launches == {
+        "sparse_sweep": 0, "sparse_thresholds": 0, "sparse_accept": 0}
+    with pytest.raises(ValueError, match="128"):
+        fused.sweep(fused.to_layout(s_rn), 1.0, gen)
     single = S.SortedSparseTEngine(te, accept_kernel="single")
     with pytest.raises(ValueError, match="128"):
         single.sweep(single.to_layout(s_rn), 1.0, gen)
@@ -324,7 +379,8 @@ def test_sparse_anneal_end_to_end():
         assert res.metadata["engine"] == name
         assert res.metadata["kernel_launches"] == (
             {} if name == "sparse_sorted"
-            else {"sparse_sweep": 0, "sparse_thresholds": 0})
+            else {"sparse_sweep": 0, "sparse_thresholds": 0,
+                  "sparse_accept": 0})
         assert res.best_spins.shape == (200,) and res.best_energy < e_rand
         s = torch.ones(1, te.n_padded)
         s[0, :200] = torch.as_tensor(res.best_spins)
