@@ -38,7 +38,7 @@ from spinglass_tpu_torch.core import energy as energy_ops
 from spinglass_tpu_torch.core import topology
 from spinglass_tpu_torch.core.problem import IsingProblem
 from spinglass_tpu_torch.kernels import sweeps as sweep_kernels
-from spinglass_tpu_torch.kernels.metropolis_cuda import FusedSweep
+from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES, FusedSweep
 
 SPARSE_DENSITY_THRESHOLD = 0.05
 SPARSE_MIN_SPINS = 2048
@@ -141,10 +141,11 @@ class CudaFusedEngine(SweepEngine):
     name = "cuda_fused"
 
     def __init__(self, problem: IsingProblem, block_size: int = 0,
-                 rule: str = "metropolis", **variant):
+                 rule: str = "metropolis", j_dtype: str = "float32",
+                 **variant):
         super().__init__(problem)
         self.fused = FusedSweep(problem, block_size=block_size, rule=rule,
-                                **variant)
+                                j_dtype=j_dtype, **variant)
 
     @property
     def launches(self) -> dict:
@@ -158,14 +159,16 @@ class CudaFusedEngine(SweepEngine):
 def make_engine(problem, *, sweep_method: str = "auto",
                 update_rule: str = "metropolis", block_size: int = 0,
                 use_kernel: str = "auto", max_colors: int = 8,
-                r_hint: int = 0):
+                j_dtype: str = "float32", r_hint: int = 0):
     """Pick the sweep engine for ``problem`` (an IsingProblem or an
     EllProblem).
 
     ``use_kernel`` (dense problems): "auto" runs the fused CUDA kernel when
     the problem lies on a CUDA device, "always" demands it (a CPU problem
     raises: the kernel has no interpret mode), "never" keeps the plain
-    blocked sweep. ``r_hint`` is the expected replica count: sparse problems
+    blocked sweep. ``j_dtype`` "bfloat16" makes the fused kernel sweep on J
+    rounded to bfloat16 (the other engines keep float32, as in the JAX
+    package). ``r_hint`` is the expected replica count: sparse problems
     on a CUDA device with r_hint >= SPARSE_T_MIN_REPLICAS take the
     transposed engine and its kernels.
     """
@@ -176,6 +179,8 @@ def make_engine(problem, *, sweep_method: str = "auto",
     update_rule = sweep_kernels.canonical_rule(update_rule)
     if use_kernel not in ("auto", "always", "never"):
         raise ValueError(f"use_kernel must be auto|always|never, got {use_kernel!r}")
+    if j_dtype not in J_DTYPES:
+        raise ValueError(f"j_dtype must be one of {J_DTYPES}, got {j_dtype!r}")
 
     def _sorted(p):
         if sweep_method == "sparse_t" or (
@@ -215,5 +220,6 @@ def make_engine(problem, *, sweep_method: str = "auto",
         raise ValueError("use_kernel='always' needs a problem on a CUDA device; "
                          "the CUDA kernel has no CPU mode")
     if use_kernel == "always" or (use_kernel == "auto" and problem.j.is_cuda):
-        return CudaFusedEngine(problem, block_size=block_size, rule=update_rule)
+        return CudaFusedEngine(problem, block_size=block_size, rule=update_rule,
+                               j_dtype=j_dtype)
     return BlockedEngine(problem, block_size=block_size or 128, rule=update_rule)

@@ -39,6 +39,7 @@ from spinglass_tpu_torch.anneal.engines import (SweepEngine, best_row,
 from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.core import energy as energy_ops
 from spinglass_tpu_torch.core.problem import random_spins
+from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES
 from spinglass_tpu_torch.kernels.sweeps import device_uniforms
 
 
@@ -66,9 +67,9 @@ class PTConfig:
     seed: int = 42
 
     def __post_init__(self):
-        if self.j_dtype != "float32":
-            raise NotImplementedError(
-                "the port's sweep kernels read J in float32 only")
+        if self.j_dtype not in J_DTYPES:
+            raise ValueError(f"j_dtype must be one of {J_DTYPES}, got "
+                             f"{self.j_dtype!r}")
 
 
 @dataclass
@@ -269,6 +270,7 @@ def make_pt_step(problem, cfg: PTConfig,
                              update_rule=cfg.update_rule,
                              block_size=cfg.block_size,
                              use_kernel=cfg.use_kernel,
+                             j_dtype=cfg.j_dtype,
                              r_hint=cfg.n_replicas * cfg.n_chains)
     temps = (np.asarray(ladder_override, np.float32)
              if ladder_override is not None else temperature_ladder(cfg))

@@ -34,6 +34,7 @@ from spinglass_tpu_torch.anneal.engines import (SweepEngine, best_row,
 from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.anneal.schedules import ScheduleConfig, ScheduleState
 from spinglass_tpu_torch.core.problem import IsingProblem, random_spins
+from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES
 
 
 @dataclass(frozen=True)
@@ -52,13 +53,14 @@ class SAConfig:
     convergence_tolerance: float = 1e-6
     enable_early_stop: bool = True
     use_kernel: str = "auto"                 # auto | never | always
-    j_dtype: str = "float32"                 # the CUDA kernel streams J in float32
+    j_dtype: str = "float32"                 # float32 | bfloat16: the J the fused
+                                             # kernel sweeps on (rounded once)
     seed: int = 42
 
     def __post_init__(self):
-        if self.j_dtype != "float32":
-            raise NotImplementedError(
-                "the port's sweep kernel reads J in float32 only")
+        if self.j_dtype not in J_DTYPES:
+            raise ValueError(f"j_dtype must be one of {J_DTYPES}, got "
+                             f"{self.j_dtype!r}")
         # keep the cooling horizon in sync with the sweep budget
         if self.schedule.total_sweeps != self.n_sweeps and self.n_sweeps > 0:
             object.__setattr__(
@@ -90,6 +92,7 @@ def make_sweep_engine(problem: IsingProblem, config: SAConfig) -> SweepEngine:
         block_size=config.block_size,
         use_kernel=config.use_kernel,
         max_colors=config.max_colors_for_colored,
+        j_dtype=config.j_dtype,
         r_hint=config.n_replicas,
     )
 

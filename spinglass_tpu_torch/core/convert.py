@@ -3,6 +3,8 @@
 The caller turns the JAX arrays into numpy (``np.asarray``) and passes them
 here, so this module needs no JAX. Tests use it to make both packages anneal
 the identical instance (dense or ELL) from the identical SA or PT state.
+Like the problem constructors, everything here builds on the card unless the
+caller names a device (``core.problem.resolve_device``).
 """
 
 from __future__ import annotations
@@ -12,13 +14,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from spinglass_tpu_torch.core.problem import IsingProblem
+from spinglass_tpu_torch.core.problem import IsingProblem, resolve_device
 
 
 def problem_from_numpy(j, h, active_mask, n_spins: int,
-                       device="cpu") -> IsingProblem:
+                       device=None) -> IsingProblem:
     """Port problem from a JAX ``IsingProblem``'s padded arrays, unchanged
     (no second symmetrisation or padding)."""
+    device = resolve_device(device)
     j = np.asarray(j, np.float32)
     if j.ndim != 2 or j.shape[0] != j.shape[1]:
         raise ValueError(f"J must be square, got {j.shape}")
@@ -31,9 +34,11 @@ def problem_from_numpy(j, h, active_mask, n_spins: int,
     )
 
 
-def ell_from_numpy(idx, val, h, active_mask, n_spins: int, device="cpu"):
+def ell_from_numpy(idx, val, h, active_mask, n_spins: int, device=None):
     """Port ``EllProblem`` from a JAX ``EllProblem``'s arrays, unchanged."""
     from spinglass_tpu_torch.kernels.sparse import EllProblem
+
+    device = resolve_device(device)
 
     def t(x, dtype):
         return torch.tensor(np.asarray(x, dtype), device=device)
@@ -57,7 +62,7 @@ def _in_layout(x, src_layout: str, layout: str, device,
 def sa_state_from_numpy(spins, energy, best_energy, best_spins, temp,
                         acc_ema, sweep: int, acc_rate=None, *,
                         src_layout: str = "rn", layout: str = "rn",
-                        device="cpu",
+                        device=None,
                         generator: Optional[torch.Generator] = None):
     """Port ``SAState`` from a JAX ``SAState``'s arrays.
 
@@ -68,6 +73,8 @@ def sa_state_from_numpy(spins, energy, best_energy, best_spins, temp,
     """
     from spinglass_tpu_torch.anneal.sa import SAState
     from spinglass_tpu_torch.anneal.schedules import ScheduleState
+
+    device = resolve_device(device)
 
     def vec(x):
         return torch.tensor(np.asarray(x, np.float32), device=device)
@@ -93,7 +100,7 @@ def pt_state_from_numpy(spins, slot, energy, best_energy, best_spins,
                         sweep: int, exch_attempts, exch_accepts,
                         acc_rate=None, *, src_layout: str = "rn",
                         layout: str = "rn", spin_dtype=np.float32,
-                        device="cpu",
+                        device=None,
                         generator: Optional[torch.Generator] = None):
     """Port ``PTState`` from a JAX ``PTState``'s arrays.
 
@@ -102,6 +109,8 @@ def pt_state_from_numpy(spins, slot, energy, best_energy, best_spins,
     port engine's (int8 for the sparse engine's threshold path). The state
     gets ``generator``, or a new CPU generator seeded with 0."""
     from spinglass_tpu_torch.anneal.pt import PTState
+
+    device = resolve_device(device)
 
     def vec(x, dtype=np.float32):
         return torch.tensor(np.asarray(x, dtype), device=device)

@@ -8,7 +8,9 @@ Conventions (identical to the JAX package):
 J is stored dense, symmetric and zero on the diagonal, padded to a multiple of
 128 spins exactly as the JAX package pads it, so the padded arrays of the two
 packages compare element for element. The tensors live on one device, and
-every function of the port that takes a problem works on that device.
+every function of the port that takes a problem works on that device. The
+constructors build on the card unless the caller names a device
+(``resolve_device``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,19 @@ LANE = 128
 
 def round_up(x: int, m: int = LANE) -> int:
     return ((x + m - 1) // m) * m
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a public constructor builds on: ``device`` where the
+    caller names one, else the card. Without a card the default raises; it
+    never carries on on the CPU by itself."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port builds problems on the card by "
+            'default; pass device="cpu" to build on the CPU')
+    return torch.device("cuda")
 
 
 @dataclass(frozen=True)
@@ -66,12 +81,14 @@ class IsingProblem:
         validate: bool = True,
         device=None,
     ) -> "IsingProblem":
-        """Build a problem from a dense coupling matrix on ``device``.
+        """Build a problem from a dense coupling matrix on ``device`` (None:
+        the card, see ``resolve_device``).
 
         Symmetrises J as (J + J^T)/2, zeroes the diagonal, and pads to a
         multiple of 128 spins, in float64 on the host before the single cast
         to ``dtype``, as the JAX package does.
         """
+        device = resolve_device(device)
         j = np.asarray(j, dtype=np.float64)
         if j.ndim != 2 or j.shape[0] != j.shape[1]:
             raise ValueError(f"J must be square, got {j.shape}")

@@ -2,36 +2,55 @@
 //
 // Replaces the Pallas TPU kernel spinglass_tpu/kernels/sparse.py
 // (make_single_sweep_call, tables from build_single_tables, driven by
-// SortedSparseTEngine._sweep_single). Spins are [NS, R] float32 in the
+// SortedSparseTEngine._sweep_single). Spins are [NS, R] float32 (+-1) in the
 // colour-sorted layout of build_sorted_t: the rows of colour c are the
 // contiguous span [spans[c], spans[c+1]), and no two rows of one colour are
 // coupled. For every replica column it makes exactly the decisions of the
 // per-colour sweep (kernels/sparse.py:make_sorted_t_sweep):
 //
 //   for each colour c, in order, all rows i of c from the same spin state:
-//     f_i  = h_i + sum_{k < deg_i} val[i, k] * s[idx[i, k]]
+//     f_i  = h_i + sum_{k < deg_i} val[i, k] * s[idx[i, k]]      (in k order)
 //     accept  <=>  s_i * f_i < th_i          (th = -inf on padding rows)
 //     accepted: s_i = -s_i ;  dE += 2 s_i f_i ;  count += 1
 //
-// Design. The TPU grid runs the 32-row steps in order over one VMEM spin
-// buffer. CUDA thread blocks run in no order, but replica columns never
-// interact, so ONE thread block owns a tile of RT replica columns for the
-// whole sweep and walks the colours itself: the rows of a colour are spread
-// over its threads (RT lanes per row, 1024 / RT rows at a time) and a
-// __syncthreads() separates colours. Nothing passes between thread blocks,
-// so there is no grid-wide sync and one launch per sweep. RT is chosen by
-// the wrapper (sparse_cuda.default_tile, measured): R=1024 takes RT=8 (128
-// blocks), R=128 RT=2 (64 blocks; RT=1 reads 4 useful bytes per 32-byte
-// sector and was slower). Each row loops to its own degree (the TPU
-// kernel's per-step slot bound `ks` and its unrolled slots are not needed).
+// What bounds it on the H100. The work is small: at [10240, 1024] the spins
+// are read and written once (2 x 41.9 MB), the tables are ~1.7 MB and a
+// sweep does 6.3e7 FMAs and 1.05e7 Philox draws, so the least time is the
+// bytes', 25.5 us at 3.35 TB/s (3.6 us at [10240, 128]). The cost is
+// latency: a row's field is a chain deg -> idx[k] -> spin of the neighbour,
+// and a sweep is 7-8 colours of such chains separated by barriers. The
+// first version walked those chains in device memory (L2 round trips, ~11
+// rows per thread per colour: 205-209 us/sweep at [10240, 1024], 76-77 at
+// [10240, 128]).
 //
-// What bounds it on the H100: the gathers. Spins stay in the caller's array
-// (42 MB at [10240, 1024], held in the 50 MB L2); each row reads deg_i
-// neighbour rows of RT floats (32 B at RT=8: one L2 sector), so a sweep
-// reads NS * avg_deg * R * 4 bytes (~250 MB at the bench shape) from L2,
-// with long chains of dependent L2 round trips (idx -> spins) per thread.
-// 32 warps per SM hide part of that latency. The idx/val/deg/h tables
-// (~1.6 MB) are read by every block through the read-only path.
+// Design. Replica columns never interact, so ONE thread block of 1024
+// threads owns a tile of RT columns for the whole sweep (one launch per
+// sweep, no grid-wide sync) and
+//   (1) keeps the tile's spins in shared memory as int8 [NS][RT] for the
+//       whole sweep: read from the caller's array once (consecutive threads,
+//       consecutive columns of a row), gathered, flipped and read back
+//       there, written out once at the end. val * (float)s in k order is
+//       the arithmetic of the float32 version, so the decisions are the
+//       same on every input;
+//   (2) gives each thread a whole row: its RT columns' fields live in
+//       registers, one vector load fetches a neighbour's RT spins, and a
+//       colour of ~1460 rows is one or two rows per thread instead of eleven
+//       dependent chains;
+//   (3) reads the tables transposed, idx_t / val_t [kmax][NS], four slots at
+//       a time before the gathers, so the 32 rows of a warp read one
+//       128-byte line per slot and the reads of a batch overlap: the tables
+//       stream through L2/L1 instead of being chased.
+// A __syncthreads() separates colours. Measured on the H100 (700 W):
+// 130-131 us/sweep at [10240, 1024] (RT = 8), 66 at [10240, 256] (RT = 2),
+// 57-58 at [10240, 128] (RT = 1). What is left at R = 1024 is mostly the
+// Philox draws, 8 per thread and row under the 64 registers of a
+// 1024-thread block, and the second, 43% full pass over a colour's rows
+// (two threads per row with 4 columns each measured slower, 149 us).
+// RT is chosen by the wrapper (sparse_cuda.default_tile): about 128 blocks,
+// RT <= 8, and NS * RT bytes inside the block's shared memory (NS <= 28672
+// at RT = 8, 229376 at RT = 1). Beyond that the wrapper raises: no engine
+// sends such a shape (the sparse engine takes K2 up to NS * R * 4 = 80 MiB,
+// NS <= 163840 at R = 128).
 //
 // Randomness. th == nullptr selects the in-kernel Philox4x32-10 stream keyed
 // by the 64-bit sweep seed with counter (sorted row, replica) (philox.cuh),
@@ -40,28 +59,50 @@
 // rows, whose threshold is -inf. Otherwise th is the caller's [NS, R]
 // threshold array, already masked.
 //
-// Bookkeeping. dE and the count are summed per thread, then across the
-// threads of a column in a fixed order (warp shuffles, then warps in
-// order), so runs are deterministic. Exact float32 throughout; on +-J
-// couplings with h on a dyadic grid every field and dE is exact, and the
-// kernel equals its twin (kernels/sparse_cuda.py) bit for bit.
+// Bookkeeping. dE and the count are summed per thread and column, then
+// across the warp (shuffles) and the warps in order, so runs are
+// deterministic. Exact float32 throughout; on +-J couplings with h on a
+// dyadic grid every field and dE is exact, and the kernel equals its twin
+// (kernels/sparse_cuda.py) bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "philox.cuh"
 
 namespace {
 
 constexpr int THREADS = 1024;
+constexpr int KBATCH = 4;  // table slots fetched together
 constexpr int WARPS = THREADS / 32;
+constexpr int MAX_RT = 8;
 constexpr unsigned kFull = 0xffffffffu;
+
+template <int RT> struct TileWord;
+template <> struct TileWord<1> { using T = uint8_t; };
+template <> struct TileWord<2> { using T = uint16_t; };
+template <> struct TileWord<4> { using T = uint32_t; };
+template <> struct TileWord<8> { using T = uint2; };
+
+// The RT spins of sorted row `row` as floats: one vector load from the
+// int8 tile.
+template <int RT>
+__device__ __forceinline__ void load_row(const int8_t* tile, int row,
+                                         float (&sv)[RT]) {
+  using W = typename TileWord<RT>::T;
+  const W w = *reinterpret_cast<const W*>(tile + (size_t)row * RT);
+  int8_t b[RT];
+  memcpy(b, &w, RT);
+#pragma unroll
+  for (int c = 0; c < RT; ++c) sv[c] = (float)b[c];
+}
 
 template <int RT, int RULE, bool HOST_TH>
 __global__ void __launch_bounds__(THREADS, 1)
-sparse_sweep_kernel(const int* __restrict__ idx,     // [NS, kmax]
-                    const float* __restrict__ val,   // [NS, kmax]
+sparse_sweep_kernel(const int* __restrict__ idx_t,   // [kmax, NS]
+                    const float* __restrict__ val_t, // [kmax, NS]
                     const int* __restrict__ deg,     // [NS]
                     const float* __restrict__ h,     // [NS]
                     const float* __restrict__ mask,  // [NS] 0 / -inf
@@ -72,88 +113,167 @@ sparse_sweep_kernel(const int* __restrict__ idx,     // [NS, kmax]
                     const float* __restrict__ beta,  // [R]
                     uint32_t k0, uint32_t k1,
                     float* __restrict__ de_out, int* __restrict__ cnt_out,
-                    int kmax, int R) {
-  constexpr int GROUPS = THREADS / RT;  // rows handled at a time
-  __shared__ float red_de[WARPS][32];
-  __shared__ int red_cnt[WARPS][32];
+                    int n_sorted, int kmax, int R) {
+  using W = typename TileWord<RT>::T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* tile = reinterpret_cast<int8_t*>(smem);  // [NS][RT]
+  __shared__ float red_de[WARPS][MAX_RT];
+  __shared__ int red_cnt[WARPS][MAX_RT];
+  __shared__ float nib_s[MAX_RT];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int c = tid % RT;
-  const int g = tid / RT;
-  const int col = blockIdx.x * RT + c;
-  const bool live = col < R;
-  const float nib = (!HOST_TH && live) ? -0.5f / beta[col] : 0.f;
-  float de_acc = 0.f;
-  int cnt_acc = 0;
+  const int col0 = blockIdx.x * RT;
+  if (tid < RT)
+    nib_s[tid] = (!HOST_TH && col0 + tid < R) ? -0.5f / beta[col0 + tid] : 0.f;
+  // the tile in: consecutive threads, consecutive columns (dead columns +1)
+  for (int e = tid; e < n_sorted * RT; e += THREADS) {
+    const int c = e % RT;
+    tile[e] = col0 + c < R ? (int8_t)spins[(size_t)(e / RT) * R + col0 + c]
+                           : (int8_t)1;
+  }
+  __syncthreads();
+
+  float de_acc[RT];
+  int cnt_acc[RT];
+#pragma unroll
+  for (int c = 0; c < RT; ++c) {
+    de_acc[c] = 0.f;
+    cnt_acc[c] = 0;
+  }
 
   for (int color = 0; color < n_colors; ++color) {
     const int lo = __ldg(spans + color), hi = __ldg(spans + color + 1);
-    if (live) {
-      for (int i = lo + g; i < hi; i += GROUPS) {
-        const int d = __ldg(deg + i);
-        const int* ip = idx + (size_t)i * kmax;
-        const float* vp = val + (size_t)i * kmax;
-        float f = __ldg(h + i);
-        for (int k = 0; k < d; ++k)
-          f += __ldg(vp + k) * spins[(size_t)__ldg(ip + k) * R + col];
-        const size_t e = (size_t)i * R + col;
-        float t;
-        if (HOST_TH) {
-          t = __ldg(th + e);
-        } else {
-          t = __ldg(mask + i) < 0.f
-                  ? -INFINITY
-                  : sgt::threshold<RULE>(
-                        sgt::philox_uniform((uint32_t)i, (uint32_t)col, k0, k1),
-                        nib);
+    for (int i = lo + tid; i < hi; i += THREADS) {
+      const int d = __ldg(deg + i);
+      const float hv = __ldg(h + i);
+      float f[RT];
+#pragma unroll
+      for (int c = 0; c < RT; ++c) f[c] = hv;
+      // KBATCH slots at a time: their table reads go out together, then
+      // the gathers. Slots past the row's degree hold val 0 and a valid
+      // row, and add nothing.
+      for (int kb = 0; kb < d; kb += KBATCH) {
+        int j[KBATCH];
+        float v[KBATCH];
+#pragma unroll
+        for (int q = 0; q < KBATCH; ++q) {
+          const bool in = kb + q < kmax;
+          const size_t e = (size_t)(kb + q) * n_sorted + i;
+          j[q] = in ? __ldg(idx_t + e) : i;
+          v[q] = in ? __ldg(val_t + e) : 0.f;
         }
-        const float s = spins[e];
-        const float sf = s * f;
-        if (sf < t) {
-          spins[e] = -s;
-          de_acc += 2.f * sf;
-          cnt_acc += 1;
+#pragma unroll
+        for (int q = 0; q < KBATCH; ++q) {
+          float sv[RT];
+          load_row<RT>(tile, j[q], sv);
+#pragma unroll
+          for (int c = 0; c < RT; ++c) f[c] = fmaf(v[q], sv[c], f[c]);
         }
+      }
+      float so[RT];
+      load_row<RT>(tile, i, so);
+      const bool padded = !HOST_TH && __ldg(mask + i) < 0.f;
+      bool any = false;
+#pragma unroll
+      for (int c = 0; c < RT; ++c) {
+        const int col = col0 + c;
+        if (col < R) {
+          float t;
+          if (HOST_TH) {
+            t = __ldg(th + (size_t)i * R + col);
+          } else {
+            t = padded ? -INFINITY
+                       : sgt::threshold<RULE>(
+                             sgt::philox_uniform((uint32_t)i, (uint32_t)col,
+                                                 k0, k1),
+                             nib_s[c]);
+          }
+          const float sf = so[c] * f[c];
+          if (sf < t) {
+            so[c] = -so[c];
+            de_acc[c] += 2.f * sf;
+            cnt_acc[c] += 1;
+            any = true;
+          }
+        }
+      }
+      if (any) {
+        int8_t b[RT];
+#pragma unroll
+        for (int c = 0; c < RT; ++c) b[c] = (int8_t)so[c];
+        W w;
+        memcpy(&w, b, RT);
+        *reinterpret_cast<W*>(tile + (size_t)i * RT) = w;
       }
     }
     __syncthreads();  // this colour's flips are visible to the next colour
   }
 
-  // per-column totals: lanes of one warp that share a column, then warps
-#pragma unroll
-  for (int off = 16; off >= RT; off >>= 1) {
-    de_acc += __shfl_xor_sync(kFull, de_acc, off);
-    cnt_acc += __shfl_xor_sync(kFull, cnt_acc, off);
+  // the tile back into the caller's array
+  for (int e = tid; e < n_sorted * RT; e += THREADS) {
+    const int c = e % RT;
+    if (col0 + c < R) spins[(size_t)(e / RT) * R + col0 + c] = (float)tile[e];
   }
-  if (lane < RT) {
-    red_de[warp][lane] = de_acc;
-    red_cnt[warp][lane] = cnt_acc;
+
+  // per-column totals: the lanes of each warp, then the warps in order
+#pragma unroll
+  for (int c = 0; c < RT; ++c) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      de_acc[c] += __shfl_xor_sync(kFull, de_acc[c], off);
+      cnt_acc[c] += __shfl_xor_sync(kFull, cnt_acc[c], off);
+    }
+    if (lane == 0) {
+      red_de[warp][c] = de_acc[c];
+      red_cnt[warp][c] = cnt_acc[c];
+    }
   }
   __syncthreads();
-  if (tid < RT && live) {
+  if (tid < RT && col0 + tid < R) {
     float de = 0.f;
     int cnt = 0;
     for (int w = 0; w < WARPS; ++w) {
       de += red_de[w][tid];
       cnt += red_cnt[w][tid];
     }
-    de_out[col] = de;
-    cnt_out[col] = cnt;
+    de_out[col0 + tid] = de;
+    cnt_out[col0 + tid] = cnt;
   }
 }
 
+template <int RT, int RULE, bool HOST_TH>
+cudaError_t launch_one(dim3 grid, cudaStream_t stream, const int* idx_t,
+                       const float* val_t, const int* deg, const float* h,
+                       const float* mask, const int* spans, int n_colors,
+                       float* spins, const float* th, const float* beta,
+                       uint32_t k0, uint32_t k1, float* de, int* cnt,
+                       int n_sorted, int kmax, int R) {
+  auto kernel = sparse_sweep_kernel<RT, RULE, HOST_TH>;
+  const size_t smem = (size_t)n_sorted * RT;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, THREADS, smem, stream>>>(idx_t, val_t, deg, h, mask, spans,
+                                          n_colors, spins, th, beta, k0, k1,
+                                          de, cnt, n_sorted, kmax, R);
+  return cudaGetLastError();
+}
+
 template <int RT>
-void launch(int rule, bool host_th, dim3 grid, cudaStream_t stream,
-            const int* idx, const float* val, const int* deg, const float* h,
-            const float* mask, const int* spans, int n_colors, float* spins,
-            const float* th, const float* beta, uint32_t k0, uint32_t k1,
-            float* de, int* cnt, int kmax, int R) {
-#define SGT_K2(RULE, HOST)                                                   \
-  sparse_sweep_kernel<RT, RULE, HOST><<<grid, THREADS, 0, stream>>>(         \
-      idx, val, deg, h, mask, spans, n_colors, spins, th, beta, k0, k1, de, \
-      cnt, kmax, R)
+cudaError_t launch(int rule, bool host_th, dim3 grid, cudaStream_t stream,
+                   const int* idx_t, const float* val_t, const int* deg,
+                   const float* h, const float* mask, const int* spans,
+                   int n_colors, float* spins, const float* th,
+                   const float* beta, uint32_t k0, uint32_t k1, float* de,
+                   int* cnt, int n_sorted, int kmax, int R) {
+#define SGT_K2(RULE, HOST)                                                  \
+  return launch_one<RT, RULE, HOST>(                                        \
+      grid, stream, idx_t, val_t, deg, h, mask, spans, n_colors, spins, th, \
+      beta, k0, k1, de, cnt, n_sorted, kmax, R)
   if (host_th) {
     if (rule == 0) SGT_K2(0, true); else SGT_K2(1, true);
   } else {
@@ -166,13 +286,14 @@ void launch(int rule, bool host_th, dim3 grid, cudaStream_t stream,
 
 extern "C" {
 
-// One sweep on `stream`. Returns cudaGetLastError() after the launch (0 on
-// success). The caller checks shapes: idx/val [n_sorted, kmax] row-major,
-// deg/h/mask [n_sorted], spans [n_colors + 1] ascending within
-// [0, n_sorted], spins and th [n_sorted, R] row-major, beta/de/cnt [R];
-// rt in {1, 2, 4, 8, 16, 32}, rule in {0, 1}. th == nullptr selects the
-// in-kernel Philox stream keyed by `seed`.
-int sgt_sparse_sweep(const int* idx, const float* val, const int* deg,
+// One sweep on `stream`. Returns the launch's CUDA error (0 on success).
+// The caller checks shapes: idx_t/val_t [kmax, n_sorted] row-major (the
+// tables transposed), deg/h/mask [n_sorted], spans [n_colors + 1] ascending
+// within [0, n_sorted], spins (+-1) and th [n_sorted, R] row-major,
+// beta/de/cnt [R]; rt in {1, 2, 4, 8}, rule in {0, 1}; the tile's spins,
+// n_sorted * rt bytes, must fit the block's shared memory. th == nullptr
+// selects the in-kernel Philox stream keyed by `seed`.
+int sgt_sparse_sweep(const int* idx_t, const float* val_t, const int* deg,
                      const float* h, const float* mask, const int* spans,
                      int n_colors, float* spins, const float* th,
                      const float* beta, unsigned long long seed, float* de,
@@ -186,20 +307,18 @@ int sgt_sparse_sweep(const int* idx, const float* val, const int* deg,
   const uint32_t k1 = (uint32_t)(seed >> 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool host_th = th != nullptr;
-#define SGT_RT(V)                                                            \
-  launch<V>(rule, host_th, grid, s, idx, val, deg, h, mask, spans, n_colors, \
-            spins, th, beta, k0, k1, de, cnt, kmax, R)
+#define SGT_RT(V)                                                          \
+  return (int)launch<V>(rule, host_th, grid, s, idx_t, val_t, deg, h, mask, \
+                        spans, n_colors, spins, th, beta, k0, k1, de, cnt,  \
+                        n_sorted, kmax, R)
   switch (rt) {
-    case 1: SGT_RT(1); break;
-    case 2: SGT_RT(2); break;
-    case 4: SGT_RT(4); break;
-    case 8: SGT_RT(8); break;
-    case 16: SGT_RT(16); break;
-    case 32: SGT_RT(32); break;
+    case 1: SGT_RT(1);
+    case 2: SGT_RT(2);
+    case 4: SGT_RT(4);
+    case 8: SGT_RT(8);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SGT_RT
-  return (int)cudaGetLastError();
 }
 
 const char* sgt_cuda_error_string(int err) {

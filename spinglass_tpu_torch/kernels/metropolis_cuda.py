@@ -7,7 +7,12 @@ here that expresses the same algorithm:
 
 * K1 ``csrc/metropolis_sweep.cu`` (``_make_kernel``), twin
   ``fused_sweep_reference``: the blocked algorithm of
-  ``kernels.sweeps.blocked_sweep`` in [Np, R] layout;
+  ``kernels.sweeps.blocked_sweep`` in [Np, R] layout. On the card a replica
+  tile of 72 columns is shared by a cluster of 8 thread blocks and the block
+  fields come from bf16 tensor-core products of J split exactly into three
+  bf16 planes (``bf16_planes``; one plane where J is exact in bf16).
+  ``dense_tile`` says which shapes that kernel takes; beyond them the
+  one-block float32 kernel runs;
 * K5 ``csrc/metropolis_pipelined.cu`` (``_make_kernel_pipe``), twin
   ``pipelined_sweep_reference``: block b+1's fields are computed before
   block b's flips and repaired with ``J[b+1, b] @ ds_b``;
@@ -23,6 +28,10 @@ runs its twin only for tensors on the CPU. For a CUDA tensor it launches the
 kernel or raises: a failed build or launch is an exception, never a
 fallback. Each launch adds one to ``FusedSweep.launches``, and nothing else
 does; ``FusedSweep.kernel_name`` names the variant's kernel.
+
+``j_dtype="bfloat16"`` (the JAX package's mode) rounds J once to bfloat16:
+every kernel and twin then sweeps on ``j.bfloat16().float()``, diagonal
+blocks included, and K1 multiplies one plane.
 
 Random numbers. ``FusedSweep.__call__`` takes a 64-bit sweep seed; every
 variant draws Philox4x32-10 uniforms from it, keyed by (seed) with counter
@@ -54,6 +63,10 @@ PIPELINED_KERNEL = "metropolis_pipelined"   # K5
 INTERLEAVED_KERNEL = "metropolis_interleaved"  # K6
 FOLDED_KERNEL = "metropolis_folded"         # K7
 INTERLEAVE_CHAINS = (2, 4)  # chains per warp K6 is built for
+J_DTYPES = ("float32", "bfloat16")
+CLUSTER_TILE = (72, 8)   # K1's cluster kernel: replica columns, thread blocks
+BLOCK_TILE = (8, 1)      # K1's one-block kernel
+SMEM_PER_BLOCK = 232448  # bytes of shared memory a thread block can use (H100)
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -107,6 +120,63 @@ def kernel_threshold(u: torch.Tensor, beta: torch.Tensor, rule: str) -> torch.Te
     else:
         th = (torch.log(u) - torch.log1p(-torch.clamp(u, max=GLAUBER_U_MAX))) * nib
     return torch.where(u < 1.0, th, torch.full_like(th, -torch.inf))
+
+
+def bf16_planes(j: torch.Tensor):
+    """The exact split of float32 ``j`` that K1 makes in registers:
+    hi = bf16(j), mid = bf16(j - hi), lo = bf16(j - hi - mid), each rounded
+    to nearest even. Returned as float32 tensors; hi + mid + lo == j bit for
+    bit (8 + 8 + 8 mantissa bits)."""
+    hi = j.bfloat16().float()
+    r = j - hi
+    mid = r.bfloat16().float()
+    lo = (r - mid).bfloat16().float()
+    return hi, mid, lo
+
+
+def planes_needed(j: torch.Tensor) -> int:
+    """1 where ``j`` is exact in bfloat16 (its mid and lo planes are zero:
+    +-J, small dyadic grids, J already rounded), else 3."""
+    return 1 if bool((j.bfloat16().float() == j).all()) else 3
+
+
+def plane_fields(j: torch.Tensor, spins_t: torch.Tensor,
+                 planes: int = 3) -> torch.Tensor:
+    """Plain twin of K1's field phase: J @ s as the float32 sum of the
+    planes' products, lo first (spins +-1, so every product is exact).
+    ``planes`` = 1 multiplies the hi plane only. [Np, Np] x [Np, R]."""
+    hi, mid, lo = bf16_planes(j)
+    if planes == 1:
+        return torch.matmul(hi, spins_t)
+    return (torch.matmul(lo, spins_t) + torch.matmul(mid, spins_t)
+            + torch.matmul(hi, spins_t))
+
+
+def cluster_smem_bytes(n_pad: int, block_size: int) -> int:
+    """Dynamic shared memory per thread block of K1's cluster kernel (as
+    ``csrc/metropolis_sweep.cu`` lays it out): the block's n_pad / 8 spin
+    rows of the 72-column tile as bf16, each column padded to 8 mod 32
+    words, the partial fields, two buffers of 32 rows of J's diagonal block
+    and the block's fields."""
+    rt, cluster = CLUSTER_TILE
+    words = n_pad // cluster // 2
+    stride = words + (40 - words % 32) % 32
+    return (rt * stride * 4 + rt * block_size * 4 + 2 * 32 * block_size * 4
+            + block_size * (rt // cluster) * 4)
+
+
+def dense_tile(n_pad: int, block_size: int):
+    """(replica columns per tile, thread blocks per cluster) of K1 at this
+    shape. The cluster kernel, (72, 8), keeps 18 * n_pad bytes of spins per
+    block, so it goes up to n_pad = 8320 at block 128 and 4224 at block
+    256; beyond that the one-block float32 kernel (8, 1) runs, at any
+    n_pad. The replica count does not enter: a block of the cluster kernel
+    always decides 9 columns, and 72 is the width at which the H100's 15
+    resident clusters of 8 take R = 1024 in one wave (tiles of 64 would be
+    16 clusters and two waves)."""
+    if cluster_smem_bytes(n_pad, block_size) <= SMEM_PER_BLOCK:
+        return CLUSTER_TILE
+    return BLOCK_TILE
 
 
 def diag_blocks(j: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -286,11 +356,17 @@ def load_kernel(name: str = KERNEL_NAME) -> ctypes.CDLL:
 
     lib = build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    extra = [i] if name in (INTERLEAVED_KERNEL, FOLDED_KERNEL) else []
+    extra = ([i] if name in (INTERLEAVED_KERNEL, FOLDED_KERNEL)
+             else [i, i] if name == KERNEL_NAME else [])
     fn = getattr(lib, f"sgt_{name}")
     fn.argtypes = ([p, p, p, p, p, p, ctypes.c_ulonglong, p, p, i, i, i, i]
                    + extra + [p])
     fn.restype = i
+    if name == KERNEL_NAME:
+        lib.sgt_metropolis_sweep_clusters.argtypes = [i, i, i, i, p]
+        lib.sgt_metropolis_sweep_clusters.restype = i
+        lib.sgt_metropolis_sweep_smem.argtypes = [i, i]
+        lib.sgt_metropolis_sweep_smem.restype = ctypes.c_longlong
     lib.sgt_cuda_error_string.argtypes = [i]
     lib.sgt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -311,6 +387,14 @@ class FusedSweep:
     % 8 for folding) are dropped, since CUDA columns beyond R are masked in
     every kernel. K6's tile is 8 * nchains columns, so the JAX rule
     "replica tile % nchains == 0" holds by construction.
+
+    ``j_dtype`` "bfloat16" sweeps on J rounded once to bfloat16 (kept as
+    float32 values, diagonal blocks included), as the JAX package's
+    ``FusedSweep(j_dtype=jnp.bfloat16)`` does. The spins must be +-1: K1
+    keeps them as bf16 in shared memory. ``tile`` is ``dense_tile``'s
+    answer for this problem, and ``planes`` the number of bf16 planes of J
+    that K1's cluster kernel multiplies (counted once: at construction on
+    the card, at first use on the CPU).
     """
 
     layout = "nr"
@@ -318,7 +402,7 @@ class FusedSweep:
     def __init__(self, problem: IsingProblem, block_size: int = 0,
                  rule: str = "metropolis", micro: int = MICRO,
                  pipelined: bool = False, folded: bool = False,
-                 interleave: int = 0):
+                 interleave: int = 0, j_dtype: str = "float32"):
         n_pad = problem.n_padded
         if not block_size:
             block_size = 256 if n_pad % 256 == 0 else 128
@@ -338,7 +422,19 @@ class FusedSweep:
                              f"{interleave}")
         if micro < 1 or block_size % micro:
             raise ValueError(f"micro {micro} must divide block {block_size}")
+        if j_dtype not in J_DTYPES:
+            raise ValueError(f"j_dtype must be one of {J_DTYPES}, got "
+                             f"{j_dtype!r}")
         self.problem = problem
+        self.j_dtype = j_dtype
+        # the couplings every kernel and twin of this sweep reads
+        self.j = (problem.j if j_dtype == "float32"
+                  else problem.j.bfloat16().to(problem.j.dtype))
+        self.tile = dense_tile(n_pad, block_size)
+        # on the card the planes are counted now: a later sweep must not
+        # wait for the device
+        self._planes = (1 if j_dtype == "bfloat16"
+                        else planes_needed(self.j) if self.j.is_cuda else None)
         self.block_size = block_size
         self.rule = canonical_rule(rule)
         self.micro = micro
@@ -372,6 +468,14 @@ class FusedSweep:
             return self._launch(spins_t, beta, uniforms_t, 0)
         return self.reference(spins_t, beta, uniforms_t)
 
+    @property
+    def planes(self) -> int:
+        """bf16 planes of J that K1's cluster kernel multiplies: 1 where J
+        is exact in bfloat16, else 3 (one pass over J, the first time)."""
+        if self._planes is None:
+            self._planes = planes_needed(self.j)
+        return self._planes
+
     def _beta(self, beta, r: int, device) -> torch.Tensor:
         beta = torch.as_tensor(beta, dtype=torch.float32, device=device)
         return torch.broadcast_to(beta, (r,)).contiguous()
@@ -379,7 +483,7 @@ class FusedSweep:
     def reference(self, spins_t, beta, u_t):
         """The variant's plain twin on uniforms ``u_t`` (any device)."""
         p = self.problem
-        args = (p.j, p.h, p.active_mask, spins_t,
+        args = (self.j, p.h, p.active_mask, spins_t,
                 self._beta(beta, spins_t.shape[1], spins_t.device), u_t,
                 self.rule, self.block_size)
         if self.pipelined:
@@ -394,7 +498,7 @@ class FusedSweep:
         p = self.problem
         n_pad, r = spins_t.shape
         dev = spins_t.device
-        for name, t in (("J", p.j), ("h", p.h), ("mask", p.active_mask)):
+        for name, t in (("J", self.j), ("h", p.h), ("mask", p.active_mask)):
             if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
                 raise ValueError(f"problem {name} must be contiguous float32 on {dev}")
         if (spins_t.dtype != torch.float32 or not spins_t.is_contiguous()
@@ -415,12 +519,18 @@ class FusedSweep:
         beta = self._beta(beta, r, dev)
         de = torch.empty(r, dtype=torch.float32, device=dev)
         cnt = torch.empty(r, dtype=torch.int32, device=dev)
-        extra = ([self.interleave] if self.interleave
-                 else [self.micro] if self.folded else [])
+        if self.interleave:
+            extra = [self.interleave]
+        elif self.folded:
+            extra = [self.micro]
+        elif self.pipelined:
+            extra = []
+        else:  # K1: the planes of J and the cluster size of its tile
+            extra = [self.planes, self.tile[1]]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = getattr(lib, f"sgt_{self.kernel_name}")(
-                p.j.data_ptr(), p.h.data_ptr(), p.active_mask.data_ptr(),
+                self.j.data_ptr(), p.h.data_ptr(), p.active_mask.data_ptr(),
                 spins_t.data_ptr(), beta.data_ptr(),
                 None if u_t is None else u_t.data_ptr(), seed,
                 de.data_ptr(), cnt.data_ptr(), n_pad, r, self.block_size,
@@ -431,6 +541,26 @@ class FusedSweep:
                                f"{err} ({msg})")
         self.launches += 1
         return spins_t, de, cnt
+
+
+def cluster_occupancy(n_pad: int, r: int, block_size: int,
+                      planes: int = 3) -> dict:
+    """What the card holds of K1's cluster kernel at this shape: the
+    clusters of 8 thread blocks resident at once (the launch has
+    ceil(R / 72) of them; fewer resident means it runs in waves) and the
+    dynamic shared memory per block. Needs a CUDA device."""
+    lib = load_kernel(KERNEL_NAME)
+    out = ctypes.c_int(0)
+    err = lib.sgt_metropolis_sweep_clusters(n_pad, r, block_size, planes,
+                                            ctypes.byref(out))
+    if err != 0:
+        msg = lib.sgt_cuda_error_string(err).decode()
+        raise RuntimeError(f"cluster occupancy query failed: CUDA error "
+                           f"{err} ({msg})")
+    return {"max_active_clusters": out.value,
+            "clusters_launched": -(-r // CLUSTER_TILE[0]),
+            "smem_bytes_per_block": int(lib.sgt_metropolis_sweep_smem(
+                n_pad, block_size))}
 
 
 def blocked_sweep_cuda(problem: IsingProblem, spins: torch.Tensor, beta,

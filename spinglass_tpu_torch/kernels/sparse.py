@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from spinglass_tpu_torch.core import topology
-from spinglass_tpu_torch.core.problem import IsingProblem, round_up
+from spinglass_tpu_torch.core.problem import (IsingProblem, resolve_device,
+                                              round_up)
 from spinglass_tpu_torch.kernels.sparse_cuda import SparseKernels
 from spinglass_tpu_torch.kernels.sweeps import (accept_threshold,
                                                 canonical_rule,
@@ -103,7 +104,9 @@ class EllProblem:
     def from_coo(n_spins: int, rows, cols, vals, h=None,
                  max_degree: Optional[int] = None, device=None) -> "EllProblem":
         """Dense-free constructor from symmetric COO (both directions
-        present): the path for 10k+ sparse instances."""
+        present): the path for 10k+ sparse instances. ``device`` None is
+        the card (``core.problem.resolve_device``)."""
+        device = resolve_device(device)
         n_pad = round_up(n_spins)
         rows = np.asarray(rows, np.int64)
         degs = np.bincount(rows, minlength=n_pad)

@@ -3,10 +3,13 @@
 The counterpart of the Pallas half of ``spinglass_tpu.kernels.sparse``:
 
 * K2, ``csrc/sparse_sweep.cu`` (replaces ``make_single_sweep_call``): one
-  whole colour-sorted sweep per launch over spins [NS, R] float32, updated in
-  place. Two modes: host thresholds th [NS, R] (already masked), or
-  Philox4x32-10 drawn in the kernel from a 64-bit sweep seed with counter
-  (sorted row, replica).
+  whole colour-sorted sweep per launch over spins [NS, R] float32 (+-1),
+  updated in place. A thread block keeps its tile of replica columns in
+  shared memory as int8 for the whole sweep and gathers there
+  (``default_tile`` says which shapes fit; beyond them the wrapper
+  raises). Two modes: host thresholds th [NS, R]
+  (already masked), or Philox4x32-10 drawn in the kernel from a 64-bit
+  sweep seed with counter (sorted row, replica).
 * K3, ``csrc/sparse_thresholds.cu`` (replaces ``make_threshold_call``):
   th [NS, R] from the same Philox stream, -inf on padding rows.
 * K4, ``csrc/sparse_accept.cu`` (replaces ``make_accept_call``): one
@@ -43,15 +46,30 @@ THRESHOLD_KERNEL = "sparse_thresholds"
 ACCEPT_KERNEL = "sparse_accept"
 
 
-def default_tile(r: int) -> int:
-    """Replica columns per K2 thread block: the largest power of two that
-    still gives about 128 thread blocks (one per SM), at least 2 and at most
-    32. Measured on the H100 at NS=10240: R=128 76 us/sweep at 2 against 97
-    at 1 and 99 at 4; R=256 98 at 2 against 196 at 1; R=1024 205 at 8
-    against 277 at 4 and 346 at 16."""
-    tile = 2
-    while tile < 32 and tile * 2 * 128 <= r:
+MAX_TILE = 8              # replica columns per K2 thread block, at most
+TILE_SMEM_BYTES = 224 * 1024  # of a block's 227 KB, for the int8 spin tile
+
+
+def default_tile(r: int, n_sorted: int) -> int:
+    """Replica columns per K2 thread block at [n_sorted, r]: the largest
+    power of two up to 8 that still gives about 128 thread blocks (one per
+    SM), halved until the tile's n_sorted * columns bytes of int8 spins fit
+    the block's shared memory (n_sorted <= 28672 at 8 columns, 229376 at
+    1). Raises beyond that: the sparse engine sends K2 no such shape (its
+    [NS, R] float32 <= 80 MiB rule keeps n_sorted <= 163840). Measured on
+    the H100 (700 W) at NS=10240, us/sweep at 1 / 2 / 4 / 8 columns: R=128
+    58.6 / 60.6 / 77.5 / 121.8; R=256 111.5 / 68.5 / 78.1 / 121.9; R=1024
+    413.0 / 262.3 / 194.7 / 140.7."""
+    tile = 1
+    while tile < MAX_TILE and tile * 2 * 128 <= r:
         tile *= 2
+    while tile > 1 and n_sorted * tile > TILE_SMEM_BYTES:
+        tile //= 2
+    if n_sorted * tile > TILE_SMEM_BYTES:
+        raise ValueError(
+            f"sparse_sweep keeps a replica column of all {n_sorted} sorted "
+            f"rows in a thread block's shared memory as int8, at most "
+            f"{TILE_SMEM_BYTES} rows")
     return tile
 
 
@@ -75,6 +93,28 @@ def single_sweep_reference(groups, spins_t: torch.Tensor, th: torch.Tensor):
     from spinglass_tpu_torch.kernels.sparse import make_sorted_t_sweep
 
     return make_sorted_t_sweep(groups)(spins_t, th)
+
+
+def single_sweep_ordered(tables: dict, spans, spins_t: torch.Tensor,
+                         th: torch.Tensor):
+    """K2's arithmetic in plain PyTorch, slot by slot: per colour span
+    f = h, then f += val[:, k] * s[idx[:, k]] for k = 0, 1, ... (padding
+    slots add 0), the order in which the kernel sums a row's field.
+    ``single_sweep_reference`` lets torch.sum pick the order, which can
+    differ in the last bit on couplings that are not exact. In place;
+    returns (spins_t, dE[R] float32, n_accepted[R] int32)."""
+    from spinglass_tpu_torch.kernels.sparse import accept_colour
+
+    r = spins_t.shape[1]
+    de = torch.zeros(r, dtype=torch.float32, device=spins_t.device)
+    cnt = torch.zeros(r, dtype=torch.int32, device=spins_t.device)
+    idx, val = tables["idx"].long(), tables["val"]
+    for lo, hi in zip(spans[:-1], spans[1:]):
+        f = tables["h"][lo:hi, None].expand(hi - lo, r)
+        for k in range(idx.shape[1]):
+            f = f + val[lo:hi, k, None] * spins_t[idx[lo:hi, k]]
+        accept_colour(spins_t, lo, f, th[lo:hi], de, cnt)
+    return spins_t, de, cnt
 
 
 def accept_reference(f: torch.Tensor, spins_t: torch.Tensor, off: int,
@@ -134,7 +174,7 @@ class SparseKernels:
     ``mask`` [NS, 1] is 0 on real rows and -inf on padding rows. ``groups``
     (device buckets) and ``tables`` (``build_single_tables``' idx, val, h and
     per-row degree) are needed by K2 only; without them ``single_sweep``
-    raises. Tensors live on the problem's device.
+    raises. Spins are +-1. Tensors live on the problem's device.
     """
 
     def __init__(self, mask: torch.Tensor, rule: str, groups=None,
@@ -149,8 +189,13 @@ class SparseKernels:
             if any(off + size != nxt for (off, size, _), nxt
                    in zip(groups, spans[1:])):
                 raise ValueError("colour spans must be contiguous")
+            self.span_list = spans
             self.spans = torch.as_tensor(np.asarray(spans, np.int32),
                                          device=mask.device)
+            # K2 reads the slot tables transposed, [kmax, NS]: a warp's 32
+            # rows then read one 128-byte line per slot
+            self._idx_t = tables["idx"].t().contiguous()
+            self._val_t = tables["val"].t().contiguous()
         self.sweep_launches = 0       # K2 launches made by this instance
         self.threshold_launches = 0   # K3 launches made by this instance
         self.accept_launches = 0      # K4 launches made by this instance
@@ -192,6 +237,7 @@ class SparseKernels:
             raise ValueError("th must be contiguous float32 like spins_t")
         if seed is not None and not 0 <= seed < 2 ** 64:
             raise ValueError(f"seed {seed} is not a 64-bit unsigned value")
+        tile = default_tile(r, ns)
         lib = self._lib(0)
         beta = self._beta(beta, r)
         de = torch.empty(r, dtype=torch.float32, device=spins_t.device)
@@ -199,12 +245,12 @@ class SparseKernels:
         with torch.cuda.device(spins_t.device):
             stream = torch.cuda.current_stream(spins_t.device).cuda_stream
             err = lib.sgt_sparse_sweep(
-                t["idx"].data_ptr(), t["val"].data_ptr(), t["deg"].data_ptr(),
-                t["h"].data_ptr(), self.mask.data_ptr(), self.spans.data_ptr(),
-                len(self.spans) - 1, spins_t.data_ptr(),
-                None if th is None else th.data_ptr(), beta.data_ptr(),
-                0 if seed is None else seed, de.data_ptr(), cnt.data_ptr(),
-                ns, t["idx"].shape[1], r, default_tile(r),
+                self._idx_t.data_ptr(), self._val_t.data_ptr(),
+                t["deg"].data_ptr(), t["h"].data_ptr(), self.mask.data_ptr(),
+                self.spans.data_ptr(), len(self.spans) - 1,
+                spins_t.data_ptr(), None if th is None else th.data_ptr(),
+                beta.data_ptr(), 0 if seed is None else seed, de.data_ptr(),
+                cnt.data_ptr(), ns, t["idx"].shape[1], r, tile,
                 0 if self.rule == "metropolis" else 1, stream)
         _check(lib, err, SWEEP_KERNEL)
         self.sweep_launches += 1

@@ -187,3 +187,138 @@ def test_fused_accept_matches_twin_and_threshold_path(cuda, spin_dtype, r):
     assert torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
     assert torch.equal(de, de_p)
     assert eng.launches["sparse_accept"] == 1 + len(eng.groups)
+
+
+def _three_plane_problem(n, seed, device):
+    """Couplings +-(1 + 2^-9 + 2^-17) on a random graph of density 0.4: all
+    three bf16 planes of J are non-zero (hi 1, mid 2^-9, lo 2^-17), and with
+    n <= 200 (fewer than 126 couplings per spin) and h on a quarter grid
+    every partial sum of a field is a multiple of 2^-17 below 128, so
+    float32 sums are exact in any order."""
+    rng = np.random.default_rng(seed)
+    j = topology.random_graph(n, density=0.4, dist="binary", seed=seed)
+    assert int((j != 0).sum(axis=1).max()) < 126
+    j = j * (1.0 + 2.0 ** -9 + 2.0 ** -17)
+    return IsingProblem.from_dense(j, rng.integers(-8, 9, n) / 4.0,
+                                   device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,rule,block,planes", [
+    (r, rule, block, planes)
+    for r, rule, block in ((1, "metropolis", 128), (37, "glauber", 256),
+                           (64, "metropolis", 256), (1000, "glauber", 128))
+    for planes in (1, 3)])
+def test_cluster_kernel_matches_twin_bitwise(cuda, r, rule, block, planes):
+    """K1's cluster launch at replica counts that leave dead columns in a
+    72-column tile, one tile and fourteen, with one and with three bf16
+    planes of J: spins and counts equal the twin's bit for bit, in both
+    random-number modes (dE too where its sum is exact); so does
+    j_dtype="bfloat16" on +-J."""
+    if planes == 3:
+        p = _three_plane_problem(200, r, cuda)
+    else:
+        rng = np.random.default_rng(r)
+        p = IsingProblem.from_dense(
+            topology.fully_connected(500, dist="binary", seed=3),
+            rng.integers(-8, 9, 500) / 4.0, device=cuda)
+    n, n_pad = p.n_spins, p.n_padded
+    fused = MC.FusedSweep(p, block_size=block, rule=rule)
+    assert fused.planes == planes and fused.tile == MC.CLUSTER_TILE
+    sweeps = [fused]
+    if planes == 1:
+        sweeps.append(MC.FusedSweep(p, block_size=block, rule=rule,
+                                    j_dtype="bfloat16"))
+    rng = np.random.default_rng(r + 1)
+    beta = torch.as_tensor(rng.uniform(0.1, 2.0, r), dtype=torch.float32,
+                           device=cuda)
+    for sweep in sweeps:
+        s = torch.as_tensor(np.where(rng.random((n_pad, r)) < 0.5, -1.0, 1.0),
+                            dtype=torch.float32, device=cuda)
+        s[n:] = 1.0
+        for k in range(2):
+            s_ref = s.clone()
+            if k == 0:
+                u = torch.rand(n_pad, r, device=cuda)
+                _, de, cnt = sweep.sweep_with_uniforms(s, beta, u)
+            else:
+                _, de, cnt = sweep(s, beta, 2 ** 63 + k)
+                u = MC.philox_uniforms(2 ** 63 + k, n_pad, r, device=cuda)
+            _, de_p, cnt_p = MC.fused_sweep_reference(
+                p.j, p.h, p.active_mask, s_ref, beta, u, rule, block)
+            torch.cuda.synchronize()
+            assert torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
+            assert int(cnt.sum()) > 0
+            if planes == 1:
+                assert torch.equal(de, de_p)
+            else:  # dE sums 2^-16 steps beyond 24 bits: its order shows
+                assert float((de - de_p).abs().max()) <= 1e-3
+        assert sweep.launches == 2
+
+
+@pytest.mark.gpu
+def test_one_block_kernel_and_cluster_occupancy(cuda):
+    """Beyond the cluster kernel's shapes the wrapper takes the one-block
+    float32 kernel (here asked for by its tile): bitwise equal to the twin;
+    and the card reports how many clusters it holds."""
+    p = _three_plane_problem(200, 7, cuda)
+    fused = MC.FusedSweep(p, block_size=128)
+    fused.tile = MC.BLOCK_TILE
+    rng = np.random.default_rng(7)
+    s = torch.as_tensor(np.where(rng.random((256, 37)) < 0.5, -1.0, 1.0),
+                        dtype=torch.float32, device=cuda)
+    s[200:] = 1.0
+    s_ref = s.clone()
+    beta = torch.full((37,), 0.7, device=cuda)
+    _, de, cnt = fused(s, beta, 5)
+    u = MC.philox_uniforms(5, 256, 37, device=cuda)
+    _, de_p, cnt_p = MC.fused_sweep_reference(p.j, p.h, p.active_mask, s_ref,
+                                              beta, u, "metropolis", 128)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
+    assert float((de - de_p).abs().max()) <= 1e-3  # the order of dE's sum
+    occ = MC.cluster_occupancy(4096, 1024, 128)
+    assert occ["clusters_launched"] == 15 and occ["max_active_clusters"] >= 1
+    assert occ["smem_bytes_per_block"] == MC.cluster_smem_bytes(4096, 128)
+    big = MC.FusedSweep(IsingProblem(
+        j=torch.zeros(1, 8448, device=cuda), h=torch.zeros(8448, device=cuda),
+        active_mask=torch.ones(8448, device=cuda), n_spins=8448),
+        block_size=128)
+    assert big.tile == MC.BLOCK_TILE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,tile", [(27500, 8), (30000, 4)])
+def test_sparse_sweep_at_the_shared_memory_envelope(cuda, n, tile):
+    """K2 with the int8 tile just inside the block's shared memory at 8
+    columns, and just beyond it, where the rule halves the tile: both equal
+    the twin bit for bit on +-J. Beyond one column's envelope the wrapper
+    raises before it launches."""
+    ell = _pm_j_ell(n, 11, cuda)
+    eng = S.SortedSparseTEngine(ell, accept_kernel="single")
+    k = eng.kernels
+    r = 1024 + 16  # dead columns in the last block
+    assert SC.default_tile(r, eng.n_sorted) == tile
+    assert (eng.n_sorted * 8 <= SC.TILE_SMEM_BYTES) == (tile == 8)
+    gen = torch.Generator().manual_seed(n)
+    s = eng.to_layout(torch.where(torch.rand(r, ell.n_padded, generator=gen)
+                                  < 0.5, -1.0, 1.0).to(cuda))
+    beta = (torch.rand(r, generator=gen) * 2.0 + 0.1).to(cuda)
+    for it in range(2):
+        s_ref = s.clone()
+        seed = 2 ** 63 + it
+        th = SC.thresholds_reference(eng.mask_col, beta, seed, r, "metropolis")
+        kw = dict(seed=seed) if it else dict(th=th)
+        _, de, cnt = k.single_sweep(s, beta, **kw)
+        _, de_p, cnt_p = SC.single_sweep_reference(eng.groups, s_ref, th)
+        torch.cuda.synchronize()
+        assert torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
+        assert torch.equal(de, de_p) and int(cnt.sum()) > 0
+    assert k.sweep_launches == 2
+    big = SC.SparseKernels(torch.zeros(SC.TILE_SMEM_BYTES + 256, 1, device=cuda),
+                           "metropolis", k.groups, k.tables)
+    big.tables = dict(k.tables, idx=torch.zeros(SC.TILE_SMEM_BYTES + 256, 1))
+    with pytest.raises(ValueError, match="shared memory"):
+        big.single_sweep(torch.ones(SC.TILE_SMEM_BYTES + 256, 128, device=cuda),
+                         beta[:128], seed=1)
+    assert big.sweep_launches == 0

@@ -33,16 +33,16 @@ import torch
 torch.set_num_threads(1)
 import spinglass_tpu_torch as sgt
 from spinglass_tpu_torch.core import topology
-p = sgt.IsingProblem.from_dense(topology.fully_connected(12, dist="binary"))
+p = sgt.IsingProblem.from_dense(topology.fully_connected(12, dist="binary"), device="cpu")
 res = sgt.anneal(p, sgt.SAConfig(n_sweeps=2, n_replicas=2, record_interval=1))
 assert res.n_sweeps == 2 and np.isfinite(res.best_energy)
 from spinglass_tpu_torch.anneal import pt
 from spinglass_tpu_torch.benchmarks import planted
 from spinglass_tpu_torch.kernels.sparse import EllProblem
-ell = EllProblem.from_coo(60, *topology.sparse_random_graph_coo(60, seed=2))
+ell = EllProblem.from_coo(60, *topology.sparse_random_graph_coo(60, seed=2), device="cpu")
 sp = sgt.anneal(ell, sgt.SAConfig(n_sweeps=2, n_replicas=2, record_interval=1))
 inst = planted.planted_gauge_coo(60, 4.0, seed=1)
-ell = EllProblem.from_coo(60, inst.rows, inst.cols, inst.vals)
+ell = EllProblem.from_coo(60, inst.rows, inst.cols, inst.vals, device="cpu")
 ptr = pt.run(ell, pt.PTConfig(n_replicas=4, n_sweeps=5, exchange_interval=5))
 assert sp.n_sweeps == 2 and ptr.n_sweeps == 5 and np.isfinite(ptr.best_energy)
 loaded = sorted(m for m in sys.modules
@@ -92,7 +92,7 @@ def test_fused_sweep_on_cpu_never_launches_or_builds(monkeypatch):
 
     monkeypatch.setattr(build.subprocess, "run", no_subprocess)
     j = np.sign(np.random.default_rng(0).normal(size=(30, 30)))
-    p = IsingProblem.from_dense(j)
+    p = IsingProblem.from_dense(j, device="cpu")
     u = torch.rand(p.n_padded, 8, generator=torch.Generator().manual_seed(0))
     for flags in ({}, dict(pipelined=True), dict(interleave=2),
                   dict(interleave=4), dict(folded=True)):
@@ -114,7 +114,7 @@ def test_sparse_kernels_on_cpu_never_launch_or_build(monkeypatch):
     monkeypatch.setattr(build.subprocess, "Popen", no_subprocess)
     monkeypatch.setattr(build.subprocess, "run", no_subprocess)
     coo = topology.sparse_random_graph_coo(100, avg_degree=4.0, seed=1)
-    ell = S.EllProblem.from_coo(100, *coo)
+    ell = S.EllProblem.from_coo(100, *coo, device="cpu")
     gen = torch.Generator().manual_seed(0)
     for kw in (dict(accept_kernel="single"), dict(threshold_rng="kernel"),
                dict(accept_kernel="fused")):

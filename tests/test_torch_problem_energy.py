@@ -56,7 +56,7 @@ def test_from_dense_pads_and_symmetrises():
     a = np.random.default_rng(0).normal(size=(N, N))
     a[3, 3] = 5.0
     h = np.arange(N, dtype=np.float64)
-    p = IsingProblem.from_dense(a, h)
+    p = IsingProblem.from_dense(a, h, device="cpu")
     ref = JaxProblem.from_dense(a, h)
     assert p.n_spins == N and p.n_padded == 128 == ref.n_padded
     for ours, theirs in ((p.j, ref.j), (p.h, ref.h),
@@ -66,14 +66,14 @@ def test_from_dense_pads_and_symmetrises():
     assert torch.equal(p.j, p.j.t()) and float(p.j[3, 3]) == 0.0
     assert float(p.j[N:].abs().sum()) == 0.0 and float(p.active_mask.sum()) == N
     with pytest.raises(ValueError):
-        IsingProblem.from_dense(np.ones((3, 4)))
+        IsingProblem.from_dense(np.ones((3, 4)), device="cpu")
     with pytest.raises(ValueError):
-        IsingProblem.from_dense(np.ones((3, 3)), np.ones(2))
+        IsingProblem.from_dense(np.ones((3, 3)), np.ones(2), device="cpu")
 
 
 def test_from_terms_matches_jax():
     qi, qj, qv = [0, 1, 2, 0], [1, 2, 3, 1], [1.0, -2.0, 0.5, 0.25]
-    p = IsingProblem.from_terms(5, qi, qj, qv, lin_i=[0, 4], lin_val=[1.5, -1.0])
+    p = IsingProblem.from_terms(5, qi, qj, qv, lin_i=[0, 4], lin_val=[1.5, -1.0], device="cpu")
     ref = JaxProblem.from_terms(5, qi, qj, qv, lin_i=[0, 4], lin_val=[1.5, -1.0])
     np.testing.assert_array_equal(p.j.numpy(), np.asarray(ref.j))
     np.testing.assert_array_equal(p.h.numpy(), np.asarray(ref.h))
@@ -81,12 +81,12 @@ def test_from_terms_matches_jax():
 
 def test_npz_round_trip_with_jax_format(tmp_path):
     j, h, _ = _instance("gaussian")
-    ours = IsingProblem.from_dense(j, h)
+    ours = IsingProblem.from_dense(j, h, device="cpu")
     ref = JaxProblem.from_dense(j, h)
     ours.save(str(tmp_path / "ours.npz"))
     ref.save(str(tmp_path / "ref.npz"))
     # each package reads the other's file
-    a = IsingProblem.load(str(tmp_path / "ref.npz"))
+    a = IsingProblem.load(str(tmp_path / "ref.npz"), device="cpu")
     b = JaxProblem.load(str(tmp_path / "ours.npz"))
     np.testing.assert_array_equal(a.j.numpy(), ours.j.numpy())
     np.testing.assert_array_equal(np.asarray(b.j), np.asarray(ref.j))
@@ -98,7 +98,8 @@ def test_problem_from_numpy_takes_jax_arrays():
     j, h, _ = _instance("binary")
     ref = JaxProblem.from_dense(j, h)
     p = problem_from_numpy(np.asarray(ref.j), np.asarray(ref.h),
-                           np.asarray(ref.active_mask), ref.n_spins)
+                           np.asarray(ref.active_mask), ref.n_spins,
+                           device="cpu")
     assert p.n_spins == ref.n_spins and p.n_padded == ref.n_padded
     np.testing.assert_array_equal(p.j.numpy(), np.asarray(ref.j))
     np.testing.assert_array_equal(p.active_mask.numpy(),
@@ -106,7 +107,7 @@ def test_problem_from_numpy_takes_jax_arrays():
 
 
 def test_random_spins_masked():
-    p = IsingProblem.from_dense(np.zeros((N, N)))
+    p = IsingProblem.from_dense(np.zeros((N, N)), device="cpu")
     s = random_spins(torch.Generator().manual_seed(0), (R, p.n_padded),
                      p.active_mask)
     assert s.shape == (R, 128) and s.dtype == torch.float32
@@ -120,7 +121,7 @@ def test_random_spins_masked():
                                 "energy_decomposition", "energy_gradient"])
 def test_energy_functions_match_jax(fn, dist):
     j, h, spins = _instance(dist)
-    p = IsingProblem.from_dense(j, h)
+    p = IsingProblem.from_dense(j, h, device="cpu")
     ref = JaxProblem.from_dense(j, h)
     x = spins.T.copy() if fn == "energy_t" else spins
     ours = getattr(E, fn)(p, torch.as_tensor(x))

@@ -37,7 +37,7 @@ def _ells(inst):
     return (JS.EllProblem.from_coo(inst.n_spins, inst.rows, inst.cols,
                                    inst.vals),
             S.EllProblem.from_coo(inst.n_spins, inst.rows, inst.cols,
-                                  inst.vals))
+                                  inst.vals, device="cpu"))
 
 
 def _jax_state(cfg_kw, n_chains, seed):
@@ -58,7 +58,7 @@ def _jax_state(cfg_kw, n_chains, seed):
                       exch_accepts=jnp.asarray(att // 2),
                       acc_rate=jnp.zeros(nr * n_chains, jnp.float32))
     tst = pt_state_from_numpy(spins, slot, energy, energy, spins, 0, att,
-                              att // 2)
+                              att // 2, device="cpu")
     return jst, tst
 
 
@@ -162,7 +162,7 @@ def test_super_step_matches_jax(monkeypatch):
         np.asarray(jst.best_energy), np.asarray(jst.best_spins),
         int(jst.sweep), np.asarray(jst.exch_attempts),
         np.asarray(jst.exch_accepts), src_layout="nr", layout="nr",
-        spin_dtype=np.int8)
+        spin_dtype=np.int8, device="cpu")
     np.testing.assert_array_equal(teng.energy(tst.spins).numpy(),
                                   np.asarray(jst.energy))
     ex_u = []
@@ -305,8 +305,12 @@ def test_pt_unported_options_raise():
                checkpoint_dir="/nonexistent")
     with pytest.raises(NotImplementedError):
         pt.tune_ladder(tell, pt.PTConfig(n_replicas=4))
-    with pytest.raises(NotImplementedError):
-        pt.PTConfig(j_dtype="bfloat16")
+    # j_dtype="bfloat16" is ported: it runs, and an unknown dtype raises
+    res = pt.run(tell, pt.PTConfig(n_replicas=4, n_sweeps=10,
+                                   j_dtype="bfloat16"))
+    assert res.n_sweeps == 10 and np.isfinite(res.best_energy)
+    with pytest.raises(ValueError, match="j_dtype"):
+        pt.PTConfig(j_dtype="float16")
     st = pt.init_state(tell, dataclasses.replace(pt.PTConfig(n_replicas=4),
                                                  n_chains=2))
     assert st.spins.shape == (8, tell.n_padded) and st.slot.tolist() == [

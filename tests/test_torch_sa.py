@@ -69,7 +69,8 @@ def test_driver_matches_jax_sweep_for_sweep():
     j = topology.fully_connected(N, dist="binary", seed=1)
     jp = JaxProblem.from_dense(j)
     tp = problem_from_numpy(np.asarray(jp.j), np.asarray(jp.h),
-                            np.asarray(jp.active_mask), jp.n_spins)
+                            np.asarray(jp.active_mask), jp.n_spins,
+                            device="cpu")
     rng = np.random.default_rng(7)
     uniforms = rng.random((SWEEPS, R, jp.n_padded)).astype(np.float32)
     init = np.where(rng.random((R, jp.n_padded)) < 0.5, -1.0, 1.0)
@@ -87,7 +88,8 @@ def test_driver_matches_jax_sweep_for_sweep():
                               np.asarray(jst.best_energy),
                               np.asarray(jst.best_spins),
                               np.asarray(jst.sched.temp),
-                              np.asarray(jst.sched.acc_ema), int(jst.sweep))
+                              np.asarray(jst.sched.acc_ema), int(jst.sweep),
+                              device="cpu")
     ref_init = sa.init_state(tp, tcfg, teng, init_spins=torch.as_tensor(init))
     assert torch.equal(tst.energy, ref_init.energy)
     assert torch.equal(tst.spins, ref_init.spins)
@@ -113,7 +115,7 @@ def test_driver_matches_jax_sweep_for_sweep():
 
 def test_run_chunk_equals_sweep_loop_and_resyncs():
     p = IsingProblem.from_dense(topology.fully_connected(40, dist="gaussian",
-                                                         seed=2))
+                                                         seed=2), device="cpu")
     cfg = SAConfig(n_sweeps=30, n_replicas=3, sweep_method="blocked")
     eng = sa.make_sweep_engine(p, cfg)
     a = sa.init_state(p, cfg, eng, torch.Generator().manual_seed(3))
@@ -130,7 +132,7 @@ def test_run_chunk_equals_sweep_loop_and_resyncs():
 def test_ferromagnet_reaches_ground_state():
     n = 16
     p = IsingProblem.from_dense(topology.fully_connected(
-        n, dist="ferromagnetic", seed=0))
+        n, dist="ferromagnetic", seed=0), device="cpu")
     res = anneal(p, SAConfig(n_sweeps=100, n_replicas=4, record_interval=10))
     assert isinstance(res, AnnealResult)
     assert res.best_energy == -n * (n - 1) / 2
@@ -149,7 +151,7 @@ def test_ferromagnet_reaches_ground_state():
 def test_early_stop_and_colored_engine():
     """An 8x8 grid ferromagnet is 2-colourable, so auto picks the colored
     engine; once the best energy holds still for 20 records the run stops."""
-    p = IsingProblem.from_dense(topology.grid_2d(8, 8, dist="ferromagnetic"))
+    p = IsingProblem.from_dense(topology.grid_2d(8, 8, dist="ferromagnetic"), device="cpu")
     cfg = SAConfig(n_sweeps=400, n_replicas=4, record_interval=2,
                    schedule=ScheduleConfig(initial_temp=2.0, final_temp=0.05))
     res = anneal(p, cfg)
@@ -162,7 +164,7 @@ def test_early_stop_and_colored_engine():
 
 def test_anneal_is_seeded_and_glauber_runs():
     p = IsingProblem.from_dense(topology.fully_connected(30, dist="gaussian",
-                                                         seed=4))
+                                                         seed=4), device="cpu")
     cfg = SAConfig(n_sweeps=20, n_replicas=2, update_rule="glauber",
                    record_interval=5)
     a, b = anneal(p, cfg), anneal(p, cfg)
@@ -173,21 +175,24 @@ def test_anneal_is_seeded_and_glauber_runs():
 
 
 def test_unported_options_raise():
-    p = IsingProblem.from_dense(np.zeros((8, 8)))
+    p = IsingProblem.from_dense(np.zeros((8, 8)), device="cpu")
     with pytest.raises(NotImplementedError):
         anneal(p, SAConfig(n_sweeps=2), checkpoint_dir="/nonexistent")
-    with pytest.raises(NotImplementedError):
-        SAConfig(j_dtype="bfloat16")
+    # j_dtype="bfloat16" is ported: it runs, and an unknown dtype raises
+    res = anneal(p, SAConfig(n_sweeps=2, j_dtype="bfloat16"))
+    assert res.n_sweeps == 2 and np.isfinite(res.best_energy)
+    with pytest.raises(ValueError, match="j_dtype"):
+        SAConfig(j_dtype="float16")
     with pytest.raises(NotImplementedError):
         sa.anneal_scan(p, SAConfig(n_sweeps=2))
 
 
 def test_make_engine_choices():
-    dense = IsingProblem.from_dense(topology.fully_connected(20, seed=0))
+    dense = IsingProblem.from_dense(topology.fully_connected(20, seed=0), device="cpu")
     assert isinstance(engines.make_engine(dense), engines.BlockedEngine)
     assert isinstance(engines.make_engine(dense, use_kernel="never"),
                       engines.BlockedEngine)
-    grid = IsingProblem.from_dense(topology.grid_2d(4, 4))
+    grid = IsingProblem.from_dense(topology.grid_2d(4, 4), device="cpu")
     assert isinstance(engines.make_engine(grid), engines.ColoredEngine)
     with pytest.raises(ValueError, match="no CPU mode"):
         engines.make_engine(dense, use_kernel="always")
@@ -197,7 +202,7 @@ def test_make_engine_choices():
     with pytest.raises(NotImplementedError, match="sparse_compact"):
         engines.make_engine(dense, sweep_method="sparse_compact")
     sparse = IsingProblem.from_dense(topology.random_graph(
-        engines.SPARSE_MIN_SPINS, density=0.002, dist="binary", seed=1))
+        engines.SPARSE_MIN_SPINS, density=0.002, dist="binary", seed=1), device="cpu")
     # sparse enough for the sorted sparse engine; on the CPU the [R, N] one
     assert engines.make_engine(sparse, r_hint=1024).name == "sparse_sorted"
     assert isinstance(engines.make_engine(sparse, sweep_method="blocked"),
@@ -211,13 +216,15 @@ def test_sa_state_from_numpy_layouts():
     s_nr = np.where(rng.random((128, 5)) < 0.5, -1.0, 1.0).astype(np.float32)
     e = rng.normal(size=5).astype(np.float32)
     st = sa_state_from_numpy(s_nr, e, e, s_nr, 2.5, 0.44, 7,
-                             src_layout="nr", layout="rn")
+                             src_layout="nr", layout="rn", device="cpu")
     assert st.spins.shape == (5, 128) and st.spins.is_contiguous()
     np.testing.assert_array_equal(st.spins.numpy(), s_nr.T)
     assert st.sweep == 7 and float(st.sched.temp) == 2.5
     assert st.acc_rate.shape == (5,)
     back = sa_state_from_numpy(st.spins.numpy(), e, e, st.spins.numpy(), 2.5,
-                               0.44, 7, src_layout="rn", layout="nr")
+                               0.44, 7, src_layout="rn", layout="nr",
+                               device="cpu")
     np.testing.assert_array_equal(back.best_spins.numpy(), s_nr)
     with pytest.raises(ValueError):
-        sa_state_from_numpy(s_nr, e, e, s_nr, 1.0, 0.4, 0, src_layout="xy")
+        sa_state_from_numpy(s_nr, e, e, s_nr, 1.0, 0.4, 0, src_layout="xy",
+                            device="cpu")

@@ -45,7 +45,7 @@ def _pair(n=N, dist="binary", seed=3, with_h=True):
     h = (np.random.default_rng(seed).integers(-8, 9, n) / 4.0
          if with_h else None)
     return (JS.EllProblem.from_coo(n, *coo, h=h),
-            S.EllProblem.from_coo(n, *coo, h=h))
+            S.EllProblem.from_coo(n, *coo, h=h, device="cpu"))
 
 
 def _spins(r, n_pad, n, seed=0):
@@ -86,7 +86,8 @@ def test_ell_from_coo_and_from_problem_match_jax():
     j = T.random_graph(120, density=0.05, dist="gaussian", seed=2)
     jp = JaxProblem.from_dense(j)
     tp = problem_from_numpy(np.asarray(jp.j), np.asarray(jp.h),
-                            np.asarray(jp.active_mask), jp.n_spins)
+                            np.asarray(jp.active_mask), jp.n_spins,
+                            device="cpu")
     jf, tf = JS.EllProblem.from_problem(jp), S.EllProblem.from_problem(tp)
     np.testing.assert_array_equal(tf.idx.numpy(), np.asarray(jf.idx))
     np.testing.assert_array_equal(tf.val.numpy(), np.asarray(jf.val))
@@ -102,13 +103,13 @@ def test_ell_from_terms_and_numpy_match_jax():
     keep = terms.quad_i != terms.quad_j
     terms.quad_i, terms.quad_j = terms.quad_i[keep], terms.quad_j[keep]
     terms.quad_v = terms.quad_v[keep]
-    je, te = JS.ell_from_terms(50, terms), S.ell_from_terms(50, terms)
+    je, te = JS.ell_from_terms(50, terms), S.ell_from_terms(50, terms, device="cpu")
     np.testing.assert_array_equal(te.idx.numpy(), np.asarray(je.idx))
     np.testing.assert_array_equal(te.val.numpy(), np.asarray(je.val))
     np.testing.assert_array_equal(te.h.numpy(), np.asarray(je.h))
     back = ell_from_numpy(np.asarray(je.idx), np.asarray(je.val),
                           np.asarray(je.h), np.asarray(je.active_mask),
-                          je.n_spins)
+                          je.n_spins, device="cpu")
     assert torch.equal(back.idx, te.idx) and torch.equal(back.val, te.val)
 
 
@@ -244,7 +245,8 @@ def test_make_engine_matches_jax():
                        seed=1)
     jp = JaxProblem.from_dense(j)
     tp = problem_from_numpy(np.asarray(jp.j), np.asarray(jp.h),
-                            np.asarray(jp.active_mask), jp.n_spins)
+                            np.asarray(jp.active_mask), jp.n_spins,
+                            device="cpu")
     assert engines.SPARSE_T_MIN_REPLICAS == jengines.SPARSE_T_MIN_REPLICAS
     for jprob, tprob in ((je, te), (jp, tp)):
         for method in ("auto", "sparse", "sparse_t"):
@@ -280,8 +282,11 @@ def test_thresholds_reference_and_philox_twin():
                             "sparse_accept": 0}
     with pytest.raises(ValueError, match="exactly one"):
         eng.kernels.single_sweep(s0, beta)
-    assert SC.default_tile(128) == 2 and SC.default_tile(1024) == 8
-    assert SC.default_tile(8192) == 32 and SC.default_tile(37) == 2
+    ns = eng.n_sorted
+    assert SC.default_tile(128, ns) == 1
+    assert SC.default_tile(1024, ns) == 8
+    assert SC.default_tile(8192, ns) == 8
+    assert SC.default_tile(37, ns) == 1
 
 
 @pytest.mark.parametrize("rule", ["metropolis", "glauber"])

@@ -36,7 +36,8 @@ def _pm_j(n, seed, topo="full"):
     h = rng.integers(-8, 9, n) / 4.0
     ref = JaxProblem.from_dense(j, h)
     ours = problem_from_numpy(np.asarray(ref.j), np.asarray(ref.h),
-                              np.asarray(ref.active_mask), ref.n_spins)
+                              np.asarray(ref.active_mask), ref.n_spins,
+                              device="cpu")
     return ref, ours
 
 

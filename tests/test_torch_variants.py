@@ -50,7 +50,8 @@ def _pm_j(n=N, seed=1):
     h = np.random.default_rng(seed).integers(-8, 9, n) / 4.0
     ref = JaxProblem.from_dense(j, h)
     ours = problem_from_numpy(np.asarray(ref.j), np.asarray(ref.h),
-                              np.asarray(ref.active_mask), ref.n_spins)
+                              np.asarray(ref.active_mask), ref.n_spins,
+                              device="cpu")
     return ref, ours
 
 
