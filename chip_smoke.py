@@ -7,12 +7,13 @@ Builds the port's kernels from csrc/ with nvcc (one process per source, all
 at once): K1 (dense sweep: a thread-block cluster per 72 replica columns,
 bf16 tensor-core fields from an exact 3-plane split of J), its variants K5
 (pipelined), K6 (interleaved) and K7 (folded), K2 (single-call sparse
-sweep, the tile's spins in shared memory), K3 (sparse thresholds) and K4
-(fused sparse accept). Holds each against its plain PyTorch twin, drives
+sweep, the tile's spins in shared memory), K3 (sparse thresholds, four per
+Philox run) and K4 (one colour of the sparse sweep per launch: it gathers
+its own fields). Holds each against its plain PyTorch twin, drives
 the dense SA slice (SK glass, N=4096, R=1024; K1 and each variant) and the
 sparse slice (10k spins: SA at R=1024, time-to-target PT at R=128, PT at
-R=4096 on K3 and on K4) end to end, and times the kernels against the
-twins. Phases:
+R=4096 on K4, make_engine's choice there, and on K3) end to end, and times
+the kernels against the twins. Phases:
 
   1. device and build: nvidia-smi name and power limit, build seconds,
      registers, spills and shared memory of every kernel, and how many of
@@ -32,19 +33,23 @@ twins. Phases:
      both rules, K2 on K3's thresholds and in Philox mode, 3 sweeps; the
      same on the Gaussian 10k graph against the slot-ordered twin (spins and
      counts bitwise) and the per-colour twin (counts within 0.5%); K3 at
-     [10240, 1024] and [10240, 4096]; two PT super-steps through
+     [10240, 1024], [10240, 4096] and [10240, 130] (R % 4 != 0); two PT
+     super-steps through
      make_engine's engine (K2, R=128) against the same driver with the twin
      on a +-J planted 10k instance (state bitwise); Gaussian 10k energy
-     identity (1e-4 relative) on K2 (R=1024) and on K3 + the plain sweep
-     (R=4096).
+     identity (1e-4 relative) on K2 (R=1024), on K4 (R=4096 and 16) and on
+     K3 + the plain sweep (R=4096).
      K5, K6 (2 and 4 chains), K7: each against its own twin and against K1
      on +-J N=500 (R in {1, 37, 256, 1024}, both rules, both blocks,
      host-uniform and Philox sweeps), and at N=4096, R=1024 against its
      twin and K1 (block 128, Philox) and against K1 (block 256, host
      uniforms): spins, dE, counts bitwise.
-     K4: one colour against its twin on the 10k +-J graph, int8 and float32
-     spins, R in {128, 4096}; one K4-path sweep == one K3-path sweep == one
-     K2 sweep at [10240, 1024] under one seed, bitwise;
+     K4: whole sweeps in gather mode against the slot-ordered plain version
+     on the 10k +-J graph (spins, dE, counts bitwise) and on the Gaussian
+     10k graph (spins and counts bitwise, dE within 1e-5), int8 and float32
+     spins, both rules, R in {128, 4096}; on given fields against its twin
+     (R in {128, 4096, 130}); one K4-path sweep == one K3-path sweep == one
+     K2 sweep at [10240, 1024] and [10240, 130] under one seed, bitwise;
   3. in-kernel Philox, statistically: a 6-spin system sampled for 400 sweeps
      at beta=0.6 against exact enumeration (TV < 0.05), through K1 and
      through K2; K1's SK acceptance within 1% of the host-uniform sweep's;
@@ -56,15 +61,19 @@ twins. Phases:
      SortedSparseTEngine with K2 500 times; time_to_target on the
      ttt_provenance.json instance (hash checked) must hit its threshold for
      seeds 42, 43, 44 within 20000 sweeps; pt.run with R=4096 (32 chains of
-     128) must take the threshold path, K3 200 times. Each run's
+     128) must take the fused sweep, K4 once per colour and sweep. The
+     sparse anneal's E/N must lie within 0.01 of -1.63. Each run's
      best_energy must equal the energy of its best_spins (1e-3 relative).
      Then each dense variant runs 200 sweeps of the SK anneal (its seeds,
      a 200-sweep schedule, sa's sweep step): E/N <= -0.72, energy identity
-     within 1e-4 relative per 50-sweep chunk; on a +-J N=4096 instance 100
+     within 1e-4 relative per 50-sweep chunk; on a +-J N=4096 instance 50
      such sweeps must end bitwise equal to K1's spins. PT at R=4096 through
      make_pt_step with SortedSparseTEngine(accept_kernel="fused") for 200
-     sweeps must equal the K3 path under one seed (spins and slots bitwise,
-     energies within 1e-4), with K4 launched and K3 not. The launch counts
+     sweeps on the +-J 10k graph must equal the K3 path
+     (accept_kernel="none", K3 200 times)
+     under one seed (spins and slots bitwise, energies within 1e-4), with
+     K4 launched once per colour and sweep, K3 not, and no per-colour field
+     gather outside K4. The launch counts
      are those of the engine each run builds, so they start at 0 and count
      only that run's launches;
   5. timing: each kernel's bound (bytes over 3.35 TB/s against operations
@@ -76,9 +85,11 @@ twins. Phases:
      at [10240, 4096]; the TTT median; bench_pt10k (300 sweeps); the device
      breakdown of a sparse SA chunk and of the TTT loop; K1, K5, K6 (2, 4)
      and K7 at N=4096, R=1024, blocks 128 and 256, in turns, beside the
-     twins' sweeps at that shape (timed in phase 2); the K4 path and the K3
-     path at R=4096, one run each, and K4 alone against its twin over one
-     sweep's colours.
+     twins' sweeps at that shape (timed in phase 2); K4 in gather mode alone
+     over one sweep's colours beside its plain version and K4 on given
+     fields; PT at R=4096 three ways in turns (the K3 path, the K4 path, K2
+     with its budget lifted) with each way's device breakdown; PT at 16
+     replicas through K4 and through the plain [R, N] engine.
 
 Any failed check exits non-zero. The last line is the JSON status
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -114,10 +125,13 @@ TF32_NOTE = "torch.backends.cuda.matmul.allow_tf32 = False (full float32 matmuls
 # published peaks of one H100 SXM (NVIDIA's data sheet): device memory,
 # bf16 tensor cores, float32 outside the tensor cores
 HBM_BYTES_PER_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
-# integer and float operations of one Philox4x32-10 draw and its threshold:
-# 10 rounds of 4 multiplies, 4 xors and 2 adds, then the conversion and the
-# logarithm; counted at the float32 rate (the data sheet gives no int32 one)
-PHILOX_OPS = 110
+# integer and float operations of one run of Philox4x32-10 (10 rounds of 4
+# multiplies, 4 xors and 2 adds) and of one threshold from an output word
+# (the conversion and the logarithm); counted at the float32 rate (the data
+# sheet gives no int32 one). The sparse kernels' stream takes four
+# thresholds from a run, so their work is a quarter run per entry.
+PHILOX_RUN_OPS, THRESHOLD_OPS = 100, 10
+SPARSE_DRAW_OPS = PHILOX_RUN_OPS / 4 + THRESHOLD_OPS
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float):
@@ -624,12 +638,12 @@ def variant_slice(torch, mc, stats):
               f"schedule: launched {launches} times, best E/N {e_n:.5f} <= "
               f"-0.72, energy identity max rel err {rel:.3e} <= 1e-4")
     pm = pm_j_problem(4096, 9, "cuda")
-    ref, _, _ = _variant_run(torch, mc, pm, {}, 100, 50)
+    ref, _, _ = _variant_run(torch, mc, pm, {}, 50, 50)
     for label, flags in VARIANTS.items():
-        state, engine, _ = _variant_run(torch, mc, pm, flags, 100, 50)
+        state, engine, _ = _variant_run(torch, mc, pm, flags, 50, 50)
         check(torch.equal(state.spins, ref.spins)
               and torch.equal(state.best_energy, ref.best_energy),
-              f"{label}: +-J N=4096 R=1024, 100 Philox sweeps: spins and "
+              f"{label}: +-J N=4096 R=1024, 50 Philox sweeps: spins and "
               f"best energies bitwise equal to K1's")
 
 
@@ -739,14 +753,17 @@ def sparse_parity(torch, stats):
                 "bitwise; K3(seed) == its twin")
     ell = pm_j_ell(10000, 42)
     eng = SortedSparseTEngine(ell, accept_kernel="single")
-    for r in (1024, 4096):
+    for r, rule in ((1024, "metropolis"), (4096, "metropolis"),
+                    (4096, "glauber"), (130, "metropolis"), (130, "glauber")):
+        k3 = SortedSparseTEngine(ell, rule=rule, accept_kernel="none").kernels
         beta = torch.linspace(0.05, 3.0, r, device="cuda")
-        th_k = eng.kernels.thresholds(beta, 2 ** 63 + r, r)
+        th_k = k3.thresholds(beta, 2 ** 63 + r, r)
         th_p = sc.thresholds_reference(eng.mask_col, beta, 2 ** 63 + r, r,
-                                       "metropolis")
+                                       rule)
         torch.cuda.synchronize()
-        check(torch.equal(th_k, th_p), f"K3 == twin bitwise at "
-                                       f"[{eng.n_sorted}, {r}] (64-bit seed)")
+        check(torch.equal(th_k, th_p) and k3.threshold_launches == 1,
+              f"K3 == twin bitwise at [{eng.n_sorted}, {r}] {rule} (64-bit "
+              f"seed{'; R % 4 != 0: scalar stores' if r % 4 else ''})")
     stats["k2_max_abs_err"], stats["k3_max_abs_err"] = worst["k2"], worst["k3"]
     sparse_gaussian_parity(torch)
     pt_driver_parity(torch)
@@ -850,27 +867,36 @@ def pt_driver_parity(torch):
 
 
 def gaussian_identity(torch):
-    """Gaussian couplings: E0 + dE == E1 after one sweep, on K2 (R=1024) and
-    on the threshold path (K3 + the plain sweep, R=4096)."""
+    """Gaussian couplings: E0 + dE == E1 after one sweep, through
+    make_engine's engine on K2 (R=1024) and on K4 (R=4096 and R=16, which K2
+    does not take), and on the threshold path (K3 + the plain sweep,
+    R=4096)."""
     from spinglass_tpu_torch.anneal.engines import make_engine
     from spinglass_tpu_torch.benchmarks.headline import sparse_bench_problem
     from spinglass_tpu_torch.core.problem import random_spins
+    from spinglass_tpu_torch.kernels.sparse import SortedSparseTEngine
 
     ell = sparse_bench_problem()
     eng = make_engine(ell, r_hint=1024)
+    none = SortedSparseTEngine(ell, accept_kernel="none")
+    n_col = len(eng.groups)
     gen = torch.Generator().manual_seed(5)
-    for r, path in ((1024, "K2"), (4096, "K3 + plain sweep")):
-        s = eng.to_layout(random_spins(gen, (r, ell.n_padded), ell.active_mask))
-        e0 = eng.energy(s)
-        before = dict(eng.launches)
-        s, de, cnt = eng.sweep(s, torch.full((r,), 1.0, device="cuda"), gen)
-        e1 = eng.energy(s)
+    for e, r, path, key, n in ((eng, 1024, "K2", "sparse_sweep", 1),
+                               (eng, 4096, "K4", "sparse_accept", n_col),
+                               (eng, 16, "K4", "sparse_accept", n_col),
+                               (none, 4096, "K3 + plain sweep",
+                                "sparse_thresholds", 1)):
+        s = e.to_layout(random_spins(gen, (r, ell.n_padded), ell.active_mask))
+        e0 = e.energy(s)
+        before = dict(e.launches)
+        s, de, cnt = e.sweep(s, torch.full((r,), 1.0, device="cuda"), gen)
+        e1 = e.energy(s)
         torch.cuda.synchronize()
         rel = float(((e0 + de - e1).abs() / e1.abs().clamp(min=1.0)).max())
-        key = "sparse_sweep" if r == 1024 else "sparse_thresholds"
-        check(rel <= 1e-4 and eng.launches[key] == before[key] + 1,
-              f"Gaussian 10k R={r} ({path}): E0 + dE == E1, max rel err "
-              f"{rel:.3e} <= 1e-4; acceptance {float(cnt.sum()) / (r * 1e4):.4f}")
+        check(rel <= 1e-4 and e.launches[key] == before[key] + n,
+              f"Gaussian 10k R={r} ({path}, {s.dtype}): E0 + dE == E1, max "
+              f"rel err {rel:.3e} <= 1e-4; acceptance "
+              f"{float(cnt.sum()) / (r * 1e4):.4f}")
 
 
 def sparse_philox(torch):
@@ -911,8 +937,8 @@ def sparse_philox(torch):
 
 
 def sparse_slice(torch, stats):
-    """Phase 4 (sparse): sparse SA, time-to-target and the K3 path of PT,
-    through the user's entry points."""
+    """Phase 4 (sparse): sparse SA, time-to-target and PT at R=4096, through
+    the user's entry points."""
     import numpy as np
 
     from spinglass_tpu_torch import SAConfig, anneal
@@ -958,6 +984,9 @@ def sparse_slice(torch, stats):
           f"K2 launched {k2} times (500 expected), K3 "
           f"{res.metadata['kernel_launches'].get('sparse_thresholds')}")
     best_check(res, "sparse anneal")
+    e_n = res.best_energy / ell.n_spins
+    check(abs(e_n + 1.63) <= 0.01, f"sparse anneal E/N {e_n:.5f} within 0.01 "
+                                   f"of -1.63")
 
     ttt = headline.bench_ttt(max_sweeps=20000)
     stats["ttt"] = ttt
@@ -973,16 +1002,18 @@ def sparse_slice(torch, stats):
     cfg = pt.PTConfig(n_replicas=128, n_chains=32, n_sweeps=200,
                       exchange_interval=10, min_temp=0.05, max_temp=3.0)
     res = pt.run(ell, cfg)
-    k3 = res.metadata["kernel_launches"]
-    stats["k3_launches"] = k3.get("sparse_thresholds", 0)
+    k4 = res.metadata["kernel_launches"]
+    stats["k4_launches"] = k4.get("sparse_accept", 0)
+    n_col = len(eng.groups)
     print(f"  PT R=4096: {res.total_time:.3f} s for 200 sweeps, "
           f"{res.spin_flips_per_second:.4e} flips/s, exchange rate "
           f"{pt.exchange_rate_summary(res)['mean_exchange_rate']:.3f}")
     check(res.metadata["engine"] == "sparse_sorted_t"
-          and k3 == {"sparse_sweep": 0, "sparse_thresholds": 200,
-                     "sparse_accept": 0},
-          f"pt.run(n_chains=32, R=4096, 200 sweeps) took the threshold path: "
-          f"launches {k3}")
+          and k4 == {"sparse_sweep": 0, "sparse_thresholds": 0,
+                     "sparse_accept": 200 * n_col},
+          f"pt.run(n_chains=32, R=4096, 200 sweeps) took make_engine's "
+          f"choice beyond K2's budget, the fused sweep: K4 once per colour "
+          f"({n_col}) and sweep, launches {k4}")
     best_check(res, "PT R=4096")
 
 
@@ -1043,30 +1074,48 @@ def sparse_timing(torch, stats, card):
     stats.update(k2_ms=us_k2 / 1e3, k2_plain_ms=us_twin / 1e3,
                  k3_ms=us_k3 / 1e3, k3_plain_ms=us_k3_twin / 1e3)
     # bounds. K2 at [NS, 1024]: the spins read and written, the tables
-    # (idx, val, deg, h, mask), beta, dE, counts; a Philox draw per spin and
-    # an FMA per coupling and replica. K3 at [NS, 4096]: th written, mask
-    # and beta read; a draw per entry. K4 over one sweep at [NS, 4096]:
-    # fields read, int8 spins read and written; a draw per entry.
+    # (idx, val, deg, h, mask), beta, dE, counts; a threshold per spin (a
+    # quarter Philox run each) and an FMA per coupling and replica. K3 at
+    # [NS, 4096]: th written, mask and beta read; a threshold per entry. K4
+    # in gather mode over one sweep at [NS, 4096]: the int8 spins read and
+    # written once, the tables, beta, dE, counts (every gather served by
+    # the cache); a threshold per entry and an FMA per coupling and replica.
     ns, kmax = eng.n_sorted, eng.kernels.tables["idx"].shape[1]
     nnz = int(eng.kernels.tables["deg"].sum())
-    k2_bytes = 8 * ns * 1024 + ns * (8 * kmax + 12) + 12 * 1024
-    k2_ops = ns * 1024 * PHILOX_OPS + 2.0 * nnz * 1024
+    tables = ns * (8 * kmax + 12)
+    k2_bytes = 8 * ns * 1024 + tables + 12 * 1024
+    k2_ops = ns * 1024 * SPARSE_DRAW_OPS + 2.0 * nnz * 1024
+    k4_bytes = 2 * ns * 4096 + tables + 12 * 4096
+    k4_ops = ns * 4096 * SPARSE_DRAW_OPS + 2.0 * nnz * 4096
     stats["bounds"].update({
         "sparse_sweep": bound(k2_bytes, k2_ops, FP32_FLOPS),
         "sparse_thresholds": bound(4 * ns * 4096 + 4 * ns + 4 * 4096,
-                                   ns * 4096 * PHILOX_OPS, FP32_FLOPS),
-        "sparse_accept": bound(6 * ns * 4096 + 4 * ns + 12 * 4096,
-                               ns * 4096 * PHILOX_OPS, FP32_FLOPS)})
-    b128, _ = bound(8 * ns * 128 + ns * (8 * kmax + 12) + 12 * 128,
-                    ns * 128 * PHILOX_OPS + 2.0 * nnz * 128, FP32_FLOPS)
+                                   ns * 4096 * SPARSE_DRAW_OPS, FP32_FLOPS),
+        "sparse_accept": bound(k4_bytes, k4_ops, FP32_FLOPS)})
+    b128, _ = bound(8 * ns * 128 + tables + 12 * 128,
+                    ns * 128 * SPARSE_DRAW_OPS + 2.0 * nnz * 128, FP32_FLOPS)
     for name in ("sparse_sweep", "sparse_thresholds", "sparse_accept"):
         b_ms, b_by = stats["bounds"][name]
         print(f"  {name} bound: {1e3 * b_ms:.1f} us ({b_by}) [{card}]")
     print(f"  K2 at [{ns}, 1024]: {k2_bytes / 1e6:.1f} MB, {k2_ops:.3e} "
-          f"operations ({PHILOX_OPS} per Philox draw, at the float32 rate); "
+          f"operations ({SPARSE_DRAW_OPS:.0f} per threshold: a quarter of a "
+          f"Philox run's {PHILOX_RUN_OPS} and {THRESHOLD_OPS}, at the float32 "
+          f"rate); "
           f"{us_k2:.1f} us is {100 * 1e3 * stats['bounds']['sparse_sweep'][0] / us_k2:.1f}% "
           f"of the bound's rate; at [{ns}, 128] the bound is {1e3 * b128:.1f} "
           f"us against {us_128:.1f} us [{card}]")
+    b3 = stats["bounds"]["sparse_thresholds"][0]
+    print(f"  K3 at [{ns}, 4096]: {4 * ns * 4096 / 1e6:.1f} MB written, "
+          f"{ns * 4096 * SPARSE_DRAW_OPS:.3e} operations "
+          f"({1e6 * ns * 4096 * SPARSE_DRAW_OPS / FP32_FLOPS:.1f} us); "
+          f"{us_k3:.1f} us is {100 * 1e3 * b3 / us_k3:.1f}% of the bound's "
+          f"rate [{card}]")
+    print(f"  K4 over one sweep at [{ns}, 4096] int8: {k4_bytes / 1e6:.1f} MB, "
+          f"{k4_ops:.3e} operations "
+          f"({1e6 * k4_ops / FP32_FLOPS:.1f} us); if every gather went to "
+          f"device memory {(k4_bytes + nnz * 4096) / 1e6:.1f} MB, "
+          f"{1e6 * (k4_bytes + nnz * 4096) / HBM_BYTES_PER_S:.1f} us "
+          f"(its time is in phase 5 (K4)) [{card}]")
     # library yardstick for K2's field work alone (never called by the
     # port's sweep): the CSR couplings times the [NS, 1024] spins
     us_mm = timed(lambda: torch.sparse.mm(eng._coupling, s), 20)
@@ -1080,10 +1129,13 @@ def sparse_timing(torch, stats, card):
 # ---------------------------------------------------------------------------
 
 def accept_parity(torch, stats):
-    """Phase 2 (K4): one colour against its twin, and one K4-path sweep
-    against one K3-path sweep and one K2 sweep under one seed."""
+    """Phase 2 (K4): the gather mode against its plain version on +-J and
+    on Gaussian couplings, the given-fields mode against its twin, and one
+    K4-path sweep against one K3-path sweep and one K2 sweep under one
+    seed."""
     import numpy as np
 
+    from spinglass_tpu_torch.benchmarks.headline import sparse_bench_problem
     from spinglass_tpu_torch.core.problem import random_spins
     from spinglass_tpu_torch.kernels import sparse as sp
     from spinglass_tpu_torch.kernels import sparse_cuda as sc
@@ -1091,57 +1143,102 @@ def accept_parity(torch, stats):
     gen = torch.Generator().manual_seed(29)
     ell = pm_j_ell(10000, 42)
     worst = 0.0
-    for dtype in (torch.int8, torch.float32):
-        for rule in ("metropolis", "glauber"):
-            eng = sp.SortedSparseTEngine(ell, rule=rule, spin_dtype=dtype,
-                                         accept_kernel="fused")
-            for r in (128, 4096):
-                s = eng.to_layout(random_spins(gen, (r, ell.n_padded),
-                                               ell.active_mask))
-                beta = (torch.rand(r, generator=gen) * 2.0 + 0.1).cuda()
-                for off, mc_, bs in eng.groups[:2]:
-                    f = sp._colour_fields(s, bs)
-                    s_k, s_p = s.clone(), s.clone()
-                    out = [(torch.zeros(r, device="cuda"),
-                            torch.zeros(r, dtype=torch.int32, device="cuda"))
-                           for _ in range(2)]
-                    eng.kernels.accept(f, s_k, off, beta, 77 + off, *out[0])
-                    sc.accept_reference(f, s_p, off, eng.mask_col, beta,
-                                        77 + off, rule, *out[1])
+
+    def buffers(r):
+        return [(torch.zeros(r, device="cuda"),
+                 torch.zeros(r, dtype=torch.int32, device="cuda"))
+                for _ in range(2)]
+
+    # one draw of spins per R (the host generator's 41M numbers at R=4096
+    # cost more than the sweeps); every combination starts from it
+    start = {r: random_spins(gen, (r, ell.n_padded), ell.active_mask)
+             for r in (128, 4096)}
+    for prob, exact in ((ell, True), (sparse_bench_problem(), False)):
+        for dtype in (torch.int8, torch.float32):
+            for rule in ("metropolis", "glauber"):
+                eng = sp.SortedSparseTEngine(prob, rule=rule, spin_dtype=dtype,
+                                             accept_kernel="fused")
+                k = eng.kernels
+                for r in (128, 4096):
+                    s_k = eng.to_layout(start[r])
+                    s_p = s_k.clone()
+                    beta = (torch.rand(r, generator=gen) * 2.0 + 0.1).cuda()
+                    # the kernel: a whole sweep, one launch per colour; the
+                    # plain version colour by colour
+                    _, de_k, c_k = k.accept_sweep(s_k, beta, 77 + r)
+                    (de_p, c_p), _ = buffers(r)
+                    for off, mc_, _ in eng.groups:
+                        sc.accept_gather_reference(k.tables, s_p, off, mc_,
+                                                   eng.mask_col, beta, 77 + r,
+                                                   rule, de_p, c_p)
                     torch.cuda.synchronize()
-                    worst = max(worst, float((out[0][0] - out[1][0]).abs().max()))
-                    if not (torch.equal(s_k, s_p)
-                            and torch.equal(out[0][1], out[1][1])
-                            and torch.equal(out[0][0], out[1][0])):
+                    err = float((de_k - de_p).abs().max())
+                    if exact:
+                        worst = max(worst, err)
+                    de_ok = (torch.equal(de_k, de_p) if exact
+                             else err <= 1e-5 * float(de_p.abs().max()))
+                    if not (torch.equal(s_k, s_p) and torch.equal(c_k, c_p)
+                            and de_ok and s_k.dtype == dtype):
                         raise CheckFailed(
-                            f"K4 != twin: {dtype} {rule} R={r} colour at "
-                            f"{off}+{mc_}: {int((s_k != s_p).sum())} spins "
-                            f"differ")
-    check(True, "K4 on two colours of the 10k +-J graph, int8 and float32 "
-                "spins, both rules, R in {128, 4096}: spins, dE, counts "
-                "bitwise equal to accept_reference")
+                            f"K4 gather mode != plain version: "
+                            f"{'+-J' if exact else 'Gaussian'} {dtype} {rule} "
+                            f"R={r}: {int((s_k != s_p).sum())} spins, "
+                            f"{int((c_k != c_p).sum())} counts differ, "
+                            f"max |dE - dE_plain| {err:.3e}")
+    check(True, "K4 in gather mode, whole sweeps of the 10k graphs, int8 and "
+                "float32 spins, both rules, R in {128, 4096}: on +-J spins, "
+                "dE and counts bitwise equal to the slot-ordered plain "
+                "version; on Gaussian couplings spins and counts bitwise, dE "
+                "within 1e-5")
+    for dtype, rule in ((torch.int8, "metropolis"), (torch.float32, "glauber")):
+        eng = sp.SortedSparseTEngine(ell, rule=rule, spin_dtype=dtype,
+                                     accept_kernel="fused")
+        for r in (128, 4096, 130):
+            s = eng.to_layout(random_spins(gen, (r, ell.n_padded),
+                                           ell.active_mask))
+            beta = (torch.rand(r, generator=gen) * 2.0 + 0.1).cuda()
+            for off, mc_, bs in eng.groups[:2]:
+                f = sp._colour_fields(s, bs)
+                s_k, s_p = s.clone(), s.clone()
+                out = buffers(r)
+                eng.kernels.accept(f, s_k, off, beta, 77 + off, *out[0])
+                sc.accept_reference(f, s_p, off, eng.mask_col, beta,
+                                    77 + off, rule, *out[1])
+                torch.cuda.synchronize()
+                worst = max(worst, float((out[0][0] - out[1][0]).abs().max()))
+                if not (torch.equal(s_k, s_p)
+                        and torch.equal(out[0][1], out[1][1])
+                        and torch.equal(out[0][0], out[1][0])):
+                    raise CheckFailed(
+                        f"K4 on given fields != twin: {dtype} {rule} R={r} "
+                        f"colour at {off}+{mc_}: {int((s_k != s_p).sum())} "
+                        f"spins differ")
+    check(True, "K4 on given fields, two colours of the 10k +-J graph, int8 / "
+                "Metropolis and float32 / Glauber, R in {128, 4096, 130}: "
+                "spins, dE, counts bitwise equal to accept_reference")
     stats["k4_max_abs_err"] = worst
-    r, seed = 1024, 2 ** 63 + 5
     fused = sp.SortedSparseTEngine(ell, accept_kernel="fused")
     single = sp.SortedSparseTEngine(ell, accept_kernel="single")
     check(np.array_equal(fused.perm, single.perm),
           "the K4, K3 and K2 engines share one colour-sorted layout")
-    s_rn = random_spins(gen, (r, ell.n_padded), ell.active_mask)
-    beta = torch.linspace(0.05, 3.0, r, device="cuda")
-    s4 = fused.to_layout(s_rn)
-    s3, s2 = single.to_layout(s_rn), single.to_layout(s_rn)
-    _, de4, c4 = fused._sweep_fused(s4, beta, seed)
-    th = single.kernels.thresholds(beta, seed, r)
-    _, de3, c3 = sp.make_sorted_t_sweep(single.groups)(s3, th)
-    _, de2, c2 = single.kernels.single_sweep(s2, beta, seed=seed)
-    torch.cuda.synchronize()
-    check(s4.dtype == torch.int8 and torch.equal(s4.float(), s3)
-          and torch.equal(s3, s2) and torch.equal(c4, c3)
-          and torch.equal(c3, c2) and torch.equal(de4, de3)
-          and torch.equal(de3, de2),
-          f"+-J 10k, [{fused.n_sorted}, {r}], one seed: K4 path (int8) == "
-          f"K3 path == K2, spins, dE and counts bitwise (acceptance "
-          f"{float(c4.sum()) / (r * 1e4):.4f})")
+    for r in (1024, 130):  # 130: no multiple of 4, K3's and K4's scalar tails
+        seed = 2 ** 63 + r
+        s_rn = random_spins(gen, (r, ell.n_padded), ell.active_mask)
+        beta = torch.linspace(0.05, 3.0, r, device="cuda")
+        s4 = fused.to_layout(s_rn)
+        s3, s2 = s4.float(), s4.float()
+        _, de4, c4 = fused._sweep_fused(s4, beta, seed)
+        th = single.kernels.thresholds(beta, seed, r)
+        _, de3, c3 = sp.make_sorted_t_sweep(single.groups)(s3, th)
+        _, de2, c2 = single.kernels.single_sweep(s2, beta, seed=seed)
+        torch.cuda.synchronize()
+        check(s4.dtype == torch.int8 and torch.equal(s4.float(), s3)
+              and torch.equal(s3, s2) and torch.equal(c4, c3)
+              and torch.equal(c3, c2) and torch.equal(de4, de3)
+              and torch.equal(de3, de2),
+              f"+-J 10k, [{fused.n_sorted}, {r}], one seed: K4 path (int8, "
+              f"gather mode) == K3 path == K2, spins, dE and counts bitwise "
+              f"(acceptance {float(c4.sum()) / (r * 1e4):.4f})")
 
 
 def _pt_run(torch, ell, cfg, engine, gen_seed, n_super):
@@ -1160,88 +1257,131 @@ def _pt_run(torch, ell, cfg, engine, gen_seed, n_super):
     return state, time.perf_counter() - t0
 
 
-def pt_accept_config():
-    from spinglass_tpu_torch.anneal import pt
-
-    return pt.PTConfig(n_replicas=128, n_chains=32, n_sweeps=200,
-                       exchange_interval=10, min_temp=0.05, max_temp=3.0)
-
-
 def accept_slice(torch, stats):
-    """Phase 4 (K4): PT at R=4096 through make_pt_step with the fused
-    engine, against the K3 path under the same generator seed."""
+    """Phase 4 (K4, K3): PT at R=4096 through make_pt_step with the fused
+    engine, against the K3 path under the same generator seed; the fused
+    path must compute no field outside K4. On the +-J 10k graph: K4 sums a
+    field in slot order and the K3 path's plain gathers in torch.sum's, so
+    on Gaussian couplings a last bit would part the two runs within 200
+    sweeps (pt.run on the Gaussian instance is in the sparse slice)."""
     from spinglass_tpu_torch.benchmarks import headline
-    from spinglass_tpu_torch.kernels.sparse import SortedSparseTEngine
+    from spinglass_tpu_torch.kernels import sparse as sp
 
-    ell = headline.sparse_bench_problem()
-    cfg = pt_accept_config()
+    ell = pm_j_ell(10000, 42)
+    cfg = headline.pt_wide_config(n_sweeps=200)
     # new engines: their launch counts start at 0 and hold only this run's
-    eng4 = SortedSparseTEngine(ell, accept_kernel="fused")
-    eng3 = SortedSparseTEngine(ell)
-    a, sec4 = _pt_run(torch, ell, cfg, eng4, cfg.seed, 20)
-    b, sec3 = _pt_run(torch, ell, cfg, eng3, cfg.seed, 20)
-    stats["k4_launches"] = eng4.launches["sparse_accept"]
-    stats["pt_wide"] = ell, {"K3 path": eng3, "K4 path": eng4}
+    eng4 = headline.pt_wide_engine(ell, "fused")
+    eng3 = headline.pt_wide_engine(ell, "threshold")
+    gathers = {"fused": 0, "threshold": 0}
+    plain_fields = sp._colour_fields
+    out = {}
+    try:
+        for path, eng in (("fused", eng4), ("threshold", eng3)):
+            def counted(*args, path=path):
+                gathers[path] += 1
+                return plain_fields(*args)
+
+            sp._colour_fields = counted  # the plain per-colour gathers
+            out[path] = _pt_run(torch, ell, cfg, eng, cfg.seed, 20)
+    finally:
+        sp._colour_fields = plain_fields
+    (a, sec4), (b, sec3) = out["fused"], out["threshold"]
+    stats["k3_launches"] = eng3.launches["sparse_thresholds"]
     rel = float(((a.best_energy - b.best_energy).abs()
                  / b.best_energy.abs().clamp(min=1.0)).max())
     rel_e = float(((a.energy - b.energy).abs()
                    / b.energy.abs().clamp(min=1.0)).max())
     print(f"  PT R=4096, 200 sweeps: K4 path {sec4:.3f} s, K3 path "
           f"{sec3:.3f} s; best E/N {float(a.best_energy.min()) / ell.n_spins:.5f}")
-    # the K3 path carries float32 spins (the engine built K2's tables, which
-    # R=4096 exceeds), the K4 path int8
-    check(a.spins.dtype == torch.int8 and torch.equal(a.spins.float(), b.spins)
+    check(a.spins.dtype == torch.int8 and torch.equal(a.spins, b.spins)
           and torch.equal(a.slot, b.slot) and rel <= 1e-4 and rel_e <= 1e-4,
           f"make_pt_step(SortedSparseTEngine(accept_kernel='fused')), 32 "
           f"chains x 128, 200 sweeps == the K3 path under one seed: spins and "
           f"slots bitwise, energies within {max(rel, rel_e):.2e} <= 1e-4")
     l4, l3 = eng4.launches, eng3.launches
-    check(l4["sparse_accept"] == 200 * len(eng4.groups)
-          and l4["sparse_thresholds"] == 0 and l4["sparse_sweep"] == 0
-          and l3["sparse_thresholds"] == 200 and l3["sparse_accept"] == 0,
-          f"launches: K4 path {l4}, K3 path {l3}")
+    n_col = len(eng4.groups)
+    check(l4 == {"sparse_sweep": 0, "sparse_thresholds": 0,
+                 "sparse_accept": 200 * n_col}
+          and l3 == {"sparse_sweep": 0, "sparse_thresholds": 200,
+                     "sparse_accept": 0}
+          and gathers == {"fused": 0, "threshold": 200 * n_col},
+          f"launches: K4 path {l4}, K3 path {l3}; plain per-colour field "
+          f"gathers {gathers}: the fused sweep is one K4 launch per colour "
+          f"and no gather outside it")
 
 
 def accept_timing(torch, stats, card):
-    """Phase 5 (K4): the K4 path against the K3 path at R=4096, one run
-    each (headline.profile_pt_wide has their device breakdowns); K4 alone
-    against its twin over one sweep's colours."""
+    """Phase 5 (K4): K4 in gather mode alone over one sweep's colours beside
+    its plain version and K4 on given fields; PT at R=4096 three ways in
+    turns with each way's device breakdown; PT at 16 replicas through K4
+    and through the plain [R, N] engine."""
+    from spinglass_tpu_torch.benchmarks import headline
     from spinglass_tpu_torch.core.problem import random_spins
     from spinglass_tpu_torch.kernels import sparse as sp
     from spinglass_tpu_torch.kernels import sparse_cuda as sc
 
-    ell, engines = stats["pt_wide"]
-    cfg = pt_accept_config()
-    for label in ("K3 path", "K4 path"):
-        _, sec = _pt_run(torch, ell, cfg, engines[label], 7, 5)
-        print(f"  {label} PT R=4096 (5 super-steps): {sec / 50 * 1e3:.3f} "
-              f"ms/sweep [{card}]")
-    eng = engines["K4 path"]
+    ell = headline.sparse_bench_problem()
+    eng = headline.pt_wide_engine(ell, "fused")
+    k = eng.kernels
     r = 4096
     gen = torch.Generator().manual_seed(3)
     s = eng.to_layout(random_spins(gen, (r, ell.n_padded), ell.active_mask))
     beta = torch.ones(r, device="cuda")
-    fields = [(off, sp._colour_fields(s, bs)) for off, _, bs in eng.groups]
-    de = torch.zeros(r, device="cuda")
-    cnt = torch.zeros(r, dtype=torch.int32, device="cuda")
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
-    def one_sweep(fn):
+    def timed(fn, reps):
+        fn()
         start.record()
-        for off, f in fields:
-            fn(f, s, off, beta, 11, de, cnt)
+        for _ in range(reps):
+            fn()
         stop.record()
         stop.synchronize()
-        return start.elapsed_time(stop) * 1e3
+        return start.elapsed_time(stop) * 1e3 / reps
 
-    one_sweep(eng.kernels.accept)
-    us_k4 = min(one_sweep(eng.kernels.accept) for _ in range(5))
-    us_twin = one_sweep(lambda f, s_, off, b, seed, d, c: sc.accept_reference(
-        f, s_, off, eng.mask_col, b, seed, "metropolis", d, c))
-    print(f"  K4 alone over one sweep's {len(fields)} colours at "
-          f"[{eng.n_sorted}, {r}] (fields precomputed): {us_k4:.1f} us; twin "
-          f"{us_twin:.1f} us [{card}]")
-    stats.update(k4_ms=us_k4 / 1e3, k4_plain_ms=us_twin / 1e3)
+    us_k4 = min(timed(lambda: k.accept_sweep(s, beta, 11), 20)
+                for _ in range(3))
+    de = torch.zeros(r, device="cuda")
+    cnt = torch.zeros(r, dtype=torch.int32, device="cuda")
+
+    def plain():
+        for off, mc_, _ in eng.groups:
+            sc.accept_gather_reference(k.tables, s, off, mc_, eng.mask_col,
+                                       beta, 11, "metropolis", de, cnt)
+
+    us_plain = timed(plain, 2)
+    fields = [(off, sp._colour_fields(s, bs)) for off, _, bs in eng.groups]
+
+    def given():
+        for off, f in fields:
+            k.accept(f, s, off, beta, 11, de, cnt)
+
+    us_given = min(timed(given, 10) for _ in range(3))
+    print(f"  K4 in gather mode over one sweep's {len(eng.groups)} colours at "
+          f"[{eng.n_sorted}, {r}] int8: {us_k4:.1f} us; its plain version "
+          f"{us_plain:.1f} us; K4 on given fields (precomputed) "
+          f"{us_given:.1f} us [{card}]")
+    stats.update(k4_ms=us_k4 / 1e3, k4_plain_ms=us_plain / 1e3)
+    b = headline.bench_pt_wide(super_steps=5)
+    for path, ms in b["value"].items():
+        print(f"  PT R=4096 through the {path} path, 50 sweeps, in turns: "
+              f"{ms[0]:.3f} / {ms[1]:.3f} ms/sweep [{card}]")
+    for path in headline.PT_WIDE_PATHS:
+        prof = headline.profile_pt_wide(path)
+        print(f"  profile PT R=4096, {path} path: {prof['us_per_sweep']:.1f} "
+              f"us/sweep, kernels {prof['device_us_per_sweep']:.1f} us/sweep, "
+              f"device busy {100 * prof['device_busy_share']:.1f}%, "
+              f"{prof['launches_per_sweep']:.1f} kernel launches a sweep, "
+              f"{prof['gather_launches_per_sweep']:.1f} of them PyTorch index "
+              f"kernels; engine launches {prof['launches']} [{card}]")
+        for kern in prof["kernels"][:4]:
+            print(f"    {kern['us_per_sweep']:9.2f} us/sweep  {kern['calls']:5d} "
+                  f"calls  {kern['name'][:80]}")
+    b = headline.bench_pt16(super_steps=10)
+    for label, ms in b["value"].items():
+        print(f"  PT at 16 replicas (bench_pt10k's shape) through the {label} "
+              f"engine ({b['extras']['engines'][label]}, launches "
+              f"{b['extras']['launches'][label]}), in turns: "
+              f"{ms[0]:.3f} / {ms[1]:.3f} ms/sweep [{card}]")
 
 
 def main() -> int:
@@ -1309,11 +1449,13 @@ def main() -> int:
                 ("phase 4: sparse SA, TTT and PT slice", lambda: sparse_slice(torch, stats)),
                 ("phase 4: dense SA slice through K5, K6, K7",
                  lambda: variant_slice(torch, mc, stats)),
-                ("phase 4: PT at R=4096 through K4", lambda: accept_slice(torch, stats)),
+                ("phase 4: PT at R=4096 through K4 and through K3",
+                 lambda: accept_slice(torch, stats)),
                 ("phase 5: timing (K1)", lambda: phase_timing(torch, mc, stats, card)),
                 ("phase 5: timing (K2, K3)", lambda: sparse_timing(torch, stats, card)),
                 ("phase 5: timing (K5, K6, K7)", lambda: variant_timing(torch, mc, stats, card)),
-                ("phase 5: timing (K4)", lambda: accept_timing(torch, stats, card))):
+                ("phase 5: timing (K4, PT at R=4096 three ways)",
+                 lambda: accept_timing(torch, stats, card))):
             print(name)
             t0 = time.perf_counter()
             phase()
@@ -1339,6 +1481,9 @@ def main() -> int:
         rows.append((name, stats["variant_launches"][name],
                      max(err[lab] for lab in labels), us[labels[0]] / 1e3,
                      twin_us[labels[0]] / 1e3))
+    b4 = stats["bounds"]["sparse_accept"][0]
+    print(f"K4 {1e3 * stats['k4_ms']:.1f} us per sweep is "
+          f"{100 * b4 / stats['k4_ms']:.1f}% of its bound's rate [{card}]")
     print(f"total {time.perf_counter() - t_start:.1f} s (build included)")
     # no single PyTorch call computes any of these functions (a sequential
     # sweep, a coloured sweep with accept, Philox thresholds): library_ms

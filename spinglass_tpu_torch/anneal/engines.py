@@ -5,7 +5,7 @@ spin layout:
   * "rn": spins [R, Np] (replica-major), the plain PyTorch engines;
   * "nr": spins [Np, R] (spin-major), the fused CUDA kernel K1, and
     [NS, R] in a colour-sorted order for the sparse engine of
-    ``kernels/sparse.py`` (K2/K3); both kernels update them in place.
+    ``kernels/sparse.py`` (K2/K3/K4); the kernels update them in place.
 The drivers keep annealing state in the engine's layout and convert only at
 the edges of a run.
 
@@ -14,8 +14,9 @@ lies on a CUDA device" where it tests for a TPU:
   1. an ``EllProblem``, sweep_method "sparse"/"sparse_t", or an "auto" dense
      problem of at least SPARSE_MIN_SPINS spins with density below
      SPARSE_DENSITY_THRESHOLD: a sorted sparse engine, the transposed
-     SortedSparseTEngine for "sparse_t" or for r_hint >= SPARSE_T_MIN_REPLICAS
-     on a CUDA device, else the [R, N] SortedSparseEngine;
+     SortedSparseTEngine for "sparse_t" or for r_hint >=
+     SPARSE_T_MIN_REPLICAS_CUDA on a CUDA device, else the [R, N]
+     SortedSparseEngine;
   2. sweep_method="colored", or "auto" with a colouring of at most
      ``max_colors`` colours: colored sweeps (one matmul per colour);
   3. otherwise, on a CUDA device: the fused K1 kernel (CudaFusedEngine);
@@ -42,9 +43,14 @@ from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES, FusedSweep
 
 SPARSE_DENSITY_THRESHOLD = 0.05
 SPARSE_MIN_SPINS = 2048
-# the transposed sparse engine (K2/K3) takes runs of at least this many
-# replicas on a CUDA device; R % 128 == 0 is also K2's dispatch condition
+# the JAX package's replica count from which the transposed sparse engine is
+# picked; R % 128 == 0 is also K2's dispatch condition
 SPARSE_T_MIN_REPLICAS = 128
+# on a CUDA device the transposed engine is picked from this many replicas:
+# below 128 it runs K4, one launch per colour at any R, where the plain
+# [R, N] engine makes ~280 launches a sweep. PT on the 10k bench graph at 16
+# replicas on the H100 (700 W), ms/sweep in turns: plain 2.4-4.5, K4 0.23-0.44
+SPARSE_T_MIN_REPLICAS_CUDA = 16
 _SPARSE_COMPACT_TODO = ("sweep_method='sparse_compact' (the compact colored "
                         "SparseEngine) is not ported yet; it waits for a later "
                         "PR of the port")
@@ -169,7 +175,7 @@ def make_engine(problem, *, sweep_method: str = "auto",
     blocked sweep. ``j_dtype`` "bfloat16" makes the fused kernel sweep on J
     rounded to bfloat16 (the other engines keep float32, as in the JAX
     package). ``r_hint`` is the expected replica count: sparse problems
-    on a CUDA device with r_hint >= SPARSE_T_MIN_REPLICAS take the
+    on a CUDA device with r_hint >= SPARSE_T_MIN_REPLICAS_CUDA take the
     transposed engine and its kernels.
     """
     from spinglass_tpu_torch.kernels.sparse import (EllProblem,
@@ -185,7 +191,7 @@ def make_engine(problem, *, sweep_method: str = "auto",
     def _sorted(p):
         if sweep_method == "sparse_t" or (
                 sweep_method in ("auto", "sparse")
-                and r_hint >= SPARSE_T_MIN_REPLICAS
+                and r_hint >= SPARSE_T_MIN_REPLICAS_CUDA
                 and p.device.type == "cuda"):
             return SortedSparseTEngine(p, rule=update_rule)
         return SortedSparseEngine(p, rule=update_rule)

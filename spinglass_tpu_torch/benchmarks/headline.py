@@ -11,6 +11,13 @@ shapes:
   * ``bench_ttt``: time-to-target on the planted 10k instance of
     ``spinglass_tpu/benchmarks/ttt_provenance.json`` (read as a data file,
     instance hash checked), 128-replica PT, median of three seeds.
+  * ``bench_pt_wide``: ms/sweep of PT at R=4096 (32 chains of 128) on the
+    sparse bench instance three ways in turns: the threshold path (K3 and
+    the plain per-colour sweep), the fused path (K4 in gather mode) and K2
+    with the engine's single-sweep budget lifted; ``profile_pt_wide`` gives
+    each way's device breakdown; ``bench_pt16`` holds ``make_engine``'s
+    engine (K4) against the plain [R, N] engine at ``bench_pt10k``'s 16
+    replicas.
 PPO is not ported yet. A run without a CUDA device raises: no number from
 the CPU is reported under a device metric.
 """
@@ -271,12 +278,17 @@ def _profile(step, sweeps: int, top: int) -> dict:
               and not e.key.startswith("ProfilerStep")]
     device_us = sum(e.self_device_time_total for e in events) / sweeps
     events.sort(key=lambda e: -e.self_device_time_total)
+    # PyTorch's advanced indexing (s_t[idx]) runs as index / gather kernels
+    gathers = sum(e.count for e in events
+                  if "index" in e.key.lower() or "gather" in e.key.lower())
     return {
         "sweeps": sweeps,
         "us_per_sweep": wall / sweeps * 1e6,
         "profiled_us_per_sweep": prof_wall / sweeps * 1e6,
         "device_us_per_sweep": device_us,
         "device_busy_share": device_us / (wall / sweeps * 1e6),
+        "launches_per_sweep": sum(e.count for e in events) / sweeps,
+        "gather_launches_per_sweep": gathers / sweeps,
         "kernels": [{"name": e.key, "calls": e.count,
                      "us_per_sweep": e.self_device_time_total / sweeps}
                     for e in events[:top]],
@@ -343,20 +355,34 @@ def profile_ttt(super_steps: int = 20, top: int = 8) -> dict:
     return out
 
 
-def profile_pt_wide(accept_kernel: str = "auto", super_steps: int = 3,
-                    top: int = 6) -> dict:
-    """PT at R=4096 (32 chains of 128) on the sparse bench instance, the
-    path beyond K2's budget: ``super_steps`` super-steps of ``pt``'s step
-    through SortedSparseTEngine(accept_kernel=...), "auto" being the K3
-    path and "fused" the K4 path, profiled (``_profile``)."""
+PT_WIDE_PATHS = ("threshold", "fused", "single")
+
+
+def pt_wide_config(**kw):
+    """PT at R=4096: 32 chains of 128 replicas, the TTT ladder."""
     from spinglass_tpu_torch.anneal import pt as pt_mod
+
+    return pt_mod.PTConfig(n_replicas=128, n_chains=32, exchange_interval=10,
+                           min_temp=0.05, max_temp=3.0, **kw)
+
+
+def pt_wide_engine(ell, path: str):
+    """The transposed sparse engine forced down one of PT_WIDE_PATHS:
+    "threshold" (K3 and the plain per-colour sweep), "fused" (K4 in gather
+    mode) or "single" (K2; the engine's single-sweep budget is lifted on
+    this instance so that it takes any R % 128 == 0 that fits K2's tile)."""
     from spinglass_tpu_torch.kernels.sparse import SortedSparseTEngine
 
-    _need_cuda()
-    ell = sparse_bench_problem()
-    cfg = pt_mod.PTConfig(n_replicas=128, n_chains=32, exchange_interval=10,
-                          min_temp=0.05, max_temp=3.0)
-    engine = SortedSparseTEngine(ell, accept_kernel=accept_kernel)
+    kind = {"threshold": "none", "fused": "fused", "single": "single"}[path]
+    engine = SortedSparseTEngine(ell, accept_kernel=kind)
+    if path == "single":
+        engine.SINGLE_VMEM_SPIN_BYTES = 1 << 62
+    return engine
+
+
+def _pt_stepper(ell, cfg, engine, super_steps: int):
+    from spinglass_tpu_torch.anneal import pt as pt_mod
+
     super_step, _, engine = pt_mod.make_pt_step(ell, cfg, engine=engine)
     state = pt_mod.init_state(ell, cfg, torch.Generator().manual_seed(SEED),
                               engine)
@@ -366,10 +392,80 @@ def profile_pt_wide(accept_kernel: str = "auto", super_steps: int = 3,
         for _ in range(super_steps):
             state, _ = super_step(state)
 
-    out = _profile(step, super_steps * cfg.exchange_interval, top)
+    return step
+
+
+def profile_pt_wide(path: str = "threshold", super_steps: int = 3,
+                    top: int = 6) -> dict:
+    """PT at R=4096 on the sparse bench instance through
+    ``pt_wide_engine(path)``: ``super_steps`` super-steps of ``pt``'s step,
+    profiled (``_profile``; ``gather_launches_per_sweep`` counts PyTorch's
+    index kernels)."""
+    _need_cuda()
+    ell = sparse_bench_problem()
+    cfg = pt_wide_config()
+    engine = pt_wide_engine(ell, path)
+    out = _profile(_pt_stepper(ell, cfg, engine, super_steps),
+                   super_steps * cfg.exchange_interval, top)
     out.update(n_spins=ell.n_spins, n_replicas=cfg.n_replicas * cfg.n_chains,
-               accept_kernel=accept_kernel, launches=engine.launches)
+               path=path, launches=engine.launches)
     return out
+
+
+def _in_turns(steppers: dict, sweeps: int) -> dict:
+    """Host-clock ms/sweep of each stepper, run a b c c b a after one
+    warm-up call each; label -> [first turn, second turn]."""
+    labels = list(steppers)
+    out = {label: [] for label in labels}
+    for step in steppers.values():
+        step()
+    for label in labels + labels[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steppers[label]()
+        torch.cuda.synchronize()
+        out[label].append((time.perf_counter() - t0) / sweeps * 1e3)
+    return out
+
+
+def bench_pt_wide(super_steps: int = 5) -> dict:
+    """PT at R=4096 on the sparse bench instance, ms/sweep of wall time
+    through each of PT_WIDE_PATHS, in turns in one process."""
+    _need_cuda()
+    ell = sparse_bench_problem()
+    cfg = pt_wide_config()
+    steppers = {path: _pt_stepper(ell, cfg, pt_wide_engine(ell, path),
+                                  super_steps) for path in PT_WIDE_PATHS}
+    return {"metric": "pt_wide_ms_per_sweep", "unit": "ms/sweep",
+            "value": _in_turns(steppers, super_steps * cfg.exchange_interval),
+            "extras": {"n_spins": ell.n_spins, "n_replicas": 4096,
+                       "super_steps": super_steps,
+                       "nvidia_smi": device_description()}}
+
+
+def bench_pt16(super_steps: int = 30) -> dict:
+    """``bench_pt10k``'s shape (16 replicas, one chain) through the plain
+    [R, N] engine, which ``make_engine`` picked there before K4 gathered its
+    own fields, and through ``make_engine``'s engine (the transposed one:
+    K4 at any R that K2 does not take), ms/sweep of wall time in turns."""
+    from spinglass_tpu_torch.anneal import pt as pt_mod
+    from spinglass_tpu_torch.anneal.engines import make_engine
+    from spinglass_tpu_torch.kernels.sparse import SortedSparseEngine
+
+    _need_cuda()
+    ell = sparse_bench_problem()
+    cfg = pt_mod.PTConfig(n_replicas=16, seed=SEED)
+    engines = {"plain [R, N]": SortedSparseEngine(ell),
+               "make_engine's": make_engine(ell, r_hint=16)}
+    steppers = {label: _pt_stepper(ell, cfg, engine, super_steps)
+                for label, engine in engines.items()}
+    return {"metric": "pt16_ms_per_sweep", "unit": "ms/sweep",
+            "value": _in_turns(steppers, super_steps * cfg.exchange_interval),
+            "extras": {"n_spins": ell.n_spins, "n_replicas": 16,
+                       "engines": {k: e.name for k, e in engines.items()},
+                       "launches": {k: dict(getattr(e, "launches", {}))
+                                    for k, e in engines.items()},
+                       "nvidia_smi": device_description()}}
 
 
 if __name__ == "__main__":
@@ -377,7 +473,8 @@ if __name__ == "__main__":
     print(json.dumps(profile_chunk()))
     print(json.dumps(profile_sparse_chunk()))
     print(json.dumps(profile_ttt()))
-    for accept_kernel in ("auto", "fused"):
-        print(json.dumps(profile_pt_wide(accept_kernel)))
-    for bench in (bench_sparse, bench_pt10k, bench_ttt):
+    for path in PT_WIDE_PATHS:
+        print(json.dumps(profile_pt_wide(path)))
+    for bench in (bench_pt_wide, bench_pt16, bench_sparse, bench_pt10k,
+                  bench_ttt):
         print(json.dumps(bench()))

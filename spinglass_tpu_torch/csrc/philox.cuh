@@ -3,10 +3,18 @@
 // sparse_sweep.cu, K3 sparse_thresholds.cu, K4 sparse_accept.cu).
 //
 // Philox4x32-10 keyed by the 64-bit sweep seed (k0 = low word, k1 = high
-// word), counter (row, replica, 0, 0). Word 0 of the output gives
-// u = (2 * (x >> 9) + 1) / 2^24: exact in float32 and strictly inside (0, 1).
-// kernels/metropolis_cuda.py:philox_uniforms computes the same stream in
-// PyTorch, so every kernel's draws can be reproduced on the CPU.
+// word). An output word x gives u = (2 * (x >> 9) + 1) / 2^24: exact in
+// float32 and strictly inside (0, 1). Two streams:
+//   dense kernels, philox_uniform: counter (row, replica, 0, 0), word 0 of
+//     the four output words (kernels/metropolis_cuda.py:philox_uniforms);
+//   sparse kernels K2, K3, K4, philox_uniform4: counter (sorted row,
+//     replica >> 2, 0, 0), and the four output words are the uniforms of
+//     replicas 4g, 4g+1, 4g+2, 4g+3, so one run of the ten rounds serves
+//     four columns (kernels/metropolis_cuda.py:philox_uniforms4). The ten
+//     rounds are most of a threshold's cost (K3 took 190 us at [10240, 4096]
+//     with one word used, against 50 us to write its output).
+// Both are computed in PyTorch too, so every kernel's draws can be
+// reproduced on the CPU.
 //
 // Thresholds are exp-free: a flip is accepted iff s * f < th, with
 //   metropolis: th = ln(u) * nib
@@ -38,6 +46,32 @@ __device__ __forceinline__ float philox_uniform(uint32_t c0, uint32_t c1,
     k1 += 0xBB67AE85u;
   }
   return (float)(((c0 >> 9) << 1) | 1u) * 5.9604644775390625e-08f;  // 2^-24
+}
+
+__device__ __forceinline__ float word_uniform(uint32_t x) {
+  return (float)(((x >> 9) << 1) | 1u) * 5.9604644775390625e-08f;  // 2^-24
+}
+
+// The sparse stream: u[q] is the uniform of (sorted row, replica 4 * group + q).
+__device__ __forceinline__ void philox_uniform4(uint32_t row, uint32_t group,
+                                                uint32_t k0, uint32_t k1,
+                                                float (&u)[4]) {
+  uint32_t c0 = row, c1 = group, c2 = 0u, c3 = 0u;
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  u[0] = word_uniform(c0);
+  u[1] = word_uniform(c1);
+  u[2] = word_uniform(c2);
+  u[3] = word_uniform(c3);
 }
 
 template <int RULE>  // 0: metropolis, 1: glauber

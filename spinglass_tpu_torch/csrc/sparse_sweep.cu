@@ -42,10 +42,12 @@
 //       stream through L2/L1 instead of being chased.
 // A __syncthreads() separates colours. Measured on the H100 (700 W):
 // 130-131 us/sweep at [10240, 1024] (RT = 8), 66 at [10240, 256] (RT = 2),
-// 57-58 at [10240, 128] (RT = 1). What is left at R = 1024 is mostly the
-// Philox draws, 8 per thread and row under the 64 registers of a
-// 1024-thread block, and the second, 43% full pass over a colour's rows
-// (two threads per row with 4 columns each measured slower, 149 us).
+// 57-58 at [10240, 128] (RT = 1), with one Philox run per column; with one
+// run per four columns 109-110 us at R = 1024 (in turns against 129), 63 at
+// R = 256 (65) and 57-58 at R = 128 (one run per row either way). What is
+// left at R = 1024 is the second, 43% full pass over a colour's rows (two
+// threads per row with 4 columns each measured slower, 149 us), the draws
+// that remain and a conversion from int8 per gathered spin.
 // RT is chosen by the wrapper (sparse_cuda.default_tile): about 128 blocks,
 // RT <= 8, and NS * RT bytes inside the block's shared memory (NS <= 28672
 // at RT = 8, 229376 at RT = 1). Beyond that the wrapper raises: no engine
@@ -53,11 +55,14 @@
 // NS <= 163840 at R = 128).
 //
 // Randomness. th == nullptr selects the in-kernel Philox4x32-10 stream keyed
-// by the 64-bit sweep seed with counter (sorted row, replica) (philox.cuh),
-// the stream of K3 (sparse_thresholds.cu) and of
-// kernels/metropolis_cuda.py:philox_uniforms; mask[i] < 0 marks padding
-// rows, whose threshold is -inf. Otherwise th is the caller's [NS, R]
-// threshold array, already masked.
+// by the 64-bit sweep seed with counter (sorted row, replica >> 2), whose
+// four output words serve four neighbouring columns (philox.cuh,
+// philox_uniform4): the stream of K3 (sparse_thresholds.cu), of K4
+// (sparse_accept.cu) and of kernels/metropolis_cuda.py:philox_uniforms4. A
+// thread runs the ten rounds once per four of its columns (twice at RT = 8,
+// once at RT = 4; at RT = 1 and 2 once, keeping one or two words).
+// mask[i] < 0 marks padding rows, whose threshold is -inf. Otherwise th is
+// the caller's [NS, R] threshold array, already masked.
 //
 // Bookkeeping. dE and the count are summed per thread and column, then
 // across the warp (shuffles) and the warps in order, so runs are
@@ -176,26 +181,42 @@ sparse_sweep_kernel(const int* __restrict__ idx_t,   // [kmax, NS]
       load_row<RT>(tile, i, so);
       const bool padded = !HOST_TH && __ldg(mask + i) < 0.f;
       bool any = false;
+      // four columns per run of the Philox rounds (philox_uniform4): tiles
+      // start at multiples of RT, so a tile of 4 or 8 columns is one or two
+      // whole groups, and a tile of 1 or 2 picks its words from one group
+      constexpr int QUADS = RT >= 4 ? RT / 4 : 1;
+      constexpr int PER = RT >= 4 ? 4 : RT;  // columns taken from a group
 #pragma unroll
-      for (int c = 0; c < RT; ++c) {
-        const int col = col0 + c;
-        if (col < R) {
-          float t;
-          if (HOST_TH) {
-            t = __ldg(th + (size_t)i * R + col);
-          } else {
-            t = padded ? -INFINITY
-                       : sgt::threshold<RULE>(
-                             sgt::philox_uniform((uint32_t)i, (uint32_t)col,
-                                                 k0, k1),
-                             nib_s[c]);
-          }
-          const float sf = so[c] * f[c];
-          if (sf < t) {
-            so[c] = -so[c];
-            de_acc[c] += 2.f * sf;
-            cnt_acc[c] += 1;
-            any = true;
+      for (int q = 0; q < QUADS; ++q) {
+        float u[4] = {0.f, 0.f, 0.f, 0.f};
+        if (!HOST_TH && !padded)
+          sgt::philox_uniform4((uint32_t)i, (uint32_t)(col0 >> 2) + q, k0, k1,
+                               u);
+        const int w0 = RT >= 4 ? 0 : (col0 & 3);  // first word of this tile
+#pragma unroll
+        for (int p = 0; p < PER; ++p) {
+          const int c = 4 * q + p;
+          const int col = col0 + c;
+          if (col < R) {
+            float t;
+            if (HOST_TH) {
+              t = __ldg(th + (size_t)i * R + col);
+            } else if (padded) {
+              t = -INFINITY;
+            } else {
+              float uu = u[p];  // RT >= 4: word p; else word w0 + p
+              if constexpr (RT == 1)
+                uu = w0 == 0 ? u[0] : w0 == 1 ? u[1] : w0 == 2 ? u[2] : u[3];
+              if constexpr (RT == 2) uu = w0 == 0 ? u[p] : u[2 + p];
+              t = sgt::threshold<RULE>(uu, nib_s[c]);
+            }
+            const float sf = so[c] * f[c];
+            if (sf < t) {
+              so[c] = -so[c];
+              de_acc[c] += 2.f * sf;
+              cnt_acc[c] += 1;
+              any = true;
+            }
           }
         }
       }

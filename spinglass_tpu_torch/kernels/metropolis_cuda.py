@@ -37,7 +37,10 @@ Random numbers. ``FusedSweep.__call__`` takes a 64-bit sweep seed; every
 variant draws Philox4x32-10 uniforms from it, keyed by (seed) with counter
 (spin, replica), and ``philox_uniforms`` is the same stream in PyTorch, so
 the CPU path and every kernel make the same decisions from the same seed.
-``sweep_with_uniforms`` takes caller-supplied uniforms instead.
+``sweep_with_uniforms`` takes caller-supplied uniforms instead. The sparse
+kernels (``kernels/sparse_cuda.py``) draw ``philox_uniforms4``: the same
+generator with counter (sorted row, replica // 4), whose four output words
+serve four neighbouring replicas.
 
 Glauber threshold: the kernels and the twins clamp u at ``GLAUBER_U_MAX``
 (0.999999) inside log1p, as the Pallas kernel does;
@@ -109,6 +112,21 @@ def philox_uniforms(seed: int, n_pad: int, r: int, device="cpu",
     rep = torch.arange(r, dtype=torch.int64, device=device)[None, :]
     x0 = philox4x32((spin, rep, 0, 0), (seed & _MASK32, seed >> 32))[0]
     return (((x0 >> 9) << 1) | 1).to(torch.float32) * 2.0 ** -24
+
+
+def philox_uniforms4(seed: int, n_pad: int, r: int, device="cpu",
+                     row0: int = 0) -> torch.Tensor:
+    """[n_pad, R] float32 uniforms in (0, 1): the sparse kernels' stream
+    (K2, K3, K4) for sweep seed ``seed`` at sorted rows row0 .. row0 + n_pad
+    - 1. One Philox call per row and group of four replicas, counter (row,
+    replica >> 2, 0, 0); output word q is the uniform of replica 4 * group
+    + q (``philox_uniform4`` in csrc/philox.cuh)."""
+    row = torch.arange(row0, row0 + n_pad, dtype=torch.int64,
+                       device=device)[:, None]
+    group = torch.arange(-(-r // 4), dtype=torch.int64, device=device)[None, :]
+    words = philox4x32((row, group, 0, 0), (seed & _MASK32, seed >> 32))
+    x = torch.stack(words, dim=2).reshape(n_pad, -1)[:, :r]
+    return (((x >> 9) << 1) | 1).to(torch.float32) * 2.0 ** -24
 
 
 def kernel_threshold(u: torch.Tensor, beta: torch.Tensor, rule: str) -> torch.Tensor:

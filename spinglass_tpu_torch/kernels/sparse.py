@@ -16,12 +16,14 @@ Two engines (``anneal.engines.make_engine`` picks):
 * ``SortedSparseTEngine`` (layout "nr", spins [NS, R] in a colour-sorted
   order): on a CUDA device it runs the whole sweep in the K2 kernel when the
   replica count is a multiple of 128 and [NS, R] float32 fits
-  ``SINGLE_VMEM_SPIN_BYTES`` (the JAX package's dispatch rules, kept as they
-  are), else thresholds from the K3 kernel and the per-colour sweep
-  ``make_sorted_t_sweep`` in plain PyTorch. ``accept_kernel="fused"`` runs
-  ``make_sorted_t_sweep_fused`` instead: the per-colour fields in plain
-  PyTorch and the fused accept kernel K4. Kernels and twins are in
-  ``kernels/sparse_cuda.py``.
+  ``SINGLE_VMEM_SPIN_BYTES`` (the JAX package's rule, kept: it is where K2
+  measured fastest), and every other shape through
+  ``make_sorted_t_sweep_fused``: the fused per-colour kernel K4, which
+  gathers its own fields (the fastest of three ways measured at R=4096).
+  ``accept_kernel="fused"`` asks for K4, ``"none"`` for the threshold path:
+  thresholds from the K3 kernel and the per-colour sweep
+  ``make_sorted_t_sweep`` in plain PyTorch, which is also what runs on the
+  CPU. Kernels and twins are in ``kernels/sparse_cuda.py``.
 * ``SortedSparseEngine`` (layout "rn", spins [R, Np]): the per-colour sweep
   in plain PyTorch, for narrow replica counts and CPU problems. It has no
   kernel in the JAX package either.
@@ -500,25 +502,22 @@ def make_sorted_t_sweep(groups):
     return sweep
 
 
-def make_sorted_t_sweep_fused(groups, kernels: SparseKernels):
-    """The transposed sorted sweep with the fused accept (K4): per colour,
-    the fields from the same plain gathers as ``make_sorted_t_sweep``, then
-    ``kernels.accept`` draws the colour's Philox thresholds for the sweep
-    seed, compares, flips in place and adds dE / counts (its twin on the
-    CPU). Under one seed it makes the decisions of ``make_sorted_t_sweep``
-    on K3's thresholds. sweep(s_t, beta, seed) -> (s_t, dE[R], count[R])."""
+def make_sorted_t_sweep_fused(kernels: SparseKernels):
+    """The transposed sorted sweep through the fused per-colour kernel K4 in
+    its gather mode (``kernels.accept_sweep``): one launch per colour
+    computes the colour's fields from the spin state (slots in order, as
+    K2), draws its Philox thresholds for the sweep seed, compares, flips in
+    place and adds dE / counts; no field or threshold array exists outside
+    the kernel. On the CPU it runs the plain version (``ordered_fields`` then
+    ``accept_colour``). Under one seed it makes the decisions of
+    ``make_sorted_t_sweep`` on K3's thresholds, and of K2. Needs the
+    layout's slot tables. sweep(s_t, beta, seed) -> (s_t, dE[R], count[R])."""
 
     def sweep(s_t, beta, seed: int):
-        r = s_t.shape[1]
-        beta = torch.broadcast_to(torch.as_tensor(beta, dtype=torch.float32,
-                                                  device=s_t.device),
-                                  (r,)).contiguous()
-        de = torch.zeros(r, dtype=torch.float32, device=s_t.device)
-        cnt = torch.zeros(r, dtype=torch.int32, device=s_t.device)
-        for off, _, bs in groups:
-            kernels.accept(_colour_fields(s_t, bs), s_t, off, beta, seed, de,
-                           cnt)
-        return s_t, de, cnt
+        beta = torch.broadcast_to(
+            torch.as_tensor(beta, dtype=torch.float32, device=s_t.device),
+            (s_t.shape[1],)).contiguous()
+        return kernels.accept_sweep(s_t, beta, seed)
 
     return sweep
 
@@ -551,18 +550,21 @@ class SortedSparseTEngine:
     (the ``anneal.engines`` contract). Counterpart of the JAX engine, with
     "the spins lie on a CUDA device" where the JAX package tests for a TPU:
 
-    * ``accept_kernel`` "auto" (K2 on a CUDA device) or "single" (K2 always;
-      on the CPU its twin); the single path needs R % 128 == 0 and [NS, R]
-      float32 within ``SINGLE_VMEM_SPIN_BYTES``, else the threshold path
-      runs. "fused" runs ``make_sorted_t_sweep_fused`` (K4 per colour on a
-      CUDA device, its twin on the CPU, where the JAX package refuses it
-      for want of its TPU generator); it needs R % 128 == 0. "none" keeps
-      the threshold path.
+    * ``accept_kernel`` "auto" or "single" (K2 always; on the CPU its twin):
+      the single path needs R % 128 == 0 and [NS, R] float32 within
+      ``SINGLE_VMEM_SPIN_BYTES``. "auto" on a CUDA device takes K2 there and
+      the fused sweep (K4, any R) everywhere else; on the CPU it takes the
+      threshold path. "fused" runs ``make_sorted_t_sweep_fused`` (K4 per
+      colour on a CUDA device, its plain version on the CPU, where the JAX
+      package refuses it for want of its TPU generator); it needs
+      R % 128 == 0, as in the JAX package. "none" keeps the threshold path.
     * ``threshold_rng`` "auto" (K3 on a CUDA device when R % 128 == 0),
       "kernel" (K3 always; on the CPU its twin) or "host" (uniforms from the
       generator on the spins' device).
-    * spins are float32 whenever the single-sweep tables are built, else
-      ``spin_dtype`` (int8 by default).
+    * ``to_layout`` gives float32 spins at the replica counts K2 takes (it
+      keeps them as float32 in memory) and ``spin_dtype`` (int8 by default)
+      at every other; ``spin_dtype`` reads float32 once the single-sweep
+      tables are built.
 
     * ``bucket_order`` is ``build_sorted_t``'s row order inside a bucket.
 
@@ -571,8 +573,11 @@ class SortedSparseTEngine:
 
     layout = "nr"
     name = "sparse_sorted_t"
-    # the TPU kernel kept [NS, R] f32 resident in VMEM up to this many bytes;
-    # the dispatch keeps the JAX package's limit
+    # the TPU kernel kept [NS, R] f32 resident in VMEM up to this many bytes.
+    # The limit stays on the card, by measurement: beyond it K4 is faster.
+    # PT at [10240, 4096] on the H100 (700 W), ms/sweep in turns: K2 with the
+    # limit lifted 0.78 (K2 alone 450 us), the fused sweep 0.58 (K4 280 us
+    # on int8 spins), the threshold path 5.1-9.1
     SINGLE_VMEM_SPIN_BYTES = 80 * 1024 * 1024
 
     def __init__(self, problem, rule: str = "metropolis",
@@ -589,6 +594,7 @@ class SortedSparseTEngine:
         self.problem = problem
         self.rule = canonical_rule(rule)
         self.spin_dtype = spin_dtype
+        self._narrow_dtype = spin_dtype  # where K2 is not taken
         ell, colors = _ell_and_colors(problem, max_colors)
         self.ell = ell
         dev = ell.device
@@ -613,13 +619,17 @@ class SortedSparseTEngine:
         self._use_single = (accept_kernel == "single"
                             or (accept_kernel == "auto" and on_cuda))
         # instances whose [NS, 128] f32 spins exceed the budget can never
-        # take the single path in auto mode: do not build its tables
+        # take the single path in auto mode
         if (accept_kernel == "auto" and self._use_single
                 and self.n_sorted * 128 * 4 > self.SINGLE_VMEM_SPIN_BYTES):
             self._use_single = False
         tables = None
         if self._use_single:
             self.spin_dtype = torch.float32
+        # on a CUDA device "auto" runs K4 wherever K2 is not taken
+        self._use_fused = (accept_kernel == "fused"
+                           or (accept_kernel == "auto" and on_cuda))
+        if self._use_single or self._use_fused:
             idx_all, val_all, _, h_all, _, deg = build_single_tables(
                 groups_np, self.n_sorted)
             tables = {"idx": torch.as_tensor(idx_all, device=dev),
@@ -629,7 +639,8 @@ class SortedSparseTEngine:
         self.kernels = SparseKernels(self.mask_col, self.rule, self.groups,
                                      tables)
         self._sweep = make_sorted_t_sweep(self.groups)
-        self._sweep_fused = make_sorted_t_sweep_fused(self.groups, self.kernels)
+        self._sweep_fused = (make_sorted_t_sweep_fused(self.kernels)
+                             if tables is not None else None)
 
     @property
     def launches(self) -> dict:
@@ -648,7 +659,9 @@ class SortedSparseTEngine:
     def to_layout(self, spins_rn: torch.Tensor) -> torch.Tensor:
         """[R, Np] -> [NS, R] sorted rows, as a new contiguous tensor."""
         s_t = spins_rn[:, self._perm_gather].t()
-        return s_t.to(self.spin_dtype).contiguous()
+        dtype = (torch.float32 if self._takes_single(spins_rn.shape[0])
+                 else self._narrow_dtype)
+        return s_t.to(dtype).contiguous()
 
     def from_layout(self, spins_t: torch.Tensor) -> torch.Tensor:
         """[NS, R] -> [R, Np] float32; padding spins restored to +1."""
@@ -689,7 +702,7 @@ class SortedSparseTEngine:
             # package runs its interpret mode
             th = self._thresholds(r, beta, generator, spins_t.device)
             return self.kernels.single_sweep(spins_t, beta, th=th)
-        if self._accept_kernel == "fused":
+        if self._use_fused:
             return self._sweep_fused(spins_t, beta, draw_seed(generator))
         th = self._thresholds(r, beta, generator, spins_t.device)
         return self._sweep(spins_t, th)
@@ -699,8 +712,8 @@ class SortedSparseTEngine:
         """Deterministic-uniform entry (tests): sorted row p consumes
         uniforms_t[p, :]. On the single path this drives K2's
         host-threshold mode (its twin on the CPU); K4 draws its own
-        uniforms, so the fused engine runs the threshold path here, as the
-        JAX engine does."""
+        uniforms, so wherever ``sweep`` would take the fused sweep this runs
+        the threshold path, as the JAX engine does."""
         r = spins_t.shape[1]
         beta = torch.broadcast_to(torch.as_tensor(beta, dtype=torch.float32,
                                                   device=spins_t.device), (r,))

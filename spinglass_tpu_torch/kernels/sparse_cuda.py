@@ -9,23 +9,27 @@ The counterpart of the Pallas half of ``spinglass_tpu.kernels.sparse``:
   (``default_tile`` says which shapes fit; beyond them the wrapper
   raises). Two modes: host thresholds th [NS, R]
   (already masked), or Philox4x32-10 drawn in the kernel from a 64-bit
-  sweep seed with counter (sorted row, replica).
+  sweep seed: the sparse stream, counter (sorted row, replica >> 2), four
+  uniforms per run of the rounds (``metropolis_cuda.philox_uniforms4``).
 * K3, ``csrc/sparse_thresholds.cu`` (replaces ``make_threshold_call``):
   th [NS, R] from the same Philox stream, -inf on padding rows.
-* K4, ``csrc/sparse_accept.cu`` (replaces ``make_accept_call``): one
-  colour's accept on its fields f [mc, R] (computed outside the kernel):
-  the same Philox thresholds, compare, flip in place (int8 or float32
-  spins) and dE / count added into [R] buffers.
+* K4, ``csrc/sparse_accept.cu`` (replaces ``make_accept_call`` and the
+  per-colour gathers around it): one colour's fields, the same Philox
+  thresholds, compare, flip in place (int8 or float32 spins) and dE /
+  count added into [R] buffers. ``accept_gather`` has the kernel gather the
+  fields itself from K2's slot tables and the spin array (any NS and R);
+  ``accept`` hands it fields f [mc, R] computed outside.
 
-``SparseKernels.single_sweep``, ``.thresholds`` and ``.accept`` run the
-twins, ``single_sweep_reference`` (the per-colour sweep
-``kernels.sparse.make_sorted_t_sweep`` on th), ``thresholds_reference``
-(``kernel_threshold(philox_uniforms(seed, NS, R), beta)``, masked) and
-``accept_reference`` (the same on the colour's rows), only for tensors on
-the CPU. For CUDA tensors they launch the kernel or raise: a failed build or
-launch is an exception, never a fallback. Each launch adds one to
-``SparseKernels.sweep_launches``, ``threshold_launches`` or
-``accept_launches``, and nothing else does. The kernels and the twins use
+``SparseKernels.single_sweep``, ``.thresholds``, ``.accept`` and
+``.accept_gather`` run the twins, ``single_sweep_reference`` (the
+per-colour sweep ``kernels.sparse.make_sorted_t_sweep`` on th),
+``thresholds_reference`` (``kernel_threshold(philox_uniforms4(seed, NS, R),
+beta)``, masked), ``accept_reference`` (the same on the colour's rows) and
+``accept_gather_reference`` (slot-ordered fields, then ``accept_reference``),
+only for tensors on the CPU. For CUDA tensors they launch the kernel or
+raise: a failed build or launch is an exception, never a fallback. Each
+launch adds one to ``SparseKernels.sweep_launches``, ``threshold_launches``
+or ``accept_launches``, and nothing else does. The kernels and the twins use
 the clamped Glauber threshold of ``metropolis_cuda.kernel_threshold``.
 """
 
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 
 from spinglass_tpu_torch.kernels.metropolis_cuda import (kernel_threshold,
-                                                         philox_uniforms)
+                                                         philox_uniforms4)
 from spinglass_tpu_torch.kernels.sweeps import canonical_rule
 
 SWEEP_KERNEL = "sparse_sweep"
@@ -79,7 +83,7 @@ def thresholds_reference(mask: torch.Tensor, beta: torch.Tensor, seed: int,
     is 0 on real rows and -inf on padding rows. ``row0`` is the sorted row
     of mask's first entry (a colour's slice)."""
     mask = mask.reshape(-1, 1)
-    u = philox_uniforms(seed, mask.shape[0], r, device=mask.device, row0=row0)
+    u = philox_uniforms4(seed, mask.shape[0], r, device=mask.device, row0=row0)
     beta = torch.broadcast_to(torch.as_tensor(beta, dtype=torch.float32,
                                               device=mask.device), (r,))
     th = kernel_threshold(u, beta[None, :], rule)
@@ -95,25 +99,33 @@ def single_sweep_reference(groups, spins_t: torch.Tensor, th: torch.Tensor):
     return make_sorted_t_sweep(groups)(spins_t, th)
 
 
+def ordered_fields(tables: dict, lo: int, hi: int,
+                   spins_t: torch.Tensor) -> torch.Tensor:
+    """Fields [hi - lo, R] float32 of sorted rows lo .. hi-1, slot by slot:
+    f = h, then f += val[:, k] * s[idx[:, k]] for k = 0, 1, ... (padding
+    slots add 0), the order in which K2 and K4 sum a row's field.
+    ``kernels.sparse._colour_fields`` lets torch.sum pick the order, which
+    can differ in the last bit on couplings that are not exact."""
+    idx, val = tables["idx"], tables["val"]
+    f = tables["h"][lo:hi, None].expand(hi - lo, spins_t.shape[1])
+    for k in range(idx.shape[1]):
+        f = f + val[lo:hi, k, None] * spins_t[idx[lo:hi, k].long()]
+    return f
+
+
 def single_sweep_ordered(tables: dict, spans, spins_t: torch.Tensor,
                          th: torch.Tensor):
-    """K2's arithmetic in plain PyTorch, slot by slot: per colour span
-    f = h, then f += val[:, k] * s[idx[:, k]] for k = 0, 1, ... (padding
-    slots add 0), the order in which the kernel sums a row's field.
-    ``single_sweep_reference`` lets torch.sum pick the order, which can
-    differ in the last bit on couplings that are not exact. In place;
-    returns (spins_t, dE[R] float32, n_accepted[R] int32)."""
+    """K2's arithmetic in plain PyTorch: per colour span the slot-ordered
+    fields (``ordered_fields``), then the accept on th. In place; returns
+    (spins_t, dE[R] float32, n_accepted[R] int32)."""
     from spinglass_tpu_torch.kernels.sparse import accept_colour
 
     r = spins_t.shape[1]
     de = torch.zeros(r, dtype=torch.float32, device=spins_t.device)
     cnt = torch.zeros(r, dtype=torch.int32, device=spins_t.device)
-    idx, val = tables["idx"].long(), tables["val"]
     for lo, hi in zip(spans[:-1], spans[1:]):
-        f = tables["h"][lo:hi, None].expand(hi - lo, r)
-        for k in range(idx.shape[1]):
-            f = f + val[lo:hi, k, None] * spins_t[idx[lo:hi, k]]
-        accept_colour(spins_t, lo, f, th[lo:hi], de, cnt)
+        accept_colour(spins_t, lo, ordered_fields(tables, lo, hi, spins_t),
+                      th[lo:hi], de, cnt)
     return spins_t, de, cnt
 
 
@@ -130,6 +142,36 @@ def accept_reference(f: torch.Tensor, spins_t: torch.Tensor, off: int,
     th = thresholds_reference(mask.reshape(-1)[off:off + mc], beta, seed, r,
                               rule, row0=off)
     accept_colour(spins_t, off, f, th, de, cnt)
+
+
+def accept_gather_reference(tables: dict, spins_t: torch.Tensor, off: int,
+                            mc: int, mask: torch.Tensor, beta: torch.Tensor,
+                            seed: int, rule: str, de: torch.Tensor,
+                            cnt: torch.Tensor) -> None:
+    """Twin of K4's gather mode: the slot-ordered fields of rows off ..
+    off+mc-1 from spins_t itself, then ``accept_reference``."""
+    accept_reference(ordered_fields(tables, off, off + mc, spins_t), spins_t,
+                     off, mask, beta, seed, rule, de, cnt)
+
+
+ACCEPT_COLS = 128  # replica columns per K4 thread block
+
+
+def accept_rows_per_block(mc: int, r: int) -> int:
+    """Rows of a colour that one K4 thread block of 8 warps takes: 16 below
+    4 column blocks of 128 replicas, 32 below 16, else 64, doubled where a
+    colour would have more than 65535 row blocks. A block pays a fixed price
+    (its thresholds' -0.5 / beta, its partial sums, a fence and a ticket),
+    so few rows per block lose to it and many leave the card's SMs idle.
+    Measured on the H100 (700 W) on the 10k bench graph (~1460 rows per
+    colour, int8 spins), us per sweep of 7 launches at 8 / 16 / 32 / 64 /
+    128 rows: R=4096 475 / 342 / 285 / 279 / 297; R=1024 161 / 117 / 100 /
+    121 / 168; R=128 76 / 60 / 70 / 98 / 163."""
+    col_blocks = -(-r // ACCEPT_COLS)
+    rows = 16 if col_blocks < 4 else 32 if col_blocks < 16 else 64
+    while -(-mc // rows) > 65535:
+        rows *= 2
+    return rows
 
 
 def _bind(lib: ctypes.CDLL, fn: str, argtypes) -> ctypes.CDLL:
@@ -158,8 +200,13 @@ def load_accept_kernel() -> ctypes.CDLL:
     from spinglass_tpu_torch.kernels import build
 
     p, i, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
-    return _bind(build.load(ACCEPT_KERNEL), "sgt_sparse_accept",
-                 [p, p, i, p, p, u64, p, p, i, i, i, i, p])
+    ints = ctypes.POINTER(ctypes.c_int)
+    lib = _bind(build.load(ACCEPT_KERNEL), "sgt_sparse_accept",
+                [p, p, p, p, p, i, i, p, i, p, p, u64, p, p, p, p, p, i, i,
+                 i, i, i, p])
+    return _bind(lib, "sgt_sparse_accept_sweep",
+                 [p, p, p, p, i, i, p, i, p, p, u64, p, p, p, p, p, ints,
+                  ints, i, i, i, p])
 
 
 def _check(lib, err: int, name: str) -> None:
@@ -169,12 +216,15 @@ def _check(lib, err: int, name: str) -> None:
 
 
 class SparseKernels:
-    """K2 and K3 for one colour-sorted layout (``kernels.sparse.build_sorted_t``).
+    """K2, K3 and K4 for one colour-sorted layout
+    (``kernels.sparse.build_sorted_t``).
 
     ``mask`` [NS, 1] is 0 on real rows and -inf on padding rows. ``groups``
     (device buckets) and ``tables`` (``build_single_tables``' idx, val, h and
-    per-row degree) are needed by K2 only; without them ``single_sweep``
-    raises. Spins are +-1. Tensors live on the problem's device.
+    per-row degree) are needed by K2 and by K4's gather mode; without them
+    ``single_sweep`` and ``accept_gather`` raise. Spins are +-1. Tensors
+    live on the problem's device. K4's scratch is kept per replica count and
+    reused by every launch, so one instance serves one stream at a time.
     """
 
     def __init__(self, mask: torch.Tensor, rule: str, groups=None,
@@ -193,7 +243,8 @@ class SparseKernels:
             self.spans = torch.as_tensor(np.asarray(spans, np.int32),
                                          device=mask.device)
             # K2 reads the slot tables transposed, [kmax, NS]: a warp's 32
-            # rows then read one 128-byte line per slot
+            # rows then read one 128-byte line per slot (K4's warp owns one
+            # row and reads its slots from the row-major tables)
             self._idx_t = tables["idx"].t().contiguous()
             self._val_t = tables["val"].t().contiguous()
         self.sweep_launches = 0       # K2 launches made by this instance
@@ -201,6 +252,8 @@ class SparseKernels:
         self.accept_launches = 0      # K4 launches made by this instance
         self._libs = None             # built and bound at the first launch
         self._accept_lib = None
+        self._accept_scratch = {}     # R -> (dE partials, count partials, tickets)
+        self._accept_rows = {}        # R -> K4's rows per block, per colour
 
     def _beta(self, beta, r: int) -> torch.Tensor:
         beta = torch.as_tensor(beta, dtype=torch.float32, device=self.mask.device)
@@ -279,42 +332,145 @@ class SparseKernels:
     def accept(self, f: torch.Tensor, spins_t: torch.Tensor, off: int,
                beta: torch.Tensor, seed: int, de: torch.Tensor,
                cnt: torch.Tensor) -> None:
-        """K4: one colour's rows off .. off+mc-1 of spins_t [NS, R] (int8 or
-        float32, in place) accept on their fields f [mc, R] float32 with the
-        Philox thresholds of ``seed``; dE and the count are added into de
-        [R] float32 and cnt [R] int32. beta is [R] float32."""
+        """K4 on given fields: one colour's rows off .. off+mc-1 of spins_t
+        [NS, R] (int8 or float32, in place) accept on their fields f [mc, R]
+        float32 with the Philox thresholds of ``seed``; dE and the count are
+        added into de [R] float32 and cnt [R] int32. beta is [R] float32."""
         if not spins_t.is_cuda:
             accept_reference(f, spins_t, off, self.mask, beta, seed, self.rule,
                              de, cnt)
             return
+        mc, r = f.shape[0], spins_t.shape[1]
+        if (f.shape != (mc, r) or f.device != spins_t.device
+                or f.dtype != torch.float32 or not f.is_contiguous()):
+            raise ValueError(f"f must be contiguous float32 [mc, {r}] on "
+                             f"{spins_t.device}, got {tuple(f.shape)}")
+        self._launch_accept(f, spins_t, off, mc, beta, seed, de, cnt)
+
+    def accept_gather(self, spins_t: torch.Tensor, off: int, mc: int,
+                      beta: torch.Tensor, seed: int, de: torch.Tensor,
+                      cnt: torch.Tensor) -> None:
+        """K4 in gather mode: as ``accept``, but the kernel computes the
+        fields of rows off .. off+mc-1 itself from the slot tables and
+        spins_t (slots in order, as K2). The rows must be one colour, or
+        any set of rows of which none is a neighbour of another."""
+        if self.tables is None:
+            raise ValueError("this layout has no slot tables to gather from")
+        if not spins_t.is_cuda:
+            accept_gather_reference(self.tables, spins_t, off, mc, self.mask,
+                                    beta, seed, self.rule, de, cnt)
+            return
+        self._launch_accept(None, spins_t, off, mc, beta, seed, de, cnt)
+
+    def accept_sweep(self, spins_t: torch.Tensor, beta: torch.Tensor,
+                     seed: int):
+        """A whole sweep through K4 in gather mode: ``accept_gather`` for
+        every colour span in order, in place. On a CUDA device the colours'
+        launches are made from one call into the library (one K4 launch per
+        non-empty colour, each counted). beta is [R] float32. Returns
+        (spins_t, dE[R] float32, n_accepted[R] int32)."""
+        if self.tables is None:
+            raise ValueError("this layout has no slot tables to gather from")
+        r = spins_t.shape[1]
+        dev = spins_t.device
+        spans = self.span_list
+        if not spins_t.is_cuda:
+            de = torch.zeros(r, dtype=torch.float32, device=dev)
+            cnt = torch.zeros(r, dtype=torch.int32, device=dev)
+            for lo, hi in zip(spans[:-1], spans[1:]):
+                if hi > lo:
+                    accept_gather_reference(self.tables, spins_t, lo, hi - lo,
+                                            self.mask, beta, seed, self.rule,
+                                            de, cnt)
+            return spins_t, de, cnt
+        de = torch.empty(r, dtype=torch.float32, device=dev)
+        cnt = torch.empty(r, dtype=torch.int32, device=dev)
+        self._check_accept(spins_t, spans[0], spans[-1] - spans[0], beta,
+                           seed, de, cnt)
+        if r not in self._accept_rows:
+            self._accept_rows[r] = [accept_rows_per_block(max(hi - lo, 1), r)
+                                    for lo, hi in zip(spans[:-1], spans[1:])]
+        rows = self._accept_rows[r]
+        scratch = self._scratch(r, max(
+            -(-(hi - lo) // n) for lo, hi, n in zip(spans[:-1], spans[1:], rows)))
+        n_colors = len(spans) - 1
+        lib, t = self._accept_lib, self.tables
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.sgt_sparse_accept_sweep(
+                t["idx"].data_ptr(), t["val"].data_ptr(),
+                t["deg"].data_ptr(), t["h"].data_ptr(), spins_t.shape[0],
+                t["idx"].shape[1], spins_t.data_ptr(), spins_t.element_size(),
+                self.mask.data_ptr(), beta.data_ptr(), seed, de.data_ptr(),
+                cnt.data_ptr(), *(b.data_ptr() for b in scratch),
+                (ctypes.c_int * len(spans))(*spans),
+                (ctypes.c_int * n_colors)(*rows), n_colors, r,
+                0 if self.rule == "metropolis" else 1, stream)
+        _check(lib, err, ACCEPT_KERNEL)
+        self.accept_launches += sum(hi > lo for lo, hi
+                                    in zip(spans[:-1], spans[1:]))
+        return spins_t, de, cnt
+
+    def _check_accept(self, spins_t, off: int, mc: int, beta, seed: int, de,
+                      cnt) -> None:
+        """Raises on what K4 does not take; builds it at first use."""
         ns, r = spins_t.shape
-        mc = f.shape[0]
         dev = spins_t.device
         if (spins_t.dtype not in (torch.int8, torch.float32)
                 or not spins_t.is_contiguous() or ns != self.mask.shape[0]
                 or dev != self.mask.device):
             raise ValueError(f"spins_t must be contiguous int8 or float32 "
                              f"[{self.mask.shape[0]}, R] on {self.mask.device}")
-        if not (0 <= off and off + mc <= ns and f.shape == (mc, r)):
-            raise ValueError(f"rows {off}..{off + mc} or fields {tuple(f.shape)} "
-                             f"do not fit spins [{ns}, {r}]")
-        for name, t, dtype in (("f", f, torch.float32), ("beta", beta, torch.float32),
-                               ("de", de, torch.float32), ("cnt", cnt, torch.int32)):
-            if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous {dtype} on {dev}")
-        if beta.shape != (r,) or de.shape != (r,) or cnt.shape != (r,):
-            raise ValueError(f"beta, de and cnt must have shape [{r}]")
+        if not (0 <= off and 1 <= mc and off + mc <= ns):
+            raise ValueError(f"rows {off}..{off + mc} do not fit spins "
+                             f"[{ns}, {r}]")
+        for name, t, dtype in (("beta", beta, torch.float32),
+                               ("de", de, torch.float32),
+                               ("cnt", cnt, torch.int32)):
+            if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
+                    or t.shape != (r,)):
+                raise ValueError(f"{name} must be contiguous {dtype} [{r}] "
+                                 f"on {dev}")
         if not 0 <= seed < 2 ** 64:
             raise ValueError(f"seed {seed} is not a 64-bit unsigned value")
         if self._accept_lib is None:
             self._accept_lib = load_accept_kernel()
+
+    def _scratch(self, r: int, row_blocks: int):
+        """K4's per-block partial sums [row_blocks, R] (dE, counts) and its
+        zeroed ticket counters, kept per replica count."""
+        scratch = self._accept_scratch.get(r)
+        if scratch is None or scratch[0].shape[0] < row_blocks:
+            dev = self.mask.device
+            scratch = (torch.empty(row_blocks, r, dtype=torch.float32, device=dev),
+                       torch.empty(row_blocks, r, dtype=torch.int32, device=dev),
+                       torch.zeros(-(-r // ACCEPT_COLS), dtype=torch.int32,
+                                   device=dev))
+            self._accept_scratch[r] = scratch
+        return scratch
+
+    def _launch_accept(self, f: Optional[torch.Tensor], spins_t: torch.Tensor,
+                       off: int, mc: int, beta: torch.Tensor, seed: int,
+                       de: torch.Tensor, cnt: torch.Tensor) -> None:
+        self._check_accept(spins_t, off, mc, beta, seed, de, cnt)
+        ns, r = spins_t.shape
         lib = self._accept_lib
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
+        rows = accept_rows_per_block(mc, r)
+        scratch = self._scratch(r, -(-mc // rows))
+        t = self.tables
+        gather = f is None
+        with torch.cuda.device(spins_t.device):
+            stream = torch.cuda.current_stream(spins_t.device).cuda_stream
             err = lib.sgt_sparse_accept(
-                f.data_ptr(), spins_t.data_ptr(), spins_t.element_size(),
+                None if gather else f.data_ptr(),
+                t["idx"].data_ptr() if gather else None,
+                t["val"].data_ptr() if gather else None,
+                t["deg"].data_ptr() if gather else None,
+                t["h"].data_ptr() if gather else None,
+                ns, t["idx"].shape[1] if gather else 0,
+                spins_t.data_ptr(), spins_t.element_size(),
                 self.mask.data_ptr(), beta.data_ptr(), seed, de.data_ptr(),
-                cnt.data_ptr(), off, mc, r,
-                0 if self.rule == "metropolis" else 1, stream)
+                cnt.data_ptr(), *(b.data_ptr() for b in scratch), off, mc, r,
+                rows, 0 if self.rule == "metropolis" else 1, stream)
         _check(lib, err, ACCEPT_KERNEL)
         self.accept_launches += 1

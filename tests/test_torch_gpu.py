@@ -96,24 +96,122 @@ def test_sparse_kernels_match_twins_bitwise(cuda, r, rule):
 
 @pytest.mark.gpu
 def test_sparse_engine_dispatch_on_cuda(cuda):
-    """make_engine takes the transposed engine for r_hint >= 128 on the
-    card; R=128 runs K2, R=4096 at a layout too large for the budget runs
-    K3 and the plain per-colour sweep."""
+    """make_engine takes the transposed engine for r_hint >= 16 on the
+    card; R=128 runs K2 on float32 spins, and a shape outside K2's budget
+    (or no multiple of 128) runs K4 once per colour on int8 spins."""
     from spinglass_tpu_torch.anneal.engines import make_engine
 
     ell = _pm_j_ell(500, 4, cuda)
     eng = make_engine(ell, r_hint=128)
     assert eng.name == "sparse_sorted_t" and eng.spin_dtype == torch.float32
-    assert make_engine(ell, r_hint=16).name == "sparse_sorted"
+    assert make_engine(ell, r_hint=16).name == "sparse_sorted_t"
+    assert make_engine(ell, r_hint=8).name == "sparse_sorted"
     gen = torch.Generator().manual_seed(0)
     s = eng.to_layout(torch.ones(128, ell.n_padded, device=cuda))
+    assert s.dtype == torch.float32
     eng.sweep(s, torch.full((128,), 0.5, device=cuda), gen)
     eng.SINGLE_VMEM_SPIN_BYTES = eng.n_sorted * 128 * 4  # R=256 no longer fits
-    s = eng.to_layout(torch.ones(256, ell.n_padded, device=cuda))
-    eng.sweep(s, torch.full((256,), 0.5, device=cuda), gen)
+    for r in (256, 16):
+        s = eng.to_layout(torch.ones(r, ell.n_padded, device=cuda))
+        assert s.dtype == torch.int8
+        eng.sweep(s, torch.full((r,), 0.5, device=cuda), gen)
     torch.cuda.synchronize()
-    assert eng.launches == {"sparse_sweep": 1, "sparse_thresholds": 1,
-                            "sparse_accept": 0}
+    assert eng.launches == {"sparse_sweep": 1, "sparse_thresholds": 0,
+                            "sparse_accept": 2 * len(eng.groups)}
+    none = S.SortedSparseTEngine(ell, accept_kernel="none")
+    s = none.to_layout(torch.ones(256, ell.n_padded, device=cuda))
+    none.sweep(s, torch.full((256,), 0.5, device=cuda), gen)
+    assert none.launches == {"sparse_sweep": 0, "sparse_thresholds": 1,
+                             "sparse_accept": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,rule", list(itertools.product(
+    (128, 4096, 130, 3), ("metropolis", "glauber"))))
+def test_threshold_kernel_matches_twin_bitwise(cuda, r, rule):
+    """K3 (four columns per thread, vector stores; scalar where R % 4 != 0)
+    equals kernel_threshold(philox_uniforms4) masked, bit for bit."""
+    ell = _pm_j_ell(500, 3, cuda)
+    eng = S.SortedSparseTEngine(ell, rule=rule, accept_kernel="none")
+    beta = torch.linspace(0.05, 3.0, r, device=cuda)
+    seed = 2 ** 63 + r
+    th = eng.kernels.thresholds(beta, seed, r)
+    want = SC.thresholds_reference(eng.mask_col, beta, seed, r, rule)
+    torch.cuda.synchronize()
+    assert torch.equal(th, want)
+    assert eng.kernels.threshold_launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spin_dtype,rule,r", [
+    (dtype, rule, r) for dtype in (torch.int8, torch.float32)
+    for rule in ("metropolis", "glauber") for r in (128, 4096, 130)])
+def test_accept_gather_matches_plain_version_bitwise(cuda, spin_dtype, rule, r):
+    """K4 in gather mode, colour by colour and as a whole sweep, against the
+    slot-ordered plain version: +-J spins, dE and counts bit for bit;
+    Gaussian couplings spins and counts bit for bit, dE within 1e-5."""
+    for dist in ("binary", "gaussian"):
+        coo = topology.sparse_random_graph_coo(500, avg_degree=6.0, dist=dist,
+                                               seed=6)
+        h = np.random.default_rng(6).integers(-8, 9, 500) / 4.0
+        ell = S.EllProblem.from_coo(500, *coo, h=h, device=cuda)
+        eng = S.SortedSparseTEngine(ell, rule=rule, spin_dtype=spin_dtype,
+                                    accept_kernel="fused")
+        k = eng.kernels
+        gen = torch.Generator().manual_seed(r)
+        s = eng.to_layout(torch.where(torch.rand(r, ell.n_padded, generator=gen)
+                                      < 0.5, -1.0, 1.0).to(cuda))
+        assert s.dtype == spin_dtype
+        beta = (torch.rand(r, generator=gen) * 2.0 + 0.1).to(cuda)
+        s_k, s_p, s_w = s.clone(), s.clone(), s.clone()
+        out = [(torch.zeros(r, device=cuda),
+                torch.zeros(r, dtype=torch.int32, device=cuda))
+               for _ in range(2)]
+        for off, mc, _ in eng.groups:
+            k.accept_gather(s_k, off, mc, beta, 31, *out[0])
+            SC.accept_gather_reference(k.tables, s_p, off, mc, eng.mask_col,
+                                       beta, 31, rule, *out[1])
+        _, de_w, cnt_w = k.accept_sweep(s_w, beta, 31)
+        torch.cuda.synchronize()
+        assert torch.equal(s_k, s_p) and torch.equal(s_w, s_p)
+        assert torch.equal(out[0][1], out[1][1]) and torch.equal(cnt_w, out[1][1])
+        assert int(cnt_w.sum()) > 0
+        if dist == "binary":
+            assert torch.equal(out[0][0], out[1][0])
+            assert torch.equal(de_w, out[1][0])
+        else:
+            tol = 1e-5 * float(out[1][0].abs().max())
+            assert float((out[0][0] - out[1][0]).abs().max()) <= tol
+            assert float((de_w - out[1][0]).abs().max()) <= tol
+        assert k.accept_launches == 2 * len(eng.groups)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["metropolis", "glauber"])
+def test_one_seed_k2_k3_path_k4_path(cuda, rule):
+    """Under one seed K2, the per-colour sweep on K3's thresholds and the
+    fused sweep through K4 make the same decisions: spins, dE and counts bit
+    for bit over three sweeps."""
+    ell = _pm_j_ell(500, 8, cuda)
+    single = S.SortedSparseTEngine(ell, rule=rule, accept_kernel="single")
+    fused = S.SortedSparseTEngine(ell, rule=rule, accept_kernel="fused")
+    assert np.array_equal(single.perm, fused.perm)
+    r = 256
+    gen = torch.Generator().manual_seed(5)
+    s_rn = torch.where(torch.rand(r, ell.n_padded, generator=gen) < 0.5,
+                       -1.0, 1.0).to(cuda)
+    s2, s3, s4 = single.to_layout(s_rn), single.to_layout(s_rn), fused.to_layout(s_rn)
+    beta = torch.linspace(0.05, 3.0, r, device=cuda)
+    for seed in (2 ** 63 + 5, 6, 7):
+        _, de2, c2 = single.kernels.single_sweep(s2, beta, seed=seed)
+        th = single.kernels.thresholds(beta, seed, r)
+        _, de3, c3 = S.make_sorted_t_sweep(single.groups)(s3, th)
+        _, de4, c4 = fused._sweep_fused(s4, beta, seed)
+        torch.cuda.synchronize()
+        assert s4.dtype == torch.int8
+        assert torch.equal(s2, s3) and torch.equal(s3, s4.float())
+        assert torch.equal(c2, c3) and torch.equal(c3, c4)
+        assert torch.equal(de2, de3) and torch.equal(de3, de4)
 
 
 @pytest.mark.gpu
@@ -158,8 +256,9 @@ def test_dense_variants_match_twins_and_k1_bitwise(cuda, flags, r, rule, block):
 @pytest.mark.parametrize("spin_dtype,r", [(torch.int8, 128),
                                           (torch.float32, 256)])
 def test_fused_accept_matches_twin_and_threshold_path(cuda, spin_dtype, r):
-    """K4 on one colour equals its twin; a whole K4-path sweep equals the
-    per-colour sweep on K3's thresholds for the same seed, bit for bit."""
+    """K4 on given fields (one colour) equals its twin; a whole K4-path
+    sweep (gather mode) equals the per-colour sweep on K3's thresholds for
+    the same seed, bit for bit."""
     ell = _pm_j_ell(500, 5, cuda)
     eng = S.SortedSparseTEngine(ell, accept_kernel="fused",
                                 spin_dtype=spin_dtype)
@@ -301,8 +400,10 @@ def test_sparse_sweep_at_the_shared_memory_envelope(cuda, n, tile):
     assert SC.default_tile(r, eng.n_sorted) == tile
     assert (eng.n_sorted * 8 <= SC.TILE_SMEM_BYTES) == (tile == 8)
     gen = torch.Generator().manual_seed(n)
+    # K2 itself takes any R on float32 spins (the engine's layout is int8
+    # where its own rule, R % 128 == 0, does not take K2)
     s = eng.to_layout(torch.where(torch.rand(r, ell.n_padded, generator=gen)
-                                  < 0.5, -1.0, 1.0).to(cuda))
+                                  < 0.5, -1.0, 1.0).to(cuda)).float()
     beta = (torch.rand(r, generator=gen) * 2.0 + 0.1).to(cuda)
     for it in range(2):
         s_ref = s.clone()

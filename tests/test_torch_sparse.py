@@ -30,7 +30,7 @@ from spinglass_tpu_torch.core.convert import (  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse as S  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse_cuda as SC  # noqa: E402
 from spinglass_tpu_torch.kernels.metropolis_cuda import (  # noqa: E402
-    kernel_threshold, philox_uniforms)
+    kernel_threshold, philox_uniforms4)
 
 N = 300
 
@@ -262,14 +262,15 @@ def test_make_engine_matches_jax():
 
 
 def test_thresholds_reference_and_philox_twin():
-    """K3's twin is kernel_threshold(philox_uniforms) masked; K2's twin in
-    Philox mode makes the decisions of the per-colour sweep on K3's twin."""
+    """K3's twin is kernel_threshold(philox_uniforms4) masked (the sparse
+    kernels' stream: four uniforms per Philox call); K2's twin in Philox
+    mode makes the decisions of the per-colour sweep on K3's twin."""
     _, te = _pair()
     eng = S.SortedSparseTEngine(te, rule="glauber", accept_kernel="single")
     r, seed = 128, 2 ** 40 + 77
     beta = torch.linspace(0.2, 3.0, r)
     th = eng.kernels.thresholds(beta, seed, r)
-    u = philox_uniforms(seed, eng.n_sorted, r)
+    u = philox_uniforms4(seed, eng.n_sorted, r)
     want = kernel_threshold(u, beta[None, :], "glauber")
     want = torch.where(eng.mask_col < 0, torch.full_like(want, -torch.inf), want)
     assert torch.equal(th, want)
@@ -303,7 +304,7 @@ def test_fused_sweep_twin_matches_jax_sorted_t_sweep(rule, spin_dtype):
     jeng = JS.SortedSparseTEngine(je, rule=rule, bucket_order="index")
     np.testing.assert_array_equal(eng.perm, jeng.perm)
     jsweep = jax.jit(JS.make_sorted_t_sweep(jeng.groups))
-    fused = S.make_sorted_t_sweep_fused(eng.groups, eng.kernels)
+    fused = S.make_sorted_t_sweep_fused(eng.kernels)
     s_rn = _spins(r, te.n_padded, N, seed=7)
     ts = eng.to_layout(torch.as_tensor(s_rn))
     js = jeng.to_layout(jnp.asarray(s_rn)).astype(
