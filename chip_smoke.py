@@ -10,10 +10,12 @@ bf16 tensor-core fields from an exact 3-plane split of J), its variants K5
 sweep, the tile's spins in shared memory), K3 (sparse thresholds, four per
 Philox run) and K4 (one colour of the sparse sweep per launch: it gathers
 its own fields). Holds each against its plain PyTorch twin, drives
-the dense SA slice (SK glass, N=4096, R=1024; K1 and each variant) and the
+the dense SA slice (SK glass, N=4096, R=1024; K1 and each variant), the
 sparse slice (10k spins: SA at R=1024, time-to-target PT at R=128, PT at
-R=4096 on K4, make_engine's choice there, and on K3) end to end, and times
-the kernels against the twins. Phases:
+R=4096 on K4, make_engine's choice there, and on K3) and the RL path (the
+annealer environment and PPO on the SK glass at N=512 with 256 envs through
+K1, and on the 10k graph through K2 and K4) end to end, and times the
+kernels against the twins. Phases:
 
   1. device and build: nvidia-smi name and power limit, build seconds,
      registers, spills and shared memory of every kernel, and how many of
@@ -41,7 +43,7 @@ the kernels against the twins. Phases:
      K3 + the plain sweep (R=4096).
      K5, K6 (2 and 4 chains), K7: each against its own twin and against K1
      on +-J N=500 (R in {1, 37, 256, 1024}, both rules, both blocks,
-     host-uniform and Philox sweeps), and at N=4096, R=1024 against its
+     a host-uniform or a Philox sweep at each), and at N=4096, R=1024 against its
      twin and K1 (block 128, Philox) and against K1 (block 256, host
      uniforms): spins, dE, counts bitwise.
      K4: whole sweeps in gather mode against the slot-ordered plain version
@@ -49,7 +51,13 @@ the kernels against the twins. Phases:
      10k graph (spins and counts bitwise, dE within 1e-5), int8 and float32
      spins, both rules, R in {128, 4096}; on given fields against its twin
      (R in {128, 4096, 130}); one K4-path sweep == one K3-path sweep == one
-     K2 sweep at [10240, 1024] and [10240, 130] under one seed, bitwise;
+     K2 sweep at [10240, 1024] and [10240, 130] under one seed, bitwise.
+     RL: two env steps of 10 sweeps through make_engine's engine against
+     the same steps through the twin under one generator seed, in all three
+     action modes with sweep fractions below 1 for some envs (the kernels
+     write in place; those envs must keep their spins): +-J N=512 with 256
+     envs (K1), the +-J 10k graph with 128 envs (K2) and 64 envs (K4);
+     spins, energies, counts, rewards, observations and done bitwise;
   3. in-kernel Philox, statistically: a 6-spin system sampled for 400 sweeps
      at beta=0.6 against exact enumeration (TV < 0.05), through K1 and
      through K2; K1's SK acceptance within 1% of the host-uniform sweep's;
@@ -64,8 +72,8 @@ the kernels against the twins. Phases:
      128) must take the fused sweep, K4 once per colour and sweep. The
      sparse anneal's E/N must lie within 0.01 of -1.63. Each run's
      best_energy must equal the energy of its best_spins (1e-3 relative).
-     Then each dense variant runs 200 sweeps of the SK anneal (its seeds,
-     a 200-sweep schedule, sa's sweep step): E/N <= -0.72, energy identity
+     Then each dense variant runs 100 sweeps of the SK anneal (its seeds,
+     a 100-sweep schedule, sa's sweep step): E/N <= -0.72, energy identity
      within 1e-4 relative per 50-sweep chunk; on a +-J N=4096 instance 50
      such sweeps must end bitwise equal to K1's spins. PT at R=4096 through
      make_pt_step with SortedSparseTEngine(accept_kernel="fused") for 200
@@ -73,7 +81,17 @@ the kernels against the twins. Phases:
      (accept_kernel="none", K3 200 times)
      under one seed (spins and slots bitwise, energies within 1e-4), with
      K4 launched once per colour and sweep, K3 not, and no per-colour field
-     gather outside K4. The launch counts
+     gather outside K4. RL: a rollout of 8 env steps with auto_reset at
+     N=512 x 256 envs makes no host sync; bench_rl (ppo.train, 48 updates)
+     must launch K1 exactly updates x 8 x 10 times, keep every metric
+     finite, end with best_energy <= energy == energy(spins) (1e-4
+     relative) and reach a mean best energy per spin <= -0.60; make_ppo on
+     the 10k bench graph must launch K2 80 times at 128 envs and K4 once
+     per colour and sweep at 64 envs over 2 updates of rollout 4, with the
+     mean best energy below the reset energy; rollout_best_energy for the
+     geometric controller must launch K1 max_steps x sweeps_per_step times,
+     and env.reset without an engine on a problem on the card must raise.
+     The launch counts
      are those of the engine each run builds, so they start at 0 and count
      only that run's launches;
   5. timing: each kernel's bound (bytes over 3.35 TB/s against operations
@@ -89,7 +107,10 @@ the kernels against the twins. Phases:
      over one sweep's colours beside its plain version and K4 on given
      fields; PT at R=4096 three ways in turns (the K3 path, the K4 path, K2
      with its budget lifted) with each way's device breakdown; PT at 16
-     replicas through K4 and through the plain [R, N] engine.
+     replicas through K4 and through the plain [R, N] engine; bench_rl's
+     env steps/s with its window rates, and profile_rl's breakdown of one
+     PPO update (us per env step, device-busy share, launches per env
+     step, K1's share, rollout against learning phase).
 
 Any failed check exits non-zero. The last line is the JSON status
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -318,23 +339,15 @@ def driver_parity(torch, mc, problem):
     Philox stream: every piece of the state must be equal bit for bit."""
     from spinglass_tpu_torch.anneal import sa
     from spinglass_tpu_torch.anneal.engines import CudaFusedEngine
-    from spinglass_tpu_torch.kernels.sweeps import draw_seed
-
-    class TwinEngine(CudaFusedEngine):
-        def sweep(self, spins_t, beta, generator):
-            f = self.fused
-            u = mc.philox_uniforms(draw_seed(generator), *spins_t.shape,
-                                   device=spins_t.device)
-            return mc.fused_sweep_reference(
-                self.problem.j, self.problem.h, self.problem.active_mask,
-                spins_t, beta, u, f.rule, f.block_size)
+    from spinglass_tpu_torch.anneal.twins import TwinFusedEngine
 
     cfg = sa.SAConfig(n_sweeps=500, n_replicas=1024)
     engine = sa.make_sweep_engine(problem, cfg)
     check(type(engine) is CudaFusedEngine
           and engine.fused.block_size == SA_BLOCK,
           f"make_engine picks CudaFusedEngine, block {SA_BLOCK}")
-    twin = TwinEngine(problem, block_size=cfg.block_size, rule=cfg.update_rule)
+    twin = TwinFusedEngine(problem, block_size=cfg.block_size,
+                           rule=cfg.update_rule)
     out = []
     for eng in (engine, twin):
         state = sa.init_state(problem, cfg, eng)
@@ -575,11 +588,11 @@ def variant_parity(torch, mc, stats):
     small = pm_j_problem(500, 3, "cuda")
     big = pm_j_problem(4096, 5, "cuda")
     for label in VARIANTS:
-        for r, rule, block in ((1, "metropolis", 128), (37, "glauber", 256),
-                               (256, "metropolis", 256),
-                               (1024, "glauber", 128)):
-            for philox in (False, True):
-                compare(small, label, r, rule, block, philox)
+        for r, rule, block, philox in ((1, "metropolis", 128, False),
+                                       (37, "glauber", 256, True),
+                                       (256, "metropolis", 256, True),
+                                       (1024, "glauber", 128, False)):
+            compare(small, label, r, rule, block, philox)
         # the slice's shape: against the twin (its sweep timed last) and K1
         # in Philox mode at block 128, and against K1 with host uniforms at
         # block 256; beta 0.05 as K1's check there, so replicas flip
@@ -587,8 +600,8 @@ def variant_parity(torch, mc, stats):
         compare(big, label, 1024, "glauber", 256, False, twin=False, beta=beta)
         compare(big, label, 1024, "metropolis", 128, True, beta=beta)
     check(True, "K5, K6 (2, 4 chains), K7 on +-J N=500, R in {1, 37, 256, "
-                "1024}, both rules, blocks 128/256, host-uniform and Philox "
-                "sweeps: spins, dE, counts bitwise equal to each variant's "
+                "1024}, both rules, blocks 128/256, a host-uniform or a Philox "
+                "sweep each: spins, dE, counts bitwise equal to each variant's "
                 "twin and to K1; at N=4096, R=1024 (the slice's shape) "
                 "bitwise equal to the twin and K1 at block 128 (Philox) and "
                 "to K1 at block 256 (host uniforms)")
@@ -622,19 +635,19 @@ def _variant_run(torch, mc, problem, flags, sweeps, chunk):
 
 
 def variant_slice(torch, mc, stats):
-    """Phase 4 (variants): 200 sweeps of the dense slice through each
-    variant on the SK instance, and 100 on a +-J instance against K1."""
+    """Phase 4 (variants): 100 sweeps of the dense slice through each
+    variant on the SK instance, and 50 on a +-J instance against K1."""
     sk = stats["sk"]
     stats["variant_launches"] = {}
     for label, flags in VARIANTS.items():
-        state, engine, rel = _variant_run(torch, mc, sk, flags, 200, 50)
+        state, engine, rel = _variant_run(torch, mc, sk, flags, 100, 50)
         name = engine.fused.kernel_name
         launches = engine.launches[name]
         stats["variant_launches"][name] = (
             stats["variant_launches"].get(name, 0) + launches)
         e_n = float(state.best_energy.min()) / 4096
-        check(launches == 200 and e_n <= -0.72 and rel <= 1e-4,
-              f"{label} ({name}): SK N=4096 R=1024, 200 sweeps of the SA "
+        check(launches == 100 and e_n <= -0.72 and rel <= 1e-4,
+              f"{label} ({name}): SK N=4096 R=1024, 100 sweeps of the SA "
               f"schedule: launched {launches} times, best E/N {e_n:.5f} <= "
               f"-0.72, energy identity max rel err {rel:.3e} <= 1e-4")
     pm = pm_j_problem(4096, 9, "cuda")
@@ -825,17 +838,10 @@ def pt_driver_parity(torch):
     the TTT shape, R=128) against the same driver whose engine runs the twin
     on the kernel's Philox stream: the state must be equal bit for bit."""
     from spinglass_tpu_torch.anneal import pt
+    from spinglass_tpu_torch.anneal.twins import TwinSparseTEngine
     from spinglass_tpu_torch.benchmarks import planted
     from spinglass_tpu_torch.benchmarks.headline import ttt_config
-    from spinglass_tpu_torch.kernels import sparse_cuda as sc
     from spinglass_tpu_torch.kernels.sparse import EllProblem, SortedSparseTEngine
-    from spinglass_tpu_torch.kernels.sweeps import draw_seed
-
-    class TwinEngine(SortedSparseTEngine):
-        def sweep(self, spins_t, beta, generator):
-            th = sc.thresholds_reference(self.mask_col, beta, draw_seed(generator),
-                                         spins_t.shape[1], self.rule)
-            return sc.single_sweep_reference(self.groups, spins_t, th)
 
     inst = planted.planted_gauge_coo(10000, 6.0, seed=42, frustration=0.3,
                                      magnitude="ones")
@@ -845,7 +851,7 @@ def pt_driver_parity(torch):
     step, _, engine = pt.make_pt_step(ell, cfg)
     check(type(engine) is SortedSparseTEngine and engine._takes_single(128),
           "make_engine picks SortedSparseTEngine (K2 path) for the 128-replica PT")
-    twin = TwinEngine(ell)
+    twin = TwinSparseTEngine(ell)
     twin_step, _, _ = pt.make_pt_step(ell, cfg, engine=twin)
     out = []
     for st_fn, eng in ((step, engine), (twin_step, twin)):
@@ -1376,12 +1382,238 @@ def accept_timing(torch, stats, card):
         for kern in prof["kernels"][:4]:
             print(f"    {kern['us_per_sweep']:9.2f} us/sweep  {kern['calls']:5d} "
                   f"calls  {kern['name'][:80]}")
-    b = headline.bench_pt16(super_steps=10)
+    b = headline.bench_pt16(super_steps=5)
     for label, ms in b["value"].items():
         print(f"  PT at 16 replicas (bench_pt10k's shape) through the {label} "
               f"engine ({b['extras']['engines'][label]}, launches "
               f"{b['extras']['launches'][label]}), in turns: "
               f"{ms[0]:.3f} / {ms[1]:.3f} ms/sweep [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# The RL path: the annealer environment, PPO and its evaluation
+# ---------------------------------------------------------------------------
+
+RL_MODES = ("discrete", "continuous", "hybrid")
+SMOKE_RL_UPDATES = 48   # bench_rl's updates here (its default is 512)
+# the RL bench run must anneal: mean best energy per spin over the 256 envs
+# after SMOKE_RL_UPDATES updates (episodes of 50 steps from a log-uniform start
+# temperature, all at different stages). The first run on the H100 read
+# -0.654 (-0.445 after the first update, whose 8 env steps are what a run
+# that stops annealing keeps).
+RL_E_PER_SPIN_MAX = -0.60
+
+
+def _rl_actions(torch, mode, b, seed):
+    """Fixed actions of one mode on the card; the sweep fractions leave some
+    envs with a spent budget."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, 10, (b,), generator=g).cuda()
+    frac = torch.linspace(0.05, 1.1, b).cuda()
+    if mode == "discrete":
+        return idx
+    if mode == "continuous":
+        return torch.stack([(torch.rand(b, generator=g) * 1.9 + 0.3).cuda(),
+                            frac], dim=-1)
+    return {"temp_index": idx, "sweep_frac": frac}
+
+
+def rl_parity(torch, mc, stats):
+    """Phase 2 (RL): env.step through make_engine's engine against the same
+    step through the kernels' twins under one generator seed, in all three
+    action modes with sweep fractions below 1 for some envs: the kernels
+    write the spins in place, and the envs whose budget is spent must keep
+    theirs."""
+    from spinglass_tpu_torch.anneal.engines import CudaFusedEngine
+    from spinglass_tpu_torch.anneal.twins import (TwinFusedEngine,
+                                                  TwinSparseTEngine)
+    from spinglass_tpu_torch.kernels.sparse import SortedSparseTEngine
+    from spinglass_tpu_torch.rl import env
+
+    dense = pm_j_problem(512, 13, "cuda")
+    ell = pm_j_ell(10000, 42)
+    launches = {}
+    for problem, b, key, what in (
+            (dense, 256, mc.KERNEL_NAME, "K1, +-J N=512, 256 envs"),
+            (ell, 128, "sparse_sweep", "K2, +-J 10k graph, 128 envs"),
+            (ell, 64, "sparse_accept", "K4, +-J 10k graph, 64 envs")):
+        cfg0 = env.EnvConfig(n_envs=b)
+        engine = env.default_engine(problem, cfg0)
+        if problem is dense:
+            twin = TwinFusedEngine(problem, block_size=cfg0.block_size)
+            per_sweep = 1
+            check(type(engine) is CudaFusedEngine,
+                  "default_engine picks CudaFusedEngine for the dense env")
+        else:
+            twin = TwinSparseTEngine(problem)
+            per_sweep = 1 if b == 128 else len(engine.groups)
+            check(type(engine) is SortedSparseTEngine
+                  and engine.state_dtype(b) == (torch.float32 if b == 128
+                                                else torch.int8),
+                  f"default_engine picks SortedSparseTEngine at {b} envs, "
+                  f"state {engine.state_dtype(b)}")
+        for mode in RL_MODES:
+            cfg = env.EnvConfig(n_envs=b, sweeps_per_step=10, max_steps=50,
+                                action_mode=mode, init_temp_range=(0.1, 20.0))
+            out = []
+            for eng in (engine, twin):
+                gen = torch.Generator().manual_seed(31)
+                state, _ = env.reset(problem, cfg, gen, eng)
+                for t in range(2):
+                    state, obs, reward, done = env.step(
+                        problem, cfg, state, _rl_actions(torch, mode, b, t),
+                        gen, eng)
+                out.append((state, obs, reward, done))
+            torch.cuda.synchronize()
+            (a, *a_rest), (t_, *t_rest) = out
+            fields = ("spins", "energy", "best_energy", "acc_rate", "temp",
+                      "plateau")
+            diff = [k for k in fields
+                    if not torch.equal(getattr(a, k), getattr(t_, k))]
+            diff += [k for k, x, y in zip(("obs", "reward", "done"), a_rest,
+                                          t_rest) if not torch.equal(x, y)]
+            if diff:
+                raise CheckFailed(f"env.step through the kernel != through "
+                                  f"the twin ({what}, {mode}): {diff} differ")
+        launches[key] = engine.launches[key]
+        check(engine.launches[key] == 3 * 2 * 10 * per_sweep
+              and twin.launches[key] == 0,
+              f"{what}: two env steps of 10 sweeps in each action mode, "
+              f"kernel engine == twin engine bitwise in spins, energies, "
+              f"counts (acc_rate), rewards, observations and done "
+              f"({engine.launches[key]} launches; acceptance of the last "
+              f"step {float(a.acc_rate.mean()):.4f})")
+
+
+def rl_slice(torch, mc, stats):
+    """Phase 4 (RL): a rollout without host sync; ppo.train at the bench
+    shape through bench_rl; the sparse env at 128 envs (K2) and 64 (K4); the
+    geometric controller's evaluation rollout."""
+    import math
+
+    from spinglass_tpu_torch.benchmarks import headline
+    from spinglass_tpu_torch.core.energy import energy
+    from spinglass_tpu_torch.rl import env, evaluate, ppo
+
+    problem, env_cfg, ppo_cfg = headline.rl_bench_setup(n_updates=1)
+    init_fn, update_fn, _ = ppo.make_ppo(problem, env_cfg, ppo_cfg)
+    state = init_fn()
+    state, _, _ = update_fn.rollout(state)   # builds and warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, traj, _ = update_fn.rollout(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(tuple(traj["reward"].shape) == (8, 256),
+          "a rollout of 8 env steps with auto_reset (N=512, 256 envs) runs "
+          "under set_sync_debug_mode('error'): no host sync")
+
+    b = headline.bench_rl(n_updates=SMOKE_RL_UPDATES)
+    stats["bench_rl"] = b
+    ex, out = b["extras"], b["train"]
+    k1 = ex["kernel_launches"].get(mc.KERNEL_NAME, 0)
+    want = SMOKE_RL_UPDATES * ppo_cfg.rollout_len * env_cfg.sweeps_per_step
+    check(ex["engine"] == "cuda_fused" and k1 == want,
+          f"bench_rl(n_updates={SMOKE_RL_UPDATES}) through ppo.train: K1 launched "
+          f"{k1} times, expected updates x 8 x 10 = {want}")
+    finite = all(math.isfinite(v) for h in out["history"] for v in h.values())
+    check(finite and len(out["history"]) == SMOKE_RL_UPDATES,
+          f"{SMOKE_RL_UPDATES} updates, every metric finite; last "
+          f"{ {k: round(v, 4) for k, v in out['history'][-1].items()} }")
+    st = out["state"].env_state
+    exact = energy(problem, st.spins)
+    rel = float(((st.energy - exact).abs() / exact.abs().clamp(min=1.0)).max())
+    check(bool((st.best_energy <= st.energy).all()) and rel <= 1e-4,
+          f"at the end best_energy <= energy in every env and energy == "
+          f"energy(spins) (max rel err {rel:.2e} <= 1e-4)")
+    e_n = ex["final_mean_best_energy"] / problem.n_spins
+    first = out["history"][0]["mean_best_energy"] / problem.n_spins
+    check(e_n <= RL_E_PER_SPIN_MAX,
+          f"final mean best energy per spin {e_n:.5f} <= {RL_E_PER_SPIN_MAX} "
+          f"(after the first update {first:.5f})")
+
+    ell = headline.sparse_bench_problem()
+    rl_launches = {mc.KERNEL_NAME: k1}
+    for n_envs, key, path in ((128, "sparse_sweep", "K2"),
+                              (64, "sparse_accept", "K4")):
+        s_env = type(env_cfg)(n_envs=n_envs, sweeps_per_step=10, max_steps=50,
+                              init_temp_range=(0.1, 20.0))
+        s_ppo = ppo.PPOConfig(rollout_len=4, hidden_sizes=(128, 128), seed=42)
+        init_fn, update_fn, _ = ppo.make_ppo(ell, s_env, s_ppo)
+        eng = update_fn.engine
+        state = init_fn()
+        e0 = float(state.env_state.energy.mean())
+        for _ in range(2):
+            state, metrics = update_fn(state)
+        best = float(metrics["mean_best_energy"])
+        per_sweep = 1 if path == "K2" else len(eng.groups)
+        others = [v for k, v in eng.launches.items() if k != key]
+        rl_launches[key] = eng.launches[key]
+        check(eng.name == "sparse_sorted_t"
+              and eng.launches[key] == 2 * 4 * 10 * per_sweep
+              and not any(others) and math.isfinite(best) and best < e0,
+              f"make_ppo on the 10k bench graph, {n_envs} envs, 2 updates of "
+              f"rollout 4: {path} launched {eng.launches[key]} times "
+              f"(2 x 4 x 10 x {per_sweep}), no other sparse kernel; mean best "
+              f"energy {best:.1f} below the reset energy {e0:.1f}")
+    stats["rl_launches"] = rl_launches
+
+    try:    # engine=None is the plain sweep: refused for a problem on the card
+        env.reset(problem, env_cfg, torch.Generator().manual_seed(0))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "env.reset without an engine on a problem on the card "
+                   "raises: the plain sweep is not reachable there")
+    engine = env.default_engine(problem, env_cfg)   # new: counts from 0
+    policy = evaluate.make_geometric_policy(env_cfg, 0.05)
+    best = evaluate.rollout_best_energy(problem, env_cfg, policy,
+                                        torch.Generator().manual_seed(42),
+                                        engine=engine)
+    n = engine.launches[mc.KERNEL_NAME]
+    check(n == env_cfg.max_steps * env_cfg.sweeps_per_step
+          and bool(torch.isfinite(best).all()),
+          f"rollout_best_energy, the geometric controller at the bench shape: "
+          f"K1 launched {n} times (max_steps x sweeps_per_step = "
+          f"{env_cfg.max_steps * env_cfg.sweeps_per_step}), mean best energy "
+          f"per spin {float(best.mean()) / problem.n_spins:.5f}")
+
+
+def rl_timing(torch, stats, card):
+    """Phase 5 (RL): bench_rl's env steps/s with its window rates (phase 4's
+    run) and profile_rl's breakdown of one update."""
+    from spinglass_tpu_torch.benchmarks import headline
+
+    b = stats["bench_rl"]
+    ex = b["extras"]
+    rates = " / ".join(f"{r:.1f}" for r in ex["window_rates"])
+    print(f"  bench_rl N={ex['n_spins']}, {ex['n_envs']} envs, "
+          f"{ex['n_updates']} updates ({ex['n_warmup_excluded']} left out): "
+          f"ppo_env_steps_per_sec {b['value']:.1f} (median of the windows "
+          f"{rates}; mean steady rate {ex['mean_steady_rate']:.1f}) [{card}]")
+    # what RL_E_PER_SPIN_MAX and SMOKE_RL_UPDATES were chosen from
+    hist = b["train"]["history"]
+    marks = sorted({0, len(hist) - 1, *range(7, len(hist), 8)})
+    curve = ", ".join(f"{u + 1}: {hist[u]['mean_best_energy'] / ex['n_spins']:.4f}"
+                      for u in marks)
+    print(f"  mean best energy per spin after update {curve}")
+    prof = headline.profile_rl()
+    steps = prof["env_steps"]
+    print(f"  profile_rl (one PPO update = {steps} env steps of 256 envs + "
+          f"the learning phase): {prof['us_per_env_step']:.1f} us per env "
+          f"step, profiled {prof['profiled_us_per_env_step']:.1f}; kernels "
+          f"{prof['device_us_per_env_step']:.1f} us per env step, device busy "
+          f"{100 * prof['device_busy_share']:.1f}%, "
+          f"{prof['launches_per_env_step']:.1f} kernel launches per env step, "
+          f"K1's share of the device time "
+          f"{100 * prof['sweep_kernel_share']:.1f}% [{card}]")
+    print(f"  one update's wall time: rollout "
+          f"{1e3 * prof['rollout_seconds']:.2f} ms, learning phase (GAE, 16 "
+          f"minibatch steps) {1e3 * prof['learn_seconds']:.2f} ms [{card}]")
+    for k in prof["kernels"]:
+        print(f"    {k['us_per_env_step']:9.2f} us/env step  {k['calls']:5d} "
+              f"calls  {k['name'][:76]}")
 
 
 def main() -> int:
@@ -1443,6 +1675,8 @@ def main() -> int:
                 ("phase 2: parity with the twins and K1 (K5, K6, K7)",
                  lambda: variant_parity(torch, mc, stats)),
                 ("phase 2: parity with the twin, K3 and K2 (K4)", lambda: accept_parity(torch, stats)),
+                ("phase 2: env.step through K1, K2 and K4 against the twins (RL)",
+                 lambda: rl_parity(torch, mc, stats)),
                 ("phase 3: in-kernel Philox (K1)", lambda: phase_philox(torch, mc, stats)),
                 ("phase 3: in-kernel Philox (K2)", lambda: sparse_philox(torch)),
                 ("phase 4: dense SA slice", lambda: phase_slice(torch, mc, stats)),
@@ -1451,11 +1685,15 @@ def main() -> int:
                  lambda: variant_slice(torch, mc, stats)),
                 ("phase 4: PT at R=4096 through K4 and through K3",
                  lambda: accept_slice(torch, stats)),
+                ("phase 4: the RL path (rollout, PPO, sparse env, evaluation)",
+                 lambda: rl_slice(torch, mc, stats)),
                 ("phase 5: timing (K1)", lambda: phase_timing(torch, mc, stats, card)),
                 ("phase 5: timing (K2, K3)", lambda: sparse_timing(torch, stats, card)),
                 ("phase 5: timing (K5, K6, K7)", lambda: variant_timing(torch, mc, stats, card)),
                 ("phase 5: timing (K4, PT at R=4096 three ways)",
-                 lambda: accept_timing(torch, stats, card))):
+                 lambda: accept_timing(torch, stats, card)),
+                ("phase 5: timing (RL: bench_rl, profile_rl)",
+                 lambda: rl_timing(torch, stats, card))):
             print(name)
             t0 = time.perf_counter()
             phase()
@@ -1488,10 +1726,16 @@ def main() -> int:
     # no single PyTorch call computes any of these functions (a sequential
     # sweep, a coloured sweep with accept, Philox thresholds): library_ms
     # is null; the yardsticks above time the field work alone
+    # launches: those of the SA / PT / variant runs above plus the RL path's
+    # (bench_rl and the two sparse PPO runs), each counted by the engine
+    # that its run built, from 0
+    rl = stats["rl_launches"]
+    print(f"RL path launches: {rl}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"spinglass_tpu_torch/csrc/{name}.cu",
-        "replaces": KERNELS[name], "launches": launches, "max_abs_err": err,
+        "replaces": KERNELS[name], "launches": launches + rl.get(name, 0),
+        "launches_rl": rl.get(name, 0), "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stats["bounds"][name][0],
         "bound_by": stats["bounds"][name][1], "library_ms": None}

@@ -133,8 +133,13 @@ class BlockedEngine(SweepEngine):
         self.rule = rule
 
     def sweep(self, spins, beta, generator):
+        return self.sweep_with_uniforms(spins, beta,
+                                        self._uniforms(spins, generator))
+
+    def sweep_with_uniforms(self, spins, beta, uniforms):
+        """One sweep on the caller's uniforms [R, Np]."""
         return sweep_kernels.blocked_sweep(
-            self.problem, spins, beta, self._uniforms(spins, generator),
+            self.problem, spins, beta, uniforms,
             block_size=self.block_size, rule=self.rule)
 
 

@@ -46,7 +46,8 @@ from spinglass_tpu_torch.kernels.sweeps import device_uniforms
 @dataclass(frozen=True)
 class PTConfig:
     """Static PT parameters (the JAX ``PTConfig`` with ``use_pallas``
-    renamed ``use_kernel``; J in float32 only)."""
+    renamed ``use_kernel``). ``j_dtype`` "bfloat16" makes the fused dense
+    kernel sweep on J rounded to bfloat16, as ``make_engine`` describes."""
 
     n_replicas: int = 8
     n_chains: int = 1          # independent PT chains swept together, one
@@ -321,7 +322,9 @@ def run(problem, cfg: Optional[PTConfig] = None,
     """Full PT run on a dense ``IsingProblem`` or an ``EllProblem``.
     ``ladder_override``: an explicit temperature ladder instead of the
     config's spacing. Checkpoint/resume is not ported yet and raises."""
-    if checkpoint_dir is not None or resume:
+    if resume and checkpoint_dir is None:
+        raise ValueError("resume=True requires checkpoint_dir")
+    if checkpoint_dir is not None:
         raise NotImplementedError("PT checkpoint/resume (segmented runs) is "
                                   "not ported yet")
     del checkpoint_every

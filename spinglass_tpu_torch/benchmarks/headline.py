@@ -18,8 +18,13 @@ shapes:
     each way's device breakdown; ``bench_pt16`` holds ``make_engine``'s
     engine (K4) against the plain [R, N] engine at ``bench_pt10k``'s 16
     replicas.
-PPO is not ported yet. A run without a CUDA device raises: no number from
-the CPU is reported under a device metric.
+  * ``bench_rl``: PPO training throughput in env steps/s on the SK glass at
+    N=512 with 256 envs (10 sweeps per env step through K1, rollouts of 8),
+    the median of three windows of per-update wall times after a warm-up;
+    ``profile_rl`` gives the device breakdown of one update and the split
+    between its rollout and its learning phase.
+A run without a CUDA device raises: no number from the CPU is reported under
+a device metric.
 """
 
 from __future__ import annotations
@@ -41,6 +46,10 @@ SPARSE_N = 10_000
 SPARSE_DEG = 6.0
 SPARSE_REPLICAS = 1024
 SPARSE_SWEEPS = 2000
+
+RL_SPINS = 512
+RL_ENVS = 256
+RL_UPDATES = 512
 
 TTT_PROVENANCE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -468,6 +477,115 @@ def bench_pt16(super_steps: int = 30) -> dict:
                        "nvidia_smi": device_description()}}
 
 
+def rl_bench_setup(n: int = RL_SPINS, n_envs: int = RL_ENVS,
+                   n_updates: int = RL_UPDATES):
+    """The RL bench's problem and configurations: the SK glass at ``n``
+    spins (Gaussian, scale 1/sqrt(n)), ``n_envs`` envs of 10 sweeps per
+    step, episodes of 50 steps from a log-uniform start temperature in
+    [0.1, 20], PPO with rollouts of 8 and two hidden layers of 128."""
+    from spinglass_tpu_torch.rl.env import EnvConfig
+    from spinglass_tpu_torch.rl.ppo import PPOConfig
+
+    env_cfg = EnvConfig(n_envs=n_envs, sweeps_per_step=10, max_steps=50,
+                        init_temp_range=(0.1, 20.0))
+    ppo_cfg = PPOConfig(n_updates=n_updates, rollout_len=8,
+                        hidden_sizes=(128, 128), seed=SEED)
+    return _sk_problem(n), env_cfg, ppo_cfg
+
+
+def window_rates(update_times, steps_per_update: int, n_warm: int = 2):
+    """The JAX bench's windows protocol on per-update wall times: the first
+    ``n_warm`` updates are left out, the rest split into three windows (one
+    below six updates) with the division's remainder folded into the last,
+    each window's rate over its own length. Returns (median, rates)."""
+    steady = list(update_times[n_warm:])
+    if not steady:
+        raise ValueError(f"{len(update_times)} updates leave none after the "
+                         f"{n_warm} of the warm-up")
+    n_win = 3 if len(steady) >= 6 else 1
+    w = len(steady) // n_win
+    bounds = [i * w for i in range(n_win)] + [len(steady)]
+    rates = [steps_per_update * (bounds[i + 1] - bounds[i])
+             / sum(steady[bounds[i]:bounds[i + 1]]) for i in range(n_win)]
+    return sorted(rates)[n_win // 2], rates
+
+
+def bench_rl(n_updates: int = RL_UPDATES, n: int = RL_SPINS,
+             n_envs: int = RL_ENVS) -> dict:
+    """PPO training throughput (env steps/s, steady state) through
+    ``rl.ppo.train`` on the card: every env step is 10 K1 sweeps at
+    [n, n_envs] with a per-env beta, then the reward, the observation, the
+    auto-reset and the policy in PyTorch. ``train`` holds ``rl.ppo.train``'s
+    whole output (tensors: drop it before printing the result as JSON)."""
+    from spinglass_tpu_torch.rl import ppo as ppo_mod
+
+    problem, env_cfg, ppo_cfg = rl_bench_setup(n, n_envs, n_updates)
+    out = ppo_mod.train(problem, env_cfg, ppo_cfg)
+    n_warm = out["n_warmup"]
+    sps, rates = window_rates(out["update_times"],
+                              ppo_cfg.rollout_len * env_cfg.n_envs, n_warm)
+    return {
+        "metric": "ppo_env_steps_per_sec",
+        "value": sps,
+        "unit": "env_steps/s",
+        "extras": {"n_spins": n, "n_envs": n_envs, "n_updates": n_updates,
+                   "n_warmup_excluded": n_warm, "window_rates": rates,
+                   "mean_steady_rate": out["env_steps_per_second"],
+                   "sweeps_per_env_step": env_cfg.sweeps_per_step,
+                   "rollout_len": ppo_cfg.rollout_len,
+                   "final_mean_best_energy": out["final_mean_best_energy"],
+                   "engine": out["engine"],
+                   "kernel_launches": out["kernel_launches"],
+                   "device": torch.cuda.get_device_name(0),
+                   "nvidia_smi": device_description()},
+        "train": out,
+    }
+
+
+def profile_rl(n: int = RL_SPINS, n_envs: int = RL_ENVS, top: int = 8) -> dict:
+    """One PPO update at the RL bench's shape, profiled (``_profile``, with
+    an env step of the whole batch where the other profiles have a sweep),
+    and the update's wall time split into its rollout (the env steps, the
+    auto-resets and the policy's forward passes) and its learning phase
+    (GAE and the minibatch Adam steps), each synchronised."""
+    from spinglass_tpu_torch.rl import ppo as ppo_mod
+
+    problem, env_cfg, ppo_cfg = rl_bench_setup(n, n_envs, 1)
+    init_fn, update_fn, _ = ppo_mod.make_ppo(problem, env_cfg, ppo_cfg)
+    state = init_fn()
+
+    def step():
+        nonlocal state
+        state, _ = update_fn(state)
+
+    prof = _profile(step, ppo_cfg.rollout_len, top)
+    split = {"rollout": [], "learn": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, traj, last_value = update_fn.rollout(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = update_fn.learn(state, traj, last_value)
+        torch.cuda.synchronize()
+        split["rollout"].append(t1 - t0)
+        split["learn"].append(time.perf_counter() - t1)
+    sweep_us = sum(k["us_per_sweep"] for k in prof["kernels"]
+                   if "sweep_kernel" in k["name"])
+    out = {key.replace("sweep", "env_step"): value
+           for key, value in prof.items() if key != "kernels"}
+    out.update(
+        kernels=[{"name": k["name"], "calls": k["calls"],
+                  "us_per_env_step": k["us_per_sweep"]}
+                 for k in prof["kernels"]],
+        n_spins=n, n_envs=n_envs, env_steps=ppo_cfg.rollout_len,
+        sweep_kernel_share=sweep_us / prof["device_us_per_sweep"],
+        rollout_seconds=min(split["rollout"]),
+        learn_seconds=min(split["learn"]),
+        engine=update_fn.engine.name, launches=dict(update_fn.engine.launches))
+    return out
+
+
 if __name__ == "__main__":
     print(json.dumps(bench_dense(block_size=128)))
     print(json.dumps(profile_chunk()))
@@ -478,3 +596,7 @@ if __name__ == "__main__":
     for bench in (bench_pt_wide, bench_pt16, bench_sparse, bench_pt10k,
                   bench_ttt):
         print(json.dumps(bench()))
+    print(json.dumps(profile_rl()))
+    rl = bench_rl()
+    del rl["train"]
+    print(json.dumps(rl))

@@ -132,3 +132,66 @@ def pt_state_from_numpy(spins, slot, energy, best_energy, best_spins,
         acc_rate=(torch.zeros_like(energy) if acc_rate is None
                   else vec(acc_rate)),
     )
+
+
+def actor_critic_from_flax(params, action_mode: str = "discrete",
+                           hidden_sizes=(128, 128), device=None):
+    """The port's ``rl.ppo.ActorCritic`` holding the weights of a JAX
+    ``ActorCritic`` parameter tree given as numpy arrays:
+    ``{"params": {"Dense_0": {"kernel", "bias"}, ..., "log_std"}}`` (the
+    outer "params" level may be left out). flax numbers its ``Dense`` layers
+    in creation order, which is the module's ``dense`` list; a flax kernel
+    is [in, out], so ``weight = kernel.T``."""
+    from spinglass_tpu_torch.rl.ppo import ActorCritic
+
+    device = resolve_device(device)
+    tree = params.get("params", params)
+    n_dense = sum(1 for k in tree if k.startswith("Dense_"))
+    obs_dim = int(np.asarray(tree["Dense_0"]["kernel"]).shape[0])
+    heads = n_dense - len(hidden_sizes) - 1
+    n_actions = int(np.asarray(
+        tree[f"Dense_{len(hidden_sizes) + 1}"]["kernel"]).shape[1])
+    model = ActorCritic(obs_dim, action_mode=action_mode, n_actions=n_actions,
+                        hidden_sizes=tuple(hidden_sizes))
+    if len(model.dense) != n_dense or heads < 1:
+        raise ValueError(f"the tree has {n_dense} Dense layers, action_mode "
+                         f"{action_mode!r} with hidden_sizes {hidden_sizes} "
+                         f"needs {len(model.dense)}")
+    state = {}
+    for k, layer in enumerate(model.dense):
+        kernel = np.asarray(tree[f"Dense_{k}"]["kernel"], np.float32)
+        if kernel.T.shape != tuple(layer.weight.shape):
+            raise ValueError(f"Dense_{k} kernel {kernel.shape} does not fit "
+                             f"{tuple(layer.weight.shape)}")
+        state[f"dense.{k}.weight"] = torch.tensor(kernel.T.copy())
+        state[f"dense.{k}.bias"] = torch.tensor(
+            np.asarray(tree[f"Dense_{k}"]["bias"], np.float32))
+    if action_mode != "discrete":
+        state["log_std"] = torch.tensor(np.asarray(tree["log_std"], np.float32))
+    model.load_state_dict(state)
+    return model.to(device)
+
+
+def env_state_from_numpy(spins, energy, best_energy, initial_energy,
+                         prev_energy, temp, acc_rate, step, plateau, episode,
+                         done, reward_state: dict, device=None):
+    """Port ``rl.env.EnvState`` from a JAX ``EnvState``'s arrays; ``spins``
+    are [B, Np]. ``reward_state`` holds the JAX ``RewardState``'s five
+    arrays by field name."""
+    from spinglass_tpu_torch.rl.env import EnvState
+    from spinglass_tpu_torch.rl.rewards import RewardState
+
+    device = resolve_device(device)
+
+    def t(x, dtype=np.float32):
+        return torch.tensor(np.asarray(x, dtype), device=device)
+
+    return EnvState(
+        spins=t(spins), energy=t(energy), best_energy=t(best_energy),
+        initial_energy=t(initial_energy), prev_energy=t(prev_energy),
+        temp=t(temp), acc_rate=t(acc_rate), step=t(step, np.int32),
+        plateau=t(plateau, np.int32), episode=t(episode, np.int32),
+        reward_state=RewardState(**{k: t(reward_state[k]) for k in (
+            "de_scale", "reward_ema", "prev_temp", "novelty_counts",
+            "novelty_scale")}),
+        done=t(done, bool))

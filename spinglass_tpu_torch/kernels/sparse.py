@@ -562,9 +562,13 @@ class SortedSparseTEngine:
       "kernel" (K3 always; on the CPU its twin) or "host" (uniforms from the
       generator on the spins' device).
     * ``to_layout`` gives float32 spins at the replica counts K2 takes (it
-      keeps them as float32 in memory) and ``spin_dtype`` (int8 by default)
-      at every other; ``spin_dtype`` reads float32 once the single-sweep
-      tables are built.
+      keeps them as float32 in memory) and the narrow dtype (int8 by
+      default) at every other: ``state_dtype(r)`` says which at ``r``
+      replicas. ``spin_dtype`` reads float32 once the single-sweep tables
+      are built, as in the JAX package.
+    * ``single_rows_per_step`` (8, 16 or 32) is the TPU kernel's row step.
+      It is checked as the JAX constructor checks it and changes nothing
+      here: K2 has no row step.
 
     * ``bucket_order`` is ``build_sorted_t``'s row order inside a bucket.
 
@@ -584,13 +588,17 @@ class SortedSparseTEngine:
                  max_colors: int = 256, n_buckets: int = 12,
                  spin_dtype: torch.dtype = torch.int8,
                  threshold_rng: str = "auto", accept_kernel: str = "auto",
-                 bucket_order: str = "degree"):
+                 bucket_order: str = "degree",
+                 single_rows_per_step: int = 32):
         if accept_kernel not in ("auto", "single", "fused", "none"):
             raise ValueError(f"accept_kernel must be auto|single|none|fused, "
                              f"got {accept_kernel!r}")
         if threshold_rng not in ("auto", "kernel", "host"):
             raise ValueError(f"threshold_rng must be auto|kernel|host, "
                              f"got {threshold_rng!r}")
+        if single_rows_per_step not in (8, 16, 32):
+            raise ValueError("single_rows_per_step must be 8, 16 or 32")
+        del single_rows_per_step
         self.problem = problem
         self.rule = canonical_rule(rule)
         self.spin_dtype = spin_dtype
@@ -656,12 +664,15 @@ class SortedSparseTEngine:
         return self._use_single and r % 128 == 0 and self._single_fits(r)
 
     # -- layout ------------------------------------------------------------
+    def state_dtype(self, r: int) -> torch.dtype:
+        """The dtype of the [NS, r] state ``to_layout`` gives at ``r``
+        replicas: float32 where K2 takes the sweep, else the narrow dtype."""
+        return torch.float32 if self._takes_single(r) else self._narrow_dtype
+
     def to_layout(self, spins_rn: torch.Tensor) -> torch.Tensor:
         """[R, Np] -> [NS, R] sorted rows, as a new contiguous tensor."""
         s_t = spins_rn[:, self._perm_gather].t()
-        dtype = (torch.float32 if self._takes_single(spins_rn.shape[0])
-                 else self._narrow_dtype)
-        return s_t.to(dtype).contiguous()
+        return s_t.to(self.state_dtype(spins_rn.shape[0])).contiguous()
 
     def from_layout(self, spins_t: torch.Tensor) -> torch.Tensor:
         """[NS, R] -> [R, Np] float32; padding spins restored to +1."""

@@ -70,11 +70,17 @@ def draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2 ** 62, (1,), generator=generator))
 
 
+def device_generator(generator: torch.Generator, device) -> torch.Generator:
+    """A generator on ``device`` seeded by one draw of the host
+    ``generator``: what it draws never crosses from the host."""
+    return torch.Generator(device=device).manual_seed(draw_seed(generator))
+
+
 def device_uniforms(generator: torch.Generator, shape, device) -> torch.Tensor:
     """Uniforms in [0, 1) drawn on ``device``, from a generator there seeded
     by one draw of the host ``generator`` (no host-to-device copy)."""
-    local = torch.Generator(device=device).manual_seed(draw_seed(generator))
-    return torch.rand(shape, generator=local, device=device)
+    return torch.rand(shape, generator=device_generator(generator, device),
+                      device=device)
 
 
 def _as_replica_beta(beta, r: int, device) -> torch.Tensor:

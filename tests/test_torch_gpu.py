@@ -423,3 +423,104 @@ def test_sparse_sweep_at_the_shared_memory_envelope(cuda, n, tile):
         big.single_sweep(torch.ones(SC.TILE_SMEM_BYTES + 256, 128, device=cuda),
                          beta[:128], seed=1)
     assert big.sweep_launches == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["discrete", "continuous", "hybrid"])
+@pytest.mark.parametrize("kind,n_envs", [("K1", 40), ("K2", 128), ("K4", 48)])
+def test_env_step_through_kernels_matches_twins(cuda, kind, n_envs, mode):
+    """Two env steps through make_engine's engine (K1 dense; K2 at a
+    multiple of 128 envs and K4 at another count on a sparse problem)
+    against the same steps through the twin under one generator seed, with
+    sweep fractions below 1 for some envs: the kernels write in place, and
+    the state, rewards, observations and done must be equal bit for bit."""
+    from spinglass_tpu_torch.anneal.twins import (TwinFusedEngine,
+                                                  TwinSparseTEngine)
+    from spinglass_tpu_torch.rl import env as E
+
+    if kind == "K1":
+        rng = np.random.default_rng(5)
+        problem = IsingProblem.from_dense(
+            topology.fully_connected(300, dist="binary", seed=5),
+            rng.integers(-8, 9, 300) / 4.0, device=cuda)
+        key, per_sweep = MC.KERNEL_NAME, 1
+    else:
+        problem = _pm_j_ell(1500, 7, cuda)
+        key = "sparse_sweep" if kind == "K2" else "sparse_accept"
+    cfg = E.EnvConfig(n_envs=n_envs, sweeps_per_step=4, max_steps=20,
+                      action_mode=mode, init_temp_range=(0.1, 20.0))
+    engine = E.default_engine(problem, cfg)
+    twin = (TwinFusedEngine(problem, block_size=128) if kind == "K1"
+            else TwinSparseTEngine(problem))
+    if kind == "K4":
+        per_sweep = len(engine.groups)
+        assert engine.state_dtype(n_envs) == torch.int8
+    elif kind == "K2":
+        per_sweep = 1
+        assert engine.state_dtype(n_envs) == torch.float32
+    g = torch.Generator().manual_seed(1)
+    idx = torch.randint(0, 10, (n_envs,), generator=g).to(cuda)
+    frac = torch.linspace(0.05, 1.1, n_envs).to(cuda)
+    action = {"discrete": idx,
+              "continuous": torch.stack([frac + 0.6, frac], dim=-1),
+              "hybrid": {"temp_index": idx, "sweep_frac": frac}}[mode]
+    out = []
+    for eng in (engine, twin):
+        gen = torch.Generator().manual_seed(9)
+        state, _ = E.reset(problem, cfg, gen, eng)
+        for _ in range(2):
+            state, obs, reward, done = E.step(problem, cfg, state, action,
+                                              gen, eng)
+        out.append((state, obs, reward, done))
+    torch.cuda.synchronize()
+    (a, *a_rest), (b, *b_rest) = out
+    for name in ("spins", "energy", "best_energy", "acc_rate", "temp",
+                 "plateau"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert all(torch.equal(x, y) for x, y in zip(a_rest, b_rest))
+    assert a.spins.dtype == torch.float32 and float(a.acc_rate.sum()) > 0
+    assert engine.launches[key] == 2 * 4 * per_sweep
+    assert twin.launches[key] == 0
+
+
+@pytest.mark.gpu
+def test_rl_entry_points_reach_the_kernel_by_default(cuda, monkeypatch):
+    """Left to their defaults on a problem on the card, the evaluation entry
+    points build ``default_engine``'s engine once and every sweep is a K1
+    launch; the env's ``engine=None`` (the plain sweep) is refused there."""
+    from spinglass_tpu_torch.anneal.engines import CudaFusedEngine
+    from spinglass_tpu_torch.rl import env as E
+    from spinglass_tpu_torch.rl import evaluate as V
+
+    problem = IsingProblem.from_dense(
+        topology.fully_connected(300, dist="gaussian", scale=300 ** -0.5,
+                                 seed=5), device=cuda)
+    cfg = E.EnvConfig(n_envs=40, sweeps_per_step=3, max_steps=5)
+    built = []
+    real = E.default_engine
+
+    def counting(p, c):
+        built.append(real(p, c))
+        return built[-1]
+
+    monkeypatch.setattr(E, "default_engine", counting)
+    policies = {"geometric": V.make_geometric_policy(cfg),
+                "random": V.make_random_policy()}
+    report, _ = V.evaluate_controllers(problem, cfg, policies, n_seeds=2)
+    assert len(built) == 1 and type(built[0]) is CudaFusedEngine
+    assert built[0].launches[MC.KERNEL_NAME] == 2 * 2 * 5 * 3
+    assert all(np.isfinite(v) for v in report["mean_best_energy"].values())
+    best = V.rollout_best_energy(problem, cfg, policies["random"],
+                                 torch.Generator().manual_seed(0))
+    assert len(built) == 2 and built[1].launches[MC.KERNEL_NAME] == 5 * 3
+    assert best.is_cuda and bool(torch.isfinite(best).all())
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(ValueError, match="default_engine"):
+        E.reset(problem, cfg, gen)
+    state, _ = E.reset(problem, cfg, gen, built[0])
+    with pytest.raises(ValueError, match="default_engine"):
+        E.step(problem, cfg, state, torch.zeros(40, dtype=torch.long,
+                                                device=cuda), gen)
+    with pytest.raises(ValueError, match="default_engine"):
+        E.auto_reset(problem, cfg, state, gen)
+

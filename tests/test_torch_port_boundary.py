@@ -45,11 +45,20 @@ inst = planted.planted_gauge_coo(60, 4.0, seed=1)
 ell = EllProblem.from_coo(60, inst.rows, inst.cols, inst.vals, device="cpu")
 ptr = pt.run(ell, pt.PTConfig(n_replicas=4, n_sweeps=5, exchange_interval=5))
 assert sp.n_sweeps == 2 and ptr.n_sweeps == 5 and np.isfinite(ptr.best_energy)
+from spinglass_tpu_torch.anneal import twins
+from spinglass_tpu_torch.rl import env, evaluate, ppo, rewards
+assert rewards.N_NOVELTY_BINS == 256 and evaluate.welch_t([1, 2], [3, 5])["t"] < 0
+env_cfg = env.EnvConfig(n_envs=4, sweeps_per_step=1, max_steps=5)
+init_fn, update_fn, _ = ppo.make_ppo(p, env_cfg, ppo.PPOConfig(
+    rollout_len=2, n_epochs=1, n_minibatches=1, hidden_sizes=(8,)))
+state, metrics = update_fn(init_fn())
+assert state.update == 1 and np.isfinite(float(metrics["mean_reward"]))
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "spinglass_tpu")
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "spinglass_tpu")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
-print("ok", res.algorithm, sp.algorithm, ptr.algorithm)
+print("ok", res.algorithm, sp.algorithm, ptr.algorithm, "ppo", state.update)
 """
 
 
@@ -64,7 +73,8 @@ def test_port_runs_with_jax_unimportable(tmp_path):
     proc = _run([sys.executable, "-c", _NO_JAX], cwd=tmp_path)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip() == ("ok sa/blocked/metropolis "
-                                   "sa/sparse_sorted/metropolis pt/metropolis")
+                                   "sa/sparse_sorted/metropolis pt/metropolis "
+                                   "ppo 1")
 
 
 def test_port_sources_import_no_jax():

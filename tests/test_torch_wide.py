@@ -140,7 +140,10 @@ def test_fused_sweep_cpu_path_matches_jax_sorted_t_sweep(dist, rule):
             np.testing.assert_array_equal(tc.numpy()[ok], np.asarray(jc)[ok])
             np.testing.assert_allclose(tde.numpy()[ok], np.asarray(jde)[ok],
                                        rtol=1e-5, atol=1e-5)
-            js = jnp.asarray(ts.numpy())   # keep the states together
+            # keep the states together. A copy: the port's sweep writes ts
+            # in place while the JAX sweep, dispatched before it, may still
+            # be reading a buffer that aliases ts
+            js = jnp.asarray(ts.numpy().copy())
     assert int(tc.sum()) > 0
     assert eng.launches["sparse_accept"] == 0
 
