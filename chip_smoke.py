@@ -92,8 +92,23 @@ kernels against the twins. Phases:
      geometric controller must launch K1 max_steps x sweeps_per_step times,
      and env.reset without an engine on a problem on the card must raise.
      The launch counts
-     are those of the engine each run builds, so they start at 0 and count
-     only that run's launches;
+     are those of each call (AnnealResult.metadata["kernel_launches"]). The
+     entry points above run their captured steps (anneal/graphs.py: CUDA
+     graphs replayed, the kernels' seeds read from device memory, launches
+     counted per replay; engine and graphs kept per problem object and
+     config). Then a repeat call of the dense and sparse anneal and of PT at
+     R=4096 must hit that cache and give the first call's result bit for
+     bit; and each captured driver against the eager loop of its step under
+     one seed, bit for bit: anneal on the SK glass (K1 500 launches on both
+     paths, E/N -0.75785) and anneal_scan against it; the sparse anneal (K2
+     500, E/N -1.63124); pt.run at 16 replicas (1000 sweeps) and at R=4096
+     (200 sweeps), K4 (spins, slots, energies, exchange counts, histories);
+     time_to_target's sweeps per seed (42-44, all hit); the first 16 of
+     bench_rl's 48 captured PPO updates against 16 eager ones (history; E/N
+     <= -0.60 after 48), updates_per_dispatch=8 over 16 updates against
+     them (parameters, history), and 2 updates on the 10k graph at 128 (K2)
+     and 64 envs (K4) against phase 4's eager ones. Replays and their reads
+     of each path run under set_sync_debug_mode("error");
   5. timing: each kernel's bound (bytes over 3.35 TB/s against operations
      over the peak of their type) and the two library yardsticks for K1's
      and K2's field work alone (torch.matmul, torch.sparse.mm; the port
@@ -110,7 +125,15 @@ kernels against the twins. Phases:
      replicas through K4 and through the plain [R, N] engine; bench_rl's
      env steps/s with its window rates, and profile_rl's breakdown of one
      PPO update (us per env step, device-busy share, launches per env
-     step, K1's share, rollout against learning phase).
+     step, K1's share, rollout against learning phase); each captured
+     driver against the eager loop of its step in turns
+     (headline.captured_vs_plain: the dense and sparse SA chunk, TTT, one
+     PPO update; whole calls of anneal, dense and sparse, and of pt.run at
+     bench_pt10k's shape: the eager loop, a first call with its capture, a
+     repeat call), the captured paths' busy shares and graph launches per
+     sweep or env step, and in each profile the kernels the profiler counts
+     per name against what the launch counters added over the same
+     replays.
 
 Any failed check exits non-zero. The last line is the JSON status
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -431,16 +454,18 @@ def phase_slice(torch, mc, stats):
         torch.cuda.set_sync_debug_mode("default")
     check(True, "a chunk of sweeps runs under set_sync_debug_mode('error'): "
                 "no host sync inside a chunk")
-    # the count is the launch count of the engine anneal builds for this
-    # run, so it starts at 0 and holds only the main path's launches
+    # the count is the launches of this call (the first on this problem:
+    # it builds the engine, so its counters start at 0), the main path's
     t0 = time.perf_counter()
     res = anneal(problem, cfg)
     wall = time.perf_counter() - t0
+    stats["dense_first"] = (problem, cfg, res)
     launches = res.metadata["kernel_launches"].get(mc.KERNEL_NAME, 0)
     stats["launches"] = launches
     print(f"  anneal wall {wall:.3f} s (engine selection and set-up included); "
-          f"sweep loop {res.total_time:.3f} s, {res.sweeps_per_second:.1f} "
-          f"sweeps/s, {res.spin_flips_per_second:.4e} flips/s")
+          f"total_time {res.total_time:.3f} s (the first call: the capture "
+          f"included), {res.sweeps_per_second:.1f} sweeps/s, "
+          f"{res.spin_flips_per_second:.4e} flips/s")
     check(res.metadata["engine"] == "cuda_fused",
           f"make_engine picked {res.metadata['engine']} (CudaFusedEngine)")
     check(launches == 500, f"K1 launched {launches} times in the run, "
@@ -489,6 +514,7 @@ def phase_timing(torch, mc, stats, card):
     print(f"  plain twin, one sweep N=4096 R=1024 block {SA_BLOCK}: "
           f"{us_p:.1f} us/sweep [{card}]")
     prof = profile_chunk(block_size=SA_BLOCK)
+    stats["profiles"]["dense SA chunk (K1, 4096 x 1024)"] = prof
     print(f"  profile_chunk (anneal's loop, {prof['sweeps']} sweeps, block "
           f"{SA_BLOCK}): {prof['us_per_sweep']:.1f} us/sweep, profiled "
           f"{prof['profiled_us_per_sweep']:.1f}; kernels "
@@ -975,14 +1001,16 @@ def sparse_slice(torch, stats):
               f"{what}: best_energy {res.best_energy:.4f} == energy(best_spins) "
               f"{e:.4f} (rel {rel:.2e} <= 1e-3), finite history")
 
-    # the counts are those of the engine each run builds: they start at 0
+    # the counts are those of each call (the first on this problem)
     t0 = time.perf_counter()
     res = anneal(ell, cfg)
     wall = time.perf_counter() - t0
+    stats["sparse_first"] = (ell, cfg, res)
     k2 = res.metadata["kernel_launches"].get("sparse_sweep", 0)
     stats["k2_launches"] = k2
-    print(f"  sparse anneal wall {wall:.3f} s (set-up included); sweep loop "
-          f"{res.total_time:.3f} s, {res.sweeps_per_second:.1f} sweeps/s, "
+    print(f"  sparse anneal wall {wall:.3f} s (set-up included); total_time "
+          f"{res.total_time:.3f} s (first call, capture included), "
+          f"{res.sweeps_per_second:.1f} sweeps/s, "
           f"{res.spin_flips_per_second:.4e} flips/s, E/N "
           f"{res.best_energy / ell.n_spins:.5f}")
     check(res.metadata["engine"] == "sparse_sorted_t" and k2 == 500,
@@ -1005,9 +1033,9 @@ def sparse_slice(torch, stats):
           f"<= 20000 sweeps: all hit threshold {ex['threshold']:.3f}; median "
           f"{ttt['value']:.4f} s")
 
-    cfg = pt.PTConfig(n_replicas=128, n_chains=32, n_sweeps=200,
-                      exchange_interval=10, min_temp=0.05, max_temp=3.0)
+    cfg = headline.pt_wide_config(n_sweeps=200)
     res = pt.run(ell, cfg)
+    stats["pt_wide_first"] = (cfg, res)
     k4 = res.metadata["kernel_launches"]
     stats["k4_launches"] = k4.get("sparse_accept", 0)
     n_col = len(eng.groups)
@@ -1071,6 +1099,7 @@ def sparse_timing(torch, stats, card):
           f"{p['value']:.4f} s, best {p['extras']['best_energy']:.3f} [{card}]")
     for name, prof in (("sparse SA chunk (R=1024)", headline.profile_sparse_chunk()),
                        ("TTT loop (R=128, 20 super-steps)", headline.profile_ttt())):
+        stats["profiles"][name] = prof
         print(f"  profile {name}: {prof['us_per_sweep']:.1f} us/sweep, kernels "
               f"{prof['device_us_per_sweep']:.1f} us/sweep, device busy "
               f"{100 * prof['device_busy_share']:.1f}% [{card}]")
@@ -1373,6 +1402,7 @@ def accept_timing(torch, stats, card):
               f"{ms[0]:.3f} / {ms[1]:.3f} ms/sweep [{card}]")
     for path in headline.PT_WIDE_PATHS:
         prof = headline.profile_pt_wide(path)
+        stats["profiles"][f"PT R=4096, {path} path"] = prof
         print(f"  profile PT R=4096, {path} path: {prof['us_per_sweep']:.1f} "
               f"us/sweep, kernels {prof['device_us_per_sweep']:.1f} us/sweep, "
               f"device busy {100 * prof['device_busy_share']:.1f}%, "
@@ -1396,6 +1426,7 @@ def accept_timing(torch, stats, card):
 
 RL_MODES = ("discrete", "continuous", "hybrid")
 SMOKE_RL_UPDATES = 48   # bench_rl's updates here (its default is 512)
+RL_EAGER_UPDATES = 16   # the eager updates the captured PPO run is held to
 # the RL bench run must anneal: mean best energy per spin over the 256 envs
 # after SMOKE_RL_UPDATES updates (episodes of 50 steps from a log-uniform start
 # temperature, all at different stages). The first run on the H100 read
@@ -1544,8 +1575,14 @@ def rl_slice(torch, mc, stats):
         eng = update_fn.engine
         state = init_fn()
         e0 = float(state.env_state.energy.mean())
+        hist = []
         for _ in range(2):
             state, metrics = update_fn(state)
+            hist.append(dict(zip(ppo.METRIC_KEYS, torch.stack(
+                [metrics[k] for k in ppo.METRIC_KEYS]).tolist())))
+        # the eager reference of the captured run in captured_parity
+        stats.setdefault("rl_sparse_eager", {})[n_envs] = (
+            s_env, s_ppo, hist, state.params)
         best = float(metrics["mean_best_energy"])
         per_sweep = 1 if path == "K2" else len(eng.groups)
         others = [v for k, v in eng.launches.items() if k != key]
@@ -1599,6 +1636,7 @@ def rl_timing(torch, stats, card):
                       for u in marks)
     print(f"  mean best energy per spin after update {curve}")
     prof = headline.profile_rl()
+    stats["profiles"]["PPO update (K1, N=512 x 256 envs)"] = prof
     steps = prof["env_steps"]
     print(f"  profile_rl (one PPO update = {steps} env steps of 256 envs + "
           f"the learning phase): {prof['us_per_env_step']:.1f} us per env "
@@ -1614,6 +1652,258 @@ def rl_timing(torch, stats, card):
     for k in prof["kernels"]:
         print(f"    {k['us_per_env_step']:9.2f} us/env step  {k['calls']:5d} "
               f"calls  {k['name'][:76]}")
+
+
+# ---------------------------------------------------------------------------
+# The captured drivers (anneal/graphs.py) against the eager loop of their step
+# ---------------------------------------------------------------------------
+
+def _sync_free(torch, what, replays):
+    """Runs ``replays`` (replays of a captured step and their reads) under
+    set_sync_debug_mode('error')."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replays()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(True, f"{what}: replays and their reads run under "
+                f"set_sync_debug_mode('error')")
+
+
+def _same_result(np, a, b) -> bool:
+    """Two AnnealResults of one run: every array and the launch counts."""
+    return (all(np.array_equal(getattr(a, k), getattr(b, k)) for k in (
+        "best_spins", "replica_best_energy", "energy_history",
+        "mean_energy_history", "temperature_history", "acceptance_history"))
+        and a.metadata["kernel_launches"] == b.metadata["kernel_launches"])
+
+
+def captured_parity(torch, mc, stats):
+    """Phase 4 (captured): each driver through its graph against the eager
+    loop of its step under one seed, bit for bit; a repeat call on the same
+    problem and config replays the cached graphs and gives the first call's
+    result; no host sync inside a window of replays."""
+    import dataclasses
+
+    import numpy as np
+
+    from spinglass_tpu_torch import anneal
+    from spinglass_tpu_torch.anneal import graphs, pt, sa
+    from spinglass_tpu_torch.anneal.engines import kernel_launches
+    from spinglass_tpu_torch.benchmarks import headline
+    from spinglass_tpu_torch.rl import ppo
+
+    def same_anneal(res, state, hist, engine, problem, what):
+        best = int(torch.argmin(state.best_energy))
+        row = engine.from_layout(state.best_spins)[best].cpu().numpy()
+        ok = (np.array_equal(res.energy_history, hist[:, 0])
+              and np.array_equal(res.mean_energy_history, hist[:, 1])
+              and np.array_equal(res.temperature_history, hist[:, 2])
+              and np.array_equal(res.acceptance_history, hist[:, 3])
+              and np.array_equal(res.replica_best_energy,
+                                 state.best_energy.cpu().numpy())
+              and np.array_equal(res.best_spins, row[:problem.n_spins]))
+        check(ok, f"{what}: anneal (captured chunks) == the eager run_chunk "
+                  f"loop: best spins, best energies and the four histories "
+                  f"bit for bit")
+
+    def repeat(first, again, cache, what):
+        check(_same_result(np, first, again) and cache.hits == hits + 1
+              and again.metadata["capture_seconds"] == 0.0,
+              f"{what}: a repeat call (same problem object and config) hits "
+              f"the cache and gives the first call's result and launches bit "
+              f"for bit; total_time {first.total_time:.4f} s first (its "
+              f"capture {first.metadata['capture_seconds']:.4f} s included) "
+              f"/ {again.total_time:.4f} s repeat")
+
+    stats["captured"] = cap = {}
+    read = graphs.HostRead()
+    for kind, kernel, known in (("dense", mc.KERNEL_NAME, "-0.75785"),
+                                ("sparse", "sparse_sweep", "-1.63124")):
+        problem, cfg, first = stats[f"{kind}_first"]
+        hits = graphs.SA_CACHE.hits
+        res = anneal(problem, cfg)
+        repeat(first, res, graphs.SA_CACHE, f"{kind} anneal")
+        state, hist, eng = headline.eager_anneal(problem, cfg)
+        what = (f"{kind} {problem.n_spins} x {cfg.n_replicas}, "
+                f"{cfg.n_sweeps} sweeps")
+        same_anneal(res, state, hist, eng, problem, what)
+        n = res.metadata["kernel_launches"].get(kernel, 0)
+        e_n = res.best_energy / problem.n_spins
+        cap[f"{kind}_e_n"] = e_n
+        check(n == 500 and kernel_launches(eng).get(kernel, 0) == 500
+              and f"{e_n:.5f}" == known,
+              f"{kernel} launched {n} times through the replays and "
+              f"{kernel_launches(eng).get(kernel, 0)} in the eager loop (500 "
+              f"each); E/N {e_n:.5f} (the known-good {known})")
+        if kind == "dense":
+            s_state, s_hist = sa.anneal_scan(problem, dataclasses.replace(
+                cfg, enable_early_stop=False))
+            check(torch.equal(s_state.spins, state.spins)
+                  and torch.equal(s_state.best_energy, state.best_energy)
+                  and torch.equal(s_state.best_spins, state.best_spins)
+                  and all(np.array_equal(s_hist[k].cpu().numpy(),
+                                         hist[:, i].astype(np.float32))
+                          for i, k in enumerate(sa.STAT_KEYS))
+                  and int(s_state.sweep) == 500,
+                  "anneal_scan (10 replays, no read until the end) == the "
+                  "eager loop: final spins, best spins and energies, the [10] "
+                  "histories")
+            del s_state
+        _, steps = graphs.SA_CACHE.get(problem, ("anneal", cfg))
+        _sync_free(torch, f"{kind} SA chunk ({kernel})",
+                   lambda: [read([steps[50].replay()]) for _ in range(3)])
+        del state, eng
+
+    ell = stats["sparse_first"][0]
+    for label, pcfg in (
+            ("PT at 16 replicas (bench_pt10k's), 1000 sweeps, K4",
+             pt.PTConfig(n_replicas=16, seed=42)),
+            ("PT at R=4096 (32 chains of 128), 200 sweeps, K4",
+             stats["pt_wide_first"][0])):
+        hits = graphs.PT_CACHE.hits
+        res = pt.run(ell, pcfg)
+        if pcfg.n_chains > 1:
+            repeat(stats["pt_wide_first"][1], res, graphs.PT_CACHE, label)
+        state, hist, eng = headline.eager_pt(ell, pcfg)
+        rates = (state.exch_accepts.cpu().numpy()
+                 / np.maximum(state.exch_attempts.cpu().numpy(), 1))
+        best = int(torch.argmin(state.best_energy))
+        row = eng.from_layout(state.best_spins)[best].cpu().numpy()
+        _, _, step = graphs.PT_CACHE.get(ell, ("run", pcfg))
+        got = step.state
+        ok = (all(torch.equal(getattr(got, f), getattr(state, f))
+                  for f in ("spins", "slot", "energy", "best_energy",
+                            "best_spins", "exch_attempts", "exch_accepts"))
+              and np.array_equal(res.energy_history,
+                                 hist["best_energy"].cpu().numpy())
+              and np.array_equal(res.mean_energy_history,
+                                 hist["cold_energy"].cpu().numpy())
+              and np.array_equal(res.acceptance_history,
+                                 hist["mean_acceptance"].cpu().numpy())
+              and np.array_equal(res.metadata["slot_trajectory"],
+                                 hist["slot_of_replica"].cpu().numpy())
+              and np.array_equal(res.metadata["slot_energy_history"],
+                                 hist["slot_energy"].cpu().numpy())
+              and np.array_equal(res.metadata["exchange_rates"], rates)
+              and np.array_equal(res.best_spins, row[:ell.n_spins]))
+        n4 = res.metadata["kernel_launches"].get("sparse_accept", 0)
+        check(ok and n4 == pcfg.n_sweeps * len(getattr(eng, "groups", ()))
+              and kernel_launches(eng).get("sparse_accept", 0) == n4,
+              f"{label}: pt.run == the eager loop: final spins, slots, "
+              f"energies, exchange counts and the histories bit for bit; K4 "
+              f"{n4} launches through the replays and in the eager loop")
+        _sync_free(torch, f"{label}: the super-step",
+                   lambda: [step.replay() for _ in range(2)])
+        del state, got, step
+
+    ttt = stats["ttt"]["extras"]
+    tell, _ = headline.ttt_instance()
+    tcfg = headline.ttt_config()
+    super_step, _, eng = pt.make_pt_step(tell, tcfg)
+    sweeps = []
+    for seed in headline.TTT_SEEDS:
+        st = pt.init_state(tell, tcfg, torch.Generator().manual_seed(seed),
+                           eng)
+        n, best = 0, float("inf")
+        while best > ttt["threshold"] and n < 20000 // tcfg.exchange_interval:
+            st, out = super_step(st)
+            n += 1
+            best = min(best, float(out["best_energy"]))
+        sweeps.append(n * tcfg.exchange_interval)
+    got = [r["sweeps"] for r in ttt["per_seed"]]
+    cap["ttt_sweeps"] = got
+    check(got == sweeps and ttt["all_hit"],
+          f"time_to_target, seeds 42-44 (one captured super-step shared by "
+          f"the seeds, a 4-byte read after each replay): sweeps {got} == the "
+          f"eager loop's {sweeps}, all hit")
+
+    def best_of(st):
+        st, out = super_step(st)
+        return st, out["best_energy"]
+
+    step = pt.capture_super_step(best_of, eng, pt.init_state(
+        tell, tcfg, torch.Generator().manual_seed(42), eng))
+    _sync_free(torch, "TTT super-step (K2 at 128 replicas) with its 4-byte "
+                      "read", lambda: [read([step.replay()])
+                                       for _ in range(3)])
+    del step
+
+    out = stats["bench_rl"]["train"]
+    problem, env_cfg, ppo_cfg = headline.rl_bench_setup(
+        n_updates=SMOKE_RL_UPDATES)
+    init_fn, update_fn, _ = ppo.make_ppo(problem, env_cfg, ppo_cfg)
+    state = init_fn()
+    hist = []
+    for _ in range(RL_EAGER_UPDATES):
+        state, m = update_fn(state)
+        hist.append(dict(zip(ppo.METRIC_KEYS, torch.stack(
+            [m[k] for k in ppo.METRIC_KEYS]).tolist())))
+    e_n = out["history"][-1]["mean_best_energy"] / problem.n_spins
+    cap["rl_e_n"] = e_n
+    check(out["history"][:RL_EAGER_UPDATES] == hist
+          and e_n <= RL_E_PER_SPIN_MAX,
+          f"ppo.train (bench_rl's run: {SMOKE_RL_UPDATES} captured updates, "
+          f"capturable Adam): its first {RL_EAGER_UPDATES} updates' history == "
+          f"{RL_EAGER_UPDATES} eager updates' bit for bit; final E/N "
+          f"{e_n:.5f} <= {RL_E_PER_SPIN_MAX}")
+    k8 = ppo.train(problem, env_cfg, dataclasses.replace(
+        ppo_cfg, n_updates=RL_EAGER_UPDATES, updates_per_dispatch=8))
+    check(k8["history"] == hist
+          and all(torch.equal(k8["params"][k], p)
+                  for k, p in state.params.items()),
+          f"updates_per_dispatch=8 ({RL_EAGER_UPDATES // 8} dispatches of 8 "
+          f"replays, one read each) == {RL_EAGER_UPDATES} eager updates: "
+          f"parameters and history bit for bit")
+    cap_u = ppo.CapturedUpdates(update_fn, init_fn())
+    _sync_free(torch, "PPO update (K1, N=512 x 256 envs) with its metrics "
+                      "read", lambda: [(cap_u.replay(), cap_u.read(1))
+                                       for _ in range(2)])
+    del cap_u
+    for n_envs, key in ((128, "sparse_sweep"), (64, "sparse_accept")):
+        s_env, s_ppo, hist, params = stats["rl_sparse_eager"][n_envs]
+        t = ppo.train(ell, s_env, dataclasses.replace(s_ppo, n_updates=2))
+        check(t["history"] == hist
+              and all(torch.equal(t["params"][k], p)
+                      for k, p in params.items())
+              and t["kernel_launches"].get(key, 0) > 0,
+              f"PPO on the 10k bench graph, {n_envs} envs ({key}), 2 "
+              f"captured updates == 2 eager updates: parameters and history "
+              f"bit for bit; launches {t['kernel_launches']}")
+
+
+def captured_timing(torch, stats, card):
+    """Phase 5 (captured): each captured driver against the eager loop of
+    its step in turns, and whole driver calls three ways
+    (headline.captured_vs_plain); the captured paths' busy shares and graph
+    launches, and their kernels per name by the profiler against the
+    launch counters (the profiles of the phases above)."""
+    from spinglass_tpu_torch.benchmarks import headline
+
+    b = headline.captured_vs_plain()
+    for label, turns in b["value"].items():
+        ways = ", ".join(f"{way} {t[0]:.4f} / {t[1]:.4f}"
+                         for way, t in turns.items())
+        print(f"  {label}: {ways} (in turns) [{card}]")
+    for name, prof in stats["profiles"].items():
+        # the kernels a replayed graph ran, counted by the profiler, against
+        # what the wrappers' counters added over the same replays
+        lc = prof["launch_check"]
+        check(lc and all(c["counter"] == c["profiler"] for c in lc.values())
+              and any(c["counter"] > 0 for c in lc.values()),
+              f"profile {name}: launches per kernel over the profiled replays, "
+              f"counter == profiler: "
+              + ", ".join(f"{k} {c['counter']} == {c['profiler']}"
+                          for k, c in lc.items() if c["counter"]
+                          or c["profiler"]))
+        unit = "env step" if "us_per_env_step" in prof else "sweep"
+        key = unit.replace(" ", "_")
+        print(f"  captured {name}: {prof[f'us_per_{key}']:.1f} us/{unit}, "
+              f"kernels {prof[f'device_us_per_{key}']:.1f} us/{unit}, device "
+              f"busy {100 * prof['device_busy_share']:.1f}%, "
+              f"{prof[f'graph_launches_per_{key}']:.3f} graph launches and "
+              f"{prof[f'launches_per_{key}']:.1f} kernels per {unit} [{card}]")
 
 
 def main() -> int:
@@ -1633,7 +1923,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    stats: dict = {}
+    stats: dict = {"profiles": {}}
     t_start = time.perf_counter()
     try:
         from spinglass_tpu_torch.benchmarks.headline import device_description
@@ -1687,13 +1977,17 @@ def main() -> int:
                  lambda: accept_slice(torch, stats)),
                 ("phase 4: the RL path (rollout, PPO, sparse env, evaluation)",
                  lambda: rl_slice(torch, mc, stats)),
+                ("phase 4: the captured drivers against the eager loop",
+                 lambda: captured_parity(torch, mc, stats)),
                 ("phase 5: timing (K1)", lambda: phase_timing(torch, mc, stats, card)),
                 ("phase 5: timing (K2, K3)", lambda: sparse_timing(torch, stats, card)),
                 ("phase 5: timing (K5, K6, K7)", lambda: variant_timing(torch, mc, stats, card)),
                 ("phase 5: timing (K4, PT at R=4096 three ways)",
                  lambda: accept_timing(torch, stats, card)),
                 ("phase 5: timing (RL: bench_rl, profile_rl)",
-                 lambda: rl_timing(torch, stats, card))):
+                 lambda: rl_timing(torch, stats, card)),
+                ("phase 5: timing (captured drivers against the eager loop)",
+                 lambda: captured_timing(torch, stats, card))):
             print(name)
             t0 = time.perf_counter()
             phase()

@@ -25,9 +25,16 @@ lies on a CUDA device" where it tests for a TPU:
 raises.
 
 Randomness: ``sweep(spins, beta, generator)`` takes the driver's host
-``torch.Generator`` and draws one seed from it per sweep: the kernels take
-it as their Philox key, the plain engines seed a generator on the spins'
-device with it and draw their uniforms there.
+``torch.Generator`` and draws one seed from it per sweep
+(``core.rng.draw_seed``): the kernels take it as their Philox key,
+the plain engines seed a generator on the spins' device with it and draw
+their uniforms there. In the eager loop the seed is a host int, passed to
+the kernel by value. While a driver's step is captured (``anneal.graphs``)
+the same draw goes through the step's random tape (``core.rng``): the
+kernel gets a seed slot in device memory, which the tape refills from the
+generator before each replay, and the plain engines' uniforms are the
+tape's static tensors, drawn anew before each replay. Both ways draw the
+same numbers in the same order.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from spinglass_tpu_torch.core import energy as energy_ops
+from spinglass_tpu_torch.core import rng
 from spinglass_tpu_torch.core import topology
 from spinglass_tpu_torch.core.problem import IsingProblem
 from spinglass_tpu_torch.kernels import sweeps as sweep_kernels
@@ -60,6 +68,20 @@ def kernel_launches(engine) -> dict:
     """Kernel name -> launches made through ``engine`` (empty for the plain
     PyTorch engines)."""
     return dict(getattr(engine, "launches", {}))
+
+
+def launch_counters(engine) -> list:
+    """(kernel name, object, attribute) of each launch count behind
+    ``engine.launches`` (``graphs.CapturedStep`` adds a replay's launches
+    there); empty for the plain PyTorch engines."""
+    if hasattr(engine, "fused"):
+        return [(engine.fused.kernel_name, engine.fused, "launches")]
+    kernels = getattr(engine, "kernels", None)
+    if kernels is None:
+        return []
+    return [("sparse_sweep", kernels, "sweep_launches"),
+            ("sparse_thresholds", kernels, "threshold_launches"),
+            ("sparse_accept", kernels, "accept_launches")]
 
 
 def best_row(engine, spins: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -95,7 +117,7 @@ class SweepEngine:
 
     def _uniforms(self, spins: torch.Tensor, generator: torch.Generator):
         """Uniforms drawn on the spins' device (no host-to-device copy)."""
-        return sweep_kernels.device_uniforms(generator, spins.shape, spins.device)
+        return rng.device_uniforms(generator, spins.shape, spins.device)
 
     def sweep(self, spins, beta, generator):
         raise NotImplementedError
@@ -164,7 +186,7 @@ class CudaFusedEngine(SweepEngine):
         return {self.fused.kernel_name: self.fused.launches}
 
     def sweep(self, spins_t, beta, generator):
-        return self.fused(spins_t, beta, sweep_kernels.draw_seed(generator))
+        return self.fused(spins_t, beta, rng.draw_seed(generator))
 
 
 def make_engine(problem, *, sweep_method: str = "auto",

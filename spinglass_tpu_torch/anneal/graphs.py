@@ -1,0 +1,306 @@
+"""Captured drivers: one step of a driver replayed as a CUDA graph, and the
+cache that keeps captured steps across calls.
+
+The counterpart of ``spinglass_tpu.anneal.jit_cache``. The JAX package runs
+an SA chunk, a PT run, the time-to-target loop and a scan of PPO updates as
+single jitted dispatches and keeps the compiled executables across calls;
+the port captures the driver's step (an SA chunk, a PT super-step, a PPO
+update) once in a ``torch.cuda.CUDAGraph`` and replays it, so a step costs
+one launch from the host whatever it holds, and ``StepCache`` keeps the
+captured steps of a problem and configuration for the calls after.
+
+``CapturedStep(step, state, generator, counters)``:
+
+* ``step(state) -> (state, outputs)`` is the driver's eager step. The
+  state's tensors are the graph's static inputs: the captured step ends by
+  copying the new state into them, so consecutive replays chain with no
+  host work. Its outputs are static too (the graph's own tensors).
+  ``load`` copies a new run's start state in.
+* ``record=n`` also writes each replay's outputs into row ``row`` of
+  static ``[n, ...]`` buffers (``history``) and advances ``row``, a device
+  counter, modulo n: n replays need no read in between.
+* Before capture the step runs once on a throwaway copy of the state and a
+  copy of the generator (``warm_up`` may supply another throwaway state), on
+  a side stream: kernels are built and loaded, lazy buffers allocated and
+  shared-memory limits raised there, and none of the run's draws is used.
+* Randomness: the step's draws go through a ``core.rng.RandomTape``,
+  recorded in the warm-up and refilled from the run's host generator before
+  every replay (see ``core.rng``).
+* Launches: ``counters`` lists (kernel name, object, attribute) of the
+  kernel wrappers' launch counts. What warm-up and capture add is taken
+  back; the launches captured are counted per kernel name once and added to
+  the counts at every replay, so an engine's ``launches`` stay exact.
+* On the CPU there is no graph: ``replay`` runs the step eagerly, through
+  the same tape and the same static state.
+* ``capture_seconds``: what the warm-up and the capture took.
+* A failed capture or replay raises. Nothing falls back to the eager loop.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import OrderedDict
+from typing import Callable, Hashable, Optional, Sequence
+
+import torch
+
+from spinglass_tpu_torch.core.rng import RandomTape
+
+
+# -- state trees --------------------------------------------------------------
+
+def _map(fn, x):
+    """``x`` rebuilt with ``fn`` applied to every tensor and generator in
+    it (dataclasses, dicts, lists and tuples are walked)."""
+    if isinstance(x, (torch.Tensor, torch.Generator)):
+        return fn(x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _map(fn, getattr(x, f.name))
+                                         for f in dataclasses.fields(x)
+                                         if f.init})
+    if isinstance(x, dict):
+        return {k: _map(fn, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_map(fn, v) for v in x)
+    return x
+
+
+def leaves(x) -> list:
+    """The tensors of a state tree, in a fixed order."""
+    out = []
+    _map(lambda t: out.append(t) if isinstance(t, torch.Tensor) else t, x)
+    return out
+
+
+def clone_generator(g: torch.Generator) -> torch.Generator:
+    """A generator in ``g``'s state; drawing from it leaves ``g`` as it is."""
+    return torch.Generator(device=g.device).set_state(g.get_state())
+
+
+def clone(x):
+    """A throwaway copy of a state tree: tensors cloned, generators copied."""
+    with torch.no_grad():
+        return _map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                    else clone_generator(t), x)
+
+
+def device_counter(state):
+    """A driver state (a dataclass with ``spins`` and a ``sweep`` counter)
+    with its counter as a 0-d int64 tensor on the spins' device, filled
+    there; a graph reads it at every replay where it would freeze an int."""
+    if isinstance(state.sweep, torch.Tensor):
+        return state
+    return dataclasses.replace(state, sweep=torch.full(
+        (), state.sweep, dtype=torch.int64, device=state.spins.device))
+
+
+def distinct(x):
+    """``x`` with every tensor that shares storage with an earlier one
+    replaced by a copy, so that each leaf can take a new value of its own."""
+    seen = set()
+
+    def fn(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        ptr = t.untyped_storage().data_ptr()
+        if ptr in seen:
+            return t.detach().clone()
+        seen.add(ptr)
+        return t
+
+    return _map(fn, x)
+
+
+def assign(static, new) -> None:
+    """Copy the tensors of ``new`` into those of ``static`` (same tree
+    structure). A leaf that is already the static tensor is skipped; one
+    that shares storage with a static tensor is copied out first, so no
+    copy reads what an earlier one wrote."""
+    dst, src = leaves(static), leaves(new)
+    if len(dst) != len(src):
+        raise RuntimeError(f"the step returned {len(src)} state tensors "
+                           f"for {len(dst)}")
+    ptrs = {t.untyped_storage().data_ptr() for t in dst}
+    with torch.no_grad():
+        src = [s if s is d or s.untyped_storage().data_ptr() not in ptrs
+               else s.clone() for d, s in zip(dst, src)]
+        for d, s in zip(dst, src):
+            if s is not d:
+                d.copy_(s)
+
+
+class CapturedStep:
+    """A driver step captured once and replayed (see the module
+    docstring). ``state`` becomes ``self.state`` (storage shared between
+    leaves is split first); ``counters`` are (kernel name, object,
+    attribute) triples; ``record`` > 0 keeps the outputs of the last
+    ``record`` replays in ``history`` (the outputs' tree, each tensor with
+    a leading [record] axis; ``row`` is the next row);
+    ``warm_up(state) -> (throwaway state, restore)``
+    replaces the default throwaway copy where a step must run on some of the
+    run's own objects (PPO's parameters and optimizer: ``restore`` puts them
+    back after the warm-up)."""
+
+    def __init__(self, step: Callable, state, generator: torch.Generator,
+                 counters: Sequence = (), record: int = 0,
+                 warm_up: Optional[Callable] = None):
+        self.step = step
+        self.generator = generator
+        self.state = distinct(state)
+        tensors = leaves(self.state)
+        if not tensors:
+            raise ValueError("a captured step needs a state on a device")
+        self.device = tensors[0].device
+        self.counters = list(counters)
+        self.tape = RandomTape(self.device)
+        self.launches = {name: 0 for name, _, _ in self.counters}
+        self.graph = None
+        self.outputs = None
+        self.record = record
+        t0 = time.perf_counter()
+        before = self._counts()
+        if warm_up is None:
+            warm, restore = clone(self.state), None
+        else:
+            warm, restore = warm_up(self.state)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side), self.tape.recording():
+                _, out = step(warm)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+        else:
+            with self.tape.recording():
+                _, out = step(warm)
+        if record:
+            self.history = _map(lambda t: torch.zeros(
+                (record,) + tuple(t.shape), dtype=t.dtype, device=t.device),
+                out)
+            self.row = torch.zeros((), dtype=torch.int64, device=self.device)
+        del warm, out
+        if restore is not None:
+            restore()
+        self._set_counts(before)
+        self.tape.allocate()
+        if cuda:
+            self.graph = torch.cuda.CUDAGraph()
+            with self.tape.serving(), torch.cuda.graph(self.graph):
+                self.outputs = self._run()
+            after = self._counts()
+            self.launches = {k: after[k] - before[k] for k in before}
+            self._set_counts(before)
+        # warm-up and capture on the host clock (the capture waits for the
+        # warm-up's device work, and instantiates the graph)
+        self.capture_seconds = time.perf_counter() - t0
+
+    def _counts(self) -> dict:
+        return {name: getattr(obj, attr) for name, obj, attr in self.counters}
+
+    def _set_counts(self, counts: dict) -> None:
+        for name, obj, attr in self.counters:
+            setattr(obj, attr, counts[name])
+
+    def _run(self):
+        new, out = self.step(self.state)
+        assign(self.state, new)
+        if self.record:
+            with torch.no_grad():
+                for h, o in zip(leaves(self.history), leaves(out)):
+                    h.index_copy_(0, self.row.reshape(1), o[None])
+                self.row.copy_((self.row + 1) % self.record)
+        return out
+
+    def load(self, state) -> None:
+        """A new run's start ``state`` (the tree of ``self.state``, its
+        counters device tensors) copied into the static state; the history
+        row goes back to 0."""
+        assign(self.state, state)
+        if self.record:
+            self.row.zero_()
+
+    def replay(self, generator: Optional[torch.Generator] = None):
+        """One step: the tape's draws from ``generator`` (default: the one
+        given at construction), then the graph (on the CPU: the step, run
+        eagerly). Returns the step's outputs (static tensors on the card)."""
+        self.tape.fill(generator if generator is not None else self.generator)
+        if self.graph is None:
+            with self.tape.serving():
+                self.outputs = self._run()
+            return self.outputs
+        self.graph.replay()
+        for name, obj, attr in self.counters:
+            setattr(obj, attr, getattr(obj, attr) + self.launches[name])
+        return self.outputs
+
+
+class StepCache:
+    """Captured steps kept across driver calls, as ``jit_cache.SolverCache``
+    keeps executables: an entry per (problem object, key), where the key
+    names the driver and its configuration (and so every shape). The entry
+    holds its problem, so the problem's id cannot be reused while the entry
+    lives; beyond ``max_entries`` the least recently used entry goes, and
+    its graphs and their memory with it. One run at a time may use an
+    entry: its static state is the run's."""
+
+    def __init__(self, max_entries: int = 8):
+        self.max_entries = max_entries
+        self._d: OrderedDict = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, problem, key: Hashable):
+        """The entry of (problem, key), or None."""
+        entry = self._d.get((id(problem), key))
+        if entry is None:
+            self.misses += 1
+            return None
+        self._d.move_to_end((id(problem), key))
+        self.hits += 1
+        return entry[0]
+
+    def put(self, problem, key: Hashable, value) -> None:
+        self._d[(id(problem), key)] = (value, problem)
+        while len(self._d) > self.max_entries:
+            self._d.popitem(last=False)
+
+    def clear(self) -> None:
+        self._d.clear()
+
+
+SA_CACHE = StepCache()   # sa.anneal / sa.anneal_scan
+PT_CACHE = StepCache()   # pt.run / planted.time_to_target
+
+
+def clear_caches() -> None:
+    """Drop every cached captured step (the next driver call captures)."""
+    SA_CACHE.clear()
+    PT_CACHE.clear()
+
+
+class HostRead:
+    """Small device tensors read through pinned host buffers: one
+    asynchronous copy each and an event, so the host waits for these copies
+    only (no device-wide sync). Returns host tensors."""
+
+    def __init__(self):
+        self._bufs = {}
+        self._event = None
+
+    def __call__(self, tensors: Sequence[torch.Tensor]) -> list:
+        if not tensors or not tensors[0].is_cuda:
+            return [t.detach().clone() for t in tensors]
+        out = []
+        for i, t in enumerate(tensors):
+            buf = self._bufs.get(i)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype).pin_memory()
+                self._bufs[i] = buf
+            buf.copy_(t, non_blocking=True)
+            out.append(buf)
+        if self._event is None:
+            self._event = torch.cuda.Event()
+        self._event.record()
+        self._event.synchronize()
+        return [b.clone() for b in out]

@@ -10,14 +10,18 @@ The counterpart of ``spinglass_tpu.anneal.pt``:
   p = min(1, exp((beta_i - beta_j) (E_i - E_j))).
 
 A super-step is ``exchange_interval`` sweeps, one exchange pass and an exact
-energy resync. The JAX driver runs the whole run as one jitted scan; here a
-run is a Python loop of super-steps whose tensors never leave the device:
-the randomness comes from the host ``torch.Generator`` in the state (one
-seed per sweep and per exchange pass), the per-super-step statistics stay
-device tensors, and the host reads the device once, at the end. The best
-replica is chosen on the device and only its row is copied back. The kernel
-engines update ``PTState.spins`` in place; ``best_spins`` is always a
-separate tensor.
+energy resync. The JAX driver runs the whole run as one jitted scan
+(``run_all``); here ``make_pt_step``'s super-step is the eager step, whose
+tensors never leave the device (the randomness comes from the host
+``torch.Generator`` in the state, one seed per sweep and one device draw
+per exchange pass; the sweep counter, and with it the exchange parity, is a
+device tensor), and ``run`` replays it captured as a CUDA graph
+(``capture_super_step``, ``graphs.CapturedStep``) n_super times, each
+replay writing its statistics into the [n_super, ...] history at a device
+counter. The host reads the device once, at the end. The best replica is
+chosen on the device and only its row is copied back. The kernel engines
+update ``PTState.spins`` in place; ``best_spins`` is always a separate
+tensor.
 
 Not ported yet (they raise): ``cluster_moves > 0`` (needs
 ``core/cluster.py``), checkpoint/resume (the JAX ``_run_segmented``) and
@@ -34,13 +38,15 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from spinglass_tpu_torch.anneal import graphs
 from spinglass_tpu_torch.anneal.engines import (SweepEngine, best_row,
-                                                kernel_launches, make_engine)
+                                                kernel_launches,
+                                                launch_counters, make_engine)
 from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.core import energy as energy_ops
 from spinglass_tpu_torch.core.problem import random_spins
 from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES
-from spinglass_tpu_torch.kernels.sweeps import device_uniforms
+from spinglass_tpu_torch.core.rng import device_uniforms
 
 
 @dataclass(frozen=True)
@@ -85,7 +91,8 @@ class PTState:
     best_energy: torch.Tensor   # [R]
     best_spins: torch.Tensor
     generator: torch.Generator
-    sweep: int
+    sweep: object               # sweeps done: an int, or a 0-d int64 device
+    # tensor (the captured drivers' counter)
     exch_attempts: torch.Tensor  # [n_replicas - 1] per-ladder-pair attempts
     exch_accepts: torch.Tensor   # [n_replicas - 1]
     acc_rate: torch.Tensor       # [R]
@@ -313,15 +320,37 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def capture_super_step(super_step: Callable, engine, state: PTState,
+                       record: int = 0) -> graphs.CapturedStep:
+    """``super_step`` (``make_pt_step``'s) as a captured step on ``state``
+    (its sweep counter made a device tensor); each replay's output is the
+    super-step's stats, and ``record`` > 0 keeps the last ``record`` of
+    them in the step's ``history`` (each stat with a leading [record]
+    axis)."""
+    state = graphs.device_counter(state)
+    return graphs.CapturedStep(super_step, state, state.generator,
+                               launch_counters(engine), record=record)
+
+
 def run(problem, cfg: Optional[PTConfig] = None,
         generator: Optional[torch.Generator] = None,
         ladder_override: Optional[np.ndarray] = None,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 10,
         resume: bool = False) -> AnnealResult:
-    """Full PT run on a dense ``IsingProblem`` or an ``EllProblem``.
-    ``ladder_override``: an explicit temperature ladder instead of the
-    config's spacing. Checkpoint/resume is not ported yet and raises."""
+    """Full PT run on a dense ``IsingProblem`` or an ``EllProblem``: the
+    JAX ``run_all``, as the captured super-step (``capture_super_step``)
+    replayed n_super times with no read in between. ``ladder_override``: an
+    explicit temperature ladder instead of the config's spacing.
+    Checkpoint/resume is not ported yet and raises.
+
+    The engine and the captured super-step are kept per (problem object,
+    config) (``graphs.PT_CACHE``); the ladder is copied into the cached
+    step's beta tensor at every call, as the JAX run takes it as an
+    argument. ``total_time`` is the JAX ``run_all``'s window: the start
+    state, the replays and the final read, plus the capture on the first
+    call (where the JAX package compiles; ``capture_seconds`` in the
+    metadata). ``kernel_launches`` are this call's."""
     if resume and checkpoint_dir is None:
         raise ValueError("resume=True requires checkpoint_dir")
     if checkpoint_dir is not None:
@@ -330,17 +359,32 @@ def run(problem, cfg: Optional[PTConfig] = None,
     del checkpoint_every
     cfg = cfg or PTConfig()
     n_super = max(1, cfg.n_sweeps // cfg.exchange_interval)
-    super_step, betas_ladder, engine = make_pt_step(problem, cfg,
-                                                    ladder_override)
+    entry = graphs.PT_CACHE.get(problem, ("run", cfg))
+    if entry is None:
+        super_step, betas_ladder, engine = make_pt_step(problem, cfg,
+                                                        ladder_override)
+    else:
+        betas_ladder, engine, step = entry
+        temps = (np.asarray(ladder_override, np.float32)
+                 if ladder_override is not None else temperature_ladder(cfg))
+        betas_ladder.copy_(torch.as_tensor(1.0 / temps))
+    launches0 = kernel_launches(engine)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     _sync(problem.device)
     t0 = time.perf_counter()
     state = init_state(problem, cfg, generator, engine)
-    hist = []
+    if entry is None:
+        step = capture_super_step(super_step, engine, state, record=n_super)
+        graphs.PT_CACHE.put(problem, ("run", cfg),
+                            (betas_ladder, engine, step))
+        capture_s = step.capture_seconds
+    else:
+        step.load(graphs.device_counter(state))
+        capture_s = 0.0
     for _ in range(n_super):
-        state, stats = super_step(state)
-        hist.append(stats)
+        step.replay(generator)
+    state = step.state
     best_r = torch.argmin(state.best_energy)
     dev_out = {
         "best_spins": best_row(engine, state.best_spins, best_r),
@@ -349,18 +393,21 @@ def run(problem, cfg: Optional[PTConfig] = None,
         "exch_attempts": state.exch_attempts,
         "exch_accepts": state.exch_accepts,
     }
-    dev_hist = {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
     out = {k: v.cpu().numpy() for k, v in dev_out.items()}   # read at the end
-    out["hist"] = {k: v.cpu().numpy() for k, v in dev_hist.items()}
+    out["hist"] = {k: v.cpu().numpy() for k, v in step.history.items()}
     _sync(problem.device)
     total = time.perf_counter() - t0
-    return _assemble_result(problem, cfg, out, betas_ladder, n_super, total,
-                            engine)
+    launches = kernel_launches(engine)
+    res = _assemble_result(problem, cfg, out, betas_ladder, n_super, total,
+                           engine, {k: v - launches0.get(k, 0)
+                                    for k, v in launches.items()})
+    res.metadata["capture_seconds"] = capture_s
+    return res
 
 
 def _assemble_result(problem, cfg: PTConfig, out: dict, betas_ladder,
                      n_super: int, total: float,
-                     engine: Optional[SweepEngine] = None) -> AnnealResult:
+                     engine: SweepEngine, launches: dict) -> AnnealResult:
     hist = out["hist"]
     betas = betas_ladder.cpu().numpy()
     sweeps_done = n_super * cfg.exchange_interval
@@ -396,7 +443,7 @@ def _assemble_result(problem, cfg: PTConfig, out: dict, betas_ladder,
             "slot_energy_history": np.asarray(hist["slot_energy"]),
             "exchange_method": cfg.exchange_method,
             "engine": getattr(engine, "name", None),
-            "kernel_launches": kernel_launches(engine),
+            "kernel_launches": launches,
         },
     )
 

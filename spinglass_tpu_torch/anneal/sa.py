@@ -1,11 +1,15 @@
 """Simulated-annealing driver: chunks of sweeps over a batch of replicas.
 
 The counterpart of ``spinglass_tpu.anneal.sa``. The JAX driver runs each
-chunk of ``record_interval`` sweeps as one jitted scan; here a chunk is a
-Python loop of sweeps whose tensors never leave the device: beta and the
-schedule state are device tensors, each sweep's randomness comes from the
-host ``torch.Generator`` in the state, and the chunk's statistics are read
-back once, at its end. The exact energy is recomputed at the end of every
+chunk of ``record_interval`` sweeps as one jitted scan; here ``run_chunk``
+is the eager step, a Python loop of sweeps whose tensors never leave the
+device (beta, the schedule state and the sweep counter are device tensors,
+each sweep's randomness comes from the host ``torch.Generator`` in the
+state), and ``anneal`` / ``anneal_scan`` replay it captured as a CUDA graph
+(``capture_chunk``, ``graphs.CapturedStep``; on the CPU the same step runs
+eagerly through the same random tape). ``anneal`` reads the chunk's four
+statistics once per chunk, as the JAX driver does; ``anneal_scan`` reads
+nothing until the end. The exact energy is recomputed at the end of every
 chunk, which removes the float32 drift of the incremental energies.
 
 Annealing state lives in the engine's layout (see ``engines``). The kernel
@@ -28,9 +32,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from spinglass_tpu_torch.anneal import schedules
+from spinglass_tpu_torch.anneal import graphs, schedules
 from spinglass_tpu_torch.anneal.engines import (SweepEngine, best_row,
-                                                kernel_launches, make_engine)
+                                                kernel_launches,
+                                                launch_counters, make_engine)
 from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.anneal.schedules import ScheduleConfig, ScheduleState
 from spinglass_tpu_torch.core.problem import IsingProblem, random_spins
@@ -80,7 +85,8 @@ class SAState:
     best_spins: torch.Tensor
     sched: ScheduleState
     generator: torch.Generator
-    sweep: int
+    sweep: object               # sweeps done: an int, or a 0-d int64 device
+    # tensor (the captured drivers' counter; schedules read either)
     acc_rate: torch.Tensor      # [R] last sweep's acceptance rate
 
 
@@ -142,10 +148,14 @@ def _one_sweep(problem: IsingProblem, config: SAConfig, engine: SweepEngine,
                    acc_rate=acc_rate)
 
 
+STAT_KEYS = ("best_energy", "mean_energy", "temperature", "acceptance")
+
+
 def run_chunk(problem: IsingProblem, config: SAConfig, engine: SweepEngine,
               state: SAState, n_sweeps: int) -> Tuple[SAState, dict]:
     """n_sweeps sweeps without a host sync; returns the state and summary
-    stats as device scalars. Ends with an exact-energy resync."""
+    stats (``STAT_KEYS``) as device scalars. Ends with an exact-energy
+    resync. The eager step that ``capture_chunk`` captures."""
     for _ in range(n_sweeps):
         state = _one_sweep(problem, config, engine, state)
     state = dataclasses.replace(state, energy=engine.energy(state.spins))
@@ -163,6 +173,30 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def capture_chunk(problem: IsingProblem, config: SAConfig,
+                  engine: SweepEngine, state: SAState, n_sweeps: int,
+                  record: int = 0) -> graphs.CapturedStep:
+    """``run_chunk`` of ``n_sweeps`` sweeps as a captured step on ``state``
+    (its sweep counter made a device tensor). Each replay's output is the
+    [4] vector of the chunk's ``STAT_KEYS``; ``record`` > 0 keeps the last
+    ``record`` of them in the step's ``history`` ([record, 4])."""
+
+    def chunk(st):
+        st, stats = run_chunk(problem, config, engine, st, n_sweeps)
+        return st, torch.stack([stats[k].reshape(()) for k in STAT_KEYS])
+
+    state = graphs.device_counter(state)
+    return graphs.CapturedStep(chunk, state, state.generator,
+                               launch_counters(engine), record=record)
+
+
+def _chunk_lengths(config: SAConfig) -> list:
+    n_chunks = max(1, -(-config.n_sweeps // config.record_interval))
+    return [n for n in (min(config.record_interval, config.n_sweeps - c *
+                            config.record_interval) for c in range(n_chunks))
+            if n > 0]
+
+
 def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
            generator: Optional[torch.Generator] = None,
            init_spins: Optional[torch.Tensor] = None,
@@ -171,33 +205,55 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
            resume: bool = False) -> AnnealResult:
     """Full annealing run with history recording and optional early stop.
 
-    The host reads the device once per chunk of ``record_interval`` sweeps
-    (the four history values). The best replica is picked on the device and
+    Each chunk of ``record_interval`` sweeps is one replay of the captured
+    chunk (``capture_chunk``; a shorter last chunk has a graph of its own),
+    and the host reads the device once per chunk: the four history values,
+    through a pinned buffer. The best replica is picked on the device and
     only its row is copied to the host. Checkpoint/resume is not ported yet
     and raises.
+
+    The engine and the captured chunks are kept per (problem object,
+    config) (``graphs.SA_CACHE``): the first call captures, a repeat call
+    copies its start state in and replays. ``total_time`` is the wall time
+    from the start state to the last read, as the JAX driver times it: on
+    the first call it includes the capture (the JAX package's compile falls
+    there too), on a repeat call there is none (``capture_seconds`` in the
+    metadata says what it took). ``kernel_launches`` are this call's.
     """
     if checkpoint_dir is not None or resume:
         raise NotImplementedError("SA checkpoint/resume is not ported yet")
     del checkpoint_every
     config = config or SAConfig()
-    engine = make_sweep_engine(problem, config)
+    lengths = _chunk_lengths(config)
+    entry = graphs.SA_CACHE.get(problem, ("anneal", config))
+    engine = entry[0] if entry else make_sweep_engine(problem, config)
+    launches0 = kernel_launches(engine)
     state = init_state(problem, config, engine, generator, init_spins)
-    n_chunks = max(1, -(-config.n_sweeps // config.record_interval))
+    generator = state.generator
     e_hist, me_hist, t_hist, a_hist = [], [], [], []
     converged, conv_sweep = False, None
     sweeps_done = 0
+    read = graphs.HostRead()
 
     _sync(problem.device)
     t0 = time.perf_counter()
-    for _ in range(n_chunks):
-        n = min(config.record_interval, config.n_sweeps - sweeps_done)
-        if n <= 0:
-            break
-        state, stats = run_chunk(problem, config, engine, state, n)
+    if entry is None:
+        steps = {}   # chunk length -> its captured step, all on one state
+        for n in lengths:
+            if n not in steps:
+                steps[n] = capture_chunk(problem, config, engine, state, n)
+                state = steps[n].state
+        graphs.SA_CACHE.put(problem, ("anneal", config), (engine, steps))
+        capture_s = sum(st.capture_seconds for st in steps.values())
+    else:
+        capture_s = 0.0
+        steps = entry[1]
+        if steps:   # all on one state
+            steps[lengths[0]].load(graphs.device_counter(state))
+            state = steps[lengths[0]].state
+    for n in lengths:
+        e, me, t, a = read([steps[n].replay(generator)])[0].tolist()
         sweeps_done += n
-        e, me, t, a = torch.stack([stats["best_energy"], stats["mean_energy"],
-                                   stats["temperature"],
-                                   stats["acceptance"]]).tolist()
         e_hist.append(e)
         me_hist.append(me)
         t_hist.append(t)
@@ -215,6 +271,7 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
     best_spins = best_row(engine, state.best_spins, best_r).cpu().numpy()[
         : problem.n_spins]
     flips = sweeps_done * config.n_replicas * problem.n_spins
+    launches = kernel_launches(engine)
     return AnnealResult(
         best_spins=best_spins,
         best_energy=float(state.best_energy[best_r]),
@@ -235,12 +292,41 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
         convergence_sweep=conv_sweep,
         metadata={"schedule": config.schedule.schedule_type.value,
                   "engine": engine.name,
-                  "kernel_launches": kernel_launches(engine)},
+                  "kernel_launches": {k: v - launches0.get(k, 0)
+                                      for k, v in launches.items()},
+                  "capture_seconds": capture_s},
     )
 
 
 def anneal_scan(problem: IsingProblem, config: Optional[SAConfig] = None,
-                generator: Optional[torch.Generator] = None):
-    """The JAX package's single-dispatch anneal (benchmark / RL inner loop)
-    is not ported yet; ``anneal`` is the port's entry point."""
-    raise NotImplementedError("anneal_scan is not ported yet; use anneal")
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[SAState, dict]:
+    """The JAX package's single-dispatch anneal (no early stop, no host
+    read until the end; the benchmark / RL inner loop): the captured chunk of
+    ``record_interval`` sweeps replayed n_rec = n_sweeps // record_interval
+    times, each replay writing its statistics into row n of the history at
+    a device counter. Returns (state, hist): the state in the engine's
+    layout (its sweep counter a device tensor, its generator the run's), and
+    hist a dict of [n_rec] tensors on the device under the JAX keys
+    (``STAT_KEYS``); both are the call's own copies. The engine and the
+    captured chunk are kept per (problem object, config), as ``anneal``
+    keeps them."""
+    config = config or SAConfig()
+    n_rec = max(1, config.n_sweeps // config.record_interval)
+    key = ("anneal_scan", config)
+    entry = graphs.SA_CACHE.get(problem, key)
+    engine = entry[0] if entry else make_sweep_engine(problem, config)
+    state = init_state(problem, config, engine, generator)
+    if entry is None:
+        step = capture_chunk(problem, config, engine, state,
+                             config.record_interval, record=n_rec)
+        graphs.SA_CACHE.put(problem, key, (engine, step))
+    else:
+        step = entry[1]
+        step.load(graphs.device_counter(state))
+    for _ in range(n_rec):
+        step.replay(state.generator)
+    out = dataclasses.replace(graphs.clone(step.state),
+                              generator=state.generator)
+    return out, {k: step.history[:, i].clone()
+                 for i, k in enumerate(STAT_KEYS)}

@@ -5,7 +5,8 @@ stream.
 They exist to check ``sa``, ``pt`` and the RL env end to end: a run through
 an engine and a run through its twin under one generator seed draw the same
 seeds, so on exact couplings (+-J, fields on a quarter grid) every piece of
-the state must be equal bit for bit. ``make_engine`` never picks them, and they launch no
+the state must be equal bit for bit. A seed may be a captured step's seed
+slot: the plain versions then compute on it where it lies. ``make_engine`` never picks them, and they launch no
 kernel: their ``launches`` stay at 0.
 """
 
@@ -15,7 +16,7 @@ from spinglass_tpu_torch.anneal.engines import CudaFusedEngine
 from spinglass_tpu_torch.kernels import metropolis_cuda as mc
 from spinglass_tpu_torch.kernels import sparse_cuda as sc
 from spinglass_tpu_torch.kernels.sparse import SortedSparseTEngine
-from spinglass_tpu_torch.kernels.sweeps import draw_seed
+from spinglass_tpu_torch.core.rng import draw_seed
 
 
 class TwinFusedEngine(CudaFusedEngine):

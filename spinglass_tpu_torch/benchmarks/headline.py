@@ -7,7 +7,9 @@ shapes:
   * ``bench_sparse``: 10k spins, average degree 6, Gaussian, R=1024, 2000
     sweeps through the transposed sparse engine (K2), CUDA events;
   * ``bench_pt10k``: wall-clock of a 10k-spin 16-replica PT run (1000
-    sweeps, the plain [R, N] sparse engine), second of two runs;
+    sweeps, ``make_engine``'s engine: K4), second of two runs (the first
+    captures the super-step; the second is a cache hit, as JAX's second run
+    reuses its executable);
   * ``bench_ttt``: time-to-target on the planted 10k instance of
     ``spinglass_tpu/benchmarks/ttt_provenance.json`` (read as a data file,
     instance hash checked), 128-replica PT, median of three seeds.
@@ -23,12 +25,23 @@ shapes:
     the median of three windows of per-update wall times after a warm-up;
     ``profile_rl`` gives the device breakdown of one update and the split
     between its rollout and its learning phase.
+  * ``captured_vs_plain``: each captured driver against the eager loop of
+    the same step, in turns in one process: the dense and the sparse SA
+    chunk, the TTT loop and one PPO update; and whole calls of ``anneal``
+    (dense and sparse, 500 sweeps) and ``pt.run`` (``bench_pt10k``'s) three
+    ways: the eager loop, a first call (the capture included) and a repeat
+    call (a cache hit).
+The drivers (``anneal``, ``pt.run``, ``time_to_target``, ``ppo.train``) and
+the ``profile_*`` functions run the captured steps (``anneal.graphs``): a
+replayed graph's kernels show in ``torch.profiler`` as device kernels, so
+the busy shares stay comparable with the eager loop's.
 A run without a CUDA device raises: no number from the CPU is reported under
 a device metric.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -36,6 +49,8 @@ import time
 
 import numpy as np
 import torch
+
+from spinglass_tpu_torch.anneal.engines import launch_counters
 
 N_SPINS = 4096
 N_REPLICAS = 1024
@@ -57,8 +72,10 @@ TTT_PROVENANCE = os.path.join(
 TTT_SEEDS = (42, 43, 44)
 
 
+@functools.lru_cache(maxsize=1)
 def device_description() -> str:
-    """The card's name and power limit as nvidia-smi reports them."""
+    """The card's name and power limit as nvidia-smi reports them (asked
+    once per process)."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
@@ -89,7 +106,10 @@ def _need_cuda() -> None:
                            "no CUDA device found")
 
 
+@functools.lru_cache(maxsize=2)
 def _sk_problem(n: int):
+    """The SK glass at n spins on the card, built once per process and
+    shared by the benches (a problem is never written)."""
     from spinglass_tpu_torch.core import topology
     from spinglass_tpu_torch.core.problem import IsingProblem
 
@@ -249,7 +269,17 @@ def bench_ttt(max_sweeps: int = 0, seeds=TTT_SEEDS) -> dict:
     }
 
 
-def _profile(step, sweeps: int, top: int) -> dict:
+# the kernel symbols behind each launch counter (``engines.launch_counters``)
+KERNEL_SYMBOLS = {
+    "metropolis_sweep": ("cluster_sweep_kernel", "tile_sweep_kernel"),
+    "sparse_sweep": ("sparse_sweep_kernel",),
+    "sparse_thresholds": ("sparse_thresholds_kernel",),
+    "sparse_accept": ("sparse_accept_kernel",),
+}
+
+
+def _profile(step, sweeps: int, top: int, graph_launches: int = 0,
+             counters=()) -> dict:
     """Where ``step`` (a closure that runs ``sweeps`` sweeps of a driver's
     loop and synchronises nothing itself) spends its time on the GPU.
 
@@ -259,7 +289,10 @@ def _profile(step, sweeps: int, top: int) -> dict:
     kernels' device time per sweep (one stream, so they do not overlap), the
     device-busy share (device time over the unprofiled run's wall time: the
     profiler's own host cost would otherwise count as idle) and the ``top``
-    kernels.
+    kernels. ``graph_launches`` is the number of graph replays in a step.
+    ``counters`` (``engines.launch_counters``): ``launch_check`` holds, per
+    counter, what it added over the recorded step against the profiler's
+    count of that kernel's symbols (``KERNEL_SYMBOLS``) in the same step.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -274,10 +307,12 @@ def _profile(step, sweeps: int, top: int) -> dict:
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         for _ in range(2):
+            before = {n: getattr(o, a) for n, o, a in counters}
             t0 = time.perf_counter()
             step()
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
+            added = {n: getattr(o, a) - before[n] for n, o, a in counters}
             prof.step()
     # kernels only: an operator's entry repeats its kernels' device time,
     # and the step annotation ("ProfilerStep*") spans the whole run
@@ -290,6 +325,10 @@ def _profile(step, sweeps: int, top: int) -> dict:
     # PyTorch's advanced indexing (s_t[idx]) runs as index / gather kernels
     gathers = sum(e.count for e in events
                   if "index" in e.key.lower() or "gather" in e.key.lower())
+    launch_check = {name: {"counter": n, "profiler": sum(
+        e.count for e in events
+        if any(sym in e.key for sym in KERNEL_SYMBOLS.get(name, ())))}
+        for name, n in added.items()}
     return {
         "sweeps": sweeps,
         "us_per_sweep": wall / sweeps * 1e6,
@@ -297,7 +336,9 @@ def _profile(step, sweeps: int, top: int) -> dict:
         "device_us_per_sweep": device_us,
         "device_busy_share": device_us / (wall / sweeps * 1e6),
         "launches_per_sweep": sum(e.count for e in events) / sweeps,
+        "graph_launches_per_sweep": graph_launches / sweeps,
         "gather_launches_per_sweep": gathers / sweeps,
+        "launch_check": launch_check,
         "kernels": [{"name": e.key, "calls": e.count,
                      "us_per_sweep": e.self_device_time_total / sweeps}
                     for e in events[:top]],
@@ -305,26 +346,44 @@ def _profile(step, sweeps: int, top: int) -> dict:
     }
 
 
-def _profile_sa(problem, r: int, sweeps: int, top: int, **cfg_kw) -> dict:
-    from spinglass_tpu_torch.anneal import sa
+def _sa_steppers(problem, r: int, sweeps: int, **cfg_kw) -> dict:
+    """"plain" (the eager ``run_chunk``) and "captured" (its graph) runs of
+    one chunk of ``anneal``, each with the chunk's one read of its four
+    statistics, on states of their own; and the engine."""
+    from spinglass_tpu_torch.anneal import graphs, sa
 
     cfg = sa.SAConfig(n_sweeps=10 * sweeps, n_replicas=r, **cfg_kw)
     engine = sa.make_sweep_engine(problem, cfg)
-    state = sa.init_state(problem, cfg, engine)
+    state = None   # the plain run's, made at its first call
+    captured = sa.capture_chunk(problem, cfg, engine,
+                                sa.init_state(problem, cfg, engine), sweeps)
+    read = graphs.HostRead()
 
-    def step():
+    def plain():
         nonlocal state
-        state, _ = sa.run_chunk(problem, cfg, engine, state, sweeps)
+        if state is None:
+            state = sa.init_state(problem, cfg, engine)
+        state, stats = sa.run_chunk(problem, cfg, engine, state, sweeps)
+        torch.stack([stats[k] for k in sa.STAT_KEYS]).tolist()
 
-    out = _profile(step, sweeps, top)
-    out.update(n_spins=problem.n_spins, n_replicas=r, engine=engine.name)
+    return {"plain": plain, "captured": lambda: read([captured.replay()]),
+            "engine": engine}
+
+
+def _profile_sa(problem, r: int, sweeps: int, top: int, **cfg_kw) -> dict:
+    steps = _sa_steppers(problem, r, sweeps, **cfg_kw)
+    out = _profile(steps["captured"], sweeps, top, graph_launches=1,
+                   counters=launch_counters(steps["engine"]))
+    out.update(n_spins=problem.n_spins, n_replicas=r,
+               engine=steps["engine"].name)
     return out
 
 
 def profile_chunk(n: int = N_SPINS, r: int = N_REPLICAS, sweeps: int = 50,
                   block_size: int = 128, top: int = 8) -> dict:
-    """One chunk of ``sweeps`` sweeps of ``anneal``'s loop (``sa.run_chunk``,
-    the default schedule) on the dense SK glass, profiled (``_profile``)."""
+    """One captured chunk of ``sweeps`` sweeps of ``anneal``
+    (``sa.capture_chunk``, the default schedule) on the dense SK glass,
+    profiled (``_profile``)."""
     out = _profile_sa(_sk_problem(n), r, sweeps, top, block_size=block_size)
     out["block_size"] = block_size
     return out
@@ -332,35 +391,67 @@ def profile_chunk(n: int = N_SPINS, r: int = N_REPLICAS, sweeps: int = 50,
 
 def profile_sparse_chunk(r: int = SPARSE_REPLICAS, sweeps: int = 50,
                          top: int = 8) -> dict:
-    """One chunk of ``anneal``'s loop on the sparse bench instance (K2 at
+    """One captured chunk of ``anneal`` on the sparse bench instance (K2 at
     R=1024), profiled (``_profile``)."""
     _need_cuda()
     return _profile_sa(sparse_bench_problem(), r, sweeps, top)
 
 
-def profile_ttt(super_steps: int = 20, top: int = 8) -> dict:
-    """``super_steps`` PT super-steps of the time-to-target loop (the TTT
-    instance and configuration, with the per-super-step 4-byte read),
-    profiled (``_profile``); per-sweep figures count exchange_interval
-    sweeps per super-step."""
+def _pt_steppers(ell, cfg, engine, super_steps: int, read_each: bool) -> dict:
+    """"plain" (the eager super-step loop) and "captured" (its graph)
+    runs of ``super_steps`` PT super-steps on states of their own; with
+    ``read_each`` each super-step is followed by the 4-byte read of the best
+    energy (the TTT loop), else one read ends the run (``pt.run``). Also
+    the engine."""
+    from spinglass_tpu_torch.anneal import graphs
     from spinglass_tpu_torch.anneal import pt as pt_mod
 
+    super_step, _, engine = pt_mod.make_pt_step(ell, cfg, engine=engine)
+
+    def best_of(st):
+        st, stats = super_step(st)
+        return st, stats["best_energy"]
+
+    state = None   # the plain run's, made at its first call
+    captured = pt_mod.capture_super_step(best_of, engine, pt_mod.init_state(
+        ell, cfg, torch.Generator().manual_seed(SEED), engine))
+    read = graphs.HostRead()
+
+    def plain():
+        nonlocal state
+        if state is None:
+            state = pt_mod.init_state(
+                ell, cfg, torch.Generator().manual_seed(SEED), engine)
+        for _ in range(super_steps):
+            state, stats = super_step(state)
+            if read_each:
+                float(stats["best_energy"])
+        float(stats["best_energy"])
+
+    def replayed():
+        for _ in range(super_steps):
+            best = captured.replay()
+            if read_each:
+                read([best])
+        read([best])
+
+    return {"plain": plain, "captured": replayed, "engine": engine}
+
+
+def profile_ttt(super_steps: int = 20, top: int = 8) -> dict:
+    """``super_steps`` captured PT super-steps of the time-to-target loop
+    (the TTT instance and configuration, with the per-super-step 4-byte
+    read), profiled (``_profile``); per-sweep figures count
+    exchange_interval sweeps per super-step."""
     _need_cuda()
     ell, _ = ttt_instance()
     cfg = ttt_config()
-    super_step, _, engine = pt_mod.make_pt_step(ell, cfg)
-    state = pt_mod.init_state(ell, cfg, torch.Generator().manual_seed(SEED),
-                              engine)
-
-    def step():
-        nonlocal state
-        for _ in range(super_steps):
-            state, stats = super_step(state)
-            float(stats["best_energy"])
-
-    out = _profile(step, super_steps * cfg.exchange_interval, top)
+    steps = _pt_steppers(ell, cfg, None, super_steps, read_each=True)
+    out = _profile(steps["captured"], super_steps * cfg.exchange_interval,
+                   top, graph_launches=super_steps,
+                   counters=launch_counters(steps["engine"]))
     out.update(n_spins=ell.n_spins, n_replicas=cfg.n_replicas,
-               engine=engine.name, super_steps=super_steps)
+               engine=steps["engine"].name, super_steps=super_steps)
     return out
 
 
@@ -390,43 +481,37 @@ def pt_wide_engine(ell, path: str):
 
 
 def _pt_stepper(ell, cfg, engine, super_steps: int):
-    from spinglass_tpu_torch.anneal import pt as pt_mod
-
-    super_step, _, engine = pt_mod.make_pt_step(ell, cfg, engine=engine)
-    state = pt_mod.init_state(ell, cfg, torch.Generator().manual_seed(SEED),
-                              engine)
-
-    def step():
-        nonlocal state
-        for _ in range(super_steps):
-            state, _ = super_step(state)
-
-    return step
+    """``super_steps`` captured super-steps through ``engine``, one read at
+    the end."""
+    return _pt_steppers(ell, cfg, engine, super_steps, False)["captured"]
 
 
 def profile_pt_wide(path: str = "threshold", super_steps: int = 3,
                     top: int = 6) -> dict:
     """PT at R=4096 on the sparse bench instance through
-    ``pt_wide_engine(path)``: ``super_steps`` super-steps of ``pt``'s step,
-    profiled (``_profile``; ``gather_launches_per_sweep`` counts PyTorch's
-    index kernels)."""
+    ``pt_wide_engine(path)``: ``super_steps`` captured super-steps of
+    ``pt``'s step, profiled (``_profile``; ``gather_launches_per_sweep``
+    counts PyTorch's index kernels)."""
     _need_cuda()
     ell = sparse_bench_problem()
     cfg = pt_wide_config()
     engine = pt_wide_engine(ell, path)
     out = _profile(_pt_stepper(ell, cfg, engine, super_steps),
-                   super_steps * cfg.exchange_interval, top)
+                   super_steps * cfg.exchange_interval, top,
+                   graph_launches=super_steps,
+                   counters=launch_counters(engine))
     out.update(n_spins=ell.n_spins, n_replicas=cfg.n_replicas * cfg.n_chains,
                path=path, launches=engine.launches)
     return out
 
 
-def _in_turns(steppers: dict, sweeps: int) -> dict:
-    """Host-clock ms/sweep of each stepper, run a b c c b a after one
-    warm-up call each; label -> [first turn, second turn]."""
+def _in_turns(steppers: dict, sweeps: int, warm_up: bool = True) -> dict:
+    """Host-clock ms/sweep of each stepper (``sweeps`` per call), run a b c
+    c b a after one warm-up call each (``warm_up``); label -> [first turn,
+    second turn]."""
     labels = list(steppers)
     out = {label: [] for label in labels}
-    for step in steppers.values():
+    for step in steppers.values() if warm_up else ():
         step()
     for label in labels + labels[::-1]:
         torch.cuda.synchronize()
@@ -543,22 +628,18 @@ def bench_rl(n_updates: int = RL_UPDATES, n: int = RL_SPINS,
 
 
 def profile_rl(n: int = RL_SPINS, n_envs: int = RL_ENVS, top: int = 8) -> dict:
-    """One PPO update at the RL bench's shape, profiled (``_profile``, with
-    an env step of the whole batch where the other profiles have a sweep),
-    and the update's wall time split into its rollout (the env steps, the
+    """One captured PPO update at the RL bench's shape (``ppo.train``'s
+    step, with its metrics read), profiled (``_profile``, with an env step
+    of the whole batch where the other profiles have a sweep), and the eager
+    update's wall time split into its rollout (the env steps, the
     auto-resets and the policy's forward passes) and its learning phase
     (GAE and the minibatch Adam steps), each synchronised."""
-    from spinglass_tpu_torch.rl import ppo as ppo_mod
-
-    problem, env_cfg, ppo_cfg = rl_bench_setup(n, n_envs, 1)
-    init_fn, update_fn, _ = ppo_mod.make_ppo(problem, env_cfg, ppo_cfg)
+    steps = _rl_steppers(n, n_envs)
+    init_fn, update_fn = steps["init_fn"], steps["update_fn"]
+    rollout_len = steps["env_steps"] // n_envs
+    prof = _profile(steps["captured"], rollout_len, top, graph_launches=1,
+                    counters=launch_counters(update_fn.engine))
     state = init_fn()
-
-    def step():
-        nonlocal state
-        state, _ = update_fn(state)
-
-    prof = _profile(step, ppo_cfg.rollout_len, top)
     split = {"rollout": [], "learn": []}
     for _ in range(3):
         torch.cuda.synchronize()
@@ -578,7 +659,7 @@ def profile_rl(n: int = RL_SPINS, n_envs: int = RL_ENVS, top: int = 8) -> dict:
         kernels=[{"name": k["name"], "calls": k["calls"],
                   "us_per_env_step": k["us_per_sweep"]}
                  for k in prof["kernels"]],
-        n_spins=n, n_envs=n_envs, env_steps=ppo_cfg.rollout_len,
+        n_spins=n, n_envs=n_envs, env_steps=rollout_len,
         sweep_kernel_share=sweep_us / prof["device_us_per_sweep"],
         rollout_seconds=min(split["rollout"]),
         learn_seconds=min(split["learn"]),
@@ -586,17 +667,130 @@ def profile_rl(n: int = RL_SPINS, n_envs: int = RL_ENVS, top: int = 8) -> dict:
     return out
 
 
-if __name__ == "__main__":
-    print(json.dumps(bench_dense(block_size=128)))
-    print(json.dumps(profile_chunk()))
-    print(json.dumps(profile_sparse_chunk()))
-    print(json.dumps(profile_ttt()))
-    for path in PT_WIDE_PATHS:
-        print(json.dumps(profile_pt_wide(path)))
-    for bench in (bench_pt_wide, bench_pt16, bench_sparse, bench_pt10k,
-                  bench_ttt):
-        print(json.dumps(bench()))
-    print(json.dumps(profile_rl()))
-    rl = bench_rl()
-    del rl["train"]
-    print(json.dumps(rl))
+def _rl_steppers(n: int = RL_SPINS, n_envs: int = RL_ENVS) -> dict:
+    """One PPO update at the RL bench's shape with its metrics read: "plain"
+    (the eager update_fn) and "captured" (``ppo.CapturedUpdates``), each on
+    a training state of its own; and ``make_ppo``'s init_fn and
+    update_fn."""
+    from spinglass_tpu_torch.rl import ppo as ppo_mod
+
+    problem, env_cfg, ppo_cfg = rl_bench_setup(n, n_envs, 1)
+    init_fn, update_fn, _ = ppo_mod.make_ppo(problem, env_cfg, ppo_cfg)
+    state = init_fn()
+    captured = ppo_mod.CapturedUpdates(update_fn, init_fn())
+
+    def plain():
+        nonlocal state
+        state, metrics = update_fn(state)
+        torch.stack([metrics[k] for k in ppo_mod.METRIC_KEYS]).tolist()
+
+    def replayed():
+        captured.replay()
+        captured.read(1)
+
+    return {"plain": plain, "captured": replayed, "init_fn": init_fn,
+            "update_fn": update_fn,
+            "env_steps": ppo_cfg.rollout_len * env_cfg.n_envs}
+
+
+def eager_anneal(problem, cfg):
+    """``anneal``'s run as the eager loop of the step it captures
+    (``sa.run_chunk``): the engine, the start state, and one read of the
+    four statistics per chunk. Returns (state, [n_chunks, 4] history,
+    engine)."""
+    from spinglass_tpu_torch.anneal import sa
+
+    engine = sa.make_sweep_engine(problem, cfg)
+    state = sa.init_state(problem, cfg, engine)
+    hist, done = [], 0
+    while done < cfg.n_sweeps:
+        n = min(cfg.record_interval, cfg.n_sweeps - done)
+        state, st = sa.run_chunk(problem, cfg, engine, state, n)
+        hist.append(torch.stack([st[k] for k in sa.STAT_KEYS]).tolist())
+        done += n
+    return state, np.asarray(hist), engine
+
+
+def eager_pt(problem, cfg):
+    """``pt.run``'s run as the eager loop of the super-step it captures,
+    read once at the end: (state, stacked stats, engine)."""
+    from spinglass_tpu_torch.anneal import pt as pt_mod
+
+    super_step, _, engine = pt_mod.make_pt_step(problem, cfg)
+    state = pt_mod.init_state(problem, cfg,
+                              torch.Generator().manual_seed(cfg.seed), engine)
+    hist = []
+    for _ in range(max(1, cfg.n_sweeps // cfg.exchange_interval)):
+        state, st = super_step(state)
+        hist.append({k: v.clone() for k, v in st.items()})
+    stacked = {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
+    stacked["best_energy"].cpu()
+    return state, stacked, engine
+
+
+def _call_turns(eager, captured) -> dict:
+    """Seconds of wall time per call, in turns: the eager loop, a first
+    call of the captured driver (the caches cleared: it captures) and a
+    repeat call (a cache hit)."""
+    from spinglass_tpu_torch.anneal import graphs
+
+    def first():
+        graphs.clear_caches()
+        captured()
+
+    # no warm-up calls: the kernels are loaded, and each call builds its
+    # own engine (the eager loop, the first call) or hits the cache
+    turns = _in_turns({"eager": eager, "first call": first,
+                       "repeat call": captured}, 1, warm_up=False)
+    return {k: [v / 1e3 for v in t] for k, t in turns.items()}
+
+
+def captured_vs_plain(ttt_super_steps: int = 20, chunk: int = 50,
+                      anneal_sweeps: int = 500,
+                      pt10k_sweeps: int = 1000) -> dict:
+    """Each captured driver against the eager loop of its step, in turns
+    (plain, captured, captured, plain after a warm-up call each) in one
+    process, host clock around synchronised runs: us/sweep of one chunk of
+    the dense SA (SK 4096 x 1024, K1) and the sparse SA (10k x 1024, K2),
+    with the chunk's read; us/sweep of ``ttt_super_steps`` TTT
+    super-steps, each with its 4-byte read; env steps/s of one PPO update at
+    the RL bench's shape, with its read. Then whole calls, set-up included,
+    three ways in turns (``_call_turns``): ``anneal`` of ``anneal_sweeps``
+    sweeps on both SA instances, ``pt.run`` at ``bench_pt10k``'s
+    configuration (its repeat call is ``bench_pt10k``'s metric).
+    label -> {way: [first turn, second turn]}."""
+    from spinglass_tpu_torch.anneal import pt as pt_mod
+    from spinglass_tpu_torch.anneal import sa
+
+    _need_cuda()
+    out = {}
+    problems = {"dense": _sk_problem(N_SPINS), "sparse": sparse_bench_problem()}
+    for kind, problem in problems.items():
+        steps = _sa_steppers(problem, N_REPLICAS, chunk)
+        turns = _in_turns({k: steps[k] for k in ("plain", "captured")}, chunk)
+        out[f"{kind} SA chunk us/sweep"] = {k: [1e3 * v for v in t]
+                                            for k, t in turns.items()}
+        del steps
+    ell, _ = ttt_instance()
+    cfg = ttt_config()
+    steps = _pt_steppers(ell, cfg, None, ttt_super_steps, read_each=True)
+    turns = _in_turns({k: steps[k] for k in ("plain", "captured")},
+                      ttt_super_steps * cfg.exchange_interval)
+    out["TTT us/sweep"] = {k: [1e3 * v for v in t] for k, t in turns.items()}
+    steps = _rl_steppers()
+    turns = _in_turns({k: steps[k] for k in ("plain", "captured")}, 1)
+    out["PPO update env steps/s"] = {
+        k: [steps["env_steps"] / (v / 1e3) for v in t]
+        for k, t in turns.items()}
+    del steps
+    for kind, problem in problems.items():
+        cfg = sa.SAConfig(n_sweeps=anneal_sweeps, n_replicas=N_REPLICAS)
+        out[f"{kind} anneal call s ({anneal_sweeps} sweeps)"] = _call_turns(
+            lambda: eager_anneal(problem, cfg),
+            lambda: sa.anneal(problem, cfg))
+    cfg = pt_mod.PTConfig(n_replicas=16, n_sweeps=pt10k_sweeps, seed=SEED)
+    out[f"pt.run call s (bench_pt10k, {pt10k_sweeps} sweeps)"] = _call_turns(
+        lambda: eager_pt(problems["sparse"], cfg),
+        lambda: pt_mod.run(problems["sparse"], cfg))
+    return {"metric": "captured_vs_plain", "value": out,
+            "extras": {"nvidia_smi": device_description()}}

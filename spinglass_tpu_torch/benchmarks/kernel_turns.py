@@ -1,22 +1,29 @@
-"""Two checkouts' K1, K2, K3 and K4 timed in turns on one GPU.
+"""Two checkouts' seven kernels (K1-K7) timed in turns on one GPU.
 
     python -m spinglass_tpu_torch.benchmarks.kernel_turns PARENT_DIR
 
 times the dense sweep (``FusedSweep``, SK glass, beta = 1, Philox mode) at
-N=4096 x R=1024 with blocks 128 and 256 and at N=512 x R=256, the sparse
+N=4096 x R=1024 with blocks 128 and 256 and at N=512 x R=256, its variants
+K5, K6 (2 and 4 chains) and K7 at N=4096 x R=1024, block 128, the sparse
 sweep (``SparseKernels.single_sweep``, the 10k bench graph) at R = 128, 256
 and 1024, the threshold kernel (``SparseKernels.thresholds``) at [10240,
-4096] and 1024, and the fused accept at [10240, 4096] and 128 on int8
+4096] and 1024, and the fused accept at [10240, 4096], 128 and 16 on int8
 spins: K4 alone on precomputed fields over one sweep's colours
 (``SparseKernels.accept``) and the whole fused sweep
 (``SortedSparseTEngine._sweep_fused``: whatever computes the fields, plus
 K4), in the order parent, this checkout, this checkout,
 parent: one process per turn, each building its own kernels, all on the
-card this command runs on. PARENT_DIR is the root of another checkout of
+card this command runs on. Each kernel is timed with its seed by value and,
+where the checkout has seed slots, with the seed in device memory (the mode
+the captured drivers launch); the summary gives each mode's change against
+the parent's by-value time. PARENT_DIR is the root of another checkout of
 the repository unpacked inside this one (``git archive`` of the parent
 commit into a git-ignored directory), so that what it builds stays under
 this checkout; a directory elsewhere is refused. Prints one JSON line per
-turn and a summary; times are CUDA-event microseconds per sweep. The worker
+turn and a summary; times are CUDA-event microseconds per sweep, around
+calls launched from the host ("events") and around one replay of a CUDA
+graph of the same calls ("graph": the device alone, which the host cannot
+keep busy at the narrow shapes). The worker
 uses only what both checkouts have.
 """
 
@@ -28,12 +35,16 @@ import subprocess
 import sys
 
 DENSE = ((4096, 1024, 128), (4096, 1024, 256), (512, 256, 128))
+VARIANTS = (("K5", dict(pipelined=True)), ("K6x2", dict(interleave=2)),
+            ("K6x4", dict(interleave=4)), ("K7", dict(folded=True)))
 SPARSE_R = (128, 256, 1024)
-WIDE_R = (4096, 128)
+WIDE_R = (4096, 128, 16)
 
 
 def worker() -> dict:
-    """Times this process's package (the first entry of sys.path)."""
+    """Times this process's package (the first entry of sys.path): every
+    kernel with its seed by value, and where the package has seed slots
+    (``metropolis_cuda.seed_arg``) with the seed in device memory too."""
     import numpy as np
     import torch
 
@@ -45,10 +56,13 @@ def worker() -> dict:
     from spinglass_tpu_torch.kernels.sparse import SortedSparseTEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator().manual_seed(1)
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
-    def timed(fn, reps):
+    def timed(fn, reps, res, kind, key):
+        """us per call of ``fn``, by CUDA events around ``reps`` calls
+        launched from the host ("events") and around one replay of a graph
+        that captured ``reps`` calls ("graph": the device's time alone,
+        where the host cannot keep a narrow kernel busy)."""
         for _ in range(3):
             fn()
         start.record()
@@ -56,53 +70,80 @@ def worker() -> dict:
             fn()
         stop.record()
         stop.synchronize()
-        return start.elapsed_time(stop) * 1e3 / reps
+        res["events"][kind][key] = start.elapsed_time(stop) * 1e3 / reps
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        res["graph"][kind][key] = start.elapsed_time(stop) * 1e3 / reps
 
-    out = {"card": headline.device_description(), "dense": {}, "sparse": {},
-           "thresholds": {}, "accept": {}}
+    modes = ["value"] + (["slot"] if hasattr(mc, "seed_arg") else [])
+    out = {"card": headline.device_description()}
     problems = {}
-    for n, r, block in DENSE:
-        if n not in problems:
-            j = topology.fully_connected(n, dist="gaussian",
-                                         scale=1.0 / np.sqrt(n), seed=42)
-            problems[n] = IsingProblem.from_dense(j, device="cuda")
-        p = problems[n]
-        fused = mc.FusedSweep(p, block_size=block)
-        s = random_spins(gen, (r, p.n_padded),
-                         p.active_mask).t().contiguous().cuda()
-        beta = torch.ones(r, device="cuda")
-        out["dense"][f"{n}x{r} B={block}"] = timed(
-            lambda: fused(s, beta, 12345), 30)
     ell = headline.sparse_bench_problem()
-    eng = SortedSparseTEngine(ell, accept_kernel="single")
-    for r in SPARSE_R:
-        s = eng.to_layout(random_spins(gen, (r, ell.n_padded),
-                                       ell.active_mask).cuda())
-        beta = torch.ones(r, device="cuda")
-        out["sparse"][f"[{eng.n_sorted}, {r}]"] = timed(
-            lambda: eng.kernels.single_sweep(s, beta, seed=7), 200)
-    for r in (4096, 1024):
-        beta = torch.ones(r, device="cuda")
-        out["thresholds"][f"[{eng.n_sorted}, {r}]"] = timed(
-            lambda: eng.kernels.thresholds(beta, 11, r), 100)
-    eng = SortedSparseTEngine(ell, accept_kernel="fused")
-    for r in WIDE_R:
-        s = eng.to_layout(random_spins(gen, (r, ell.n_padded),
-                                       ell.active_mask).cuda())
-        beta = torch.ones(r, device="cuda")
-        fields = [(off, sp._colour_fields(s, bs)) for off, _, bs in eng.groups]
-        de = torch.zeros(r, device="cuda")
-        cnt = torch.zeros(r, dtype=torch.int32, device="cuda")
+    for mode in modes:
+        gen = torch.Generator().manual_seed(1)
 
-        def given_fields():
-            for off, f in fields:
-                eng.kernels.accept(f, s, off, beta, 11, de, cnt)
+        def seed(v):
+            return (v if mode == "value" else
+                    torch.tensor([v], dtype=torch.int64, device="cuda")[0])
 
-        shape = f"[{eng.n_sorted}, {r}]"
-        out["accept"][f"K4 on given fields, one sweep {shape}"] = timed(
-            given_fields, 20)
-        out["accept"][f"fused sweep {shape}"] = timed(
-            lambda: eng._sweep_fused(s, beta, 11), 20)
+        res = out[mode] = {how: {"dense": {}, "sparse": {}, "thresholds": {},
+                                 "accept": {}} for how in ("events", "graph")}
+        for n, r, block in DENSE:
+            if n not in problems:
+                j = topology.fully_connected(n, dist="gaussian",
+                                             scale=1.0 / np.sqrt(n), seed=42)
+                problems[n] = IsingProblem.from_dense(j, device="cuda")
+            p = problems[n]
+            s = random_spins(gen, (r, p.n_padded),
+                             p.active_mask).t().contiguous().cuda()
+            beta = torch.ones(r, device="cuda")
+            flags = [("K1", {})] + (list(VARIANTS) if (n, block) == (4096, 128)
+                                    else [])
+            for label, kw in flags:
+                fused = mc.FusedSweep(p, block_size=block, **kw)
+                sd = seed(12345)
+                timed(lambda: fused(s, beta, sd), 30 if label == "K1" else 10,
+                      res, "dense", f"{label} {n}x{r} B={block}")
+        eng = SortedSparseTEngine(ell, accept_kernel="single")
+        for r in SPARSE_R:
+            s = eng.to_layout(random_spins(gen, (r, ell.n_padded),
+                                           ell.active_mask).cuda())
+            beta = torch.ones(r, device="cuda")
+            sd = seed(7)
+            timed(lambda: eng.kernels.single_sweep(s, beta, seed=sd), 200,
+                  res, "sparse", f"[{eng.n_sorted}, {r}]")
+        for r in (4096, 1024):
+            beta = torch.ones(r, device="cuda")
+            sd = seed(11)
+            timed(lambda: eng.kernels.thresholds(beta, sd, r), 100, res,
+                  "thresholds", f"[{eng.n_sorted}, {r}]")
+        eng = SortedSparseTEngine(ell, accept_kernel="fused")
+        for r in WIDE_R:
+            s = eng.to_layout(random_spins(gen, (r, ell.n_padded),
+                                           ell.active_mask).cuda())
+            beta = torch.ones(r, device="cuda")
+            fields = [(off, sp._colour_fields(s, bs))
+                      for off, _, bs in eng.groups]
+            de = torch.zeros(r, device="cuda")
+            cnt = torch.zeros(r, dtype=torch.int32, device="cuda")
+            sd = seed(11)
+
+            def given_fields():
+                for off, f in fields:
+                    eng.kernels.accept(f, s, off, beta, sd, de, cnt)
+
+            shape = f"[{eng.n_sorted}, {r}]"
+            timed(given_fields, 20, res, "accept",
+                  f"K4 on given fields, one sweep {shape}")
+            timed(lambda: eng._sweep_fused(s, beta, sd), 20, res, "accept",
+                  f"fused sweep {shape}")
     return out
 
 
@@ -136,13 +177,22 @@ def main(argv) -> int:
         turn = json.loads(res.stdout.strip().splitlines()[-1])
         turns.append((label, turn))
         print(json.dumps({"turn": label, **turn}))
-    for kind in ("dense", "sparse", "thresholds", "accept"):
-        for shape in turns[0][1][kind]:
-            old = [t[kind][shape] for lab, t in turns if lab == "parent"]
-            new = [t[kind][shape] for lab, t in turns if lab == "change"]
-            print(f"{kind} {shape}: parent {old[0]:.1f} / {old[1]:.1f}, change "
-                  f"{new[0]:.1f} / {new[1]:.1f} us "
-                  f"[{turns[0][1]['card']}]")
+    card = turns[0][1]["card"]
+    for how in ("events", "graph"):
+        for kind in ("dense", "sparse", "thresholds", "accept"):
+            for shape in turns[0][1]["value"][how][kind]:
+                old = [t["value"][how][kind][shape] for lab, t in turns
+                       if lab == "parent"]
+                line = (f"{how}: {kind} {shape}: parent {old[0]:.1f} / "
+                        f"{old[1]:.1f}")
+                for mode in ("value", "slot"):
+                    new = [t[mode][how][kind][shape] for lab, t in turns
+                           if lab == "change" and mode in t]
+                    if new:
+                        line += (f", change ({mode}) {new[0]:.1f} / "
+                                 f"{new[1]:.1f} "
+                                 f"({100 * (sum(new) / sum(old) - 1):+.1f}%)")
+                print(f"{line} us [{card}]")
     return 0
 
 

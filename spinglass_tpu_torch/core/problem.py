@@ -21,6 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spinglass_tpu_torch.core import rng
+
 # The JAX package pads spin counts to the TPU lane width; the port keeps the
 # same padding so problems, spins and uniforms line up 1:1 with the reference.
 LANE = 128
@@ -184,10 +186,10 @@ def random_spins(generator: torch.Generator, shape: tuple,
     """Uniform random spins in {-1, +1}; padded positions forced to +1.
 
     The draw runs on the generator's device; the result lies on ``mask``'s
-    device when a mask is given.
+    device when a mask is given. ``generator`` may also be a random tape's
+    generator (``core.rng.device_generator`` under a captured step).
     """
-    bits = torch.randint(0, 2, shape, generator=generator,
-                         device=generator.device)
+    bits = rng.random_bits(generator, shape)
     s = (2 * bits - 1).to(dtype)
     if mask is not None:
         s = s.to(mask.device)

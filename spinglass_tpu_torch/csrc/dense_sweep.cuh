@@ -273,9 +273,12 @@ __global__ void __launch_bounds__(256, 1)
 tile_sweep_kernel(const float* __restrict__ J, const float* __restrict__ h,
                   const float* __restrict__ mask, float* spins,
                   const float* __restrict__ beta, const float* __restrict__ u,
-                  uint32_t k0, uint32_t k1, float* __restrict__ de_out,
-                  int* __restrict__ cnt_out, int n_pad, int R) {
+                  uint32_t k0, uint32_t k1,
+                  const unsigned long long* __restrict__ seed_ptr,
+                  float* __restrict__ de_out, int* __restrict__ cnt_out,
+                  int n_pad, int R) {
   constexpr int THREADS = 256;
+  device_seed(seed_ptr, k0, k1);
   constexpr int RT = 8 * NC;
   constexpr int FPL = B / 32;
   static_assert(32 * B <= kScratch, "J rows fit the scratch");

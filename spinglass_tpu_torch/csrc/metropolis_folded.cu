@@ -60,8 +60,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 folded_kernel(const float* __restrict__ J, const float* __restrict__ h,
               const float* __restrict__ mask, float* spins,
               const float* __restrict__ beta, const float* __restrict__ u,
-              uint32_t k0, uint32_t k1, float* __restrict__ de_out,
-              int* __restrict__ cnt_out, int n_pad, int R) {
+              uint32_t k0, uint32_t k1,
+              const unsigned long long* __restrict__ seed_ptr,
+              float* __restrict__ de_out, int* __restrict__ cnt_out,
+              int n_pad, int R) {
+  sgt::device_seed(seed_ptr, k0, k1);
   static_assert(C * B <= sgt::kScratch, "J rows of a micro-block fit");
   extern __shared__ __align__(16) float smem[];
   float* scratch = smem;                 // spin chunks, partials, J rows
@@ -136,15 +139,16 @@ folded_kernel(const float* __restrict__ J, const float* __restrict__ h,
 template <int B>
 int launch(int rule, dim3 grid, cudaStream_t stream, const float* J,
            const float* h, const float* mask, float* spins, const float* beta,
-           const float* u, uint32_t k0, uint32_t k1, float* de, int* cnt,
+           const float* u, uint32_t k0, uint32_t k1,
+           const unsigned long long* seed_ptr, float* de, int* cnt,
            int n_pad, int R) {
   const size_t bytes = sizeof(float) * smem_floats<B>();
   auto kernel = rule == 0 ? folded_kernel<B, 0> : folded_kernel<B, 1>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  static size_t allowed[2] = {0, 0};  // per rule
+  const cudaError_t err = sgt::allow_smem(kernel, bytes, allowed[rule]);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, THREADS, bytes, stream>>>(J, h, mask, spins, beta, u, k0, k1,
-                                           de, cnt, n_pad, R);
+                                           seed_ptr, de, cnt, n_pad, R);
   return 0;
 }
 
@@ -152,12 +156,13 @@ int launch(int rule, dim3 grid, cudaStream_t stream, const float* J,
 
 extern "C" {
 
-// One sweep on `stream`; the arguments of sgt_metropolis_sweep (K1) plus
-// micro, which must be 32. Returns cudaGetLastError() after the launch.
+// One sweep on `stream`; the arguments of sgt_metropolis_sweep (K1, with
+// seed_ptr) plus micro, which must be 32. Returns cudaGetLastError() after the launch.
 int sgt_metropolis_folded(const float* J, const float* h, const float* mask,
                           float* spins, const float* beta, const float* u,
-                          unsigned long long seed, float* de, int* cnt,
-                          int n_pad, int R, int block_size, int rule,
+                          unsigned long long seed,
+                          const unsigned long long* seed_ptr, float* de,
+                          int* cnt, int n_pad, int R, int block_size, int rule,
                           int micro, void* stream) {
   if (R < 1 || n_pad < 128 || n_pad % 128 != 0 || n_pad % block_size != 0 ||
       rule < 0 || rule > 1 || reinterpret_cast<uintptr_t>(J) % 16 != 0 ||
@@ -168,10 +173,10 @@ int sgt_metropolis_folded(const float* J, const float* h, const float* mask,
   const uint32_t k1 = (uint32_t)(seed >> 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = block_size == 256
-      ? launch<256>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1, de,
-                    cnt, n_pad, R)
-      : launch<128>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1, de,
-                    cnt, n_pad, R);
+      ? launch<256>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1,
+                    seed_ptr, de, cnt, n_pad, R)
+      : launch<128>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1,
+                    seed_ptr, de, cnt, n_pad, R);
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }

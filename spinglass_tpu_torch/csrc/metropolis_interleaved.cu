@@ -41,15 +41,16 @@ namespace {
 template <int B, int NC>
 void launch(int rule, dim3 grid, cudaStream_t stream, const float* J,
             const float* h, const float* mask, float* spins, const float* beta,
-            const float* u, uint32_t k0, uint32_t k1, float* de, int* cnt,
+            const float* u, uint32_t k0, uint32_t k1,
+            const unsigned long long* seed_ptr, float* de, int* cnt,
             int n_pad, int R) {
   // the field loop unrolled 8 deep, the decisions 2
   if (rule == 0) {
     sgt::tile_sweep_kernel<B, 0, NC, 8, 2><<<grid, 256, 0, stream>>>(
-        J, h, mask, spins, beta, u, k0, k1, de, cnt, n_pad, R);
+        J, h, mask, spins, beta, u, k0, k1, seed_ptr, de, cnt, n_pad, R);
   } else {
     sgt::tile_sweep_kernel<B, 1, NC, 8, 2><<<grid, 256, 0, stream>>>(
-        J, h, mask, spins, beta, u, k0, k1, de, cnt, n_pad, R);
+        J, h, mask, spins, beta, u, k0, k1, seed_ptr, de, cnt, n_pad, R);
   }
 }
 
@@ -57,13 +58,15 @@ void launch(int rule, dim3 grid, cudaStream_t stream, const float* J,
 
 extern "C" {
 
-// One sweep on `stream`; the arguments of sgt_metropolis_sweep (K1) plus
-// nchains in {2, 4}. Returns cudaGetLastError() after the launch.
+// One sweep on `stream`; the arguments of sgt_metropolis_sweep (K1, with
+// seed_ptr) plus nchains in {2, 4}. Returns cudaGetLastError() after the
+// launch.
 int sgt_metropolis_interleaved(const float* J, const float* h,
                                const float* mask, float* spins,
                                const float* beta, const float* u,
-                               unsigned long long seed, float* de, int* cnt,
-                               int n_pad, int R, int block_size, int rule,
+                               unsigned long long seed,
+                               const unsigned long long* seed_ptr, float* de,
+                               int* cnt, int n_pad, int R, int block_size, int rule,
                                int nchains, void* stream) {
   if (R < 1 || n_pad < 128 || n_pad % 128 != 0 || n_pad % block_size != 0 ||
       rule < 0 || rule > 1 || reinterpret_cast<uintptr_t>(J) % 16 != 0 ||
@@ -77,18 +80,18 @@ int sgt_metropolis_interleaved(const float* J, const float* h,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (block_size == 256) {
     if (nchains == 2)
-      launch<256, 2>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1, de,
-                     cnt, n_pad, R);
+      launch<256, 2>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1,
+                     seed_ptr, de, cnt, n_pad, R);
     else
-      launch<256, 4>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1, de,
-                     cnt, n_pad, R);
+      launch<256, 4>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1,
+                     seed_ptr, de, cnt, n_pad, R);
   } else {
     if (nchains == 2)
-      launch<128, 2>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1, de,
-                     cnt, n_pad, R);
+      launch<128, 2>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1,
+                     seed_ptr, de, cnt, n_pad, R);
     else
-      launch<128, 4>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1, de,
-                     cnt, n_pad, R);
+      launch<128, 4>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1,
+                     seed_ptr, de, cnt, n_pad, R);
   }
   return (int)cudaGetLastError();
 }

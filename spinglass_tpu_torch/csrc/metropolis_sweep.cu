@@ -253,8 +253,10 @@ cluster_sweep_kernel(const float* __restrict__ J, const float* __restrict__ h,
                      const float* __restrict__ mask, float* spins,
                      const float* __restrict__ beta,
                      const float* __restrict__ u, uint32_t k0, uint32_t k1,
+                     const unsigned long long* __restrict__ seed_ptr,
                      float* __restrict__ de_out, int* __restrict__ cnt_out,
                      int n_pad, int R) {
+  sgt::device_seed(seed_ptr, k0, k1);
   constexpr int MT = B / 128;  // 16-row MMA tiles per multiplying warp
   // k-steps (16 spin rows) per batch of loads, fetched one batch ahead: 8
   // float4s per thread in flight (2 k-steps at B = 128 measured 16% slower),
@@ -437,6 +439,7 @@ struct SweepArgs {
   const float* beta;
   const float* u;
   uint32_t k0, k1;
+  const unsigned long long* seed_ptr;
   float* de;
   int* cnt;
   int n_pad, R;
@@ -449,8 +452,8 @@ cudaError_t launch_cluster(const SweepArgs& a, cudaStream_t stream,
                            int* clusters) {
   auto kernel = cluster_sweep_kernel<B, RULE, PLANES>;
   const size_t smem = cluster_smem_bytes(a.n_pad, B);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static size_t allowed = 0;
+  const cudaError_t err = sgt::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((a.R + RT - 1) / RT) * CS);
@@ -466,7 +469,8 @@ cudaError_t launch_cluster(const SweepArgs& a, cudaStream_t stream,
   cfg.numAttrs = 1;
   if (clusters) return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
   return cudaLaunchKernelEx(&cfg, kernel, a.J, a.h, a.mask, a.spins, a.beta,
-                            a.u, a.k0, a.k1, a.de, a.cnt, a.n_pad, a.R);
+                            a.u, a.k0, a.k1, a.seed_ptr, a.de, a.cnt,
+                            a.n_pad, a.R);
 }
 
 template <int B>
@@ -486,12 +490,12 @@ cudaError_t launch_tile(int rule, const SweepArgs& a, cudaStream_t stream) {
   const dim3 grid((a.R + TILE_RT - 1) / TILE_RT);
   if (rule == 0) {
     sgt::tile_sweep_kernel<B, 0, 1, 16, 4><<<grid, 256, 0, stream>>>(
-        a.J, a.h, a.mask, a.spins, a.beta, a.u, a.k0, a.k1, a.de, a.cnt,
-        a.n_pad, a.R);
+        a.J, a.h, a.mask, a.spins, a.beta, a.u, a.k0, a.k1, a.seed_ptr,
+        a.de, a.cnt, a.n_pad, a.R);
   } else {
     sgt::tile_sweep_kernel<B, 1, 1, 16, 4><<<grid, 256, 0, stream>>>(
-        a.J, a.h, a.mask, a.spins, a.beta, a.u, a.k0, a.k1, a.de, a.cnt,
-        a.n_pad, a.R);
+        a.J, a.h, a.mask, a.spins, a.beta, a.u, a.k0, a.k1, a.seed_ptr,
+        a.de, a.cnt, a.n_pad, a.R);
   }
   return cudaGetLastError();
 }
@@ -514,18 +518,21 @@ extern "C" {
 // multiple of 128 and of block_size, block_size in {128, 256}, rule in
 // {0, 1}. cluster == 8 runs the cluster kernel with planes in {1, 3} bf16
 // planes of J (1 only where J is exact in bf16); cluster == 1 the one-block
-// float32 kernel. u == nullptr selects the in-kernel Philox stream.
+// float32 kernel. u == nullptr selects the in-kernel Philox stream, keyed
+// by `seed`, or by the seed at seed_ptr (device memory) where that is not
+// null.
 int sgt_metropolis_sweep(const float* J, const float* h, const float* mask,
                          float* spins, const float* beta, const float* u,
-                         unsigned long long seed, float* de, int* cnt,
-                         int n_pad, int R, int block_size, int rule,
+                         unsigned long long seed,
+                         const unsigned long long* seed_ptr, float* de,
+                         int* cnt, int n_pad, int R, int block_size, int rule,
                          int planes, int cluster, void* stream) {
   if (bad_shape(n_pad, R, block_size, rule, planes, cluster) ||
       reinterpret_cast<uintptr_t>(J) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const SweepArgs a = {J, h, mask, spins, beta, u,
                        (uint32_t)(seed & 0xffffffffull),
-                       (uint32_t)(seed >> 32), de, cnt, n_pad, R};
+                       (uint32_t)(seed >> 32), seed_ptr, de, cnt, n_pad, R};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cluster == 1)
     return (int)(block_size == 256 ? launch_tile<256>(rule, a, s)
@@ -542,7 +549,7 @@ int sgt_metropolis_sweep_clusters(int n_pad, int R, int block_size, int planes,
   if (bad_shape(n_pad, R, block_size, 0, planes, CS))
     return (int)cudaErrorInvalidValue;
   const SweepArgs a = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                       0u, 0u, nullptr, nullptr, n_pad, R};
+                       0u, 0u, nullptr, nullptr, nullptr, n_pad, R};
   return (int)(block_size == 256
                    ? dispatch_cluster<256>(0, planes, a, nullptr, clusters)
                    : dispatch_cluster<128>(0, planes, a, nullptr, clusters));

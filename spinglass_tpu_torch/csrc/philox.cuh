@@ -16,6 +16,11 @@
 // Both are computed in PyTorch too, so every kernel's draws can be
 // reproduced on the CPU.
 //
+// The seed reaches a kernel by value (k0, k1), or in device memory: every
+// kernel also takes `seed_ptr`, and where it is not null reads the seed
+// there (device_seed) at its start. A launch captured in a CUDA graph then
+// draws, at each replay, the seed its slot holds at that time.
+//
 // Thresholds are exp-free: a flip is accepted iff s * f < th, with
 //   metropolis: th = ln(u) * nib
 //   glauber:    th = (ln(u) - ln(1 - min(u, 0.999999))) * nib
@@ -24,12 +29,36 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace sgt {
 
 constexpr float kGlauberUMax = 0.999999f;
+
+// (k0, k1) from the 64-bit seed at p, where p is not null.
+__device__ __forceinline__ void device_seed(const unsigned long long* p,
+                                            uint32_t& k0, uint32_t& k1) {
+  if (p != nullptr) {
+    const unsigned long long s = __ldg(p);
+    k0 = (uint32_t)(s & 0xffffffffull);
+    k1 = (uint32_t)(s >> 32);
+  }
+}
+
+// Raises a kernel's dynamic shared memory limit to `bytes` where `allowed`
+// (the caller's static, one per kernel) is below it: cudaFuncSetAttribute
+// runs at the first launch of a kernel at a size, which the drivers make
+// before they capture a graph, and not at the launches after it.
+template <typename Kernel>
+__host__ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) allowed = bytes;
+  return err;
+}
 
 __device__ __forceinline__ float philox_uniform(uint32_t c0, uint32_t c1,
                                                 uint32_t k0, uint32_t k1) {

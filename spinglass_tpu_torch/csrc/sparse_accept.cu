@@ -182,6 +182,7 @@ sparse_accept_kernel(const float* __restrict__ f,      // [mc, R] (!GATHER)
                      const float* __restrict__ mask,   // [NS] 0 / -inf
                      const float* __restrict__ beta,   // [R]
                      uint32_t k0, uint32_t k1,
+                     const unsigned long long* __restrict__ seed_ptr,
                      float* de,                        // [R], accumulated
                      int* cnt,                         // [R], accumulated
                      float* scratch_de,                // [gridDim.y, R]
@@ -189,6 +190,7 @@ sparse_accept_kernel(const float* __restrict__ f,      // [mc, R] (!GATHER)
                      unsigned int* tickets,            // [gridDim.x], zero
                      int off, int mc, int R, int rows_per_block,
                      bool accumulate) {  // false: de / cnt are overwritten
+  sgt::device_seed(seed_ptr, k0, k1);
   // gathers in flight per thread: 8 char4 or 4 float4
   constexpr int KB = sizeof(S) == 1 ? 8 : 4;
   __shared__ float de_part[WARPS][COLS];
@@ -406,6 +408,7 @@ struct Args {
   const float* mask;
   const float* beta;
   uint32_t k0, k1;
+  const unsigned long long* seed_ptr;
   float* de;
   int* cnt;
   float* scratch_de;
@@ -419,8 +422,8 @@ template <int RULE, typename S, bool GATHER, bool VEC>
 void launch(dim3 grid, cudaStream_t stream, const Args& a) {
   sparse_accept_kernel<RULE, S, GATHER, VEC><<<grid, THREADS, 0, stream>>>(
       a.f, a.idx, a.val, a.deg, a.h, a.kmax, static_cast<S*>(a.spins),
-      a.mask, a.beta, a.k0, a.k1, a.de, a.cnt, a.scratch_de, a.scratch_cnt,
-      a.tickets, a.off, a.mc, a.R, a.rows_per_block, a.accumulate);
+      a.mask, a.beta, a.k0, a.k1, a.seed_ptr, a.de, a.cnt, a.scratch_de,
+      a.scratch_cnt, a.tickets, a.off, a.mc, a.R, a.rows_per_block, a.accumulate);
 }
 
 template <int RULE, typename S>
@@ -468,17 +471,19 @@ extern "C" {
 // added into de, cnt [R]. rows_per_block >= 1 rows of the colour go to one
 // thread block; with more than one row block, scratch_de / scratch_cnt hold
 // [row blocks, R] and tickets one zeroed counter per block of 128 columns
-// (left zeroed). Returns cudaGetLastError() after the launch.
+// (left zeroed). The seed is `seed`, or the one at seed_ptr (device memory)
+// where not null. Returns cudaGetLastError() after the launch.
 int sgt_sparse_accept(const float* f, const int* idx, const float* val,
                       const int* deg, const float* h, int n_sorted, int kmax,
                       void* spins, int spin_bytes, const float* mask,
-                      const float* beta, unsigned long long seed, float* de,
+                      const float* beta, unsigned long long seed,
+                      const unsigned long long* seed_ptr, float* de,
                       int* cnt, float* scratch_de, int* scratch_cnt,
                       unsigned int* tickets, int off, int mc, int R,
                       int rows_per_block, int rule, void* stream) {
   const Args a{f, idx, val, deg, h, n_sorted, kmax, spins, mask, beta,
-               (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32), de,
-               cnt, scratch_de, scratch_cnt, tickets, off, mc, R,
+               (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32),
+               seed_ptr, de, cnt, scratch_de, scratch_cnt, tickets, off, mc, R,
                rows_per_block, true};
   return launch_colour(a, spin_bytes, rule,
                        static_cast<cudaStream_t>(stream));
@@ -493,8 +498,9 @@ int sgt_sparse_accept_sweep(const int* idx, const float* val,
                             const int* deg, const float* h, int n_sorted,
                             int kmax, void* spins, int spin_bytes,
                             const float* mask, const float* beta,
-                            unsigned long long seed, float* de, int* cnt,
-                            float* scratch_de, int* scratch_cnt,
+                            unsigned long long seed,
+                            const unsigned long long* seed_ptr, float* de,
+                            int* cnt, float* scratch_de, int* scratch_cnt,
                             unsigned int* tickets, const int* spans,
                             const int* rows_per_block, int n_colors, int R,
                             int rule, void* stream) {
@@ -504,8 +510,8 @@ int sgt_sparse_accept_sweep(const int* idx, const float* val,
   for (int c = 0; c < n_colors; ++c) {
     if (spans[c + 1] == spans[c]) continue;  // an empty colour
     const Args a{nullptr, idx, val, deg, h, n_sorted, kmax, spins, mask, beta,
-                 (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32), de,
-                 cnt, scratch_de, scratch_cnt, tickets, spans[c],
+                 (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32),
+                 seed_ptr, de, cnt, scratch_de, scratch_cnt, tickets, spans[c],
                  spans[c + 1] - spans[c], R, rows_per_block[c], !first};
     first = false;
     const int err = launch_colour(a, spin_bytes, rule,

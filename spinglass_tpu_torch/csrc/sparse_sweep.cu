@@ -117,8 +117,10 @@ sparse_sweep_kernel(const int* __restrict__ idx_t,   // [kmax, NS]
                     const float* __restrict__ th,    // [NS, R] or nullptr
                     const float* __restrict__ beta,  // [R]
                     uint32_t k0, uint32_t k1,
+                    const unsigned long long* __restrict__ seed_ptr,
                     float* __restrict__ de_out, int* __restrict__ cnt_out,
                     int n_sorted, int kmax, int R) {
+  sgt::device_seed(seed_ptr, k0, k1);
   using W = typename TileWord<RT>::T;
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* tile = reinterpret_cast<int8_t*>(smem);  // [NS][RT]
@@ -269,18 +271,18 @@ cudaError_t launch_one(dim3 grid, cudaStream_t stream, const int* idx_t,
                        const float* val_t, const int* deg, const float* h,
                        const float* mask, const int* spans, int n_colors,
                        float* spins, const float* th, const float* beta,
-                       uint32_t k0, uint32_t k1, float* de, int* cnt,
+                       uint32_t k0, uint32_t k1,
+                       const unsigned long long* seed_ptr, float* de, int* cnt,
                        int n_sorted, int kmax, int R) {
   auto kernel = sparse_sweep_kernel<RT, RULE, HOST_TH>;
   const size_t smem = (size_t)n_sorted * RT;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  static size_t allowed = 48 * 1024;
+  const cudaError_t err = sgt::allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, THREADS, smem, stream>>>(idx_t, val_t, deg, h, mask, spans,
                                           n_colors, spins, th, beta, k0, k1,
-                                          de, cnt, n_sorted, kmax, R);
+                                          seed_ptr, de, cnt, n_sorted, kmax,
+                                          R);
   return cudaGetLastError();
 }
 
@@ -289,12 +291,13 @@ cudaError_t launch(int rule, bool host_th, dim3 grid, cudaStream_t stream,
                    const int* idx_t, const float* val_t, const int* deg,
                    const float* h, const float* mask, const int* spans,
                    int n_colors, float* spins, const float* th,
-                   const float* beta, uint32_t k0, uint32_t k1, float* de,
-                   int* cnt, int n_sorted, int kmax, int R) {
+                   const float* beta, uint32_t k0, uint32_t k1,
+                   const unsigned long long* seed_ptr, float* de, int* cnt,
+                   int n_sorted, int kmax, int R) {
 #define SGT_K2(RULE, HOST)                                                  \
   return launch_one<RT, RULE, HOST>(                                        \
       grid, stream, idx_t, val_t, deg, h, mask, spans, n_colors, spins, th, \
-      beta, k0, k1, de, cnt, n_sorted, kmax, R)
+      beta, k0, k1, seed_ptr, de, cnt, n_sorted, kmax, R)
   if (host_th) {
     if (rule == 0) SGT_K2(0, true); else SGT_K2(1, true);
   } else {
@@ -313,11 +316,13 @@ extern "C" {
 // within [0, n_sorted], spins (+-1) and th [n_sorted, R] row-major,
 // beta/de/cnt [R]; rt in {1, 2, 4, 8}, rule in {0, 1}; the tile's spins,
 // n_sorted * rt bytes, must fit the block's shared memory. th == nullptr
-// selects the in-kernel Philox stream keyed by `seed`.
+// selects the in-kernel Philox stream keyed by `seed`, or by the seed at
+// seed_ptr (device memory) where that is not null.
 int sgt_sparse_sweep(const int* idx_t, const float* val_t, const int* deg,
                      const float* h, const float* mask, const int* spans,
                      int n_colors, float* spins, const float* th,
-                     const float* beta, unsigned long long seed, float* de,
+                     const float* beta, unsigned long long seed,
+                     const unsigned long long* seed_ptr, float* de,
                      int* cnt, int n_sorted, int kmax, int R, int rt, int rule,
                      void* stream) {
   if (R < 1 || n_sorted < 1 || kmax < 1 || n_colors < 0 || rule < 0 ||
@@ -330,8 +335,8 @@ int sgt_sparse_sweep(const int* idx_t, const float* val_t, const int* deg,
   const bool host_th = th != nullptr;
 #define SGT_RT(V)                                                          \
   return (int)launch<V>(rule, host_th, grid, s, idx_t, val_t, deg, h, mask, \
-                        spans, n_colors, spins, th, beta, k0, k1, de, cnt,  \
-                        n_sorted, kmax, R)
+                        spans, n_colors, spins, th, beta, k0, k1, seed_ptr, \
+                        de, cnt, n_sorted, kmax, R)
   switch (rt) {
     case 1: SGT_RT(1);
     case 2: SGT_RT(2);

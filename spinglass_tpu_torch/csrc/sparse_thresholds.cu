@@ -46,8 +46,10 @@ __global__ void __launch_bounds__(THREADS)
 sparse_thresholds_kernel(const float* __restrict__ mask,  // [NS] 0 / -inf
                          const float* __restrict__ beta,  // [R]
                          uint32_t k0, uint32_t k1,
+                         const unsigned long long* __restrict__ seed_ptr,
                          float* __restrict__ th,          // [NS, R]
                          int n_sorted, int R, int bx_log2) {
+  sgt::device_seed(seed_ptr, k0, k1);
   const int bx = 1 << bx_log2;
   const int group = blockIdx.x * bx + (threadIdx.x & (bx - 1));
   const int col = 4 * group;
@@ -82,9 +84,12 @@ sparse_thresholds_kernel(const float* __restrict__ mask,  // [NS] 0 / -inf
 extern "C" {
 
 // Fill th [n_sorted, R] on `stream`. Returns cudaGetLastError() after the
-// launch (0 on success). mask [n_sorted], beta [R]; rule in {0, 1}.
+// launch (0 on success). mask [n_sorted], beta [R]; rule in {0, 1}. The
+// seed is `seed`, or the one at seed_ptr (device memory) where not null.
 int sgt_sparse_thresholds(const float* mask, const float* beta,
-                          unsigned long long seed, float* th, int n_sorted,
+                          unsigned long long seed,
+                          const unsigned long long* seed_ptr, float* th,
+                          int n_sorted,
                           int R, int rule, void* stream) {
   if (R < 1 || n_sorted < 1 || rule < 0 || rule > 1)
     return (int)cudaErrorInvalidValue;
@@ -103,7 +108,7 @@ int sgt_sparse_thresholds(const float* mask, const float* beta,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SGT_K3(RULE, VEC)                                       \
   sparse_thresholds_kernel<RULE, VEC><<<grid, THREADS, 0, s>>>( \
-      mask, beta, k0, k1, th, n_sorted, R, bx_log2)
+      mask, beta, k0, k1, seed_ptr, th, n_sorted, R, bx_log2)
   if (R % 4 == 0) {
     if (rule == 0) SGT_K3(0, true); else SGT_K3(1, true);
   } else {

@@ -37,6 +37,11 @@ Random numbers. ``FusedSweep.__call__`` takes a 64-bit sweep seed; every
 variant draws Philox4x32-10 uniforms from it, keyed by (seed) with counter
 (spin, replica), and ``philox_uniforms`` is the same stream in PyTorch, so
 the CPU path and every kernel make the same decisions from the same seed.
+The seed is a host int, passed to the kernel by value, or a seed slot: an
+int64 tensor of one element on the spins' device, whose address the kernel
+reads it from (``seed_arg``). A captured graph (``anneal/graphs.py``)
+replays a launch with whatever seed its slot then holds; the twins read a
+slot on the CPU with ``int``, and compute on a CUDA slot where it lies.
 ``sweep_with_uniforms`` takes caller-supplied uniforms instead. The sparse
 kernels (``kernels/sparse_cuda.py``) draw ``philox_uniforms4``: the same
 generator with counter (sorted row, replica // 4), whose four output words
@@ -102,19 +107,43 @@ def philox4x32(counter, key) -> Tuple[torch.Tensor, ...]:
     return c0, c1, c2, c3
 
 
-def philox_uniforms(seed: int, n_pad: int, r: int, device="cpu",
+def seed_arg(seed, device):
+    """(value, address) of a sweep seed for a kernel launch on ``device``:
+    a host int goes by value (address None), a seed slot (an int64 tensor of
+    one element on ``device``) by its address. Raises on anything else."""
+    if isinstance(seed, torch.Tensor):
+        if (seed.dtype != torch.int64 or seed.numel() != 1
+                or seed.device != torch.device(device)):
+            raise ValueError(f"a seed slot is one int64 on {device}, got "
+                             f"{seed.dtype} {tuple(seed.shape)} on "
+                             f"{seed.device}")
+        return 0, seed.data_ptr()
+    if not 0 <= seed < 2 ** 64:
+        raise ValueError(f"seed {seed} is not a 64-bit unsigned value")
+    return int(seed), None
+
+
+def _key(seed):
+    """Philox's (k0, k1) of a sweep seed: a host int or a seed slot (read
+    with ``int`` on the CPU, kept as a tensor on a CUDA device)."""
+    if isinstance(seed, torch.Tensor):
+        seed = int(seed.reshape(())) if not seed.is_cuda else seed.reshape(())
+    return seed & _MASK32, seed >> 32
+
+
+def philox_uniforms(seed, n_pad: int, r: int, device="cpu",
                     row0: int = 0) -> torch.Tensor:
     """[n_pad, R] float32 uniforms in (0, 1): the kernels' in-kernel stream
     for sweep seed ``seed`` (counter = (spin, replica, 0, 0)) at spin rows
-    row0 .. row0 + n_pad - 1."""
+    row0 .. row0 + n_pad - 1. ``seed`` is an int or a seed slot."""
     spin = torch.arange(row0, row0 + n_pad, dtype=torch.int64,
                         device=device)[:, None]
     rep = torch.arange(r, dtype=torch.int64, device=device)[None, :]
-    x0 = philox4x32((spin, rep, 0, 0), (seed & _MASK32, seed >> 32))[0]
+    x0 = philox4x32((spin, rep, 0, 0), _key(seed))[0]
     return (((x0 >> 9) << 1) | 1).to(torch.float32) * 2.0 ** -24
 
 
-def philox_uniforms4(seed: int, n_pad: int, r: int, device="cpu",
+def philox_uniforms4(seed, n_pad: int, r: int, device="cpu",
                      row0: int = 0) -> torch.Tensor:
     """[n_pad, R] float32 uniforms in (0, 1): the sparse kernels' stream
     (K2, K3, K4) for sweep seed ``seed`` at sorted rows row0 .. row0 + n_pad
@@ -124,7 +153,7 @@ def philox_uniforms4(seed: int, n_pad: int, r: int, device="cpu",
     row = torch.arange(row0, row0 + n_pad, dtype=torch.int64,
                        device=device)[:, None]
     group = torch.arange(-(-r // 4), dtype=torch.int64, device=device)[None, :]
-    words = philox4x32((row, group, 0, 0), (seed & _MASK32, seed >> 32))
+    words = philox4x32((row, group, 0, 0), _key(seed))
     x = torch.stack(words, dim=2).reshape(n_pad, -1)[:, :r]
     return (((x >> 9) << 1) | 1).to(torch.float32) * 2.0 ** -24
 
@@ -377,7 +406,7 @@ def load_kernel(name: str = KERNEL_NAME) -> ctypes.CDLL:
     extra = ([i] if name in (INTERLEAVED_KERNEL, FOLDED_KERNEL)
              else [i, i] if name == KERNEL_NAME else [])
     fn = getattr(lib, f"sgt_{name}")
-    fn.argtypes = ([p, p, p, p, p, p, ctypes.c_ulonglong, p, p, i, i, i, i]
+    fn.argtypes = ([p, p, p, p, p, p, ctypes.c_ulonglong, p, p, p, i, i, i, i]
                    + extra + [p])
     fn.restype = i
     if name == KERNEL_NAME:
@@ -470,9 +499,10 @@ class FusedSweep:
         self.launches = 0  # kernel launches made by this instance
         self._lib = None  # built and bound at the first CUDA launch
 
-    def __call__(self, spins_t: torch.Tensor, beta, seed: int):
-        """One sweep with in-kernel Philox uniforms from the 64-bit ``seed``.
-        Returns (spins_t, dE[R] float32, n_accepted[R] int32)."""
+    def __call__(self, spins_t: torch.Tensor, beta, seed):
+        """One sweep with in-kernel Philox uniforms from the 64-bit ``seed``
+        (a host int or a seed slot, ``seed_arg``). Returns (spins_t, dE[R]
+        float32, n_accepted[R] int32)."""
         if spins_t.is_cuda:
             return self._launch(spins_t, beta, None, seed)
         n_pad, r = spins_t.shape
@@ -512,7 +542,7 @@ class FusedSweep:
             return interleaved_sweep_reference(*args, nchains=self.interleave)
         return fused_sweep_reference(*args)
 
-    def _launch(self, spins_t, beta, u_t, seed: int):
+    def _launch(self, spins_t, beta, u_t, seed):
         p = self.problem
         n_pad, r = spins_t.shape
         dev = spins_t.device
@@ -526,8 +556,7 @@ class FusedSweep:
                                 or u_t.dtype != torch.float32
                                 or not u_t.is_contiguous()):
             raise ValueError("uniforms_t must be contiguous float32 like spins_t")
-        if not 0 <= seed < 2 ** 64:
-            raise ValueError(f"seed {seed} is not a 64-bit unsigned value")
+        seed, seed_ptr = seed_arg(seed, dev)
         if self.folded and self.micro != MICRO:
             raise ValueError(f"the folded CUDA kernel is built for micro="
                              f"{MICRO}, got {self.micro}")
@@ -550,7 +579,7 @@ class FusedSweep:
             err = getattr(lib, f"sgt_{self.kernel_name}")(
                 self.j.data_ptr(), p.h.data_ptr(), p.active_mask.data_ptr(),
                 spins_t.data_ptr(), beta.data_ptr(),
-                None if u_t is None else u_t.data_ptr(), seed,
+                None if u_t is None else u_t.data_ptr(), seed, seed_ptr,
                 de.data_ptr(), cnt.data_ptr(), n_pad, r, self.block_size,
                 0 if self.rule == "metropolis" else 1, *extra, stream)
         if err != 0:

@@ -47,9 +47,8 @@ from spinglass_tpu_torch.core import topology
 from spinglass_tpu_torch.core.problem import (IsingProblem, resolve_device,
                                               round_up)
 from spinglass_tpu_torch.kernels.sparse_cuda import SparseKernels
-from spinglass_tpu_torch.kernels.sweeps import (accept_threshold,
-                                                canonical_rule,
-                                                device_uniforms, draw_seed)
+from spinglass_tpu_torch.core.rng import device_uniforms, draw_seed
+from spinglass_tpu_torch.kernels.sweeps import accept_threshold, canonical_rule
 
 KS_BLOCK = 256  # the TPU kernel streamed its per-step degree table in
 # blocks of this many steps; build_single_tables pads ks to it, as JAX does
@@ -513,7 +512,7 @@ def make_sorted_t_sweep_fused(kernels: SparseKernels):
     ``make_sorted_t_sweep`` on K3's thresholds, and of K2. Needs the
     layout's slot tables. sweep(s_t, beta, seed) -> (s_t, dE[R], count[R])."""
 
-    def sweep(s_t, beta, seed: int):
+    def sweep(s_t, beta, seed):
         beta = torch.broadcast_to(
             torch.as_tensor(beta, dtype=torch.float32, device=s_t.device),
             (s_t.shape[1],)).contiguous()

@@ -31,6 +31,8 @@ raise: a failed build or launch is an exception, never a fallback. Each
 launch adds one to ``SparseKernels.sweep_launches``, ``threshold_launches``
 or ``accept_launches``, and nothing else does. The kernels and the twins use
 the clamped Glauber threshold of ``metropolis_cuda.kernel_threshold``.
+Every ``seed`` is a host int or a seed slot (``metropolis_cuda.seed_arg``):
+the kernels take it by value or read it from the card's memory.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ import numpy as np
 import torch
 
 from spinglass_tpu_torch.kernels.metropolis_cuda import (kernel_threshold,
-                                                         philox_uniforms4)
+                                                         philox_uniforms4,
+                                                         seed_arg)
 from spinglass_tpu_torch.kernels.sweeps import canonical_rule
 
 SWEEP_KERNEL = "sparse_sweep"
@@ -77,7 +80,7 @@ def default_tile(r: int, n_sorted: int) -> int:
     return tile
 
 
-def thresholds_reference(mask: torch.Tensor, beta: torch.Tensor, seed: int,
+def thresholds_reference(mask: torch.Tensor, beta: torch.Tensor, seed,
                          r: int, rule: str, row0: int = 0) -> torch.Tensor:
     """Twin of K3: th [NS, R] for sweep seed ``seed``; mask [NS] or [NS, 1]
     is 0 on real rows and -inf on padding rows. ``row0`` is the sorted row
@@ -130,7 +133,7 @@ def single_sweep_ordered(tables: dict, spans, spins_t: torch.Tensor,
 
 
 def accept_reference(f: torch.Tensor, spins_t: torch.Tensor, off: int,
-                     mask: torch.Tensor, beta: torch.Tensor, seed: int,
+                     mask: torch.Tensor, beta: torch.Tensor, seed,
                      rule: str, de: torch.Tensor, cnt: torch.Tensor) -> None:
     """Twin of K4: one colour's rows off .. off+mc-1 of spins_t [NS, R]
     (int8 or float32) accept on their fields f [mc, R] and K3's thresholds
@@ -146,7 +149,7 @@ def accept_reference(f: torch.Tensor, spins_t: torch.Tensor, off: int,
 
 def accept_gather_reference(tables: dict, spins_t: torch.Tensor, off: int,
                             mc: int, mask: torch.Tensor, beta: torch.Tensor,
-                            seed: int, rule: str, de: torch.Tensor,
+                            seed, rule: str, de: torch.Tensor,
                             cnt: torch.Tensor) -> None:
     """Twin of K4's gather mode: the slot-ordered fields of rows off ..
     off+mc-1 from spins_t itself, then ``accept_reference``."""
@@ -189,9 +192,9 @@ def load_kernels():
     build.build_many([SWEEP_KERNEL, THRESHOLD_KERNEL])
     p, i, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
     k2 = _bind(build.load(SWEEP_KERNEL), "sgt_sparse_sweep",
-               [p, p, p, p, p, p, i, p, p, p, u64, p, p, i, i, i, i, i, p])
+               [p, p, p, p, p, p, i, p, p, p, u64, p, p, p, i, i, i, i, i, p])
     k3 = _bind(build.load(THRESHOLD_KERNEL), "sgt_sparse_thresholds",
-               [p, p, u64, p, i, i, i, p])
+               [p, p, u64, p, p, i, i, i, p])
     return k2, k3
 
 
@@ -202,11 +205,11 @@ def load_accept_kernel() -> ctypes.CDLL:
     p, i, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
     ints = ctypes.POINTER(ctypes.c_int)
     lib = _bind(build.load(ACCEPT_KERNEL), "sgt_sparse_accept",
-                [p, p, p, p, p, i, i, p, i, p, p, u64, p, p, p, p, p, i, i,
-                 i, i, i, p])
+                [p, p, p, p, p, i, i, p, i, p, p, u64, p, p, p, p, p, p, i,
+                 i, i, i, i, p])
     return _bind(lib, "sgt_sparse_accept_sweep",
-                 [p, p, p, p, i, i, p, i, p, p, u64, p, p, p, p, p, ints,
-                  ints, i, i, i, p])
+                 [p, p, p, p, i, i, p, i, p, p, u64, p, p, p, p, p, p,
+                  ints, ints, i, i, i, p])
 
 
 def _check(lib, err: int, name: str) -> None:
@@ -265,7 +268,7 @@ class SparseKernels:
         return self._libs[which]
 
     def single_sweep(self, spins_t: torch.Tensor, beta, *,
-                     seed: Optional[int] = None,
+                     seed=None,
                      th: Optional[torch.Tensor] = None):
         """K2: one sweep over spins_t [NS, R] float32, in place, with the
         in-kernel Philox stream of ``seed`` or the thresholds ``th``.
@@ -288,8 +291,8 @@ class SparseKernels:
         if th is not None and (th.shape != spins_t.shape or th.device != spins_t.device
                                or th.dtype != torch.float32 or not th.is_contiguous()):
             raise ValueError("th must be contiguous float32 like spins_t")
-        if seed is not None and not 0 <= seed < 2 ** 64:
-            raise ValueError(f"seed {seed} is not a 64-bit unsigned value")
+        seed, seed_ptr = (0, None) if seed is None else seed_arg(
+            seed, spins_t.device)
         tile = default_tile(r, ns)
         lib = self._lib(0)
         beta = self._beta(beta, r)
@@ -302,20 +305,19 @@ class SparseKernels:
                 t["deg"].data_ptr(), t["h"].data_ptr(), self.mask.data_ptr(),
                 self.spans.data_ptr(), len(self.spans) - 1,
                 spins_t.data_ptr(), None if th is None else th.data_ptr(),
-                beta.data_ptr(), 0 if seed is None else seed, de.data_ptr(),
+                beta.data_ptr(), seed, seed_ptr, de.data_ptr(),
                 cnt.data_ptr(), ns, t["idx"].shape[1], r, tile,
                 0 if self.rule == "metropolis" else 1, stream)
         _check(lib, err, SWEEP_KERNEL)
         self.sweep_launches += 1
         return spins_t, de, cnt
 
-    def thresholds(self, beta, seed: int, r: int) -> torch.Tensor:
+    def thresholds(self, beta, seed, r: int) -> torch.Tensor:
         """K3: th [NS, R] float32 for sweep seed ``seed``."""
         if not self.mask.is_cuda:
             return thresholds_reference(self.mask, self._beta(beta, r), seed, r,
                                         self.rule)
-        if not 0 <= seed < 2 ** 64:
-            raise ValueError(f"seed {seed} is not a 64-bit unsigned value")
+        seed, seed_ptr = seed_arg(seed, self.mask.device)
         lib = self._lib(1)
         beta = self._beta(beta, r)
         ns = self.mask.shape[0]
@@ -323,14 +325,15 @@ class SparseKernels:
         with torch.cuda.device(th.device):
             stream = torch.cuda.current_stream(th.device).cuda_stream
             err = lib.sgt_sparse_thresholds(
-                self.mask.data_ptr(), beta.data_ptr(), seed, th.data_ptr(), ns,
+                self.mask.data_ptr(), beta.data_ptr(), seed, seed_ptr,
+                th.data_ptr(), ns,
                 r, 0 if self.rule == "metropolis" else 1, stream)
         _check(lib, err, THRESHOLD_KERNEL)
         self.threshold_launches += 1
         return th
 
     def accept(self, f: torch.Tensor, spins_t: torch.Tensor, off: int,
-               beta: torch.Tensor, seed: int, de: torch.Tensor,
+               beta: torch.Tensor, seed, de: torch.Tensor,
                cnt: torch.Tensor) -> None:
         """K4 on given fields: one colour's rows off .. off+mc-1 of spins_t
         [NS, R] (int8 or float32, in place) accept on their fields f [mc, R]
@@ -348,7 +351,7 @@ class SparseKernels:
         self._launch_accept(f, spins_t, off, mc, beta, seed, de, cnt)
 
     def accept_gather(self, spins_t: torch.Tensor, off: int, mc: int,
-                      beta: torch.Tensor, seed: int, de: torch.Tensor,
+                      beta: torch.Tensor, seed, de: torch.Tensor,
                       cnt: torch.Tensor) -> None:
         """K4 in gather mode: as ``accept``, but the kernel computes the
         fields of rows off .. off+mc-1 itself from the slot tables and
@@ -363,7 +366,7 @@ class SparseKernels:
         self._launch_accept(None, spins_t, off, mc, beta, seed, de, cnt)
 
     def accept_sweep(self, spins_t: torch.Tensor, beta: torch.Tensor,
-                     seed: int):
+                     seed):
         """A whole sweep through K4 in gather mode: ``accept_gather`` for
         every colour span in order, in place. On a CUDA device the colours'
         launches are made from one call into the library (one K4 launch per
@@ -385,8 +388,9 @@ class SparseKernels:
             return spins_t, de, cnt
         de = torch.empty(r, dtype=torch.float32, device=dev)
         cnt = torch.empty(r, dtype=torch.int32, device=dev)
-        self._check_accept(spins_t, spans[0], spans[-1] - spans[0], beta,
-                           seed, de, cnt)
+        seed, seed_ptr = self._check_accept(spins_t, spans[0],
+                                            spans[-1] - spans[0], beta, seed,
+                                            de, cnt)
         if r not in self._accept_rows:
             self._accept_rows[r] = [accept_rows_per_block(max(hi - lo, 1), r)
                                     for lo, hi in zip(spans[:-1], spans[1:])]
@@ -401,8 +405,8 @@ class SparseKernels:
                 t["idx"].data_ptr(), t["val"].data_ptr(),
                 t["deg"].data_ptr(), t["h"].data_ptr(), spins_t.shape[0],
                 t["idx"].shape[1], spins_t.data_ptr(), spins_t.element_size(),
-                self.mask.data_ptr(), beta.data_ptr(), seed, de.data_ptr(),
-                cnt.data_ptr(), *(b.data_ptr() for b in scratch),
+                self.mask.data_ptr(), beta.data_ptr(), seed, seed_ptr,
+                de.data_ptr(), cnt.data_ptr(), *(b.data_ptr() for b in scratch),
                 (ctypes.c_int * len(spans))(*spans),
                 (ctypes.c_int * n_colors)(*rows), n_colors, r,
                 0 if self.rule == "metropolis" else 1, stream)
@@ -411,9 +415,10 @@ class SparseKernels:
                                     in zip(spans[:-1], spans[1:]))
         return spins_t, de, cnt
 
-    def _check_accept(self, spins_t, off: int, mc: int, beta, seed: int, de,
-                      cnt) -> None:
-        """Raises on what K4 does not take; builds it at first use."""
+    def _check_accept(self, spins_t, off: int, mc: int, beta, seed, de,
+                      cnt):
+        """Raises on what K4 does not take; builds it at first use. Returns
+        the seed's (value, address), ``seed_arg``."""
         ns, r = spins_t.shape
         dev = spins_t.device
         if (spins_t.dtype not in (torch.int8, torch.float32)
@@ -431,10 +436,10 @@ class SparseKernels:
                     or t.shape != (r,)):
                 raise ValueError(f"{name} must be contiguous {dtype} [{r}] "
                                  f"on {dev}")
-        if not 0 <= seed < 2 ** 64:
-            raise ValueError(f"seed {seed} is not a 64-bit unsigned value")
+        seed_words = seed_arg(seed, dev)
         if self._accept_lib is None:
             self._accept_lib = load_accept_kernel()
+        return seed_words
 
     def _scratch(self, r: int, row_blocks: int):
         """K4's per-block partial sums [row_blocks, R] (dE, counts) and its
@@ -450,9 +455,10 @@ class SparseKernels:
         return scratch
 
     def _launch_accept(self, f: Optional[torch.Tensor], spins_t: torch.Tensor,
-                       off: int, mc: int, beta: torch.Tensor, seed: int,
+                       off: int, mc: int, beta: torch.Tensor, seed,
                        de: torch.Tensor, cnt: torch.Tensor) -> None:
-        self._check_accept(spins_t, off, mc, beta, seed, de, cnt)
+        seed, seed_ptr = self._check_accept(spins_t, off, mc, beta, seed, de,
+                                            cnt)
         ns, r = spins_t.shape
         lib = self._accept_lib
         rows = accept_rows_per_block(mc, r)
@@ -469,8 +475,9 @@ class SparseKernels:
                 t["h"].data_ptr() if gather else None,
                 ns, t["idx"].shape[1] if gather else 0,
                 spins_t.data_ptr(), spins_t.element_size(),
-                self.mask.data_ptr(), beta.data_ptr(), seed, de.data_ptr(),
-                cnt.data_ptr(), *(b.data_ptr() for b in scratch), off, mc, r,
+                self.mask.data_ptr(), beta.data_ptr(), seed, seed_ptr,
+                de.data_ptr(), cnt.data_ptr(), *(b.data_ptr() for b in scratch),
+                off, mc, r,
                 rows, 0 if self.rule == "metropolis" else 1, stream)
         _check(lib, err, ACCEPT_KERNEL)
         self.accept_launches += 1

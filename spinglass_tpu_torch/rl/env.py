@@ -23,7 +23,10 @@ as in ``anneal.sa`` and ``anneal.pt``. A sweep through an engine draws one seed 
 kernels' Philox key); start spins, start temperatures and the plain sweep's
 uniforms are drawn on the device from a generator seeded by one such draw.
 ``step`` also takes explicit ``uniforms`` [sweeps_per_step, B, Np] so that
-tests can feed both packages the same numbers.
+tests can feed both packages the same numbers. Every draw goes through
+``core.rng``, so a step inside a captured PPO update draws through the
+update's random tape, the same numbers in the same order. ``auto_reset`` draws and computes a whole fresh state every step and
+mixes it in by ``done``.
 
 The kernels update spins in place. Where an action carries a sweep fraction
 (``continuous`` and ``hybrid`` modes) the envs whose budget is spent must
@@ -51,6 +54,7 @@ import numpy as np
 import torch
 
 from spinglass_tpu_torch.core import energy as energy_ops
+from spinglass_tpu_torch.core import rng
 from spinglass_tpu_torch.core.problem import random_spins
 from spinglass_tpu_torch.kernels import sweeps as sweep_kernels
 from spinglass_tpu_torch.rl import rewards as reward_mod
@@ -131,12 +135,12 @@ def _fresh_state(problem, cfg: EnvConfig, generator: torch.Generator,
     _check_engine(problem, engine)
     b = cfg.n_envs
     dev = problem.device
-    spins = random_spins(sweep_kernels.device_generator(generator, dev),
+    spins = random_spins(rng.device_generator(generator, dev),
                          (b, problem.n_padded), problem.active_mask)
     e = _env_energy(problem, spins, engine)
     if cfg.init_temp_range is not None:
         lo, hi = (float(np.log(t)) for t in cfg.init_temp_range)
-        u = sweep_kernels.device_uniforms(generator, (b,), dev)
+        u = rng.device_uniforms(generator, (b,), dev)
         t0 = torch.exp(u * (hi - lo) + lo)
     else:
         t0 = torch.full((b,), cfg.initial_temp, device=dev)
@@ -240,7 +244,7 @@ def step(problem, cfg: EnvConfig, state: EnvState, action,
         elif engine is not None:
             new_spins, _, cnt = engine.sweep(spins, beta, generator)
         else:
-            u = sweep_kernels.device_uniforms(generator, spins.shape,
+            u = rng.device_uniforms(generator, spins.shape,
                                               spins.device)
             new_spins, _, cnt = sweep_kernels.blocked_sweep(
                 problem, spins, beta, u, block_size=cfg.block_size,

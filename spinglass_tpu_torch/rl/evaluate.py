@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from spinglass_tpu_torch.kernels.sweeps import device_generator
+from spinglass_tpu_torch.core.rng import device_generator
 from spinglass_tpu_torch.rl import env as env_mod
 from spinglass_tpu_torch.rl.env import N_ACTIONS, TEMP_MULTIPLIERS, EnvConfig
 

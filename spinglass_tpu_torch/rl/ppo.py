@@ -3,8 +3,11 @@
 The counterpart of ``spinglass_tpu.rl.ppo``: an actor-learner on the
 problem's device. A rollout is a Python loop of env steps under
 ``torch.no_grad()`` that never waits for the device; GAE, the
-clipped-surrogate loss and the Adam steps follow on the same device, and the
-host reads the device once per update, for the metrics.
+clipped-surrogate loss and the Adam steps follow on the same device.
+``make_ppo``'s ``update_fn`` is the eager update; ``train`` replays it
+captured as one CUDA graph per update (``CapturedUpdates``), and the host
+reads the device once per ``updates_per_dispatch`` updates, for the
+metrics.
 
 Action modes:
   discrete   - categorical over the temperature-multiplier ladder
@@ -24,6 +27,7 @@ across.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass
@@ -33,8 +37,10 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from spinglass_tpu_torch.anneal.engines import kernel_launches
-from spinglass_tpu_torch.kernels.sweeps import device_generator
+from spinglass_tpu_torch.anneal import graphs
+from spinglass_tpu_torch.anneal.engines import kernel_launches, launch_counters
+from spinglass_tpu_torch.core.rng import (device_generator, rand, randn,
+                                          randperm)
 from spinglass_tpu_torch.rl import env as env_mod
 from spinglass_tpu_torch.rl.env import EnvConfig, EnvState
 
@@ -58,10 +64,9 @@ class PPOConfig:
     n_minibatches: int = 4
     max_grad_norm: float = 0.5
     n_updates: int = 50
-    updates_per_dispatch: int = 1   # the JAX package scans this many updates
-    # inside one device dispatch. A Python loop has no such dispatch: the
-    # field is accepted and has no effect here (capturing an update in a
-    # CUDA graph would be its counterpart).
+    updates_per_dispatch: int = 1   # updates replayed between two metrics
+    # reads in ``train`` (the JAX package scans this many in one dispatch):
+    # each writes its metrics into a [k, m] buffer on the device
     seed: int = 0
 
 
@@ -156,7 +161,7 @@ def _gauss_entropy(log_std):
 
 def _categorical(logits, gen):
     """A categorical draw by the Gumbel-max trick, on the logits' device."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    u = rand(gen, logits.shape, logits.device)
     gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
     return torch.argmax(logits + gumbel, dim=-1)
 
@@ -193,9 +198,8 @@ def make_policy(action_mode: str):
     if action_mode == "continuous":
         def sample(dist, generator):
             mean = dist["mean"]
-            eps = torch.randn(mean.shape, device=mean.device,
-                              generator=device_generator(generator,
-                                                         mean.device))
+            eps = randn(device_generator(generator, mean.device), mean.shape,
+                        mean.device)
             return mean + torch.exp(dist["log_std"]) * eps
 
         def log_prob(dist, action):
@@ -211,7 +215,7 @@ def make_policy(action_mode: str):
             mean = dist["mean"]
             gen = device_generator(generator, mean.device)
             idx = _categorical(dist["logits"], gen)
-            eps = torch.randn(mean.shape, device=mean.device, generator=gen)
+            eps = randn(gen, mean.shape, mean.device)
             return {"temp_index": idx,
                     "sweep_frac": mean + torch.exp(dist["log_std"]) * eps}
 
@@ -270,8 +274,12 @@ def ppo_loss(cfg: PPOConfig, model: ActorCritic, params, batch, log_prob,
 
 def make_optimizer(cfg: PPOConfig, params) -> torch.optim.Adam:
     """Adam as the JAX package's optax chain sets it (eps 1e-8); the clip to
-    ``max_grad_norm`` comes before each step (``minibatch_step``)."""
-    return torch.optim.Adam(list(params.values()), lr=cfg.lr, eps=1e-8)
+    ``max_grad_norm`` comes before each step (``minibatch_step``). On the
+    card it is built ``capturable``: its step count stays on the device, so
+    the captured update and the eager one run the same step."""
+    params = list(params.values())
+    return torch.optim.Adam(params, lr=cfg.lr, eps=1e-8,
+                            capturable=params[0].is_cuda)
 
 
 def minibatch_step(cfg: PPOConfig, model, params, opt, batch, log_prob,
@@ -374,7 +382,7 @@ def make_ppo(problem, env_cfg: EnvConfig, cfg: Optional[PPOConfig] = None,
         gen = device_generator(state.generator, dev)
         aux = []
         for _ in range(cfg.n_epochs):
-            perm = torch.randperm(t * b, generator=gen, device=dev)
+            perm = randperm(t * b, gen, dev)
             for idx in perm.reshape(cfg.n_minibatches, -1):
                 batch = {k: _tree(lambda x: x[idx], v)
                          for k, v in data.items()}
@@ -396,15 +404,89 @@ def make_ppo(problem, env_cfg: EnvConfig, cfg: Optional[PPOConfig] = None,
     return init_fn, update_fn, model
 
 
+METRIC_KEYS = ("mean_reward", "mean_best_energy", "policy_loss", "value_loss",
+               "entropy")
+
+
+class CapturedUpdates:
+    """``update_fn`` (``make_ppo``'s eager update) captured once
+    (``graphs.CapturedStep``) on ``state`` and replayed. Each update writes
+    its metrics (``METRIC_KEYS``) into the step's [k, m] history, so k
+    updates replay between two reads (``read``). The warm-up runs on the
+    run's own parameters and optimizer, with a throwaway env state and
+    generator, and puts them back as they were: Adam's state is built
+    there, outside the graph. ``state`` is the captured ``TrainState`` (its
+    ``update`` counts replays)."""
+
+    def __init__(self, update_fn, state: TrainState, k: int = 1):
+        self.k = k
+        self.done = 0     # replays so far
+
+        def step(st):
+            st, metrics = update_fn(st)
+            return st, torch.stack([metrics[key].reshape(())
+                                    for key in METRIC_KEYS])
+
+        def warm_up(st):
+            opt = st.opt
+            with torch.no_grad():
+                params = {n: p.detach().clone() for n, p in st.params.items()}
+                kept = {p: {key: v.clone() for key, v in opt.state[p].items()}
+                        for p in st.params.values() if p in opt.state}
+
+            def restore():
+                with torch.no_grad():
+                    for n, p in st.params.items():
+                        p.copy_(params[n])
+                        for key, v in opt.state.get(p, {}).items():
+                            if p in kept:
+                                v.copy_(kept[p][key])
+                            else:   # Adam's fresh state is all zeros
+                                v.zero_()
+                opt.zero_grad(set_to_none=True)
+
+            warm = dataclasses.replace(
+                st, env_state=graphs.clone(st.env_state),
+                obs=graphs.clone(st.obs),
+                generator=graphs.clone_generator(st.generator))
+            return warm, restore
+
+        self.step = graphs.CapturedStep(
+            step, state, state.generator, launch_counters(update_fn.engine),
+            record=k, warm_up=warm_up)
+        self.state = self.step.state
+        self._read = graphs.HostRead()
+
+    def replay(self) -> None:
+        """One PPO update."""
+        self.step.replay()
+        self.state.update += 1
+        self.done += 1
+
+    def read(self, n: int) -> list:
+        """The metrics of the last ``n`` <= k updates, oldest first, as
+        dicts of floats (one read of the buffer)."""
+        rows = self._read([self.step.history])[0].tolist()
+        first = self.done - n
+        return [dict(zip(METRIC_KEYS, rows[(first + i) % self.k]))
+                for i in range(n)]
+
+
 def train(problem, env_cfg: Optional[EnvConfig] = None,
           cfg: Optional[PPOConfig] = None, verbose: bool = False,
           engine="auto", resume_state: Optional[TrainState] = None) -> dict:
     """Full training loop; returns the parameters and the per-update metric
     history. ``resume_state`` continues from an earlier ``TrainState``.
 
-    The host reads the device once per update (the metrics), so the
-    per-update times are honest wall times. The steady-state rate leaves
-    out the first two updates (kernel builds, allocator warm-up)."""
+    The update is captured (``CapturedUpdates``) and replayed;
+    ``cfg.updates_per_dispatch`` = k replays k updates between two reads of
+    the metrics, as the JAX package scans k updates in one dispatch: the
+    remainder of n_updates over k runs first as single updates, each update
+    of a k-block gets the block's wall time over k, and the steady-state
+    rate leaves out the remainder and the first block (k = 1: the first two
+    updates). The capture counts in the first update's time, where the JAX
+    package compiles. The reads wait for the device, so the times are honest
+    wall times."""
     env_cfg = env_cfg or EnvConfig()
     cfg = cfg or PPOConfig()
     init_fn, update_fn, model = make_ppo(problem, env_cfg, cfg, engine)
@@ -412,19 +494,27 @@ def train(problem, env_cfg: Optional[EnvConfig] = None,
     start = int(state.update)
     history = []
     update_times = []
-    t0 = time.perf_counter()
     n_run = max(cfg.n_updates - start, 0)
-    for u in range(n_run):
-        t_u = time.perf_counter()
-        state, metrics = update_fn(state)
-        keys = list(metrics)
-        values = torch.stack([metrics[k] for k in keys]).tolist()  # the sync
-        update_times.append(time.perf_counter() - t_u)
-        history.append(dict(zip(keys, values)))
-        if verbose and ((u + 1) % 10 == 0 or u + 1 >= n_run):
-            print(f"update {start + u}: {history[-1]}")
+    kd = max(1, cfg.updates_per_dispatch)
+    t0 = time.perf_counter()
+    captured = CapturedUpdates(update_fn, state, kd)
+    state = captured.state
+    rem = n_run % kd if kd > 1 else 0
+    u = 0
+    while u < n_run:
+        n = kd if kd > 1 and u >= rem else 1
+        t_u = time.perf_counter() if u else t0   # the capture in update 0
+        for _ in range(n):
+            captured.replay()
+        step_metrics = captured.read(n)   # waits for the device
+        dt = time.perf_counter() - t_u
+        history.extend(step_metrics)
+        update_times.extend([dt / n] * n)
+        u += n
+        if verbose and (u % 10 < n or u >= n_run):
+            print(f"update {start + u - 1}: {history[-1]}")
     total = time.perf_counter() - t0
-    n_warm = min(2, max(n_run - 1, 0))
+    n_warm = min(rem + kd if kd > 1 else 2, max(n_run - 1, 0))
     steady = sum(update_times[n_warm:])
     env_steps = n_run * cfg.rollout_len * env_cfg.n_envs
     steady_steps = max(n_run - n_warm, 1) * cfg.rollout_len * env_cfg.n_envs

@@ -524,3 +524,197 @@ def test_rl_entry_points_reach_the_kernel_by_default(cuda, monkeypatch):
     with pytest.raises(ValueError, match="default_engine"):
         E.auto_reset(problem, cfg, state, gen)
 
+
+
+# -- the device-seed mode and the captured drivers ---------------------------
+
+def _slot(seed, device):
+    return torch.tensor([seed], dtype=torch.int64, device=device)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags,n", [
+    ({}, 500), ({}, 9000), (dict(pipelined=True), 500),
+    (dict(interleave=2), 500), (dict(interleave=4), 500),
+    (dict(folded=True), 500)],
+    ids=["K1", "K1 one-block", "K5", "K6x2", "K6x4", "K7"])
+def test_dense_device_seed_equals_by_value(cuda, flags, n):
+    """A seed slot in device memory gives the by-value seed's sweep, bit for
+    bit (n = 9000: K1's one-block kernel)."""
+    rng = np.random.default_rng(n)
+    j = topology.fully_connected(n, dist="binary", seed=3)
+    p = IsingProblem.from_dense(j, rng.integers(-8, 9, n) / 4.0, device=cuda)
+    fused = MC.FusedSweep(p, block_size=128, **flags)
+    s0 = torch.as_tensor(np.where(rng.random((p.n_padded, 80)) < 0.5, -1.0,
+                                  1.0), dtype=torch.float32, device=cuda)
+    beta = torch.full((80,), 0.7, device=cuda)
+    a, b = s0.clone(), s0.clone()
+    _, de_a, cnt_a = fused(a, beta, 2 ** 61 + 12345)
+    _, de_b, cnt_b = fused(b, beta, _slot(2 ** 61 + 12345, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(de_a, de_b)
+    assert torch.equal(cnt_a, cnt_b) and not torch.equal(a, s0)
+    assert fused.launches == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [128, 130])
+def test_sparse_device_seed_equals_by_value(cuda, r):
+    """K2 (R = 128), K3 and K4 (whole sweep, and on given fields) take a
+    seed slot and make the by-value seed's draws, bit for bit."""
+    ell = _pm_j_ell(800, 4, cuda)
+    eng = S.SortedSparseTEngine(ell, accept_kernel="fused")
+    k = eng.kernels
+    seed = 2 ** 40 + 77
+    gen = torch.Generator().manual_seed(r)
+    s0 = eng.to_layout(torch.where(torch.rand(r, ell.n_padded, generator=gen)
+                                   < 0.5, -1.0, 1.0).to(cuda))
+    beta = torch.full((r,), 0.9, device=cuda)
+    assert torch.equal(k.thresholds(beta, seed, r),
+                       k.thresholds(beta, _slot(seed, cuda), r))
+    outs = []
+    for sd in (seed, _slot(seed, cuda)):
+        s = s0.clone()
+        outs.append((s,) + tuple(k.accept_sweep(s, beta, sd)[1:]))
+    f = S._colour_fields(s0, eng.groups[0][2])
+    for sd in (seed, _slot(seed, cuda)):
+        s = s0.clone()
+        de = torch.zeros(r, device=cuda)
+        cnt = torch.zeros(r, dtype=torch.int32, device=cuda)
+        k.accept(f, s, eng.groups[0][0], beta, sd, de, cnt)
+        outs.append((s, de, cnt))
+    if r == 128:
+        for sd in (seed, _slot(seed, cuda)):
+            s = s0.float().contiguous()
+            single = S.SortedSparseTEngine(ell, accept_kernel="single")
+            outs.append((s,) + tuple(single.kernels.single_sweep(
+                s, beta, seed=sd)[1:]))
+    torch.cuda.synchronize()
+    for x, y in zip(outs[::2], outs[1::2]):
+        assert all(torch.equal(u, v) for u, v in zip(x, y))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["K1", "K2", "K4"])
+def test_captured_anneal_equals_eager(cuda, kind):
+    """anneal (two graphs: chunks of 10 and a last of 5) against the eager
+    loop of run_chunk under one seed: histories, best energies and best
+    spins bit for bit; the launches counted through the replays. A repeat
+    call replays the cached graphs and gives the same result, and the
+    profiler counts as many of the kernel's launches in its replays as the
+    counter adds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from spinglass_tpu_torch.anneal import graphs, sa
+    from spinglass_tpu_torch.benchmarks.headline import (KERNEL_SYMBOLS,
+                                                         eager_anneal)
+
+    if kind == "K1":
+        problem = IsingProblem.from_dense(
+            topology.fully_connected(600, dist="binary", seed=2), device=cuda)
+        r, key, per = 100, MC.KERNEL_NAME, 1
+    else:
+        problem = _pm_j_ell(2000, 6, cuda)
+        r = 128 if kind == "K2" else 48
+        key = "sparse_sweep" if kind == "K2" else "sparse_accept"
+    cfg = sa.SAConfig(n_sweeps=35, n_replicas=r, record_interval=10,
+                      enable_early_stop=False, seed=11)
+    res = sa.anneal(problem, cfg)
+    state, hist, engine = eager_anneal(problem, cfg)
+    if kind == "K4":
+        per = len(engine.groups)
+    elif kind == "K2":
+        per = 1
+    np.testing.assert_array_equal(res.energy_history, hist[:, 0])
+    np.testing.assert_array_equal(res.mean_energy_history, hist[:, 1])
+    np.testing.assert_array_equal(res.acceptance_history, hist[:, 3])
+    np.testing.assert_array_equal(res.replica_best_energy,
+                                  state.best_energy.cpu().numpy())
+    assert res.metadata["kernel_launches"][key] == 35 * per
+    assert engine.launches[key] == 35 * per
+    hits = graphs.SA_CACHE.hits
+    # the profiler misses the first events it sees: the second call counts
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            again = sa.anneal(problem, cfg)
+            torch.cuda.synchronize()
+            prof.step()
+    assert graphs.SA_CACHE.hits == hits + 2
+    np.testing.assert_array_equal(again.energy_history, res.energy_history)
+    np.testing.assert_array_equal(again.best_spins, res.best_spins)
+    assert again.metadata["kernel_launches"] == res.metadata["kernel_launches"]
+    seen = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and any(sym in e.key for sym in KERNEL_SYMBOLS[key]))
+    assert seen == 35 * per
+
+
+@pytest.mark.gpu
+def test_captured_pt_run_equals_eager_and_makes_no_sync(cuda):
+    """pt.run (K4 at 16 replicas) against the eager super-step loop; and the
+    replays of a captured super-step with their 4-byte reads run under
+    set_sync_debug_mode('error')."""
+    from spinglass_tpu_torch.anneal import graphs, pt
+
+    ell = _pm_j_ell(2000, 8, cuda)
+    cfg = pt.PTConfig(n_replicas=16, n_sweeps=40, exchange_interval=10,
+                      seed=3)
+    res = pt.run(ell, cfg)
+    super_step, _, engine = pt.make_pt_step(ell, cfg)
+    state = pt.init_state(ell, cfg, torch.Generator().manual_seed(3), engine)
+    hist = []
+    for _ in range(4):
+        state, stats = super_step(state)
+        hist.append(stats["best_energy"].clone())
+    np.testing.assert_array_equal(res.energy_history,
+                                  torch.stack(hist).cpu().numpy())
+    np.testing.assert_array_equal(res.replica_best_energy,
+                                  state.best_energy.cpu().numpy())
+    assert res.metadata["kernel_launches"]["sparse_accept"] == \
+        40 * len(engine.groups)
+    def best_of(st):
+        st, stats = super_step(st)
+        return st, stats["best_energy"]
+
+    step = pt.capture_super_step(best_of, engine, pt.init_state(
+        ell, cfg, torch.Generator().manual_seed(3), engine))
+    read = graphs.HostRead()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [float(read([step.replay()])[0]) for _ in range(4)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got == [float(h) for h in hist]
+
+
+@pytest.mark.gpu
+def test_captured_ppo_update_equals_eager(cuda):
+    """Two PPO updates through train (captured, capturable Adam) against the
+    eager update_fn: parameters and metrics bit for bit, K1's launches
+    counted through the replays."""
+    from spinglass_tpu_torch.rl import env as E
+    from spinglass_tpu_torch.rl import ppo
+
+    problem = IsingProblem.from_dense(
+        topology.fully_connected(256, dist="gaussian", scale=1 / 16, seed=4),
+        device=cuda)
+    env_cfg = E.EnvConfig(n_envs=64, sweeps_per_step=3, max_steps=6,
+                          init_temp_range=(0.1, 10.0))
+    cfg = ppo.PPOConfig(rollout_len=4, hidden_sizes=(32, 32), n_updates=2,
+                        seed=5)
+    out = ppo.train(problem, env_cfg, cfg)
+    init_fn, update_fn, _ = ppo.make_ppo(problem, env_cfg, cfg)
+    state = init_fn()
+    assert state.opt.defaults["capturable"]
+    hist = []
+    for _ in range(2):
+        state, metrics = update_fn(state)
+        hist.append({k: float(metrics[k]) for k in ppo.METRIC_KEYS})
+    assert out["history"] == hist
+    for name, p in state.params.items():
+        assert torch.equal(out["params"][name], p), name
+    assert out["kernel_launches"][MC.KERNEL_NAME] == 2 * 4 * 3

@@ -1,5 +1,5 @@
-"""The port's boundary: it runs without JAX and without spinglass_tpu, it
-never launches (or builds) its CUDA kernels for CPU tensors, its builds
+"""The port's boundary: it runs without JAX and without spinglass_tpu (the
+captured drivers included), it never launches (or builds) its CUDA kernels for CPU tensors, its builds
 target sm_90a and rebuild when a source or a header changes, and the smoke
 script refuses to report without a GPU."""
 
@@ -10,6 +10,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -45,6 +46,14 @@ inst = planted.planted_gauge_coo(60, 4.0, seed=1)
 ell = EllProblem.from_coo(60, inst.rows, inst.cols, inst.vals, device="cpu")
 ptr = pt.run(ell, pt.PTConfig(n_replicas=4, n_sweeps=5, exchange_interval=5))
 assert sp.n_sweeps == 2 and ptr.n_sweeps == 5 and np.isfinite(ptr.best_energy)
+from spinglass_tpu_torch.anneal import sa
+st, hist = sa.anneal_scan(p, sgt.SAConfig(n_sweeps=4, n_replicas=2,
+                                          record_interval=2))
+assert int(st.sweep) == 4 and hist["best_energy"].shape == (2,)
+ttt = planted.time_to_target(ell, -1e9, pt.PTConfig(n_replicas=4,
+                                                    exchange_interval=5),
+                             max_sweeps=5)
+assert ttt["sweeps"] == 5 and not ttt["hit"]
 from spinglass_tpu_torch.anneal import twins
 from spinglass_tpu_torch.rl import env, evaluate, ppo, rewards
 assert rewards.N_NOVELTY_BINS == 256 and evaluate.welch_t([1, 2], [3, 5])["t"] < 0
@@ -94,6 +103,21 @@ def test_port_sources_import_no_jax():
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "flax", "optax",
                                    "spinglass_tpu"), (path, name)
+
+
+@pytest.mark.parametrize("layer", ["core", "kernels"])
+def test_lower_layers_import_no_driver(layer):
+    """core and kernels (the random tape included, in core/rng.py) import
+    nothing of the drivers above them (anneal, rl, benchmarks) when they
+    are imported; core/convert.py's converters into driver states import
+    them inside the function that needs them."""
+    for path in (PKG / layer).glob("*.py"):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.ImportFrom) and node.module:
+                parts = node.module.split(".")
+                if parts[0] == "spinglass_tpu_torch":
+                    assert parts[1:2] not in (["anneal"], ["rl"],
+                                              ["benchmarks"]), (path, node.module)
 
 
 def test_fused_sweep_on_cpu_never_launches_or_builds(monkeypatch):
