@@ -12,9 +12,11 @@ Philox run) and K4 (one colour of the sparse sweep per launch: it gathers
 its own fields). Holds each against its plain PyTorch twin, drives
 the dense SA slice (SK glass, N=4096, R=1024; K1 and each variant), the
 sparse slice (10k spins: SA at R=1024, time-to-target PT at R=128, PT at
-R=4096 on K4, make_engine's choice there, and on K3) and the RL path (the
+R=4096 on K4, make_engine's choice there, and on K3), the RL path (the
 annealer environment and PPO on the SK glass at N=512 with 256 envs through
-K1, and on the 10k graph through K2 and K4) end to end, and times the
+K1, and on the 10k graph through K2 and K4) and the problem path (TSP and
+MaxCut encoded, solved through K1, K2 and K4, and the command line) end to
+end, and times the
 kernels against the twins. Phases:
 
   1. device and build: nvidia-smi name and power limit, build seconds,
@@ -108,7 +110,26 @@ kernels against the twins. Phases:
      <= -0.60 after 48), updates_per_dispatch=8 over 16 updates against
      them (parameters, history), and 2 updates on the 10k graph at 128 (K2)
      and 64 envs (K4) against phase 4's eager ones. Replays and their reads
-     of each path run under set_sync_debug_mode("error");
+     of each path run under set_sync_debug_mode("error"). The problem path
+     (encoders, ProblemTemplate.solve, the command line): K1 against its
+     twin on a TSP of integer points (Manhattan metric, integer penalty:
+     exact fields) encoded at Np = 128, 256, 384 (R in {1, 32, 37}) and 4096
+     (R in {32, 1024}), spins, dE and counts bitwise; TSP-64 (seed 7) solved
+     at R=1024 and 2000 sweeps through K1, one launch per sweep done, the
+     tour a permutation; a dense bipartite MaxCut of 4096 nodes
+     (sweep_method="blocked": "auto" takes the coloured engine) through K1
+     to the full cut; a sparse bipartite MaxCut at G-set G55's scale (5000
+     nodes, 12498 unit edges): K4 (R=32, 3 Philox sweeps) and K2 (R=1024,
+     3 Philox and 2 host-threshold sweeps) against TwinSparseTEngine and
+     K2's plain version, spins, dE and counts bitwise; then solved through
+     K4 (R=32), K2 (R=1024) and PT (K4, 32
+     replicas), one launch per colour or per sweep, each at least 99.9% of
+     the full cut; each run's best_energy == the energy of its decoded
+     spins (1e-4 relative); benchmark_instance's five seeds sharing one
+     capture, each trial equal to a fresh call bit for bit; and
+     `sgt-torch solve -p tsp -s 20 --sweeps 2000` on the card through
+     click's CliRunner (exit 0, objective, energy, feasible; K1 alone, its
+     launches read from the counters of the engine the run cached);
   5. timing: each kernel's bound (bytes over 3.35 TB/s against operations
      over the peak of their type) and the two library yardsticks for K1's
      and K2's field work alone (torch.matmul, torch.sparse.mm; the port
@@ -1401,7 +1422,11 @@ def accept_timing(torch, stats, card):
         print(f"  PT R=4096 through the {path} path, 50 sweeps, in turns: "
               f"{ms[0]:.3f} / {ms[1]:.3f} ms/sweep [{card}]")
     for path in headline.PT_WIDE_PATHS:
-        prof = headline.profile_pt_wide(path)
+        # the threshold path runs ~460 kernels a sweep: over 3 super-steps
+        # (~14k kernel records) the profiler has lost ~9% of them (415.1
+        # launches a sweep seen against 457.9), so it is profiled over one
+        prof = headline.profile_pt_wide(
+            path, super_steps=1 if path == "threshold" else 3)
         stats["profiles"][f"PT R=4096, {path} path"] = prof
         print(f"  profile PT R=4096, {path} path: {prof['us_per_sweep']:.1f} "
               f"us/sweep, kernels {prof['device_us_per_sweep']:.1f} us/sweep, "
@@ -1751,7 +1776,8 @@ def captured_parity(torch, mc, stats):
                   "eager loop: final spins, best spins and energies, the [10] "
                   "histories")
             del s_state
-        _, steps = graphs.SA_CACHE.get(problem, ("anneal", cfg))
+        _, steps = graphs.SA_CACHE.get(problem,
+                                       ("anneal", graphs.config_key(cfg)))
         _sync_free(torch, f"{kind} SA chunk ({kernel})",
                    lambda: [read([steps[50].replay()]) for _ in range(3)])
         del state, eng
@@ -1771,7 +1797,7 @@ def captured_parity(torch, mc, stats):
                  / np.maximum(state.exch_attempts.cpu().numpy(), 1))
         best = int(torch.argmin(state.best_energy))
         row = eng.from_layout(state.best_spins)[best].cpu().numpy()
-        _, _, step = graphs.PT_CACHE.get(ell, ("run", pcfg))
+        _, _, step = graphs.PT_CACHE.get(ell, ("run", graphs.config_key(pcfg)))
         got = step.state
         ok = (all(torch.equal(getattr(got, f), getattr(state, f))
                   for f in ("spins", "slot", "energy", "best_energy",
@@ -1871,6 +1897,336 @@ def captured_parity(torch, mc, stats):
               f"PPO on the 10k bench graph, {n_envs} envs ({key}), 2 "
               f"captured updates == 2 eager updates: parameters and history "
               f"bit for bit; launches {t['kernel_launches']}")
+
+
+def _energy_check(torch, template, binary, sol, what):
+    """The solution's energy (the run's best_energy) against the energy of
+    the best spins, rebuilt from the decoded binary variables (x = (1+s)/2
+    of every logical spin), within 1e-4 relative."""
+    import numpy as np
+
+    from spinglass_tpu_torch.core.energy import energy
+
+    p = template.problem
+    spins = np.where(np.asarray(binary).ravel() > 0, 1.0, -1.0)
+    s = torch.ones(p.n_padded, device="cuda")
+    s[:p.n_spins] = torch.as_tensor(spins, dtype=torch.float32, device="cuda")
+    e = float(energy(p, s))
+    rel = abs(e - sol.energy) / max(abs(e), 1.0)
+    check(rel <= 1e-4 and np.isfinite(sol.energy),
+          f"{what}: best_energy {sol.energy:.4f} == energy(best_spins) "
+          f"{e:.4f} (rel {rel:.2e} <= 1e-4)")
+
+
+def _sparse_twin_check(torch, problem) -> dict:
+    """K4 (R=32) and K2 (R=1024) against their twins on an encoded sparse
+    MaxCut with unit weights (every field exact): from random spins at
+    betas across [0.05, 3], three Philox sweeps of the engine make_engine
+    builds against ``TwinSparseTEngine`` under one generator seed, and for K2
+    two host-threshold sweeps against its plain version on the same
+    thresholds (K4 draws its own). Spins, dE and counts must be equal bit for
+    bit. Returns each kernel's largest difference seen (0)."""
+    import numpy as np
+
+    from spinglass_tpu_torch.anneal.engines import make_engine
+    from spinglass_tpu_torch.anneal.twins import TwinSparseTEngine
+    from spinglass_tpu_torch.core.problem import random_spins
+    from spinglass_tpu_torch.kernels import sparse_cuda as sc
+    from spinglass_tpu_torch.kernels.sparse import accept_threshold
+
+    worst = {}
+    for r, kernel, n_host in ((32, "sparse_accept", 0),
+                              (1024, "sparse_sweep", 2)):
+        eng = make_engine(problem, r_hint=r)
+        twin = TwinSparseTEngine(problem)
+        gen = torch.Generator().manual_seed(r)
+        s = eng.to_layout(random_spins(gen, (r, problem.n_padded),
+                                       problem.active_mask))
+        s_ref = s.clone()
+        beta = torch.as_tensor(np.random.default_rng(r).uniform(0.05, 3.0, r),
+                               dtype=torch.float32, device="cuda")
+        before = dict(eng.launches)
+        same, flips, err = True, 0, 0.0
+        g_k, g_t = (torch.Generator().manual_seed(7 + r) for _ in range(2))
+        for k in range(3 + n_host):
+            if k < 3:
+                _, de, cnt = eng.sweep(s, beta, g_k)
+                _, de_p, cnt_p = twin.sweep(s_ref, beta, g_t)
+            else:
+                u = torch.rand(eng.n_sorted, r, device="cuda")
+                _, de, cnt = eng.sweep_with_uniforms(s, beta, u)
+                th = accept_threshold(u, beta[None, :], eng.rule)
+                th = torch.where(eng.mask_col < 0,
+                                 torch.full_like(th, -torch.inf), th)
+                _, de_p, cnt_p = sc.single_sweep_reference(eng.groups, s_ref,
+                                                           th)
+            same &= (torch.equal(s, s_ref) and torch.equal(de, de_p)
+                     and torch.equal(cnt, cnt_p))
+            err = max(err, float((s.float() - s_ref.float()).abs().max()),
+                      float((de - de_p).abs().max()))
+            flips += int(cnt.sum())
+        worst[kernel] = err
+        per = len(eng.groups) if kernel == "sparse_accept" else 1
+        got = {k: v - before[k] for k, v in eng.launches.items()}
+        check(same and flips > 0 and got[kernel] == (3 + n_host) * per
+              and sum(got.values()) == got[kernel]
+              and sum(twin.launches.values()) == 0,
+              f"encoded sparse MaxCut ({problem.n_spins} nodes, {s.dtype} "
+              f"spins), R={r}: {kernel} == twin bit for bit in spins, dE and "
+              f"counts over 3 Philox"
+              + (f" + {n_host} host-threshold" if n_host else "")
+              + f" sweeps; {flips} flips, launches {got}")
+    return worst
+
+
+def problems_slice(torch, mc, stats, card):
+    """Phase 4 (problems): the problem path, encoder -> make_engine -> K1 /
+    K2 / K4 -> decode, through ProblemTemplate.solve and the command line."""
+    import dataclasses
+
+    import numpy as np
+    from click.testing import CliRunner
+
+    from spinglass_tpu_torch import cli
+    from spinglass_tpu_torch.anneal import graphs, pt, sa
+    from spinglass_tpu_torch.anneal.engines import (ColoredEngine,
+                                                    kernel_launches)
+    from spinglass_tpu_torch.benchmarks.exact_instances import (
+        bipartite_weights, grid_tsp)
+    from spinglass_tpu_torch.problems import MaxCutProblem, TSPProblem
+
+    launches = {}   # kernel -> launches of this phase's runs
+
+    def count(meta):
+        for k, v in meta["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    # 1. K1 against its twin on the dyadic encoded TSP, bitwise
+    worst = 0.0
+    for n_cities, rs in ((10, (1, 32, 37)), (15, (1, 32, 37)),
+                         (19, (1, 32, 37)), (64, (32, 1024))):
+        _, p = grid_tsp(n_cities, device="cuda")
+        fused = mc.FusedSweep(p, block_size=SA_BLOCK)
+        for r in rs:
+            rng = np.random.default_rng(r)
+            s = torch.as_tensor(np.where(rng.random((p.n_padded, r)) < 0.5,
+                                         -1.0, 1.0), dtype=torch.float32,
+                                device="cuda")
+            s[p.n_spins:] = 1.0
+            beta = torch.as_tensor(rng.uniform(0.005, 0.2, r),
+                                   dtype=torch.float32, device="cuda")
+            flips, same = 0, True
+            for k in range(4):   # two host-uniform and two Philox sweeps
+                s_ref = s.clone()
+                if k < 2:
+                    u = torch.rand(p.n_padded, r, device="cuda")
+                    _, de, cnt = fused.sweep_with_uniforms(s, beta, u)
+                else:
+                    _, de, cnt = fused(s, beta, 77 + k)
+                    u = mc.philox_uniforms(77 + k, p.n_padded, r,
+                                           device="cuda")
+                _, de_p, cnt_p = mc.fused_sweep_reference(
+                    p.j, p.h, p.active_mask, s_ref, beta, u, "metropolis",
+                    SA_BLOCK)
+                same &= (torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
+                         and torch.equal(de, de_p))
+                worst = max(worst, float((s - s_ref).abs().max()),
+                            float((de - de_p).abs().max()))
+                flips += int(cnt.sum())
+            check(same and flips > 0,
+                  f"K1 == twin bitwise on the integer-grid TSP-{n_cities} "
+                  f"(Np={p.n_padded}, R={r}): 2 host-uniform + 2 Philox "
+                  f"sweeps, {flips} flips")
+    stats["max_abs_err"] = max(stats.get("max_abs_err", 0.0), worst)
+
+    # 2. TSP-64 (examples/tsp_example.py's seed) at full width, SA
+    t0 = time.perf_counter()
+    tsp = TSPProblem(device="cuda")
+    tsp.generate_random_instance(n_cities=64, seed=7)
+    tsp.encode_to_ising()
+    torch.cuda.synchronize()
+    t_encode = time.perf_counter() - t0
+    cfg = sa.SAConfig(n_sweeps=2000, n_replicas=1024)
+    t0 = time.perf_counter()
+    engine = sa.make_sweep_engine(tsp.problem, cfg)
+    t_engine = time.perf_counter() - t0
+    check(engine.name == "cuda_fused" and tsp.problem.n_padded == 4096,
+          f"TSP-64 (4096 spins): make_engine picked {engine.name} "
+          f"(CudaFusedEngine)")
+    del engine
+    sol = tsp.solve(cfg)
+    meta = sol.metadata["anneal"]
+    count(meta)
+    n_k1 = meta["kernel_launches"].get(mc.KERNEL_NAME, 0)
+    check(meta["engine"] == "cuda_fused" and n_k1 == meta["n_sweeps"] > 0,
+          f"TSP-64 solve: K1 launched {n_k1} times for {meta['n_sweeps']} "
+          f"sweeps done (one per sweep)")
+    check(tsp.validate_tour(sol.variables["tour"]),
+          "the decoded tour is a permutation of the 64 cities")
+    _energy_check(torch, tsp, sol.variables["assignment"], sol, "TSP-64")
+    print(f"  TSP-64: {meta['engine']}, launches {meta['kernel_launches']}; "
+          f"tour length {sol.objective_value:.4f}, clean_decode "
+          f"{sol.metadata['clean_decode']}, best energy {sol.energy:.4f}; "
+          f"encode {t_encode:.3f} s, engine choice {t_engine:.3f} s, solve "
+          f"{sol.metadata['solve_time']:.3f} s (anneal total_time "
+          f"{meta['total_time']:.3f} s: capture "
+          f"{meta['capture_seconds']:.3f} s, {meta['n_sweeps']} sweeps "
+          f"{meta['total_time'] - meta['capture_seconds']:.3f} s) [{card}]")
+
+    # 3. known optimum at full width: bipartite MaxCut, dense through K1
+    w = bipartite_weights(4096, 2048 * 2048 // 2, 11)
+    total = 0.5 * w.sum()
+    t0 = time.perf_counter()
+    dense = MaxCutProblem(weights=w, device="cuda")
+    dense.encode_to_ising()
+    torch.cuda.synchronize()
+    t_encode = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    auto = sa.make_sweep_engine(dense.problem, sa.SAConfig(n_replicas=1024))
+    t_engine = time.perf_counter() - t0
+    check(isinstance(auto, ColoredEngine),
+          f'bipartite MaxCut-4096: "auto" picks {auto.name} ({auto.n_colors} '
+          f'colours, plain PyTorch): the case runs sweep_method="blocked"')
+    del auto
+    cfg = sa.SAConfig(n_sweeps=2000, n_replicas=1024, sweep_method="blocked")
+    sol = dense.solve(cfg)
+    meta = sol.metadata["anneal"]
+    count(meta)
+    n_k1 = meta["kernel_launches"].get(mc.KERNEL_NAME, 0)
+    check(meta["engine"] == "cuda_fused" and n_k1 == meta["n_sweeps"],
+          f"dense MaxCut: CudaFusedEngine, K1 launched {n_k1} times for "
+          f"{meta['n_sweeps']} sweeps")
+    _energy_check(torch, dense, sol.variables["partition"], sol,
+                  "dense MaxCut")
+    cut = sol.variables["cut_value"]
+    check(cut == total, f"dense bipartite MaxCut-4096 (density 0.5 across "
+                        f"the halves): cut {cut:.1f} == total weight "
+                        f"{total:.1f}")
+    print(f"  dense MaxCut: {meta['engine']}, launches "
+          f"{meta['kernel_launches']}; encode {t_encode:.3f} s, auto engine "
+          f"choice "
+          f"{t_engine:.3f} s, solve {sol.metadata['solve_time']:.3f} s "
+          f"({meta['sweeps_per_second']:.1f} sweeps/s) [{card}]")
+    del dense, w
+
+    # 3b. sparse at G-set G55's scale: 5000 nodes, 12498 unit edges
+    w = bipartite_weights(5000, 12498, 55)
+    total = 0.5 * w.sum()
+    t0 = time.perf_counter()
+    sparse = MaxCutProblem(weights=w, device="cuda")
+    sparse.encode_to_ising()
+    torch.cuda.synchronize()
+    t_encode = time.perf_counter() - t0
+    for name, err in _sparse_twin_check(torch, sparse.problem).items():
+        key = {"sparse_sweep": "k2", "sparse_accept": "k4"}[name]
+        stats[f"{key}_max_abs_err"] = max(stats[f"{key}_max_abs_err"], err)
+    for r, kernel in ((32, "sparse_accept"), (1024, "sparse_sweep")):
+        cfg = sa.SAConfig(n_sweeps=2000, n_replicas=r)
+        t0 = time.perf_counter()
+        engine = sa.make_sweep_engine(sparse.problem, cfg)
+        t_engine = time.perf_counter() - t0
+        n_col = len(engine.groups)
+        per = n_col if kernel == "sparse_accept" else 1
+        check(engine.name == "sparse_sorted_t",
+              f"sparse MaxCut-5000, R={r}: make_engine picked {engine.name} "
+              f"(SortedSparseTEngine, {len(engine.groups)} colours)")
+        del engine
+        sol = sparse.solve(cfg)
+        meta = sol.metadata["anneal"]
+        count(meta)
+        got = meta["kernel_launches"]
+        check(got.get(kernel, 0) == per * meta["n_sweeps"]
+              and sum(got.values()) == got[kernel],
+              f"sparse MaxCut SA R={r}: {kernel} launched {got.get(kernel)} "
+              f"times = {per} x {meta['n_sweeps']} sweeps, no other kernel "
+              f"({got})")
+        _energy_check(torch, sparse, sol.variables["partition"], sol,
+                      f"sparse MaxCut SA R={r}")
+        cut = sol.variables["cut_value"]
+        check(cut >= 0.999 * total,
+              f"sparse MaxCut SA R={r}: cut {cut:.1f} of {total:.1f}, gap "
+              f"{total - cut:.1f} ({100 * (total - cut) / total:.4f}%; gate "
+              f"99.9%)")
+        print(f"  sparse MaxCut SA R={r}: {meta['engine']}, launches {got}; "
+              f"encode {t_encode:.3f} s, engine "
+              f"choice {t_engine:.3f} s, solve "
+              f"{sol.metadata['solve_time']:.3f} s "
+              f"({meta['sweeps_per_second']:.1f} sweeps/s) [{card}]")
+
+    # 4. PT through the command line's path: pt.run as the annealer, K4
+    cfg = pt.PTConfig(n_replicas=32, n_sweeps=2000)
+    sol = sparse.solve(cfg, annealer=pt.run)
+    meta = sol.metadata["anneal"]
+    count(meta)
+    got = meta["kernel_launches"]
+    check(got.get("sparse_accept", 0) == n_col * meta["n_sweeps"]
+          and sum(got.values()) == got["sparse_accept"],
+          f"sparse MaxCut PT R=32: K4 launched {got.get('sparse_accept')} "
+          f"times = {n_col} x {meta['n_sweeps']} sweeps ({got})")
+    _energy_check(torch, sparse, sol.variables["partition"], sol,
+                  "sparse MaxCut PT R=32")
+    cut = sol.variables["cut_value"]
+    check(cut >= 0.999 * total,
+          f"sparse MaxCut PT R=32: cut {cut:.1f} of {total:.1f}, gap "
+          f"{total - cut:.1f}")
+    print(f"  sparse MaxCut PT R=32: {meta['engine']}, launches {got}; solve "
+          f"{sol.metadata['solve_time']:.3f} s [{card}]")
+    del sparse, w
+
+    # 5. the seed out of the cache key: trials share one capture and each
+    # equals a fresh call with its seed
+    graphs.clear_caches()
+    tsp20 = TSPProblem(device="cuda")
+    tsp20.generate_random_instance(n_cities=20, seed=42)
+    tsp20.encode_to_ising()
+    cfg = sa.SAConfig(n_sweeps=200, n_replicas=32, seed=42)
+    hits = graphs.SA_CACHE.hits
+    bench = tsp20.benchmark_instance(cfg, n_trials=5)
+    hits = graphs.SA_CACHE.hits - hits
+    check(len(graphs.SA_CACHE) == 1 and hits == 4,
+          f"benchmark_instance(n_trials=5): {len(graphs.SA_CACHE)} cache "
+          f"entry, {hits} hits (one capture for the five seeds)")
+    trials = [sa.anneal(tsp20.problem, dataclasses.replace(cfg, seed=42 + t))
+              for t in range(5)]
+    same = True
+    for t, res in enumerate(trials):
+        count(res.metadata)
+        graphs.clear_caches()
+        fresh = sa.anneal(tsp20.problem, dataclasses.replace(cfg, seed=42 + t))
+        count(fresh.metadata)
+        same &= (np.array_equal(res.best_spins, fresh.best_spins)
+                 and np.array_equal(res.energy_history, fresh.energy_history)
+                 and np.array_equal(res.replica_best_energy,
+                                    fresh.replica_best_energy))
+    check(same, "each of the 5 trials (cached capture) == a fresh call with "
+                "its seed after graphs.clear_caches(), bit for bit")
+    print(f"  benchmark_instance TSP-20: best {bench['best_objective']:.4f}, "
+          f"mean {bench['mean_objective']:.4f}, mean time "
+          f"{bench['mean_time']:.3f} s [{card}]")
+
+    # 6. the README's quick start through the console script's entry; its
+    # launches are read from the counters of the engine it left in the cache
+    graphs.clear_caches()
+    t0 = time.perf_counter()
+    out = CliRunner().invoke(cli.main, ["solve", "-p", "tsp", "-s", "20",
+                                        "--sweeps", "2000"])
+    wall = time.perf_counter() - t0
+    print("  " + out.output.replace("\n", "\n  ").rstrip())
+    engines = [entry[0] for entry in graphs.SA_CACHE.values()]
+    cli_launches = kernel_launches(engines[0]) if len(engines) == 1 else {}
+    check(out.exit_code == 0 and "objective:" in out.output
+          and "energy:" in out.output and "feasible:" in out.output,
+          f"sgt-torch solve -p tsp -s 20 --sweeps 2000 exits "
+          f"{out.exit_code} on the card ({wall:.3f} s) [{card}]")
+    check(len(engines) == 1 and engines[0].name == "cuda_fused"
+          and cli_launches.get(mc.KERNEL_NAME, 0) > 0
+          and sum(cli_launches.values()) == cli_launches[mc.KERNEL_NAME],
+          f"the command's run swept through K1 alone: engine "
+          f"{[e.name for e in engines]}, launches {cli_launches}")
+    for k, v in cli_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    stats["problem_launches"] = launches
+    print(f"  problem path launches: {launches}")
 
 
 def captured_timing(torch, stats, card):
@@ -1979,6 +2335,8 @@ def main() -> int:
                  lambda: rl_slice(torch, mc, stats)),
                 ("phase 4: the captured drivers against the eager loop",
                  lambda: captured_parity(torch, mc, stats)),
+                ("phase 4: the problem path (encoders, solve, the CLI)",
+                 lambda: problems_slice(torch, mc, stats, card)),
                 ("phase 5: timing (K1)", lambda: phase_timing(torch, mc, stats, card)),
                 ("phase 5: timing (K2, K3)", lambda: sparse_timing(torch, stats, card)),
                 ("phase 5: timing (K5, K6, K7)", lambda: variant_timing(torch, mc, stats, card)),
@@ -2021,15 +2379,19 @@ def main() -> int:
     # sweep, a coloured sweep with accept, Philox thresholds): library_ms
     # is null; the yardsticks above time the field work alone
     # launches: those of the SA / PT / variant runs above plus the RL path's
-    # (bench_rl and the two sparse PPO runs), each counted by the engine
-    # that its run built, from 0
+    # (bench_rl and the two sparse PPO runs) and the problem path's (its
+    # solves and the command line's), each counted by the engine that its
+    # run built, from 0
     rl = stats["rl_launches"]
-    print(f"RL path launches: {rl}")
+    prob = stats["problem_launches"]
+    print(f"RL path launches: {rl}; problem path launches: {prob}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"spinglass_tpu_torch/csrc/{name}.cu",
-        "replaces": KERNELS[name], "launches": launches + rl.get(name, 0),
-        "launches_rl": rl.get(name, 0), "max_abs_err": err,
+        "replaces": KERNELS[name],
+        "launches": launches + rl.get(name, 0) + prob.get(name, 0),
+        "launches_rl": rl.get(name, 0),
+        "launches_problems": prob.get(name, 0), "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stats["bounds"][name][0],
         "bound_by": stats["bounds"][name][1], "library_ms": None}

@@ -1,7 +1,8 @@
 """spinglass_tpu_torch — the PyTorch/CUDA port of ``spinglass_tpu``.
 
-The same problems, sweeps and annealing drivers, on PyTorch tensors. Module
-paths and public names mirror the JAX package. Dense sweeps on a CUDA device
+The same problems, encoders, sweeps and annealing drivers, on PyTorch
+tensors. Module paths and public names mirror the JAX package (the problem
+classes live in ``spinglass_tpu_torch.problems``). Dense sweeps on a CUDA device
 run a hand-written Hopper kernel (``kernels/metropolis_cuda.py``, source in
 ``csrc/``); on the CPU the same functions run in plain PyTorch. The package
 imports ``torch`` and numpy, never JAX or ``spinglass_tpu``.

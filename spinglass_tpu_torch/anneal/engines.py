@@ -60,8 +60,8 @@ SPARSE_T_MIN_REPLICAS = 128
 # replicas on the H100 (700 W), ms/sweep in turns: plain 2.4-4.5, K4 0.23-0.44
 SPARSE_T_MIN_REPLICAS_CUDA = 16
 _SPARSE_COMPACT_TODO = ("sweep_method='sparse_compact' (the compact colored "
-                        "SparseEngine) is not ported yet; it waits for a later "
-                        "PR of the port")
+                        "SparseEngine) is not ported yet (ROADMAP.md Queue 1 "
+                        "item 10)")
 
 
 def kernel_launches(engine) -> dict:

@@ -265,8 +265,24 @@ class StepCache:
         while len(self._d) > self.max_entries:
             self._d.popitem(last=False)
 
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def values(self) -> list:
+        """The cached entries, least recently used first."""
+        return [value for value, _ in self._d.values()]
+
     def clear(self) -> None:
         self._d.clear()
+
+
+def config_key(config):
+    """A driver's configuration as a cache key, its ``seed`` taken out.
+    The seed never enters a captured step: the random tape is refilled from
+    the run's generator before every replay. So runs that differ only in
+    their seed share one capture, as they share one executable in the JAX
+    package's ``jit_cache``."""
+    return dataclasses.replace(config, seed=0)
 
 
 SA_CACHE = StepCache()   # sa.anneal / sa.anneal_scan

@@ -272,7 +272,7 @@ def make_pt_step(problem, cfg: PTConfig,
     if cfg.cluster_moves > 0:
         raise NotImplementedError(
             "PTConfig.cluster_moves > 0 needs core/cluster.py (Swendsen-Wang), "
-            "which is not ported yet")
+            "which is not ported yet (ROADMAP.md Queue 1 item 7)")
     if engine is None:
         engine = make_engine(problem, sweep_method=cfg.sweep_method,
                              update_rule=cfg.update_rule,
@@ -345,7 +345,7 @@ def run(problem, cfg: Optional[PTConfig] = None,
     Checkpoint/resume is not ported yet and raises.
 
     The engine and the captured super-step are kept per (problem object,
-    config) (``graphs.PT_CACHE``); the ladder is copied into the cached
+    config without its seed) (``graphs.PT_CACHE``, ``graphs.config_key``); the ladder is copied into the cached
     step's beta tensor at every call, as the JAX run takes it as an
     argument. ``total_time`` is the JAX ``run_all``'s window: the start
     state, the replays and the final read, plus the capture on the first
@@ -355,11 +355,13 @@ def run(problem, cfg: Optional[PTConfig] = None,
         raise ValueError("resume=True requires checkpoint_dir")
     if checkpoint_dir is not None:
         raise NotImplementedError("PT checkpoint/resume (segmented runs) is "
-                                  "not ported yet")
+                                  "not ported yet: it needs utils/checkpoint.py "
+                                  "(ROADMAP.md Queue 1 item 5)")
     del checkpoint_every
     cfg = cfg or PTConfig()
     n_super = max(1, cfg.n_sweeps // cfg.exchange_interval)
-    entry = graphs.PT_CACHE.get(problem, ("run", cfg))
+    key = ("run", graphs.config_key(cfg))
+    entry = graphs.PT_CACHE.get(problem, key)
     if entry is None:
         super_step, betas_ladder, engine = make_pt_step(problem, cfg,
                                                         ladder_override)
@@ -376,7 +378,7 @@ def run(problem, cfg: Optional[PTConfig] = None,
     state = init_state(problem, cfg, generator, engine)
     if entry is None:
         step = capture_super_step(super_step, engine, state, record=n_super)
-        graphs.PT_CACHE.put(problem, ("run", cfg),
+        graphs.PT_CACHE.put(problem, key,
                             (betas_ladder, engine, step))
         capture_s = step.capture_seconds
     else:
@@ -393,8 +395,11 @@ def run(problem, cfg: Optional[PTConfig] = None,
         "exch_attempts": state.exch_attempts,
         "exch_accepts": state.exch_accepts,
     }
-    out = {k: v.cpu().numpy() for k, v in dev_out.items()}   # read at the end
-    out["hist"] = {k: v.cpu().numpy() for k, v in step.history.items()}
+    # read at the end, as one copy on either device: on the CPU .cpu() would
+    # be the cached step's own tensor, which the next call overwrites
+    out = {k: v.to("cpu", copy=True).numpy() for k, v in dev_out.items()}
+    out["hist"] = {k: v.to("cpu", copy=True).numpy()
+                   for k, v in step.history.items()}
     _sync(problem.device)
     total = time.perf_counter() - t0
     launches = kernel_launches(engine)
@@ -452,7 +457,8 @@ def tune_ladder(problem, cfg: PTConfig, n_pilot_sweeps: int = 200,
                 n_iters: int = 2, generator=None):
     """Feedback-optimised temperature ladder: not ported yet."""
     raise NotImplementedError("tune_ladder is not ported yet (it needs "
-                              "core/dynamics_analysis.py)")
+                              "core/dynamics_analysis.py, ROADMAP.md Queue 1 "
+                              "item 6)")
 
 
 def exchange_rate_summary(result: AnnealResult) -> dict:

@@ -213,7 +213,8 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
     and raises.
 
     The engine and the captured chunks are kept per (problem object,
-    config) (``graphs.SA_CACHE``): the first call captures, a repeat call
+    config without its seed) (``graphs.SA_CACHE``, ``graphs.config_key``):
+    the first call captures, a repeat call
     copies its start state in and replays. ``total_time`` is the wall time
     from the start state to the last read, as the JAX driver times it: on
     the first call it includes the capture (the JAX package's compile falls
@@ -221,11 +222,14 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
     metadata says what it took). ``kernel_launches`` are this call's.
     """
     if checkpoint_dir is not None or resume:
-        raise NotImplementedError("SA checkpoint/resume is not ported yet")
+        raise NotImplementedError(
+            "SA checkpoint/resume is not ported yet: it needs "
+            "utils/checkpoint.py (ROADMAP.md Queue 1 item 5)")
     del checkpoint_every
     config = config or SAConfig()
     lengths = _chunk_lengths(config)
-    entry = graphs.SA_CACHE.get(problem, ("anneal", config))
+    key = ("anneal", graphs.config_key(config))
+    entry = graphs.SA_CACHE.get(problem, key)
     engine = entry[0] if entry else make_sweep_engine(problem, config)
     launches0 = kernel_launches(engine)
     state = init_state(problem, config, engine, generator, init_spins)
@@ -243,7 +247,7 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
             if n not in steps:
                 steps[n] = capture_chunk(problem, config, engine, state, n)
                 state = steps[n].state
-        graphs.SA_CACHE.put(problem, ("anneal", config), (engine, steps))
+        graphs.SA_CACHE.put(problem, key, (engine, steps))
         capture_s = sum(st.capture_seconds for st in steps.values())
     else:
         capture_s = 0.0
@@ -275,7 +279,9 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
     return AnnealResult(
         best_spins=best_spins,
         best_energy=float(state.best_energy[best_r]),
-        replica_best_energy=state.best_energy.cpu().numpy(),
+        # one copy on either device: on the CPU .cpu() would be the cached
+        # state's own tensor
+        replica_best_energy=state.best_energy.to("cpu", copy=True).numpy(),
         energy_history=np.asarray(e_hist),
         mean_energy_history=np.asarray(me_hist),
         temperature_history=np.asarray(t_hist),
@@ -313,7 +319,7 @@ def anneal_scan(problem: IsingProblem, config: Optional[SAConfig] = None,
     keeps them."""
     config = config or SAConfig()
     n_rec = max(1, config.n_sweeps // config.record_interval)
-    key = ("anneal_scan", config)
+    key = ("anneal_scan", graphs.config_key(config))
     entry = graphs.SA_CACHE.get(problem, key)
     engine = entry[0] if entry else make_sweep_engine(problem, config)
     state = init_state(problem, config, engine, generator)

@@ -120,7 +120,8 @@ def time_to_target(problem, target_energy: float, cfg=None,
         gens = [generator if generator is not None
                 else torch.Generator().manual_seed(cfg.seed)]
 
-    entry = graphs.PT_CACHE.get(problem, ("time_to_target", cfg))
+    key = ("time_to_target", graphs.config_key(cfg))
+    entry = graphs.PT_CACHE.get(problem, key)
     if entry is None:
         super_step, _, engine = pt_mod.make_pt_step(problem, cfg)
 
@@ -131,8 +132,7 @@ def time_to_target(problem, target_energy: float, cfg=None,
         captured = pt_mod.capture_super_step(
             best_of, engine, pt_mod.init_state(
                 problem, cfg, torch.Generator().manual_seed(0), engine))
-        graphs.PT_CACHE.put(problem, ("time_to_target", cfg),
-                            (engine, captured))
+        graphs.PT_CACHE.put(problem, key, (engine, captured))
     else:
         engine, captured = entry
     read = graphs.HostRead()

@@ -1,8 +1,9 @@
-"""Coupling-topology generators and greedy graph colouring (numpy).
+"""Coupling-topology generators, graph analysis and greedy graph colouring
+(numpy).
 
-A copy of the generators the SA and PT slices and their tests use from
-``spinglass_tpu.core.topology``: the same seeds give the same matrices and
-COO lists, so a test can build one instance and hand it to both packages.
+A copy of ``spinglass_tpu.core.topology``: the same seeds give the same
+matrices and COO lists, so a test can build one instance and hand it to both
+packages.
 The port keeps its own copy because importing ``spinglass_tpu`` pulls in
 JAX, which the GPU machine does not have. The native C++ colourings are not
 ported; the pure-Python greedy colourings below are the JAX package's
@@ -88,6 +89,57 @@ def random_graph(n: int, *, density: float = 0.1, dist: str = "gaussian",
     return _from_edges(n, rows, cols, vals)
 
 
+def small_world(n: int, *, k: int = 4, rewire_prob: float = 0.1,
+                dist: str = "gaussian", scale: float = 1.0, seed: int = 0) -> np.ndarray:
+    """Watts-Strogatz small world: a ring lattice of k neighbours, each edge
+    rewired to a uniform non-self target with probability ``rewire_prob``."""
+    rng = np.random.default_rng(seed)
+    edges = set()
+    for i in range(n):
+        for off in range(1, k // 2 + 1):
+            jn = (i + off) % n
+            edges.add((min(i, jn), max(i, jn)))
+    edges = sorted(edges)
+    out = set()
+    for (a, b) in edges:
+        if rng.random() < rewire_prob:
+            for _ in range(8):
+                c = int(rng.integers(0, n))
+                e = (min(a, c), max(a, c))
+                if c != a and e not in out:
+                    out.add(e)
+                    break
+            else:
+                out.add((a, b))
+        else:
+            out.add((a, b))
+    rows = np.array([e[0] for e in sorted(out)], dtype=np.int64)
+    cols = np.array([e[1] for e in sorted(out)], dtype=np.int64)
+    vals = _sample(rng, len(rows), dist, scale)
+    return _from_edges(n, rows, cols, vals)
+
+
+def scale_free(n: int, *, m: int = 3, dist: str = "gaussian", scale: float = 1.0,
+               seed: int = 0) -> np.ndarray:
+    """Barabasi-Albert preferential attachment, m edges per new vertex."""
+    rng = np.random.default_rng(seed)
+    m = max(1, min(m, n - 1))
+    targets = list(range(m))
+    repeated: list[int] = []
+    rows_l, cols_l = [], []
+    for v in range(m, n):
+        for t in set(targets):
+            rows_l.append(min(v, t)); cols_l.append(max(v, t))
+        repeated.extend(targets)
+        repeated.extend([v] * m)
+        if len(repeated) > 0:
+            targets = [int(repeated[int(rng.integers(0, len(repeated)))]) for _ in range(m)]
+    rows = np.array(rows_l, dtype=np.int64)
+    cols = np.array(cols_l, dtype=np.int64)
+    vals = _sample(rng, len(rows), dist, scale)
+    return _from_edges(n, rows, cols, vals)
+
+
 def sparse_random_graph_coo(n: int, *, avg_degree: float = 6.0,
                             dist: str = "binary", scale: float = 1.0,
                             seed: int = 0):
@@ -158,6 +210,28 @@ def density(j: np.ndarray) -> float:
     nnz = np.count_nonzero(np.triu(j, k=1))
     total = n * (n - 1) // 2
     return nnz / total if total else 0.0
+
+
+def degrees(j: np.ndarray) -> np.ndarray:
+    return np.count_nonzero(j, axis=1)
+
+
+def neighbors(j: np.ndarray, i: int) -> np.ndarray:
+    return np.nonzero(j[i])[0]
+
+
+def to_networkx(j: np.ndarray):
+    """Coupling graph as a networkx.Graph with 'weight' edge attributes.
+    Imports networkx when called."""
+    import networkx as nx
+
+    g = nx.Graph()
+    n = j.shape[0]
+    g.add_nodes_from(range(n))
+    rows, cols = np.nonzero(np.triu(j, k=1))
+    g.add_weighted_edges_from(
+        (int(a), int(b), float(j[a, b])) for a, b in zip(rows, cols))
+    return g
 
 
 def greedy_coloring(j: np.ndarray, max_colors: int = 256) -> np.ndarray:

@@ -12,6 +12,8 @@ import torch
 
 torch.set_num_threads(1)
 
+from spinglass_tpu_torch.benchmarks.exact_instances import (  # noqa: E402
+    bipartite_weights, grid_tsp)
 from spinglass_tpu_torch.core import topology  # noqa: E402
 from spinglass_tpu_torch.core.problem import IsingProblem  # noqa: E402
 from spinglass_tpu_torch.kernels import metropolis_cuda as MC  # noqa: E402
@@ -718,3 +720,126 @@ def test_captured_ppo_update_equals_eager(cuda):
     for name, p in state.params.items():
         assert torch.equal(out["params"][name], p), name
     assert out["kernel_launches"][MC.KERNEL_NAME] == 2 * 4 * 3
+
+
+# ---- the problem path: encoders -> make_engine -> K1 / K2 / K4 ------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cities,n_pad", [(10, 128), (15, 256), (19, 384)])
+@pytest.mark.parametrize("r", [1, 32, 37])
+def test_kernel_matches_twin_on_encoded_tsp(cuda, n_cities, n_pad, r):
+    """K1 at the encoders' small padded sizes (one row block spread over a
+    cluster at Np=128): host-uniform and Philox sweeps bit for bit."""
+    _, p = grid_tsp(n_cities, device=cuda)
+    assert p.n_padded == n_pad
+    fused = MC.FusedSweep(p, block_size=128)
+    rng = np.random.default_rng(r)
+    s = torch.as_tensor(np.where(rng.random((n_pad, r)) < 0.5, -1.0, 1.0),
+                        dtype=torch.float32, device=cuda)
+    s[p.n_spins:] = 1.0
+    beta = torch.as_tensor(rng.uniform(0.005, 0.2, r), dtype=torch.float32,
+                           device=cuda)
+    flips = 0
+    for k in range(4):
+        s_ref = s.clone()
+        if k < 2:
+            u = torch.rand(n_pad, r, device=cuda)
+            _, de, cnt = fused.sweep_with_uniforms(s, beta, u)
+        else:
+            _, de, cnt = fused(s, beta, 31 + k)
+            u = MC.philox_uniforms(31 + k, n_pad, r, device=cuda)
+        _, de_p, cnt_p = MC.fused_sweep_reference(
+            p.j, p.h, p.active_mask, s_ref, beta, u, "metropolis", 128)
+        torch.cuda.synchronize()
+        assert torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
+        assert torch.equal(de, de_p)
+        flips += int(cnt.sum())
+    assert fused.launches == 4 and flips > 0
+
+
+@pytest.mark.gpu
+def test_encoded_problems_reach_k1_once_per_sweep(cuda):
+    """TSP-64 (Np=4096) takes K1 through make_engine's "auto"; a bipartite
+    MaxCut takes the coloured engine under "auto" (2 colours) and K1 under
+    "blocked", and reaches the full cut."""
+    from spinglass_tpu_torch.anneal import sa
+    from spinglass_tpu_torch.anneal.engines import ColoredEngine
+    from spinglass_tpu_torch.problems import MaxCutProblem, TSPProblem
+
+    tsp = TSPProblem(device=cuda)
+    tsp.generate_random_instance(n_cities=64, seed=7)
+    sol = tsp.solve(sa.SAConfig(n_sweeps=100, n_replicas=64,
+                                record_interval=50))
+    meta = sol.metadata["anneal"]
+    assert tsp.problem.n_padded == 4096
+    assert meta["engine"] == "cuda_fused" and meta["device"] == "cuda"
+    assert meta["kernel_launches"] == {MC.KERNEL_NAME: meta["n_sweeps"]}
+    assert tsp.validate_tour(sol.variables["tour"])
+    w = bipartite_weights(300, 150 * 150 // 2, 1)
+    mc = MaxCutProblem(weights=w, device=cuda)
+    assert isinstance(sa.make_sweep_engine(mc.encode_to_ising(),
+                                           sa.SAConfig()), ColoredEngine)
+    sol = mc.solve(sa.SAConfig(n_sweeps=300, n_replicas=64,
+                               sweep_method="blocked"))
+    meta = sol.metadata["anneal"]
+    assert meta["engine"] == "cuda_fused"
+    assert meta["kernel_launches"] == {MC.KERNEL_NAME: meta["n_sweeps"]}
+    assert sol.variables["cut_value"] == 0.5 * w.sum()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,kernel", [(32, "sparse_accept"),
+                                      (128, "sparse_sweep")])
+def test_sparse_maxcut_reaches_k4_and_k2(cuda, r, kernel):
+    """A sparse bipartite MaxCut of 3000 nodes (density below 0.05) takes
+    the transposed sparse engine: K4 once per colour and sweep at R=32, K2
+    once per sweep at R=128; best_energy is the energy of best_spins."""
+    from spinglass_tpu_torch.anneal import sa
+    from spinglass_tpu_torch.core.energy import energy
+    from spinglass_tpu_torch.problems import MaxCutProblem
+
+    w = bipartite_weights(3000, 6000, 2)
+    mc = MaxCutProblem(weights=w, device=cuda)
+    cfg = sa.SAConfig(n_sweeps=200, n_replicas=r, record_interval=50)
+    engine = sa.make_sweep_engine(mc.encode_to_ising(), cfg)
+    assert engine.name == "sparse_sorted_t"
+    sol = mc.solve(cfg)
+    meta = sol.metadata["anneal"]
+    per = len(engine.groups) if kernel == "sparse_accept" else 1
+    assert meta["kernel_launches"][kernel] == meta["n_sweeps"] * per
+    assert sum(meta["kernel_launches"].values()) == meta["n_sweeps"] * per
+    s = torch.ones(mc.problem.n_padded, device=cuda)
+    s[:3000] = torch.as_tensor(np.where(sol.variables["partition"] > 0,
+                                        1.0, -1.0))
+    e = float(energy(mc.problem, s))
+    assert abs(e - sol.energy) <= 1e-4 * abs(e)
+    assert sol.variables["cut_value"] >= 0.99 * 0.5 * w.sum()
+
+
+@pytest.mark.gpu
+def test_benchmark_trials_equal_fresh_calls_on_the_card(cuda):
+    """The seed is out of the captured drivers' cache key: five trials make
+    one capture, and each equals a fresh call with its seed bit for bit."""
+    import dataclasses
+
+    from spinglass_tpu_torch.anneal import graphs, sa
+
+    graphs.clear_caches()
+    tsp, p = grid_tsp(8, seed=3, device=cuda)
+    cfg = sa.SAConfig(n_sweeps=100, n_replicas=32, record_interval=25,
+                      seed=4)
+    tsp.benchmark_instance(cfg, n_trials=5)
+    assert len(graphs.SA_CACHE) == 1 and graphs.SA_CACHE.misses >= 1
+    trials = [sa.anneal(p, dataclasses.replace(cfg, seed=4 + t))
+              for t in range(5)]
+    assert len(graphs.SA_CACHE) == 1
+    for t, res in enumerate(trials):
+        graphs.clear_caches()
+        fresh = sa.anneal(p, dataclasses.replace(cfg, seed=4 + t))
+        np.testing.assert_array_equal(res.best_spins, fresh.best_spins)
+        np.testing.assert_array_equal(res.energy_history,
+                                      fresh.energy_history)
+        np.testing.assert_array_equal(res.replica_best_energy,
+                                      fresh.replica_best_energy)
+        assert res.metadata["kernel_launches"] == \
+            fresh.metadata["kernel_launches"] == {MC.KERNEL_NAME: 100}

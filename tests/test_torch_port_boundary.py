@@ -1,5 +1,5 @@
 """The port's boundary: it runs without JAX and without spinglass_tpu (the
-captured drivers included), it never launches (or builds) its CUDA kernels for CPU tensors, its builds
+captured drivers, the problem encoders and the command line included), it never launches (or builds) its CUDA kernels for CPU tensors, its builds
 target sm_90a and rebuild when a source or a header changes, and the smoke
 script refuses to report without a GPU."""
 
@@ -62,6 +62,15 @@ init_fn, update_fn, _ = ppo.make_ppo(p, env_cfg, ppo.PPOConfig(
     rollout_len=2, n_epochs=1, n_minibatches=1, hidden_sizes=(8,)))
 state, metrics = update_fn(init_fn())
 assert state.update == 1 and np.isfinite(float(metrics["mean_reward"]))
+from spinglass_tpu_torch import problems, cli
+tsp = problems.TSPProblem(device="cpu")
+tsp.generate_random_instance(n_cities=4, seed=0)
+sol = tsp.solve(sgt.SAConfig(n_sweeps=20, n_replicas=2, record_interval=10))
+assert tsp.validate_tour(sol.variables["tour"])
+from click.testing import CliRunner
+out = CliRunner().invoke(cli.main, ["--device", "cpu", "solve", "-s", "3",
+                                    "--sweeps", "10", "--replicas", "2"])
+assert out.exit_code == 0 and "feasible:  True" in out.output, out.output
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "spinglass_tpu")

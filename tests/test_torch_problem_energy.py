@@ -52,6 +52,35 @@ def test_topology_copies_match_jax_generators():
                                   jax_topology.greedy_coloring(j))
 
 
+@pytest.mark.parametrize("name,n,kw", [
+    ("small_world", 30, {"k": 4, "rewire_prob": 0.1, "seed": 0}),
+    ("small_world", 41, {"k": 6, "rewire_prob": 0.5, "seed": 3}),
+    ("small_world", 25, {"k": 2, "rewire_prob": 1.0, "dist": "binary", "seed": 9}),
+    ("scale_free", 30, {"m": 3, "seed": 0}),
+    ("scale_free", 50, {"m": 1, "dist": "binary", "seed": 4}),
+    ("scale_free", 12, {"m": 20, "scale": 0.5, "seed": 11}),
+])
+def test_random_topologies_match_jax_generators(name, n, kw):
+    ours = getattr(topology, name)(n, **kw)
+    ref = getattr(jax_topology, name)(n, **kw)
+    assert ours.dtype == ref.dtype
+    np.testing.assert_array_equal(ours, ref)
+
+
+def test_graph_queries_match_jax():
+    j = topology.small_world(40, k=4, rewire_prob=0.3, seed=2)
+    np.testing.assert_array_equal(topology.degrees(j), jax_topology.degrees(j))
+    for i in (0, 7, 39):
+        np.testing.assert_array_equal(topology.neighbors(j, i),
+                                      jax_topology.neighbors(j, i))
+    nx = pytest.importorskip("networkx")
+    ours, ref = topology.to_networkx(j), jax_topology.to_networkx(j)
+    assert isinstance(ours, nx.Graph)
+    assert sorted(ours.nodes) == sorted(ref.nodes)
+    assert (sorted(ours.edges(data="weight"))
+            == sorted(ref.edges(data="weight")))
+
+
 def test_from_dense_pads_and_symmetrises():
     a = np.random.default_rng(0).normal(size=(N, N))
     a[3, 3] = 5.0
