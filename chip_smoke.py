@@ -9,14 +9,17 @@ bf16 tensor-core fields from an exact 3-plane split of J), its variants K5
 (pipelined), K6 (interleaved) and K7 (folded), K2 (single-call sparse
 sweep, the tile's spins in shared memory), K3 (sparse thresholds, four per
 Philox run) and K4 (one colour of the sparse sweep per launch: it gathers
-its own fields). Holds each against its plain PyTorch twin, drives
+its own fields), and C1 (the Swendsen-Wang labelling loop to its fixed
+point in one launch; no Pallas counterpart). Holds each against its plain
+PyTorch twin, drives
 the dense SA slice (SK glass, N=4096, R=1024; K1 and each variant), the
 sparse slice (10k spins: SA at R=1024, time-to-target PT at R=128, PT at
 R=4096 on K4, make_engine's choice there, and on K3), the RL path (the
 annealer environment and PPO on the SK glass at N=512 with 256 envs through
 K1, and on the 10k graph through K2 and K4) and the problem path (TSP and
-MaxCut encoded, solved through K1, K2 and K4, and the command line) end to
-end, and times the
+MaxCut encoded, solved through K1, K2 and K4, and the command line) and the
+drivers' remaining paths (checkpoint/resume, PT with Swendsen-Wang cluster
+moves, the tuned ladder, the compact engine) end to end, and times the
 kernels against the twins. Phases:
 
   1. device and build: nvidia-smi name and power limit, build seconds,
@@ -60,6 +63,10 @@ kernels against the twins. Phases:
      write in place; those envs must keep their spins): +-J N=512 with 256
      envs (K1), the +-J 10k graph with 128 envs (K2) and 64 envs (K4);
      spins, energies, counts, rewards, observations and done bitwise;
+     C1: labels bit for bit against the JAX loop in PyTorch on the same
+     inputs, on the bonds of one SW sweep on the TTT instance (R=128, 16),
+     the +-J 10k graph (R=128) and the Gaussian 10k graph (R=16), and on
+     every bond on, no bond, and one long path through shuffled indices;
   3. in-kernel Philox, statistically: a 6-spin system sampled for 400 sweeps
      at beta=0.6 against exact enumeration (TV < 0.05), through K1 and
      through K2; K1's SK acceptance within 1% of the host-uniform sweep's;
@@ -129,7 +136,25 @@ kernels against the twins. Phases:
      capture, each trial equal to a fresh call bit for bit; and
      `sgt-torch solve -p tsp -s 20 --sweeps 2000` on the card through
      click's CliRunner (exit 0, objective, energy, feasible; K1 alone, its
-     launches read from the counters of the engine the run cached);
+     launches read from the counters of the engine the run cached). The
+     drivers' remaining paths: (a) anneal on the SK glass (K1, R=1024, 500
+     sweeps, chunks of 50, early stop off) checkpointed every 2 chunks, cut
+     back to its first kept checkpoint and resumed; (b) the same for pt.run
+     (1000 sweeps, a save every 20 super-steps) at 16 replicas on the
+     Gaussian 10k graph (K4) and at 128 on the TTT instance (K2): each equal
+     to the uninterrupted run bit for bit (best spins, best energies, four
+     histories), the resumed launches those of the sweeps left; (c) PT with
+     cluster_moves=1 on the TTT instance at 128 (K2 + C1) and 16 (K4 + C1)
+     replicas, 1000 sweeps: the captured super-step == its eager loop bit
+     for bit, C1 once per super-step, no host sync in a replay, E0 + dE ==
+     E1 across an SW sweep (1e-4 relative), best_energy == energy(best
+     spins) (1e-4), the best energy beside the provenance's (recorded);
+     (d) tune_ladder at 16 replicas (K4, pilot 200, 2 iterations): the JAX
+     test's spread criterion, endpoints kept; (e) the compact engine through
+     anneal at 10k x 1024 == its eager sweep; (f) `sgt-torch solve -p tsp -s
+     20 -a pt --cluster-moves 1 --tune-ladder --checkpoint-dir D`, the same
+     with --resume (the same output), and `-p maxcut --sweep-method
+     sparse_compact`, each exit 0;
   5. timing: each kernel's bound (bytes over 3.35 TB/s against operations
      over the peak of their type) and the two library yardsticks for K1's
      and K2's field work alone (torch.matmul, torch.sparse.mm; the port
@@ -154,7 +179,13 @@ kernels against the twins. Phases:
      repeat call), the captured paths' busy shares and graph launches per
      sweep or env step, and in each profile the kernels the profiler counts
      per name against what the launch counters added over the same
-     replays.
+     replays (the cluster-move super-steps' C1 too). The drivers' remaining
+     paths: C1 at [10240, 128] and [10240, 16] beside its plain loop, its
+     rounds and its bound; one SW sweep as a graph; the captured PT
+     super-step with and without cluster_moves=1 at 128 and 16 replicas; the
+     layout round trip; a dense checkpoint's bytes and save time; segmented
+     against single-dispatch pt.run; tune_ladder's time and captures; the
+     compact engine beside K2.
 
 Any failed check exits non-zero. The last line is the JSON status
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -182,6 +213,8 @@ KERNELS = {
     "metropolis_pipelined": "spinglass_tpu/kernels/metropolis_pallas.py:400",
     "metropolis_interleaved": "spinglass_tpu/kernels/metropolis_pallas.py:281",
     "metropolis_folded": "spinglass_tpu/kernels/metropolis_pallas.py:179",
+    # C1 has no Pallas counterpart: the JAX while_loop it replaces
+    "sw_labels": "spinglass_tpu/core/cluster.py:291",
 }
 # FusedSweep flags of the dense variants, by label
 VARIANTS = {"K5": dict(pipelined=True), "K6x2": dict(interleave=2),
@@ -2262,6 +2295,468 @@ def captured_timing(torch, stats, card):
               f"{prof[f'launches_per_{key}']:.1f} kernels per {unit} [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# The drivers' remaining paths: checkpoint/resume, Swendsen-Wang cluster
+# moves through C1, the tuned ladder, the compact engine, the command line
+# ---------------------------------------------------------------------------
+
+def _labelling_inputs(torch, sw, r: int, seed: int):
+    """(idx, bond, init) that one SW sweep at ``r`` replicas (random spins,
+    betas 0.2-1.5) hands its labelling; the sweep's own C1 launch is a
+    parity launch, counted on ``sw`` only."""
+    got = {}
+    real = sw.labeller
+
+    def spy(idx, bond, init):
+        got.update(idx=idx, bond=bond.clone(), init=init.clone())
+        return real(idx, bond, init)
+
+    gen = torch.Generator().manual_seed(seed)
+    s = torch.where(torch.rand(r, sw.ell.n_padded, generator=gen) < 0.5,
+                    -1.0, 1.0).cuda()
+    s = torch.where(sw.ell.active_mask[None] > 0, s, torch.ones_like(s))
+    sw.labeller = spy
+    try:
+        sw.sweep(s, torch.linspace(0.2, 1.5, r, device="cuda"), gen)
+    finally:
+        sw.labeller = real
+    return got["idx"], got["bond"], got["init"]
+
+
+def _path_set(torch, n_pad: int, n: int, r: int, seed: int):
+    """One long path through the n active sites in shuffled order (both
+    directions bonded), the most rounds a labelling can take."""
+    import numpy as np
+
+    order = np.random.default_rng(seed).permutation(n)
+    idx = np.tile(np.arange(n_pad, dtype=np.int32)[:, None], (1, 2))
+    bond = np.zeros((n_pad, 2), bool)
+    idx[order[:-1], 0], bond[order[:-1], 0] = order[1:], True
+    idx[order[1:], 1], bond[order[1:], 1] = order[:-1], True
+    init = np.where(np.arange(n_pad) < n, np.arange(n_pad), n_pad)
+    return (torch.as_tensor(idx, device="cuda"),
+            torch.as_tensor(np.broadcast_to(bond, (r, n_pad, 2)).copy(),
+                            device="cuda"),
+            torch.as_tensor(np.tile(init, (r, 1)).astype(np.int32),
+                            device="cuda"))
+
+
+def _c1_bound(idx, bond, rounds):
+    """C1's least time on these inputs: idx, bond and the start labels read
+    once, labels and rounds written once; against rounds x Np x (K + 2)
+    compare-and-select operations per replica (counted at the float32
+    rate). Also the time the bond flags take to stream once per round."""
+    r, n, k = bond.shape
+    nbytes = idx.numel() * 4 + bond.numel() + 2 * r * n * 4 + r * 4
+    total_rounds = int(rounds.sum())
+    b_ms, b_by = bound(nbytes, total_rounds * n * (k + 2), FP32_FLOPS)
+    return b_ms, b_by, 1e3 * total_rounds * n * k / HBM_BYTES_PER_S
+
+
+def cluster_parity(torch, stats):
+    """Phase 2 (C1): the SW labelling kernel against the JAX loop in
+    PyTorch on the same inputs on the card, labels bit for bit: the bonds of
+    one SW sweep on the TTT instance (R=128 and 16), on the +-J and the
+    Gaussian 10k graphs, and three adversarial sets at Np = 10112."""
+    from spinglass_tpu_torch.benchmarks.headline import (sparse_bench_problem,
+                                                         ttt_instance)
+    from spinglass_tpu_torch.core.cluster import SwendsenWang
+    from spinglass_tpu_torch.kernels import cluster_cuda as cc
+
+    ttt, prov = ttt_instance()
+    t0 = time.perf_counter()
+    sw_ttt = SwendsenWang(ttt)
+    stats["reverse_slots_s"] = time.perf_counter() - t0
+    stats["drv_ttt"], stats["bench10k"] = (ttt, prov), sparse_bench_problem()
+    stats["sw_ttt"] = sw_ttt
+    sets = {f"TTT {r}": _labelling_inputs(torch, sw_ttt, r, r)
+            for r in (128, 16)}
+    sets["+-J 10k 128"] = _labelling_inputs(
+        torch, SwendsenWang(pm_j_ell(10000, 7)), 128, 3)
+    sets["Gaussian 10k 16"] = _labelling_inputs(
+        torch, SwendsenWang(stats["bench10k"]), 16, 4)
+    idx, bond, init = sets["TTT 16"]
+    on = (ttt.val != 0)[None].expand(4, -1, -1).contiguous()
+    sets["all bonds on"] = (idx, on, init[:4].contiguous())
+    sets["no bond"] = (idx, torch.zeros_like(on), init[:4].contiguous())
+    sets["long shuffled path"] = _path_set(torch, ttt.n_padded, ttt.n_spins,
+                                           2, 5)
+    c1 = cc.ClusterLabels()
+    err = 0
+    stats["c1_sets"] = sets
+    for name, (idx, bond, init) in sets.items():
+        labels, rounds = c1(idx, bond, init)
+        torch.cuda.synchronize()
+        want, plain_rounds = cc.labels_reference(idx, bond, init)
+        same = torch.equal(labels, want)
+        err = max(err, int((labels.long() - want.long()).abs().max()))
+        n_cl = int(((labels == torch.arange(labels.shape[1], device="cuda"))
+                    & (init < labels.shape[1])).sum())
+        check(same and bool((rounds <= labels.shape[1]).all()),
+              f"C1 == plain labels on {name} [{bond.shape[0]}, "
+              f"{bond.shape[1]}, K={bond.shape[2]}]: {n_cl} clusters, "
+              f"rounds mean {float(rounds.float().mean()):.1f} max "
+              f"{int(rounds.max())} (plain loop {plain_rounds})")
+    check(c1.launches == len(sets), f"C1 launched {c1.launches} times for "
+                                    f"{len(sets)} sets")
+    stats["c1_max_abs_err"] = err
+
+
+def _keep_first_checkpoint(d: str) -> int:
+    """Deletes every checkpoint in ``d`` but the first one kept; returns its
+    step."""
+    steps = sorted(int(f[5:-3]) for f in os.listdir(d) if f.startswith("ckpt_"))
+    for s in steps[1:]:
+        os.remove(os.path.join(d, f"ckpt_{s}.pt"))
+    return steps[0]
+
+
+def _result_arrays_equal(np, a, b) -> bool:
+    return all(np.array_equal(getattr(a, k), getattr(b, k)) for k in (
+        "best_spins", "replica_best_energy", "energy_history",
+        "mean_energy_history", "temperature_history", "acceptance_history")
+    ) and a.best_energy == b.best_energy
+
+
+def _resume_check(torch, np, what, run, n_sweeps, every, tmp, key, per_unit):
+    """The uninterrupted run, the checkpointed run and a run resumed after
+    deleting all but the first kept checkpoint: results bit for bit, and
+    the launches of ``key`` (per_unit(done) = sweeps the checkpoint had
+    done). Returns (uninterrupted, checkpointed) results."""
+    ref = run()
+    d = os.path.join(tmp, what.split()[0])
+    full = run(checkpoint_dir=d, checkpoint_every=every)
+    first = _keep_first_checkpoint(d)
+    saved = torch.load(os.path.join(d, f"ckpt_{first}.pt"), weights_only=True)
+    done = per_unit(saved)
+    res = run(checkpoint_dir=d, checkpoint_every=every, resume=True)
+    want = ref.metadata["kernel_launches"][key]
+    got = res.metadata["kernel_launches"][key]
+    check(_result_arrays_equal(np, full, ref) and _result_arrays_equal(
+        np, res, ref) and full.metadata["kernel_launches"]
+          == ref.metadata["kernel_launches"]
+          and got * n_sweeps == want * (n_sweeps - done),
+          f"{what}: checkpointed and resumed (from {done} of {n_sweeps} "
+          f"sweeps) == uninterrupted, bit for bit (best spins, best "
+          f"energies, four histories); {key} {want} launches uninterrupted "
+          f"and checkpointed, {got} resumed")
+    return ref, full
+
+
+def drivers_slice(torch, mc, stats, card):
+    """Phase 4 (the drivers' remaining paths): (a) dense SA through K1,
+    checkpointed and resumed; (b) pt.run likewise at 16 replicas (K4) and
+    128 (K2); (c) PT with cluster_moves=1 through K2 + C1 and K4 + C1, the
+    captured super-step against its eager loop; (d) tune_ladder through K4;
+    (e) the compact engine through anneal; (f) the command line's options."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    from click.testing import CliRunner
+
+    from spinglass_tpu_torch import cli
+    from spinglass_tpu_torch.anneal import graphs, pt, sa
+    from spinglass_tpu_torch.benchmarks.headline import ttt_config
+    from spinglass_tpu_torch.kernels.sparse import sparse_energy
+    from spinglass_tpu_torch.utils.checkpoint import save_pytree
+
+    tmp = tempfile.mkdtemp(prefix="sgt_ckpt_")
+    launches = {}
+
+    def add(res):
+        for k, v in res.metadata["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (a) dense SA, 4096 x 1024, 500 sweeps in chunks of 50, through K1
+    sk = stats["dense_first"][0]
+    cfg = sa.SAConfig(n_sweeps=500, n_replicas=1024, record_interval=50,
+                      enable_early_stop=False)
+    sa.anneal(sk, cfg)    # the capture, outside the comparison
+    ref, full = _resume_check(
+        torch, np, "dense SA (K1, 4096 x 1024)",
+        lambda **kw: sa.anneal(sk, cfg, **kw), 500, 2, tmp, mc.KERNEL_NAME,
+        lambda saved: int(saved["/sweeps_done"]))
+    add(ref)
+    steps = graphs.SA_CACHE.get(sk, ("anneal", graphs.config_key(cfg)))[1]
+    state = steps[50].state
+    tree = sa._ckpt_tree(state, torch.Generator().manual_seed(1), {
+        k: list(range(10)) for k in sa.HIST_KEYS}, 500)
+    path = os.path.join(tmp, "save_probe.pt")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_pytree(tree, path)
+        times.append(time.perf_counter() - t0)
+    stats["ckpt_save"] = (times, os.path.getsize(path))
+    print(f"  a dense SA checkpoint (spins and best spins [4096, 1024] "
+          f"float32): {os.path.getsize(path)} bytes, saved in "
+          + " / ".join(f"{t:.4f}" for t in times) + " s; anneal total_time "
+          f"{ref.total_time:.3f} s uninterrupted, {full.total_time:.3f} s "
+          f"with 5 saves [{card}]")
+
+    # (b) pt.run checkpointed every 20 super-steps: K4 at 16 replicas on the
+    # Gaussian 10k graph, K2 at 128 on the planted TTT instance
+    ttt, prov = stats["drv_ttt"]
+    bench = stats["bench10k"]
+    pt16 = pt.PTConfig(n_replicas=16, n_sweeps=1000, seed=42)
+    ttt128 = dataclasses.replace(ttt_config(), n_sweeps=1000)
+    for what, prob, pcfg, key in (
+            ("pt16 PT (K4, 16 replicas, Gaussian 10k)", bench, pt16,
+             "sparse_accept"),
+            ("pt128 PT (K2, 128 replicas, TTT instance)", ttt, ttt128,
+             "sparse_sweep")):
+        pt.run(prob, pcfg)    # the capture, outside the comparison
+        ref, full = _resume_check(
+            torch, np, what, lambda **kw: pt.run(prob, pcfg, **kw), 1000, 20,
+            tmp, key, lambda saved: int(saved["/done_super"]) * 10)
+        add(ref)
+        stats.setdefault("segmented", {})[what.split()[0]] = (
+            ref.total_time, full.total_time)
+        print(f"  {what}: total_time {ref.total_time:.4f} s single-dispatch, "
+              f"{full.total_time:.4f} s segmented (5 saves) [{card}]")
+
+    # (c) PT with one SW sweep per super-step on the TTT instance
+    best_known = prov["best_known_energy"]
+    stats["cm"] = {}
+    for r, key in ((128, "sparse_sweep"), (16, "sparse_accept")):
+        ccfg = dataclasses.replace(ttt_config(), n_replicas=r, n_sweeps=1000,
+                                   cluster_moves=1)
+        res = pt.run(ttt, ccfg)
+        add(res)
+        kl = res.metadata["kernel_launches"]
+        super_step, _, engine = pt.make_pt_step(ttt, ccfg)
+        state = pt.init_state(ttt, ccfg, torch.Generator().manual_seed(
+            ccfg.seed), engine)
+        hist = []
+        for _ in range(100):
+            state, st = super_step(state)
+            hist.append(torch.stack([st["best_energy"], st["cold_energy"],
+                                     st["mean_acceptance"]]))
+        hist = torch.stack(hist).cpu().numpy()
+        same = (np.array_equal(res.energy_history, hist[:, 0])
+                and np.array_equal(res.mean_energy_history, hist[:, 1])
+                and np.array_equal(res.acceptance_history, hist[:, 2])
+                and np.array_equal(res.replica_best_energy,
+                                   state.best_energy.cpu().numpy()))
+        per = 1 if key == "sparse_sweep" else len(engine.groups)
+        check(same and kl["sw_labels"] == 100 and kl[key] == 1000 * per,
+              f"PT with cluster_moves=1 at {r} replicas: the captured "
+              f"super-step == its eager loop bit for bit (100 super-steps); "
+              f"C1 {kl['sw_labels']} launches, {key} {kl[key]}")
+        step = graphs.PT_CACHE.get(ttt, ("run", graphs.config_key(ccfg)))[2]
+        gen = torch.Generator().manual_seed(9)
+        _sync_free(torch, f"the cluster-move super-step at {r} replicas",
+                   lambda: [step.replay(gen) for _ in range(3)])
+        # E0 + dE == E1 across an SW sweep, on the eager run's last state
+        sw = super_step.sw
+        s_rn = engine.from_layout(state.spins).contiguous()
+        betas = 1.0 / torch.as_tensor(pt.temperature_ladder(ccfg),
+                                      device="cuda")
+        e0 = sparse_energy(ttt, s_rn)
+        s1, de, n_cl = sw.sweep(s_rn, betas[state.slot.long()], gen)
+        e1 = sparse_energy(ttt, s1)
+        rel = float(((e0 + de - e1).abs() / e1.abs()).max())
+        check(rel <= 1e-4, f"E0 + dE == E1 across an SW sweep at {r} replicas "
+                           f"(max rel {rel:.2e} <= 1e-4); clusters per "
+                           f"replica {float(n_cl.float().mean()):.1f}, "
+                           f"rounds max {int(sw.last_rounds.max())}")
+        s = torch.ones(1, ttt.n_padded, device="cuda")
+        s[0, :ttt.n_spins] = torch.as_tensor(res.best_spins, device="cuda")
+        e_best = float(sparse_energy(ttt, s)[0])
+        rel = abs(e_best - res.best_energy) / abs(e_best)
+        check(rel <= 1e-4, f"best_energy {res.best_energy:.3f} == energy("
+                           f"best_spins) {e_best:.3f} (rel {rel:.1e})")
+        gap = (res.best_energy - best_known) / abs(best_known)
+        stats["cm"][r] = {"best": res.best_energy, "gap": gap,
+                          "total_time": res.total_time, "config": ccfg}
+        print(f"  PT + SW at {r} replicas, 1000 sweeps: best energy "
+              f"{res.best_energy:.3f} against the provenance's {best_known} "
+              f"(gap {100 * gap:.3f}%; recorded, not a gate); total_time "
+              f"{res.total_time:.3f} s, capture {res.metadata['capture_seconds']:.3f} s "
+              f"[{card}]")
+
+    # (d) tune_ladder on the Gaussian 10k graph at 16 replicas (K4)
+    base = pt.run(bench, pt16)
+    misses = graphs.PT_CACHE.misses
+    t0 = time.perf_counter()
+    temps, diag = pt.tune_ladder(bench, pt16, n_pilot_sweeps=200, n_iters=2)
+    wall = time.perf_counter() - t0
+    captures = graphs.PT_CACHE.misses - misses
+    kept = graphs.PT_CACHE.get(bench, ("run", graphs.config_key(pt16)))
+    tuned = pt.run(bench, pt16, ladder_override=temps)
+    b_rates = np.asarray(base.metadata["exchange_rates"])
+    t_rates = np.asarray(tuned.metadata["exchange_rates"])
+    spread_b, spread_t = np.ptp(b_rates), np.ptp(t_rates)
+    stats["tune"] = (wall, captures, diag["pilot_sweeps"], spread_b, spread_t)
+    check(spread_t <= spread_b + 0.05 and bool(np.all(np.diff(temps) > 0))
+          and np.allclose([temps[0], temps[-1]], [pt16.min_temp,
+                                                  pt16.max_temp], rtol=1e-5),
+          f"tune_ladder (16 replicas, pilot 200 sweeps, 2 iterations): rate "
+          f"spread {spread_t:.4f} <= geometric {spread_b:.4f} + 0.05, "
+          f"increasing, endpoints kept; pilots {diag['pilot_sweeps']} "
+          f"sweeps, {captures} captures, {wall:.2f} s; the caller's own "
+          f"entry {'kept' if kept is not None else 'evicted'} [{card}]")
+
+    # (e) the compact engine at 10k x 1024: one sweep through anneal
+    ecfg = sa.SAConfig(n_sweeps=1, n_replicas=1024, record_interval=1,
+                       sweep_method="sparse_compact", enable_early_stop=False)
+    res = sa.anneal(bench, ecfg)
+    eng = sa.make_sweep_engine(bench, ecfg)
+    st = sa.init_state(bench, ecfg, eng, torch.Generator().manual_seed(42))
+    st, chunk = sa.run_chunk(bench, ecfg, eng, st, 1)
+    check(res.metadata["engine"] == "sparse_colored"
+          and res.energy_history[0] == float(chunk["best_energy"])
+          and res.acceptance_history[0] == float(chunk["acceptance"])
+          and np.array_equal(res.replica_best_energy,
+                             st.best_energy.cpu().numpy()),
+          f"the compact engine ({eng.n_colors} colours) through anneal at "
+          f"10k x 1024: one captured sweep == the engine's eager sweep")
+    stats["compact"] = (bench, ecfg, eng)
+
+    # (f) the command line's options that raised before this slice
+    d = os.path.join(tmp, "cli")
+    outs = []
+    pt_args = ["solve", "-p", "tsp", "-s", "20", "-a", "pt", "--cluster-moves",
+               "1", "--tune-ladder", "--checkpoint-dir", d]
+    for argv in (pt_args, pt_args + ["--resume"],
+                 ["solve", "-p", "maxcut", "-s", "20", "--sweep-method",
+                  "sparse_compact"]):
+        t0 = time.perf_counter()
+        out = CliRunner().invoke(cli.main, argv)
+        outs.append(out.output)
+        check(out.exit_code == 0 and "objective:" in out.output,
+              f"sgt-torch {' '.join(argv).replace(d, 'D')} exits "
+              f"{out.exit_code} ({time.perf_counter() - t0:.2f} s) "
+              f"[{card}]: " + out.output.replace("\n", "; ")[:160])
+    check(outs[0] == outs[1], "the resumed command prints what the first did")
+    stats["driver_launches"] = launches
+    print(f"  drivers' paths launches: {launches}")
+
+
+def _event_ms(torch, fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` by CUDA events over ``reps`` calls,
+    after one call to warm up."""
+    fn()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def drivers_timing(torch, stats, card):
+    """Phase 5 (the drivers' remaining paths): C1 against its plain version
+    and its bound; one SW sweep (its draws given, as a graph); the captured
+    PT super-step with and without cluster_moves=1 at 128 (K2) and 16 (K4)
+    replicas; the layout round trip; checkpoint saves; segmented against
+    single-dispatch pt.run; tune_ladder; the compact engine beside K2."""
+    import dataclasses
+
+    from spinglass_tpu_torch.anneal import graphs, pt, sa
+    from spinglass_tpu_torch.benchmarks.headline import (_profile,
+                                                         _pt_steppers,
+                                                         ttt_config)
+    from spinglass_tpu_torch.kernels import cluster_cuda as cc
+
+    c1 = cc.ClusterLabels()
+    for r in (128, 16):
+        idx, bond, init = stats["c1_sets"][f"TTT {r}"]
+        ms = _event_ms(torch, lambda: c1(idx, bond, init), 20)
+        _, rounds = c1(idx, bond, init)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cc.labels_reference(idx, bond, init)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        b_ms, b_by, round_ms = _c1_bound(idx, bond, rounds)
+        if r == 128:
+            stats["c1"] = (ms, plain_ms, b_ms, b_by)
+        print(f"  C1 at [{bond.shape[1]}, {r}] (K={bond.shape[2]}, one SW "
+              f"sweep's bonds on the TTT instance): {1e3 * ms:.1f} us per "
+              f"call, rounds mean {float(rounds.float().mean()):.2f} max "
+              f"{int(rounds.max())}; bound {1e3 * b_ms:.2f} us ({b_by}), the "
+              f"bond flags once per round {1e3 * round_ms:.2f} us; plain loop "
+              f"on the card {plain_ms:.3f} ms [{card}]")
+    ttt, _ = stats["drv_ttt"]
+    sw = stats["sw_ttt"]
+    for r in (128, 16):
+        gen = torch.Generator().manual_seed(r)
+        s = sw.ell.active_mask.new_ones(r, sw.ell.n_padded)
+        s[:, :ttt.n_spins] = torch.where(
+            torch.rand(r, ttt.n_spins, generator=gen) < 0.5, -1.0, 1.0).cuda()
+        beta = torch.linspace(0.3, 20.0, r, device="cuda")
+        draws = sw.draws(r, gen, "cuda")
+        g = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            sw.sweep_with_draws(s, beta, *draws)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(g):
+            sw.sweep_with_draws(s, beta, *draws)
+        ms = _event_ms(torch, g.replay, 20)
+        print(f"  one SW sweep at [{r}, {sw.ell.n_padded}] (draws given; "
+              f"bonds, C1, flips, two energies) as a graph: {1e3 * ms:.1f} us "
+              f"[{card}]")
+    for r, key in ((128, "K2"), (16, "K4")):
+        rows = []
+        for cm in (0, 1):
+            cfg = dataclasses.replace(ttt_config(), n_replicas=r,
+                                      n_sweeps=1000, cluster_moves=cm)
+            if graphs.PT_CACHE.get(ttt, ("run", graphs.config_key(cfg))) is None:
+                pt.run(ttt, cfg)
+            betas, engine, step = graphs.PT_CACHE.get(
+                ttt, ("run", graphs.config_key(cfg)))
+            gen = torch.Generator().manual_seed(3)
+            rows.append(_event_ms(torch, lambda: step.replay(gen), 20))
+            if cm == 0:
+                spins = step.state.spins
+                rn = engine.from_layout(spins).contiguous()
+                out_ms = _event_ms(torch, lambda: engine.from_layout(spins)
+                                   .contiguous(), 50)
+                in_ms = _event_ms(torch, lambda: engine.to_layout(rn), 50)
+        print(f"  PT super-step on the TTT instance at {r} replicas ({key}), "
+              f"captured: {1e3 * rows[0]:.1f} us, with cluster_moves=1 "
+              f"{1e3 * rows[1]:.1f} us (+{1e3 * (rows[1] - rows[0]):.1f}); "
+              f"layout round trip [{spins.shape[0]}, {r}] {spins.dtype} -> "
+              f"[{r}, {ttt.n_padded}] {1e3 * out_ms:.1f} us, back "
+              f"{1e3 * in_ms:.1f} us [{card}]")
+    for r in (128, 16):
+        # the cluster-move super-step profiled as the TTT loop is: 10 replays
+        # of a captured super-step, each followed by its 4-byte read (the
+        # launch counts are checked against the profiler's below)
+        ccfg = stats["cm"][r]["config"]
+        steps = _pt_steppers(ttt, ccfg, None, 10, read_each=True)
+        stats["profiles"][f"PT + SW, {r} replicas (K{2 if r == 128 else 4} "
+                          f"+ C1)"] = _profile(
+            steps["captured"], 100, 8, graph_launches=10,
+            counters=steps["counters"])
+    times, nbytes = stats["ckpt_save"]
+    print(f"  checkpoint save, dense SA: {nbytes} bytes, {min(times):.4f}-"
+          f"{max(times):.4f} s; _ell_reverse_slots on the TTT instance "
+          f"{stats['reverse_slots_s']:.3f} s [{card}]")
+    for name, (single, seg) in stats["segmented"].items():
+        print(f"  {name}: single-dispatch {single:.4f} s, segmented {seg:.4f} "
+              f"s [{card}]")
+    wall, captures, pilots, spread_b, spread_t = stats["tune"]
+    print(f"  tune_ladder: {wall:.3f} s, {captures} captures, pilots {pilots} "
+          f"sweeps, spread {spread_b:.4f} -> {spread_t:.4f} [{card}]")
+    bench, ecfg, eng = stats["compact"]
+    cfg = dataclasses.replace(ecfg, n_sweeps=10)
+    step = sa.capture_chunk(bench, cfg, eng, sa.init_state(bench, cfg, eng), 10)
+    gen = torch.Generator().manual_seed(1)
+    ms = _event_ms(torch, lambda: step.replay(gen), 5) / 10
+    print(f"  compact engine at 10k x 1024 ({eng.n_colors} colours), "
+          f"captured chunk of 10: {1e3 * ms:.1f} us/sweep; K2 "
+          f"{1e3 * stats['k2_ms']:.1f} us/sweep ({ms / stats['k2_ms']:.2f}x) "
+          f"[{card}]")
+
+
 def main() -> int:
     try:
         import torch
@@ -2308,6 +2803,9 @@ def main() -> int:
             mc.load_kernel(name)
         sc.load_kernels()
         sc.load_accept_kernel()
+        from spinglass_tpu_torch.kernels import cluster_cuda as cc
+
+        cc.load_kernel()
         for block in (128, 256):
             occ = mc.cluster_occupancy(4096, 1024, block)
             print(f"  K1 cluster kernel at Np=4096, R=1024, block {block}: "
@@ -2321,6 +2819,8 @@ def main() -> int:
                 ("phase 2: parity with the twins and K1 (K5, K6, K7)",
                  lambda: variant_parity(torch, mc, stats)),
                 ("phase 2: parity with the twin, K3 and K2 (K4)", lambda: accept_parity(torch, stats)),
+                ("phase 2: parity with the plain labelling (C1)",
+                 lambda: cluster_parity(torch, stats)),
                 ("phase 2: env.step through K1, K2 and K4 against the twins (RL)",
                  lambda: rl_parity(torch, mc, stats)),
                 ("phase 3: in-kernel Philox (K1)", lambda: phase_philox(torch, mc, stats)),
@@ -2337,6 +2837,9 @@ def main() -> int:
                  lambda: captured_parity(torch, mc, stats)),
                 ("phase 4: the problem path (encoders, solve, the CLI)",
                  lambda: problems_slice(torch, mc, stats, card)),
+                ("phase 4: the drivers' remaining paths (checkpoint/resume, "
+                 "cluster moves, tune_ladder, the compact engine, the CLI)",
+                 lambda: drivers_slice(torch, mc, stats, card)),
                 ("phase 5: timing (K1)", lambda: phase_timing(torch, mc, stats, card)),
                 ("phase 5: timing (K2, K3)", lambda: sparse_timing(torch, stats, card)),
                 ("phase 5: timing (K5, K6, K7)", lambda: variant_timing(torch, mc, stats, card)),
@@ -2344,6 +2847,8 @@ def main() -> int:
                  lambda: accept_timing(torch, stats, card)),
                 ("phase 5: timing (RL: bench_rl, profile_rl)",
                  lambda: rl_timing(torch, stats, card)),
+                ("phase 5: timing (the drivers' remaining paths, C1)",
+                 lambda: drivers_timing(torch, stats, card)),
                 ("phase 5: timing (captured drivers against the eager loop)",
                  lambda: captured_timing(torch, stats, card))):
             print(name)
@@ -2371,27 +2876,35 @@ def main() -> int:
         rows.append((name, stats["variant_launches"][name],
                      max(err[lab] for lab in labels), us[labels[0]] / 1e3,
                      twin_us[labels[0]] / 1e3))
+    c1_ms, c1_plain_ms, c1_bound, c1_by = stats["c1"]
+    rows.append(("sw_labels", 0, stats["c1_max_abs_err"], c1_ms, c1_plain_ms))
+    stats["bounds"]["sw_labels"] = (c1_bound, c1_by)
     b4 = stats["bounds"]["sparse_accept"][0]
     print(f"K4 {1e3 * stats['k4_ms']:.1f} us per sweep is "
           f"{100 * b4 / stats['k4_ms']:.1f}% of its bound's rate [{card}]")
     print(f"total {time.perf_counter() - t_start:.1f} s (build included)")
     # no single PyTorch call computes any of these functions (a sequential
-    # sweep, a coloured sweep with accept, Philox thresholds): library_ms
-    # is null; the yardsticks above time the field work alone
-    # launches: those of the SA / PT / variant runs above plus the RL path's
-    # (bench_rl and the two sparse PPO runs) and the problem path's (its
-    # solves and the command line's), each counted by the engine that its
-    # run built, from 0
+    # sweep, a coloured sweep with accept, Philox thresholds, cluster
+    # labels): library_ms is null; the yardsticks above time the field work
+    # alone. launches: those of the SA / PT / variant runs above plus the RL
+    # path's (bench_rl and the two sparse PPO runs), the problem path's (its
+    # solves and the command line's) and the drivers' remaining paths' (the
+    # uninterrupted runs of (a) and (b), the cluster-move runs of (c)), each
+    # the count of its own call
     rl = stats["rl_launches"]
     prob = stats["problem_launches"]
-    print(f"RL path launches: {rl}; problem path launches: {prob}")
+    drv = stats["driver_launches"]
+    print(f"RL path launches: {rl}; problem path launches: {prob}; drivers' "
+          f"paths launches: {drv}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"spinglass_tpu_torch/csrc/{name}.cu",
         "replaces": KERNELS[name],
-        "launches": launches + rl.get(name, 0) + prob.get(name, 0),
+        "launches": (launches + rl.get(name, 0) + prob.get(name, 0)
+                     + drv.get(name, 0)),
         "launches_rl": rl.get(name, 0),
-        "launches_problems": prob.get(name, 0), "max_abs_err": err,
+        "launches_problems": prob.get(name, 0),
+        "launches_drivers": drv.get(name, 0), "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stats["bounds"][name][0],
         "bound_by": stats["bounds"][name][1], "library_ms": None}

@@ -21,8 +21,8 @@ lies on a CUDA device" where it tests for a TPU:
      ``max_colors`` colours: colored sweeps (one matmul per colour);
   3. otherwise, on a CUDA device: the fused K1 kernel (CudaFusedEngine);
   4. otherwise: the blocked sweep in plain PyTorch (BlockedEngine).
-"sparse_compact" (the JAX package's SparseEngine) is not ported yet and
-raises.
+sweep_method="sparse_compact" takes the compact coloured ``SparseEngine``
+(plain PyTorch) on dense and ELL problems alike, as in the JAX package.
 
 Randomness: ``sweep(spins, beta, generator)`` takes the driver's host
 ``torch.Generator`` and draws one seed from it per sweep
@@ -59,9 +59,6 @@ SPARSE_T_MIN_REPLICAS = 128
 # [R, N] engine makes ~280 launches a sweep. PT on the 10k bench graph at 16
 # replicas on the H100 (700 W), ms/sweep in turns: plain 2.4-4.5, K4 0.23-0.44
 SPARSE_T_MIN_REPLICAS_CUDA = 16
-_SPARSE_COMPACT_TODO = ("sweep_method='sparse_compact' (the compact colored "
-                        "SparseEngine) is not ported yet (ROADMAP.md Queue 1 "
-                        "item 10)")
 
 
 def kernel_launches(engine) -> dict:
@@ -207,7 +204,8 @@ def make_engine(problem, *, sweep_method: str = "auto",
     """
     from spinglass_tpu_torch.kernels.sparse import (EllProblem,
                                                     SortedSparseEngine,
-                                                    SortedSparseTEngine)
+                                                    SortedSparseTEngine,
+                                                    SparseEngine)
 
     update_rule = sweep_kernels.canonical_rule(update_rule)
     if use_kernel not in ("auto", "always", "never"):
@@ -224,7 +222,7 @@ def make_engine(problem, *, sweep_method: str = "auto",
         return SortedSparseEngine(p, rule=update_rule)
 
     if sweep_method == "sparse_compact":
-        raise NotImplementedError(_SPARSE_COMPACT_TODO)
+        return SparseEngine(problem, rule=update_rule)
     if isinstance(problem, EllProblem):
         return _sorted(problem)
     n = problem.n_spins

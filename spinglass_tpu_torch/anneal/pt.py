@@ -23,14 +23,20 @@ chosen on the device and only its row is copied back. The kernel engines
 update ``PTState.spins`` in place; ``best_spins`` is always a separate
 tensor.
 
-Not ported yet (they raise): ``cluster_moves > 0`` (needs
-``core/cluster.py``), checkpoint/resume (the JAX ``_run_segmented``) and
-``tune_ladder``.
+``cluster_moves`` > 0 mixes Swendsen-Wang sweeps (``core/cluster.py``) into
+every super-step after its sweeps, at each replica's current temperature;
+on the card the sweep's labelling is the C1 kernel, so the super-step stays
+one captured graph. ``run(checkpoint_dir=...)`` saves the state every
+``checkpoint_every`` replays of the same captured super-step (the JAX
+``_run_segmented``), and ``tune_ladder`` respaces the ladder from pilot
+runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
@@ -40,13 +46,17 @@ import torch
 
 from spinglass_tpu_torch.anneal import graphs
 from spinglass_tpu_torch.anneal.engines import (SweepEngine, best_row,
-                                                kernel_launches,
                                                 launch_counters, make_engine)
 from spinglass_tpu_torch.anneal.result import AnnealResult
+from spinglass_tpu_torch.core import dynamics_analysis as dyn
 from spinglass_tpu_torch.core import energy as energy_ops
+from spinglass_tpu_torch.core.cluster import SwendsenWang
 from spinglass_tpu_torch.core.problem import random_spins
+from spinglass_tpu_torch.core.rng import device_uniforms, host_seed
+from spinglass_tpu_torch.kernels import cluster_cuda
 from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES
-from spinglass_tpu_torch.core.rng import device_uniforms
+from spinglass_tpu_torch.utils.checkpoint import CheckpointManager
+from spinglass_tpu_torch.utils.exceptions import CheckpointError
 
 
 @dataclass(frozen=True)
@@ -261,18 +271,38 @@ def _one_sweep(problem, engine: SweepEngine, state: PTState,
         acc_rate=cnt.to(torch.float32) / problem.n_spins)
 
 
+def _cluster_moves(engine: SweepEngine, sw: SwendsenWang, state: PTState,
+                   betas: torch.Tensor, n_moves: int) -> PTState:
+    """``n_moves`` Swendsen-Wang sweeps at each replica's temperature, on
+    the [R, Np] spins (``from_layout`` and back), then the energies and the
+    best spins as after a sweep."""
+    s_rn = engine.from_layout(state.spins)
+    de = torch.zeros(s_rn.shape[0], dtype=torch.float32, device=s_rn.device)
+    for _ in range(n_moves):
+        s_rn, de_i, _ = sw.sweep(s_rn, betas[state.slot.long()],
+                                 state.generator)
+        de = de + de_i
+    spins = engine.to_layout(s_rn)
+    energy = state.energy + de
+    improved = energy < state.best_energy
+    imp_b = improved[None, :] if engine.layout == "nr" else improved[:, None]
+    return dataclasses.replace(
+        state, spins=spins, energy=energy,
+        best_energy=torch.where(improved, energy, state.best_energy),
+        best_spins=torch.where(imp_b, spins, state.best_spins))
+
+
 def make_pt_step(problem, cfg: PTConfig,
                  ladder_override: Optional[np.ndarray] = None,
                  engine: Optional[SweepEngine] = None
                  ) -> Tuple[Callable, torch.Tensor, SweepEngine]:
-    """The PT super-step: ``exchange_interval`` sweeps, one exchange pass
-    and an exact energy resync. Returns (super_step, betas_ladder, engine);
-    ``super_step(state, betas=None)`` returns (state, stats) with the stats
-    as device tensors. ``engine`` overrides make_engine's choice."""
-    if cfg.cluster_moves > 0:
-        raise NotImplementedError(
-            "PTConfig.cluster_moves > 0 needs core/cluster.py (Swendsen-Wang), "
-            "which is not ported yet (ROADMAP.md Queue 1 item 7)")
+    """The PT super-step: ``exchange_interval`` sweeps, ``cluster_moves``
+    Swendsen-Wang sweeps, one exchange pass and an exact energy resync.
+    Returns (super_step, betas_ladder, engine); ``super_step(state,
+    betas=None)`` returns (state, stats) with the stats as device tensors,
+    and ``super_step.counters`` lists the launch counters of the kernels it
+    runs (the engine's, and C1's with cluster moves). ``engine`` overrides
+    make_engine's choice."""
     if engine is None:
         engine = make_engine(problem, sweep_method=cfg.sweep_method,
                              update_rule=cfg.update_rule,
@@ -283,11 +313,14 @@ def make_pt_step(problem, cfg: PTConfig,
     temps = (np.asarray(ladder_override, np.float32)
              if ladder_override is not None else temperature_ladder(cfg))
     betas_ladder = torch.as_tensor(1.0 / temps, device=problem.device)
+    sw = SwendsenWang(problem) if cfg.cluster_moves > 0 else None
 
     def super_step(state: PTState, betas: Optional[torch.Tensor] = None):
         betas = betas_ladder if betas is None else betas
         for _ in range(cfg.exchange_interval):
             state = _one_sweep(problem, engine, state, betas)
+        if sw is not None:
+            state = _cluster_moves(engine, sw, state, betas, cfg.cluster_moves)
         perm, u = _exchange_draws(cfg, state.generator, betas.device)
         if cfg.exchange_method == "all_pairs":
             state = exchange_step_all_pairs(state, betas, perm, u,
@@ -312,6 +345,9 @@ def make_pt_step(problem, cfg: PTConfig,
         }
         return state, stats
 
+    super_step.counters = launch_counters(engine) + (
+        [(cluster_cuda.KERNEL_NAME, sw.labeller, "launches")] if sw else [])
+    super_step.sw = sw
     return super_step, betas_ladder, engine
 
 
@@ -328,8 +364,14 @@ def capture_super_step(super_step: Callable, engine, state: PTState,
     them in the step's ``history`` (each stat with a leading [record]
     axis)."""
     state = graphs.device_counter(state)
+    counters = getattr(super_step, "counters", None)
     return graphs.CapturedStep(super_step, state, state.generator,
-                               launch_counters(engine), record=record)
+                               launch_counters(engine) if counters is None
+                               else counters, record=record)
+
+
+def _counts(counters) -> dict:
+    return {name: getattr(obj, attr) for name, obj, attr in counters}
 
 
 def run(problem, cfg: Optional[PTConfig] = None,
@@ -342,22 +384,27 @@ def run(problem, cfg: Optional[PTConfig] = None,
     JAX ``run_all``, as the captured super-step (``capture_super_step``)
     replayed n_super times with no read in between. ``ladder_override``: an
     explicit temperature ladder instead of the config's spacing.
-    Checkpoint/resume is not ported yet and raises.
+
+    ``checkpoint_dir`` (the JAX ``_run_segmented``): after every
+    ``checkpoint_every`` replays the state and the run's generator are saved
+    as ``ckpt_{super-steps}.pt`` and the history rows so far as
+    ``history.npz``, with the engine's name, ``sweep_method``,
+    ``update_rule`` and state dtype in ``engine_meta.json``; ``resume=True``
+    loads the latest checkpoint, the history rows up to it and the row
+    counter into the captured step and replays the rest. The same captured
+    step serves both, and a resumed run equals the uninterrupted one bit
+    for bit.
 
     The engine and the captured super-step are kept per (problem object,
-    config without its seed) (``graphs.PT_CACHE``, ``graphs.config_key``); the ladder is copied into the cached
-    step's beta tensor at every call, as the JAX run takes it as an
-    argument. ``total_time`` is the JAX ``run_all``'s window: the start
-    state, the replays and the final read, plus the capture on the first
-    call (where the JAX package compiles; ``capture_seconds`` in the
-    metadata). ``kernel_launches`` are this call's."""
+    config without its seed) (``graphs.PT_CACHE``, ``graphs.config_key``);
+    the ladder is copied into the cached step's beta tensor at every call,
+    as the JAX run takes it as an argument. ``total_time`` is the JAX
+    ``run_all``'s window: the start state, the replays and the final read,
+    plus the capture on the first call (where the JAX package compiles;
+    ``capture_seconds`` in the metadata) and the checkpoints.
+    ``kernel_launches`` are this call's."""
     if resume and checkpoint_dir is None:
         raise ValueError("resume=True requires checkpoint_dir")
-    if checkpoint_dir is not None:
-        raise NotImplementedError("PT checkpoint/resume (segmented runs) is "
-                                  "not ported yet: it needs utils/checkpoint.py "
-                                  "(ROADMAP.md Queue 1 item 5)")
-    del checkpoint_every
     cfg = cfg or PTConfig()
     n_super = max(1, cfg.n_sweeps // cfg.exchange_interval)
     key = ("run", graphs.config_key(cfg))
@@ -365,12 +412,14 @@ def run(problem, cfg: Optional[PTConfig] = None,
     if entry is None:
         super_step, betas_ladder, engine = make_pt_step(problem, cfg,
                                                         ladder_override)
+        counters = super_step.counters
     else:
         betas_ladder, engine, step = entry
         temps = (np.asarray(ladder_override, np.float32)
                  if ladder_override is not None else temperature_ladder(cfg))
         betas_ladder.copy_(torch.as_tensor(1.0 / temps))
-    launches0 = kernel_launches(engine)
+        counters = step.counters
+    launches0 = _counts(counters)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     _sync(problem.device)
@@ -384,8 +433,12 @@ def run(problem, cfg: Optional[PTConfig] = None,
     else:
         step.load(graphs.device_counter(state))
         capture_s = 0.0
-    for _ in range(n_super):
-        step.replay(generator)
+    if checkpoint_dir is None:
+        for _ in range(n_super):
+            step.replay(generator)
+    else:
+        _run_segmented(step, engine, cfg, generator, checkpoint_dir,
+                       checkpoint_every, resume, n_super)
     state = step.state
     best_r = torch.argmin(state.best_energy)
     dev_out = {
@@ -402,12 +455,77 @@ def run(problem, cfg: Optional[PTConfig] = None,
                    for k, v in step.history.items()}
     _sync(problem.device)
     total = time.perf_counter() - t0
-    launches = kernel_launches(engine)
+    launches = _counts(counters)
     res = _assemble_result(problem, cfg, out, betas_ladder, n_super, total,
                            engine, {k: v - launches0.get(k, 0)
                                     for k, v in launches.items()})
     res.metadata["capture_seconds"] = capture_s
     return res
+
+
+def _run_segmented(step: graphs.CapturedStep, engine, cfg: PTConfig,
+                   generator: torch.Generator, checkpoint_dir: str,
+                   checkpoint_every: int, resume: bool, n_super: int) -> None:
+    """The checkpointed replays of ``run`` on the loaded captured ``step``
+    (its static state holds the run's start state)."""
+    mgr = CheckpointManager(checkpoint_dir, every=1)
+    # the engine and its state dtype decide the layout of the saved state
+    # (float32 [NS, R] under K2, int8 under K4): record them, and refuse a
+    # resume under another with advice rather than a shape error
+    meta = {"engine": engine.name, "sweep_method": cfg.sweep_method,
+            "update_rule": cfg.update_rule,
+            "spin_dtype": str(step.state.spins.dtype)}
+    meta_path = os.path.join(checkpoint_dir, "engine_meta.json")
+    # resume keeps an existing (matching) sidecar; a fresh run writes its
+    # own on its first save, since it overwrites the checkpoints
+    wrote_meta = resume and os.path.exists(meta_path)
+    if resume and os.path.exists(meta_path):
+        with open(meta_path) as f:
+            saved = json.load(f)
+        saved_engine = saved.get("engine")
+        saved_dtype = saved.get("spin_dtype", meta["spin_dtype"])
+        if saved_engine != engine.name or saved_dtype != meta["spin_dtype"]:
+            raise CheckpointError(
+                f"checkpoint in {checkpoint_dir} was written by engine "
+                f"'{saved_engine}' (spin dtype {saved_dtype!r}) but the "
+                f"current dispatch picked '{engine.name}' (spin dtype "
+                f"{meta['spin_dtype']!r}) — different state layout. Pin "
+                f"PTConfig(sweep_method=...) (and on the card the engine's "
+                f"accept_kernel) to the original configuration to resume, "
+                f"or point checkpoint_dir at a fresh directory.")
+    hist_path = os.path.join(checkpoint_dir, "history.npz")
+    done = 0
+    if resume:
+        restored = mgr.restore_latest(
+            {"state": dataclasses.replace(step.state, generator=generator),
+             "done_super": np.int64(0)})
+        if restored is not None:
+            step.load(restored["state"])
+            generator.set_state(restored["state"].generator.get_state())
+            done = int(restored["done_super"])
+            # the history on disk can be ahead of the restored state (a
+            # crash between its write and the state's save, or a deleted
+            # checkpoint): keep its first `done` rows only
+            if os.path.exists(hist_path):
+                with np.load(hist_path) as z:
+                    for k, h in step.history.items():
+                        h[:done].copy_(torch.as_tensor(z[k][:done]))
+            step.row.fill_(done % n_super)
+    while done < n_super:
+        n_steps = min(checkpoint_every, n_super - done)
+        for _ in range(n_steps):
+            step.replay(generator)
+        done += n_steps
+        np.savez_compressed(hist_path, **{
+            k: h[:done].to("cpu", copy=True).numpy()
+            for k, h in step.history.items()})
+        mgr.maybe_save(done, {
+            "state": dataclasses.replace(step.state, generator=generator),
+            "done_super": np.int64(done)})
+        if not wrote_meta:
+            with open(meta_path, "w") as f:
+                json.dump(meta, f)
+            wrote_meta = True
 
 
 def _assemble_result(problem, cfg: PTConfig, out: dict, betas_ladder,
@@ -454,11 +572,69 @@ def _assemble_result(problem, cfg: PTConfig, out: dict, betas_ladder,
 
 
 def tune_ladder(problem, cfg: PTConfig, n_pilot_sweeps: int = 200,
-                n_iters: int = 2, generator=None):
-    """Feedback-optimised temperature ladder: not ported yet."""
-    raise NotImplementedError("tune_ladder is not ported yet (it needs "
-                              "core/dynamics_analysis.py, ROADMAP.md Queue 1 "
-                              "item 6)")
+                n_iters: int = 2, generator: Optional[torch.Generator] = None):
+    """Feedback-optimised temperature ladder (the JAX ``tune_ladder``).
+
+    Short pilot runs (``run`` with ``ladder_override``) measure the mean
+    energy per ladder slot, and the inverse temperatures are respaced so
+    that the predicted pairwise acceptance, log p ~ -(dbeta)^2 |E'(beta)|, is
+    equal across pairs: equal increments of M(beta) = int sqrt(|E'(beta)|)
+    dbeta. Each iteration re-measures on the improved ladder. A pilot counts
+    only once its coldest slot's energy series passes the two-window
+    equilibration test (``dynamics_analysis.is_equilibrated``); until then
+    it doubles, up to 3 tries. The pilots of an iteration start from one
+    generator state, and the generator (seeded ``cfg.seed + 1`` by default)
+    moves on by one draw per iteration, as the JAX key splits.
+
+    Each pilot length is a configuration of its own, so its first run
+    captures a super-step (``graphs.PT_CACHE``). Returns (temperatures
+    sorted ascending like ``temperature_ladder``, diagnostics)."""
+    cfg_pilot = dataclasses.replace(cfg, n_sweeps=n_pilot_sweeps)
+    temps = temperature_ladder(cfg)                      # ascending (cold->hot)
+    diag = {"iterations": []}
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed + 1)
+    for _ in range(n_iters):
+        betas = 1.0 / temps
+        start = generator.get_state()
+        pilot = cfg_pilot
+        for _attempt in range(3):
+            used_sweeps = pilot.n_sweeps
+            res = run(problem, pilot,
+                      generator=torch.Generator().set_state(start),
+                      ladder_override=temps)
+            e_hist = np.asarray(res.metadata["slot_energy_history"])
+            cold_tail = e_hist[e_hist.shape[0] // 2:, 0]
+            if len(cold_tail) >= 8 and dyn.is_equilibrated(cold_tail):
+                break
+            pilot = dataclasses.replace(pilot, n_sweeps=pilot.n_sweeps * 2)
+        diag.setdefault("pilot_sweeps", []).append(used_sweeps)
+        host_seed(generator)
+        e_slot = np.asarray(res.metadata["slot_energy"])  # [R] cold -> hot
+        rates = np.asarray(res.metadata["exchange_rates"])
+        # energy is monotone in T; enforce it for stability
+        e_slot = np.maximum.accumulate(e_slot)
+        # equal acceptance <=> equal increments of M(beta): interpolate E on
+        # a fine beta grid, integrate the measure, place betas at equal M
+        b_nodes = betas[::-1]                # ascending (hot -> cold beta)
+        e_nodes = e_slot[::-1]
+        b_fine = np.linspace(b_nodes[0], b_nodes[-1], 1024)
+        e_fine = np.interp(b_fine, b_nodes, e_nodes)
+        e_prime = np.abs(np.gradient(e_fine, b_fine)) + 1e-12
+        mu = np.sqrt(e_prime)
+        m_cum = np.concatenate(
+            [[0.0], np.cumsum(0.5 * (mu[1:] + mu[:-1]) * np.diff(b_fine))])
+        m_targets = np.linspace(0.0, m_cum[-1], len(temps))
+        new_betas = np.interp(m_targets, m_cum, b_fine)
+        new_betas[0], new_betas[-1] = b_nodes[0], b_nodes[-1]
+        temps = np.sort(1.0 / new_betas).astype(np.float32)
+        diag["iterations"].append({
+            "exchange_rates": rates.tolist(),
+            "rate_spread": float(rates.max() - rates.min()) if rates.size
+            else 0.0,
+            "temps": temps.tolist(),
+        })
+    return temps, diag
 
 
 def exchange_rate_summary(result: AnnealResult) -> dict:

@@ -20,6 +20,13 @@ engines (K1, and K2 for sparse problems) update ``SAState.spins`` in place;
 
 Early stopping: relative std of the last 20 recorded best energies below
 ``convergence_tolerance``, checked between chunks.
+
+Checkpoint/resume (``anneal(checkpoint_dir=..., resume=...)``): the state
+(the captured chunk's static tensors, its device sweep counter and the
+schedule included), the run's generator, the four histories and the sweeps
+done are saved every ``checkpoint_every`` chunks (``utils.checkpoint``).
+Every draw of a run comes from its one host generator, so a resumed run
+equals the uninterrupted run bit for bit.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.anneal.schedules import ScheduleConfig, ScheduleState
 from spinglass_tpu_torch.core.problem import IsingProblem, random_spins
 from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES
+from spinglass_tpu_torch.utils.checkpoint import CheckpointManager
 
 
 @dataclass(frozen=True)
@@ -197,6 +205,19 @@ def _chunk_lengths(config: SAConfig) -> list:
             if n > 0]
 
 
+HIST_KEYS = ("e", "me", "t", "a")   # a checkpoint's four histories
+
+
+def _ckpt_tree(state: SAState, generator: torch.Generator, hists: dict,
+               sweeps_done: int) -> dict:
+    """What a checkpoint holds: the state with the run's generator (the
+    static state's own may be an earlier run's), the histories as float32
+    arrays and the sweeps done."""
+    return {"state": dataclasses.replace(state, generator=generator),
+            "hist": {k: np.asarray(v, np.float32) for k, v in hists.items()},
+            "sweeps_done": np.int64(sweeps_done)}
+
+
 def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
            generator: Optional[torch.Generator] = None,
            init_spins: Optional[torch.Tensor] = None,
@@ -209,8 +230,13 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
     chunk (``capture_chunk``; a shorter last chunk has a graph of its own),
     and the host reads the device once per chunk: the four history values,
     through a pinned buffer. The best replica is picked on the device and
-    only its row is copied to the host. Checkpoint/resume is not ported yet
-    and raises.
+    only its row is copied to the host.
+
+    ``checkpoint_dir`` saves (state, generator, histories, sweeps done) every
+    ``checkpoint_every`` chunks as ``ckpt_{chunks}.pt``; ``resume=True``
+    loads the latest checkpoint there into the captured chunk, sets the
+    run's generator to its state and runs the chunks that remain: the result
+    equals the uninterrupted run's bit for bit.
 
     The engine and the captured chunks are kept per (problem object,
     config without its seed) (``graphs.SA_CACHE``, ``graphs.config_key``):
@@ -221,11 +247,6 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
     there too), on a repeat call there is none (``capture_seconds`` in the
     metadata says what it took). ``kernel_launches`` are this call's.
     """
-    if checkpoint_dir is not None or resume:
-        raise NotImplementedError(
-            "SA checkpoint/resume is not ported yet: it needs "
-            "utils/checkpoint.py (ROADMAP.md Queue 1 item 5)")
-    del checkpoint_every
     config = config or SAConfig()
     lengths = _chunk_lengths(config)
     key = ("anneal", graphs.config_key(config))
@@ -255,13 +276,30 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
         if steps:   # all on one state
             steps[lengths[0]].load(graphs.device_counter(state))
             state = steps[lengths[0]].state
-    for n in lengths:
+    mgr = None
+    if checkpoint_dir is not None:
+        mgr = CheckpointManager(checkpoint_dir, every=checkpoint_every)
+        if resume:
+            restored = mgr.restore_latest(_ckpt_tree(
+                state, generator, {k: np.zeros(0) for k in HIST_KEYS}, 0))
+            if restored is not None:
+                steps[lengths[0]].load(restored["state"])
+                generator.set_state(restored["state"].generator.get_state())
+                hist = restored["hist"]
+                e_hist, me_hist, t_hist, a_hist = (
+                    hist[k].tolist() for k in HIST_KEYS)
+                sweeps_done = int(restored["sweeps_done"])
+    for n in lengths[len(e_hist):]:
         e, me, t, a = read([steps[n].replay(generator)])[0].tolist()
         sweeps_done += n
         e_hist.append(e)
         me_hist.append(me)
         t_hist.append(t)
         a_hist.append(a)
+        if mgr is not None:
+            mgr.maybe_save(len(e_hist), _ckpt_tree(
+                state, generator, {"e": e_hist, "me": me_hist, "t": t_hist,
+                                   "a": a_hist}, sweeps_done))
         if config.enable_early_stop and len(e_hist) >= 20:
             tail = np.asarray(e_hist[-20:])
             denom = max(abs(float(np.mean(tail))), 1e-10)

@@ -275,6 +275,7 @@ KERNEL_SYMBOLS = {
     "sparse_sweep": ("sparse_sweep_kernel",),
     "sparse_thresholds": ("sparse_thresholds_kernel",),
     "sparse_accept": ("sparse_accept_kernel",),
+    "sw_labels": ("sw_labels_kernel",),
 }
 
 
@@ -402,7 +403,8 @@ def _pt_steppers(ell, cfg, engine, super_steps: int, read_each: bool) -> dict:
     runs of ``super_steps`` PT super-steps on states of their own; with
     ``read_each`` each super-step is followed by the 4-byte read of the best
     energy (the TTT loop), else one read ends the run (``pt.run``). Also
-    the engine."""
+    the engine and the super-step's launch counters (C1's too, with cluster
+    moves)."""
     from spinglass_tpu_torch.anneal import graphs
     from spinglass_tpu_torch.anneal import pt as pt_mod
 
@@ -412,6 +414,7 @@ def _pt_steppers(ell, cfg, engine, super_steps: int, read_each: bool) -> dict:
         st, stats = super_step(st)
         return st, stats["best_energy"]
 
+    best_of.counters = super_step.counters
     state = None   # the plain run's, made at its first call
     captured = pt_mod.capture_super_step(best_of, engine, pt_mod.init_state(
         ell, cfg, torch.Generator().manual_seed(SEED), engine))
@@ -435,7 +438,8 @@ def _pt_steppers(ell, cfg, engine, super_steps: int, read_each: bool) -> dict:
                 read([best])
         read([best])
 
-    return {"plain": plain, "captured": replayed, "engine": engine}
+    return {"plain": plain, "captured": replayed, "engine": engine,
+            "counters": super_step.counters}
 
 
 def profile_ttt(super_steps: int = 20, top: int = 8) -> dict:

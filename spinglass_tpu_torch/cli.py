@@ -10,11 +10,10 @@ set (``maybe_start_server_from_env``), which waits for
 ``utils/metrics_exporter``; the commands ``benchmark``, ``health``,
 ``train-rl``, ``monitor``, ``autoscale``, ``quality-gates``, ``bench`` and
 ``cache-stats`` and the interactive shell wait for the modules they drive
-(ROADMAP.md Queue 1). Options that need a module not ported yet
-(``--tune-ladder``, ``--cluster-moves`` > 0, ``--checkpoint-dir`` /
-``--resume``, ``--sweep-method sparse_compact``) reach the driver, whose
-``NotImplementedError`` names what is missing and ends the command with
-exit status 1.
+(ROADMAP.md Queue 1). Every option of the JAX ``solve`` command runs:
+``--tune-ladder`` (``pt.tune_ladder``), ``--cluster-moves`` (Swendsen-Wang
+in the PT super-step), ``--checkpoint-dir`` / ``--resume`` (both drivers)
+and ``--sweep-method sparse_compact``.
 """
 
 from __future__ import annotations
@@ -84,17 +83,17 @@ def _make_problem(problem: str, size: int, seed: int, device=None):
 @click.option("-o", "--output", default=None, help="save solution JSON")
 @click.option("--tune-ladder", is_flag=True,
               help="PT only: feedback-optimize the temperature ladder with a "
-                   "pilot run before the main anneal (not ported yet)")
+                   "pilot run before the main anneal")
 @click.option("--exchange-method", default="nearest_neighbor",
               type=click.Choice(["nearest_neighbor", "all_pairs"]),
               help="PT replica-exchange pairing")
 @click.option("--chains", default=1, help="PT: independent chains batched "
                                           "together")
 @click.option("--cluster-moves", default=0,
-              help="PT: Swendsen-Wang sweeps mixed in per exchange interval "
-                   "(not ported yet)")
+              help="PT: Swendsen-Wang sweeps mixed in per exchange interval")
 @click.option("--checkpoint-dir", default=None,
-              help="periodic state checkpoints (not ported yet)")
+              help="periodic state checkpoints; with --resume continues a "
+                   "killed run exactly")
 @click.option("--resume", is_flag=True)
 @click.option("--sweep-method", default="auto",
               type=click.Choice(["auto", "colored", "blocked", "sparse",

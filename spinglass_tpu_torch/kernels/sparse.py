@@ -11,7 +11,7 @@ fields become a gather and a K-reduction
 Sweeps are coloured: a greedy colouring of a sparse graph needs at most
 max_degree + 1 colours, and each colour updates at once, exactly.
 
-Two engines (``anneal.engines.make_engine`` picks):
+Three engines (``anneal.engines.make_engine`` picks):
 
 * ``SortedSparseTEngine`` (layout "nr", spins [NS, R] in a colour-sorted
   order): on a CUDA device it runs the whole sweep in the K2 kernel when the
@@ -27,6 +27,10 @@ Two engines (``anneal.engines.make_engine`` picks):
 * ``SortedSparseEngine`` (layout "rn", spins [R, Np]): the per-colour sweep
   in plain PyTorch, for narrow replica counts and CPU problems. It has no
   kernel in the JAX package either.
+* ``SparseEngine`` (layout "rn", name "sparse_colored"): the JAX package's
+  compact coloured sweep (each colour gathers only its own spins' ELL rows)
+  in plain PyTorch, for ``sweep_method="sparse_compact"``; its JAX
+  counterpart runs through XLA, with no Pallas kernel.
 
 The host-side layout functions (``build_ell``, ``build_sorted_buckets``,
 ``build_sorted_t``, ``build_single_tables``) are numpy, and give the JAX
@@ -48,7 +52,9 @@ from spinglass_tpu_torch.core.problem import (IsingProblem, resolve_device,
                                               round_up)
 from spinglass_tpu_torch.kernels.sparse_cuda import SparseKernels
 from spinglass_tpu_torch.core.rng import device_uniforms, draw_seed
-from spinglass_tpu_torch.kernels.sweeps import accept_threshold, canonical_rule
+from spinglass_tpu_torch.kernels.sweeps import (accept_threshold,
+                                                canonical_rule,
+                                                color_masks_from_colors)
 
 KS_BLOCK = 256  # the TPU kernel streamed its per-step degree table in
 # blocks of this many steps; build_single_tables pads ks to it, as JAX does
@@ -175,26 +181,28 @@ def sparse_energy(ell: EllProblem, spins: torch.Tensor) -> torch.Tensor:
     return -0.5 * torch.sum(s32 * f_j, dim=-1) - torch.sum(s32 * ell.h, dim=-1)
 
 
-def _coloring(ell: EllProblem, max_colors: int) -> np.ndarray:
-    """Balanced greedy colouring of an EllProblem's coupling graph."""
+def _coloring(ell: EllProblem, max_colors: int,
+              balanced: bool = True) -> np.ndarray:
+    """Greedy colouring (balanced by default) of an EllProblem's coupling
+    graph."""
     idx = ell.idx.cpu().numpy()
     val = ell.val.cpu().numpy()
     rows_l, cols_l = np.nonzero(val)
     return topology.greedy_coloring_coo(
         rows_l.astype(np.int64), idx[rows_l, cols_l].astype(np.int64),
-        ell.n_spins, max_colors=max_colors, balanced=True)
+        ell.n_spins, max_colors=max_colors, balanced=balanced)
 
 
-def _ell_and_colors(problem, max_colors: int):
+def _ell_and_colors(problem, max_colors: int, balanced: bool = True):
     if isinstance(problem, EllProblem):
-        return problem, _coloring(problem, max_colors)
+        return problem, _coloring(problem, max_colors, balanced)
     ell = EllProblem.from_problem(problem)
     n = problem.n_spins
     j_np = problem.j[:n, :n].cpu().numpy()
     rows, cols = (a.astype(np.int64) for a in np.nonzero(j_np))
     return ell, topology.greedy_coloring_coo(rows, cols, n,
                                              max_colors=max_colors,
-                                             balanced=True)
+                                             balanced=balanced)
 
 
 def _split_by_degree(cl, degs, n_buckets: int):
@@ -784,3 +792,141 @@ class SortedSparseEngine:
         layout: sorted position p consumes uniforms[:, p])."""
         return self._sweep(spins, beta, uniforms_sorted)
 
+
+
+# ---------------------------------------------------------------------------
+# Coloured sweeps in the [R, Np] layout, and the compact engine
+# ---------------------------------------------------------------------------
+
+def sparse_colored_sweep(ell: EllProblem, color_masks: torch.Tensor,
+                         spins: torch.Tensor, beta, uniforms: torch.Tensor,
+                         rule: str = "metropolis"):
+    """One exact coloured sweep with sparse fields: per colour (masks [C,
+    Np]) the fields of all spins, then the accept of that colour's.
+    spins [R, Np], uniforms [R, Np]; returns (spins, dE[R], n_accepted[R])."""
+    r = spins.shape[0]
+    beta = torch.broadcast_to(torch.as_tensor(beta, dtype=torch.float32,
+                                              device=spins.device), (r,))
+    active = ell.active_mask > 0
+    th = accept_threshold(uniforms, beta[:, None], rule)
+    de = torch.zeros(r, dtype=torch.float32, device=spins.device)
+    cnt = torch.zeros(r, dtype=torch.int32, device=spins.device)
+    for mask in color_masks:
+        sf = spins.to(torch.float32) * sparse_local_fields(ell, spins)
+        acc = (sf < th) & (mask > 0)[None, :] & active[None, :]
+        spins = torch.where(acc, -spins, spins)
+        de = de + 2.0 * torch.sum(torch.where(acc, sf, 0.0), dim=-1)
+        cnt = cnt + torch.sum(acc, dim=-1, dtype=torch.int32)
+    return spins, de, cnt
+
+
+@dataclass(frozen=True)
+class ColorGroups:
+    """Per-colour compacted operands, padded to the largest class size M:
+    nodes [C, M] int64 spin indices (0 on padding, masked), nmask [C, M],
+    idx [C, M, K] neighbour indices (int64), val [C, M, K], h [C, M]."""
+
+    nodes: torch.Tensor
+    nmask: torch.Tensor
+    idx: torch.Tensor
+    val: torch.Tensor
+    h: torch.Tensor
+
+
+def build_color_groups(ell: EllProblem, colors: np.ndarray) -> ColorGroups:
+    """The per-colour gathered operands (host side, once), on the ELL
+    problem's device: each colour's pass gathers only its own spins' rows,
+    ~N*K per sweep where the mask sweep gathers C*N*K."""
+    colors = np.asarray(colors)
+    c_count = int(colors.max()) + 1 if colors.size else 1
+    idx_np = ell.idx.cpu().numpy()
+    val_np = ell.val.cpu().numpy()
+    h_np = ell.h.cpu().numpy()
+    classes = [np.nonzero(colors == c)[0] for c in range(c_count)]
+    m = max(len(cl) for cl in classes)
+    nodes = np.zeros((c_count, m), np.int64)
+    nmask = np.zeros((c_count, m), np.float32)
+    for c, cl in enumerate(classes):
+        nodes[c, : len(cl)] = cl
+        nmask[c, : len(cl)] = 1.0
+    dev = ell.device
+    return ColorGroups(
+        nodes=torch.as_tensor(nodes, device=dev),
+        nmask=torch.as_tensor(nmask, device=dev),
+        idx=torch.as_tensor(idx_np[nodes].astype(np.int64), device=dev),
+        val=torch.as_tensor(val_np[nodes].astype(np.float32), device=dev),
+        h=torch.as_tensor(h_np[nodes].astype(np.float32), device=dev))
+
+
+def sparse_colored_sweep_compact(groups: ColorGroups, spins: torch.Tensor,
+                                 beta, uniforms: torch.Tensor,
+                                 rule: str = "metropolis"):
+    """Exact coloured sweep, decision-identical to ``sparse_colored_sweep``
+    under the same uniforms and colouring, gathering only each colour's M
+    spins per pass. Flips land as an added ds = -2s (padding adds 0, so the
+    repeated padding index is harmless). spins [R, Np] (spin i consumes
+    uniforms[:, i]); returns (spins, dE[R], n_accepted[R])."""
+    r = spins.shape[0]
+    beta = torch.broadcast_to(torch.as_tensor(beta, dtype=torch.float32,
+                                              device=spins.device), (r,))
+    th = accept_threshold(uniforms, beta[:, None], rule)
+    de = torch.zeros(r, dtype=torch.float32, device=spins.device)
+    cnt = torch.zeros(r, dtype=torch.int32, device=spins.device)
+    for nodes, nmask, idx_c, val_c, h_c in zip(groups.nodes, groups.nmask,
+                                               groups.idx, groups.val,
+                                               groups.h):
+        f = torch.sum(spins[:, idx_c] * val_c, dim=-1) + h_c[None, :]
+        s_c = spins[:, nodes]
+        sf = s_c.to(torch.float32) * f
+        acc = (sf < th[:, nodes]) & (nmask > 0)[None, :]
+        ds = torch.where(acc, -2.0 * s_c, torch.zeros_like(s_c))
+        spins = spins.index_add(1, nodes, ds)
+        de = de + 2.0 * torch.sum(torch.where(acc, sf, 0.0), dim=-1)
+        cnt = cnt + torch.sum(acc, dim=-1, dtype=torch.int32)
+    return spins, de, cnt
+
+
+class SparseEngine:
+    """The JAX package's compact coloured engine over ELL problems (name
+    "sparse_colored", layout "rn"): a greedy colouring, balanced when
+    ``compact`` (its per-colour operands are padded to the largest class),
+    and ``sparse_colored_sweep_compact`` (``compact=False``: the mask sweep
+    ``sparse_colored_sweep``). Plain PyTorch on every device: the JAX
+    package has no Pallas kernel for it either. ``make_engine`` returns it
+    for ``sweep_method="sparse_compact"``."""
+
+    layout = "rn"
+    name = "sparse_colored"
+
+    def __init__(self, problem, rule: str = "metropolis",
+                 max_colors: int = 256, compact: bool = True):
+        self.problem = problem
+        self.rule = canonical_rule(rule)
+        self.ell, colors = _ell_and_colors(problem, max_colors,
+                                           balanced=compact)
+        self.n_colors = int(colors.max()) + 1 if colors.size else 1
+        self.masks = color_masks_from_colors(colors, problem.n_padded,
+                                             device=self.ell.device)
+        self.compact = compact
+        self.groups = build_color_groups(self.ell, colors) if compact else None
+
+    def energy(self, spins: torch.Tensor) -> torch.Tensor:
+        return sparse_energy(self.ell, spins)
+
+    def to_layout(self, spins_rn: torch.Tensor) -> torch.Tensor:
+        return spins_rn.clone(memory_format=torch.contiguous_format)
+
+    def from_layout(self, spins: torch.Tensor) -> torch.Tensor:
+        return spins
+
+    def sweep(self, spins, beta, generator: torch.Generator):
+        return self.sweep_with_uniforms(
+            spins, beta, device_uniforms(generator, spins.shape, spins.device))
+
+    def sweep_with_uniforms(self, spins, beta, uniforms):
+        """One sweep on the caller's uniforms [R, Np]."""
+        if self.compact:
+            return sparse_colored_sweep_compact(self.groups, spins, beta,
+                                                uniforms, rule=self.rule)
+        return sparse_colored_sweep(self.ell, self.masks, spins, beta,
+                                    uniforms, rule=self.rule)

@@ -843,3 +843,143 @@ def test_benchmark_trials_equal_fresh_calls_on_the_card(cuda):
                                       fresh.replica_best_energy)
         assert res.metadata["kernel_launches"] == \
             fresh.metadata["kernel_launches"] == {MC.KERNEL_NAME: 100}
+
+
+def _sw_bond_sets(ell, r, cuda, case):
+    """(idx, bond, init) of one SW sweep's labelling on ``ell`` at ``r``
+    replicas, or an adversarial bond set at the same shape."""
+    from spinglass_tpu_torch.core.cluster import SwendsenWang
+
+    sw = SwendsenWang(ell)
+    got = {}
+    real = sw.labeller
+
+    def spy(idx, bond, init):
+        got.update(idx=idx, bond=bond.clone(), init=init.clone())
+        return real(idx, bond, init)
+
+    gen = torch.Generator().manual_seed(r)
+    s = torch.where(torch.rand(r, ell.n_padded, generator=gen) < 0.5, -1.0,
+                    1.0).to(cuda)
+    sw.labeller = spy
+    sw.sweep(s, torch.linspace(0.2, 1.5, r, device=cuda), gen)
+    idx, bond, init = got["idx"], got["bond"], got["init"]
+    if case == "all":
+        bond = ell.val[None].expand_as(bond) != 0
+    elif case == "none":
+        bond = torch.zeros_like(bond)
+    elif case == "path":   # one long path through shuffled indices
+        n = ell.n_spins
+        order = torch.randperm(n, generator=gen)
+        idx = torch.arange(ell.n_padded, dtype=torch.int32)[:, None].repeat(
+            1, idx.shape[1])
+        bond = torch.zeros(bond.shape, dtype=torch.bool)
+        for a, b in zip(order[:-1].tolist(), order[1:].tolist()):
+            idx[a, 0], bond[:, a, 0] = b, True
+            idx[b, 1], bond[:, b, 1] = a, True
+        idx, bond = idx.to(cuda), bond.to(cuda)
+        init = torch.where(ell.active_mask[None] > 0,
+                           torch.arange(ell.n_padded, dtype=torch.int32,
+                                        device=cuda)[None],
+                           ell.n_padded).to(torch.int32).expand(r, -1)
+    return idx.contiguous(), bond.contiguous(), init.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,case", [(16, "sweep"), (128, "sweep"),
+                                    (16, "all"), (16, "none"), (2, "path")])
+def test_sw_labels_kernel_matches_plain_labels(cuda, r, case):
+    """C1 against the JAX loop in PyTorch (on CPU copies of the same
+    inputs): labels bit for bit, its rounds within the cap."""
+    from spinglass_tpu_torch.kernels import cluster_cuda as CC
+
+    ell = _pm_j_ell(3000, 5, cuda)
+    idx, bond, init = _sw_bond_sets(ell, r, cuda, case)
+    c1 = CC.ClusterLabels()
+    labels, rounds = c1(idx, bond, init)
+    torch.cuda.synchronize()
+    want, plain_rounds = CC.labels_reference(idx.cpu(), bond.cpu(), init.cpu())
+    assert torch.equal(labels.cpu(), want) and c1.launches == 1
+    assert (rounds.cpu() >= 1).all() and (rounds.cpu() <= ell.n_padded).all()
+    assert int(rounds.max()) <= plain_rounds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["K1", "K4", "K2"])
+def test_resumed_run_on_the_card_equals_uninterrupted(cuda, kind, tmp_path):
+    """SA through K1 and PT through K4 (16 replicas) and K2 (128), each
+    checkpointed, cut back to its first checkpoint and resumed: every
+    result array equals the uninterrupted run's bit for bit, and the
+    kernel's launches of the two calls add up to the uninterrupted ones."""
+    import os
+
+    from spinglass_tpu_torch.anneal import pt, sa
+
+    d = str(tmp_path / "ck")
+    if kind == "K1":
+        p = IsingProblem.from_dense(
+            topology.fully_connected(600, dist="binary", seed=2), device=cuda)
+        cfg = sa.SAConfig(n_sweeps=95, n_replicas=64, record_interval=10,
+                          enable_early_stop=False, seed=3)
+        run = lambda **kw: sa.anneal(p, cfg, **kw)  # noqa: E731
+        key, every = MC.KERNEL_NAME, 2
+    else:
+        p = _pm_j_ell(2000, 8, cuda)
+        cfg = pt.PTConfig(n_replicas=16 if kind == "K4" else 128,
+                          n_sweeps=200, exchange_interval=10, seed=3)
+        run = lambda **kw: pt.run(p, cfg, **kw)  # noqa: E731
+        key = "sparse_accept" if kind == "K4" else "sparse_sweep"
+        every = 4
+    ref = run()
+    full = run(checkpoint_dir=d, checkpoint_every=every)
+    steps = sorted(int(f[5:-3]) for f in os.listdir(d) if f.startswith("ckpt_"))
+    for s in steps[1:]:
+        os.remove(os.path.join(d, f"ckpt_{s}.pt"))
+    res = run(checkpoint_dir=d, checkpoint_every=every, resume=True)
+    for r in (full, res):
+        for name in ("best_spins", "replica_best_energy", "energy_history",
+                     "mean_energy_history", "acceptance_history"):
+            np.testing.assert_array_equal(getattr(r, name), getattr(ref, name))
+    assert full.metadata["kernel_launches"] == ref.metadata["kernel_launches"]
+    saved = torch.load(os.path.join(d, f"ckpt_{steps[0]}.pt"),
+                       weights_only=True)
+    done = (int(saved["/sweeps_done"]) if kind == "K1"
+            else int(saved["/done_super"]) * cfg.exchange_interval)
+    assert 0 < done < ref.n_sweeps
+    per_sweep = ref.metadata["kernel_launches"][key] // ref.n_sweeps
+    assert res.metadata["kernel_launches"][key] == \
+        (ref.n_sweeps - done) * per_sweep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [16, 128])
+def test_captured_cluster_move_super_step_equals_eager(cuda, replicas):
+    """pt.run with cluster_moves=1 (K4 or K2, and C1 once per super-step)
+    against the eager super-step loop under one seed, bit for bit; the
+    replays make no host sync."""
+    from spinglass_tpu_torch.anneal import graphs, pt
+
+    ell = _pm_j_ell(2000, 8, cuda)
+    cfg = pt.PTConfig(n_replicas=replicas, n_sweeps=60, exchange_interval=10,
+                      cluster_moves=1, seed=5)
+    res = pt.run(ell, cfg)
+    assert res.metadata["kernel_launches"]["sw_labels"] == 6
+    super_step, _, engine = pt.make_pt_step(ell, cfg)
+    state = pt.init_state(ell, cfg, torch.Generator().manual_seed(5), engine)
+    hist = []
+    for _ in range(6):
+        state, stats = super_step(state)
+        hist.append(stats["best_energy"].clone())
+    np.testing.assert_array_equal(res.energy_history,
+                                  torch.stack(hist).cpu().numpy())
+    np.testing.assert_array_equal(res.replica_best_energy,
+                                  state.best_energy.cpu().numpy())
+    step = graphs.PT_CACHE.get(ell, ("run", graphs.config_key(cfg)))[2]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            step.replay(torch.Generator().manual_seed(1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -1,5 +1,6 @@
 """The port's boundary: it runs without JAX and without spinglass_tpu (the
-captured drivers, the problem encoders and the command line included), it never launches (or builds) its CUDA kernels for CPU tensors, its builds
+captured drivers, the problem encoders, the command line, a checkpointed
+anneal and a PT super-step with cluster moves included), it never launches (or builds) its CUDA kernels for CPU tensors, its builds
 target sm_90a and rebuild when a source or a header changes, and the smoke
 script refuses to report without a GPU."""
 
@@ -18,6 +19,7 @@ torch.set_num_threads(1)
 from spinglass_tpu_torch.core import topology  # noqa: E402
 from spinglass_tpu_torch.core.problem import IsingProblem  # noqa: E402
 from spinglass_tpu_torch.kernels import build  # noqa: E402
+from spinglass_tpu_torch.kernels import cluster_cuda as CC  # noqa: E402
 from spinglass_tpu_torch.kernels import metropolis_cuda as MC  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse as S  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse_cuda as SC  # noqa: E402
@@ -26,6 +28,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "spinglass_tpu_torch"
 
 _NO_JAX = """
+import os
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "spinglass_tpu"):
     sys.modules[name] = None          # any import of these now fails
@@ -71,6 +74,18 @@ from click.testing import CliRunner
 out = CliRunner().invoke(cli.main, ["--device", "cpu", "solve", "-s", "3",
                                     "--sweeps", "10", "--replicas", "2"])
 assert out.exit_code == 0 and "feasible:  True" in out.output, out.output
+import tempfile
+ck = tempfile.mkdtemp()
+ckr = sgt.anneal(p, sgt.SAConfig(n_sweeps=4, n_replicas=2, record_interval=1),
+                 checkpoint_dir=ck, checkpoint_every=2)
+again = sgt.anneal(p, sgt.SAConfig(n_sweeps=4, n_replicas=2, record_interval=1),
+                   checkpoint_dir=ck, resume=True)
+assert again.best_energy == ckr.best_energy and len(os.listdir(ck)) == 2
+cm_cfg = pt.PTConfig(n_replicas=4, exchange_interval=2, cluster_moves=1)
+step, _, eng = pt.make_pt_step(ell, cm_cfg)
+st, stats = step(pt.init_state(ell, cm_cfg, engine=eng))
+assert int(st.sweep) == 2 and np.isfinite(float(stats["best_energy"]))
+assert step.sw.last_rounds is not None and step.sw.labeller.launches == 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "spinglass_tpu")
@@ -190,7 +205,8 @@ def test_nvcc_command_targets_sm90a_and_build_dir_is_ignored():
                           (SC.ACCEPT_KERNEL, [philox]),
                           (MC.PIPELINED_KERNEL, [dense, philox]),
                           (MC.INTERLEAVED_KERNEL, [dense, philox]),
-                          (MC.FOLDED_KERNEL, [dense, philox])):
+                          (MC.FOLDED_KERNEL, [dense, philox]),
+                          (CC.KERNEL_NAME, [])):
         src = os.path.join(build.CSRC_DIR, f"{name}.cu")
         assert "arch=compute_90a,code=sm_90a" in " ".join(
             build.nvcc_command(src, "x.so"))

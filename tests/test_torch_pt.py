@@ -295,16 +295,25 @@ def test_pt_run_result_and_metadata():
     assert again.best_energy == res.best_energy  # seeded
 
 
-def test_pt_unported_options_raise():
+def test_pt_unported_options_raise(tmp_path):
+    """The options that raised before the drivers' remaining paths were
+    ported run now: cluster moves, a checkpoint directory and tune_ladder;
+    each returns what the JAX driver returns."""
     inst = planted.planted_gauge_coo(60, avg_degree=3.0, seed=1)
     _, tell = _ells(inst)
-    with pytest.raises(NotImplementedError, match="cluster"):
-        pt.run(tell, pt.PTConfig(n_replicas=4, n_sweeps=10, cluster_moves=1))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        pt.run(tell, pt.PTConfig(n_replicas=4, n_sweeps=10),
-               checkpoint_dir="/nonexistent")
-    with pytest.raises(NotImplementedError):
-        pt.tune_ladder(tell, pt.PTConfig(n_replicas=4))
+    cm = pt.run(tell, pt.PTConfig(n_replicas=4, n_sweeps=10, cluster_moves=1))
+    assert cm.n_sweeps == 10 and np.isfinite(cm.best_energy)
+    assert cm.metadata["kernel_launches"]["sw_labels"] == 0   # CPU: no kernel
+    plain = pt.run(tell, pt.PTConfig(n_replicas=4, n_sweeps=10))
+    seg = pt.run(tell, pt.PTConfig(n_replicas=4, n_sweeps=10),
+                 checkpoint_dir=str(tmp_path / "ck"))
+    assert seg.best_energy == plain.best_energy
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "ckpt_1.pt", "engine_meta.json", "history.npz"]
+    temps, diag = pt.tune_ladder(tell, pt.PTConfig(n_replicas=4),
+                                 n_pilot_sweeps=40, n_iters=1)
+    assert temps.shape == (4,) and np.all(np.diff(temps) > 0)
+    assert len(diag["iterations"]) == 1
     # j_dtype="bfloat16" is ported: it runs, and an unknown dtype raises
     res = pt.run(tell, pt.PTConfig(n_replicas=4, n_sweeps=10,
                                    j_dtype="bfloat16"))

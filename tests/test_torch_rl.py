@@ -955,6 +955,8 @@ def test_pt_resume_without_checkpoint_dir_is_a_value_error(tmp_path):
     with pytest.raises(ValueError, match="resume=True requires "
                                          "checkpoint_dir"):
         pt.run(ell, pt.PTConfig(n_replicas=4, n_sweeps=5), resume=True)
-    with pytest.raises(NotImplementedError):
-        pt.run(ell, pt.PTConfig(n_replicas=4, n_sweeps=5),
-               checkpoint_dir=str(tmp_path), resume=True)
+    # with a directory the resume runs: an empty one starts a fresh run
+    res = pt.run(ell, pt.PTConfig(n_replicas=4, n_sweeps=5),
+                 checkpoint_dir=str(tmp_path), resume=True)
+    assert res.best_energy == pt.run(
+        ell, pt.PTConfig(n_replicas=4, n_sweeps=5)).best_energy

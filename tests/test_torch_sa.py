@@ -9,6 +9,7 @@ acceptance rates must be equal; temperatures agree to float32 pow (rtol 1e-6).
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -176,10 +177,18 @@ def test_anneal_is_seeded_and_glauber_runs():
     assert c.seed == 7 and np.isfinite(c.best_energy)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     p = IsingProblem.from_dense(np.zeros((8, 8)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        anneal(p, SAConfig(n_sweeps=2), checkpoint_dir="/nonexistent")
+    # checkpointing is ported: a checkpoint every chunk, and a resume from
+    # the last one runs nothing and returns the same result
+    d = str(tmp_path / "ck")
+    first = anneal(p, SAConfig(n_sweeps=2, record_interval=1),
+                   checkpoint_dir=d, checkpoint_every=1)
+    assert sorted(os.listdir(d)) == ["ckpt_1.pt", "ckpt_2.pt"]
+    again = anneal(p, SAConfig(n_sweeps=2, record_interval=1),
+                   checkpoint_dir=d, resume=True)
+    assert again.n_sweeps == first.n_sweeps == 2
+    np.testing.assert_array_equal(again.energy_history, first.energy_history)
     # j_dtype="bfloat16" is ported: it runs, and an unknown dtype raises
     res = anneal(p, SAConfig(n_sweeps=2, j_dtype="bfloat16"))
     assert res.n_sweeps == 2 and np.isfinite(res.best_energy)
@@ -203,8 +212,8 @@ def test_make_engine_choices():
     for method, name in (("sparse", "sparse_sorted"),
                          ("sparse_t", "sparse_sorted_t")):
         assert engines.make_engine(dense, sweep_method=method).name == name
-    with pytest.raises(NotImplementedError, match="sparse_compact"):
-        engines.make_engine(dense, sweep_method="sparse_compact")
+    compact = engines.make_engine(dense, sweep_method="sparse_compact")
+    assert compact.name == "sparse_colored" and compact.layout == "rn"
     sparse = IsingProblem.from_dense(topology.random_graph(
         engines.SPARSE_MIN_SPINS, density=0.002, dist="binary", seed=1), device="cpu")
     # sparse enough for the sorted sparse engine; on the CPU the [R, N] one

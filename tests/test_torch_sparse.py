@@ -256,9 +256,13 @@ def test_make_engine_matches_jax():
                 got = engines.make_engine(tprob, sweep_method=method,
                                           r_hint=r_hint).name
                 assert got == want, (type(tprob).__name__, method, r_hint)
-    for prob in (te, tp):
-        with pytest.raises(NotImplementedError, match="sparse_compact"):
-            engines.make_engine(prob, sweep_method="sparse_compact")
+    for jprob, tprob in ((je, te), (jp, tp)):
+        # the compact coloured engine, on ELL and dense problems as in JAX
+        want = jengines.make_engine(jprob, sweep_method="sparse_compact")
+        got = engines.make_engine(tprob, sweep_method="sparse_compact")
+        assert got.name == want.name == "sparse_colored"
+        assert isinstance(got, S.SparseEngine) and got.layout == "rn"
+        assert got.n_colors == want.n_colors
 
 
 def test_thresholds_reference_and_philox_twin():
@@ -392,3 +396,72 @@ def test_sparse_anneal_end_to_end():
         s[0, :200] = torch.as_tensor(res.best_spins)
         assert float(S.sparse_energy(te, s)[0]) == pytest.approx(
             res.best_energy, rel=1e-5)
+
+
+@pytest.mark.parametrize("dist,compact", [("binary", True), ("binary", False),
+                                          ("gaussian", True)])
+@pytest.mark.parametrize("rule", ["metropolis", "glauber"])
+def test_compact_engine_matches_jax(dist, compact, rule):
+    """The compact coloured engine (and its mask sweep) against the JAX
+    SparseEngine under the same host uniforms: same colouring and colour
+    groups, spins and counts exact, dE within 1e-5 relative (bitwise on
+    +-J), three sweeps at per-replica betas."""
+    je, te = _pair(dist=dist, seed=4)
+    jeng = JS.SparseEngine(je, rule=rule, compact=compact)
+    teng = S.SparseEngine(te, rule=rule, compact=compact)
+    np.testing.assert_array_equal(teng.masks.numpy(), np.asarray(jeng.masks))
+    if compact:
+        for name in ("nodes", "nmask", "idx", "val", "h"):
+            np.testing.assert_array_equal(getattr(teng.groups, name).numpy(),
+                                          np.asarray(getattr(jeng.groups, name)),
+                                          name)
+    rng = np.random.default_rng(5)
+    r = 5
+    beta = rng.uniform(0.2, 2.0, r).astype(np.float32)
+    s0 = _spins(r, te.n_padded, N, seed=6)
+    js, ts = jnp.asarray(s0), torch.as_tensor(s0)
+    for _ in range(3):
+        u = (rng.random((r, te.n_padded)) * 0.999999).astype(np.float32)
+        if compact:
+            js, jde, jc = JS.sparse_colored_sweep_compact(
+                je, jeng.groups, js, jnp.asarray(beta), jnp.asarray(u), rule)
+        else:
+            js, jde, jc = JS.sparse_colored_sweep(
+                je, jeng.masks, js, jnp.asarray(beta), jnp.asarray(u), rule)
+        ts, tde, tc = teng.sweep_with_uniforms(ts, torch.as_tensor(beta),
+                                               torch.as_tensor(u))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        np.testing.assert_allclose(tde.numpy(), np.asarray(jde), rtol=1e-5)
+        if dist == "binary":
+            np.testing.assert_array_equal(tde.numpy(), np.asarray(jde))
+    np.testing.assert_allclose(teng.energy(ts).numpy(),
+                               np.asarray(jeng.energy(js)), rtol=1e-5)
+    assert (tc.numpy() > 0).all()
+
+
+def test_compact_engine_runs_the_drivers():
+    """sweep_method="sparse_compact" through anneal (captured chunk, eager
+    replay on the CPU) and pt.run, on an ELL and a dense problem; the
+    chunk's sweeps equal the engine's eager sweeps under one generator."""
+    _, te = _pair(n=150)
+    cfg = sa.SAConfig(n_sweeps=30, n_replicas=4, record_interval=10,
+                      sweep_method="sparse_compact", seed=2)
+    res = sa.anneal(te, cfg)
+    assert res.algorithm == "sa/sparse_colored/metropolis"
+    eng = engines.make_engine(te, sweep_method="sparse_compact")
+    st = sa.init_state(te, cfg, eng, torch.Generator().manual_seed(2))
+    for _ in range(3):
+        st, _ = sa.run_chunk(te, cfg, eng, st, 10)
+    assert float(st.best_energy.min()) == res.best_energy
+    from spinglass_tpu_torch.anneal import pt
+    from spinglass_tpu_torch.core.problem import IsingProblem
+
+    dense = IsingProblem.from_dense(T.random_graph(60, density=0.1,
+                                                   dist="binary", seed=3),
+                                    device="cpu")
+    r = pt.run(dense, pt.PTConfig(n_replicas=4, n_sweeps=20,
+                                  exchange_interval=5,
+                                  sweep_method="sparse_compact"))
+    assert r.metadata["engine"] == "sparse_colored"
+    assert np.isfinite(r.best_energy)
