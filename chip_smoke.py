@@ -9,9 +9,10 @@ bf16 tensor-core fields from an exact 3-plane split of J), its variants K5
 (pipelined), K6 (interleaved) and K7 (folded), K2 (single-call sparse
 sweep, the tile's spins in shared memory), K3 (sparse thresholds, four per
 Philox run) and K4 (one colour of the sparse sweep per launch: it gathers
-its own fields), and C1 (the Swendsen-Wang labelling loop to its fixed
-point in one launch; no Pallas counterpart). Holds each against its plain
-PyTorch twin, drives
+its own fields), and the Swendsen-Wang sweep's two kernels, which have no
+Pallas counterpart: C2 (bond and ghost activation into bit masks) and C1
+(union-find labels and the cluster flips in one launch). Holds each against
+its plain PyTorch twin, drives
 the dense SA slice (SK glass, N=4096, R=1024; K1 and each variant), the
 sparse slice (10k spins: SA at R=1024, time-to-target PT at R=128, PT at
 R=4096 on K4, make_engine's choice there, and on K3), the RL path (the
@@ -63,10 +64,14 @@ kernels against the twins. Phases:
      write in place; those envs must keep their spins): +-J N=512 with 256
      envs (K1), the +-J 10k graph with 128 envs (K2) and 64 envs (K4);
      spins, energies, counts, rewards, observations and done bitwise;
-     C1: labels bit for bit against the JAX loop in PyTorch on the same
-     inputs, on the bonds of one SW sweep on the TTT instance (R=128, 16),
-     the +-J 10k graph (R=128) and the Gaussian 10k graph (R=16), and on
-     every bond on, no bond, and one long path through shuffled indices;
+     C2 and C1 against their plain versions on the same inputs, bit for
+     bit, in the Philox and the given draw modes (masks, start labels,
+     labels, new spins, cluster counts): one SW sweep's inputs on the TTT
+     instance (R=128: one block per replica; R=16: a cluster of 8 blocks),
+     the +-J 10k graph (R=128), the Gaussian 10k graph (R=16) and a dense
+     +-J problem in ELL form (K=255, 8 mask words); C1 also on every bond
+     on, no bond, and one long path through shuffled indices, its table in
+     a cluster and in one block;
   3. in-kernel Philox, statistically: a 6-spin system sampled for 400 sweeps
      at beta=0.6 against exact enumeration (TV < 0.05), through K1 and
      through K2; K1's SK acceptance within 1% of the host-uniform sweep's;
@@ -144,9 +149,10 @@ kernels against the twins. Phases:
      Gaussian 10k graph (K4) and at 128 on the TTT instance (K2): each equal
      to the uninterrupted run bit for bit (best spins, best energies, four
      histories), the resumed launches those of the sweeps left; (c) PT with
-     cluster_moves=1 on the TTT instance at 128 (K2 + C1) and 16 (K4 + C1)
-     replicas, 1000 sweeps: the captured super-step == its eager loop bit
-     for bit, C1 once per super-step, no host sync in a replay, E0 + dE ==
+     cluster_moves=1 on the TTT instance at 128 (K2 + C2 + C1) and 16 (K4 +
+     C2 + C1) replicas, 1000 sweeps: the captured super-step == its eager
+     loop bit for bit, C2 and C1 once per super-step, checkpointed and
+     resumed == uninterrupted, no host sync in a replay, E0 + dE ==
      E1 across an SW sweep (1e-4 relative), best_energy == energy(best
      spins) (1e-4), the best energy beside the provenance's (recorded);
      (d) tune_ladder at 16 replicas (K4, pilot 200, 2 iterations): the JAX
@@ -179,9 +185,11 @@ kernels against the twins. Phases:
      repeat call), the captured paths' busy shares and graph launches per
      sweep or env step, and in each profile the kernels the profiler counts
      per name against what the launch counters added over the same
-     replays (the cluster-move super-steps' C1 too). The drivers' remaining
-     paths: C1 at [10240, 128] and [10240, 16] beside its plain loop, its
-     rounds and its bound; one SW sweep as a graph; the captured PT
+     replays (the cluster-move super-steps' C2 and C1 too). The drivers'
+     remaining paths: C2 and C1 at [128, 10112] and [16, 10112] in both
+     draw modes beside their plain versions and bounds, C1's table at 16
+     replicas in one block against clusters of 2, 4 and 8 in turns; one SW
+     sweep as a graph; the captured PT
      super-step with and without cluster_moves=1 at 128 and 16 replicas; the
      layout round trip; a dense checkpoint's bytes and save time; segmented
      against single-dispatch pt.run; tune_ladder's time and captures; the
@@ -213,8 +221,10 @@ KERNELS = {
     "metropolis_pipelined": "spinglass_tpu/kernels/metropolis_pallas.py:400",
     "metropolis_interleaved": "spinglass_tpu/kernels/metropolis_pallas.py:281",
     "metropolis_folded": "spinglass_tpu/kernels/metropolis_pallas.py:179",
-    # C1 has no Pallas counterpart: the JAX while_loop it replaces
+    # C1 and C2 have no Pallas counterpart: the JAX code they replace (the
+    # labelling while_loop and flips; the bond and ghost activation)
     "sw_labels": "spinglass_tpu/core/cluster.py:291",
+    "sw_bonds": "spinglass_tpu/core/cluster.py:240",
 }
 # FusedSweep flags of the dense variants, by label
 VARIANTS = {"K5": dict(pipelined=True), "K6x2": dict(interleave=2),
@@ -2300,27 +2310,23 @@ def captured_timing(torch, stats, card):
 # moves through C1, the tuned ladder, the compact engine, the command line
 # ---------------------------------------------------------------------------
 
-def _labelling_inputs(torch, sw, r: int, seed: int):
-    """(idx, bond, init) that one SW sweep at ``r`` replicas (random spins,
-    betas 0.2-1.5) hands its labelling; the sweep's own C1 launch is a
-    parity launch, counted on ``sw`` only."""
-    got = {}
-    real = sw.labeller
+def _sw_spins(torch, sw, r: int, seed: int):
+    """Random +-1 spins [R, Np] (padding +1) and the betas of the TTT
+    config's ladder at R replicas (T 0.05-3.0, as the cluster-move PT runs
+    take them) on the card: one SW sweep's inputs."""
+    import dataclasses
 
-    def spy(idx, bond, init):
-        got.update(idx=idx, bond=bond.clone(), init=init.clone())
-        return real(idx, bond, init)
+    from spinglass_tpu_torch.anneal import pt
+    from spinglass_tpu_torch.benchmarks.headline import ttt_config
 
     gen = torch.Generator().manual_seed(seed)
     s = torch.where(torch.rand(r, sw.ell.n_padded, generator=gen) < 0.5,
                     -1.0, 1.0).cuda()
     s = torch.where(sw.ell.active_mask[None] > 0, s, torch.ones_like(s))
-    sw.labeller = spy
-    try:
-        sw.sweep(s, torch.linspace(0.2, 1.5, r, device="cuda"), gen)
-    finally:
-        sw.labeller = real
-    return got["idx"], got["bond"], got["init"]
+    temps = pt.temperature_ladder(dataclasses.replace(ttt_config(),
+                                                      n_replicas=r))
+    beta = 1.0 / torch.as_tensor(temps, dtype=torch.float32, device="cuda")
+    return s.contiguous(), beta.contiguous()
 
 
 def _path_set(torch, n_pad: int, n: int, r: int, seed: int):
@@ -2341,27 +2347,85 @@ def _path_set(torch, n_pad: int, n: int, r: int, seed: int):
                             device="cuda"))
 
 
-def _c1_bound(idx, bond, rounds):
-    """C1's least time on these inputs: idx, bond and the start labels read
-    once, labels and rounds written once; against rounds x Np x (K + 2)
-    compare-and-select operations per replica (counted at the float32
-    rate). Also the time the bond flags take to stream once per round."""
-    r, n, k = bond.shape
-    nbytes = idx.numel() * 4 + bond.numel() + 2 * r * n * 4 + r * 4
-    total_rounds = int(rounds.sum())
-    b_ms, b_by = bound(nbytes, total_rounds * n * (k + 2), FP32_FLOPS)
-    return b_ms, b_by, 1e3 * total_rounds * n * k / HBM_BYTES_PER_S
+# operations counted per satisfied bond (the product, expm1f, the compare)
+# and per active bond in C1 (a find at each end and a hook)
+SW_BOND_OPS, SW_UNION_OPS = 20, 10
+
+
+def _c2_bound(torch, sw, s, given: bool):
+    """C2's least time on these inputs: spins, the ELL operands (idx, val,
+    rev_i, rev_k, h, active) and beta read once, masks and start labels
+    written once (the given mode also reads u_ghost and the lower ends'
+    u_dir); against this run's Philox runs (one per site, slot and group of
+    4 replicas that has a satisfied bond, at both ends, and one per site and
+    group for the ghost) and SW_BOND_OPS per satisfied bond, at the float32
+    rate."""
+    r, n = s.shape
+    idx, val = sw._idx.long(), sw.ell.val
+    k, w = idx.shape[1], -(-idx.shape[1] // 32)
+    g = -(-r // 4)
+    nbytes = (r * n * 4 + 4 * n * k * 4 + n * 5 + r * 4 + r * n * w * 4
+              + r * n * 4)
+    sat = (val[None] * s[:, :, None] * s[:, idx]) > 0           # [R, Np, K]
+    if given:
+        lower = (torch.arange(n, device=s.device)[:, None] < idx) & (val != 0)
+        nbytes += r * n * 4 + int(lower.sum()) * r * 4
+        ops = int(sat.sum()) * SW_BOND_OPS
+    else:
+        pad = torch.zeros(g * 4 - r, n, k, dtype=torch.bool, device=s.device)
+        runs = int(torch.cat([sat, pad]).reshape(g, 4, n, k).any(1).sum())
+        ops = (runs + n * g) * PHILOX_RUN_OPS + int(sat.sum()) * SW_BOND_OPS
+    return bound(nbytes, ops, FP32_FLOPS)
+
+
+def _c1_bound(masks, init, k: int, given: bool):
+    """C1's least time on these inputs: masks, start labels and spins read
+    once, labels and new spins written once, n_clusters and rounds, idx
+    [Np, K] once (coins [R, Np] in the given mode); against SW_UNION_OPS
+    per active bond and, in the Philox mode, one Philox run per active
+    site, at the float32 rate."""
+    from spinglass_tpu_torch.kernels.cluster_cuda import unpack_masks
+
+    r, n, w = masks.shape
+    active_bonds = int(unpack_masks(masks, k).sum())
+    sites = int((init != n).sum())
+    nbytes = r * n * (w * 4 + 4 * 4) + 8 * r + n * k * 4
+    nbytes += r * n if given else 0
+    ops = active_bonds * SW_UNION_OPS + (0 if given else sites * PHILOX_RUN_OPS)
+    return bound(nbytes, ops, FP32_FLOPS)
+
+
+def _c1_against_plain(torch, cc, c1, idx, masks, init, s, flip):
+    """C1 (labels and flip) against labels_reference + flip_reference on
+    the same inputs: (bit for bit, max abs difference, plain rounds)."""
+    k = idx.shape[1]
+    new, n_cl, labels, rounds = c1.flip(idx, masks, init, s, **flip)
+    torch.cuda.synchronize()
+    want_l, plain_rounds = cc.labels_reference(idx, cc.unpack_masks(masks, k),
+                                               init)
+    want_s, want_n = cc.flip_reference(s, want_l, init, **flip)
+    same = (torch.equal(labels, want_l) and torch.equal(new, want_s)
+            and torch.equal(n_cl, want_n) and bool((rounds == 1).all()))
+    err = max(int((labels.long() - want_l.long()).abs().max()),
+              int((new - want_s).abs().max()),
+              int((n_cl.long() - want_n.long()).abs().max()))
+    return same, err, plain_rounds, int(n_cl.float().mean())
 
 
 def cluster_parity(torch, stats):
-    """Phase 2 (C1): the SW labelling kernel against the JAX loop in
-    PyTorch on the same inputs on the card, labels bit for bit: the bonds of
-    one SW sweep on the TTT instance (R=128 and 16), on the +-J and the
-    Gaussian 10k graphs, and three adversarial sets at Np = 10112."""
+    """Phase 2 (C2, C1): the SW kernels against their plain versions on the
+    card, bit for bit, in the Philox and the given modes: C2's masks and
+    start labels, C1's labels, new spins and cluster counts, on one SW
+    sweep's inputs on the TTT instance (R=128: one block per replica; R=16:
+    a cluster of 8), the +-J and the Gaussian 10k graphs and a dense +-J
+    problem in ELL form (K = 255, W = 8); C1 also on three adversarial bond
+    sets at Np = 10112 (every bond on, no bond, one long shuffled path),
+    with its table in a cluster and in one block."""
     from spinglass_tpu_torch.benchmarks.headline import (sparse_bench_problem,
                                                          ttt_instance)
     from spinglass_tpu_torch.core.cluster import SwendsenWang
     from spinglass_tpu_torch.kernels import cluster_cuda as cc
+    from spinglass_tpu_torch.kernels import metropolis_cuda as mc
 
     ttt, prov = ttt_instance()
     t0 = time.perf_counter()
@@ -2369,37 +2433,78 @@ def cluster_parity(torch, stats):
     stats["reverse_slots_s"] = time.perf_counter() - t0
     stats["drv_ttt"], stats["bench10k"] = (ttt, prov), sparse_bench_problem()
     stats["sw_ttt"] = sw_ttt
-    sets = {f"TTT {r}": _labelling_inputs(torch, sw_ttt, r, r)
-            for r in (128, 16)}
-    sets["+-J 10k 128"] = _labelling_inputs(
-        torch, SwendsenWang(pm_j_ell(10000, 7)), 128, 3)
-    sets["Gaussian 10k 16"] = _labelling_inputs(
-        torch, SwendsenWang(stats["bench10k"]), 16, 4)
-    idx, bond, init = sets["TTT 16"]
-    on = (ttt.val != 0)[None].expand(4, -1, -1).contiguous()
-    sets["all bonds on"] = (idx, on, init[:4].contiguous())
-    sets["no bond"] = (idx, torch.zeros_like(on), init[:4].contiguous())
-    sets["long shuffled path"] = _path_set(torch, ttt.n_padded, ttt.n_spins,
-                                           2, 5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = {"TTT 128": (sw_ttt, 128), "TTT 16": (sw_ttt, 16),
+             "+-J 10k 128": (SwendsenWang(pm_j_ell(10000, 7)), 128),
+             "Gaussian 10k 16": (SwendsenWang(stats["bench10k"]), 16),
+             "dense +-J 256 in ELL, 32": (
+                 SwendsenWang(pm_j_problem(256, 11, "cuda")), 32)}
     c1 = cc.ClusterLabels()
-    err = 0
-    stats["c1_sets"] = sets
-    for name, (idx, bond, init) in sets.items():
-        labels, rounds = c1(idx, bond, init)
-        torch.cuda.synchronize()
-        want, plain_rounds = cc.labels_reference(idx, bond, init)
-        same = torch.equal(labels, want)
-        err = max(err, int((labels.long() - want.long()).abs().max()))
-        n_cl = int(((labels == torch.arange(labels.shape[1], device="cuda"))
-                    & (init < labels.shape[1])).sum())
-        check(same and bool((rounds <= labels.shape[1]).all()),
-              f"C1 == plain labels on {name} [{bond.shape[0]}, "
-              f"{bond.shape[1]}, K={bond.shape[2]}]: {n_cl} clusters, "
-              f"rounds mean {float(rounds.float().mean()):.1f} max "
-              f"{int(rounds.max())} (plain loop {plain_rounds})")
-    check(c1.launches == len(sets), f"C1 launched {c1.launches} times for "
-                                    f"{len(sets)} sets")
-    stats["c1_max_abs_err"] = err
+    err1 = err2 = bonds_launches = 0
+    stats["sw_cases"] = {}
+    for name, (sw, r) in cases.items():
+        s, beta = _sw_spins(torch, sw, r, r + 1)
+        n, k = sw._idx.shape
+        seed = 1000 + r
+        u_dir, u_ghost, coins = mc.sw_philox_draws(seed, r, n, k, "cuda")
+        plan = cc.labels_plan(n, r, sms)
+        b = sw.bonds
+        for mode, bonds_kw, flip in (
+                ("Philox", {"seed": seed}, {"seed": seed}),
+                ("given", {"u_dir": u_dir, "u_ghost": u_ghost},
+                 {"coins": coins})):
+            masks, init = b(s, beta, **bonds_kw)
+            torch.cuda.synchronize()
+            want_m, want_i = cc.bonds_reference(b.idx, b.val, b.h, b.active,
+                                                b.rev_i, b.rev_k, s, beta,
+                                                **bonds_kw)
+            same2 = torch.equal(masks, want_m) and torch.equal(init, want_i)
+            err2 = max(err2, int((masks != want_m).sum()),
+                       int((init.long() - want_i.long()).abs().max()))
+            same1, e1, plain_rounds, n_cl = _c1_against_plain(
+                torch, cc, c1, sw._idx, masks, init, s, flip)
+            err1 = max(err1, e1)
+            n_bonds = int(cc.unpack_masks(masks, k).sum())
+            check(same2 and same1,
+                  f"C2 and C1 == plain ({mode}) on {name} [{r}, {n}], K={k}, "
+                  f"W={masks.shape[2]}: {n_bonds} bond ends, {n_cl} clusters "
+                  f"per replica (the plain loop {plain_rounds} rounds); C1 "
+                  f"plan {plan} (mode, blocks, log2 chunk)")
+        bonds_launches += 2
+        stats["sw_cases"][name] = (sw, s, beta, seed)
+    check(cc.labels_plan(ttt.n_padded, 16, sms)[:2] == (1, 8)
+          and cc.labels_plan(ttt.n_padded, 128, sms)[:2] == (0, 1),
+          f"C1 takes a cluster of 8 blocks per replica at 16 replicas and one "
+          f"block at 128 ({sms} SMs)")
+    idx = sw_ttt._idx
+    _, s4, _ = stats["sw_cases"]["TTT 16"][:3]
+    masks, init = sw_ttt.bonds(s4[:4].contiguous(), torch.ones(4, device="cuda"),
+                               seed=5)
+    k = idx.shape[1]
+    on = (ttt.val != 0)[None].expand(4, -1, -1)
+    adversarial = {"all bonds on": (idx, cc.pack_bonds(on), init),
+                   "no bond": (idx, torch.zeros_like(masks), init),
+                   "long shuffled path": None}
+    pidx, pbond, pinit = _path_set(torch, ttt.n_padded, ttt.n_spins, 2, 5)
+    adversarial["long shuffled path"] = (pidx, cc.pack_bonds(pbond), pinit)
+    for name, (a_idx, a_masks, a_init) in adversarial.items():
+        r = a_init.shape[0]
+        s = s4[:r].contiguous()
+        for blocks in (None, 1):
+            same, e1, plain_rounds, n_cl = _c1_against_plain(
+                torch, cc, cc.ClusterLabels(blocks), a_idx, a_masks, a_init,
+                s, {"seed": 9})
+            err1 = max(err1, e1)
+            check(same,
+                  f"C1 == plain on {name} [{r}, {a_init.shape[1]}] (table "
+                  f"{'in a cluster' if blocks is None else 'in one block'}): "
+                  f"{n_cl} clusters per replica, the plain loop "
+                  f"{plain_rounds} rounds")
+    distinct = {id(sw): sw for sw, _ in cases.values()}.values()
+    c2_launches = sum(sw.bonds.launches for sw in distinct)
+    check(c1.launches == 2 * len(cases) and c2_launches == bonds_launches + 1,
+          f"C1 launched {c1.launches} times, C2 {c2_launches}")
+    stats["c1_max_abs_err"], stats["c2_max_abs_err"] = err1, err2
 
 
 def _keep_first_checkpoint(d: str) -> int:
@@ -2541,10 +2646,16 @@ def drivers_slice(torch, mc, stats, card):
                 and np.array_equal(res.replica_best_energy,
                                    state.best_energy.cpu().numpy()))
         per = 1 if key == "sparse_sweep" else len(engine.groups)
-        check(same and kl["sw_labels"] == 100 and kl[key] == 1000 * per,
+        check(same and kl["sw_labels"] == kl["sw_bonds"] == 100
+              and kl[key] == 1000 * per,
               f"PT with cluster_moves=1 at {r} replicas: the captured "
               f"super-step == its eager loop bit for bit (100 super-steps); "
-              f"C1 {kl['sw_labels']} launches, {key} {kl[key]}")
+              f"C2 {kl['sw_bonds']} and C1 {kl['sw_labels']} launches, {key} "
+              f"{kl[key]}")
+        _resume_check(
+            torch, np, f"cm{r} PT + SW ({'K2' if r == 128 else 'K4'}, {r} replicas, TTT)",
+            lambda **kw: pt.run(ttt, ccfg, **kw), 1000, 20, tmp, "sw_labels",
+            lambda saved: int(saved["/done_super"]) * 10)
         step = graphs.PT_CACHE.get(ttt, ("run", graphs.config_key(ccfg)))[2]
         gen = torch.Generator().manual_seed(9)
         _sync_free(torch, f"the cluster-move super-step at {r} replicas",
@@ -2649,12 +2760,35 @@ def _event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _graph_ms(torch, fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` by CUDA events around one replay of a
+    graph that captured ``reps`` calls (the device's time alone: a narrow
+    kernel finishes before the host launches the next), after one eager
+    call (shared-memory attributes are set outside the capture)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return _event_ms(torch, graph.replay, 3) / reps
+
+
 def drivers_timing(torch, stats, card):
-    """Phase 5 (the drivers' remaining paths): C1 against its plain version
-    and its bound; one SW sweep (its draws given, as a graph); the captured
-    PT super-step with and without cluster_moves=1 at 128 (K2) and 16 (K4)
-    replicas; the layout round trip; checkpoint saves; segmented against
-    single-dispatch pt.run; tune_ladder; the compact engine beside K2."""
+    """Phase 5 (the drivers' remaining paths): C2 and C1 in both draw modes
+    against their plain versions and their bounds, as graphs, at 128 and 16
+    replicas on the TTT instance, and C1's table placements at 16 in turns;
+    one SW sweep as a graph (from a seed slot and on given draws); the
+    captured PT super-step with and without cluster_moves=1 at 128 (K2) and
+    16 (K4) replicas; the layout round trip; checkpoint saves; segmented
+    against single-dispatch pt.run; tune_ladder; the compact engine beside
+    K2."""
     import dataclasses
 
     from spinglass_tpu_torch.anneal import graphs, pt, sa
@@ -2662,47 +2796,82 @@ def drivers_timing(torch, stats, card):
                                                          _pt_steppers,
                                                          ttt_config)
     from spinglass_tpu_torch.kernels import cluster_cuda as cc
+    from spinglass_tpu_torch.kernels import metropolis_cuda as mc
+    from spinglass_tpu_torch.kernels.sparse import sparse_energy
 
-    c1 = cc.ClusterLabels()
-    for r in (128, 16):
-        idx, bond, init = stats["c1_sets"][f"TTT {r}"]
-        ms = _event_ms(torch, lambda: c1(idx, bond, init), 20)
-        _, rounds = c1(idx, bond, init)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cc.labels_reference(idx, bond, init)
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - t0)
-        b_ms, b_by, round_ms = _c1_bound(idx, bond, rounds)
-        if r == 128:
-            stats["c1"] = (ms, plain_ms, b_ms, b_by)
-        print(f"  C1 at [{bond.shape[1]}, {r}] (K={bond.shape[2]}, one SW "
-              f"sweep's bonds on the TTT instance): {1e3 * ms:.1f} us per "
-              f"call, rounds mean {float(rounds.float().mean()):.2f} max "
-              f"{int(rounds.max())}; bound {1e3 * b_ms:.2f} us ({b_by}), the "
-              f"bond flags once per round {1e3 * round_ms:.2f} us; plain loop "
-              f"on the card {plain_ms:.3f} ms [{card}]")
     ttt, _ = stats["drv_ttt"]
     sw = stats["sw_ttt"]
     for r in (128, 16):
-        gen = torch.Generator().manual_seed(r)
-        s = sw.ell.active_mask.new_ones(r, sw.ell.n_padded)
-        s[:, :ttt.n_spins] = torch.where(
-            torch.rand(r, ttt.n_spins, generator=gen) < 0.5, -1.0, 1.0).cuda()
-        beta = torch.linspace(0.3, 20.0, r, device="cuda")
-        draws = sw.draws(r, gen, "cuda")
-        g = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            sw.sweep_with_draws(s, beta, *draws)
-        torch.cuda.current_stream().wait_stream(side)
-        with torch.cuda.graph(g):
-            sw.sweep_with_draws(s, beta, *draws)
-        ms = _event_ms(torch, g.replay, 20)
-        print(f"  one SW sweep at [{r}, {sw.ell.n_padded}] (draws given; "
-              f"bonds, C1, flips, two energies) as a graph: {1e3 * ms:.1f} us "
-              f"[{card}]")
+        _, s, beta, seed = stats["sw_cases"][f"TTT {r}"]
+        n, k = sw._idx.shape
+        slot = torch.tensor([seed], dtype=torch.int64, device="cuda")[0]
+        u_dir, u_ghost, coins = mc.sw_philox_draws(seed, r, n, k, "cuda")
+        masks, init = sw.bonds(s, beta, seed=slot)
+        c1 = cc.ClusterLabels()
+        ms = {
+            "C2 Philox": _graph_ms(torch, lambda: sw.bonds(s, beta, seed=slot),
+                                   20),
+            "C2 given": _graph_ms(torch, lambda: sw.bonds(
+                s, beta, u_dir=u_dir, u_ghost=u_ghost), 20),
+            "C1 Philox": _graph_ms(torch, lambda: c1.flip(
+                sw._idx, masks, init, s, seed=slot), 20),
+            "C1 given": _graph_ms(torch, lambda: c1.flip(
+                sw._idx, masks, init, s, coins=coins), 20)}
+        b = sw.bonds
+        t0 = time.perf_counter()
+        cc.bonds_reference(b.idx, b.val, b.h, b.active, b.rev_i, b.rev_k, s,
+                           beta, seed=slot)
+        torch.cuda.synchronize()
+        plain2_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        labels, _ = cc.labels_reference(sw._idx, cc.unpack_masks(masks, k),
+                                        init)
+        cc.flip_reference(s, labels, init, seed=slot)
+        torch.cuda.synchronize()
+        plain1_ms = 1e3 * (time.perf_counter() - t0)
+        b2 = _c2_bound(torch, sw, s, False)
+        b2g = _c2_bound(torch, sw, s, True)
+        b1 = _c1_bound(masks, init, k, False)
+        b1g = _c1_bound(masks, init, k, True)
+        if r == 128:
+            stats["c1"] = (ms["C1 Philox"], plain1_ms) + b1
+            stats["c2"] = (ms["C2 Philox"], plain2_ms) + b2
+        plan = cc.labels_plan(n, r)
+        print(f"  C2 at [{r}, {n}] (K={k}, one SW sweep's inputs on the TTT "
+              f"instance at its ladder's betas), as a graph: Philox {1e3 * ms['C2 Philox']:.1f} us "
+              f"(bound {1e3 * b2[0]:.2f} us, {b2[1]}), given "
+              f"{1e3 * ms['C2 given']:.1f} us (bound {1e3 * b2g[0]:.2f}, "
+              f"{b2g[1]}); plain version {plain2_ms:.3f} ms [{card}]")
+        print(f"  C1 at [{r}, {n}] (plan {plan}): Philox "
+              f"{1e3 * ms['C1 Philox']:.1f} us (bound {1e3 * b1[0]:.2f} us, "
+              f"{b1[1]}), given {1e3 * ms['C1 given']:.1f} us (bound "
+              f"{1e3 * b1g[0]:.2f}, {b1g[1]}); plain labels + flip "
+              f"{plain1_ms:.3f} ms [{card}]")
+        if r == 16:   # where C1 keeps its table at 16 replicas, in turns
+            turn = {}
+            for blocks in (8, 1, 1, 8, 2, 4):
+                c = cc.ClusterLabels(blocks)
+                turn.setdefault(blocks, []).append(_graph_ms(
+                    torch, lambda: c.flip(sw._idx, masks, init, s, seed=slot),
+                    20))
+            stats["c1_turns16"] = turn
+            print("  C1 at [16, %d], table placement in turns (us): %s [%s]"
+                  % (n, "; ".join(f"{b} block(s) " + " / ".join(
+                      f"{1e3 * t:.1f}" for t in ts) for b, ts in turn.items()),
+                     card))
+    for r in (128, 16):
+        _, s, beta, seed = stats["sw_cases"][f"TTT {r}"]
+        n, k = sw._idx.shape
+        slot = torch.tensor([seed], dtype=torch.int64, device="cuda")[0]
+        draws = mc.sw_philox_draws(seed, r, n, k, "cuda")
+        seeded = _graph_ms(torch, lambda: sw._sweep(s, beta, seed=slot), 20)
+        given = _graph_ms(torch, lambda: sw.sweep_with_draws(s, beta, *draws),
+                          20)
+        energy = _graph_ms(torch, lambda: sparse_energy(sw.ell, s), 20)
+        print(f"  one SW sweep at [{r}, {n}] as a graph (C2, C1, two ELL "
+              f"energies): {1e3 * seeded:.1f} us from a seed slot, "
+              f"{1e3 * given:.1f} us on given draws; one of its ELL energies "
+              f"{1e3 * energy:.1f} us [{card}]")
     for r, key in ((128, "K2"), (16, "K4")):
         rows = []
         for cm in (0, 1):
@@ -2733,7 +2902,7 @@ def drivers_timing(torch, stats, card):
         ccfg = stats["cm"][r]["config"]
         steps = _pt_steppers(ttt, ccfg, None, 10, read_each=True)
         stats["profiles"][f"PT + SW, {r} replicas (K{2 if r == 128 else 4} "
-                          f"+ C1)"] = _profile(
+                          f"+ C2 + C1)"] = _profile(
             steps["captured"], 100, 8, graph_launches=10,
             counters=steps["counters"])
     times, nbytes = stats["ckpt_save"]
@@ -2806,6 +2975,7 @@ def main() -> int:
         from spinglass_tpu_torch.kernels import cluster_cuda as cc
 
         cc.load_kernel()
+        cc.load_bonds_kernel()
         for block in (128, 256):
             occ = mc.cluster_occupancy(4096, 1024, block)
             print(f"  K1 cluster kernel at Np=4096, R=1024, block {block}: "
@@ -2819,7 +2989,7 @@ def main() -> int:
                 ("phase 2: parity with the twins and K1 (K5, K6, K7)",
                  lambda: variant_parity(torch, mc, stats)),
                 ("phase 2: parity with the twin, K3 and K2 (K4)", lambda: accept_parity(torch, stats)),
-                ("phase 2: parity with the plain labelling (C1)",
+                ("phase 2: parity with the plain versions (C2, C1)",
                  lambda: cluster_parity(torch, stats)),
                 ("phase 2: env.step through K1, K2 and K4 against the twins (RL)",
                  lambda: rl_parity(torch, mc, stats)),
@@ -2847,7 +3017,7 @@ def main() -> int:
                  lambda: accept_timing(torch, stats, card)),
                 ("phase 5: timing (RL: bench_rl, profile_rl)",
                  lambda: rl_timing(torch, stats, card)),
-                ("phase 5: timing (the drivers' remaining paths, C1)",
+                ("phase 5: timing (the drivers' remaining paths, C2, C1)",
                  lambda: drivers_timing(torch, stats, card)),
                 ("phase 5: timing (captured drivers against the eager loop)",
                  lambda: captured_timing(torch, stats, card))):
@@ -2876,9 +3046,10 @@ def main() -> int:
         rows.append((name, stats["variant_launches"][name],
                      max(err[lab] for lab in labels), us[labels[0]] / 1e3,
                      twin_us[labels[0]] / 1e3))
-    c1_ms, c1_plain_ms, c1_bound, c1_by = stats["c1"]
-    rows.append(("sw_labels", 0, stats["c1_max_abs_err"], c1_ms, c1_plain_ms))
-    stats["bounds"]["sw_labels"] = (c1_bound, c1_by)
+    for name, key in (("sw_labels", "c1"), ("sw_bonds", "c2")):
+        k_ms, k_plain_ms, k_bound, k_by = stats[key]
+        rows.append((name, 0, stats[f"{key}_max_abs_err"], k_ms, k_plain_ms))
+        stats["bounds"][name] = (k_bound, k_by)
     b4 = stats["bounds"]["sparse_accept"][0]
     print(f"K4 {1e3 * stats['k4_ms']:.1f} us per sweep is "
           f"{100 * b4 / stats['k4_ms']:.1f}% of its bound's rate [{card}]")

@@ -25,8 +25,9 @@ tensor.
 
 ``cluster_moves`` > 0 mixes Swendsen-Wang sweeps (``core/cluster.py``) into
 every super-step after its sweeps, at each replica's current temperature;
-on the card the sweep's labelling is the C1 kernel, so the super-step stays
-one captured graph. ``run(checkpoint_dir=...)`` saves the state every
+on the card an SW sweep is the C2 and C1 kernels (bonds, then labels and
+flips) drawing from one seed slot, so the super-step stays one captured
+graph. ``run(checkpoint_dir=...)`` saves the state every
 ``checkpoint_every`` replays of the same captured super-step (the JAX
 ``_run_segmented``), and ``tune_ladder`` respaces the ladder from pilot
 runs.
@@ -301,8 +302,8 @@ def make_pt_step(problem, cfg: PTConfig,
     Returns (super_step, betas_ladder, engine); ``super_step(state,
     betas=None)`` returns (state, stats) with the stats as device tensors,
     and ``super_step.counters`` lists the launch counters of the kernels it
-    runs (the engine's, and C1's with cluster moves). ``engine`` overrides
-    make_engine's choice."""
+    runs (the engine's, and C2's and C1's with cluster moves). ``engine``
+    overrides make_engine's choice."""
     if engine is None:
         engine = make_engine(problem, sweep_method=cfg.sweep_method,
                              update_rule=cfg.update_rule,
@@ -346,7 +347,8 @@ def make_pt_step(problem, cfg: PTConfig,
         return state, stats
 
     super_step.counters = launch_counters(engine) + (
-        [(cluster_cuda.KERNEL_NAME, sw.labeller, "launches")] if sw else [])
+        [(cluster_cuda.BONDS_KERNEL, sw.bonds, "launches"),
+         (cluster_cuda.KERNEL_NAME, sw.labeller, "launches")] if sw else [])
     super_step.sw = sw
     return super_step, betas_ladder, engine
 

@@ -276,6 +276,7 @@ KERNEL_SYMBOLS = {
     "sparse_thresholds": ("sparse_thresholds_kernel",),
     "sparse_accept": ("sparse_accept_kernel",),
     "sw_labels": ("sw_labels_kernel",),
+    "sw_bonds": ("sw_bonds_kernel",),
 }
 
 

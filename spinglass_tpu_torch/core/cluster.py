@@ -19,14 +19,20 @@ J s_i s_j) (one uniform per undirected edge: both directions read the draw
 of the lower index's slot, found through ``_ell_reverse_slots``), bonds a
 site to a ghost spin with p = 1 - exp(-2 beta h_i s_i) where h_i s_i > 0,
 labels the clusters and flips each cluster not bonded to the ghost with a
-coin of its own. The labelling is C1 (``kernels/cluster_cuda.py``) on a CUDA
-tensor and the JAX loop in plain PyTorch on a CPU tensor; it is what lets
-the sweep run inside the PT driver's captured super-step.
+coin of its own. On a CUDA tensor that is two launches, C2
+(``csrc/sw_bonds.cu``: bond masks and start labels) and C1
+(``csrc/sw_labels.cu``: labels and flips), through
+``kernels/cluster_cuda.py``; they let the sweep run inside the PT driver's
+captured super-step. On a CPU tensor the kernels' plain versions run, the
+labelling through ``labeller(idx, bond, init)`` (the JAX loop). dE comes
+from two ELL energies.
 
-Randomness: ``sweep`` / ``wolff_update`` draw from a device generator seeded
-by the run's host generator (``core.rng``, so a captured step replays them
-from its tape); ``sweep_with_draws`` / ``wolff_update_with_draws`` take the
-caller's draws, which is how the tests hand the port the JAX package's.
+Randomness: ``sweep`` draws one kernel seed (``core.rng.draw_seed``: a seed
+slot while a captured step's tape is active), from which C2 and C1 draw
+Philox words; ``wolff_update`` draws from a device generator seeded by the
+run's host generator (``core.rng``, so a captured step replays them from its
+tape); ``sweep_with_draws`` / ``wolff_update_with_draws`` take the caller's
+draws, which is how the tests hand the port the JAX package's.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import torch
 
 from spinglass_tpu_torch.core import energy as energy_ops
 from spinglass_tpu_torch.core import rng
-from spinglass_tpu_torch.kernels.cluster_cuda import ClusterLabels
+from spinglass_tpu_torch.kernels import cluster_cuda
 from spinglass_tpu_torch.kernels.sparse import EllProblem, sparse_energy
 
 
@@ -172,32 +178,37 @@ def wolff_sweep_ell(ell: EllProblem, spins: torch.Tensor, beta,
 def _ell_reverse_slots(idx, val):
     """Host precompute: rev_i/rev_k such that idx[rev_i[i,k], rev_k[i,k]] == i
     for every real slot (self-pointing on padding). Lets both directions of an
-    undirected edge consume the SAME uniform (the i<j direction's draw)."""
-    idx = np.asarray(idx)
-    val = np.asarray(val)
+    undirected edge consume the SAME uniform (the i<j direction's draw).
+    Where row j holds i in several real slots, the first counts (as in the
+    JAX function); sorted keys and a binary search instead of a loop."""
+    idx = np.asarray(idx).astype(np.int64)
+    real = np.asarray(val) != 0.0
     n_pad, k_max = idx.shape
-    # map (j -> i) slot lookup: position of i in j's row
-    pos = {}
-    for j in range(n_pad):
-        for k in range(k_max):
-            if val[j, k] != 0.0:
-                pos.setdefault((j, int(idx[j, k])), k)
-    rev_i = np.tile(np.arange(n_pad)[:, None], (1, k_max)).astype(np.int32)
-    rev_k = np.tile(np.arange(k_max)[None, :], (n_pad, 1)).astype(np.int32)
-    for i in range(n_pad):
-        for k in range(k_max):
-            j = int(idx[i, k])
-            if val[i, k] != 0.0 and (j, i) in pos:
-                rev_i[i, k] = j
-                rev_k[i, k] = pos[(j, i)]
+    rows = np.broadcast_to(np.arange(n_pad)[:, None], idx.shape)
+    slots = np.broadcast_to(np.arange(k_max)[None, :], idx.shape)
+    rev_i = np.array(rows, dtype=np.int32)
+    rev_k = np.array(slots, dtype=np.int32)
+    if not real.any():
+        return rev_i, rev_k
+    # the first real slot of each (row j, neighbour i), keyed j * Np + i
+    keys, first = np.unique((rows * n_pad + idx)[real], return_index=True)
+    slot_of = slots[real][first]
+    query = (idx * n_pad + rows)[real]            # (j, i) for slot (i, k)
+    at = np.minimum(np.searchsorted(keys, query), len(keys) - 1)
+    found = keys[at] == query
+    ri, rk = rev_i[real], rev_k[real]
+    ri[found] = idx[real][found]
+    rk[found] = slot_of[at[found]]
+    rev_i[real], rev_k[real] = ri, rk
     return rev_i, rev_k
 
 
 class SwendsenWang:
     """Swendsen-Wang multi-cluster updates, batched over replicas, on a
     dense ``IsingProblem`` (converted to ELL once) or an ``EllProblem``
-    (see the module docstring). ``labeller`` is C1 with its launch count;
-    ``last_rounds`` [R] holds the labelling rounds of the last sweep."""
+    (see the module docstring). ``bonds`` is C2 and ``labeller`` C1, each
+    with its launch count; ``last_rounds`` [R] holds the labelling rounds
+    of the last sweep."""
 
     def __init__(self, problem):
         ell = problem if isinstance(problem, EllProblem) \
@@ -205,63 +216,45 @@ class SwendsenWang:
         self.ell = ell
         self.problem = problem
         dev = ell.device
-        n_pad = ell.n_padded
         rev_i, rev_k = _ell_reverse_slots(ell.idx.cpu().numpy(),
                                           ell.val.cpu().numpy())
-        self.rev_i = torch.as_tensor(rev_i, dtype=torch.int64, device=dev)
-        self.rev_k = torch.as_tensor(rev_k, dtype=torch.int64, device=dev)
+        self.rev_i = torch.as_tensor(rev_i, dtype=torch.int32, device=dev)
+        self.rev_k = torch.as_tensor(rev_k, dtype=torch.int32, device=dev)
         self._idx = ell.idx.to(torch.int32).contiguous()
-        self._idx_l = ell.idx.long()
-        site = torch.arange(n_pad, dtype=torch.int32, device=dev)
-        self._lower = site[:, None] < self._idx          # [Np, K]
         self._active = ell.active_mask > 0
-        self._site = site
-        self._init = torch.where(self._active, site,
-                                 torch.full_like(site, n_pad))
-        self.labeller = ClusterLabels()
+        self.bonds = cluster_cuda.BondActivation(
+            self._idx, ell.val, ell.h, self._active, self.rev_i, self.rev_k)
+        self.labeller = cluster_cuda.ClusterLabels()
         self.last_rounds = None
 
-    def draws(self, r: int, generator: torch.Generator, device):
-        """One sweep's draws on ``device``: bond uniforms [R, Np, K], ghost
-        uniforms [R, Np] and cluster coins [R, Np] (bool)."""
-        n_pad, k = self._idx.shape
-        gen = rng.device_generator(generator, device)
-        return (rng.rand(gen, (r, n_pad, k), device),
-                rng.rand(gen, (r, n_pad), device),
-                rng.random_bits(gen, (r, n_pad)).bool())
-
     def sweep(self, spins: torch.Tensor, beta, generator: torch.Generator):
-        """spins [R, Np] float32 -> (spins, dE[R], n_clusters[R])."""
-        return self.sweep_with_draws(
-            spins, beta, *self.draws(spins.shape[0], generator, spins.device))
+        """spins [R, Np] float32 -> (spins, dE[R], n_clusters[R]); the
+        sweep's draws come from one seed of ``generator``."""
+        return self._sweep(spins, beta, seed=rng.draw_seed(generator))
 
     def sweep_with_draws(self, spins: torch.Tensor, beta, u_dir, u_ghost,
                          coins):
-        """One sweep on the caller's draws (``draws``' shapes)."""
-        ell = self.ell
-        r, n_pad = spins.shape
-        beta = _beta(beta, r, spins.device)
-        active = self._active[None, :]
-        # bond activation, one uniform per undirected edge
-        u_edge = torch.where(self._lower[None], u_dir,
-                             u_dir[:, self.rev_i, self.rev_k])
-        jss = ell.val[None] * spins[:, :, None] * spins[:, self._idx_l]
-        p_bond = -torch.expm1(-2.0 * beta[:, None, None]
-                              * torch.clamp(jss, min=0.0))
-        bond = (u_edge < p_bond) & (jss > 0)
-        # ghost bonds from the external fields
-        hs = ell.h[None, :] * spins
-        p_ghost = -torch.expm1(-2.0 * beta[:, None] * torch.clamp(hs, min=0.0))
-        ghost = (u_ghost < p_ghost) & active
-        init = torch.where(ghost, torch.full_like(self._init, -1)[None],
-                           self._init[None])
-        labels, self.last_rounds = self.labeller(self._idx, bond.contiguous(),
-                                                 init.contiguous())
-        # flip each cluster not bonded to the ghost with its root's coin
-        root_coin = torch.gather(coins, 1, labels.clamp(0, n_pad - 1).long())
-        flip = (labels >= 0) & root_coin & active
-        new_spins = torch.where(flip, -spins, spins)
-        de = sparse_energy(ell, new_spins) - sparse_energy(ell, spins)
-        n_clusters = torch.sum((labels == self._site[None, :]) & active,
-                               dim=-1, dtype=torch.int32)
+        """One sweep on the caller's draws: bond uniforms u_dir [R, Np, K]
+        (each edge reads its lower end's), ghost uniforms u_ghost [R, Np]
+        and cluster coins [R, Np] bool."""
+        return self._sweep(spins, beta, u_dir=u_dir.contiguous(),
+                           u_ghost=u_ghost.contiguous(),
+                           coins=coins.contiguous())
+
+    def _sweep(self, spins, beta, u_dir=None, u_ghost=None, coins=None,
+               seed=None):
+        spins = spins.contiguous()
+        beta = _beta(beta, spins.shape[0], spins.device).contiguous()
+        masks, init = self.bonds(spins, beta, u_dir=u_dir, u_ghost=u_ghost,
+                                 seed=seed)
+        if spins.is_cuda:
+            new_spins, n_clusters, _, self.last_rounds = self.labeller.flip(
+                self._idx, masks, init, spins, coins=coins, seed=seed)
+        else:   # C1's plain versions, the labelling through ``labeller``
+            bond = cluster_cuda.unpack_masks(masks, self._idx.shape[1])
+            labels, self.last_rounds = self.labeller(self._idx, bond, init)
+            new_spins, n_clusters = cluster_cuda.flip_reference(
+                spins, labels, init, coins=coins, seed=seed)
+        de = (sparse_energy(self.ell, new_spins)
+              - sparse_energy(self.ell, spins))
         return new_spins, de, n_clusters

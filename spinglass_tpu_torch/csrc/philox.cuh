@@ -1,10 +1,11 @@
 // Random numbers and acceptance thresholds shared by the port's kernels
 // (the dense sweeps K1, K5, K6, K7 through dense_sweep.cuh, K2
-// sparse_sweep.cu, K3 sparse_thresholds.cu, K4 sparse_accept.cu).
+// sparse_sweep.cu, K3 sparse_thresholds.cu, K4 sparse_accept.cu, and the
+// Swendsen-Wang kernels C2 sw_bonds.cu and C1 sw_labels.cu).
 //
 // Philox4x32-10 keyed by the 64-bit sweep seed (k0 = low word, k1 = high
 // word). An output word x gives u = (2 * (x >> 9) + 1) / 2^24: exact in
-// float32 and strictly inside (0, 1). Two streams:
+// float32 and strictly inside (0, 1). Three streams:
 //   dense kernels, philox_uniform: counter (row, replica, 0, 0), word 0 of
 //     the four output words (kernels/metropolis_cuda.py:philox_uniforms);
 //   sparse kernels K2, K3, K4, philox_uniform4: counter (sorted row,
@@ -12,8 +13,13 @@
 //     replicas 4g, 4g+1, 4g+2, 4g+3, so one run of the ten rounds serves
 //     four columns (kernels/metropolis_cuda.py:philox_uniforms4). The ten
 //     rounds are most of a threshold's cost (K3 took 190 us at [10240, 4096]
-//     with one word used, against 50 us to write its output).
-// Both are computed in PyTorch too, so every kernel's draws can be
+//     with one word used, against 50 us to write its output);
+//   Swendsen-Wang kernels C2 and C1, philox4x32: counter (site, replica >> 2,
+//     slot, tag), the four words again the replicas 4g .. 4g+3; tag 0 the
+//     bond uniform of an edge at its lower end's (site, slot), tag 1 the
+//     ghost uniform (slot 0), tag 2 the cluster coin (slot 0, the word's top
+//     bit) (kernels/metropolis_cuda.py:sw_philox_draws; csrc/sw_bonds.cu).
+// All are computed in PyTorch too, so every kernel's draws can be
 // reproduced on the CPU.
 //
 // The seed reaches a kernel by value (k0, k1), or in device memory: every
@@ -101,6 +107,29 @@ __device__ __forceinline__ void philox_uniform4(uint32_t row, uint32_t group,
   u[1] = word_uniform(c1);
   u[2] = word_uniform(c2);
   u[3] = word_uniform(c3);
+}
+
+// The four output words of counter (c0, c1, c2, c3): the Swendsen-Wang
+// kernels' stream (sw_bonds.cu, sw_labels.cu) names all four counter words.
+__device__ __forceinline__ void philox4x32(uint32_t c0, uint32_t c1,
+                                           uint32_t c2, uint32_t c3,
+                                           uint32_t k0, uint32_t k1,
+                                           uint32_t (&x)[4]) {
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  x[0] = c0;
+  x[1] = c1;
+  x[2] = c2;
+  x[3] = c3;
 }
 
 template <int RULE>  // 0: metropolis, 1: glauber

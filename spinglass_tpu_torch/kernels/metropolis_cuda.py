@@ -45,7 +45,9 @@ slot on the CPU with ``int``, and compute on a CUDA slot where it lies.
 ``sweep_with_uniforms`` takes caller-supplied uniforms instead. The sparse
 kernels (``kernels/sparse_cuda.py``) draw ``philox_uniforms4``: the same
 generator with counter (sorted row, replica // 4), whose four output words
-serve four neighbouring replicas.
+serve four neighbouring replicas; the Swendsen-Wang kernels
+(``kernels/cluster_cuda.py``) ``sw_philox_words``, counter (site, replica //
+4, slot, tag), and ``sw_philox_draws`` spells one sweep's draws out.
 
 Glauber threshold: the kernels and the twins clamp u at ``GLAUBER_U_MAX``
 (0.999999) inside log1p, as the Pallas kernel does;
@@ -131,6 +133,12 @@ def _key(seed):
     return seed & _MASK32, seed >> 32
 
 
+def word_uniforms(x: torch.Tensor) -> torch.Tensor:
+    """float32 uniforms in (0, 1) from Philox output words (``word_uniform``
+    in csrc/philox.cuh)."""
+    return (((x >> 9) << 1) | 1).to(torch.float32) * 2.0 ** -24
+
+
 def philox_uniforms(seed, n_pad: int, r: int, device="cpu",
                     row0: int = 0) -> torch.Tensor:
     """[n_pad, R] float32 uniforms in (0, 1): the kernels' in-kernel stream
@@ -139,8 +147,7 @@ def philox_uniforms(seed, n_pad: int, r: int, device="cpu",
     spin = torch.arange(row0, row0 + n_pad, dtype=torch.int64,
                         device=device)[:, None]
     rep = torch.arange(r, dtype=torch.int64, device=device)[None, :]
-    x0 = philox4x32((spin, rep, 0, 0), _key(seed))[0]
-    return (((x0 >> 9) << 1) | 1).to(torch.float32) * 2.0 ** -24
+    return word_uniforms(philox4x32((spin, rep, 0, 0), _key(seed))[0])
 
 
 def philox_uniforms4(seed, n_pad: int, r: int, device="cpu",
@@ -154,8 +161,41 @@ def philox_uniforms4(seed, n_pad: int, r: int, device="cpu",
                        device=device)[:, None]
     group = torch.arange(-(-r // 4), dtype=torch.int64, device=device)[None, :]
     words = philox4x32((row, group, 0, 0), _key(seed))
-    x = torch.stack(words, dim=2).reshape(n_pad, -1)[:, :r]
-    return (((x >> 9) << 1) | 1).to(torch.float32) * 2.0 ** -24
+    return word_uniforms(torch.stack(words, dim=2).reshape(n_pad, -1)[:, :r])
+
+
+SW_TAG_BOND, SW_TAG_GHOST, SW_TAG_COIN = 0, 1, 2
+
+
+def sw_philox_words(seed, r: int, site: torch.Tensor, slot, tag: int
+                    ) -> torch.Tensor:
+    """int64 words [R, *site's shape] of the Swendsen-Wang stream (C2, C1:
+    ``csrc/philox.cuh``) for sweep seed ``seed``: replica 4g + c takes word c
+    of Philox counter (site, g, slot, tag). ``site`` is an int64 tensor,
+    ``slot`` an int or a tensor broadcast with it."""
+    group = torch.arange(-(-r // 4), dtype=torch.int64, device=site.device)
+    group = group.reshape(-1, *([1] * site.dim()))
+    slot = torch.as_tensor(slot, dtype=torch.int64, device=site.device)
+    words = philox4x32((site[None], group, slot[None], tag), _key(seed))
+    x = torch.stack(torch.broadcast_tensors(*words), dim=1)   # [G, 4, ...]
+    return x.reshape(-1, *x.shape[2:])[:r]
+
+
+def sw_philox_draws(seed, r: int, n_pad: int, k: int, device="cpu"):
+    """One Swendsen-Wang sweep's draws in the Philox mode of C2 and C1, as
+    the given mode takes them: u_dir [R, Np, K] (slot q of site i: tag 0 at
+    counter (i, r // 4, q)), u_ghost [R, Np] (tag 1) and coins [R, Np] bool
+    (tag 2, the word's top bit). Fed to ``SwendsenWang.sweep_with_draws``
+    they give what ``SwendsenWang.sweep`` gives under ``seed``, bit for bit:
+    both ends of an edge read the lower end's u_dir, and C2 draws that word
+    at the lower end's counter."""
+    site = torch.arange(n_pad, dtype=torch.int64, device=device)
+    u_dir = word_uniforms(sw_philox_words(
+        seed, r, site[:, None], torch.arange(k, device=device)[None, :],
+        SW_TAG_BOND))
+    u_ghost = word_uniforms(sw_philox_words(seed, r, site, 0, SW_TAG_GHOST))
+    coins = (sw_philox_words(seed, r, site, 0, SW_TAG_COIN) >> 31) == 1
+    return u_dir, u_ghost, coins
 
 
 def kernel_threshold(u: torch.Tensor, beta: torch.Tensor, rule: str) -> torch.Tensor:

@@ -78,7 +78,7 @@ def _exact_labels(idx, bond, init):
 
 
 @pytest.mark.parametrize("n,degree,seed", [(50, 3.0, 0), (200, 6.0, 1),
-                                           (300, 4.0, 2)])
+                                           (300, 4.0, 2), (4000, 6.0, 3)])
 def test_reverse_slots_equal_jax(n, degree, seed):
     je, te = _pm_ell(n, degree, seed)
     got = TC._ell_reverse_slots(te.idx.numpy(), te.val.numpy())

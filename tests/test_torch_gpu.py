@@ -847,23 +847,18 @@ def test_benchmark_trials_equal_fresh_calls_on_the_card(cuda):
 
 def _sw_bond_sets(ell, r, cuda, case):
     """(idx, bond, init) of one SW sweep's labelling on ``ell`` at ``r``
-    replicas, or an adversarial bond set at the same shape."""
+    replicas (C2 in Philox mode on random spins), or an adversarial bond set
+    at the same shape."""
     from spinglass_tpu_torch.core.cluster import SwendsenWang
+    from spinglass_tpu_torch.kernels import cluster_cuda as CC
 
     sw = SwendsenWang(ell)
-    got = {}
-    real = sw.labeller
-
-    def spy(idx, bond, init):
-        got.update(idx=idx, bond=bond.clone(), init=init.clone())
-        return real(idx, bond, init)
-
     gen = torch.Generator().manual_seed(r)
     s = torch.where(torch.rand(r, ell.n_padded, generator=gen) < 0.5, -1.0,
                     1.0).to(cuda)
-    sw.labeller = spy
-    sw.sweep(s, torch.linspace(0.2, 1.5, r, device=cuda), gen)
-    idx, bond, init = got["idx"], got["bond"], got["init"]
+    masks, init = sw.bonds(s, torch.linspace(0.2, 1.5, r, device=cuda),
+                           seed=r)
+    idx, bond = sw._idx, CC.unpack_masks(masks, sw._idx.shape[1])
     if case == "all":
         bond = ell.val[None].expand_as(bond) != 0
     elif case == "none":
@@ -885,6 +880,17 @@ def _sw_bond_sets(ell, r, cuda, case):
     return idx.contiguous(), bond.contiguous(), init.contiguous()
 
 
+def _c1_labels(c1, idx, bond, init):
+    """C1's labels and rounds of bool bonds [R, Np, K], through its one
+    entry on the card (labels and flip, here of all-up spins)."""
+    from spinglass_tpu_torch.kernels import cluster_cuda as CC
+
+    spins = torch.ones(init.shape, device=init.device)
+    _, _, labels, rounds = c1.flip(idx, CC.pack_bonds(bond), init, spins,
+                                   seed=0)
+    return labels, rounds
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,case", [(16, "sweep"), (128, "sweep"),
                                     (16, "all"), (16, "none"), (2, "path")])
@@ -896,12 +902,130 @@ def test_sw_labels_kernel_matches_plain_labels(cuda, r, case):
     ell = _pm_j_ell(3000, 5, cuda)
     idx, bond, init = _sw_bond_sets(ell, r, cuda, case)
     c1 = CC.ClusterLabels()
-    labels, rounds = c1(idx, bond, init)
+    labels, rounds = _c1_labels(c1, idx, bond, init)
     torch.cuda.synchronize()
     want, plain_rounds = CC.labels_reference(idx.cpu(), bond.cpu(), init.cpu())
     assert torch.equal(labels.cpu(), want) and c1.launches == 1
     assert (rounds.cpu() >= 1).all() and (rounds.cpu() <= ell.n_padded).all()
     assert int(rounds.max()) <= plain_rounds
+
+
+def _sw_inputs(problem, r, cuda, seed):
+    """(SwendsenWang, spins [R, Np], beta [R]) on the card."""
+    from spinglass_tpu_torch.core.cluster import SwendsenWang
+
+    sw = SwendsenWang(problem)
+    gen = torch.Generator().manual_seed(seed)
+    s = torch.where(torch.rand(r, sw.ell.n_padded, generator=gen) < 0.5,
+                    -1.0, 1.0)
+    s = torch.where(sw.ell.active_mask.cpu()[None] > 0, s, 1.0).to(cuda)
+    return sw, s.contiguous(), torch.linspace(0.2, 1.6, r, device=cuda)
+
+
+def _sw_kernels_vs_plain(sw, s, beta, seed, blocks=None):
+    """C2 and C1 in both draw modes against their plain versions on the
+    same inputs on the card, bit for bit (masks, start labels, new spins,
+    labels, cluster counts); returns C1's plan."""
+    from spinglass_tpu_torch.kernels import cluster_cuda as CC
+
+    r, n = s.shape
+    k = sw._idx.shape[1]
+    b = sw.bonds
+    c1 = CC.ClusterLabels(blocks)
+    draws = MC.sw_philox_draws(seed, r, n, k, device=s.device)
+    for mode in ({"seed": seed}, {"u_dir": draws[0], "u_ghost": draws[1]}):
+        masks, init = b(s, beta, **mode)
+        want_m, want_i = CC.bonds_reference(b.idx, b.val, b.h, b.active,
+                                            b.rev_i, b.rev_k, s, beta, **mode)
+        torch.cuda.synchronize()
+        assert torch.equal(masks, want_m) and torch.equal(init, want_i)
+        flip = {"seed": seed} if "seed" in mode else {"coins": draws[2]}
+        new, n_cl, labels, rounds = c1.flip(sw._idx, masks, init, s, **flip)
+        torch.cuda.synchronize()
+        want_l, _ = CC.labels_reference(sw._idx, CC.unpack_masks(masks, k),
+                                        init)
+        want_s, want_n = CC.flip_reference(s, want_l, init, **flip)
+        assert torch.equal(labels, want_l) and torch.equal(new, want_s)
+        assert torch.equal(n_cl, want_n) and (rounds == 1).all()
+    assert b.launches == 2 and c1.launches == 2
+    return CC.labels_plan(n, r, torch.cuda.get_device_properties(
+        s.device).multi_processor_count, blocks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,plan", [(128, (0, 1, 0)), (16, (1, 8, 9)),
+                                    (5, (1, 8, 9))])
+def test_sw_kernels_match_plain_versions(cuda, r, plan):
+    """C2 == its plain version and C1 == labels_reference + flip_reference,
+    bit for bit, Philox and given modes, at 128 replicas (one block each)
+    and 16 and 5 (a cluster of 8 blocks per replica)."""
+    ell = _pm_j_ell(3000, 6, cuda)
+    sw, s, beta = _sw_inputs(ell, r, cuda, r)
+    assert _sw_kernels_vs_plain(sw, s, beta, 1000 + r) == plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [1, 2, 4, 8, 0])
+def test_sw_labels_every_table_placement(cuda, blocks):
+    """C1 with its parent table forced into one block, clusters of 2, 4 and
+    8 blocks, and device memory: the same labels and flips as the plain
+    versions on the sweep's bonds and on the adversarial sets."""
+    from spinglass_tpu_torch.kernels import cluster_cuda as CC
+
+    ell = _pm_j_ell(3000, 7, cuda)
+    sw, s, beta = _sw_inputs(ell, 12, cuda, 3)
+    _sw_kernels_vs_plain(sw, s, beta, 77, blocks)
+    for r, case in ((4, "all"), (4, "none"), (2, "path")):
+        idx, bond, init = _sw_bond_sets(ell, r, cuda, case)
+        labels, _ = _c1_labels(CC.ClusterLabels(blocks), idx, bond, init)
+        want, _ = CC.labels_reference(idx, bond, init)
+        torch.cuda.synchronize()
+        assert torch.equal(labels, want), case
+
+
+@pytest.mark.gpu
+def test_sw_kernels_beyond_one_blocks_shared_memory(cuda):
+    """Np beyond one block's table (58000 nodes): C1 takes a cluster of 2
+    blocks at 128 replicas, device memory when asked; both equal the plain
+    versions, as C2 does."""
+    from spinglass_tpu_torch.kernels import cluster_cuda as CC
+
+    ell = _pm_j_ell(60000, 8, cuda)
+    sw, s, beta = _sw_inputs(ell, 128, cuda, 5)
+    assert _sw_kernels_vs_plain(sw, s, beta, 5) == (1, 2, 15)
+    sw, s, beta = _sw_inputs(ell, 8, cuda, 6)
+    assert _sw_kernels_vs_plain(sw, s, beta, 6, blocks=0) == (2, 1, 0)
+    assert CC.labels_plan(300000, 4) == (2, 1, 0)
+
+
+@pytest.mark.gpu
+def test_sw_kernels_beyond_the_staged_signs(cuda):
+    """210000 sites, beyond the 200k whose sign bytes C2 stages in shared
+    memory: C2 gathers the neighbours' spins from device memory, C1 takes a
+    cluster of 8 blocks; both equal their plain versions."""
+    ell = _pm_j_ell(210000, 10, cuda)
+    sw, s, beta = _sw_inputs(ell, 4, cuda, 10)
+    assert _sw_kernels_vs_plain(sw, s, beta, 10) == (1, 8, 15)
+
+
+@pytest.mark.gpu
+def test_sw_kernels_with_several_mask_words(cuda):
+    """A dense 100-spin problem in ELL form (K = 99, four mask words): C2
+    and C1 equal their plain versions, and one sweep through SwendsenWang
+    keeps the energy identity."""
+    from spinglass_tpu_torch.kernels.sparse import sparse_energy
+
+    rng = np.random.default_rng(9)
+    j = topology.fully_connected(100, dist="binary", seed=9)
+    p = IsingProblem.from_dense(j, rng.integers(-4, 5, 100) / 4.0,
+                                device=cuda)
+    sw, s, beta = _sw_inputs(p, 24, cuda, 9)
+    assert sw._idx.shape[1] == 99
+    _sw_kernels_vs_plain(sw, s, beta, 9)
+    new, de, n_cl = sw.sweep(s, beta, torch.Generator().manual_seed(2))
+    torch.testing.assert_close(sparse_energy(sw.ell, s) + de,
+                               sparse_energy(sw.ell, new), rtol=0, atol=1e-3)
+    assert ((n_cl >= 0) & (n_cl <= 100)).all()
 
 
 @pytest.mark.gpu
@@ -964,6 +1088,7 @@ def test_captured_cluster_move_super_step_equals_eager(cuda, replicas):
                       cluster_moves=1, seed=5)
     res = pt.run(ell, cfg)
     assert res.metadata["kernel_launches"]["sw_labels"] == 6
+    assert res.metadata["kernel_launches"]["sw_bonds"] == 6
     super_step, _, engine = pt.make_pt_step(ell, cfg)
     state = pt.init_state(ell, cfg, torch.Generator().manual_seed(5), engine)
     hist = []
@@ -983,3 +1108,36 @@ def test_captured_cluster_move_super_step_equals_eager(cuda, replicas):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [16, 128])
+def test_resumed_cluster_move_run_equals_uninterrupted(cuda, replicas,
+                                                       tmp_path):
+    """pt.run with cluster_moves=1 (C2 and C1 once per super-step),
+    checkpointed, cut back to its first checkpoint and resumed: every result
+    array equals the uninterrupted run's bit for bit, and the SW launches of
+    the resumed call are those of the super-steps left."""
+    import os
+
+    from spinglass_tpu_torch.anneal import pt
+
+    ell = _pm_j_ell(2000, 8, cuda)
+    cfg = pt.PTConfig(n_replicas=replicas, n_sweeps=120, exchange_interval=10,
+                      cluster_moves=1, seed=7)
+    d = str(tmp_path / "ck")
+    ref = pt.run(ell, cfg)
+    full = pt.run(ell, cfg, checkpoint_dir=d, checkpoint_every=4)
+    steps = sorted(int(f[5:-3]) for f in os.listdir(d) if f.startswith("ckpt_"))
+    for st in steps[1:]:
+        os.remove(os.path.join(d, f"ckpt_{st}.pt"))
+    res = pt.run(ell, cfg, checkpoint_dir=d, checkpoint_every=4, resume=True)
+    for r in (full, res):
+        for name in ("best_spins", "replica_best_energy", "energy_history",
+                     "mean_energy_history", "acceptance_history"):
+            np.testing.assert_array_equal(getattr(r, name), getattr(ref, name))
+    kl = ref.metadata["kernel_launches"]
+    assert kl["sw_bonds"] == kl["sw_labels"] == 12
+    assert full.metadata["kernel_launches"] == kl
+    assert res.metadata["kernel_launches"]["sw_labels"] == 12 - steps[0]
+    assert res.metadata["kernel_launches"]["sw_bonds"] == 12 - steps[0]

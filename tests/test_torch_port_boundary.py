@@ -86,6 +86,8 @@ step, _, eng = pt.make_pt_step(ell, cm_cfg)
 st, stats = step(pt.init_state(ell, cm_cfg, engine=eng))
 assert int(st.sweep) == 2 and np.isfinite(float(stats["best_energy"]))
 assert step.sw.last_rounds is not None and step.sw.labeller.launches == 0
+from spinglass_tpu_torch.kernels import cluster_cuda
+assert step.sw.bonds.launches == 0 and cluster_cuda.labels_plan(10112, 16)[1] == 8
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "spinglass_tpu")
@@ -206,7 +208,8 @@ def test_nvcc_command_targets_sm90a_and_build_dir_is_ignored():
                           (MC.PIPELINED_KERNEL, [dense, philox]),
                           (MC.INTERLEAVED_KERNEL, [dense, philox]),
                           (MC.FOLDED_KERNEL, [dense, philox]),
-                          (CC.KERNEL_NAME, [])):
+                          (CC.KERNEL_NAME, [philox]),
+                          (CC.BONDS_KERNEL, [philox])):
         src = os.path.join(build.CSRC_DIR, f"{name}.cu")
         assert "arch=compute_90a,code=sm_90a" in " ".join(
             build.nvcc_command(src, "x.so"))
