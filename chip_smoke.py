@@ -16,8 +16,10 @@ its plain PyTorch twin, drives
 the dense SA slice (SK glass, N=4096, R=1024; K1 and each variant), the
 sparse slice (10k spins: SA at R=1024, time-to-target PT at R=128, PT at
 R=4096 on K4, make_engine's choice there, and on K3), the RL path (the
-annealer environment and PPO on the SK glass at N=512 with 256 envs through
-K1, and on the 10k graph through K2 and K4) and the problem path (TSP and
+annealer environment, PPO and the hybrid DQN on the SK glass at N=512 with
+256 envs through K1, and on the 10k graph through K2 and K4; the training
+pipeline, train-rl, the gym adapter's episode and the captured evaluation)
+and the problem path (TSP and
 MaxCut encoded, solved through K1, K2 and K4, and the command line) and the
 drivers' remaining paths (checkpoint/resume, PT with Swendsen-Wang cluster
 moves, the tuned ladder, the compact engine) end to end, and times the
@@ -64,6 +66,11 @@ kernels against the twins. Phases:
      write in place; those envs must keep their spins): +-J N=512 with 256
      envs (K1), the +-J 10k graph with 128 envs (K2) and 64 envs (K4);
      spins, energies, counts, rewards, observations and done bitwise;
+     RL training: two act_and_learn steps of the hybrid DQN at its default
+     widths (buffer 4096, batch 128, hidden (128, 128)) on the same three
+     shapes, through the kernels against the twins, without and with
+     prioritised replay: the whole DQN state (env, ring, priorities,
+     parameters, target network, Adam, counters) bitwise;
      C2 and C1 against their plain versions on the same inputs, bit for
      bit, in the Philox and the given draw modes (masks, start labels,
      labels, new spins, cluster counts): one SW sweep's inputs on the TTT
@@ -105,6 +112,18 @@ kernels against the twins. Phases:
      mean best energy below the reset energy; rollout_best_energy for the
      geometric controller must launch K1 max_steps x sweeps_per_step times,
      and env.reset without an engine on a problem on the card must raise.
+     RL training: the captured DQN step (k=8, 16 steps, N=512 x 256 envs,
+     with and without PER) against the eager loop bit for bit, its replays
+     and reads without host sync, K1 exactly 10 launches per env step;
+     captured DQN runs on the 10k graph at 128 (K2, 40 launches) and 64
+     envs (K4, one per colour and sweep); RLTrainingPipeline with the
+     curriculum (32 / 64 / 128 at 32 envs), DQN (k=2) and PPO, checkpointed,
+     and PPO resumed from its checkpoint == the uninterrupted run bit for
+     bit; `sgt-torch train-rl --agent dqn` in process; a gym episode at R=1
+     on K1 against the same episode through K1's twin (SpinGlassGymEnv, or
+     its episode core SpinGlassEpisode where gymnasium is not installed);
+     the captured evaluate_controllers against the eager loop of its
+     episodes, every seed bitwise; a short learning_report.
      The launch counts
      are those of each call (AnnealResult.metadata["kernel_launches"]). The
      entry points above run their captured steps (anneal/graphs.py: CUDA
@@ -177,7 +196,10 @@ kernels against the twins. Phases:
      replicas through K4 and through the plain [R, N] engine; bench_rl's
      env steps/s with its window rates, and profile_rl's breakdown of one
      PPO update (us per env step, device-busy share, launches per env
-     step, K1's share, rollout against learning phase); each captured
+     step, K1's share, rollout against learning phase); bench_dqn at k=1
+     and 64 steps per read, profile_dqn's breakdown of one DQN step and its
+     eager act / learn split, and the captured evaluation against the eager
+     loop in turns; each captured
      driver against the eager loop of its step in turns
      (headline.captured_vs_plain: the dense and sparse SA chunk, TTT, one
      PPO update; whole calls of anneal, dense and sparse, and of pt.run at
@@ -1723,6 +1745,324 @@ def rl_timing(torch, stats, card):
 
 
 # ---------------------------------------------------------------------------
+# The RL training path: the hybrid DQN, the pipeline, train-rl, the gym
+# adapter and the captured evaluation
+# ---------------------------------------------------------------------------
+
+DQN_STEPS = 16   # the captured DQN run (k=8) against the eager loop
+
+
+def _dqn_diff(torch, a, b) -> list:
+    """The fields of two DQN states (Adam's moments and steps too) that are
+    not equal bit for bit."""
+    import dataclasses
+
+    from spinglass_tpu_torch.anneal.graphs import leaves
+
+    bad = [f.name for f in dataclasses.fields(a) if f.name != "opt"
+           and not all(torch.equal(x, y) for x, y in zip(
+               leaves(getattr(a, f.name)), leaves(getattr(b, f.name))))]
+    for p, q in zip(a.params.values(), b.params.values()):
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            if not torch.equal(a.opt.state[p][key], b.opt.state[q][key]):
+                bad.append(f"adam {key}")
+    return bad
+
+
+def _rl_shapes(mc):
+    """The RL bench's three paths on +-J instances: (problem, envs, kernel,
+    label)."""
+    dense = pm_j_problem(512, 13, "cuda")
+    ell = pm_j_ell(10000, 42)
+    return ((dense, 256, mc.KERNEL_NAME, "K1, +-J N=512, 256 envs"),
+            (ell, 128, "sparse_sweep", "K2, +-J 10k graph, 128 envs"),
+            (ell, 64, "sparse_accept", "K4, +-J 10k graph, 64 envs"))
+
+
+def dqn_parity(torch, mc, stats):
+    """Phase 2 (RL training): two act_and_learn steps of the hybrid DQN at
+    its default widths (buffer 4096, batch 128, hidden (128, 128)) through
+    make_engine's engine against the same steps through the kernels' twins
+    under one generator seed, with and without PER: the whole DQN state
+    (env, buffer, priorities, parameters, target network, Adam, counters)
+    bit for bit."""
+    from spinglass_tpu_torch.anneal.twins import (TwinFusedEngine,
+                                                  TwinSparseTEngine)
+    from spinglass_tpu_torch.rl import dqn, env
+
+    for problem, b, key, what in _rl_shapes(mc):
+        env_cfg = env.EnvConfig(n_envs=b, sweeps_per_step=10, max_steps=50,
+                                init_temp_range=(0.1, 20.0))
+        engine = env.default_engine(problem, env_cfg)
+        twin = (TwinFusedEngine(problem, block_size=env_cfg.block_size)
+                if key == mc.KERNEL_NAME else TwinSparseTEngine(problem))
+        per_sweep = len(engine.groups) if key == "sparse_accept" else 1
+        for per in (False, True):
+            cfg = dqn.DQNConfig(prioritized_replay=per, seed=42)
+            states = []
+            for eng in (engine, twin):
+                init_fn, step_fn, _ = dqn.make_dqn(problem, env_cfg, cfg,
+                                                   engine=eng)
+                st = init_fn(torch.Generator().manual_seed(7))
+                for _ in range(2):
+                    st, m = step_fn(st)
+                states.append(st)
+            torch.cuda.synchronize()
+            diff = _dqn_diff(torch, *states)
+            if diff:
+                raise CheckFailed(f"DQN steps through the kernel != through "
+                                  f"the twin ({what}, PER {per}): {diff}")
+        check(engine.launches[key] == 2 * 2 * 10 * per_sweep
+              and twin.launches[key] == 0,
+              f"{what}: two act_and_learn steps (without and with PER), "
+              f"kernel engine == twin engine bitwise in the env state, the "
+              f"buffer, the priorities, the parameters, the target network, "
+              f"Adam and the counters ({engine.launches[key]} launches; "
+              f"last loss {float(m['loss']):.4f})")
+
+
+def rl_training_slice(torch, mc, stats, card):
+    """Phase 4 (RL training): the captured DQN step against the eager loop
+    at N=512 x 256 envs (K1), without host sync, 10 K1 launches per env
+    step; captured DQN runs on the 10k graph at 128 (K2) and 64 envs (K4);
+    RLTrainingPipeline with the curriculum (DQN and PPO), checkpointed, PPO
+    resumed == uninterrupted; `sgt-torch train-rl --agent dqn`; a gym
+    episode on K1 at R=1 against K1's twin; the captured
+    evaluate_controllers against the eager loop; a short learning_report."""
+    import math
+    import tempfile
+
+    from click.testing import CliRunner
+
+    from spinglass_tpu_torch import cli
+    from spinglass_tpu_torch.anneal.engines import CudaFusedEngine
+    from spinglass_tpu_torch.anneal.twins import TwinFusedEngine
+    from spinglass_tpu_torch.benchmarks import headline
+    from spinglass_tpu_torch.rl import dqn, env, evaluate, ppo
+    from spinglass_tpu_torch.rl import train as T
+    from spinglass_tpu_torch.rl import gym_adapter
+    from spinglass_tpu_torch.rl.gym_adapter import (SpinGlassEpisode,
+                                                    SpinGlassGymEnv)
+
+    launches = {}   # kernel -> launches of this part's main-path runs
+
+    def add(eng):
+        for k, v in eng.launches.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # 1. the captured DQN step (k=8) against the eager loop, both with PER
+    # off and on, at the RL bench's shape with the DQN defaults
+    problem, env_cfg, _ = headline.rl_bench_setup(n_updates=1)
+    for per in (False, True):
+        cfg = dqn.DQNConfig(prioritized_replay=per, steps_per_dispatch=8,
+                            seed=42)
+        init_fn, step_fn, _ = dqn.make_dqn(problem, env_cfg, cfg)
+        cap = dqn.CapturedSteps(step_fn, init_fn(), 8)
+        rows = []
+
+        def replays():
+            for _ in range(DQN_STEPS // 8):
+                for _ in range(8):
+                    cap.replay()
+                rows.extend(cap.read(8))
+
+        _sync_free(torch, f"captured DQN (PER {per}), {DQN_STEPS} steps in "
+                          f"blocks of 8", replays)
+        n1 = step_fn.engine.launches[mc.KERNEL_NAME]
+        add(step_fn.engine)
+        init_e, step_e, _ = dqn.make_dqn(problem, env_cfg, cfg)
+        st = init_e()
+        want = []
+        for _ in range(DQN_STEPS):
+            st, m = step_e(st)
+            want.append({k: float(m[k]) for k in dqn.METRIC_KEYS})
+        diff = _dqn_diff(torch, cap.state, st)
+        finite = all(math.isfinite(v) for r in rows for v in r.values())
+        check(rows == want and not diff and finite
+              and type(step_fn.engine) is CudaFusedEngine
+              and n1 == DQN_STEPS * env_cfg.sweeps_per_step,
+              f"the captured DQN step (PER {per}, k=8, {DQN_STEPS} steps at "
+              f"N=512 x 256 envs) == the eager loop bit for bit (metrics, "
+              f"env state, buffer, parameters, target network, Adam); K1 "
+              f"launched {n1} times = 10 per env step; last "
+              f"{ {k: round(v, 4) for k, v in rows[-1].items()} }")
+
+    # 2. captured DQN runs on the 10k bench graph: K2 at 128 envs, K4 at 64
+    ell = headline.sparse_bench_problem()
+    for n_envs, key, path in ((128, "sparse_sweep", "K2"),
+                              (64, "sparse_accept", "K4")):
+        s_env = env.EnvConfig(n_envs=n_envs, sweeps_per_step=10, max_steps=50,
+                              init_temp_range=(0.1, 20.0))
+        init_fn, step_fn, _ = dqn.make_dqn(ell, s_env, dqn.DQNConfig(seed=42))
+        cap = dqn.CapturedSteps(step_fn, init_fn(), 4)
+        for _ in range(4):
+            cap.replay()
+        rows = cap.read(4)
+        eng = step_fn.engine
+        per_sweep = len(eng.groups) if path == "K4" else 1
+        others = [v for k, v in eng.launches.items() if k != key]
+        add(eng)
+        check(eng.launches[key] == 4 * 10 * per_sweep and not any(others)
+              and all(math.isfinite(v) for r in rows for v in r.values()),
+              f"captured DQN on the 10k bench graph, {n_envs} envs, 4 steps: "
+              f"{path} launched {eng.launches[key]} times (4 x 10 x "
+              f"{per_sweep}), no other sparse kernel, every metric finite")
+
+    # 3. the pipeline: the curriculum (32, 64, 128) on the card, train-rl's
+    # 32 envs, DQN (k=2) and PPO, checkpointed
+    tmp = tempfile.mkdtemp(prefix="rl_pipeline_")
+    base = env.EnvConfig(n_envs=32)
+    for agent in ("dqn", "ppo"):
+        d = os.path.join(tmp, agent)
+        pipe = T.RLTrainingPipeline(
+            T.TrainingConfig(agent=agent, n_updates=6, curriculum=True,
+                             checkpoint_interval=2, checkpoint_dir=d),
+            base, dqn_cfg=dqn.DQNConfig(steps_per_dispatch=2, seed=1))
+        out = pipe.train()
+        files = sorted(os.listdir(d))
+        check([(m["stage"], m["update"]) for m in out["metrics"]]
+              == [(s, u) for s in range(3) for u in range(2)]
+              and all(p.is_cuda for p in out["params"].values())
+              and all(f"params_s{s}_u1.npz" in files for s in range(3))
+              and ("train_state_s2.pt" in files) == (agent == "ppo"),
+              f"RLTrainingPipeline({agent}, curriculum 32/64/128, 32 envs, 2 "
+              f"updates per stage) on the card: {files}; "
+              f"{out['env_steps_per_second']:.1f} env steps/s")
+    # PPO resumed from the checkpoint of update 1 == uninterrupted (N=64)
+    p64 = T.default_problem(64)
+    ppo_cfg = ppo.PPOConfig(seed=3)
+
+    def tcfg(d, n, resume=False):
+        return T.TrainingConfig(n_updates=n, checkpoint_interval=2,
+                                checkpoint_dir=d, seed=3, resume=resume)
+
+    full = T.RLTrainingPipeline(tcfg(os.path.join(tmp, "a"), 4), base,
+                                ppo_cfg, problem=p64).train()
+    d = os.path.join(tmp, "b")
+    T.RLTrainingPipeline(tcfg(d, 2), base, ppo_cfg, problem=p64).train()
+    res = T.RLTrainingPipeline(tcfg(d, 4, True), base, ppo_cfg,
+                               problem=p64).train()
+    same = all(torch.equal(res["params"][k], v)
+               for k, v in full["params"].items())
+    check(res["metrics"] == full["metrics"][2:] and same,
+          "the PPO pipeline (N=64, 32 envs) resumed from its checkpoint at "
+          "update 1 == the uninterrupted 4 updates bit for bit (metrics of "
+          "updates 2-3, parameters)")
+
+    # 4. the command line, in process
+    result = CliRunner().invoke(cli.main, ["train-rl", "--agent", "dqn",
+                                           "--updates", "20"])
+    check(result.exit_code == 0 and "env-steps/s:" in result.output,
+          f"`sgt-torch train-rl --agent dqn --updates 20` on the card (N=64, "
+          f"32 envs): exit {result.exit_code}, "
+          f"{result.output.strip().splitlines()[-1]}")
+
+    # 5. a gym episode on K1 at R=1 against K1's twin: through
+    # SpinGlassGymEnv where gymnasium is installed, else through its episode
+    # core SpinGlassEpisode (the reset and step the adapter runs)
+    dense = pm_j_problem(512, 13, "cuda")
+    g_cfg = env.EnvConfig(n_envs=1, sweeps_per_step=10, max_steps=20)
+    adapter = SpinGlassGymEnv if gym_adapter.gymnasium else SpinGlassEpisode
+    genv = adapter(dense, g_cfg)
+    twin_env = adapter(dense, g_cfg, engine=TwinFusedEngine(
+        dense, block_size=g_cfg.block_size))
+    runs = []
+    for e in (genv, twin_env):
+        rows = [e.reset(seed=5)[0].tolist()]
+        for t in range(g_cfg.max_steps):
+            obs, r, term, trunc, info = e.step((3 * t) % 10)
+            rows.append((obs.tolist(), r, term, trunc, info))
+        runs.append(rows)
+    g_eng = genv._engine
+    add(g_eng)
+    check(type(g_eng) is CudaFusedEngine and runs[0] == runs[1]
+          and runs[0][-1][3]
+          and g_eng.launches[mc.KERNEL_NAME] == 20 * 10,
+          f"a gym episode ({adapter.__name__}, N=512, 20 steps) on K1 at "
+          f"R=1 == the same episode "
+          f"through K1's twin bit for bit, truncated at the budget, "
+          f"{g_eng.launches[mc.KERNEL_NAME]} K1 launches; best energy "
+          f"{runs[0][-1][4]['best_energy']:.1f}")
+
+    # 6. the captured evaluate_controllers against the eager loop
+    ev = headline.bench_evaluate(n_seeds=3)
+    stats["bench_evaluate"] = ev
+    check(ev["equal"], "evaluate_controllers (geometric, random; 3 seeds; "
+                       "N=512 x 256 envs) through captured episodes == the "
+                       "eager loop of their step, every seed, bit for bit")
+    check(ev["rollout_equal"], "rollout_best_energy (geometric, N=512 x 256 "
+                               "envs, its step captured anew per call) == "
+                               "the eager loop of its episode, bit for bit")
+
+    # 7. a short learning_report at the RL bench's width
+    problem, env_cfg, _ = headline.rl_bench_setup(n_updates=1)
+    engine = env.default_engine(problem, env_cfg)
+    rep = evaluate.learning_report(
+        problem, env_cfg, ppo.PPOConfig(n_updates=8, rollout_len=8, seed=42),
+        n_seeds=2, engine=engine)
+    add(engine)
+    check(set(rep["per_seed"]) == {"trained_ppo", "geometric", "random"}
+          and all(math.isfinite(v) for v in rep["mean_best_energy"].values())
+          and rep["n_updates"] == 8
+          and engine.launches[mc.KERNEL_NAME] == 8 * 8 * 10 + 3 * 2 * 50 * 10,
+          f"learning_report (8 PPO updates, 2 seeds, N=512 x 256 envs): "
+          f"mean best energy per spin "
+          f"{ {k: round(v / 512, 4) for k, v in rep['mean_best_energy'].items()} }, "
+          f"K1 launched {engine.launches[mc.KERNEL_NAME]} times")
+    stats["rl_training_launches"] = launches
+    for k, v in launches.items():
+        stats["rl_launches"][k] = stats["rl_launches"].get(k, 0) + v
+    print(f"  RL training path launches: {launches}")
+
+
+def rl_training_timing(torch, stats, card):
+    """Phase 5 (RL training): DQN env steps/s at N=512 x 256 envs with k=1
+    and k=64 steps per read, profile_dqn's breakdown of one step and its act
+    / learn split, and the captured evaluation against the eager loop."""
+    from spinglass_tpu_torch.benchmarks import headline
+
+    for k in (1, 64):
+        b = headline.bench_dqn(n_steps=128 if k == 1 else 256, k=k)
+        ex = b["extras"]
+        check(ex["finite"], f"bench_dqn k={k}: every metric finite")
+        print(f"  bench_dqn N={ex['n_spins']}, {ex['n_envs']} envs, "
+              f"{ex['n_steps']} steps, k={k} per read: "
+              f"dqn_env_steps_per_sec {b['value']:.1f} steady (the first "
+              f"block left out), {ex['whole_call_rate']:.1f} over the whole "
+              f"call (capture {ex['capture_seconds']:.3f} s); launches "
+              f"{ex['kernel_launches']} [{card}]")
+    prof = headline.profile_dqn()
+    stats["profiles"]["DQN step (K1, N=512 x 256 envs)"] = prof
+    print(f"  profile_dqn (one captured act_and_learn of 256 envs, batch "
+          f"128): {prof['us_per_env_step']:.1f} us per env step, profiled "
+          f"{prof['profiled_us_per_env_step']:.1f}; kernels "
+          f"{prof['device_us_per_env_step']:.1f} us, device busy "
+          f"{100 * prof['device_busy_share']:.1f}%, "
+          f"{prof['launches_per_env_step']:.1f} kernel launches per env step, "
+          f"K1's share of the device time "
+          f"{100 * prof['sweep_kernel_share']:.1f}% [{card}]")
+    print(f"  the eager step's wall time: act (decision, env.step, push, "
+          f"auto_reset) {1e3 * prof['eager_act_seconds']:.2f} ms, learn "
+          f"(sample, TD loss, backward, Adam, soft update) "
+          f"{1e3 * prof['eager_learn_seconds']:.2f} ms [{card}]")
+    for k in prof["kernels"]:
+        print(f"    {k['us_per_env_step']:9.2f} us/env step  {k['calls']:5d} "
+              f"calls  {k['name'][:76]}")
+    ev = stats["bench_evaluate"]
+    print(f"  evaluate_controllers (2 policies x 3 seeds x 50 steps, N=512 x "
+          f"256 envs) eager "
+          f"{' / '.join(f'{t:.3f}' for t in ev['eager_seconds'])} s, captured "
+          f"{' / '.join(f'{t:.3f}' for t in ev['captured_seconds'])} s "
+          f"(in turns) [{card}]")
+    print(f"  one rollout_best_energy call (geometric, 50 steps, N=512 x 256 "
+          f"envs, captured anew) eager "
+          f"{' / '.join(f'{t:.3f}' for t in ev['rollout_eager_seconds'])} s, "
+          f"captured "
+          f"{' / '.join(f'{t:.3f}' for t in ev['rollout_captured_seconds'])}"
+          f" s (in turns) [{card}]")
+
+
+# ---------------------------------------------------------------------------
 # The captured drivers (anneal/graphs.py) against the eager loop of their step
 # ---------------------------------------------------------------------------
 
@@ -2993,6 +3333,8 @@ def main() -> int:
                  lambda: cluster_parity(torch, stats)),
                 ("phase 2: env.step through K1, K2 and K4 against the twins (RL)",
                  lambda: rl_parity(torch, mc, stats)),
+                ("phase 2: DQN steps through K1, K2 and K4 against the twins "
+                 "(RL training)", lambda: dqn_parity(torch, mc, stats)),
                 ("phase 3: in-kernel Philox (K1)", lambda: phase_philox(torch, mc, stats)),
                 ("phase 3: in-kernel Philox (K2)", lambda: sparse_philox(torch)),
                 ("phase 4: dense SA slice", lambda: phase_slice(torch, mc, stats)),
@@ -3003,6 +3345,9 @@ def main() -> int:
                  lambda: accept_slice(torch, stats)),
                 ("phase 4: the RL path (rollout, PPO, sparse env, evaluation)",
                  lambda: rl_slice(torch, mc, stats)),
+                ("phase 4: the RL training path (DQN, pipeline, train-rl, gym, "
+                 "captured evaluation)",
+                 lambda: rl_training_slice(torch, mc, stats, card)),
                 ("phase 4: the captured drivers against the eager loop",
                  lambda: captured_parity(torch, mc, stats)),
                 ("phase 4: the problem path (encoders, solve, the CLI)",
@@ -3017,6 +3362,9 @@ def main() -> int:
                  lambda: accept_timing(torch, stats, card)),
                 ("phase 5: timing (RL: bench_rl, profile_rl)",
                  lambda: rl_timing(torch, stats, card)),
+                ("phase 5: timing (RL training: bench_dqn, profile_dqn, the "
+                 "captured evaluation)",
+                 lambda: rl_training_timing(torch, stats, card)),
                 ("phase 5: timing (the drivers' remaining paths, C2, C1)",
                  lambda: drivers_timing(torch, stats, card)),
                 ("phase 5: timing (captured drivers against the eager loop)",
@@ -3058,7 +3406,9 @@ def main() -> int:
     # sweep, a coloured sweep with accept, Philox thresholds, cluster
     # labels): library_ms is null; the yardsticks above time the field work
     # alone. launches: those of the SA / PT / variant runs above plus the RL
-    # path's (bench_rl and the two sparse PPO runs), the problem path's (its
+    # path's (bench_rl and the two sparse PPO runs; the captured DQN runs,
+    # the pipelines, train-rl, the gym episode and learning_report of the RL
+    # training path), the problem path's (its
     # solves and the command line's) and the drivers' remaining paths' (the
     # uninterrupted runs of (a) and (b), the cluster-move runs of (c)), each
     # the count of its own call

@@ -39,6 +39,7 @@ captured steps of a problem and configuration for the calls after.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from collections import OrderedDict
 from typing import Callable, Hashable, Optional, Sequence
@@ -186,8 +187,18 @@ class CapturedStep:
         self.tape.allocate()
         if cuda:
             self.graph = torch.cuda.CUDAGraph()
-            with self.tape.serving(), torch.cuda.graph(self.graph):
-                self.outputs = self._run()
+            # no cyclic garbage collection inside the capture: a dead cycle
+            # that holds another step's graph would destroy that graph
+            # there, which the driver refuses while a stream captures (and
+            # the capture fails)
+            gc_was_on = gc.isenabled()
+            gc.disable()
+            try:
+                with self.tape.serving(), torch.cuda.graph(self.graph):
+                    self.outputs = self._run()
+            finally:
+                if gc_was_on:
+                    gc.enable()
             after = self._counts()
             self.launches = {k: after[k] - before[k] for k in before}
             self._set_counts(before)
@@ -233,6 +244,70 @@ class CapturedStep:
         for name, obj, attr in self.counters:
             setattr(obj, attr, getattr(obj, attr) + self.launches[name])
         return self.outputs
+
+
+class CapturedLearner:
+    """A learner's step captured once (``CapturedStep``) and replayed: an RL
+    update or act-and-learn step ``step_fn(state) -> (state, metrics)``
+    whose state holds ``params`` (a dict of tensors), the optimizer ``opt``
+    that steps them and the run's host ``generator``. Each replay writes the
+    metrics named by ``keys`` (0-d tensors) into the step's [k, m] history,
+    so k replays need one read (``read``). The warm-up runs on the run's own
+    parameters and optimizer (Adam's state is built there, outside the
+    graph, on the tensors the graph updates) and on a throwaway copy of the
+    rest of the state, the generator included; then it puts the parameters
+    and the optimizer's state back as they were. ``counters`` are the
+    engine's launch counters; ``done`` counts replays."""
+
+    def __init__(self, step_fn: Callable, state, keys: Sequence[str],
+                 counters: Sequence = (), k: int = 1):
+        self.k = k
+        self.keys = keys = tuple(keys)
+        self.done = 0
+
+        def step(st):
+            st, metrics = step_fn(st)
+            return st, torch.stack([metrics[key].reshape(())
+                                    for key in keys])
+
+        def warm_up(st):
+            params, opt = st.params, st.opt
+            with torch.no_grad():
+                kept_params = {n: p.detach().clone() for n, p in params.items()}
+                kept = {p: {key: v.clone() for key, v in opt.state[p].items()}
+                        for p in params.values() if p in opt.state}
+
+            def restore():
+                with torch.no_grad():
+                    for n, p in params.items():
+                        p.copy_(kept_params[n])
+                        for key, v in opt.state.get(p, {}).items():
+                            if p in kept:
+                                v.copy_(kept[p][key])
+                            else:   # Adam's fresh state is all zeros
+                                v.zero_()
+                opt.zero_grad(set_to_none=True)
+
+            warm = clone(dataclasses.replace(st, params=None, opt=None))
+            return dataclasses.replace(warm, params=params, opt=opt), restore
+
+        self.step = CapturedStep(step, state, state.generator, counters,
+                                 record=k, warm_up=warm_up)
+        self.state = self.step.state
+        self._read = HostRead()
+
+    def replay(self) -> None:
+        """One step."""
+        self.step.replay()
+        self.done += 1
+
+    def read(self, n: int) -> list:
+        """The metrics of the last ``n`` <= k steps, oldest first, as dicts
+        of floats (one read of the history)."""
+        rows = self._read([self.step.history])[0].tolist()
+        first = self.done - n
+        return [dict(zip(self.keys, rows[(first + i) % self.k]))
+                for i in range(n)]
 
 
 class StepCache:

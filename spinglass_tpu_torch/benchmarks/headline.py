@@ -25,6 +25,13 @@ shapes:
     the median of three windows of per-update wall times after a warm-up;
     ``profile_rl`` gives the device breakdown of one update and the split
     between its rollout and its learning phase.
+  * ``bench_dqn``: DQN training throughput at the same shape, the DQN
+    defaults (buffer 4096, batch 128, uniform replay), k act+learn steps
+    per read;
+    ``profile_dqn`` the device breakdown of one step and its act / learn
+    split; ``bench_evaluate`` the captured ``evaluate_controllers`` against
+    the eager loop of its episodes, and one ``rollout_best_energy`` call
+    (its step captured anew) against the eager loop of its episode.
   * ``captured_vs_plain``: each captured driver against the eager loop of
     the same step, in turns in one process: the dense and the sparse SA
     chunk, the TTT loop and one PPO update; and whole calls of ``anneal``
@@ -672,6 +679,188 @@ def profile_rl(n: int = RL_SPINS, n_envs: int = RL_ENVS, top: int = 8) -> dict:
     return out
 
 
+def _dqn_setup(n: int, n_envs: int, k: int):
+    """The RL bench's problem and env with the DQN defaults (buffer 4096,
+    batch 128, hidden (128, 128), uniform replay); ``make_dqn``'s (init_fn, act_and_learn)
+    and the config."""
+    from spinglass_tpu_torch.rl import dqn as dqn_mod
+
+    problem, env_cfg, _ = rl_bench_setup(n, n_envs, 1)
+    cfg = dqn_mod.DQNConfig(steps_per_dispatch=k, seed=SEED)
+    init_fn, step_fn, _ = dqn_mod.make_dqn(problem, env_cfg, cfg)
+    return problem, env_cfg, cfg, init_fn, step_fn
+
+
+def bench_dqn(n_steps: int = 512, k: int = 1, n: int = RL_SPINS,
+              n_envs: int = RL_ENVS) -> dict:
+    """DQN training throughput (env steps/s) on the card at the RL bench's
+    shape: ``act_and_learn`` (10 K1 sweeps at [n, n_envs] per env step,
+    then the push, the auto-reset and one TD step on a batch of 128)
+    captured (``dqn.CapturedSteps``) and replayed ``k`` steps per read of
+    the metrics, as ``RLTrainingPipeline`` runs it with
+    ``steps_per_dispatch=k``. ``value`` is the steady rate (the blocks after
+    the first, which holds the capture); ``whole_call_rate`` counts every
+    step over the whole time, the capture included. Host clock: each block
+    ends in its read of the metrics."""
+    from spinglass_tpu_torch.rl import dqn as dqn_mod
+
+    _need_cuda()
+    if n_steps % k or n_steps < 2 * k:
+        raise ValueError(f"n_steps {n_steps} must be a multiple of k {k}, "
+                         f"at least two blocks")
+    problem, env_cfg, cfg, init_fn, step_fn = _dqn_setup(n, n_envs, k)
+    state = init_fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cap = dqn_mod.CapturedSteps(step_fn, state, k)
+    capture_s = time.perf_counter() - t0
+    blocks, rows = [], []
+    for _ in range(n_steps // k):
+        t = time.perf_counter()
+        for _ in range(k):
+            cap.replay()
+        rows += cap.read(k)
+        blocks.append(time.perf_counter() - t)
+    total = time.perf_counter() - t0
+    steady = sum(blocks[1:])
+    return {
+        "metric": "dqn_env_steps_per_sec",
+        "value": (n_steps - k) * n_envs / steady,
+        "unit": "env_steps/s",
+        "extras": {"n_spins": n, "n_envs": n_envs, "n_steps": n_steps,
+                   "steps_per_read": k,
+                   "whole_call_rate": n_steps * n_envs / total,
+                   "capture_seconds": capture_s,
+                   "first_block_seconds": blocks[0],
+                   "buffer_size": cfg.buffer_size,
+                   "batch_size": cfg.batch_size,
+                   "sweeps_per_env_step": env_cfg.sweeps_per_step,
+                   "final": rows[-1],
+                   "finite": all(np.isfinite(v) for r in rows
+                                 for v in r.values()),
+                   "final_mean_best_energy_per_spin":
+                       rows[-1]["mean_best_energy"] / problem.n_spins,
+                   "engine": step_fn.engine.name,
+                   "kernel_launches": dict(step_fn.engine.launches),
+                   "device": torch.cuda.get_device_name(0),
+                   "nvidia_smi": device_description()},
+    }
+
+
+def profile_dqn(n: int = RL_SPINS, n_envs: int = RL_ENVS,
+                top: int = 8) -> dict:
+    """One captured DQN step at the RL bench's shape (``act_and_learn``
+    replayed, its metrics read), profiled (``_profile``, with an env step of
+    the whole batch where the other profiles have a sweep), and the eager
+    step's wall time split into ``act`` (the hybrid decision, ``env.step``,
+    the push, the auto-reset) and ``learn`` (the sample, the TD loss and its
+    backward pass, Adam, the soft target update), each synchronised, after
+    16 steps have filled the buffer past a batch."""
+    from spinglass_tpu_torch.rl import dqn as dqn_mod
+
+    _need_cuda()
+    _, _, _, init_fn, step_fn = _dqn_setup(n, n_envs, 1)
+    cap = dqn_mod.CapturedSteps(step_fn, init_fn(), 1)
+    for _ in range(16):
+        cap.replay()
+
+    def replayed():
+        cap.replay()
+        cap.read(1)
+
+    prof = _profile(replayed, 1, top, graph_launches=1,
+                    counters=launch_counters(step_fn.engine))
+    state = init_fn()
+    split = {"act": [], "learn": []}
+    for i in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, reward = step_fn.act(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = step_fn.learn(state, reward)
+        torch.cuda.synchronize()
+        if i >= 16:
+            split["act"].append(t1 - t0)
+            split["learn"].append(time.perf_counter() - t1)
+    sweep_us = sum(k["us_per_sweep"] for k in prof["kernels"]
+                   if "sweep_kernel" in k["name"])
+    out = {key.replace("sweep", "env_step"): value
+           for key, value in prof.items() if key != "kernels"}
+    out.update(
+        kernels=[{"name": k["name"], "calls": k["calls"],
+                  "us_per_env_step": k["us_per_sweep"]}
+                 for k in prof["kernels"]],
+        n_spins=n, n_envs=n_envs,
+        sweep_kernel_share=sweep_us / prof["device_us_per_sweep"],
+        eager_act_seconds=min(split["act"]),
+        eager_learn_seconds=min(split["learn"]),
+        engine=step_fn.engine.name, launches=dict(step_fn.engine.launches))
+    return out
+
+
+def bench_evaluate(n_seeds: int = 5, n: int = RL_SPINS,
+                   n_envs: int = RL_ENVS) -> dict:
+    """``evaluate_controllers`` (each policy's episode step captured once,
+    every seed's start loaded into it) against the eager loop of the same
+    episodes (``eager_rollout`` per seed) at the RL bench's shape, with the
+    geometric and the random controllers: each call's wall time on the host
+    clock (synchronised), in turns eager, captured, captured, eager; the
+    per-seed results of every call must be equal. The same for one
+    ``rollout_best_energy`` call, which captures its step anew (a warm-up
+    env step on a throwaway copy, then the capture) on every call, against
+    ``eager_rollout`` of its episode (the geometric policy, seed 0)."""
+    from spinglass_tpu_torch.rl import env as env_mod
+    from spinglass_tpu_torch.rl import evaluate as ev
+
+    _need_cuda()
+    problem, env_cfg, _ = rl_bench_setup(n, n_envs, 1)
+    engine = env_mod.default_engine(problem, env_cfg)
+    policies = {"geometric": ev.make_geometric_policy(env_cfg),
+                "random": ev.make_random_policy()}
+
+    def captured():
+        return ev.evaluate_controllers(problem, env_cfg, policies,
+                                       n_seeds=n_seeds, engine=engine)[1]
+
+    def eager():
+        return {name: np.asarray([float(torch.mean(eager_rollout(
+            problem, env_cfg, fn, ev.seed_generator(name, 0, s), engine)))
+            for s in range(n_seeds)]) for name, fn in policies.items()}
+
+    def one(rollout):
+        gen = ev.seed_generator("geometric", 0, 0)
+        return rollout(problem, env_cfg, policies["geometric"], gen,
+                       engine).cpu()
+
+    def in_turns(calls):
+        times, results = {"eager": [], "captured": []}, []
+        for way in ("eager", "captured", "captured", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results.append(calls[way]())
+            torch.cuda.synchronize()
+            times[way].append(time.perf_counter() - t0)
+        return times, results
+
+    times, results = in_turns({"eager": eager, "captured": captured})
+    r_times, r_results = in_turns({
+        "eager": lambda: one(eager_rollout),
+        "captured": lambda: one(ev.rollout_best_energy)})
+    equal = all(np.array_equal(r[name], results[0][name]) for r in results
+                for name in policies)
+    rollout_equal = all(torch.equal(r, r_results[0]) for r in r_results)
+    first = results[0]
+    return {"eager_seconds": times["eager"],
+            "captured_seconds": times["captured"], "equal": equal,
+            "rollout_eager_seconds": r_times["eager"],
+            "rollout_captured_seconds": r_times["captured"],
+            "rollout_equal": rollout_equal,
+            "n_seeds": n_seeds, "episode_steps": env_cfg.max_steps,
+            "mean_best_energy": {k: float(v.mean()) for k, v in first.items()},
+            "nvidia_smi": device_description()}
+
+
 def _rl_steppers(n: int = RL_SPINS, n_envs: int = RL_ENVS) -> dict:
     """One PPO update at the RL bench's shape with its metrics read: "plain"
     (the eager update_fn) and "captured" (``ppo.CapturedUpdates``), each on
@@ -696,6 +885,23 @@ def _rl_steppers(n: int = RL_SPINS, n_envs: int = RL_ENVS) -> dict:
     return {"plain": plain, "captured": replayed, "init_fn": init_fn,
             "update_fn": update_fn,
             "env_steps": ppo_cfg.rollout_len * env_cfg.n_envs}
+
+
+def eager_rollout(problem, env_cfg, policy, generator, engine,
+                  n_steps=None):
+    """``evaluate.rollout_best_energy``'s episode as the eager loop of the
+    step it captures (``evaluate.episode_step``): the best energy per env
+    [B]."""
+    from spinglass_tpu_torch.rl import env as env_mod
+    from spinglass_tpu_torch.rl.evaluate import episode_step
+
+    step = episode_step(problem, env_cfg, policy, engine)
+    with torch.no_grad():
+        env_state, obs = env_mod.reset(problem, env_cfg, generator, engine)
+        st = {"env_state": env_state, "obs": obs, "generator": generator}
+        for _ in range(n_steps or env_cfg.max_steps):
+            st, _ = step(st)
+    return st["env_state"].best_energy
 
 
 def eager_anneal(problem, cfg):

@@ -1,14 +1,15 @@
 """Command-line interface of the port: ``sgt-torch`` (see pyproject.toml).
 
 The counterpart of ``spinglass_tpu.cli`` for the commands that pose and
-solve problems: ``solve``, ``ising`` and ``load``. The group takes
-``--device cuda|cpu`` (default: the card, see
-``core.problem.resolve_device``) where the JAX group takes ``--platform``.
+solve problems, ``solve``, ``ising`` and ``load``, and for ``train-rl``
+(the RL training pipeline). The group takes ``--device cuda|cpu`` (default:
+the card, see ``core.problem.resolve_device``) where the JAX group takes
+``--platform``.
 
 Not ported yet: the JAX group also serves /metrics when SGT_METRICS_PORT is
 set (``maybe_start_server_from_env``), which waits for
 ``utils/metrics_exporter``; the commands ``benchmark``, ``health``,
-``train-rl``, ``monitor``, ``autoscale``, ``quality-gates``, ``bench`` and
+``monitor``, ``autoscale``, ``quality-gates``, ``bench`` and
 ``cache-stats`` and the interactive shell wait for the modules they drive
 (ROADMAP.md Queue 1). Every option of the JAX ``solve`` command runs:
 ``--tune-ladder`` (``pt.tune_ladder``), ``--cluster-moves`` (Swendsen-Wang
@@ -200,6 +201,28 @@ def load(path):
 
     res = AnnealResult.load(path)
     click.echo(json.dumps(res.summary(), indent=2))
+
+
+@main.command("train-rl")
+@click.option("--agent", default="ppo", type=click.Choice(["ppo", "dqn"]))
+@click.option("--updates", default=50)
+@click.option("--envs", default=32)
+@click.option("--spins", default=64)
+@click.option("--checkpoint-dir", default=None)
+@click.pass_context
+def train_rl(ctx, agent, updates, envs, spins, checkpoint_dir):
+    """Train the RL temperature controller on random instances."""
+    from spinglass_tpu_torch.rl.env import EnvConfig
+    from spinglass_tpu_torch.rl.train import (RLTrainingPipeline,
+                                              TrainingConfig, default_problem)
+
+    pipe = RLTrainingPipeline(
+        TrainingConfig(agent=agent, n_updates=updates,
+                       checkpoint_dir=checkpoint_dir),
+        env_cfg=EnvConfig(n_envs=envs),
+        problem=default_problem(spins, device=ctx.obj["device"]))
+    out = pipe.train(verbose=True)
+    click.echo(f"env-steps/s: {out['env_steps_per_second']:.1f}")
 
 
 if __name__ == "__main__":

@@ -134,14 +134,60 @@ def pt_state_from_numpy(spins, slot, energy, best_energy, best_spins,
     )
 
 
+# the port's module lists -> flax's auto-named submodules, and the names of
+# their parameters there
+_FLAX_MODULES = {"dense": ("Dense", {"weight": "kernel", "bias": "bias"}),
+                 "norm": ("LayerNorm", {"weight": "scale", "bias": "bias"})}
+
+
+def flax_path(name: str) -> tuple:
+    """Where the port's parameter ``name`` lies in a flax parameter tree:
+    "dense.1.weight" -> ("params", "Dense_1", "kernel"), "norm.0.weight" ->
+    ("params", "LayerNorm_0", "scale"), "log_std" -> ("params",
+    "log_std"). flax numbers a module's ``Dense`` and ``LayerNorm`` layers in
+    creation order, which is the order of the port's ``dense`` and ``norm``
+    lists. A flax kernel is [in, out], a torch ``Linear`` weight [out, in]:
+    ``flax_transposed`` says which leaves differ so."""
+    parts = name.split(".")
+    if len(parts) == 1:
+        return ("params", name)
+    module, k, leaf = parts
+    prefix, leaves = _FLAX_MODULES[module]
+    return ("params", f"{prefix}_{k}", leaves[leaf])
+
+
+def flax_transposed(name: str) -> bool:
+    """Whether the port's parameter ``name`` is the transpose of its flax
+    leaf (a ``Dense`` kernel)."""
+    return flax_path(name)[-1] == "kernel"
+
+
+def _load_flax(model, tree: dict):
+    """``model`` with every parameter taken from the flax ``tree`` (the
+    outer "params" level left out) by ``flax_path``."""
+    state = {}
+    for name, p in model.state_dict().items():
+        leaf = tree
+        for key in flax_path(name)[1:]:
+            leaf = leaf[key]
+        value = np.asarray(leaf, np.float32)
+        if flax_transposed(name):
+            value = value.T
+        if value.shape != tuple(p.shape):
+            raise ValueError(f"{'/'.join(flax_path(name)[1:])} "
+                             f"{np.asarray(leaf).shape} does not fit "
+                             f"{name} {tuple(p.shape)}")
+        state[name] = torch.tensor(value.copy())
+    model.load_state_dict(state)
+    return model
+
+
 def actor_critic_from_flax(params, action_mode: str = "discrete",
                            hidden_sizes=(128, 128), device=None):
     """The port's ``rl.ppo.ActorCritic`` holding the weights of a JAX
     ``ActorCritic`` parameter tree given as numpy arrays:
     ``{"params": {"Dense_0": {"kernel", "bias"}, ..., "log_std"}}`` (the
-    outer "params" level may be left out). flax numbers its ``Dense`` layers
-    in creation order, which is the module's ``dense`` list; a flax kernel
-    is [in, out], so ``weight = kernel.T``."""
+    outer "params" level may be left out); ``dense[k]`` is ``Dense_k``."""
     from spinglass_tpu_torch.rl.ppo import ActorCritic
 
     device = resolve_device(device)
@@ -157,19 +203,28 @@ def actor_critic_from_flax(params, action_mode: str = "discrete",
         raise ValueError(f"the tree has {n_dense} Dense layers, action_mode "
                          f"{action_mode!r} with hidden_sizes {hidden_sizes} "
                          f"needs {len(model.dense)}")
-    state = {}
-    for k, layer in enumerate(model.dense):
-        kernel = np.asarray(tree[f"Dense_{k}"]["kernel"], np.float32)
-        if kernel.T.shape != tuple(layer.weight.shape):
-            raise ValueError(f"Dense_{k} kernel {kernel.shape} does not fit "
-                             f"{tuple(layer.weight.shape)}")
-        state[f"dense.{k}.weight"] = torch.tensor(kernel.T.copy())
-        state[f"dense.{k}.bias"] = torch.tensor(
-            np.asarray(tree[f"Dense_{k}"]["bias"], np.float32))
-    if action_mode != "discrete":
-        state["log_std"] = torch.tensor(np.asarray(tree["log_std"], np.float32))
-    model.load_state_dict(state)
-    return model.to(device)
+    return _load_flax(model, tree).to(device)
+
+
+def qnetwork_from_flax(params, device=None):
+    """The port's ``rl.dqn.QNetwork`` holding the weights of a JAX
+    ``QNetwork`` parameter tree given as numpy arrays: ``{"params":
+    {"Dense_0", "LayerNorm_0", ..., "Dense_H"}}`` (the outer "params" level
+    may be left out). The widths are read from the tree: the observation
+    width from ``Dense_0``'s kernel, one hidden layer per ``LayerNorm``, the
+    action count from the last kernel."""
+    from spinglass_tpu_torch.rl.dqn import QNetwork
+
+    device = resolve_device(device)
+    tree = params.get("params", params)
+    n_hidden = sum(1 for k in tree if k.startswith("LayerNorm_"))
+    kernels = [np.asarray(tree[f"Dense_{k}"]["kernel"])
+               for k in range(n_hidden + 1)]
+    model = QNetwork(int(kernels[0].shape[0]),
+                     n_actions=int(kernels[-1].shape[1]),
+                     hidden_sizes=tuple(int(w.shape[1])
+                                        for w in kernels[:-1]))
+    return _load_flax(model, tree).to(device)
 
 
 def env_state_from_numpy(spins, energy, best_energy, initial_energy,

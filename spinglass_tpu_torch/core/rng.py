@@ -4,8 +4,8 @@ The JAX package threads PRNG keys; the port draws from one host
 ``torch.Generator`` per run. Every draw of a driver's step goes through the
 functions here: ``draw_seed`` (a kernel's 62-bit Philox seed),
 ``device_generator`` (a generator on the device seeded by one host draw)
-and ``rand`` / ``randn`` / ``randperm`` / ``random_bits`` on such a
-generator (``device_uniforms`` is the first two in one).
+and ``rand`` / ``randn`` / ``randperm`` / ``random_bits`` / ``randint`` on
+such a generator (``device_uniforms`` is the first two in one).
 
 A captured driver step (``anneal.graphs.CapturedStep``) cannot call the
 host generator at each replay, so while it records or replays, a
@@ -98,6 +98,18 @@ def randperm(n: int, gen, device) -> torch.Tensor:
 def random_bits(gen, shape) -> torch.Tensor:
     """int64 zeros and ones of ``shape`` on the generator's device."""
     return _draw("bits", gen, shape, gen.device)
+
+
+def randint(gen, high, shape, device) -> torch.Tensor:
+    """int64 integers in [0, high) of ``shape``, as floor(u * high) of
+    uniforms from a device generator. ``high`` is an int or a 0-d tensor on
+    ``device`` (a count the step keeps there), so no bound is read back to
+    the host; a product rounded up to ``high`` is clamped below it."""
+    idx = (rand(gen, shape, device) * high).long()
+    top = high - 1
+    if isinstance(top, torch.Tensor):
+        return torch.minimum(idx, top.long())
+    return idx.clamp(max=top)
 
 
 def device_uniforms(generator: torch.Generator, shape, device) -> torch.Tensor:

@@ -131,12 +131,14 @@ def _env_energy(problem, spins, engine=None):
 
 
 def _fresh_state(problem, cfg: EnvConfig, generator: torch.Generator,
-                 engine=None) -> EnvState:
+                 engine=None, spins: Optional[torch.Tensor] = None
+                 ) -> EnvState:
     _check_engine(problem, engine)
     b = cfg.n_envs
     dev = problem.device
-    spins = random_spins(rng.device_generator(generator, dev),
-                         (b, problem.n_padded), problem.active_mask)
+    if spins is None:
+        spins = random_spins(rng.device_generator(generator, dev),
+                             (b, problem.n_padded), problem.active_mask)
     e = _env_energy(problem, spins, engine)
     if cfg.init_temp_range is not None:
         lo, hi = (float(np.log(t)) for t in cfg.init_temp_range)
@@ -334,12 +336,14 @@ def observe(problem, cfg: EnvConfig, state: EnvState) -> torch.Tensor:
 
 
 def auto_reset(problem, cfg: EnvConfig, state: EnvState,
-               generator: torch.Generator, engine=None
+               generator: torch.Generator, engine=None,
+               spins: Optional[torch.Tensor] = None
                ) -> Tuple[EnvState, torch.Tensor]:
     """Reset only the done trajectories. Every env is reset and the mix is
     picked by ``done`` on the device, so nothing branches on the host; the
-    episode counter survives a reset (it counts completed episodes)."""
-    fresh = _fresh_state(problem, cfg, generator, engine)
+    episode counter survives a reset (it counts completed episodes).
+    ``spins`` [B, Np] replace the fresh state's drawn start spins (tests)."""
+    fresh = _fresh_state(problem, cfg, generator, engine, spins)
     done = state.done
     fresh = fresh.replace(episode=state.episode + done.to(torch.int32))
 

@@ -13,7 +13,13 @@ and the per-seed mean best energies are compared with Welch's t-test.
 Every rollout is a fixed number of env steps without auto-reset, so every
 controller gets the same number of sweeps.
 
-A policy is a function (obs [B, obs_dim], host generator) -> actions [B].
+A policy is a function (obs [B, obs_dim], host generator) -> actions [B];
+it draws through ``core.rng``. An episode runs as the policy's step (its
+action, then ``env.step``) captured once (``graphs.CapturedStep``) and
+replayed ``n_steps`` times; ``evaluate_controllers`` captures each policy's
+step once and loads every seed's start state into it. A captured episode
+equals the eager loop of that step (``benchmarks.headline.eager_rollout``)
+bit for bit under one seed.
 
 Every entry point takes ``engine="auto"`` by default and builds
 ``env.default_engine``'s engine once for all its rollouts (the kernels on the
@@ -31,7 +37,9 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from spinglass_tpu_torch.core.rng import device_generator
+from spinglass_tpu_torch.anneal import graphs
+from spinglass_tpu_torch.anneal.engines import launch_counters
+from spinglass_tpu_torch.core.rng import device_generator, randint
 from spinglass_tpu_torch.rl import env as env_mod
 from spinglass_tpu_torch.rl.env import N_ACTIONS, TEMP_MULTIPLIERS, EnvConfig
 
@@ -53,9 +61,8 @@ def make_random_policy():
     """Uniform over the discrete temperature-multiplier ladder."""
 
     def policy(obs, generator):
-        return torch.randint(0, N_ACTIONS, (obs.shape[0],), device=obs.device,
-                             generator=device_generator(generator, obs.device),
-                             dtype=torch.int32)
+        return randint(device_generator(generator, obs.device), N_ACTIONS,
+                       (obs.shape[0],), obs.device).to(torch.int32)
 
     return policy
 
@@ -103,7 +110,40 @@ def make_ppo_policy(model, params, greedy: bool = True):
     return policy
 
 
+def episode_step(problem, env_cfg: EnvConfig, policy: Callable, engine):
+    """One step of an evaluation episode on a state {"env_state", "obs",
+    "generator"}: the policy's action, then ``env.step`` (no auto-reset).
+    Returns (state, None), the form ``graphs.CapturedStep`` replays."""
+    def step(st):
+        gen = st["generator"]
+        action = policy(st["obs"], gen)
+        env_state, obs, _, _ = env_mod.step(problem, env_cfg, st["env_state"],
+                                            action, gen, engine)
+        return {"env_state": env_state, "obs": obs, "generator": gen}, None
+
+    return step
+
+
 @torch.no_grad()
+def _episode(problem, env_cfg: EnvConfig, policy: Callable, engine,
+             generator: torch.Generator, n: int, captured=None):
+    """One fixed-length episode batch through ``policy``'s captured step:
+    the reset drawn from ``generator``, the step captured on it (or its
+    start state loaded into ``captured``) and replayed ``n`` times. Returns
+    (the captured step, the best energy per env [B], a copy)."""
+    env_state, obs = env_mod.reset(problem, env_cfg, generator, engine)
+    start = {"env_state": env_state, "obs": obs, "generator": generator}
+    if captured is None:
+        captured = graphs.CapturedStep(
+            episode_step(problem, env_cfg, policy, engine), start, generator,
+            launch_counters(engine))
+    else:
+        captured.load(start)
+    for _ in range(n):
+        captured.replay(generator)
+    return captured, captured.state["env_state"].best_energy.clone()
+
+
 def rollout_best_energy(problem, env_cfg: EnvConfig, policy: Callable,
                         generator: torch.Generator, engine="auto",
                         n_steps: Optional[int] = None) -> torch.Tensor:
@@ -111,37 +151,39 @@ def rollout_best_energy(problem, env_cfg: EnvConfig, policy: Callable,
 
     No auto-reset and no early exit on a plateau: every controller gets
     exactly n_steps * sweeps_per_step sweeps."""
-    n = n_steps or env_cfg.max_steps
     if engine == "auto":
         engine = env_mod.default_engine(problem, env_cfg)
-    state, obs = env_mod.reset(problem, env_cfg, generator, engine)
-    for _ in range(n):
-        action = policy(obs, generator)
-        state, obs, _, _ = env_mod.step(problem, env_cfg, state, action,
-                                        generator, engine)
-    return state.best_energy
+    _, best = _episode(problem, env_cfg, policy, engine, generator,
+                       n_steps or env_cfg.max_steps)
+    return best
+
+
+def seed_generator(name: str, seed: int, s: int) -> torch.Generator:
+    """The host generator of seed ``s`` of the policy ``name``: its seeds
+    are offset by a checksum of its name (the JAX package uses Python's
+    ``hash``, which changes from process to process)."""
+    offset = zlib.crc32(name.encode()) % 97
+    return torch.Generator().manual_seed(seed + 1000 * s + offset)
 
 
 def evaluate_controllers(problem, env_cfg: EnvConfig, policies: dict,
                          n_seeds: int = 5, seed: int = 0, engine="auto",
                          n_steps: Optional[int] = None):
-    """Roll out each named policy over ``n_seeds`` seeds at equal budget.
+    """Roll out each named policy over ``n_seeds`` seeds at equal budget
+    (``seed_generator``), its episode step captured once for all its seeds.
 
     Returns (report, results): results maps a name to its per-seed mean best
     energies; the report adds Welch-t comparisons of every other policy
-    against the first-listed one. A policy's seeds are offset by a checksum
-    of its name (the JAX package uses Python's ``hash``, which changes from
-    process to process)."""
+    against the first-listed one."""
     if engine == "auto":
         engine = env_mod.default_engine(problem, env_cfg)
+    n = n_steps or env_cfg.max_steps
     results = {}
     for name, policy in policies.items():
-        offset = zlib.crc32(name.encode()) % 97
-        per_seed = []
+        captured, per_seed = None, []
         for s in range(n_seeds):
-            gen = torch.Generator().manual_seed(seed + 1000 * s + offset)
-            e = rollout_best_energy(problem, env_cfg, policy, gen,
-                                    engine=engine, n_steps=n_steps)
+            captured, e = _episode(problem, env_cfg, policy, engine,
+                                   seed_generator(name, seed, s), n, captured)
             per_seed.append(float(torch.mean(e)))
         results[name] = np.asarray(per_seed)
 

@@ -27,7 +27,6 @@ across.
 
 from __future__ import annotations
 
-import dataclasses
 import math
 import time
 from dataclasses import dataclass
@@ -125,14 +124,15 @@ class ActorCritic(nn.Module):
 
 def init_params(model: ActorCritic, generator: torch.Generator,
                 device=None) -> Dict[str, torch.Tensor]:
-    """A fresh parameter dict for ``model`` as flax initialises ``Dense``:
-    kernels LeCun-normal (a normal of variance 1 / fan_in cut at two
-    deviations), biases zero, ``log_std`` -0.7. Drawn from the host
-    ``generator``; the tensors lie on ``device`` (None: the model's) and
-    require gradients."""
+    """A fresh parameter dict for ``model`` as flax initialises ``Dense``
+    and ``LayerNorm``: kernels LeCun-normal (a normal of variance 1 / fan_in
+    cut at two deviations), biases zero, ``log_std`` -0.7, LayerNorm scales
+    1 (as ``nn.LayerNorm`` makes them). Drawn from the host ``generator``;
+    the tensors lie on ``device`` (None: the model's) and require
+    gradients."""
     params = {}
     for name, p in model.named_parameters():
-        if name.endswith("weight"):
+        if name.endswith("weight") and p.ndim == 2:
             std = math.sqrt(1.0 / p.shape[1]) / _TRUNC_STD
             # inverse-CDF draw of a normal cut at +-2 deviations
             lo, hi = (0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
@@ -408,68 +408,23 @@ METRIC_KEYS = ("mean_reward", "mean_best_energy", "policy_loss", "value_loss",
                "entropy")
 
 
-class CapturedUpdates:
-    """``update_fn`` (``make_ppo``'s eager update) captured once
-    (``graphs.CapturedStep``) on ``state`` and replayed. Each update writes
+class CapturedUpdates(graphs.CapturedLearner):
+    """``update_fn`` (``make_ppo``'s eager update) captured once on
+    ``state`` and replayed (``graphs.CapturedLearner``): each update writes
     its metrics (``METRIC_KEYS``) into the step's [k, m] history, so k
     updates replay between two reads (``read``). The warm-up runs on the
     run's own parameters and optimizer, with a throwaway env state and
-    generator, and puts them back as they were: Adam's state is built
-    there, outside the graph. ``state`` is the captured ``TrainState`` (its
-    ``update`` counts replays)."""
+    generator, and puts them back as they were. ``state`` is the captured
+    ``TrainState`` (its ``update`` counts replays)."""
 
     def __init__(self, update_fn, state: TrainState, k: int = 1):
-        self.k = k
-        self.done = 0     # replays so far
-
-        def step(st):
-            st, metrics = update_fn(st)
-            return st, torch.stack([metrics[key].reshape(())
-                                    for key in METRIC_KEYS])
-
-        def warm_up(st):
-            opt = st.opt
-            with torch.no_grad():
-                params = {n: p.detach().clone() for n, p in st.params.items()}
-                kept = {p: {key: v.clone() for key, v in opt.state[p].items()}
-                        for p in st.params.values() if p in opt.state}
-
-            def restore():
-                with torch.no_grad():
-                    for n, p in st.params.items():
-                        p.copy_(params[n])
-                        for key, v in opt.state.get(p, {}).items():
-                            if p in kept:
-                                v.copy_(kept[p][key])
-                            else:   # Adam's fresh state is all zeros
-                                v.zero_()
-                opt.zero_grad(set_to_none=True)
-
-            warm = dataclasses.replace(
-                st, env_state=graphs.clone(st.env_state),
-                obs=graphs.clone(st.obs),
-                generator=graphs.clone_generator(st.generator))
-            return warm, restore
-
-        self.step = graphs.CapturedStep(
-            step, state, state.generator, launch_counters(update_fn.engine),
-            record=k, warm_up=warm_up)
-        self.state = self.step.state
-        self._read = graphs.HostRead()
+        super().__init__(update_fn, state, METRIC_KEYS,
+                         launch_counters(update_fn.engine), k)
 
     def replay(self) -> None:
         """One PPO update."""
-        self.step.replay()
+        super().replay()
         self.state.update += 1
-        self.done += 1
-
-    def read(self, n: int) -> list:
-        """The metrics of the last ``n`` <= k updates, oldest first, as
-        dicts of floats (one read of the buffer)."""
-        rows = self._read([self.step.history])[0].tolist()
-        first = self.done - n
-        return [dict(zip(METRIC_KEYS, rows[(first + i) % self.k]))
-                for i in range(n)]
 
 
 def train(problem, env_cfg: Optional[EnvConfig] = None,

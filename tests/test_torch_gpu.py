@@ -1141,3 +1141,229 @@ def test_resumed_cluster_move_run_equals_uninterrupted(cuda, replicas,
     assert full.metadata["kernel_launches"] == kl
     assert res.metadata["kernel_launches"]["sw_labels"] == 12 - steps[0]
     assert res.metadata["kernel_launches"]["sw_bonds"] == 12 - steps[0]
+
+
+# ---- the RL training path: the hybrid DQN, the pipeline, the gym adapter --
+
+def _dqn_diff(a, b) -> list:
+    """The fields of two DQN states (Adam's moments and steps too) that are
+    not equal bit for bit."""
+    import dataclasses
+
+    from spinglass_tpu_torch.anneal.graphs import leaves
+
+    bad = [f.name for f in dataclasses.fields(a) if f.name != "opt"
+           and not all(torch.equal(x, y) for x, y in zip(
+               leaves(getattr(a, f.name)), leaves(getattr(b, f.name))))]
+    for p, q in zip(a.params.values(), b.params.values()):
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            if not torch.equal(a.opt.state[p][key], b.opt.state[q][key]):
+                bad.append(f"adam {key}")
+    return bad
+
+
+def _dqn_problem(kind, cuda):
+    if kind == "K1":
+        rng = np.random.default_rng(5)
+        return IsingProblem.from_dense(
+            topology.fully_connected(300, dist="binary", seed=5),
+            rng.integers(-8, 9, 300) / 4.0, device=cuda)
+    return _pm_j_ell(1500, 7, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n_envs", [("K1", 40), ("K2", 128), ("K4", 48)])
+@pytest.mark.parametrize("per", [False, True])
+def test_dqn_steps_through_kernels_equal_twins(cuda, kind, n_envs, per):
+    """Three act_and_learn steps through default_engine's engine against the
+    same steps through the kernels' twins under one seed: the whole DQN
+    state (env, buffer, priorities, parameters, target network, Adam,
+    counters) bit for bit, 10 launches of the kernel per env step (K4: per
+    colour)."""
+    from spinglass_tpu_torch.anneal.twins import (TwinFusedEngine,
+                                                  TwinSparseTEngine)
+    from spinglass_tpu_torch.rl import dqn
+    from spinglass_tpu_torch.rl import env as E
+
+    problem = _dqn_problem(kind, cuda)
+    env_cfg = E.EnvConfig(n_envs=n_envs, sweeps_per_step=10, max_steps=2,
+                          init_temp_range=(0.1, 20.0))
+    cfg = dqn.DQNConfig(hidden_sizes=(32, 32), buffer_size=256,
+                        batch_size=64, prioritized_replay=per,
+                        epsilon_decay_steps=4)
+    engine = E.default_engine(problem, env_cfg)
+    twin = (TwinFusedEngine(problem, block_size=128) if kind == "K1"
+            else TwinSparseTEngine(problem))
+    states = []
+    for eng in (engine, twin):
+        init_fn, step_fn, _ = dqn.make_dqn(problem, env_cfg, cfg, engine=eng)
+        st = init_fn(torch.Generator().manual_seed(4))
+        for _ in range(3):
+            st, _ = step_fn(st)
+        states.append(st)
+    torch.cuda.synchronize()
+    assert _dqn_diff(*states) == []
+    key = {"K1": MC.KERNEL_NAME, "K2": "sparse_sweep",
+           "K4": "sparse_accept"}[kind]
+    per_sweep = len(engine.groups) if kind == "K4" else 1
+    assert engine.launches[key] == 3 * 10 * per_sweep
+    assert twin.launches[key] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per", [False, True])
+def test_captured_dqn_steps_equal_eager_on_the_card(cuda, per):
+    """CapturedSteps (k=4, 8 steps, capturable Adam) against the eager loop
+    under one seed: metrics and the whole state bit for bit; the replays and
+    their reads make no host sync; K1 10 times per env step."""
+    from spinglass_tpu_torch.rl import dqn
+    from spinglass_tpu_torch.rl import env as E
+
+    problem = _dqn_problem("K1", cuda)
+    env_cfg = E.EnvConfig(n_envs=40, sweeps_per_step=10, max_steps=3,
+                          init_temp_range=(0.1, 20.0))
+    cfg = dqn.DQNConfig(hidden_sizes=(32, 32), buffer_size=256,
+                        batch_size=64, prioritized_replay=per)
+    init_fn, step_fn, _ = dqn.make_dqn(problem, env_cfg, cfg)
+    cap = dqn.CapturedSteps(step_fn, init_fn(torch.Generator().manual_seed(6)),
+                            4)
+    assert cap.state.opt.defaults["capturable"]
+    rows = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            for _ in range(4):
+                cap.replay()
+            rows += cap.read(4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert step_fn.engine.launches[MC.KERNEL_NAME] == 8 * 10
+    init_e, step_e, _ = dqn.make_dqn(problem, env_cfg, cfg)
+    st = init_e(torch.Generator().manual_seed(6))
+    want = []
+    for _ in range(8):
+        st, m = step_e(st)
+        want.append({k: float(m[k]) for k in dqn.METRIC_KEYS})
+    assert rows == want
+    assert _dqn_diff(cap.state, st) == []
+
+
+@pytest.mark.gpu
+def test_gym_episode_runs_k1_at_one_replica(cuda):
+    """The gym adapter on a dense problem on the card takes K1 at R=1 (the
+    kernel masks the columns beyond R): an episode equals the same episode
+    through K1's twin bit for bit, one launch per sweep. Through
+    SpinGlassGymEnv where gymnasium is installed, else through its episode
+    core SpinGlassEpisode."""
+    from spinglass_tpu_torch.anneal.engines import CudaFusedEngine
+    from spinglass_tpu_torch.anneal.twins import TwinFusedEngine
+    from spinglass_tpu_torch.rl import gym_adapter as G
+    from spinglass_tpu_torch.rl.env import EnvConfig
+
+    adapter = G.SpinGlassGymEnv if G.gymnasium else G.SpinGlassEpisode
+    problem = _dqn_problem("K1", cuda)
+    cfg = EnvConfig(n_envs=1, sweeps_per_step=5, max_steps=8)
+    env = adapter(problem, cfg)
+    assert type(env._engine) is CudaFusedEngine
+    twin = adapter(problem, cfg,
+                   engine=TwinFusedEngine(problem, block_size=128))
+    runs = []
+    for e in (env, twin):
+        rows = [e.reset(seed=3)[0].tolist()]
+        for t in range(8):
+            obs, r, term, trunc, info = e.step((3 * t) % 10)
+            rows.append((obs.tolist(), r, term, trunc, info))
+        runs.append(rows)
+    assert runs[0] == runs[1] and runs[0][-1][3]
+    assert env._engine.launches[MC.KERNEL_NAME] == 8 * 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agent", ["ppo", "dqn"])
+def test_pipeline_on_the_card(cuda, agent, tmp_path):
+    """RLTrainingPipeline with the curriculum (32, 64, 128) on problems
+    built on the card; PPO resumed from a checkpoint equals the
+    uninterrupted run bit for bit."""
+    from spinglass_tpu_torch.rl import dqn
+    from spinglass_tpu_torch.rl import ppo
+    from spinglass_tpu_torch.rl import train as T
+    from spinglass_tpu_torch.rl.env import EnvConfig
+
+    env_cfg = EnvConfig(n_envs=32, sweeps_per_step=4, max_steps=6)
+    ppo_cfg = ppo.PPOConfig(rollout_len=4, hidden_sizes=(32,))
+    dqn_cfg = dqn.DQNConfig(hidden_sizes=(32,), batch_size=32,
+                            buffer_size=128, steps_per_dispatch=2)
+    cur = T.RLTrainingPipeline(
+        T.TrainingConfig(agent=agent, n_updates=6, curriculum=True),
+        env_cfg, ppo_cfg, dqn_cfg).train()
+    assert [m["stage"] for m in cur["metrics"]] == [0, 0, 1, 1, 2, 2]
+    assert all(p.is_cuda for p in cur["params"].values())
+    if agent == "dqn":
+        return
+
+    def cfg(d, n, resume=False):
+        return T.TrainingConfig(n_updates=n, checkpoint_interval=2,
+                                checkpoint_dir=d, seed=2, resume=resume)
+
+    p = T.default_problem(64)
+    full = T.RLTrainingPipeline(cfg(str(tmp_path / "a"), 4), env_cfg,
+                                ppo_cfg, problem=p).train()
+    d = str(tmp_path / "b")
+    T.RLTrainingPipeline(cfg(d, 2), env_cfg, ppo_cfg, problem=p).train()
+    res = T.RLTrainingPipeline(cfg(d, 4, True), env_cfg, ppo_cfg,
+                               problem=p).train()
+    assert res["metrics"] == full["metrics"][2:]
+    for k, v in full["params"].items():
+        assert torch.equal(res["params"][k], v), k
+
+
+@pytest.mark.gpu
+def test_captured_evaluation_equals_eager_on_the_card(cuda):
+    """evaluate_controllers' captured episodes against the eager loop of
+    their step (headline.eager_rollout) for each seed, bit for bit."""
+    from spinglass_tpu_torch.benchmarks import headline
+    from spinglass_tpu_torch.rl import env as E
+    from spinglass_tpu_torch.rl import evaluate as V
+
+    problem = _dqn_problem("K1", cuda)
+    cfg = E.EnvConfig(n_envs=40, sweeps_per_step=3, max_steps=6,
+                      init_temp_range=(0.1, 20.0))
+    eng = E.default_engine(problem, cfg)
+    policies = {"geometric": V.make_geometric_policy(cfg),
+                "random": V.make_random_policy()}
+    _, results = V.evaluate_controllers(problem, cfg, policies, n_seeds=2,
+                                        engine=eng)
+    for name, fn in policies.items():
+        eager = [float(torch.mean(headline.eager_rollout(
+            problem, cfg, fn, V.seed_generator(name, 0, s), eng)))
+            for s in range(2)]
+        assert results[name].tolist() == eager
+
+
+@pytest.mark.gpu
+def test_capture_survives_dead_captured_steps_in_cycles(cuda):
+    """Captured steps dropped inside reference cycles, with the collector
+    made to run at every allocation: a later capture must not destroy their
+    graphs while it captures (the driver refuses that and the capture
+    fails), and each step replays what its eager loop computes."""
+    import gc
+
+    from spinglass_tpu_torch.anneal import graphs
+
+    def step(st):
+        return {"x": st["x"] * 2.0 + 1.0}, None
+
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        for i in range(4):
+            cap = graphs.CapturedStep(
+                step, {"x": torch.full((64,), float(i), device=cuda)},
+                torch.Generator())
+            cap.cycle = cap            # dead once the next one replaces it
+            for _ in range(3):
+                cap.replay()
+            assert float(cap.state["x"][0]) == ((i * 2 + 1) * 2 + 1) * 2 + 1
+    finally:
+        gc.set_threshold(*old)

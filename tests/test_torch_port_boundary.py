@@ -1,6 +1,7 @@
 """The port's boundary: it runs without JAX and without spinglass_tpu (the
 captured drivers, the problem encoders, the command line, a checkpointed
-anneal and a PT super-step with cluster moves included), it never launches (or builds) its CUDA kernels for CPU tensors, its builds
+anneal, a PT super-step with cluster moves, a DQN step, the training
+pipeline and the gymnasium adapter included), it never launches (or builds) its CUDA kernels for CPU tensors, its builds
 target sm_90a and rebuild when a source or a header changes, and the smoke
 script refuses to report without a GPU."""
 
@@ -65,6 +66,17 @@ init_fn, update_fn, _ = ppo.make_ppo(p, env_cfg, ppo.PPOConfig(
     rollout_len=2, n_epochs=1, n_minibatches=1, hidden_sizes=(8,)))
 state, metrics = update_fn(init_fn())
 assert state.update == 1 and np.isfinite(float(metrics["mean_reward"]))
+from spinglass_tpu_torch.rl import dqn, gym_adapter, train
+dqn_cfg = dqn.DQNConfig(hidden_sizes=(8,), buffer_size=8, batch_size=4)
+dinit, dstep, _ = dqn.make_dqn(p, env_cfg, dqn_cfg)
+dst, dm = dstep(dinit())
+assert int(dst.step) == 1 and np.isfinite(float(dm["loss"]))
+pipe = train.RLTrainingPipeline(train.TrainingConfig(agent="dqn", n_updates=2),
+                                env_cfg, dqn_cfg=dqn_cfg, problem=p)
+assert len(pipe.train()["metrics"]) == 2
+genv = gym_adapter.SpinGlassGymEnv(p, env.EnvConfig(n_envs=1, max_steps=2))
+obs, _ = genv.reset(seed=0)
+assert genv.step(0)[0].shape == obs.shape == (16,)
 from spinglass_tpu_torch import problems, cli
 tsp = problems.TSPProblem(device="cpu")
 tsp.generate_random_instance(n_cities=4, seed=0)
@@ -93,7 +105,8 @@ loaded = sorted(m for m in sys.modules
                                        "spinglass_tpu")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
-print("ok", res.algorithm, sp.algorithm, ptr.algorithm, "ppo", state.update)
+print("ok", res.algorithm, sp.algorithm, ptr.algorithm, "ppo", state.update,
+      "dqn", int(dst.step))
 """
 
 
@@ -109,7 +122,7 @@ def test_port_runs_with_jax_unimportable(tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip() == ("ok sa/blocked/metropolis "
                                    "sa/sparse_sorted/metropolis pt/metropolis "
-                                   "ppo 1")
+                                   "ppo 1 dqn 1")
 
 
 def test_port_sources_import_no_jax():

@@ -776,7 +776,10 @@ def test_welch_t_matches_jax_package():
 
 def test_rollout_best_energy_takes_no_auto_reset():
     """Equal budget: exactly n_steps * sweeps_per_step sweeps through the
-    engine, one reset, and no env restarts although all are done early."""
+    engine, one reset, and no env restarts although all are done early.
+    The episode runs as a captured step, whose warm-up sweeps one step's
+    worth on a throwaway copy of the state first: (n_steps + 1) *
+    sweeps_per_step calls of the engine's sweep in all."""
     p = _sk()
     env_cfg = E.EnvConfig(n_envs=6, sweeps_per_step=3, max_steps=4,
                           plateau_patience=1)
@@ -792,7 +795,7 @@ def test_rollout_best_energy_takes_no_auto_reset():
     best = V.rollout_best_energy(p, env_cfg, V.make_random_policy(),
                                  torch.Generator().manual_seed(0), engine=eng,
                                  n_steps=7)
-    assert Counting.sweeps == 7 * 3 and tuple(best.shape) == (6,)
+    assert Counting.sweeps == (7 + 1) * 3 and tuple(best.shape) == (6,)
     report, results = V.evaluate_controllers(
         p, env_cfg, {"geometric": V.make_geometric_policy(env_cfg),
                      "random": V.make_random_policy()}, n_seeds=3)
@@ -803,6 +806,42 @@ def test_rollout_best_energy_takes_no_auto_reset():
         p, env_cfg, {"geometric": V.make_geometric_policy(env_cfg),
                      "random": V.make_random_policy()}, n_seeds=3)
     assert again == report                      # seeds do not depend on hash()
+
+
+@pytest.mark.parametrize("policy", ["random", "geometric", "ppo_sampled",
+                                    "ppo_greedy"])
+def test_captured_episodes_equal_the_eager_loop(policy):
+    """``rollout_best_energy`` and ``evaluate_controllers`` run each
+    policy's episode step captured (replayed eagerly through the random tape
+    on the CPU): the best energies equal the eager loop of that step
+    (``headline.eager_rollout``) bit for bit under the same generator, for
+    every seed of ``evaluate_controllers`` (one capture per policy)."""
+    p = _sk(24, 1)
+    env_cfg = E.EnvConfig(n_envs=6, sweeps_per_step=2, max_steps=5,
+                          init_temp_range=(0.2, 5.0))
+    model = P.ActorCritic(E.OBS_DIM, hidden_sizes=(8,))
+    params = P.init_params(model, torch.Generator().manual_seed(0))
+    fn = {"random": V.make_random_policy(),
+          "geometric": V.make_geometric_policy(env_cfg),
+          "ppo_sampled": V.make_ppo_policy(model, params, greedy=False),
+          "ppo_greedy": V.make_ppo_policy(model, params)}[policy]
+    eng = E.default_engine(p, env_cfg)
+    got = V.rollout_best_energy(p, env_cfg, fn,
+                                torch.Generator().manual_seed(4), engine=eng)
+    want = headline.eager_rollout(p, env_cfg, fn,
+                                  torch.Generator().manual_seed(4), eng)
+    assert torch.equal(got, want)
+    _, results = V.evaluate_controllers(p, env_cfg, {policy: fn}, n_seeds=3,
+                                        seed=2, engine=eng)
+    eager = [float(torch.mean(headline.eager_rollout(
+        p, env_cfg, fn, V.seed_generator(policy, 2, s), eng)))
+        for s in range(3)]
+    assert results[policy].tolist() == eager
+    if policy == "random":   # the draws reach every action
+        acts = V.make_random_policy()(torch.zeros(4000, 16),
+                                      torch.Generator().manual_seed(0))
+        assert acts.dtype == torch.int32
+        assert sorted(set(acts.tolist())) == list(range(10))
 
 
 def test_ppo_policy_is_greedy_or_sampled():
