@@ -79,6 +79,12 @@ kernels against the twins. Phases:
      +-J problem in ELL form (K=255, 8 mask words); C1 also on every bond
      on, no bond, and one long path through shuffled indices, its table in
      a cluster and in one block;
+     K1 with a problem axis (the batch path's StackedFusedSweep): one
+     launch over P stacked +-J problems against P one-problem launches
+     under the per-problem seeds, P in {1, 3, 16}, Np in {512, 2048}, R in
+     {1, 16, 37}, both rules, Philox and host uniforms, spins, dE and counts
+     bitwise; against the stacked twin too on one case of P = 3 at each Np
+     and of P = 16; the one-block kernel at Np = 8448 with P = 2;
   3. in-kernel Philox, statistically: a 6-spin system sampled for 400 sweeps
      at beta=0.6 against exact enumeration (TV < 0.05), through K1 and
      through K2; K1's SK acceptance within 1% of the host-uniform sweep's;
@@ -179,7 +185,24 @@ kernels against the twins. Phases:
      anneal at 10k x 1024 == its eager sweep; (f) `sgt-torch solve -p tsp -s
      20 -a pt --cluster-moves 1 --tune-ladder --checkpoint-dir D`, the same
      with --resume (the same output), and `-p maxcut --sweep-method
-     sparse_compact`, each exit 0;
+     sparse_compact`, each exit 0. The batch, adaptive and operations
+     slice: BatchProcessor() at its defaults (200 sweeps, 16 replicas,
+     batches of 16) over 64 Gaussian SK glasses at N=2048 drawn on the
+     card: one captured stacked run (P = 16), K1 exactly 200 launches per
+     batch, every result "sa/batched" (no batch fell back to per-problem
+     anneal), no failure, best_energy == energy(best_spins) (1e-4), and one
+     batch's replay == its eager loop bit for bit with no host sync in the
+     replay; a mixed set (8 each at N=500, 1000, 2048) bucketed into three
+     stacked runs; AdaptiveBatchProcessor over the 64 (its batch sizes and
+     captures); adaptive_anneal at its defaults (2000 sweeps) on the SK
+     4096 glass (K1, R=32) and on the 10k graph at R=32 (K4) and R=1024
+     (K2): the interventions the JAX rule makes on the run's history (at
+     least one), one launch per sweep (per colour for K4), the energy
+     identity; sgt-torch health (exit 0, the micro-anneal on K1), benchmark
+     --sizes 20,50 --sweeps 500 --trials 2 (each case's engine printed),
+     monitor (the card's memory), /metrics from SGT_METRICS_PORT scraped in
+     process after an anneal, bench --path dense (one JSON line) and
+     cache-stats;
   5. timing: each kernel's bound (bytes over 3.35 TB/s against operations
      over the peak of their type) and the two library yardsticks for K1's
      and K2's field work alone (torch.matmul, torch.sparse.mm; the port
@@ -215,7 +238,12 @@ kernels against the twins. Phases:
      super-step with and without cluster_moves=1 at 128 and 16 replicas; the
      layout round trip; a dense checkpoint's bytes and save time; segmented
      against single-dispatch pt.run; tune_ladder's time and captures; the
-     compact engine beside K2.
+     compact engine beside K2. The batch slice: the stacked K1 at P = 16,
+     [2048, 16] against 16 one-problem launches in turns (graphs) and its
+     bound; BatchProcessor.process of the 64 glasses, first call (its
+     capture inside) and repeat call, and one batch's device breakdown
+     (headline.profile_batch); adaptive_anneal against sa.anneal at the
+     same budget (SK 4096, 2000 sweeps, R=32), in turns.
 
 Any failed check exits non-zero. The last line is the JSON status
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -3266,6 +3294,515 @@ def drivers_timing(torch, stats, card):
           f"[{card}]")
 
 
+# ---------------------------------------------------------------------------
+# The batch, adaptive and operations slice: K1 with a problem axis,
+# BatchProcessor, adaptive_anneal, health / benchmark / monitor / bench /
+# cache-stats and the /metrics server
+# ---------------------------------------------------------------------------
+
+BATCH_N, BATCH_PROBLEMS = 2048, 64   # BatchProcessor's phase: SK glasses
+
+
+def _stacked_pm_j(torch, n_problems: int, n: int, seed: int):
+    """P +-J problems (h on a quarter grid: every field exact) drawn on the
+    card from seeds seed, seed + 1, ..., and their stack."""
+    from spinglass_tpu_torch.anneal import batch
+    from spinglass_tpu_torch.core.problem import IsingProblem, round_up
+
+    n_pad = round_up(n)
+    ps = []
+    for p in range(n_problems):
+        gen = torch.Generator(device="cuda").manual_seed(seed + p)
+        a = torch.triu(2.0 * torch.randint(0, 2, (n, n), generator=gen,
+                                           device="cuda") - 1.0, diagonal=1)
+        j = torch.zeros(n_pad, n_pad, device="cuda")
+        j[:n, :n] = a + a.T
+        h = torch.zeros(n_pad, device="cuda")
+        h[:n] = torch.randint(-8, 9, (n,), generator=gen, device="cuda") / 4.0
+        mask = torch.zeros(n_pad, device="cuda")
+        mask[:n] = 1.0
+        ps.append(IsingProblem(j=j, h=h, active_mask=mask, n_spins=n))
+    return ps, batch.stack_problems(ps)
+
+
+def _stacked_check(torch, mc, ps, st, r, rule, mode, seed, twin: bool,
+                   ones=None):
+    """One stacked K1 sweep against P one-problem launches under the
+    per-problem seeds (``ones``: each problem's ``FusedSweep`` at this
+    rule) and, with ``twin``, against the stacked twin: spins, dE and
+    counts bitwise. Returns the largest difference."""
+    import numpy as np
+
+    n_problems, n_pad = st.n_problems, st.n_padded
+    sw = mc.StackedFusedSweep(st.j, st.h, st.active_mask, block_size=SA_BLOCK,
+                              rule=rule)
+    rng = np.random.default_rng(seed)
+    s = torch.as_tensor(np.where(rng.random((n_problems, n_pad, r)) < 0.5,
+                                 -1.0, 1.0), dtype=torch.float32,
+                        device="cuda")
+    for p, prob in enumerate(ps):
+        s[p, prob.n_spins:] = 1.0
+    beta = torch.as_tensor(rng.uniform(0.1, 2.0, (n_problems, r)),
+                           dtype=torch.float32, device="cuda")
+    singles, ref = s.clone(), s.clone()
+    if mode == "philox":
+        seeds = torch.as_tensor(rng.integers(0, 2 ** 62, n_problems),
+                                dtype=torch.int64, device="cuda")
+        _, de, cnt = sw(s, beta, seeds)
+        u = (torch.stack([mc.philox_uniforms(seeds[p], n_pad, r, "cuda")
+                          for p in range(n_problems)]) if twin else None)
+    else:
+        u = torch.rand(n_problems, n_pad, r, device="cuda")
+        _, de, cnt = sw.sweep_with_uniforms(s, beta, u)
+    err = 0.0
+    if ones is None:
+        ones = [mc.FusedSweep(prob, block_size=SA_BLOCK, rule=rule)
+                for prob in ps]
+    for p, one in enumerate(ones):
+        if mode == "philox":
+            _, de1, cnt1 = one(singles[p], beta[p], seeds[p:p + 1])
+        else:
+            _, de1, cnt1 = one.sweep_with_uniforms(singles[p], beta[p],
+                                                   u[p].contiguous())
+        err = max(err, float((de[p] - de1).abs().max()),
+                  float((cnt[p] - cnt1).abs().max()))
+    err = max(err, float((s - singles).abs().max()))
+    if twin:
+        _, de_t, cnt_t = sw.reference(ref, beta, u)
+        err = max(err, float((s - ref).abs().max()),
+                  float((de - de_t).abs().max()),
+                  float((cnt - cnt_t).abs().max()))
+    return err
+
+
+def batch_parity(torch, mc, stats):
+    """Phase 2 (K1's problem axis): a stacked launch against P one-problem
+    launches and against the stacked twin, bit for bit."""
+    worst = 0.0
+    n_cases = 0
+    for n_problems, n in itertools.product((1, 3, 16), (500, 2000)):
+        ps, st = _stacked_pm_j(torch, n_problems, n, 11 * n_problems + n)
+        ones = {rule: [mc.FusedSweep(prob, block_size=SA_BLOCK, rule=rule)
+                       for prob in ps] for rule in ("metropolis", "glauber")}
+        # the twin (a Python loop over the rows, ~0.1 ms a row on the card)
+        # on one case of P = 3 at each size and of P = 16 at Np = 512
+        twin_case = ((37, "glauber", "philox") if n_problems == 3 else
+                     (16, "metropolis", "given") if n_problems == 16
+                     and n == 500 else None)
+        for r, rule, mode in itertools.product(
+                (1, 16, 37), ("metropolis", "glauber"), ("philox", "given")):
+            twin = (r, rule, mode) == twin_case
+            err = _stacked_check(torch, mc, ps, st, r, rule, mode,
+                                 n_problems * 100 + r, twin, ones[rule])
+            worst = max(worst, err)
+            n_cases += 1
+            check(err == 0.0, f"stacked K1 P={n_problems} Np={st.n_padded} "
+                              f"R={r} {rule} {mode}: == {n_problems} single "
+                              f"launches{' and the twin' if twin else ''}")
+    ps, st = _stacked_pm_j(torch, 2, 8400, 5)
+    check(mc.dense_tile(st.n_padded, SA_BLOCK) == mc.BLOCK_TILE,
+          f"Np={st.n_padded} is beyond the cluster kernel: the one-block "
+          f"kernel runs")
+    for rule, mode, twin in (("metropolis", "philox", True),
+                             ("glauber", "given", False)):
+        err = _stacked_check(torch, mc, ps, st, 5, rule, mode, 3, twin)
+        worst = max(worst, err)
+        check(err == 0.0, f"stacked one-block K1 P=2 Np={st.n_padded} R=5 "
+                          f"{rule} {mode}: == single launches"
+                          f"{' and the twin' if twin else ''}")
+    occ = mc.cluster_occupancy(BATCH_N, 16, SA_BLOCK)
+    print(f"  K1 cluster kernel at Np={BATCH_N}, R=16, block {SA_BLOCK}: "
+          f"{occ['max_active_clusters']} clusters resident at once (P = 16 "
+          f"launches 16)")
+    stats["max_abs_err"] = max(stats["max_abs_err"], worst)
+
+
+def _batch_problems(torch, n: int, count: int, seed0: int = 0):
+    """Gaussian SK glasses of n spins, J_ij ~ N(0, 1/n), drawn on the card
+    from seeds seed0, seed0 + 1, ... (the upper triangle, mirrored), padded
+    to a multiple of 128."""
+    from spinglass_tpu_torch.core.problem import IsingProblem, round_up
+
+    n_pad = round_up(n)
+    out = []
+    for s in range(count):
+        gen = torch.Generator(device="cuda").manual_seed(seed0 + s)
+        a = torch.randn(n, n, generator=gen, device="cuda") * n ** -0.5
+        a = torch.triu(a, diagonal=1)
+        j = torch.zeros(n_pad, n_pad, device="cuda")
+        j[:n, :n] = a + a.T
+        mask = torch.zeros(n_pad, device="cuda")
+        mask[:n] = 1.0
+        out.append(IsingProblem(j=j, h=torch.zeros(n_pad, device="cuda"),
+                                active_mask=mask, n_spins=n))
+    return out
+
+
+def _identity_ok(torch, problem, best_spins, best_energy) -> bool:
+    """best_energy == energy(best_spins), 1e-4 relative."""
+    import numpy as np
+
+    from spinglass_tpu_torch.core.energy import energy
+
+    s = np.ones(problem.n_padded, np.float32)
+    s[: problem.n_spins] = best_spins
+    e = float(energy(problem, torch.as_tensor(s, device="cuda")))
+    return abs(e - best_energy) <= 1e-4 * max(1.0, abs(e))
+
+
+class _RunTracker:
+    """The captured stacked runs a call uses (``batch.stacked_run`` wrapped),
+    so that their K1 launches are counted even if the cache drops one."""
+
+    def __init__(self, batch):
+        self.batch, self.orig, self.runs = batch, batch.stacked_run, []
+        self.before = {}
+
+    def __enter__(self):
+        def tracked(stacked, cfg):
+            run = self.orig(stacked, cfg)
+            if all(run is not r for r in self.runs):
+                self.runs.append(run)
+                self.before[id(run)] = run.sweep.launches
+            return run
+
+        self.batch.stacked_run = tracked
+        return self
+
+    def __exit__(self, *exc):
+        self.batch.stacked_run = self.orig
+
+    def launches(self) -> int:
+        return sum(r.sweep.launches - self.before[id(r)] for r in self.runs)
+
+
+def _adaptive_expected(history, cfg) -> int:
+    """The interventions the JAX rule makes on this best-energy history."""
+    best, stagnant, n = float("inf"), 0, 0
+    for be in history:
+        if be < best - 1e-9:
+            best, stagnant = be, 0
+        else:
+            stagnant += 1
+        if stagnant >= cfg.stagnation_chunks and n < cfg.max_interventions:
+            stagnant, n = 0, n + 1
+    return n
+
+
+def batch_slice(torch, mc, stats, card):
+    """Phase 4 (the batch, adaptive and operations slice)."""
+    import urllib.request
+
+    import numpy as np
+    from click.testing import CliRunner
+
+    from spinglass_tpu_torch import cli
+    from spinglass_tpu_torch.anneal import adaptive, batch
+    from spinglass_tpu_torch.anneal.engines import make_engine
+    from spinglass_tpu_torch.anneal.sa import SAConfig
+    from spinglass_tpu_torch.benchmarks import headline, runner
+    from spinglass_tpu_torch.utils import health, metrics_exporter as me
+
+    launches = {mc.KERNEL_NAME: 0, "sparse_sweep": 0, "sparse_accept": 0}
+    stats["batch_launches"] = launches
+    # -- BatchProcessor at its defaults over 64 SK glasses ------------------
+    t0 = time.perf_counter()
+    problems = _batch_problems(torch, BATCH_N, BATCH_PROBLEMS)
+    torch.cuda.synchronize()
+    print(f"  {BATCH_PROBLEMS} SK glasses at N={BATCH_N} drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    stats["batch_problems"] = problems
+    batch.clear_runs()
+    proc = batch.BatchProcessor()
+    cfg = proc.sa_config
+    check((cfg.n_sweeps, cfg.n_replicas, proc.batch_config.max_batch_size)
+          == (200, 16, 16), "BatchProcessor's defaults: 200 sweeps, 16 "
+                            "replicas, batches of up to 16")
+    with _RunTracker(batch) as tr:
+        t0 = time.perf_counter()
+        res = proc.process(problems, seed=0)
+        first_s = time.perf_counter() - t0
+    n_k1 = tr.launches()
+    launches[mc.KERNEL_NAME] += n_k1
+    check(len(tr.runs) == 1 and tr.runs[0].sweep.n_problems == 16,
+          f"one captured stacked run, P = 16 (capture "
+          f"{tr.runs[0].capture_seconds:.3f} s)")
+    check(n_k1 == 4 * 200, f"K1 launched {n_k1} times: 200 per batch, 4 "
+                           f"batches of 16 problems")
+    check(all(r.algorithm == "sa/batched" for r in res)
+          and proc.failures == [] and proc.n_processed == BATCH_PROBLEMS,
+          "every result sa/batched, no failure, 64 processed")
+    check(all(_identity_ok(torch, p, r.best_spins, r.best_energy)
+              for p, r in zip(problems, res)),
+          "each best_energy == energy(best_spins) (1e-4 relative)")
+    e_n = np.array([r.best_energy / BATCH_N for r in res])
+    print(f"  process of {BATCH_PROBLEMS} problems (first call, capture "
+          f"inside): {first_s:.3f} s; best E/N mean {e_n.mean():.5f}, min "
+          f"{e_n.min():.5f}, max {e_n.max():.5f} [{card}]")
+    check(e_n.max() < -0.6, "every problem anneals (E/N < -0.6)")
+    # the captured run against its eager loop, one batch; no sync in a replay
+    st = batch.stack_problems(problems[:16])
+    run = batch.stacked_run(st, cfg)
+    k0 = run.sweep.launches
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        run.j.copy_(st.j)
+        run.h.copy_(st.h)
+        run.mask.copy_(st.active_mask)
+    run.step.load({"spins": batch._start_spins(gen, run.mask, 16)})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run.step.replay(gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = [t.cpu() for t in out]
+    (be, bs, rep), n_eager = batch.eager_stacked(
+        st, cfg, torch.Generator().manual_seed(3))
+    launches[mc.KERNEL_NAME] += run.sweep.launches - k0 + n_eager
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(got, (be, bs, rep))),
+          "the captured stacked run == its eager loop bit for bit (best "
+          "energies, best spins, replica bests), no host sync in the replay")
+    # -- bucketing and adaptive batches ------------------------------------
+    mixed = (_batch_problems(torch, 500, 8, 100)
+             + _batch_problems(torch, 1000, 8, 200)
+             + _batch_problems(torch, BATCH_N, 8, 300))
+    order = np.random.default_rng(0).permutation(len(mixed))
+    mixed = [mixed[i] for i in order]
+    with _RunTracker(batch) as tr:
+        t0 = time.perf_counter()
+        res = batch.BatchProcessor().process(mixed, seed=1)
+        dt = time.perf_counter() - t0
+    launches[mc.KERNEL_NAME] += tr.launches()
+    check(sorted((r.sweep.n_problems, r.sweep.n_pad) for r in tr.runs)
+          == [(8, 512), (8, 1024), (8, 2048)] and tr.launches() == 600,
+          f"bucketed: 3 sizes, one batch of 8 each, K1 600 launches "
+          f"({dt:.3f} s, {len(tr.runs)} new captures)")
+    check(all(len(r.best_spins) == p.n_spins and r.algorithm == "sa/batched"
+              and _identity_ok(torch, p, r.best_spins, r.best_energy)
+              for p, r in zip(mixed, res)),
+          "results in input order, each energy identity holds")
+    with _RunTracker(batch) as tr:
+        aproc = batch.AdaptiveBatchProcessor()
+        t0 = time.perf_counter()
+        res = aproc.process(problems, seed=2)
+        dt = time.perf_counter() - t0
+    launches[mc.KERNEL_NAME] += tr.launches()
+    sizes = aproc.batch_sizes
+    new = [r for r in tr.runs if r.sweep.n_problems != 16]
+    check(sum(sizes) == BATCH_PROBLEMS and tr.launches() == 200 * len(sizes)
+          and all(r.algorithm == "sa/batched" for r in res),
+          f"AdaptiveBatchProcessor: batch sizes {sizes}, {len(tr.runs)} "
+          f"captured runs used ({len(new)} new captures, "
+          f"{sum(r.capture_seconds for r in new):.3f} s), K1 "
+          f"{tr.launches()} launches, {dt:.3f} s [{card}]")
+    stats["batch_adaptive"] = {"sizes": sizes, "seconds": dt,
+                               "captures": len(new)}
+    # -- adaptive SA: K1 (SK 4096), K4 (10k, R=32), K2 (10k, R=1024) --------
+    stats["adaptive"] = {}
+    ell = headline.sparse_bench_problem()
+    for label, prob, r in (("SK 4096 (K1)", stats["sk"], 32),
+                           ("10k graph, R=32 (K4)", ell, 32),
+                           ("10k graph, R=1024 (K2)", ell, 1024)):
+        acfg = adaptive.AdaptiveSAConfig()
+        if r != acfg.base.n_replicas:
+            acfg = adaptive.AdaptiveSAConfig(base=SAConfig(
+                n_sweeps=acfg.base.n_sweeps, n_replicas=r,
+                schedule=acfg.base.schedule))
+        res = adaptive.adaptive_anneal(prob, acfg)
+        kl = res.metadata["kernel_launches"]
+        want_iv = _adaptive_expected(res.energy_history, acfg)
+        print(f"  adaptive_anneal {label}: engine {res.metadata['engine']}, "
+              f"{res.metadata['interventions']} interventions, best E/N "
+              f"{res.best_energy / prob.n_spins:.5f}, {res.total_time:.3f} s "
+              f"(capture {res.metadata['capture_seconds']:.3f} s), launches "
+              f"{kl} [{card}]")
+        check(res.metadata["interventions"] == want_iv >= 1,
+              f"{label}: interventions {want_iv} as the JAX rule makes them "
+              f"on its history (stagnation fired)")
+        sweeps = res.n_sweeps
+        if "SK" in label:
+            check(kl == {mc.KERNEL_NAME: sweeps}, f"{label}: K1 {sweeps} "
+                                                  f"launches")
+            ok = _identity_ok(torch, prob, res.best_spins, res.best_energy)
+        else:
+            eng = make_engine(prob, r_hint=r)
+            colours = eng.n_colors
+            key = "sparse_sweep" if r % 128 == 0 else "sparse_accept"
+            per = 1 if key == "sparse_sweep" else colours
+            check(kl[key] == per * sweeps and sum(kl.values()) == per * sweeps,
+                  f"{label}: {key} {per} x {sweeps} launches, no other kernel")
+            from spinglass_tpu_torch.kernels.sparse import sparse_energy
+
+            s = np.ones(prob.n_padded, np.float32)
+            s[: prob.n_spins] = res.best_spins
+            e = float(sparse_energy(prob, torch.as_tensor(s, device="cuda")[None])[0])
+            ok = abs(e - res.best_energy) <= 1e-4 * abs(e)
+        check(ok, f"{label}: best_energy == energy(best_spins) (1e-4)")
+        for k, v in kl.items():
+            launches[k] = launches.get(k, 0) + v
+        stats["adaptive"][label] = res
+    # -- the operations commands, in process -------------------------------
+    invoke = CliRunner().invoke
+    out = invoke(cli.main, ["health"])
+    rep = json.loads(out.output) if out.exit_code == 0 else {}
+    check(out.exit_code == 0 and rep["checks"]["annealer"]["status"]
+          == "healthy" and "engine=cuda_fused"
+          in rep["checks"]["annealer"]["message"],
+          f"sgt-torch health exits 0, the annealer healthy on K1: "
+          f"{rep.get('checks', {}).get('device_compute', {}).get('message')}")
+    hc = health.check_annealer()
+    check(hc.details["kernel_launches"] == {mc.KERNEL_NAME: 50},
+          "the micro-anneal launches K1 50 times")
+    launches[mc.KERNEL_NAME] += hc.details["kernel_launches"][mc.KERNEL_NAME]
+    for case in runner.standard_suite((20, 50), device="cuda"):
+        prob = case.make_problem().encode_to_ising()
+        sa_eng = make_engine(prob, r_hint=32)
+        pt_eng = make_engine(prob, r_hint=16)
+        print(f"    {case.name}: Np={prob.n_padded}, SA engine "
+              f"{sa_eng.name}, PT engine {pt_eng.name}")
+    t0 = time.perf_counter()
+    tmp = os.path.join(HERE, "chipwork", "benchmark_results.json")
+    os.makedirs(os.path.dirname(tmp), exist_ok=True)
+    out = invoke(cli.main, ["benchmark", "--sizes", "20,50", "--sweeps",
+                            "500", "--trials", "2", "-o", tmp])
+    with open(tmp) as f:
+        data = json.load(f)
+    check(out.exit_code == 0 and len(data["results"]) == 32
+          and all(np.isfinite(r["objective"]) for r in data["results"]),
+          f"sgt-torch benchmark --sizes 20,50 --sweeps 500 --trials 2: exit "
+          f"0, 32 solves, every objective finite "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for k, v in sorted(data["summary"].items()):
+        print(f"    {k}: best {v['best_objective']:.3f}, mean "
+              f"{v['mean_objective']:.3f}, feasible "
+              f"{v['feasibility_rate']:.2f}, {v['mean_time']:.3f} s")
+    out = invoke(cli.main, ["monitor"])
+    snap = json.loads(out.output) if out.exit_code == 0 else {}
+    dev = snap.get("device", {}).get("cuda:0", {})
+    check(out.exit_code == 0 and dev.get("bytes_limit", 0) > 0,
+          f"sgt-torch monitor: the card's memory {dev}")
+    os.environ["SGT_METRICS_PORT"] = "0"
+    me._global_server = None
+    try:
+        out = invoke(cli.main, ["ising", "-n", "256", "--sweeps", "200",
+                                "--replicas", "32"])
+        srv = me._global_server
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/metrics", timeout=10).read().decode()
+    finally:
+        os.environ.pop("SGT_METRICS_PORT")
+        if me._global_server is not None:
+            me._global_server.stop()
+        me._global_server = None
+    line = [ln for ln in body.splitlines()
+            if ln.startswith('spinglass_solver_flips_per_sec{solver="sa"}')]
+    check(out.exit_code == 0 and line, f"SGT_METRICS_PORT: /metrics served "
+                                       f"in process after an anneal: {line}")
+    out = invoke(cli.main, ["bench", "--path", "dense"])
+    lines = out.output.strip().splitlines()
+    bench = json.loads(lines[-1]) if out.exit_code == 0 and lines else {}
+    check(out.exit_code == 0 and len(lines) == 1 and "value" in bench,
+          f"sgt-torch bench --path dense: one JSON line, "
+          f"{bench.get('value', 0):.4e} {bench.get('unit', '')} [{card}]")
+    out = invoke(cli.main, ["cache-stats"])
+    check(out.exit_code == 0 and "sa_steps" in json.loads(out.output),
+          f"sgt-torch cache-stats: {out.output.strip()}")
+
+
+def batch_timing(torch, mc, stats, card):
+    """Phase 5 (the batch slice): the stacked K1 at P = 16 against 16 single
+    launches in turns (graphs, CUDA events); a whole process of the 64
+    problems, first and repeat call; adaptive_anneal against sa.anneal at
+    the same budget, in turns."""
+    from spinglass_tpu_torch.anneal import adaptive, batch
+    from spinglass_tpu_torch.anneal.sa import anneal
+
+    problems = stats["batch_problems"]
+    st = batch.stack_problems(problems[:16])
+    sw = mc.StackedFusedSweep(st.j, st.h, st.active_mask, block_size=SA_BLOCK)
+    singles = [mc.FusedSweep(p, block_size=SA_BLOCK) for p in problems[:16]]
+    gen = torch.Generator().manual_seed(0)
+    s = torch.where(torch.rand(16, BATCH_N, 16, generator=gen) < 0.5, -1.0,
+                    1.0).cuda()
+    beta = torch.full((16, 16), 2.0, device="cuda")
+    seeds = torch.arange(16, dtype=torch.int64, device="cuda") + 7
+    s1 = s.clone()
+
+    def stacked():
+        sw(s, beta, seeds)
+
+    def sixteen():
+        for p, one in enumerate(singles):
+            one(s1[p], beta[p], seeds[p:p + 1])
+
+    times = {"stacked": [], "16 single": []}
+    for _ in range(2):
+        times["stacked"].append(_graph_ms(torch, stacked, 20))
+        times["16 single"].append(_graph_ms(torch, sixteen, 5))
+    one_ms = _graph_ms(torch, lambda: singles[0](s1[0], beta[0],
+                                                 seeds[0:1]), 20)
+    nbytes = 16 * (4 * BATCH_N * BATCH_N + 8 * BATCH_N * 16 + 8 * BATCH_N
+                   + 12 * 16)
+    flops = 16 * 2.0 * BATCH_N * BATCH_N * 16 * sw.planes
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    st_ms = min(times["stacked"])
+    print(f"  K1 stacked P=16 at [{BATCH_N}, 16], block {SA_BLOCK} ({sw.planes} "
+          f"planes): {1e3 * st_ms:.1f} us per launch (turns "
+          f"{[round(1e3 * t, 1) for t in times['stacked']]}); 16 single "
+          f"launches {[round(1e3 * t, 1) for t in times['16 single']]} us; "
+          f"one problem alone {1e3 * one_ms:.1f} us; bound {1e3 * b_ms:.1f} us "
+          f"({b_by}), {100 * b_ms / st_ms:.1f}% of it [{card}]")
+    stats["batch_k1"] = {"stacked_ms": st_ms, "singles_ms": min(
+        times["16 single"]), "one_ms": one_ms, "bound": (b_ms, b_by)}
+    calls = []
+    for k in range(2):
+        if k == 0:
+            batch.clear_runs()
+        t0 = time.perf_counter()
+        res = batch.BatchProcessor().process(problems, seed=k)
+        calls.append(time.perf_counter() - t0)
+        check(all(r.algorithm == "sa/batched" for r in res),
+              f"process call {k}: every result sa/batched")
+    print(f"  BatchProcessor().process of {BATCH_PROBLEMS} SK glasses at "
+          f"N={BATCH_N} (4 batches of 16, 200 sweeps, R=16): first call "
+          f"{calls[0]:.3f} s (capture inside), repeat call {calls[1]:.3f} s; "
+          f"{4 * 200 / calls[1]:.1f} stacked sweeps/s, "
+          f"{BATCH_PROBLEMS * 200 * 16 * BATCH_N / calls[1]:.4e} flips/s "
+          f"[{card}]")
+    stats["batch_calls"] = calls
+    from spinglass_tpu_torch.benchmarks.headline import profile_batch
+
+    prof = profile_batch(problems[:16])
+    stats["profiles"]["batch of 16 (stacked K1, [16, 2048, 16])"] = prof
+    lc = prof["launch_check"][mc.KERNEL_NAME]
+    print(f"  profile_batch (one batch of 16: copy, start spins, replay, "
+          f"read): {prof['us_per_sweep']:.1f} us per stacked sweep, "
+          f"kernels {prof['device_us_per_sweep']:.1f}, device busy "
+          f"{100 * prof['device_busy_share']:.1f}%, "
+          f"{prof['launches_per_sweep']:.1f} kernels per sweep; K1 counter "
+          f"{lc['counter']}, profiler {lc['profiler']} [{card}]")
+    for k in prof["kernels"]:
+        print(f"    {k['us_per_sweep']:9.2f} us/sweep  {k['calls']:5d} calls  "
+              f"{k['name'][:80]}")
+    check(lc["counter"] == 200, "the profiled batch launched K1 200 times "
+                                "(its counter; the profiler's count above "
+                                "is recorded, not checked: it loses records "
+                                "now and then)")
+    acfg = adaptive.AdaptiveSAConfig()
+    sk = stats["sk"]
+    rows = {"adaptive_anneal": [], "sa.anneal": []}
+    for _ in range(2):
+        rows["adaptive_anneal"].append(
+            adaptive.adaptive_anneal(sk, acfg).total_time)
+        rows["sa.anneal"].append(anneal(sk, acfg.base).total_time)
+    print(f"  SK 4096, 2000 sweeps, R=32 (K1), in turns: adaptive_anneal "
+          f"{[round(t, 4) for t in rows['adaptive_anneal']]} s (a capture "
+          f"each call), sa.anneal {[round(t, 4) for t in rows['sa.anneal']]} "
+          f"s (first call captures) [{card}]")
+    stats["adaptive_vs_anneal"] = rows
+
+
 def main() -> int:
     try:
         import torch
@@ -3335,6 +3872,8 @@ def main() -> int:
                  lambda: rl_parity(torch, mc, stats)),
                 ("phase 2: DQN steps through K1, K2 and K4 against the twins "
                  "(RL training)", lambda: dqn_parity(torch, mc, stats)),
+                ("phase 2: K1 with a problem axis against single launches "
+                 "and the twin (batch)", lambda: batch_parity(torch, mc, stats)),
                 ("phase 3: in-kernel Philox (K1)", lambda: phase_philox(torch, mc, stats)),
                 ("phase 3: in-kernel Philox (K2)", lambda: sparse_philox(torch)),
                 ("phase 4: dense SA slice", lambda: phase_slice(torch, mc, stats)),
@@ -3355,6 +3894,8 @@ def main() -> int:
                 ("phase 4: the drivers' remaining paths (checkpoint/resume, "
                  "cluster moves, tune_ladder, the compact engine, the CLI)",
                  lambda: drivers_slice(torch, mc, stats, card)),
+                ("phase 4: batch and adaptive annealing, the operations "
+                 "commands", lambda: batch_slice(torch, mc, stats, card)),
                 ("phase 5: timing (K1)", lambda: phase_timing(torch, mc, stats, card)),
                 ("phase 5: timing (K2, K3)", lambda: sparse_timing(torch, stats, card)),
                 ("phase 5: timing (K5, K6, K7)", lambda: variant_timing(torch, mc, stats, card)),
@@ -3368,7 +3909,10 @@ def main() -> int:
                 ("phase 5: timing (the drivers' remaining paths, C2, C1)",
                  lambda: drivers_timing(torch, stats, card)),
                 ("phase 5: timing (captured drivers against the eager loop)",
-                 lambda: captured_timing(torch, stats, card))):
+                 lambda: captured_timing(torch, stats, card)),
+                ("phase 5: timing (the batch slice: stacked K1, process, "
+                 "adaptive_anneal)", lambda: batch_timing(torch, mc, stats,
+                                                          card))):
             print(name)
             t0 = time.perf_counter()
             phase()
@@ -3409,23 +3953,27 @@ def main() -> int:
     # path's (bench_rl and the two sparse PPO runs; the captured DQN runs,
     # the pipelines, train-rl, the gym episode and learning_report of the RL
     # training path), the problem path's (its
-    # solves and the command line's) and the drivers' remaining paths' (the
-    # uninterrupted runs of (a) and (b), the cluster-move runs of (c)), each
-    # the count of its own call
+    # solves and the command line's), the drivers' remaining paths' (the
+    # uninterrupted runs of (a) and (b), the cluster-move runs of (c)) and
+    # the batch slice's (the stacked runs of the three processors and the
+    # eager loop, adaptive_anneal's three runs, the health micro-anneal),
+    # each the count of its own call
     rl = stats["rl_launches"]
     prob = stats["problem_launches"]
     drv = stats["driver_launches"]
+    bat = stats["batch_launches"]
     print(f"RL path launches: {rl}; problem path launches: {prob}; drivers' "
-          f"paths launches: {drv}")
+          f"paths launches: {drv}; batch slice launches: {bat}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"spinglass_tpu_torch/csrc/{name}.cu",
         "replaces": KERNELS[name],
         "launches": (launches + rl.get(name, 0) + prob.get(name, 0)
-                     + drv.get(name, 0)),
+                     + drv.get(name, 0) + bat.get(name, 0)),
         "launches_rl": rl.get(name, 0),
         "launches_problems": prob.get(name, 0),
-        "launches_drivers": drv.get(name, 0), "max_abs_err": err,
+        "launches_drivers": drv.get(name, 0),
+        "launches_batch": bat.get(name, 0), "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stats["bounds"][name][0],
         "bound_by": stats["bounds"][name][1], "library_ms": None}

@@ -462,6 +462,13 @@ def run(problem, cfg: Optional[PTConfig] = None,
                            engine, {k: v - launches0.get(k, 0)
                                     for k, v in launches.items()})
     res.metadata["capture_seconds"] = capture_s
+    try:  # prometheus gauges (host values only: no read of the device)
+        from spinglass_tpu_torch.utils.metrics_exporter import (
+            publish_anneal_result)
+
+        publish_anneal_result(res, solver="pt")
+    except Exception:  # metrics must never break a solve
+        pass
     return res
 
 

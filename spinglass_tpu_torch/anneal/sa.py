@@ -314,7 +314,7 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
         : problem.n_spins]
     flips = sweeps_done * config.n_replicas * problem.n_spins
     launches = kernel_launches(engine)
-    return AnnealResult(
+    result = AnnealResult(
         best_spins=best_spins,
         best_energy=float(state.best_energy[best_r]),
         # one copy on either device: on the CPU .cpu() would be the cached
@@ -340,6 +340,14 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
                                       for k, v in launches.items()},
                   "capture_seconds": capture_s},
     )
+    try:  # prometheus gauges (host values only: no read of the device)
+        from spinglass_tpu_torch.utils.metrics_exporter import (
+            publish_anneal_result)
+
+        publish_anneal_result(result, solver="sa")
+    except Exception:  # metrics must never break a solve
+        pass
+    return result
 
 
 def anneal_scan(problem: IsingProblem, config: Optional[SAConfig] = None,

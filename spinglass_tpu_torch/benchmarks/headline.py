@@ -355,6 +355,26 @@ def _profile(step, sweeps: int, top: int, graph_launches: int = 0,
     }
 
 
+def profile_batch(problems, top: int = 8) -> dict:
+    """One batch of ``anneal.batch.BatchProcessor()`` at its defaults on
+    ``problems`` (one stack of at most 16, on the card): the copy of the
+    stack into the captured run's buffers, the start spins, one replay of
+    the 200 stacked sweeps and one read of the results, profiled
+    (``_profile``; per sweep means per stacked sweep of all P problems)."""
+    from spinglass_tpu_torch.anneal import batch
+
+    cfg = batch.BatchProcessor().sa_config
+    st = batch.stack_problems(problems)
+    run = batch.stacked_run(st, cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    out = _profile(lambda: run.run(st, gen), cfg.n_sweeps, top,
+                   graph_launches=1,
+                   counters=[(run.sweep.kernel_name, run.sweep, "launches")])
+    out.update(n_problems=st.n_problems, n_padded=st.n_padded,
+               n_replicas=cfg.n_replicas)
+    return out
+
+
 def _sa_steppers(problem, r: int, sweeps: int, **cfg_kw) -> dict:
     """"plain" (the eager ``run_chunk``) and "captured" (its graph) runs of
     one chunk of ``anneal``, each with the chunk's one read of its four
@@ -1005,3 +1025,13 @@ def captured_vs_plain(ttt_super_steps: int = 20, chunk: int = 50,
         lambda: pt_mod.run(problems["sparse"], cfg))
     return {"metric": "captured_vs_plain", "value": out,
             "extras": {"nvidia_smi": device_description()}}
+
+
+# the five bench paths by the JAX package's names (``sgt-torch bench``)
+PATHS = {
+    "dense": bench_dense,
+    "sparse": bench_sparse,
+    "pt10k": bench_pt10k,
+    "ttt": bench_ttt,
+    "rl": bench_rl,
+}

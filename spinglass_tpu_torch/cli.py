@@ -1,17 +1,18 @@
 """Command-line interface of the port: ``sgt-torch`` (see pyproject.toml).
 
-The counterpart of ``spinglass_tpu.cli`` for the commands that pose and
-solve problems, ``solve``, ``ising`` and ``load``, and for ``train-rl``
-(the RL training pipeline). The group takes ``--device cuda|cpu`` (default:
-the card, see ``core.problem.resolve_device``) where the JAX group takes
-``--platform``.
+The counterpart of ``spinglass_tpu.cli``: ``solve``, ``ising`` and ``load``
+pose and solve problems, ``train-rl`` runs the RL training pipeline, and the
+operations commands ``benchmark`` (the standard suite,
+``benchmarks/runner.py``), ``health`` (exit 1 when unhealthy), ``monitor``,
+``autoscale``, ``bench`` (one headline benchmark's JSON line) and
+``cache-stats`` run the deployment's checks. As in the JAX group, ``main``
+serves /metrics from the process when SGT_METRICS_PORT is set
+(``utils.metrics_exporter.maybe_start_server_from_env``). The group takes
+``--device cuda|cpu`` (default: the card, see
+``core.problem.resolve_device``) where the JAX group takes ``--platform``.
 
-Not ported yet: the JAX group also serves /metrics when SGT_METRICS_PORT is
-set (``maybe_start_server_from_env``), which waits for
-``utils/metrics_exporter``; the commands ``benchmark``, ``health``,
-``monitor``, ``autoscale``, ``quality-gates``, ``bench`` and
-``cache-stats`` and the interactive shell wait for the modules they drive
-(ROADMAP.md Queue 1). Every option of the JAX ``solve`` command runs:
+Not ported yet: ``quality-gates`` and the interactive shell (ROADMAP.md
+Queue 1). Every option of the JAX ``solve`` command runs:
 ``--tune-ladder`` (``pt.tune_ladder``), ``--cluster-moves`` (Swendsen-Wang
 in the PT super-step), ``--checkpoint-dir`` / ``--resume`` (both drivers)
 and ``--sweep-method sparse_compact``.
@@ -20,6 +21,7 @@ and ``--sweep-method sparse_compact``.
 from __future__ import annotations
 
 import json
+import sys
 
 import click
 import numpy as np
@@ -36,6 +38,12 @@ from spinglass_tpu_torch import __version__
 def main(ctx, device):
     """spinglass-tpu-torch: the PyTorch/CUDA port's spin-glass annealer."""
     ctx.obj = {"device": device}
+    # SGT_METRICS_PORT set -> serve /metrics from this process, so that the
+    # solver gauges can be scraped (docker-compose's prometheus service)
+    from spinglass_tpu_torch.utils.metrics_exporter import (
+        maybe_start_server_from_env)
+
+    maybe_start_server_from_env()
 
 
 def _make_problem(problem: str, size: int, seed: int, device=None):
@@ -223,6 +231,124 @@ def train_rl(ctx, agent, updates, envs, spins, checkpoint_dir):
         problem=default_problem(spins, device=ctx.obj["device"]))
     out = pipe.train(verbose=True)
     click.echo(f"env-steps/s: {out['env_steps_per_second']:.1f}")
+
+
+@main.command()
+@click.option("--sizes", default="20,50")
+@click.option("--sweeps", default=500)
+@click.option("--trials", default=2)
+@click.option("-o", "--output", default="benchmark_results.json")
+@click.pass_context
+def benchmark(ctx, sizes, sweeps, trials, output):
+    """Run the standard benchmark suite."""
+    from spinglass_tpu_torch.benchmarks.runner import (BenchmarkRunner,
+                                                       standard_suite)
+
+    sizes_t = tuple(int(s) for s in sizes.split(","))
+    runner = BenchmarkRunner(n_sweeps=sweeps, n_trials=trials,
+                             device=ctx.obj["device"])
+    runner.run_suite(standard_suite(sizes_t, device=ctx.obj["device"]))
+    runner.save(output)
+    for k, v in runner.summary().items():
+        click.echo(f"{k}: best={v['best_objective']:.3f} "
+                   f"time={v['mean_time']:.2f}s "
+                   f"flips/s={v['mean_flips_per_sec']:.2e}")
+    click.echo(f"full results → {output}")
+
+
+@main.command()
+@click.pass_context
+def health(ctx):
+    """Run the framework health checks (the device probe and the
+    micro-anneal on --device; exit 1 when unhealthy)."""
+    from spinglass_tpu_torch.utils.health import HealthMonitor, device_checks
+
+    report = HealthMonitor(device_checks(ctx.obj["device"])).run()
+    click.echo(json.dumps(report, indent=2))
+    sys.exit(0 if report["status"] != "unhealthy" else 1)
+
+
+@main.command()
+@click.option("--watch", default=0, type=int,
+              help="sample every N seconds (0 = one snapshot)")
+@click.option("--serve-port", default=0, type=int,
+              help="also serve /metrics for Prometheus on this port")
+@click.option("--serve-host", default="127.0.0.1",
+              help="bind address for /metrics (0.0.0.0 inside a container)")
+def monitor(watch, serve_port, serve_host):
+    """Resource snapshot (host and each card's memory) / Prometheus
+    endpoint."""
+    import time as _time
+
+    from spinglass_tpu_torch.utils.metrics_exporter import (MetricsServer,
+                                                            global_registry)
+    from spinglass_tpu_torch.utils.monitoring import (device_memory_stats,
+                                                      global_monitor,
+                                                      host_stats)
+
+    mon = global_monitor()
+    server = None
+    if serve_port:
+        server = MetricsServer(host=serve_host, port=serve_port).start()
+        click.echo(f"serving /metrics on {serve_host}:{server.port}")
+    try:
+        while True:
+            snap = {"host": host_stats(), "device": device_memory_stats()}
+            if server:
+                global_registry().sync_from_monitor(mon)
+            click.echo(json.dumps(snap))
+            if not watch:
+                break
+            _time.sleep(watch)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if server:
+            server.stop()
+
+
+@main.command()
+@click.option("--replicas", default=256, help="current replica count")
+@click.option("--utilization", default=0.9, type=float)
+@click.option("--hbm-used", default=0.5, type=float,
+              help="fraction of the device memory in use")
+@click.option("--queue", default=4, type=int)
+def autoscale(replicas, utilization, hbm_used, queue):
+    """One auto-scaling decision from observed utilization."""
+    from spinglass_tpu_torch.utils.autoscale import AdaptiveScaler
+
+    d = AdaptiveScaler(cooldown_s=0.0).decide(
+        n_replicas=replicas, utilization=utilization,
+        hbm_used_fraction=hbm_used, queue_depth=queue)
+    click.echo(json.dumps({
+        "resource": d.resource, "current": d.current, "target": d.target,
+        "reason": d.reason}))
+
+
+@main.command("bench")
+@click.option("--path", "bench_path", default="dense",
+              type=click.Choice(sorted(("dense", "sparse", "pt10k", "ttt",
+                                        "rl"))),
+              help="which headline benchmark to run")
+def bench_cmd(bench_path):
+    """Run a headline benchmark on the card and print its JSON line (the
+    bodies of ``benchmarks/headline.py``, at the JAX package's shapes)."""
+    from spinglass_tpu_torch.benchmarks import headline
+
+    click.echo(json.dumps(headline.PATHS[bench_path]()))
+
+
+@main.command("cache-stats")
+def cache_stats():
+    """Solver-cache statistics: the solution cache and the captured
+    drivers' step caches."""
+    from spinglass_tpu_torch.anneal import batch, graphs
+    from spinglass_tpu_torch.utils.cache import anneal_cache_stats
+
+    click.echo(json.dumps({**anneal_cache_stats(),
+                           "sa_steps": len(graphs.SA_CACHE),
+                           "pt_steps": len(graphs.PT_CACHE),
+                           "batch_runs": len(batch._RUNS)}))
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 The JAX package threads PRNG keys; the port draws from one host
 ``torch.Generator`` per run. Every draw of a driver's step goes through the
-functions here: ``draw_seed`` (a kernel's 62-bit Philox seed),
+functions here: ``draw_seed`` (a kernel's 62-bit Philox seed; ``draw_seeds``
+n of them, one per problem of a stacked launch),
 ``device_generator`` (a generator on the device seeded by one host draw)
 and ``rand`` / ``randn`` / ``randperm`` / ``random_bits`` / ``randint`` on
 such a generator (``device_uniforms`` is the first two in one).
@@ -48,6 +49,16 @@ def draw_seed(generator: torch.Generator):
     if _TAPE is not None:
         return _TAPE.seed(generator)
     return host_seed(generator)
+
+
+def draw_seeds(generator: torch.Generator, n: int):
+    """``n`` kernel seeds from a host generator, drawn as ``n`` calls of
+    ``draw_seed``: a list of ints, or while a tape is active a [n] view of
+    its seed buffer (n consecutive slots, one per problem of a stacked
+    launch)."""
+    if _TAPE is not None:
+        return _TAPE.seed_block(generator, n)
+    return [host_seed(generator) for _ in range(n)]
 
 
 def device_generator(generator: torch.Generator, device):
@@ -200,6 +211,16 @@ class RandomTape:
         self._next("seed")
         self._slot += 1
         return self.seeds[self._slot - 1]
+
+    def seed_block(self, generator: torch.Generator, n: int):
+        """``n`` kernel seeds: ints while recording, n consecutive slots
+        (a contiguous [n] view) when served."""
+        if self._mode == "record":
+            return [self.seed(generator) for _ in range(n)]
+        for _ in range(n):
+            self._next("seed")
+        self._slot += n
+        return self.seeds[self._slot - n:self._slot]
 
     def generator(self, generator: torch.Generator, device) -> TapeGenerator:
         """A device generator seeded by one host draw."""

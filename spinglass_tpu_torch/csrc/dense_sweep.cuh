@@ -166,6 +166,40 @@ __device__ __forceinline__ void stage_j_rows(const float* __restrict__ J,
   }
 }
 
+// Problem p = blockIdx.y of a stacked launch (K1 over P problems of one
+// padded size): every pointer moves to problem p's slice of its stack, J
+// [P, Np, Np], h and mask [P, Np], spins and u [P, Np, R], beta, dE and
+// counts [P, R], and the seed slots [P]; blockIdx.x keeps its meaning (the
+// replica tile). Only the kernels' STACKED instantiations move their
+// pointers: the moved pointers live in registers for the whole sweep (the
+// parameters they replace sit in the constant bank), which at B = 256 with
+// three planes made K1's cluster kernel spill and run 20% slower, so one
+// problem launches the unmoved kernel, the code it had before.
+struct ProblemSlice {
+  size_t jj, n, nr, r;
+  __device__ __forceinline__ explicit ProblemSlice(int n_pad, int R) {
+    const size_t p = blockIdx.y;
+    jj = p * n_pad * n_pad;
+    n = p * n_pad;
+    nr = p * n_pad * R;
+    r = p * R;
+  }
+};
+
+#define SGT_PROBLEM_SLICE(n_pad, R)                       \
+  do {                                                    \
+    const sgt::ProblemSlice ps_(n_pad, R);                \
+    J += ps_.jj;                                          \
+    h += ps_.n;                                           \
+    mask += ps_.n;                                        \
+    spins += ps_.nr;                                      \
+    if (u) u += ps_.nr;                                   \
+    beta += ps_.r;                                        \
+    de_out += ps_.r;                                      \
+    cnt_out += ps_.r;                                     \
+    if (seed_ptr) seed_ptr += blockIdx.y;                 \
+  } while (0)
+
 // Spin and threshold of replica col at spin `row`. Without u the uniform is
 // Philox4x32-10 keyed by the sweep seed (k0, k1) with counter (row, col), so
 // the stream depends on neither the tile nor the block size; a row with
@@ -268,7 +302,10 @@ __device__ __forceinline__ void store_totals(float (&de_acc)[NC],
 // RT = 8 * NC replica columns for the whole sweep (warp w owns the columns
 // r0 + w*NC + c) and loops over the row-blocks: (1) the tile's B x RT block
 // fields, (2) the B dependent decisions, (3) the block's spins stored.
-template <int B, int RULE, int NC, int FIELD_UNROLL, int DECIDE_UNROLL>
+// K1's stacked launch (STACKED) puts problem p on blockIdx.y
+// (SGT_PROBLEM_SLICE); K6 launches one problem.
+template <int B, int RULE, int NC, int FIELD_UNROLL, int DECIDE_UNROLL,
+          bool STACKED = false>
 __global__ void __launch_bounds__(256, 1)
 tile_sweep_kernel(const float* __restrict__ J, const float* __restrict__ h,
                   const float* __restrict__ mask, float* spins,
@@ -278,6 +315,7 @@ tile_sweep_kernel(const float* __restrict__ J, const float* __restrict__ h,
                   float* __restrict__ de_out, int* __restrict__ cnt_out,
                   int n_pad, int R) {
   constexpr int THREADS = 256;
+  if constexpr (STACKED) SGT_PROBLEM_SLICE(n_pad, R);
   device_seed(seed_ptr, k0, k1);
   constexpr int RT = 8 * NC;
   constexpr int FPL = B / 32;

@@ -70,7 +70,14 @@
 // fields are ~58%, the decisions ~23% and barriers, reduction and stores the
 // rest; +-J or j_dtype = bfloat16 (one plane) 620-640 us.
 // Shapes: n_pad % 128 == 0, any R (columns beyond R are dead: they never
-// flip and store nothing). The spins must be +-1. Shared memory per block is
+// flip and store nothing). Problems: P stacked problems of one n_pad go in
+// one launch, problem p on blockIdx.y (the counterpart of the JAX batch
+// path's vmap, anneal/batch.py); the STACKED instantiations move their
+// pointers to the problem's slice at entry (SGT_PROBLEM_SLICE) and nothing
+// below changes, so a problem's decisions equal a one-problem launch's with
+// its seed; one problem launches the unmoved instantiation. A cluster stays
+// 8 blocks along x; at R = 16, 16 problems make 16 clusters, of which the
+// card holds 15 at once (two waves, measured 2.1x one problem's time). The spins must be +-1. Shared memory per block is
 // ~18 n_pad bytes of spins plus B-dependent buffers (147 KB at Np = 4096,
 // B = 128; 219 KB at B = 256), which fits up to n_pad = 8320 at B = 128 and
 // 4224 at B = 256 (metropolis_cuda.dense_tile). Beyond that the wrapper asks
@@ -247,7 +254,7 @@ __device__ __forceinline__ void decide_rows(const float* __restrict__ J,
   }
 }
 
-template <int B, int RULE, int PLANES>
+template <int B, int RULE, int PLANES, bool STACKED>
 __global__ void __launch_bounds__(THREADS, 1)
 cluster_sweep_kernel(const float* __restrict__ J, const float* __restrict__ h,
                      const float* __restrict__ mask, float* spins,
@@ -256,6 +263,8 @@ cluster_sweep_kernel(const float* __restrict__ J, const float* __restrict__ h,
                      const unsigned long long* __restrict__ seed_ptr,
                      float* __restrict__ de_out, int* __restrict__ cnt_out,
                      int n_pad, int R) {
+  // problem blockIdx.y of a stacked launch (dense_sweep.cuh)
+  if constexpr (STACKED) SGT_PROBLEM_SLICE(n_pad, R);
   sgt::device_seed(seed_ptr, k0, k1);
   constexpr int MT = B / 128;  // 16-row MMA tiles per multiplying warp
   // k-steps (16 spin rows) per batch of loads, fetched one batch ahead: 8
@@ -443,20 +452,21 @@ struct SweepArgs {
   float* de;
   int* cnt;
   int n_pad, R;
+  int problems;  // P stacked problems on gridDim.y (1: one problem)
 };
 
 // Launches the cluster kernel, or with `clusters` only asks how many
 // clusters of it the card holds at once.
-template <int B, int RULE, int PLANES>
-cudaError_t launch_cluster(const SweepArgs& a, cudaStream_t stream,
-                           int* clusters) {
-  auto kernel = cluster_sweep_kernel<B, RULE, PLANES>;
+template <int B, int RULE, int PLANES, bool STACKED>
+cudaError_t launch_cluster_kernel(const SweepArgs& a, cudaStream_t stream,
+                                  int* clusters) {
+  auto kernel = cluster_sweep_kernel<B, RULE, PLANES, STACKED>;
   const size_t smem = cluster_smem_bytes(a.n_pad, B);
   static size_t allowed = 0;
   const cudaError_t err = sgt::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((a.R + RT - 1) / RT) * CS);
+  cfg.gridDim = dim3(((a.R + RT - 1) / RT) * CS, a.problems);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -473,6 +483,16 @@ cudaError_t launch_cluster(const SweepArgs& a, cudaStream_t stream,
                             a.n_pad, a.R);
 }
 
+// One problem runs the unmoved kernel (see dense_sweep.cuh).
+template <int B, int RULE, int PLANES>
+cudaError_t launch_cluster(const SweepArgs& a, cudaStream_t stream,
+                           int* clusters) {
+  return a.problems > 1
+             ? launch_cluster_kernel<B, RULE, PLANES, true>(a, stream, clusters)
+             : launch_cluster_kernel<B, RULE, PLANES, false>(a, stream,
+                                                             clusters);
+}
+
 template <int B>
 cudaError_t dispatch_cluster(int rule, int planes, const SweepArgs& a,
                              cudaStream_t stream, int* clusters) {
@@ -485,24 +505,32 @@ cudaError_t dispatch_cluster(int rule, int planes, const SweepArgs& a,
 
 // The one-block kernel: one chain per warp; the field loop unrolled 16
 // deep, the decisions 4.
-template <int B>
-cudaError_t launch_tile(int rule, const SweepArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.R + TILE_RT - 1) / TILE_RT);
+template <int B, bool STACKED>
+cudaError_t launch_tile_kernel(int rule, const SweepArgs& a,
+                               cudaStream_t stream) {
+  const dim3 grid((a.R + TILE_RT - 1) / TILE_RT, a.problems);
   if (rule == 0) {
-    sgt::tile_sweep_kernel<B, 0, 1, 16, 4><<<grid, 256, 0, stream>>>(
+    sgt::tile_sweep_kernel<B, 0, 1, 16, 4, STACKED><<<grid, 256, 0, stream>>>(
         a.J, a.h, a.mask, a.spins, a.beta, a.u, a.k0, a.k1, a.seed_ptr,
         a.de, a.cnt, a.n_pad, a.R);
   } else {
-    sgt::tile_sweep_kernel<B, 1, 1, 16, 4><<<grid, 256, 0, stream>>>(
+    sgt::tile_sweep_kernel<B, 1, 1, 16, 4, STACKED><<<grid, 256, 0, stream>>>(
         a.J, a.h, a.mask, a.spins, a.beta, a.u, a.k0, a.k1, a.seed_ptr,
         a.de, a.cnt, a.n_pad, a.R);
   }
   return cudaGetLastError();
 }
 
+template <int B>
+cudaError_t launch_tile(int rule, const SweepArgs& a, cudaStream_t stream) {
+  return a.problems > 1 ? launch_tile_kernel<B, true>(rule, a, stream)
+                        : launch_tile_kernel<B, false>(rule, a, stream);
+}
+
 bool bad_shape(int n_pad, int R, int block_size, int rule, int planes,
-               int cluster) {
-  return R < 1 || n_pad < 128 || n_pad % 128 != 0 ||
+               int cluster, int problems) {
+  return R < 1 || problems < 1 || problems > 65535 || n_pad < 128 ||
+         n_pad % 128 != 0 ||
          (block_size != 128 && block_size != 256) ||
          n_pad % block_size != 0 || rule < 0 || rule > 1 ||
          (planes != 1 && planes != 3) || (cluster != 1 && cluster != CS);
@@ -512,27 +540,33 @@ bool bad_shape(int n_pad, int R, int block_size, int rule, int planes,
 
 extern "C" {
 
-// One sweep on `stream`. Returns the launch's CUDA error (0 on success).
-// The caller checks shapes: J [n_pad, n_pad] (16-byte aligned), h and mask
-// [n_pad], spins (+-1) and u [n_pad, R] row-major, beta/de/cnt [R]; n_pad a
-// multiple of 128 and of block_size, block_size in {128, 256}, rule in
-// {0, 1}. cluster == 8 runs the cluster kernel with planes in {1, 3} bf16
-// planes of J (1 only where J is exact in bf16); cluster == 1 the one-block
-// float32 kernel. u == nullptr selects the in-kernel Philox stream, keyed
-// by `seed`, or by the seed at seed_ptr (device memory) where that is not
-// null.
-int sgt_metropolis_sweep(const float* J, const float* h, const float* mask,
-                         float* spins, const float* beta, const float* u,
-                         unsigned long long seed,
-                         const unsigned long long* seed_ptr, float* de,
-                         int* cnt, int n_pad, int R, int block_size, int rule,
-                         int planes, int cluster, void* stream) {
-  if (bad_shape(n_pad, R, block_size, rule, planes, cluster) ||
+// One sweep of `problems` stacked problems on `stream`, problem p on
+// gridDim.y. Returns the launch's CUDA error (0 on success). The caller
+// checks shapes: J [P, n_pad, n_pad] (16-byte aligned), h and mask
+// [P, n_pad], spins (+-1) and u [P, n_pad, R] row-major, beta/de/cnt
+// [P, R]; n_pad a multiple of 128 and of block_size, block_size in
+// {128, 256}, rule in {0, 1}. cluster == 8 runs the cluster kernel with
+// planes in {1, 3} bf16 planes of J (1 only where every problem's J is
+// exact in bf16); cluster == 1 the one-block float32 kernel. u == nullptr
+// selects the in-kernel Philox stream, keyed by `seed` (every problem), or
+// by the seed at seed_ptr[p] (device memory, one per problem) where that is
+// not null: problem p then makes the decisions of a one-problem launch on
+// its slice with that seed.
+int sgt_metropolis_sweep_stacked(const float* J, const float* h,
+                                 const float* mask, float* spins,
+                                 const float* beta, const float* u,
+                                 unsigned long long seed,
+                                 const unsigned long long* seed_ptr, float* de,
+                                 int* cnt, int n_pad, int R, int block_size,
+                                 int rule, int planes, int cluster,
+                                 int problems, void* stream) {
+  if (bad_shape(n_pad, R, block_size, rule, planes, cluster, problems) ||
       reinterpret_cast<uintptr_t>(J) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const SweepArgs a = {J, h, mask, spins, beta, u,
                        (uint32_t)(seed & 0xffffffffull),
-                       (uint32_t)(seed >> 32), seed_ptr, de, cnt, n_pad, R};
+                       (uint32_t)(seed >> 32), seed_ptr, de, cnt, n_pad, R,
+                       problems};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cluster == 1)
     return (int)(block_size == 256 ? launch_tile<256>(rule, a, s)
@@ -542,14 +576,27 @@ int sgt_metropolis_sweep(const float* J, const float* h, const float* mask,
                    : dispatch_cluster<128>(rule, planes, a, s, nullptr));
 }
 
+// One sweep of one problem: the stacked launch at P = 1 (J [n_pad, n_pad],
+// h and mask [n_pad], spins and u [n_pad, R], beta/de/cnt [R]).
+int sgt_metropolis_sweep(const float* J, const float* h, const float* mask,
+                         float* spins, const float* beta, const float* u,
+                         unsigned long long seed,
+                         const unsigned long long* seed_ptr, float* de,
+                         int* cnt, int n_pad, int R, int block_size, int rule,
+                         int planes, int cluster, void* stream) {
+  return sgt_metropolis_sweep_stacked(J, h, mask, spins, beta, u, seed,
+                                      seed_ptr, de, cnt, n_pad, R, block_size,
+                                      rule, planes, cluster, 1, stream);
+}
+
 // The number of clusters of the cluster kernel that the card holds at once
 // at this shape, into *clusters. Returns a CUDA error (0 on success).
 int sgt_metropolis_sweep_clusters(int n_pad, int R, int block_size, int planes,
                                   int* clusters) {
-  if (bad_shape(n_pad, R, block_size, 0, planes, CS))
+  if (bad_shape(n_pad, R, block_size, 0, planes, CS, 1))
     return (int)cudaErrorInvalidValue;
   const SweepArgs a = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                       0u, 0u, nullptr, nullptr, nullptr, n_pad, R};
+                       0u, 0u, nullptr, nullptr, nullptr, n_pad, R, 1};
   return (int)(block_size == 256
                    ? dispatch_cluster<256>(0, planes, a, nullptr, clusters)
                    : dispatch_cluster<128>(0, planes, a, nullptr, clusters));

@@ -12,7 +12,9 @@ here that expresses the same algorithm:
   fields come from bf16 tensor-core products of J split exactly into three
   bf16 planes (``bf16_planes``; one plane where J is exact in bf16).
   ``dense_tile`` says which shapes that kernel takes; beyond them the
-  one-block float32 kernel runs;
+  one-block float32 kernel runs. ``StackedFusedSweep`` launches K1 over P
+  stacked problems at once (problem p on the grid's y axis), the batch
+  path's sweep;
 * K5 ``csrc/metropolis_pipelined.cu`` (``_make_kernel_pipe``), twin
   ``pipelined_sweep_reference``: block b+1's fields are computed before
   block b's flips and repaired with ``J[b+1, b] @ ds_b``;
@@ -450,6 +452,8 @@ def load_kernel(name: str = KERNEL_NAME) -> ctypes.CDLL:
                    + extra + [p])
     fn.restype = i
     if name == KERNEL_NAME:
+        lib.sgt_metropolis_sweep_stacked.argtypes = fn.argtypes[:-1] + [i, p]
+        lib.sgt_metropolis_sweep_stacked.restype = i
         lib.sgt_metropolis_sweep_clusters.argtypes = [i, i, i, i, p]
         lib.sgt_metropolis_sweep_clusters.restype = i
         lib.sgt_metropolis_sweep_smem.argtypes = [i, i]
@@ -628,6 +632,169 @@ class FusedSweep:
                                f"{err} ({msg})")
         self.launches += 1
         return spins_t, de, cnt
+
+
+def stacked_seed_arg(seeds, problems: int, device):
+    """(value, address, keep) of the per-problem sweep seeds of a stacked
+    K1 launch on ``device``: a [P] int64 seed slot there goes by its
+    address; P host ints are copied there first (``keep`` is that tensor,
+    held until the launch is queued); one problem's int goes by value, as
+    ``FusedSweep`` passes it."""
+    if isinstance(seeds, torch.Tensor):
+        if (seeds.dtype != torch.int64 or seeds.shape != (problems,)
+                or seeds.device != torch.device(device)
+                or not seeds.is_contiguous()):
+            raise ValueError(f"stacked seeds are a contiguous [{problems}] "
+                             f"int64 tensor on {device}, got {seeds.dtype} "
+                             f"{tuple(seeds.shape)} on {seeds.device}")
+        return 0, seeds.data_ptr(), None
+    seeds = [int(x) for x in seeds]
+    if len(seeds) != problems:
+        raise ValueError(f"{len(seeds)} seeds for {problems} problems")
+    if problems == 1:
+        value, _ = seed_arg(seeds[0], device)
+        return value, None, None
+    for x in seeds:
+        seed_arg(x, device)
+    keep = torch.tensor([x - 2 ** 64 if x >= 2 ** 63 else x for x in seeds],
+                        dtype=torch.int64, device=device)
+    return 0, keep.data_ptr(), keep
+
+
+def _seed_list(seeds, problems: int) -> list:
+    """The per-problem seeds as host ints or 0-d slots (the twins' form)."""
+    if isinstance(seeds, torch.Tensor):
+        seeds = seeds.reshape(-1)
+        if seeds.numel() != problems:
+            raise ValueError(f"{seeds.numel()} seeds for {problems} problems")
+        return [seeds[p] for p in range(problems)]
+    seeds = list(seeds)
+    if len(seeds) != problems:
+        raise ValueError(f"{len(seeds)} seeds for {problems} problems")
+    return seeds
+
+
+class StackedFusedSweep:
+    """K1 over P stacked problems of one padded size, in one launch: the
+    port's counterpart of the JAX batch path's ``vmap`` of the blocked sweep
+    (``anneal/batch.py``). Problem p is the kernel's ``blockIdx.y``; J is
+    [P, Np, Np], h and mask [P, Np], spins [P, Np, R] (updated in place),
+    beta [P, R] (or anything that broadcasts to it) and the seeds one per
+    problem: a [P] int64 seed slot on the spins' device, or P host ints.
+    Problem p makes the decisions of ``FusedSweep`` on its own J, h and mask
+    under its seed, bit for bit, and P = 1 is ``FusedSweep``'s launch.
+    ``planes`` is counted over the stack (3 if any problem's J needs them)
+    unless given; ``tile`` is ``dense_tile``'s answer. On CPU tensors the
+    plain twin (``fused_sweep_reference`` per problem) runs; on CUDA tensors
+    the kernel launches or raises. Each launch adds one to ``launches``."""
+
+    layout = "nr"
+    kernel_name = KERNEL_NAME
+
+    def __init__(self, j: torch.Tensor, h: torch.Tensor, mask: torch.Tensor,
+                 block_size: int = 128, rule: str = "metropolis",
+                 planes=None):
+        if j.dim() != 3 or j.shape[1] != j.shape[2]:
+            raise ValueError(f"J must be [P, Np, Np], got {tuple(j.shape)}")
+        n_problems, n_pad = j.shape[0], j.shape[1]
+        if h.shape != (n_problems, n_pad) or mask.shape != (n_problems, n_pad):
+            raise ValueError(f"h and mask must be [{n_problems}, {n_pad}]")
+        if block_size not in (128, 256) or n_pad % block_size:
+            raise ValueError(
+                f"block size {block_size} must be 128 or 256 and divide "
+                f"padded N={n_pad}")
+        if planes not in (None, 1, 3):
+            raise ValueError(f"planes must be 1 or 3, got {planes}")
+        self.j, self.h, self.mask = j, h, mask
+        self.n_problems, self.n_pad = n_problems, n_pad
+        self.block_size = block_size
+        self.rule = canonical_rule(rule)
+        self.tile = dense_tile(n_pad, block_size)
+        self._planes = planes
+        self.launches = 0
+        self._lib = None
+
+    @property
+    def planes(self) -> int:
+        """bf16 planes of J the cluster kernel multiplies: 1 where every
+        problem's J is exact in bfloat16, else 3."""
+        if self._planes is None:
+            self._planes = planes_needed(self.j)
+        return self._planes
+
+    def _beta(self, beta, r: int, device) -> torch.Tensor:
+        beta = torch.as_tensor(beta, dtype=torch.float32, device=device)
+        return torch.broadcast_to(beta, (self.n_problems, r)).contiguous()
+
+    def __call__(self, spins: torch.Tensor, beta, seeds):
+        """One sweep of every problem, problem p's uniforms Philox under
+        seed p. Returns (spins, dE [P, R] float32, n_accepted [P, R] int32)."""
+        if spins.is_cuda:
+            return self._launch(spins, beta, None, seeds)
+        seeds = _seed_list(seeds, self.n_problems)
+        u = torch.stack([philox_uniforms(sd, self.n_pad, spins.shape[2])
+                         for sd in seeds])
+        return self.reference(spins, beta, u)
+
+    def sweep_with_uniforms(self, spins: torch.Tensor, beta,
+                            uniforms: torch.Tensor):
+        """One sweep with caller-supplied uniforms [P, Np, R]."""
+        if spins.is_cuda:
+            return self._launch(spins, beta, uniforms, None)
+        return self.reference(spins, beta, uniforms)
+
+    def reference(self, spins, beta, u):
+        """The plain twin: ``fused_sweep_reference`` on each problem in
+        turn (any device; the CPU path)."""
+        beta = self._beta(beta, spins.shape[2], spins.device)
+        des, cnts = [], []
+        for p in range(self.n_problems):
+            _, de, cnt = fused_sweep_reference(
+                self.j[p], self.h[p], self.mask[p], spins[p], beta[p], u[p],
+                self.rule, self.block_size)
+            des.append(de)
+            cnts.append(cnt)
+        return spins, torch.stack(des), torch.stack(cnts)
+
+    def _launch(self, spins, beta, u, seeds):
+        n_problems, n_pad = self.n_problems, self.n_pad
+        dev = spins.device
+        for name, t in (("J", self.j), ("h", self.h), ("mask", self.mask)):
+            if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError(f"stacked {name} must be contiguous float32 "
+                                 f"on {dev}")
+        if (spins.dtype != torch.float32 or not spins.is_contiguous()
+                or spins.dim() != 3 or spins.shape[:2] != (n_problems, n_pad)):
+            raise ValueError(f"spins must be contiguous float32 "
+                             f"[{n_problems}, {n_pad}, R]")
+        r = spins.shape[2]
+        if u is not None and (u.shape != spins.shape or u.device != dev
+                              or u.dtype != torch.float32
+                              or not u.is_contiguous()):
+            raise ValueError("uniforms must be contiguous float32 like spins")
+        seed, seed_ptr, keep = ((0, None, None) if u is not None else
+                                stacked_seed_arg(seeds, n_problems, dev))
+        if self._lib is None:
+            self._lib = load_kernel(KERNEL_NAME)
+        beta = self._beta(beta, r, dev)
+        de = torch.empty(n_problems, r, dtype=torch.float32, device=dev)
+        cnt = torch.empty(n_problems, r, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = self._lib.sgt_metropolis_sweep_stacked(
+                self.j.data_ptr(), self.h.data_ptr(), self.mask.data_ptr(),
+                spins.data_ptr(), beta.data_ptr(),
+                None if u is None else u.data_ptr(), seed, seed_ptr,
+                de.data_ptr(), cnt.data_ptr(), n_pad, r, self.block_size,
+                0 if self.rule == "metropolis" else 1, self.planes,
+                self.tile[1], n_problems, stream)
+        if err != 0:
+            msg = self._lib.sgt_cuda_error_string(err).decode()
+            raise RuntimeError(f"{KERNEL_NAME} (stacked, P={n_problems}) "
+                               f"launch failed: CUDA error {err} ({msg})")
+        del keep   # freed to this stream: reused only after the launch
+        self.launches += 1
+        return spins, de, cnt
 
 
 def cluster_occupancy(n_pad: int, r: int, block_size: int,

@@ -473,6 +473,15 @@ def train(problem, env_cfg: Optional[EnvConfig] = None,
     steady = sum(update_times[n_warm:])
     env_steps = n_run * cfg.rollout_len * env_cfg.n_envs
     steady_steps = max(n_run - n_warm, 1) * cfg.rollout_len * env_cfg.n_envs
+    try:  # prometheus gauges (host values only: no read of the device)
+        from spinglass_tpu_torch.utils.metrics_exporter import (
+            publish_rl_metrics)
+
+        publish_rl_metrics(
+            steady_steps / steady if steady > 0 else 0.0,
+            history[-1]["mean_best_energy"] if history else float("nan"))
+    except Exception:  # metrics must never break a run
+        pass
     return {
         "params": state.params,
         "state": state,

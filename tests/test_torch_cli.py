@@ -3,7 +3,11 @@ the CPU, in process through click's ``CliRunner``: ``solve`` (SA and PT),
 ``ising`` and ``load`` exit 0 with the JAX command's output lines; every
 option of the JAX ``solve`` (``--tune-ladder``, ``--cluster-moves``,
 ``--checkpoint-dir`` / ``--resume``, ``--sweep-method sparse_compact``)
-runs and exits 0."""
+runs and exits 0. The operations commands: ``benchmark`` (a tiny suite,
+the JAX summary's keys), ``health`` (exit 0 on the CPU, 1 without a card
+unless the CPU is asked for), ``autoscale`` (the JAX command's JSON),
+``monitor``, ``cache-stats``, and the /metrics server the group starts from
+SGT_METRICS_PORT."""
 
 import json
 import pathlib
@@ -127,6 +131,95 @@ def test_device_defaults_to_the_card(monkeypatch):
 def test_group_lists_the_ported_commands():
     res = CliRunner().invoke(cli.main, ["--help"])
     assert res.exit_code == 0
-    for name in ("solve", "ising", "load", "--device"):
+    for name in ("solve", "ising", "load", "--device", "train-rl",
+                 "benchmark", "health", "monitor", "autoscale", "bench",
+                 "cache-stats"):
         assert name in res.output
     assert "0.1.0" in CliRunner().invoke(cli.main, ["--version"]).output
+
+
+def test_benchmark_command_on_the_cpu(tmp_path):
+    """A tiny standard suite: one summary line per (problem, algorithm),
+    and the JSON file's summary has the JAX runner's keys for each."""
+    out = tmp_path / "bench.json"
+    res = _run("benchmark", "--sizes", "8", "--sweeps", "30", "--trials",
+               "1", "-o", str(out))
+    assert res.exit_code == 0, (res.output, res.exception)
+    lines = res.output.splitlines()
+    assert lines[-1] == f"full results → {out}"
+    data = json.loads(out.read_text())
+    assert set(data["summary"]) == {f"{p}/{a}" for p in (
+        "maxcut", "tsp", "qap", "scheduling") for a in ("sa", "pt")}
+    for v in data["summary"].values():
+        assert set(v) == {"n", "best_objective", "mean_objective",
+                          "mean_time", "mean_flips_per_sec",
+                          "feasibility_rate"}
+    assert len(data["results"]) == 8 and len(lines) == 9
+    assert all(np.isfinite(r["objective"]) for r in data["results"])
+
+
+def test_health_command(monkeypatch):
+    """Healthy on the CPU when asked for; without a card and without
+    ``--device cpu`` the device checks fail and the command exits 1."""
+    res = _run("health")
+    assert res.exit_code == 0, res.output
+    report = json.loads(res.output)
+    assert report["status"] == "healthy"
+    assert report["checks"]["annealer"]["status"] == "healthy"
+    assert "device=cpu" in report["checks"]["device_compute"]["message"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    res = CliRunner().invoke(cli.main, ["health"])
+    assert res.exit_code == 1
+    report = json.loads(res.output)
+    assert report["status"] == "unhealthy"
+    assert report["checks"]["device_compute"]["status"] == "unhealthy"
+    assert report["checks"]["annealer"]["status"] == "unhealthy"
+
+
+@pytest.mark.parametrize("args", [[], ["--replicas", "1024", "--hbm-used",
+                                       "0.95"],
+                                  ["--utilization", "0.1", "--queue", "0"]])
+def test_autoscale_equals_the_jax_command(args):
+    from spinglass_tpu import cli as jcli
+
+    got = CliRunner().invoke(cli.main, ["autoscale", *args])
+    want = CliRunner().invoke(jcli.main, ["autoscale", *args])
+    assert got.exit_code == want.exit_code == 0
+    assert json.loads(got.output) == json.loads(want.output)
+
+
+def test_monitor_and_cache_stats():
+    res = _run("monitor")
+    assert res.exit_code == 0, res.output
+    snap = json.loads(res.output)
+    assert set(snap) == {"host", "device"}
+    if not torch.cuda.is_available():
+        assert snap["device"] == {}
+    res = _run("cache-stats")
+    assert res.exit_code == 0, res.output
+    stats = json.loads(res.output)
+    assert {"size", "max_size", "hits", "misses", "hit_rate", "sa_steps",
+            "pt_steps", "batch_runs"} <= set(stats)
+
+
+def test_group_serves_metrics_from_the_env(monkeypatch):
+    """SGT_METRICS_PORT set: the group starts the /metrics server, and a
+    solve's gauges are scraped from it."""
+    import urllib.request
+
+    from spinglass_tpu_torch.utils import metrics_exporter as me
+
+    monkeypatch.setenv("SGT_METRICS_PORT", "0")
+    monkeypatch.setattr(me, "_global_server", None)
+    try:
+        res = _run("ising", "-n", "16", "--sweeps", "20", "--replicas", "4")
+        assert res.exit_code == 0, res.output
+        srv = me._global_server
+        assert srv is not None
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/metrics", timeout=5).read().decode()
+        assert 'spinglass_solver_flips_per_sec{solver="sa"}' in body
+    finally:
+        if me._global_server is not None:
+            me._global_server.stop()
+        me._global_server = None

@@ -1367,3 +1367,133 @@ def test_capture_survives_dead_captured_steps_in_cycles(cuda):
             assert float(cap.state["x"][0]) == ((i * 2 + 1) * 2 + 1) * 2 + 1
     finally:
         gc.set_threshold(*old)
+
+
+def _stacked_pm_j(n_problems, n, device, seed=0):
+    """P +-J problems with h on a quarter grid (exact fields), stacked."""
+    from spinglass_tpu_torch.anneal import batch
+
+    rng = np.random.default_rng(seed)
+    ps = [IsingProblem.from_dense(
+        topology.fully_connected(n, dist="binary", seed=seed + p),
+        rng.integers(-8, 9, n) / 4.0, device=device)
+        for p in range(n_problems)]
+    return ps, batch.stack_problems(ps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_problems,n,r,rule", [
+    (1, 500, 16, "metropolis"), (3, 500, 37, "glauber"),
+    (16, 500, 16, "metropolis"), (3, 2000, 1, "metropolis"),
+    (2, 9000, 5, "glauber")])
+def test_stacked_k1_equals_single_launches_and_twin(cuda, n_problems, n, r,
+                                                    rule):
+    """K1 over P stacked problems in one launch equals P one-problem
+    launches under the per-problem seeds, and the stacked twin, bit for bit
+    (spins, dE, counts), in the Philox and host-uniform modes; n = 9000
+    pads beyond the cluster kernel's limit, so the one-block kernel runs."""
+    ps, st = _stacked_pm_j(n_problems, n, cuda)
+    n_pad = st.n_padded
+    sw = MC.StackedFusedSweep(st.j, st.h, st.active_mask, block_size=128,
+                              rule=rule)
+    assert sw.tile == MC.dense_tile(n_pad, 128)
+    rng = np.random.default_rng(n_problems + r)
+    s = torch.as_tensor(np.where(rng.random((n_problems, n_pad, r)) < 0.5,
+                                 -1.0, 1.0), dtype=torch.float32, device=cuda)
+    s[:, n:] = 1.0
+    beta = torch.as_tensor(rng.uniform(0.1, 2.0, (n_problems, r)),
+                           dtype=torch.float32, device=cuda)
+    seeds = torch.as_tensor(rng.integers(0, 2 ** 62, n_problems),
+                            dtype=torch.int64, device=cuda)
+    for k in range(2):
+        singles = s.clone()
+        twin = s.clone()
+        if k == 0:
+            _, de, cnt = sw(s, beta, seeds)
+            u = torch.stack([MC.philox_uniforms(seeds[p], n_pad, r, cuda)
+                             for p in range(n_problems)])
+        else:
+            u = torch.rand(n_problems, n_pad, r, device=cuda)
+            _, de, cnt = sw.sweep_with_uniforms(s, beta, u)
+        for p, prob in enumerate(ps):
+            one = MC.FusedSweep(prob, block_size=128, rule=rule)
+            if k == 0:
+                _, de1, cnt1 = one(singles[p], beta[p], seeds[p:p + 1])
+            else:
+                _, de1, cnt1 = one.sweep_with_uniforms(singles[p], beta[p],
+                                                       u[p].contiguous())
+            assert torch.equal(de[p], de1) and torch.equal(cnt[p], cnt1)
+        _, de_t, cnt_t = sw.reference(twin, beta, u)
+        torch.cuda.synchronize()
+        assert torch.equal(s, singles) and torch.equal(s, twin)
+        assert torch.equal(de, de_t) and torch.equal(cnt, cnt_t)
+    assert sw.launches == 2
+
+
+@pytest.mark.gpu
+def test_batch_captured_run_equals_eager_loop(cuda):
+    """A batch's captured stacked run (one replay) equals its eager loop
+    bit for bit under one seed, with exactly n_sweeps K1 launches."""
+    from spinglass_tpu_torch.anneal import batch
+    from spinglass_tpu_torch.anneal.sa import SAConfig
+
+    cfg = SAConfig(n_sweeps=40, n_replicas=16)
+    ps, st = _stacked_pm_j(4, 300, cuda, seed=5)
+    batch.clear_runs()
+    run = batch.stacked_run(st, cfg)
+    got = run.run(st, torch.Generator().manual_seed(9))
+    assert run.sweep.launches == 40
+    (be, bs, rep), n = batch.eager_stacked(st, cfg,
+                                           torch.Generator().manual_seed(9))
+    assert n == 40
+    for a, b in zip(got, (be, bs, rep)):
+        assert np.array_equal(a, b.cpu().numpy())
+    res = batch.BatchProcessor(cfg).process(ps)
+    assert all(r.algorithm == "sa/batched" for r in res)
+    from spinglass_tpu_torch.core import energy as E
+
+    for p, r in zip(ps, res):
+        s_pad = np.concatenate([r.best_spins, np.ones(p.n_padded - 300)])
+        e = float(E.energy(p, torch.as_tensor(s_pad, dtype=torch.float32,
+                                              device=cuda)))
+        assert e == r.best_energy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,r", [("dense", 32), ("ell", 32),
+                                    ("ell", 128)])
+def test_adaptive_anneal_on_the_card(cuda, kind, r):
+    """adaptive_anneal through K1, K4 (R=32) and K2 (R=128): interventions
+    fire on a stagnating run, the best energy is the best spins' energy,
+    and the kernel launches are the sweeps done."""
+    from spinglass_tpu_torch.anneal.adaptive import (AdaptiveSAConfig,
+                                                     adaptive_anneal)
+    from spinglass_tpu_torch.anneal.sa import SAConfig
+    from spinglass_tpu_torch.anneal.schedules import ScheduleConfig
+    from spinglass_tpu_torch.core import energy as E
+
+    sched = ScheduleConfig(initial_temp=3.0, final_temp=0.05)
+    cfg = AdaptiveSAConfig(base=SAConfig(n_sweeps=400, n_replicas=r,
+                                         record_interval=20, schedule=sched),
+                           stagnation_chunks=3)
+    if kind == "dense":
+        p = IsingProblem.from_dense(
+            topology.fully_connected(300, dist="binary", seed=1), device=cuda)
+    else:
+        p = _pm_j_ell(2000, 4, cuda)
+    res = adaptive_anneal(p, cfg)
+    assert res.metadata["interventions"] >= 1
+    launches = res.metadata["kernel_launches"]
+    if kind == "dense":
+        assert launches == {MC.KERNEL_NAME: 400}
+        e = E.energy(p, torch.as_tensor(
+            np.concatenate([res.best_spins, np.ones(p.n_padded - 300)]),
+            dtype=torch.float32, device=cuda))
+    else:
+        key = "sparse_sweep" if r % 128 == 0 else "sparse_accept"
+        assert launches[key] > 0
+        e = S.sparse_energy(p, torch.as_tensor(
+            np.concatenate([res.best_spins,
+                            np.ones(p.n_padded - p.n_spins)]),
+            dtype=torch.float32, device=cuda)[None])[0]
+    assert float(e) == pytest.approx(res.best_energy, rel=1e-4)

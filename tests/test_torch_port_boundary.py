@@ -100,6 +100,22 @@ assert int(st.sweep) == 2 and np.isfinite(float(stats["best_energy"]))
 assert step.sw.last_rounds is not None and step.sw.labeller.launches == 0
 from spinglass_tpu_torch.kernels import cluster_cuda
 assert step.sw.bonds.launches == 0 and cluster_cuda.labels_plan(10112, 16)[1] == 8
+from spinglass_tpu_torch.anneal import adaptive, batch
+from spinglass_tpu_torch.core import minimal
+from spinglass_tpu_torch.benchmarks import runner
+import spinglass_tpu_torch.utils as utils
+bres = batch.BatchProcessor(sgt.SAConfig(n_sweeps=3, n_replicas=2)).process([p, p])
+assert [r.algorithm for r in bres] == ["sa/batched"] * 2
+ares = adaptive.adaptive_anneal(p, adaptive.AdaptiveSAConfig(
+    base=sgt.SAConfig(n_sweeps=4, n_replicas=4, record_interval=1),
+    stagnation_chunks=1))
+assert ares.algorithm == "adaptive_sa/blocked"
+assert minimal.MinimalAnnealer(n_sweeps=3).anneal(
+    minimal.create_test_problem(6))["n_sweeps"] == 3
+hl = CliRunner().invoke(cli.main, ["--device", "cpu", "health"])
+assert hl.exit_code == 0, hl.output
+assert utils.monitoring.device_memory_stats() == {} and utils.global_registry()
+assert runner.standard_suite((8,), device="cpu")[0].name == "maxcut_8"
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "spinglass_tpu")
@@ -142,6 +158,70 @@ def test_port_sources_import_no_jax():
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "flax", "optax",
                                    "spinglass_tpu"), (path, name)
+
+
+NEW_MODULES = (  # the batch, adaptive and operations slice
+    "core/minimal.py", "anneal/batch.py", "anneal/adaptive.py",
+    "utils/logging.py", "utils/validation.py", "utils/robust.py",
+    "utils/security.py", "utils/monitoring.py", "utils/metrics_exporter.py",
+    "utils/health.py", "utils/anomaly.py", "utils/autoscale.py",
+    "utils/enterprise_security.py", "utils/plotting.py",
+    "utils/profiling.py", "utils/cache.py", "benchmarks/runner.py")
+
+
+@pytest.fixture(scope="module")
+def imported_without_jax():
+    """The slice's modules imported in one process where jax and
+    spinglass_tpu cannot be imported: the names of those that imported."""
+    mods = ["spinglass_tpu_torch." + rel[:-3].replace("/", ".")
+            for rel in NEW_MODULES]
+    code = ("import importlib, sys\nfor n in ('jax', 'spinglass_tpu'):\n"
+            "    sys.modules[n] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n    print(m)")
+    proc = _run([sys.executable, "-c", code], cwd=ROOT)
+    return proc.stdout.split(), proc.stderr
+
+
+@pytest.mark.parametrize("rel", NEW_MODULES)
+def test_slice_modules_stand_at_the_jax_paths_without_jax(
+        rel, imported_without_jax):
+    """Each module of the slice has its JAX counterpart at the same path,
+    imports neither jax nor spinglass_tpu, and imports in a process where
+    those cannot be imported."""
+    assert (ROOT / "spinglass_tpu" / rel).exists(), rel
+    path = PKG / rel
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "spinglass_tpu"), (
+                    rel, name)
+    names, err = imported_without_jax
+    assert "spinglass_tpu_torch." + rel[:-3].replace("/", ".") in names, err
+
+
+def test_stacked_sweep_on_cpu_never_launches_or_builds(monkeypatch):
+    """K1's stacked form runs its twin for CPU tensors: no compiler, no
+    launches counted, seeds as ints or a CPU slot."""
+    def no_subprocess(*a, **k):
+        raise AssertionError("a CPU sweep must not invoke a compiler")
+
+    monkeypatch.setattr(build.subprocess, "run", no_subprocess)
+    monkeypatch.setattr(build.subprocess, "Popen", no_subprocess)
+    j = torch.as_tensor(np.sign(np.random.default_rng(0).normal(
+        size=(2, 128, 128))), dtype=torch.float32)
+    j = (j + j.transpose(1, 2)) / 2
+    j[:, torch.arange(128), torch.arange(128)] = 0.0
+    sw = MC.StackedFusedSweep(j, torch.zeros(2, 128), torch.ones(2, 128))
+    s = torch.ones(2, 128, 4)
+    sw(s, torch.ones(2, 4), [1, 2])
+    sw(s, 0.5, torch.tensor([3, 4]))
+    sw.sweep_with_uniforms(s, 0.5, torch.rand(2, 128, 4))
+    assert sw.launches == 0 and sw._lib is None
+    with pytest.raises(ValueError, match="3 seeds for 2 problems"):
+        sw(s, 0.5, [1, 2, 3])
 
 
 @pytest.mark.parametrize("layer", ["core", "kernels"])
