@@ -85,6 +85,11 @@ kernels against the twins. Phases:
      {1, 16, 37}, both rules, Philox and host uniforms, spins, dE and counts
      bitwise; against the stacked twin too on one case of P = 3 at each Np
      and of P = 16; the one-block kernel at Np = 8448 with P = 2;
+     the research layer: one SQA stage (40 sweeps) on a +-J Trotter
+     problem (N=128, P=4, J_perp 0.25, R=16) through K1 (three planes)
+     against the same
+     stage through the twin, state bitwise; J_perp rewritten in place ==
+     a fresh build; the stage's captured sa.anneal == its eager chunks;
   3. in-kernel Philox, statistically: a 6-spin system sampled for 400 sweeps
      at beta=0.6 against exact enumeration (TV < 0.05), through K1 and
      through K2; K1's SK acceptance within 1% of the host-uniform sweep's;
@@ -202,7 +207,17 @@ kernels against the twins. Phases:
      --sizes 20,50 --sweeps 500 --trials 2 (each case's engine printed),
      monitor (the card's memory), /metrics from SGT_METRICS_PORT scraped in
      process after an anneal, bench --path dense (one JSON line) and
-     cache-stats;
+     cache-stats. The research layer on a Gaussian SK glass at N=1024
+     (seed 42), each call with its seconds, captures and K1 launches:
+     SQA at SQAConfig() twice (K1 at [8192, 16], 1000 launches; one
+     capture, then none; the best slice's energy == the energy of the
+     returned spins), PIMC (500), QEC ([3072, 16], 400), MSHO (one anneal
+     per level), AQIA (R=32, 500 replays of a captured iteration), LESD
+     (R=16, 300 replays of a captured iteration), compare_algorithms, MetaOptimizer.solve on
+     sa / pt / adaptive_sa / sqa, the federated SA and SQA servers (4
+     clients, 2 rounds), pareto.optimize, UnifiedResearchFramework.compare,
+     BreakthroughResearchFramework.validate (2 trials) and the meta-RL
+     agent (3 solves, a refit);
   5. timing: each kernel's bound (bytes over 3.35 TB/s against operations
      over the peak of their type) and the two library yardsticks for K1's
      and K2's field work alone (torch.matmul, torch.sparse.mm; the port
@@ -243,7 +258,13 @@ kernels against the twins. Phases:
      bound; BatchProcessor.process of the 64 glasses, first call (its
      capture inside) and repeat call, and one batch's device breakdown
      (headline.profile_batch); adaptive_anneal against sa.anneal at the
-     same budget (SK 4096, 2000 sweeps, R=32), in turns.
+     same budget (SK 4096, 2000 sweeps, R=32), in turns. The research
+     layer: K1 at the Trotter shape [8192, 16] (a graph of 20 launches)
+     against its bound; K1 against its twin there on the same spins and
+     uniforms (the SK glass's Trotter problem: energy identity within 1e-4
+     relative, counts within 0.5%; a +-J SK glass at N=1024, P=8 with
+     J_perp 0.25: spins, dE and counts bitwise); and
+     headline.profile_research's breakdowns of SQA, PIMC, AQIA and LESD.
 
 Any failed check exits non-zero. The last line is the JSON status
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -3803,6 +3824,370 @@ def batch_timing(torch, mc, stats, card):
     stats["adaptive_vs_anneal"] = rows
 
 
+# ---------------------------------------------------------------------------
+# The research layer: SQA and PIMC on a Trotter problem built on the card,
+# AQIA, MSHO, LESD, QEC, meta, federated, Pareto, unified, breakthrough and
+# meta-RL, all annealing through K1
+# ---------------------------------------------------------------------------
+
+RESEARCH_N = 1024   # the SK glass of the research path (J ~ N(0, 1/N))
+
+
+def research_problem(device, n: int = RESEARCH_N, seed: int = 42):
+    import numpy as np
+
+    from spinglass_tpu_torch.core import topology
+    from spinglass_tpu_torch.core.problem import IsingProblem
+
+    j = topology.fully_connected(n, dist="gaussian", scale=1.0 / np.sqrt(n),
+                                 seed=seed)
+    return IsingProblem.from_dense(j, device=device)
+
+
+def _k1(mc) -> int:
+    """K1's launches since ``mc.LAUNCHES`` was last cleared."""
+    return mc.LAUNCHES[mc.KERNEL_NAME]
+
+
+def research_parity(torch, mc, stats):
+    """Phase 2 (research): one SQA stage on a +-J Trotter problem (N=128,
+    P=4, Gamma putting J_perp at 0.25, every field exact) through K1 against
+    the same stage through the twin on one generator seed, bit for bit; the
+    stage's captured ``sa.anneal`` against its eager chunks; the in-place
+    rewrite of J_perp against a fresh build, three planes kept."""
+    import math
+
+    import numpy as np
+
+    from spinglass_tpu_torch.anneal import graphs, sa
+    from spinglass_tpu_torch.anneal.twins import TwinFusedEngine
+    from spinglass_tpu_torch.research import quantum as Q
+
+    base = pm_j_problem(128, 5, "cuda")
+    beta, p = 2.0, 4
+    gammas = [p / beta * math.atanh(math.exp(-2.0 * beta * jp))
+              for jp in (0.25, 0.5)]
+    tp = Q.trotterize(base, p, beta, gammas[0])
+    cfg = Q.stage_config(Q.SQAConfig(n_trotter=p, beta=beta, n_replicas=16),
+                         40, 0)
+    engine = sa.make_sweep_engine(tp, cfg)
+    twin = TwinFusedEngine(tp, block_size=cfg.block_size)
+    check(engine.fused.planes == 3 and engine.name == "cuda_fused",
+          f"the Trotter problem [{tp.n_padded}, 16] takes K1 with 3 planes "
+          f"(J_perp 0.25 alone would need 1)")
+    out = []
+    for eng in (engine, twin):
+        st = sa.init_state(tp, cfg, eng, torch.Generator().manual_seed(3))
+        st, _ = sa.run_chunk(tp, cfg, eng, st, 40)
+        out.append(st)
+    a, b = out
+    torch.cuda.synchronize()
+    fields = ("spins", "energy", "best_energy", "best_spins", "acc_rate")
+    diff = [k for k in fields if not torch.equal(getattr(a, k), getattr(b, k))]
+    check(not diff and engine.fused.launches == 40 and twin.launches ==
+          {mc.KERNEL_NAME: 0},
+          f"+-J N=128 P=4 Trotter stage (40 sweeps, R=16, J_perp 0.25): K1 "
+          f"== twin bitwise in {', '.join(fields)} (differ: {diff or 'none'})")
+    tp.set_field(beta, gammas[1])
+    fresh = Q.trotterize(base, p, beta, gammas[1])
+    check(torch.equal(tp.j, fresh.j), "J_perp rewritten in place (0.5) == a "
+                                      "fresh Trotter build, bitwise")
+    graphs.clear_caches()
+    res = sa.anneal(tp, cfg, generator=torch.Generator().manual_seed(4))
+    st = sa.init_state(tp, cfg, engine, torch.Generator().manual_seed(4))
+    st, _ = sa.run_chunk(tp, cfg, engine, st, 40)
+    b = int(torch.argmin(st.best_energy))
+    eager_spins = st.best_spins[:, b].cpu().numpy()[: tp.n_spins]
+    check(res.metadata["capture_seconds"] > 0
+          and res.best_energy == float(st.best_energy[b])
+          and np.array_equal(res.best_spins, eager_spins)
+          and np.array_equal(res.replica_best_energy,
+                             st.best_energy.cpu().numpy()),
+          f"the captured stage (sa.anneal, one replay of its 40-sweep chunk) "
+          f"== its eager chunks bitwise: best energy {res.best_energy}, best "
+          f"spins, replica bests")
+    graphs.clear_caches()
+
+
+def _identity(torch, problem, res) -> float:
+    """|reported best energy - energy of the returned spins| (float32 on
+    the card), relative."""
+    import numpy as np
+
+    from spinglass_tpu_torch.core.energy import energy
+
+    s = np.ones(problem.n_padded, np.float32)
+    s[: problem.n_spins] = res.best_spins
+    e = float(energy(problem, torch.as_tensor(s, device="cuda")))
+    return abs(e - res.best_energy) / max(1.0, abs(e))
+
+
+def research_slice(torch, mc, stats, card):
+    """Phase 4 (research): the research layer's entry points on the SK glass
+    at N=1024 (and its federated, Pareto and meta-RL companions), each call
+    with its seconds, captures (``graphs.CapturedStep.made``) and K1
+    launches (``mc.LAUNCHES`` cleared before each call)."""
+    import numpy as np
+
+    from spinglass_tpu_torch.anneal import graphs
+    from spinglass_tpu_torch.research import (breakthrough, federated, meta,
+                                              meta_rl, novel, pareto, quantum,
+                                              unified)
+
+    sk = research_problem("cuda")
+    n = RESEARCH_N
+    rows = {}
+    stats["research"] = rows
+    total = {mc.KERNEL_NAME: 0}
+    stats["research_launches"] = total
+    graphs.clear_caches()
+
+    def call(name, fn, want=None):
+        made0 = graphs.CapturedStep.made
+        mc.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1 = _k1(mc)
+        total[mc.KERNEL_NAME] += k1
+        caps = graphs.CapturedStep.made - made0
+        rows[name] = {"seconds": secs, "k1_launches": k1, "captures": caps}
+        check(k1 > 0 and (want is None or k1 == want),
+              f"{name}: {secs:.3f} s, {caps} captures, K1 launched {k1} "
+              f"times{'' if want is None else f' (expected {want})'} [{card}]")
+        return out
+
+    # -- SQA and PIMC at their defaults: K1 at [8192, 16] ------------------
+    for k in range(2):
+        res = call(f"SQA call {k} (P=8, 10 stages x 100 sweeps, R=16)",
+                   lambda: quantum.simulated_quantum_annealing(sk), 1000)
+        err = _identity(torch, sk, res)
+        check(err <= 1e-5 and res.best_energy / n < -0.6
+              and res.metadata["captures"] == (1 if k == 0 else 0),
+              f"SQA call {k}: best slice E/N {res.best_energy / n:.5f}, the "
+              f"reported energy == the classical energy of the returned "
+              f"spins (rel err {err:.1e} <= 1e-5); captures {res.metadata['captures']}"
+              f" (capture {res.metadata['capture_seconds']:.3f} s); "
+              f"{res.sweeps_per_second:.1f} Trotter sweeps/s")
+    rows["SQA E/N"] = res.best_energy / n
+    tp = quantum.TROTTER_CACHE.get(sk, ("trotter", 8))
+    check(tp is not None and tp.n_padded == 8192,
+          "one Trotter problem [8192, 8192] on the card for both calls")
+    res = call("PIMC (P=8, 500 sweeps, R=16)",
+               lambda: quantum.path_integral_monte_carlo(sk), 500)
+    check(_identity(torch, sk, res) <= 1e-5 and len(
+        res.metadata["slice_energies"]) == 8,
+          f"PIMC: best slice E/N {res.best_energy / n:.5f} == the energy of "
+          f"its spins; captures {res.metadata['captures']}")
+    rows["PIMC E/N"] = res.best_energy / n
+    # -- the novel algorithms at their defaults ------------------------------
+    res = call("QEC (rep 3, [3072, 16], 400 sweeps)",
+               lambda: novel.quantum_error_corrected_annealing(sk), 400)
+    check(_identity(torch, sk, res) <= 1e-5,
+          f"QEC: E/N {res.best_energy / n:.5f}, "
+          f"{res.metadata['code_violations']} code violations")
+    res = call("MSHO", lambda: novel.multi_scale_optimization(sk))
+    lv = res.metadata["n_levels"]
+    check(rows["MSHO"]["k1_launches"] == 300 + 200 * (lv - 1)
+          and _identity(torch, sk, res) <= 1e-5,
+          f"MSHO: {lv} levels, one anneal each (300 + 200 x {lv - 1} K1 "
+          f"launches), E/N {res.best_energy / n:.5f}")
+    mc.LAUNCHES.clear()
+    made0 = graphs.CapturedStep.made
+    t0 = time.perf_counter()
+    res = novel.adaptive_quantum_inspired_annealing(sk)
+    secs = time.perf_counter() - t0
+    rows["AQIA (R=32, 500 iterations, captured)"] = {
+        "seconds": secs, "k1_launches": 0,
+        "captures": graphs.CapturedStep.made - made0,
+        "capture_seconds": res.metadata["capture_seconds"]}
+    check(_k1(mc) == 0 and len(res.energy_history) == 500
+          and graphs.CapturedStep.made - made0 == 1
+          and _identity(torch, sk, res) <= 1e-5,
+          f"AQIA (R=32, 500 iterations as replays of one captured "
+          f"iteration, no K1: it measures, it does not sweep): {secs:.3f} s "
+          f"(capture {res.metadata['capture_seconds']:.3f} s), E/N "
+          f"{res.best_energy / n:.5f} [{card}]")
+    mc.LAUNCHES.clear()
+    made0 = graphs.CapturedStep.made
+    t0 = time.perf_counter()
+    res = novel.learning_enhanced_dynamics(sk)
+    secs = time.perf_counter() - t0
+    rows["LESD (R=16, 300 iterations, captured)"] = {
+        "seconds": secs, "k1_launches": 0,
+        "captures": graphs.CapturedStep.made - made0,
+        "capture_seconds": res.metadata["capture_seconds"]}
+    check(_k1(mc) == 0 and np.isfinite(res.metadata["final_loss"])
+          and graphs.CapturedStep.made - made0 == 1
+          and _identity(torch, sk, res) <= 1e-4,
+          f"LESD (R=16, 300 replays of one captured iteration, Adam "
+          f"included, one read of the losses): {secs:.3f} s (capture "
+          f"{res.metadata['capture_seconds']:.3f} s), E/N "
+          f"{res.best_energy / n:.5f}, final loss "
+          f"{res.metadata['final_loss']:.4g} [{card}]")
+    out = call("compare_algorithms (all four)",
+               lambda: novel.compare_algorithms(sk))
+    check(set(out) == {"aqia", "msho", "lesd", "qec"} and all(
+        np.isfinite(v["best_energy"]) for v in out.values()),
+          "compare_algorithms: " + ", ".join(
+              f"{k} E/N {v['best_energy'] / n:.4f}" for k, v in out.items()))
+    # -- the rest, at budgets that keep the phase short ----------------------
+    opt = meta.MetaOptimizer(n_sweeps=200, n_replicas=16)
+    for algo, want in (("sa", 200), ("pt", 200), ("adaptive_sa", 200),
+                       ("sqa", 200)):
+        res = call(f"MetaOptimizer.solve({algo!r})",
+                   lambda: opt.solve(sk, algorithm=algo), want)
+        check(np.isfinite(res.best_energy),
+              f"  {algo}: E/N {res.best_energy / n:.5f}")
+    clients = [research_problem("cuda", seed=100 + k) for k in range(4)]
+    out = call("FederatedAnnealingServer.run (4 clients, 2 rounds)",
+               lambda: federated.FederatedAnnealingServer(
+                   federated.FederatedConfig(n_rounds=2)).run(clients),
+               4 * 2 * 300)
+    check(set(out["global_params"]) == {"initial_temp", "alpha"},
+          f"federated: final bests E/N "
+          f"{[round(e / n, 4) for e in out['final_best']]}")
+    out = call("FederatedQuantumHybridOptimizer.run (4 clients, 2 rounds)",
+               lambda: federated.FederatedQuantumHybridOptimizer(
+                   federated.FederatedConfig(n_rounds=2, local_sweeps=100)
+               ).run(clients), 4 * 2 * 5 * 20)
+    check(out["global_gamma0"] > 0, f"federated SQA: global gamma0 "
+                                    f"{out['global_gamma0']:.4f}")
+    arch = call("pareto.optimize (2 objectives, 4 weight vectors)",
+                lambda: pareto.optimize(
+                    [sk, clients[0]], pareto.MultiObjectiveConfig(
+                        n_weight_vectors=4, n_sweeps=200)), 4 * 200)
+    check(arch.front.shape[1] == 2 and len(arch.objectives) >= 1,
+          f"Pareto front of {len(arch.objectives)} points")
+    fw = unified.UnifiedResearchFramework(n_sweeps=200, n_replicas=16)
+    out = call("UnifiedResearchFramework.compare (sa, pt; 2 trials)",
+               lambda: fw.compare(sk, n_trials=2), 4 * 200)
+    check(out["winner"] in ("sa", "pt"), f"unified compare: winner "
+                                         f"{out['winner']}, p {out['p_value']:.3g}")
+    rep = call("BreakthroughResearchFramework.validate (2 trials)",
+               lambda: breakthrough.BreakthroughResearchFramework(
+                   n_trials=2).validate(sk))
+    check(set(rep["algorithms"]) == {"baseline", "adaptive_neural",
+                                     "quantum_error_corrected", "federated"},
+          "breakthrough: " + ", ".join(
+              f"{k} E/N {v['mean_best_energy'] / n:.4f}"
+              for k, v in rep["algorithms"].items()))
+    agent = meta_rl.AdaptiveMetaRLAgent(meta_rl.MetaRLConfig(
+        refit_interval=100), device="cuda")
+
+    def agent_run():
+        for p in [sk] + clients[:2]:
+            agent.solve(p)
+        return agent.refit()
+
+    loss = call("AdaptiveMetaRLAgent: 3 solves, then refit", agent_run,
+                3 * 400)
+    check(np.isfinite(loss) and agent.report()["fits"] == 1,
+          f"meta-RL: refit loss {loss:.4g}, memory "
+          f"{agent.report()['memory_size']}")
+    print(f"  research path K1 launches: {total[mc.KERNEL_NAME]}; captures "
+          f"{sum(r['captures'] for r in rows.values() if isinstance(r, dict))}"
+          f" [{card}]")
+
+
+def research_timing(torch, mc, stats, card):
+    """Phase 5 (research): K1 at the Trotter shape [8192, 16] against its
+    bound, and against its twin there on the same spins and uniforms: on
+    the SK glass's Trotter problem (Gaussian J, all three planes non-zero:
+    the energy identity within 1e-4 relative, counts within 0.5%) and on a
+    +-J SK glass at N=1024, P=8 with J_perp 0.25 (every field exact: spins,
+    dE and counts bitwise); where SQA, PIMC, AQIA and LESD spend their time
+    (``headline.profile_research``)."""
+    import math
+
+    import numpy as np
+
+    from spinglass_tpu_torch.benchmarks.headline import profile_research
+    from spinglass_tpu_torch.core import topology
+    from spinglass_tpu_torch.core.energy import energy_t
+    from spinglass_tpu_torch.core.problem import IsingProblem
+    from spinglass_tpu_torch.research import quantum
+
+    sk = research_problem("cuda")
+    tp = quantum.trotterize(sk, 8, 2.0, 1.0)
+    fused = mc.FusedSweep(tp, block_size=SA_BLOCK)
+    r = 16
+    gen = torch.Generator().manual_seed(2)
+    s = torch.where(torch.rand(tp.n_padded, r, generator=gen) < 0.5, -1.0,
+                    1.0).cuda()
+    beta = torch.full((r,), 2.0, device="cuda")
+    ms = _graph_ms(torch, lambda: fused(s, beta, 7), 20)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    u = torch.rand(tp.n_padded, r, device="cuda")
+    e0 = energy_t(tp, s)
+    s_k, de_k, c_k = fused.sweep_with_uniforms(s.clone(), beta, u)
+    e1 = energy_t(tp, s_k)
+    start.record()
+    s_p, de_p, c_p = mc.fused_sweep_reference(
+        tp.j, tp.h, tp.active_mask, s.clone(), beta, u, block_size=SA_BLOCK)
+    stop.record()
+    stop.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    rel = float(((e0 + de_k - e1).abs() / e1.abs().clamp(min=1.0)).max())
+    ck, cp = int(c_k.sum()), int(c_p.sum())
+    check(fused.planes == 3 and rel <= 1e-4 and abs(ck - cp) <= 0.005 * cp,
+          f"K1 on the SK N=1024 P=8 Trotter problem [{tp.n_padded}, {r}] "
+          f"(3 planes) against its twin on the same spins and uniforms: "
+          f"energy identity E0+dE==E1 max rel err {rel:.3e} <= 1e-4; accept "
+          f"counts kernel {ck} vs twin {cp} (within 0.5%); replicas bitwise "
+          f"equal {int((s_k == s_p).all(0).sum())}/{r}, max |dE_k - dE_twin| "
+          f"{float((de_k - de_p).abs().max()):.3e}")
+    # +-J SK at N=1024 (J = +-1/32, so J/P = +-1/256) and Gamma putting
+    # J_perp at 0.25: every coupling and field is exact in float32 and bf16
+    jb = topology.fully_connected(RESEARCH_N, dist="binary",
+                                  scale=1.0 / np.sqrt(RESEARCH_N), seed=42)
+    pm = IsingProblem.from_dense(jb, device="cuda")
+    p, beta_q = 8, 2.0
+    gamma = p / beta_q * math.atanh(math.exp(-2.0 * beta_q * 0.25))
+    tpm = quantum.trotterize(pm, p, beta_q, gamma)
+    fpm = mc.FusedSweep(tpm, block_size=SA_BLOCK)
+    jp = float(tpm.j[0, RESEARCH_N])
+    s_k, de_k, c_k = fpm.sweep_with_uniforms(s.clone(), beta, u)
+    s_p, de_p, c_p = mc.fused_sweep_reference(
+        tpm.j, tpm.h, tpm.active_mask, s.clone(), beta, u,
+        block_size=SA_BLOCK)
+    torch.cuda.synchronize()
+    diff = [k for k, a, b in (("spins", s_k, s_p), ("dE", de_k, de_p),
+                              ("counts", c_k, c_p)) if not torch.equal(a, b)]
+    check(fpm.planes == 3 and jp == 0.25 and not diff,
+          f"K1 on a +-J SK N=1024 P=8 Trotter problem [{tpm.n_padded}, {r}] "
+          f"(J_perp {jp}, 3 planes) against its twin on the same spins and "
+          f"uniforms: spins, dE, counts bitwise (differ: {diff or 'none'}; "
+          f"{int(c_k.sum())} flips)")
+    n_pad = tp.n_padded
+    nbytes = 4 * n_pad * n_pad + 8 * n_pad * r + 8 * n_pad + 12 * r
+    b_ms, b_by = bound(nbytes, fused.planes * 2.0 * n_pad * n_pad * r,
+                       BF16_FLOPS)
+    occ = mc.cluster_occupancy(n_pad, r, SA_BLOCK)
+    stats["research_k1"] = {"ms": ms, "plain_ms": plain_ms,
+                            "bound": (b_ms, b_by)}
+    print(f"  K1 at the Trotter shape [{n_pad}, {r}] ({fused.planes} planes, "
+          f"block {SA_BLOCK}): {1e3 * ms:.1f} us per sweep (a graph of 20); "
+          f"bound {1e3 * b_ms:.1f} us ({b_by}: J read once as float32, "
+          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s), {100 * b_ms / ms:.1f}% of "
+          f"it; {occ['clusters_launched']} cluster(s) of 8 thread blocks on "
+          f"132 SMs; plain twin {plain_ms:.1f} ms [{card}]")
+    prof = profile_research(sk)
+    for name, p in prof.items():
+        stats["profiles"][f"research {name}"] = p
+        print(f"  profile {name}: {p['us_per_sweep']:.1f} us per "
+              f"{p['unit']}, kernels {p['device_us_per_sweep']:.1f}, device "
+              f"busy {100 * p['device_busy_share']:.1f}%, "
+              f"{p['launches_per_sweep']:.1f} kernels per {p['unit']}, "
+              f"{p['graph_launches_per_sweep']:.2f} graph replays per "
+              f"{p['unit']} [{card}]")
+        for k in p["kernels"][:5]:
+            print(f"    {k['us_per_sweep']:9.2f} us/{p['unit']}  "
+                  f"{k['calls']:5d} calls  {k['name'][:80]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3874,6 +4259,8 @@ def main() -> int:
                  "(RL training)", lambda: dqn_parity(torch, mc, stats)),
                 ("phase 2: K1 with a problem axis against single launches "
                  "and the twin (batch)", lambda: batch_parity(torch, mc, stats)),
+                ("phase 2: an SQA stage through K1 against the twin "
+                 "(research)", lambda: research_parity(torch, mc, stats)),
                 ("phase 3: in-kernel Philox (K1)", lambda: phase_philox(torch, mc, stats)),
                 ("phase 3: in-kernel Philox (K2)", lambda: sparse_philox(torch)),
                 ("phase 4: dense SA slice", lambda: phase_slice(torch, mc, stats)),
@@ -3896,6 +4283,9 @@ def main() -> int:
                  lambda: drivers_slice(torch, mc, stats, card)),
                 ("phase 4: batch and adaptive annealing, the operations "
                  "commands", lambda: batch_slice(torch, mc, stats, card)),
+                ("phase 4: the research layer (SQA, PIMC, QEC, MSHO, AQIA, "
+                 "LESD, meta, federated, Pareto, unified, breakthrough, "
+                 "meta-RL)", lambda: research_slice(torch, mc, stats, card)),
                 ("phase 5: timing (K1)", lambda: phase_timing(torch, mc, stats, card)),
                 ("phase 5: timing (K2, K3)", lambda: sparse_timing(torch, stats, card)),
                 ("phase 5: timing (K5, K6, K7)", lambda: variant_timing(torch, mc, stats, card)),
@@ -3912,7 +4302,10 @@ def main() -> int:
                  lambda: captured_timing(torch, stats, card)),
                 ("phase 5: timing (the batch slice: stacked K1, process, "
                  "adaptive_anneal)", lambda: batch_timing(torch, mc, stats,
-                                                          card))):
+                                                          card)),
+                ("phase 5: timing (research: K1 at the Trotter shape, the "
+                 "profiles of SQA, PIMC, AQIA and LESD)",
+                 lambda: research_timing(torch, mc, stats, card))):
             print(name)
             t0 = time.perf_counter()
             phase()
@@ -3962,18 +4355,21 @@ def main() -> int:
     prob = stats["problem_launches"]
     drv = stats["driver_launches"]
     bat = stats["batch_launches"]
+    res = stats["research_launches"]
     print(f"RL path launches: {rl}; problem path launches: {prob}; drivers' "
-          f"paths launches: {drv}; batch slice launches: {bat}")
+          f"paths launches: {drv}; batch slice launches: {bat}; research "
+          f"path launches: {res}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"spinglass_tpu_torch/csrc/{name}.cu",
         "replaces": KERNELS[name],
         "launches": (launches + rl.get(name, 0) + prob.get(name, 0)
-                     + drv.get(name, 0) + bat.get(name, 0)),
+                     + drv.get(name, 0) + bat.get(name, 0) + res.get(name, 0)),
         "launches_rl": rl.get(name, 0),
         "launches_problems": prob.get(name, 0),
         "launches_drivers": drv.get(name, 0),
-        "launches_batch": bat.get(name, 0), "max_abs_err": err,
+        "launches_batch": bat.get(name, 0),
+        "launches_research": res.get(name, 0), "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stats["bounds"][name][0],
         "bound_by": stats["bounds"][name][1], "library_ms": None}

@@ -134,9 +134,13 @@ class ColoredEngine(SweepEngine):
             colors, problem.n_padded, device=problem.device)
 
     def sweep(self, spins, beta, generator):
+        return self.sweep_with_uniforms(spins, beta,
+                                        self._uniforms(spins, generator))
+
+    def sweep_with_uniforms(self, spins, beta, uniforms):
+        """One sweep on the caller's uniforms [R, Np]."""
         return sweep_kernels.colored_sweep(
-            self.problem, self.masks, spins, beta,
-            self._uniforms(spins, generator), rule=self.rule)
+            self.problem, self.masks, spins, beta, uniforms, rule=self.rule)
 
 
 class BlockedEngine(SweepEngine):
@@ -184,6 +188,40 @@ class CudaFusedEngine(SweepEngine):
 
     def sweep(self, spins_t, beta, generator):
         return self.fused(spins_t, beta, rng.draw_seed(generator))
+
+    def sweep_with_uniforms(self, spins_t, beta, uniforms_t):
+        """One sweep on the caller's uniforms [Np, R]."""
+        return self.fused.sweep_with_uniforms(spins_t, beta, uniforms_t)
+
+
+class GivenUniforms(SweepEngine):
+    """A dense engine (blocked, coloured or K1) sweeping on a given tape of
+    uniforms [S, R, Np] in place of its generator's draws: sweep t of the
+    run reads row t. The entry through which the CPU tests feed a driver the
+    JAX package's own draws. Eager only: ``t`` counts the sweeps on the
+    host, so a captured step would freeze it."""
+
+    def __init__(self, engine: SweepEngine, uniforms):
+        if not hasattr(engine, "sweep_with_uniforms") or engine.name not in (
+                "blocked", "colored", "cuda_fused"):
+            raise ValueError(f"given uniforms need a dense engine, got "
+                             f"{engine.name!r}")
+        super().__init__(engine.problem)
+        self.engine, self.layout, self.name = engine, engine.layout, engine.name
+        self.uniforms = torch.as_tensor(np.asarray(uniforms, np.float32),
+                                        device=engine.problem.device)
+        self.t = 0
+
+    @property
+    def launches(self) -> dict:
+        return kernel_launches(self.engine)
+
+    def sweep(self, spins, beta, generator):
+        u = self.uniforms[self.t]
+        self.t += 1
+        if self.layout == "nr":
+            u = u.t().contiguous()
+        return self.engine.sweep_with_uniforms(spins, beta, u)
 
 
 def make_engine(problem, *, sweep_method: str = "auto",

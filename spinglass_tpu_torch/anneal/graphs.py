@@ -141,11 +141,15 @@ class CapturedStep:
     ``warm_up(state) -> (throwaway state, restore)``
     replaces the default throwaway copy where a step must run on some of the
     run's own objects (PPO's parameters and optimizer: ``restore`` puts them
-    back after the warm-up)."""
+    back after the warm-up). ``CapturedStep.made`` counts the steps
+    captured in this process."""
+
+    made = 0
 
     def __init__(self, step: Callable, state, generator: torch.Generator,
                  counters: Sequence = (), record: int = 0,
                  warm_up: Optional[Callable] = None):
+        CapturedStep.made += 1
         self.step = step
         self.generator = generator
         self.state = distinct(state)
@@ -310,6 +314,9 @@ class CapturedLearner:
                 for i in range(n)]
 
 
+CACHES: dict = {}   # name -> StepCache, every cache made in this process
+
+
 class StepCache:
     """Captured steps kept across driver calls, as ``jit_cache.SolverCache``
     keeps executables: an entry per (problem object, key), where the key
@@ -317,9 +324,11 @@ class StepCache:
     holds its problem, so the problem's id cannot be reused while the entry
     lives; beyond ``max_entries`` the least recently used entry goes, and
     its graphs and their memory with it. One run at a time may use an
-    entry: its static state is the run's."""
+    entry: its static state is the run's. Every cache is listed in
+    ``CACHES`` under its ``name``, and ``clear_caches`` clears them all."""
 
-    def __init__(self, max_entries: int = 8):
+    def __init__(self, name: str, max_entries: int = 8):
+        CACHES[name] = self
         self.max_entries = max_entries
         self._d: OrderedDict = OrderedDict()
         self.hits = 0
@@ -360,14 +369,15 @@ def config_key(config):
     return dataclasses.replace(config, seed=0)
 
 
-SA_CACHE = StepCache()   # sa.anneal / sa.anneal_scan
-PT_CACHE = StepCache()   # pt.run / planted.time_to_target
+SA_CACHE = StepCache("sa_steps")   # sa.anneal / sa.anneal_scan
+PT_CACHE = StepCache("pt_steps")   # pt.run / planted.time_to_target
 
 
 def clear_caches() -> None:
-    """Drop every cached captured step (the next driver call captures)."""
-    SA_CACHE.clear()
-    PT_CACHE.clear()
+    """Drop every cache of ``CACHES``: captured steps and what they hold
+    (the next driver call captures)."""
+    for cache in CACHES.values():
+        cache.clear()
 
 
 class HostRead:

@@ -40,8 +40,8 @@ import numpy as np
 import torch
 
 from spinglass_tpu_torch.anneal import graphs, schedules
-from spinglass_tpu_torch.anneal.engines import (SweepEngine, best_row,
-                                                kernel_launches,
+from spinglass_tpu_torch.anneal.engines import (GivenUniforms, SweepEngine,
+                                                best_row, kernel_launches,
                                                 launch_counters, make_engine)
 from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.anneal.schedules import ScheduleConfig, ScheduleState
@@ -308,7 +308,42 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
                 break
     _sync(problem.device)
     total = time.perf_counter() - t0
+    return _result(problem, config, engine, state, launches0,
+                   (e_hist, me_hist, t_hist, a_hist), sweeps_done, total,
+                   capture_s, converged, conv_sweep)
 
+
+def _anneal_given(problem: IsingProblem, config: SAConfig, uniforms,
+                  generator: Optional[torch.Generator] = None,
+                  init_spins: Optional[torch.Tensor] = None) -> AnnealResult:
+    """``anneal`` of a dense problem on given uniforms [S, R, Np]: sweep t
+    reads row t (``engines.GivenUniforms``) in place of the generator's
+    draws; the start spins still come from ``init_spins`` or the generator.
+    The chunks run eagerly (``run_chunk``), nothing is captured or cached,
+    and every sweep runs (no early stop). The research functions' ``draws``
+    come here: the tests feed them the JAX package's own."""
+    if config.enable_early_stop:
+        raise ValueError("given uniforms run every sweep: no early stop")
+    engine = GivenUniforms(make_sweep_engine(problem, config), uniforms)
+    launches0 = kernel_launches(engine)
+    state = init_state(problem, config, engine, generator, init_spins)
+    hists = ([], [], [], [])
+    t0 = time.perf_counter()
+    for n in _chunk_lengths(config):
+        state, stats = run_chunk(problem, config, engine, state, n)
+        for h, k in zip(hists, STAT_KEYS):
+            h.append(float(stats[k]))
+    _sync(problem.device)
+    return _result(problem, config, engine, state, launches0, hists,
+                   config.n_sweeps, time.perf_counter() - t0, 0.0)
+
+
+def _result(problem, config, engine, state, launches0, hists, sweeps_done,
+            total, capture_s, converged=False, conv_sweep=None
+            ) -> AnnealResult:
+    """The run's ``AnnealResult`` from its last state and the histories
+    (best, mean energy, temperature, acceptance per chunk), published."""
+    e_hist, me_hist, t_hist, a_hist = hists
     best_r = torch.argmin(state.best_energy)
     best_spins = best_row(engine, state.best_spins, best_r).cpu().numpy()[
         : problem.n_spins]

@@ -375,6 +375,33 @@ def profile_batch(problems, top: int = 8) -> dict:
     return out
 
 
+def profile_research(problem, top: int = 8) -> dict:
+    """Where the research layer's annealers spend their time on
+    ``problem`` (on the card), each a repeat call profiled by ``_profile``:
+    SQA at one stage of 100 sweeps (K1 at [8 N, 16], two replays of a
+    50-sweep chunk), PIMC at 100 sweeps, AQIA at its defaults
+    (500 replays of one captured iteration) and LESD at its defaults (300
+    replays of one captured iteration). Per "sweep" means per Trotter sweep or per
+    iteration (``unit``)."""
+    from spinglass_tpu_torch.research import novel, quantum
+
+    runs = {
+        "SQA": (lambda: quantum.simulated_quantum_annealing(
+            problem, quantum.SQAConfig(n_stages=1)), 100, 2, "sweep"),
+        "PIMC": (lambda: quantum.path_integral_monte_carlo(
+            problem, quantum.PIMCConfig(n_sweeps=100)), 100, 2, "sweep"),
+        "AQIA": (lambda: novel.adaptive_quantum_inspired_annealing(problem),
+                 500, 500, "iteration"),
+        "LESD": (lambda: novel.learning_enhanced_dynamics(problem), 300,
+                 300, "iteration"),
+    }
+    out = {}
+    for name, (step, sweeps, replays, unit) in runs.items():
+        out[name] = _profile(step, sweeps, top, graph_launches=replays)
+        out[name]["unit"] = unit
+    return out
+
+
 def _sa_steppers(problem, r: int, sweeps: int, **cfg_kw) -> dict:
     """"plain" (the eager ``run_chunk``) and "captured" (its graph) runs of
     one chunk of ``anneal``, each with the chunk's one read of its four

@@ -343,11 +343,12 @@ def cache_stats():
     """Solver-cache statistics: the solution cache and the captured
     drivers' step caches."""
     from spinglass_tpu_torch.anneal import batch, graphs
+    from spinglass_tpu_torch.research import quantum  # noqa: F401 (its cache)
     from spinglass_tpu_torch.utils.cache import anneal_cache_stats
 
     click.echo(json.dumps({**anneal_cache_stats(),
-                           "sa_steps": len(graphs.SA_CACHE),
-                           "pt_steps": len(graphs.PT_CACHE),
+                           **{name: len(cache)
+                              for name, cache in graphs.CACHES.items()},
                            "batch_runs": len(batch._RUNS)}))
 
 

@@ -227,6 +227,39 @@ def qnetwork_from_flax(params, device=None):
     return _load_flax(model, tree).to(device)
 
 
+def spin_scorer_from_flax(params, device=None):
+    """The port's ``research.novel.SpinScorer`` holding the weights of a
+    JAX ``SpinScorer`` parameter tree given as numpy arrays: ``{"params":
+    {"Dense_0", "Dense_1"}}`` (the outer "params" level may be left out);
+    the hidden width is read from ``Dense_0``'s kernel."""
+    from spinglass_tpu_torch.research.novel import SpinScorer
+
+    device = resolve_device(device)
+    tree = params.get("params", params)
+    hidden = int(np.asarray(tree["Dense_0"]["kernel"]).shape[1])
+    return _load_flax(SpinScorer(hidden), tree).to(device)
+
+
+def meta_network_from_flax(params, device=None):
+    """The port's ``research.meta_rl.MetaLearningNetwork`` holding the
+    weights of a JAX ``MetaLearningNetwork`` parameter tree given as numpy
+    arrays: ``{"params": {"Dense_0", "LayerNorm_0", ..., "Dense_H"}}`` (the
+    outer "params" level may be left out). The widths are read from the
+    tree: the input width from ``Dense_0``'s kernel, one hidden layer per
+    ``LayerNorm``, the output width from the last kernel."""
+    from spinglass_tpu_torch.research.meta_rl import MetaLearningNetwork
+
+    device = resolve_device(device)
+    tree = params.get("params", params)
+    n_hidden = sum(1 for k in tree if k.startswith("LayerNorm_"))
+    kernels = [np.asarray(tree[f"Dense_{k}"]["kernel"])
+               for k in range(n_hidden + 1)]
+    model = MetaLearningNetwork(
+        hidden_sizes=tuple(int(w.shape[1]) for w in kernels[:-1]),
+        out_dim=int(kernels[-1].shape[1]), in_dim=int(kernels[0].shape[0]))
+    return _load_flax(model, tree).to(device)
+
+
 def env_state_from_numpy(spins, energy, best_energy, initial_energy,
                          prev_energy, temp, acc_rate, step, plateau, episode,
                          done, reward_state: dict, device=None):

@@ -59,6 +59,7 @@ The two agree for u <= 0.999999.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Tuple
 
@@ -79,6 +80,26 @@ J_DTYPES = ("float32", "bfloat16")
 CLUSTER_TILE = (72, 8)   # K1's cluster kernel: replica columns, thread blocks
 BLOCK_TILE = (8, 1)      # K1's one-block kernel
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a thread block can use (H100)
+
+# kernel name -> the launches counted by every dense sweep object, those
+# since collected included: each object's ``launches`` moves it by as much
+# as it moves itself (a captured step's replays, and the warm-up launches it
+# takes back, included), so a caller can zero it before a path that builds
+# its sweep objects inside and read the path's launches after
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+class _Counted:
+    """``launches`` of a dense sweep object, tallied in ``LAUNCHES``."""
+
+    @property
+    def launches(self) -> int:
+        return self._launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        LAUNCHES[self.kernel_name] += value - getattr(self, "_launches", 0)
+        self._launches = value
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -463,7 +484,7 @@ def load_kernel(name: str = KERNEL_NAME) -> ctypes.CDLL:
     return lib
 
 
-class FusedSweep:
+class FusedSweep(_Counted):
     """Per-problem fused sweep, [Np, R] spin layout, updated in place.
 
     ``block_size`` 0 picks 256 when it divides Np, else 128 (the kernels
@@ -485,7 +506,10 @@ class FusedSweep:
     keeps them as bf16 in shared memory. ``tile`` is ``dense_tile``'s
     answer for this problem, and ``planes`` the number of bf16 planes of J
     that K1's cluster kernel multiplies (counted once: at construction on
-    the card, at first use on the CPU).
+    the card, at first use on the CPU). A problem whose J changes in place
+    after the sweep is built (``research.quantum.TrotterProblem``) declares
+    ``j_planes = 3``: a count taken from its first J could be 1, and a later
+    J would then be swept on its hi plane alone.
     """
 
     layout = "nr"
@@ -523,9 +547,11 @@ class FusedSweep:
                   else problem.j.bfloat16().to(problem.j.dtype))
         self.tile = dense_tile(n_pad, block_size)
         # on the card the planes are counted now: a later sweep must not
-        # wait for the device
+        # wait for the device. A problem whose J is rewritten in place
+        # between sweeps names its count (``j_planes``) instead
         self._planes = (1 if j_dtype == "bfloat16"
-                        else planes_needed(self.j) if self.j.is_cuda else None)
+                        else getattr(problem, "j_planes", None)
+                        or (planes_needed(self.j) if self.j.is_cuda else None))
         self.block_size = block_size
         self.rule = canonical_rule(rule)
         self.micro = micro
@@ -674,7 +700,7 @@ def _seed_list(seeds, problems: int) -> list:
     return seeds
 
 
-class StackedFusedSweep:
+class StackedFusedSweep(_Counted):
     """K1 over P stacked problems of one padded size, in one launch: the
     port's counterpart of the JAX batch path's ``vmap`` of the blocked sweep
     (``anneal/batch.py``). Problem p is the kernel's ``blockIdx.y``; J is

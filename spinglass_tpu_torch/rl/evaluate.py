@@ -29,7 +29,6 @@ CPU problem.
 
 from __future__ import annotations
 
-import math
 import zlib
 from typing import Callable, Optional
 
@@ -40,21 +39,9 @@ from torch.func import functional_call
 from spinglass_tpu_torch.anneal import graphs
 from spinglass_tpu_torch.anneal.engines import launch_counters
 from spinglass_tpu_torch.core.rng import device_generator, randint
+from spinglass_tpu_torch.research.validation import welch_t
 from spinglass_tpu_torch.rl import env as env_mod
 from spinglass_tpu_torch.rl.env import N_ACTIONS, TEMP_MULTIPLIERS, EnvConfig
-
-
-def welch_t(a, b) -> dict:
-    """Welch's t-test with a normal-approximation two-sided p-value (the JAX
-    package's ``research.validation.welch_t``; it moves there when that
-    module is ported)."""
-    a, b = np.asarray(a, float), np.asarray(b, float)
-    va, vb = a.var(ddof=1), b.var(ddof=1)
-    na, nb = len(a), len(b)
-    se = math.sqrt(va / na + vb / nb) or 1e-12
-    t = (a.mean() - b.mean()) / se
-    p = math.erfc(abs(t) / math.sqrt(2.0))
-    return {"t": float(t), "p_value": float(p)}
 
 
 def make_random_policy():

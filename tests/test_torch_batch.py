@@ -95,18 +95,22 @@ def test_stacked_twin_matches_vmapped_blocked_sweep(n, r, rule):
         p = JaxProblem(j=j, h=h, active_mask=mask, n_spins=jst.n_spins)
         return JK.blocked_sweep(p, s, b, uu, block_size=128, rule=rule)
 
-    js, jde, jcnt = jax.vmap(one)(jst.j, jst.h, jst.active_mask,
-                                  jnp.asarray(s0), jnp.asarray(beta),
-                                  jnp.asarray(u))
+    # JAX may alias an aligned numpy buffer and reads it when its queued
+    # computation runs, and at R = 1 the transpose below is a view of s0,
+    # which the twin sweeps in place: each side gets its own copy, and the
+    # JAX results are read before the twin runs
+    js, jde, jcnt = (np.asarray(x) for x in jax.vmap(one)(
+        jst.j, jst.h, jst.active_mask, jnp.asarray(s0.copy()),
+        jnp.asarray(beta), jnp.asarray(u)))
     sw = MC.StackedFusedSweep(st.j, st.h, st.active_mask, block_size=128,
                               rule=rule)
-    spins = torch.from_numpy(s0).transpose(1, 2).contiguous()
+    spins = torch.tensor(s0).transpose(1, 2).contiguous()
     _, de, cnt = sw.sweep_with_uniforms(
         spins, torch.from_numpy(beta),
         torch.from_numpy(u).transpose(1, 2).contiguous())
-    np.testing.assert_array_equal(spins.transpose(1, 2).numpy(), np.asarray(js))
-    np.testing.assert_array_equal(de.numpy(), np.asarray(jde))
-    np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+    np.testing.assert_array_equal(spins.transpose(1, 2).numpy(), js)
+    np.testing.assert_array_equal(de.numpy(), jde)
+    np.testing.assert_array_equal(cnt.numpy(), jcnt)
     assert sw.launches == 0
 
 

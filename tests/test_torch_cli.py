@@ -199,7 +199,7 @@ def test_monitor_and_cache_stats():
     assert res.exit_code == 0, res.output
     stats = json.loads(res.output)
     assert {"size", "max_size", "hits", "misses", "hit_rate", "sa_steps",
-            "pt_steps", "batch_runs"} <= set(stats)
+            "pt_steps", "trotter_problems", "batch_runs"} <= set(stats)
 
 
 def test_group_serves_metrics_from_the_env(monkeypatch):

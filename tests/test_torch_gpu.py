@@ -1497,3 +1497,170 @@ def test_adaptive_anneal_on_the_card(cuda, kind, r):
                             np.ones(p.n_padded - p.n_spins)]),
             dtype=torch.float32, device=cuda)[None])[0]
     assert float(e) == pytest.approx(res.best_energy, rel=1e-4)
+
+
+def _trotter_case(cuda, n=128, p=4, seed=5):
+    """A +-J glass with quarter-grid fields and the fields (beta 2) that put
+    J_perp at 0.25 and 0.5: every Trotter field is exact."""
+    import math
+
+    j = topology.fully_connected(n, dist="binary", seed=seed)
+    h = np.random.default_rng(seed).integers(-8, 9, n) / 4.0
+    gammas = [p / 2.0 * math.atanh(math.exp(-4.0 * jp)) for jp in (0.25, 0.5)]
+    return IsingProblem.from_dense(j, h, device=cuda), gammas
+
+
+@pytest.mark.gpu
+def test_sqa_stage_through_k1_equals_twin(cuda):
+    """One SQA stage (100 sweeps at T = 1/beta, R=16) on the Trotter problem
+    through K1 and through its twin on one generator seed: the state bit for
+    bit; K1 runs three planes though J_perp = 0.25 is exact in bf16."""
+    from spinglass_tpu_torch.anneal import sa
+    from spinglass_tpu_torch.anneal.twins import TwinFusedEngine
+    from spinglass_tpu_torch.research import quantum as Q
+
+    base, gammas = _trotter_case(cuda)
+    tp = Q.trotterize(base, 4, 2.0, gammas[0])
+    cfg = Q.stage_config(Q.SQAConfig(n_trotter=4, n_replicas=16), 100, 0)
+    eng = sa.make_sweep_engine(tp, cfg)
+    assert eng.name == "cuda_fused" and eng.fused.planes == 3
+    out = []
+    for e in (eng, TwinFusedEngine(tp, block_size=cfg.block_size)):
+        st = sa.init_state(tp, cfg, e, torch.Generator().manual_seed(3))
+        out.append(sa.run_chunk(tp, cfg, e, st, 100)[0])
+    torch.cuda.synchronize()
+    for k in ("spins", "energy", "best_energy", "best_spins", "acc_rate"):
+        assert torch.equal(getattr(out[0], k), getattr(out[1], k)), k
+    assert eng.fused.launches == 100
+
+
+@pytest.mark.gpu
+def test_sqa_on_the_card_equals_per_stage_rebuild(cuda):
+    """SQA through K1 on its cached Trotter problem (J_perp rewritten in
+    place, one captured chunk for every stage) against a fresh Trotter
+    problem and capture per stage, on one generator seed: bit for bit; the
+    first call captures once, a repeat call not at all; K1 launched once
+    per sweep."""
+    from spinglass_tpu_torch.anneal import graphs, sa
+    from spinglass_tpu_torch.research import quantum as Q
+
+    base, (g0, g1) = _trotter_case(cuda, n=200, seed=2)
+    cfg = Q.SQAConfig(n_trotter=4, gamma_start=g0, gamma_end=g1, n_stages=3,
+                      sweeps_per_stage=50, n_replicas=16)
+    graphs.clear_caches()
+    MC.LAUNCHES.clear()
+    got = Q.simulated_quantum_annealing(
+        base, cfg, generator=torch.Generator().manual_seed(8))
+    assert got.metadata["captures"] == 1
+    assert MC.LAUNCHES == {MC.KERNEL_NAME: 150}
+    gen = torch.Generator().manual_seed(8)
+    best, spins = np.inf, None
+    for stage, gamma in enumerate(np.geomspace(g0, g1, 3)):
+        res = sa.anneal(Q.trotterize(base, 4, 2.0, float(gamma)),
+                        Q.stage_config(cfg, 50, stage), generator=gen)
+        slices, e = Q.slice_energies(base, res.best_spins, 4)
+        k = int(np.argmin(e))
+        if e[k] < best:
+            best, spins = float(e[k]), slices[k]
+    assert got.best_energy == best
+    np.testing.assert_array_equal(got.best_spins, spins)
+    again = Q.simulated_quantum_annealing(
+        base, cfg, generator=torch.Generator().manual_seed(8))
+    assert again.metadata["captures"] == 0 and again.best_energy == best
+
+
+@pytest.mark.gpu
+def test_aqia_captured_equals_eager_on_the_card(cuda):
+    """AQIA's captured iteration replayed against the eager loop of
+    ``aqia_step`` on one generator seed: history and replica bests bit for
+    bit."""
+    from spinglass_tpu_torch.research import novel as N
+
+    p = IsingProblem.from_dense(topology.fully_connected(
+        300, dist="binary", seed=4), device=cuda)
+    cfg = N.AQIAConfig(n_iterations=40, n_replicas=32)
+    got = N.adaptive_quantum_inspired_annealing(
+        p, cfg, generator=torch.Generator().manual_seed(6))
+    st = N.aqia_init(p, cfg, torch.Generator().manual_seed(6))
+    hist = []
+    for _ in range(40):
+        st, out = N.aqia_step(p, cfg, st)
+        hist.append(out)
+    np.testing.assert_array_equal(got.energy_history,
+                                  torch.stack(hist).cpu().numpy())
+    np.testing.assert_array_equal(got.replica_best_energy,
+                                  st.best_e.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_research_paths_launch_k1_on_the_card(cuda):
+    """QEC, MSHO, PIMC and a meta-RL solve on the card launch K1 once per
+    sweep (``metropolis_cuda.LAUNCHES``); LESD and a meta-network fit run
+    with capturable Adam there."""
+    from spinglass_tpu_torch.research import meta_rl, novel, quantum
+
+    p = IsingProblem.from_dense(topology.fully_connected(
+        100, dist="gaussian", scale=0.1, seed=3), device=cuda)
+    for fn, want in (
+            (lambda: novel.quantum_error_corrected_annealing(
+                p, novel.QECConfig(n_sweeps=50)), 50),
+            (lambda: quantum.path_integral_monte_carlo(
+                p, quantum.PIMCConfig(n_sweeps=30)), 30),
+            (lambda: meta_rl.AdaptiveMetaRLAgent(meta_rl.MetaRLConfig(
+                n_sweeps=20), device=cuda).solve(p)[0], 20)):
+        MC.LAUNCHES.clear()
+        res = fn()
+        assert MC.LAUNCHES[MC.KERNEL_NAME] == want and np.isfinite(
+            res.best_energy)
+    MC.LAUNCHES.clear()
+    res = novel.multi_scale_optimization(p, novel.MSHOConfig(
+        coarse_sweeps=30, refine_sweeps=20))
+    assert MC.LAUNCHES[MC.KERNEL_NAME] == 30 + 20 * (
+        res.metadata["n_levels"] - 1)
+    res = novel.learning_enhanced_dynamics(p, novel.LESDConfig(
+        n_iterations=20))
+    assert np.isfinite(res.metadata["final_loss"])
+    assert res.metadata["params"]["dense.0.weight"].is_cuda
+    x = np.random.default_rng(0).normal(size=(16, meta_rl.EMBED_DIM))
+    params, loss = meta_rl.fit_meta_network(
+        meta_rl.MetaLearningNetwork((16,)), x, x[:, :3], np.ones(16),
+        n_steps=20, device=cuda)
+    assert np.isfinite(loss) and params["dense.0.weight"].is_cuda
+
+
+@pytest.mark.gpu
+def test_lesd_captured_equals_eager_on_the_card(cuda):
+    """LESD's captured iteration (forward, backward and capturable Adam in
+    one graph) replayed against the eager loop of ``lesd_step`` on one
+    generator seed: losses, replica bests and the scorer's parameters bit
+    for bit."""
+    from spinglass_tpu_torch.core import energy as E
+    from spinglass_tpu_torch.core import rng
+    from spinglass_tpu_torch.core.problem import random_spins
+    from spinglass_tpu_torch.research import novel as N
+    from spinglass_tpu_torch.rl.ppo import init_params
+
+    p = IsingProblem.from_dense(topology.fully_connected(
+        300, dist="binary", seed=2), device=cuda)
+    cfg = N.LESDConfig(n_iterations=30, n_replicas=16)
+    got = N.learning_enhanced_dynamics(
+        p, cfg, generator=torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(5)
+    model = N.SpinScorer().to(cuda)
+    params = init_params(model, gen, cuda)
+    opt = torch.optim.Adam(list(params.values()), lr=cfg.lr, eps=1e-8,
+                           capturable=True)
+    spins = random_spins(rng.device_generator(gen, cuda), (16, p.n_padded),
+                         p.active_mask)
+    e = E.energy(p, spins)
+    best_e, best_s, losses = e, spins, []
+    for _ in range(30):
+        spins, e, best_e, best_s, loss = N.lesd_step(
+            p, cfg, model, params, opt, spins, e, best_e, best_s, gen)
+        losses.append(loss)
+    np.testing.assert_array_equal(got.energy_history,
+                                  torch.stack(losses).cpu().numpy())
+    np.testing.assert_array_equal(got.replica_best_energy,
+                                  best_e.cpu().numpy())
+    for k, v in params.items():
+        assert torch.equal(got.metadata["params"][k], v.detach()), k

@@ -116,6 +116,17 @@ hl = CliRunner().invoke(cli.main, ["--device", "cpu", "health"])
 assert hl.exit_code == 0, hl.output
 assert utils.monitoring.device_memory_stats() == {} and utils.global_registry()
 assert runner.standard_suite((8,), device="cpu")[0].name == "maxcut_8"
+from spinglass_tpu_torch import research
+from spinglass_tpu_torch.research import meta_rl
+sq = research.simulated_quantum_annealing(p, research.SQAConfig(
+    n_trotter=2, n_stages=2, sweeps_per_stage=2, n_replicas=2))
+assert sq.algorithm == "sqa" and sq.metadata["captures"] == 1
+aq = research.adaptive_quantum_inspired_annealing(p, research.AQIAConfig(
+    n_iterations=3, n_replicas=2))
+assert aq.algorithm == "aqia" and len(aq.energy_history) == 3
+agent = meta_rl.AdaptiveMetaRLAgent(meta_rl.MetaRLConfig(
+    n_sweeps=2, n_replicas=4), device="cpu")
+assert agent.solve(p)[1]["source"] == "default"
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "spinglass_tpu")
@@ -166,7 +177,12 @@ NEW_MODULES = (  # the batch, adaptive and operations slice
     "utils/security.py", "utils/monitoring.py", "utils/metrics_exporter.py",
     "utils/health.py", "utils/anomaly.py", "utils/autoscale.py",
     "utils/enterprise_security.py", "utils/plotting.py",
-    "utils/profiling.py", "utils/cache.py", "benchmarks/runner.py")
+    "utils/profiling.py", "utils/cache.py", "benchmarks/runner.py",
+    # the research layer
+    "research/validation.py", "research/quantum.py",
+    "research/novel.py", "research/pareto.py", "research/meta.py",
+    "research/federated.py", "research/meta_rl.py", "research/unified.py",
+    "research/breakthrough.py", "research/scaling.py")
 
 
 @pytest.fixture(scope="module")
