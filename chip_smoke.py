@@ -20,10 +20,13 @@ annealer environment, PPO and the hybrid DQN on the SK glass at N=512 with
 256 envs through K1, and on the 10k graph through K2 and K4; the training
 pipeline, train-rl, the gym adapter's episode and the captured evaluation)
 and the problem path (TSP and
-MaxCut encoded, solved through K1, K2 and K4, and the command line) and the
+MaxCut encoded, solved through K1, K2 and K4, and the command line), the
 drivers' remaining paths (checkpoint/resume, PT with Swendsen-Wang cluster
-moves, the tuned ladder, the compact engine) end to end, and times the
-kernels against the twins. Phases:
+moves, the tuned ladder, the compact engine), the batch, adaptive,
+operations and research layers, and the distributed layer on a one-rank
+NCCL group (sharded PT through K1, K2 and K4, model-sharded sweeps,
+data-parallel PPO, the job pools, the quality gates) end to end, and times
+the kernels against the twins. Phases:
 
   1. device and build: nvidia-smi name and power limit, build seconds,
      registers, spills and shared memory of every kernel, and how many of
@@ -217,7 +220,19 @@ kernels against the twins. Phases:
      sa / pt / adaptive_sa / sqa, the federated SA and SQA servers (4
      clients, 2 rounds), pareto.optimize, UnifiedResearchFramework.compare,
      BreakthroughResearchFramework.validate (2 trials) and the meta-RL
-     agent (3 solves, a refit);
+     agent (3 solves, a refit). The distributed layer on a one-rank NCCL
+     group (multihost.initialize): pt_sharded.run (the super-step captured
+     with its all-gather inside) through K1 (SK 4096 x 1024), K2 (the 10k
+     graph, R=128) and K4 (R=16), each == pt.run on the same seed bit for
+     bit, twice, the engine's launches exact; blocked_sweep_sharded
+     (captured with its all-reduces) and colored_sweep_sharded at N=4096,
+     R=256 == the plain sweeps on the same uniforms bit for bit (+-J); the
+     sharded PPO's 4 captured updates (SK N=512, 256 envs, K1) == make_ppo's
+     (metrics and parameters bitwise); JobCoordinator(2) and WorkerPool(4)
+     running 8 SA seeds through K1 from their threads == each seed's call
+     alone; EdgeOrchestrator's sa, pt and sqa on the card; then
+     `sgt-torch quality-gates` over every gate but suite_budget (printed as
+     excluded), all passing;
   5. timing: each kernel's bound (bytes over 3.35 TB/s against operations
      over the peak of their type) and the two library yardsticks for K1's
      and K2's field work alone (torch.matmul, torch.sparse.mm; the port
@@ -265,6 +280,11 @@ kernels against the twins. Phases:
      relative, counts within 0.5%; a +-J SK glass at N=1024, P=8 with
      J_perp 0.25: spins, dE and counts bitwise); and
      headline.profile_research's breakdowns of SQA, PIMC, AQIA and LESD.
+     The distributed layer: the sharded PT super-step against pt.run's at
+     the three shapes in turns and the all-gather of [5, R] alone (a graph
+     of 20); the captured model-sharded blocked sweep against the plain
+     eager one, and the coloured ones; the sharded PPO's env steps/s against
+     make_ppo's (8 captured updates, in turns) and bench_rl's.
 
 Any failed check exits non-zero. The last line is the JSON status
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -4188,6 +4208,319 @@ def research_timing(torch, mc, stats, card):
                   f"{k['calls']:5d} calls  {k['name'][:80]}")
 
 
+def _same_pt(np, a, b) -> bool:
+    """Two PT results equal bit for bit: ``_same_result``'s arrays and
+    launches, the best energy, the slot records and exchange rates."""
+    return (_same_result(np, a, b) and a.best_energy == b.best_energy
+            and all(np.array_equal(np.asarray(a.metadata[k]),
+                                   np.asarray(b.metadata[k])) for k in (
+                "slot_trajectory", "slot_energy_history", "exchange_rates")))
+
+
+DIST_PT = (  # (label, problem, PTConfig keywords, the kernel it must launch)
+    ("dense SK N=4096, R=1024 (K1)", "sk",
+     dict(n_replicas=1024, n_sweeps=100, exchange_interval=10,
+          sweep_method="blocked", min_temp=0.2, max_temp=3.0, seed=5),
+     "metropolis_sweep"),
+    ("sparse 10k, R=128 (K2)", "ell",
+     dict(n_replicas=128, n_sweeps=100, exchange_interval=10, min_temp=0.2,
+          max_temp=3.0, seed=6), "sparse_sweep"),
+    ("sparse 10k, R=16 (K4)", "ell",
+     dict(n_replicas=16, n_sweeps=100, exchange_interval=10, min_temp=0.2,
+          max_temp=3.0, seed=7), "sparse_accept"),
+)
+DIST_N, DIST_R = 4096, 256       # the model-sharded sweeps' shape
+DIST_PPO_UPDATES = 4
+
+
+def distributed_slice(torch, mc, stats, card):
+    """Phase 4 (distributed): a one-rank NCCL group (``multihost
+    .initialize``); ``pt_sharded.run`` through K1, K2 and K4, each equal to
+    ``pt.run`` on the same seed bit for bit; the model-sharded sweeps at
+    N=4096, R=256 against the plain sweeps on the same uniforms; the
+    sharded PPO against ``make_ppo`` (both captured); the job pools and the
+    edge orchestrator running SA seeds through K1 from several threads.
+    ``stats["dist_launches"]``: the K1, K2 and K4 launches of the
+    distributed runs (the sharded PT runs' ``kernel_launches``, the sharded
+    PPO engine's count, ``mc.LAUNCHES`` around the pools and the edge
+    orchestrator); the reference calls they are held against do not
+    count."""
+    import numpy as np
+
+    from spinglass_tpu_torch.anneal import graphs
+    from spinglass_tpu_torch.anneal import pt as pt_mod
+    from spinglass_tpu_torch.anneal.sa import SAConfig, anneal
+    from spinglass_tpu_torch.benchmarks import headline
+    from spinglass_tpu_torch.core import topology
+    from spinglass_tpu_torch.core.problem import IsingProblem
+    from spinglass_tpu_torch.distributed import (model_sharded, multihost,
+                                                 pt_sharded, rl_sharded)
+    from spinglass_tpu_torch.distributed.coordinator import JobCoordinator
+    from spinglass_tpu_torch.distributed.edge import EdgeOrchestrator
+    from spinglass_tpu_torch.distributed.workpool import WorkerPool
+    from spinglass_tpu_torch.kernels import sweeps as K
+    from spinglass_tpu_torch.rl import ppo as ppo_mod
+
+    launches = {mc.KERNEL_NAME: 0, "sparse_sweep": 0, "sparse_accept": 0}
+    stats["dist_launches"] = launches
+    info = multihost.initialize()
+    check(info["process_count"] == 1 and info["backend"] == "nccl"
+          and info["device"].startswith("cuda"),
+          f"multihost.initialize(): {info}")
+    mesh = pt_sharded.make_mesh()
+    check(mesh.mesh_dim_names == ("replica",) and mesh.size() == 1,
+          f"replica mesh {mesh}")
+    problems = {"sk": sk_problem("cuda"),
+                "ell": headline.sparse_bench_problem()}
+    stats["dist_pt"] = {}
+    for label, which, kw, kernel in DIST_PT:
+        prob = problems[which]
+        cfg = pt_mod.PTConfig(**kw)
+        t0 = time.perf_counter()
+        sh = pt_sharded.run(prob, cfg, mesh)
+        t_first = time.perf_counter() - t0
+        ref = pt_mod.run(prob, cfg)
+        again = pt_sharded.run(prob, cfg, mesh)
+        got = sh.metadata["kernel_launches"]
+        eng = sh.metadata["engine"]
+        _, _, sh_engine, _, sh_step = pt_sharded.SHARDED_CACHE.get(
+            prob, ("run", graphs.config_key(cfg), id(mesh)))
+        plain_step = graphs.PT_CACHE.get(prob, ("run",
+                                                graphs.config_key(cfg)))[2]
+        n_col = (sh_engine.inner.n_colors if kernel == "sparse_accept"
+                 else 1)
+        want = cfg.n_sweeps * n_col
+        check(got.get(kernel) == want and sum(got.values()) == want,
+              f"sharded PT {label}: engine {eng}, launches {got} "
+              f"(expected {kernel} {want}); algorithm {sh.algorithm}")
+        check(_same_pt(np, sh, ref) and _same_pt(np, again, ref),
+              f"sharded PT {label} == pt.run on seed {cfg.seed} bit for bit "
+              f"(best spins, energies, histories, slots, exchange rates; "
+              f"first call {t_first:.3f} s with the capture, "
+              f"{sh.metadata['capture_seconds']:.3f} s of it; a repeat "
+              f"call replays); E {sh.best_energy:.4f}")
+        launches[kernel] += got[kernel] + again.metadata[
+            "kernel_launches"][kernel]
+        stats["dist_pt"][label] = (cfg, sh_step, plain_step)
+    # -- model-sharded sweeps ------------------------------------------------
+    pj = pm_j_problem(DIST_N, 11, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    s0 = torch.where(torch.rand(DIST_R, pj.n_padded, device="cuda",
+                                generator=gen) < 0.5, -1.0, 1.0)
+    u = torch.rand(DIST_R, pj.n_padded, device="cuda", generator=gen)
+    beta = torch.full((DIST_R,), 0.6, device="cuda")
+    smesh = model_sharded.make_mesh()
+    shard = model_sharded.shard_problem_rows(pj, smesh)
+    t0 = time.perf_counter()
+    s_sh, de_sh, cnt_sh = model_sharded.blocked_sweep_sharded(
+        shard, smesh, s0, beta, u, block_size=SA_BLOCK)
+    torch.cuda.synchronize()
+    t_cap = time.perf_counter() - t0
+    s_p, de_p, cnt_p = K.blocked_sweep(pj, s0, beta, u, block_size=SA_BLOCK)
+    check(torch.equal(s_sh, s_p) and torch.equal(de_sh, de_p)
+          and torch.equal(cnt_sh, cnt_p) and int(cnt_p.sum()) > 0,
+          f"blocked_sweep_sharded at N={DIST_N}, R={DIST_R} (+-J, captured "
+          f"with its {2 * pj.n_padded // SA_BLOCK} all-reduces: "
+          f"{t_cap:.2f} s to warm up and capture) == kernels.sweeps"
+          f".blocked_sweep on the same uniforms bit for bit "
+          f"({int(cnt_p.sum())} flips)")
+    s_sh2, _, _ = model_sharded.blocked_sweep_sharded(
+        shard, smesh, s0, beta, u, block_size=SA_BLOCK)
+    check(torch.equal(s_sh2, s_p), "blocked_sweep_sharded replayed again == "
+          "the plain sweep")
+    side = int(np.sqrt(DIST_N))
+    jc = topology.grid_2d(side, side, dist="binary", seed=2)
+    pc = IsingProblem.from_dense(jc, device="cuda")
+    masks = K.color_masks_from_colors(topology.greedy_coloring(jc),
+                                      pc.n_padded, device="cuda")
+    sc, dec, cntc = model_sharded.colored_sweep_sharded(
+        pc, smesh, masks, model_sharded.local_columns(s0, smesh), beta,
+        model_sharded.local_columns(u, smesh))
+    sp, dep, cntp = K.colored_sweep(pc, masks, s0, beta, u)
+    check(torch.equal(sc, sp) and torch.equal(dec, dep)
+          and torch.equal(cntc, cntp),
+          f"colored_sweep_sharded on a {side}x{side} +-J grid, R={DIST_R} "
+          f"({masks.shape[0]} colours) == kernels.sweeps.colored_sweep bit "
+          f"for bit")
+    stats["dist_model"] = (shard, smesh, s0, beta, u, pj, pc, masks)
+    # -- data-parallel PPO -----------------------------------------------------
+    problem, env_cfg, ppo_cfg = headline.rl_bench_setup(
+        n_updates=DIST_PPO_UPDATES)
+    histories, params, k1_ppo = [], [], 0
+    for make in ("sharded", "plain"):
+        if make == "sharded":
+            init_fn, update_fn, _, _ = rl_sharded.make_sharded_ppo(
+                problem, env_cfg, ppo_cfg, rl_sharded.make_mesh())
+        else:
+            init_fn, update_fn, _ = ppo_mod.make_ppo(problem, env_cfg,
+                                                     ppo_cfg)
+        l0 = update_fn.engine.launches
+        cap = ppo_mod.CapturedUpdates(update_fn, init_fn(), 1)
+        hist = []
+        for _ in range(DIST_PPO_UPDATES):
+            cap.replay()
+            hist.extend(cap.read(1))
+        histories.append(hist)
+        params.append({k: v.detach().clone() for k, v in
+                       cap.state.params.items()})
+        got = {k: v - l0.get(k, 0) for k, v in update_fn.engine.launches.items()}
+        if make == "sharded":
+            k1_ppo = got[mc.KERNEL_NAME]
+            launches[mc.KERNEL_NAME] += k1_ppo
+            stats["dist_ppo"] = (update_fn, init_fn)
+    want = DIST_PPO_UPDATES * ppo_cfg.rollout_len * env_cfg.sweeps_per_step
+    check(k1_ppo == want, f"sharded PPO ({env_cfg.n_envs} envs, SK N="
+          f"{problem.n_spins}): K1 {k1_ppo} launches through the sharded "
+          f"engine ({want} expected)")
+    check(histories[0] == histories[1] and all(
+        torch.equal(params[0][k], params[1][k]) for k in params[1]),
+          f"sharded PPO ({DIST_PPO_UPDATES} captured updates, the gather and "
+          f"the env batch statistics inside) == make_ppo's updates: "
+          f"metrics and parameters bit for bit; last mean best energy "
+          f"{histories[0][-1]['mean_best_energy']:.3f}")
+    # -- job pools: SA seeds from several threads through K1 -----------------
+    pool_p = pm_j_problem(512, 12, "cuda")
+
+    def job(seed):
+        return anneal(pool_p, SAConfig(n_sweeps=200, n_replicas=64,
+                                       seed=seed))
+
+    seq = {s: job(s) for s in range(8)}
+    k1_0 = mc.LAUNCHES[mc.KERNEL_NAME]
+    c = JobCoordinator(n_workers=2).start()
+    ids = c.map(job, list(range(8)), prefix="seed")
+    ok = c.wait(timeout=300)
+    res_c = c.results()
+    c.shutdown()
+    items = WorkerPool(4).map([lambda s=s: job(s) for s in range(8)],
+                              timeout=300)
+    k1_pools = mc.LAUNCHES[mc.KERNEL_NAME] - k1_0
+
+    def same(a, b):
+        return (a.best_energy == b.best_energy
+                and np.array_equal(a.best_spins, b.best_spins)
+                and np.array_equal(a.energy_history, b.energy_history))
+
+    check(ok and all(same(res_c[i], seq[s]) for s, i in enumerate(ids))
+          and all(it.error is None and same(it.result, seq[s])
+                  for s, it in enumerate(items))
+          and all(r.metadata["engine"] == "cuda_fused" for r in seq.values()),
+          f"JobCoordinator(n_workers=2) and WorkerPool(4): 8 SA seeds "
+          f"(+-J N=512, R=64, 200 sweeps) through K1 from several threads "
+          f"== each seed's call made alone, bit for bit; K1 {k1_pools} "
+          f"launches")
+    k1_0 = mc.LAUNCHES[mc.KERNEL_NAME]
+    orch = EdgeOrchestrator(n_sweeps=200, n_replicas=16, seed=0)
+    outs = [orch.submit(pool_p, prefer_backend=b) for b in ("sa", "pt", "sqa")]
+    check(all(np.isfinite(o.best_energy) for o in outs)
+          and orch.report()["n_jobs"] == 3,
+          "EdgeOrchestrator on the card: " + ", ".join(
+              f"{o.backend} on {o.node} E {o.best_energy:.1f} in "
+              f"{o.runtime:.3f} s" for o in outs))
+    launches[mc.KERNEL_NAME] += (k1_pools + mc.LAUNCHES[mc.KERNEL_NAME]
+                                 - k1_0)
+    print(f"  distributed path launches: {launches} [{card}]")
+
+
+def quality_gates_slice(torch, card):
+    """Phase 4 (quality gates): ``sgt-torch quality-gates`` in process over
+    every gate but suite_budget (the port's GPU tests: a run of their own,
+    ``python -m pytest tests/test_torch_gpu.py -m gpu --noconftest``)."""
+    from click.testing import CliRunner
+
+    from spinglass_tpu_torch import cli
+    from spinglass_tpu_torch.benchmarks.quality_gates import DEFAULT_GATES
+
+    gates = [g for g in DEFAULT_GATES if g != "suite_budget"]
+    print(f"  excluded: suite_budget (runs tests/test_torch_gpu.py in a "
+          f"process of its own; run it apart)")
+    out = CliRunner().invoke(cli.main, ["quality-gates", "--gates",
+                                        ",".join(gates)])
+    print("  " + out.output.replace("\n", "\n  ").rstrip())
+    check(out.exit_code == 0 and f"{len(gates)}/{len(gates)} gates passed"
+          in out.output, f"sgt-torch quality-gates: every gate passes "
+          f"[{card}]")
+
+
+def distributed_timing(torch, mc, stats, card):
+    """Phase 5 (distributed): per super-step, the sharded PT's captured
+    step against ``pt.run``'s at the same shapes, in turns (CUDA events
+    around host replays), and the all-gather alone (a graph of 20); the
+    model-sharded sweep's replay against the plain eager sweep; the sharded
+    PPO's env steps/s against make_ppo's (captured updates in turns) and
+    bench_rl's."""
+    import numpy as np
+
+    from spinglass_tpu_torch.benchmarks import headline
+    from spinglass_tpu_torch.distributed import model_sharded, pt_sharded
+    from spinglass_tpu_torch.kernels import sweeps as K
+    from spinglass_tpu_torch.rl import ppo as ppo_mod
+
+    rows = {}
+    stats["dist_timing"] = rows
+    for label, (cfg, sharded, plain) in stats["dist_pt"].items():
+        gen = torch.Generator().manual_seed(1)
+        ms = {"sharded": [], "pt.run": []}
+        for _ in range(2):
+            for name, st in (("sharded", sharded), ("pt.run", plain)):
+                ms[name].append(_event_ms(torch, lambda st=st: st.replay(gen),
+                                          10))
+        r = cfg.n_replicas * cfg.n_chains
+        x = torch.zeros(5, r, device="cuda")
+        group = pt_sharded.make_mesh().get_group()
+        coll = _graph_ms(torch, lambda: pt_sharded.gather_replicas(x, group,
+                                                                   1), 20)
+        rows[label] = dict(sharded=ms["sharded"], plain=ms["pt.run"],
+                           gather_ms=coll)
+        print(f"  PT super-step ({cfg.exchange_interval} sweeps), {label}: "
+              f"sharded {' / '.join(f'{1e3 * v:.1f}' for v in ms['sharded'])}"
+              f" us, pt.run {' / '.join(f'{1e3 * v:.1f}' for v in ms['pt.run'])}"
+              f" us (in turns); the all-gather of [5, {r}] alone "
+              f"{1e3 * coll:.1f} us = {100 * coll / np.mean(ms['sharded']):.2f}"
+              f"% of the sharded super-step [{card}]")
+    shard, smesh, s0, beta, u, pj, pc, masks = stats["dist_model"]
+    sweep_ms = _event_ms(torch, lambda: model_sharded.blocked_sweep_sharded(
+        shard, smesh, s0, beta, u, block_size=SA_BLOCK), 3)
+    plain_ms = _event_ms(torch, lambda: K.blocked_sweep(
+        pj, s0, beta, u, block_size=SA_BLOCK), 1)
+    col_ms = _event_ms(torch, lambda: model_sharded.colored_sweep_sharded(
+        pc, smesh, masks, s0, beta, u), 5)
+    colp_ms = _event_ms(torch, lambda: K.colored_sweep(pc, masks, s0, beta, u),
+                        5)
+    rows["model"] = dict(blocked=sweep_ms, blocked_plain=plain_ms,
+                         colored=col_ms, colored_plain=colp_ms)
+    print(f"  model-sharded sweeps at N={DIST_N}, R={DIST_R}: blocked (one "
+          f"captured sweep, {pj.n_padded // SA_BLOCK} blocks) {sweep_ms:.2f} "
+          f"ms, the plain eager blocked sweep {plain_ms:.2f} ms; coloured "
+          f"(eager, {masks.shape[0]} colours) {col_ms:.3f} ms, plain "
+          f"{colp_ms:.3f} ms [{card}]")
+    update_fn, init_fn = stats["dist_ppo"]
+    problem, env_cfg, ppo_cfg = headline.rl_bench_setup(n_updates=8)
+    _, plain_update, _ = ppo_mod.make_ppo(problem, env_cfg, ppo_cfg)
+    caps = {"sharded": ppo_mod.CapturedUpdates(update_fn, init_fn(), 8),
+            "make_ppo": ppo_mod.CapturedUpdates(
+                plain_update, ppo_mod.make_ppo(problem, env_cfg, ppo_cfg)[0](),
+                8)}
+    rates = {k: [] for k in caps}
+    steps = 8 * ppo_cfg.rollout_len * env_cfg.n_envs
+    for _ in range(2):
+        for name, cap in caps.items():
+            cap.replay()
+            cap.read(1)
+            t0 = time.perf_counter()
+            for _ in range(8):
+                cap.replay()
+            cap.read(8)
+            rates[name].append(steps / (time.perf_counter() - t0))
+    rows["ppo"] = rates
+    b = stats.get("bench_rl", {}).get("value", float("nan"))
+    print(f"  PPO env steps/s, 8 captured updates of {env_cfg.n_envs} envs "
+          f"(N={problem.n_spins}), in turns: sharded "
+          f"{' / '.join(f'{v:.1f}' for v in rates['sharded'])}, make_ppo "
+          f"{' / '.join(f'{v:.1f}' for v in rates['make_ppo'])}; bench_rl "
+          f"(phase 4) {b:.1f} [{card}]")
+
+
 def main() -> int:
     try:
         import torch
@@ -4286,6 +4619,12 @@ def main() -> int:
                 ("phase 4: the research layer (SQA, PIMC, QEC, MSHO, AQIA, "
                  "LESD, meta, federated, Pareto, unified, breakthrough, "
                  "meta-RL)", lambda: research_slice(torch, mc, stats, card)),
+                ("phase 4: the distributed layer on a one-rank NCCL group "
+                 "(sharded PT through K1, K2 and K4, model-sharded sweeps, "
+                 "data-parallel PPO, the job pools, edge)",
+                 lambda: distributed_slice(torch, mc, stats, card)),
+                ("phase 4: sgt-torch quality-gates",
+                 lambda: quality_gates_slice(torch, card)),
                 ("phase 5: timing (K1)", lambda: phase_timing(torch, mc, stats, card)),
                 ("phase 5: timing (K2, K3)", lambda: sparse_timing(torch, stats, card)),
                 ("phase 5: timing (K5, K6, K7)", lambda: variant_timing(torch, mc, stats, card)),
@@ -4305,7 +4644,10 @@ def main() -> int:
                                                           card)),
                 ("phase 5: timing (research: K1 at the Trotter shape, the "
                  "profiles of SQA, PIMC, AQIA and LESD)",
-                 lambda: research_timing(torch, mc, stats, card))):
+                 lambda: research_timing(torch, mc, stats, card)),
+                ("phase 5: timing (distributed: the sharded PT super-step "
+                 "and its all-gather, the model-sharded sweeps, the sharded "
+                 "PPO)", lambda: distributed_timing(torch, mc, stats, card))):
             print(name)
             t0 = time.perf_counter()
             phase()
@@ -4314,6 +4656,9 @@ def main() -> int:
         traceback.print_exc()
         print("FAIL", file=sys.stderr)
         return 1
+    finally:
+        if "spinglass_tpu_torch.distributed.multihost" in sys.modules:
+            sys.modules["spinglass_tpu_torch.distributed.multihost"].shutdown()
     rows = [(mc.KERNEL_NAME, stats["launches"], stats["max_abs_err"],
              stats["ms"], stats["plain_ms"]),
             ("sparse_sweep", stats["k2_launches"], stats["k2_max_abs_err"],
@@ -4356,20 +4701,23 @@ def main() -> int:
     drv = stats["driver_launches"]
     bat = stats["batch_launches"]
     res = stats["research_launches"]
+    dst = stats["dist_launches"]
     print(f"RL path launches: {rl}; problem path launches: {prob}; drivers' "
           f"paths launches: {drv}; batch slice launches: {bat}; research "
-          f"path launches: {res}")
+          f"path launches: {res}; distributed path launches: {dst}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"spinglass_tpu_torch/csrc/{name}.cu",
         "replaces": KERNELS[name],
         "launches": (launches + rl.get(name, 0) + prob.get(name, 0)
-                     + drv.get(name, 0) + bat.get(name, 0) + res.get(name, 0)),
+                     + drv.get(name, 0) + bat.get(name, 0) + res.get(name, 0)
+                     + dst.get(name, 0)),
         "launches_rl": rl.get(name, 0),
         "launches_problems": prob.get(name, 0),
         "launches_drivers": drv.get(name, 0),
         "launches_batch": bat.get(name, 0),
-        "launches_research": res.get(name, 0), "max_abs_err": err,
+        "launches_research": res.get(name, 0),
+        "launches_distributed": dst.get(name, 0), "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stats["bounds"][name][0],
         "bound_by": stats["bounds"][name][1], "library_ms": None}

@@ -47,6 +47,7 @@ class AdaptiveSAConfig:
     max_interventions: int = 20
 
 
+@graphs.serialized
 def adaptive_anneal(problem, cfg: Optional[AdaptiveSAConfig] = None,
                     generator: Optional[torch.Generator] = None
                     ) -> AnnealResult:

@@ -298,6 +298,7 @@ class BatchProcessor:
         self.n_processed = 0
         self.failures: List[int] = []
 
+    @graphs.serialized
     def process(self, problems: Sequence[IsingProblem],
                 seed: int = 0) -> List[AnnealResult]:
         """Batched solve preserving input order."""
@@ -399,6 +400,7 @@ class AdaptiveBatchProcessor(BatchProcessor):
         self._last_throughput = 0.0
         self.batch_sizes: List[int] = []
 
+    @graphs.serialized
     def process(self, problems: Sequence[IsingProblem],
                 seed: int = 0) -> List[AnnealResult]:
         results: List[Optional[AnnealResult]] = [None] * len(problems)

@@ -34,12 +34,21 @@ captured steps of a problem and configuration for the calls after.
   the same tape and the same static state.
 * ``capture_seconds``: what the warm-up and the capture took.
 * A failed capture or replay raises. Nothing falls back to the eager loop.
+
+Threads: the random tape is process-wide (``core.rng``), a cached step's
+static state belongs to the run that uses it, and a capture on the card
+must not overlap another thread's launches. So every driver that uses a
+``StepCache`` or the tape holds ``DRIVER_LOCK`` (``serialized``) from its
+cache lookup to its last read: concurrent callers run one after another,
+as the JAX package's dispatch orders them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
+import threading
 import time
 from collections import OrderedDict
 from typing import Callable, Hashable, Optional, Sequence
@@ -47,6 +56,19 @@ from typing import Callable, Hashable, Optional, Sequence
 import torch
 
 from spinglass_tpu_torch.core.rng import RandomTape
+
+
+# a process-wide re-entrant lock: a driver may call another driver
+DRIVER_LOCK = threading.RLock()
+
+
+def serialized(fn: Callable) -> Callable:
+    """``fn`` run under ``DRIVER_LOCK`` (see the module docstring)."""
+    @functools.wraps(fn)
+    def locked(*args, **kwargs):
+        with DRIVER_LOCK:
+            return fn(*args, **kwargs)
+    return locked
 
 
 # -- state trees --------------------------------------------------------------

@@ -376,6 +376,7 @@ def _counts(counters) -> dict:
     return {name: getattr(obj, attr) for name, obj, attr in counters}
 
 
+@graphs.serialized
 def run(problem, cfg: Optional[PTConfig] = None,
         generator: Optional[torch.Generator] = None,
         ladder_override: Optional[np.ndarray] = None,

@@ -218,6 +218,7 @@ def _ckpt_tree(state: SAState, generator: torch.Generator, hists: dict,
             "sweeps_done": np.int64(sweeps_done)}
 
 
+@graphs.serialized
 def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
            generator: Optional[torch.Generator] = None,
            init_spins: Optional[torch.Tensor] = None,
@@ -385,6 +386,7 @@ def _result(problem, config, engine, state, launches0, hists, sweeps_done,
     return result
 
 
+@graphs.serialized
 def anneal_scan(problem: IsingProblem, config: Optional[SAConfig] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[SAState, dict]:

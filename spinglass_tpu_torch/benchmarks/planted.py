@@ -85,6 +85,7 @@ def instance_hash(inst: PlantedInstance) -> str:
     return h.hexdigest()
 
 
+@graphs.serialized
 def time_to_target(problem, target_energy: float, cfg=None,
                    rel_gap: float = 1e-3, max_sweeps: int = 20000,
                    generator=None, seeds=None) -> dict:

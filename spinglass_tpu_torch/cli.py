@@ -4,15 +4,16 @@ The counterpart of ``spinglass_tpu.cli``: ``solve``, ``ising`` and ``load``
 pose and solve problems, ``train-rl`` runs the RL training pipeline, and the
 operations commands ``benchmark`` (the standard suite,
 ``benchmarks/runner.py``), ``health`` (exit 1 when unhealthy), ``monitor``,
-``autoscale``, ``bench`` (one headline benchmark's JSON line) and
-``cache-stats`` run the deployment's checks. As in the JAX group, ``main``
+``autoscale``, ``bench`` (one headline benchmark's JSON line),
+``cache-stats`` and ``quality-gates`` (``benchmarks/quality_gates.py``) run
+the deployment's checks. As in the JAX group, ``main``
 serves /metrics from the process when SGT_METRICS_PORT is set
 (``utils.metrics_exporter.maybe_start_server_from_env``). The group takes
 ``--device cuda|cpu`` (default: the card, see
 ``core.problem.resolve_device``) where the JAX group takes ``--platform``.
 
-Not ported yet: ``quality-gates`` and the interactive shell (ROADMAP.md
-Queue 1). Every option of the JAX ``solve`` command runs:
+The interactive helper is ``cli_interactive.InteractiveOptimizer`` (a
+Python API, as in the JAX package). Every option of the JAX ``solve`` command runs:
 ``--tune-ladder`` (``pt.tune_ladder``), ``--cluster-moves`` (Swendsen-Wang
 in the PT super-step), ``--checkpoint-dir`` / ``--resume`` (both drivers)
 and ``--sweep-method sparse_compact``.
@@ -336,6 +337,31 @@ def bench_cmd(bench_path):
     from spinglass_tpu_torch.benchmarks import headline
 
     click.echo(json.dumps(headline.PATHS[bench_path]()))
+
+
+@main.command("quality-gates")
+@click.option("--output", "-o", default=None, help="write the JSON report")
+@click.option("--gates", default=None,
+              help="comma-separated subset of gates to run")
+@click.pass_context
+def quality_gates(ctx, output, gates):
+    """Run automated quality gates (reference run_quality_gates.py /
+    quality_gates_report_*.json) on the group's device."""
+    from spinglass_tpu_torch.benchmarks.quality_gates import run_quality_gates
+
+    names = gates.split(",") if gates else None
+    try:
+        rep = run_quality_gates(names, report_path=output,
+                                device=ctx.obj["device"])
+    except KeyError as exc:
+        raise click.BadParameter(str(exc), param_hint="--gates")
+    for g in rep["gates"]:
+        mark = "PASS" if g["passed"] else "FAIL"
+        click.echo(f"{mark} {g['name']}: {g['detail']}")
+    s = rep["summary"]
+    click.echo(f"{s['passed']}/{s['total']} gates passed")
+    if s["failed"]:
+        sys.exit(1)
 
 
 @main.command("cache-stats")

@@ -26,6 +26,15 @@ device draw writes its static tensor from a device generator seeded by the
 same host draw as in the eager loop. The host generator is consumed in the
 eager loop's order, so a replayed run draws the eager run's numbers. Outside
 a tape the functions draw directly, as the eager loop does.
+
+Ranks (``distributed/``): every rank of a group holds the same host
+generator and makes the same host draws. A ``ShardStream`` is that
+generator seen from one rank: a kernel seed is folded with the rank
+(``fold_seed``; rank 0 keeps it, so a one-rank group draws the one-device
+stream, as JAX's ``fold_in`` of the device index makes each device's
+stream), and a device draw is made at the group's width along the replica
+axis, of which the rank takes its own slice (``SlicedGenerator``): the
+plain sweeps of W ranks draw what one device draws for all replicas.
 """
 
 from __future__ import annotations
@@ -38,14 +47,54 @@ import torch
 _TAPE: Optional["RandomTape"] = None   # the tape the running step draws through
 
 
+_SEED_MASK = 2 ** 62 - 1
+# odd 62-bit step between the ranks' seeds (the golden ratio's bits)
+_RANK_STEP = 0x9E3779B97F4A7C15 & _SEED_MASK
+
+
+class ShardStream:
+    """A host generator seen from rank ``rank`` of ``world`` (see the
+    module docstring). ``axis`` is the replica axis of the draws made
+    through it: a draw of local shape s is made at s with s[axis] * world
+    and rank's slice of that axis is kept. The draw functions here take it
+    wherever they take a host generator."""
+
+    def __init__(self, generator: torch.Generator, rank: int, world: int,
+                 axis: int = 0):
+        if isinstance(generator, ShardStream):
+            generator = generator.generator
+        self.generator, self.rank, self.world, self.axis = (
+            generator, int(rank), int(world), int(axis))
+
+    @property
+    def device(self):
+        return self.generator.device
+
+
+def fold_seed(seed, rank: int):
+    """Kernel seed ``seed`` (an int, or a seed slot) of rank ``rank``:
+    rank 0 keeps it; a slot gives a new one-element int64 tensor on its
+    device, computed there (inside a captured step, at every replay)."""
+    if rank == 0:
+        return seed
+    step = (rank * _RANK_STEP) & _SEED_MASK
+    if isinstance(seed, torch.Tensor):
+        return torch.bitwise_and(seed + step, _SEED_MASK)
+    return (int(seed) + step) & _SEED_MASK
+
+
 def host_seed(generator: torch.Generator) -> int:
     """One 62-bit seed from a host generator (no device sync)."""
+    if isinstance(generator, ShardStream):
+        generator = generator.generator
     return int(torch.randint(0, 2 ** 62, (1,), generator=generator))
 
 
 def draw_seed(generator: torch.Generator):
     """One kernel seed from a host generator: an int, or a seed slot while a
-    tape is active."""
+    tape is active. From a ``ShardStream``, the rank's fold of it."""
+    if isinstance(generator, ShardStream):
+        return fold_seed(draw_seed(generator.generator), generator.rank)
     if _TAPE is not None:
         return _TAPE.seed(generator)
     return host_seed(generator)
@@ -56,6 +105,11 @@ def draw_seeds(generator: torch.Generator, n: int):
     ``draw_seed``: a list of ints, or while a tape is active a [n] view of
     its seed buffer (n consecutive slots, one per problem of a stacked
     launch)."""
+    if isinstance(generator, ShardStream):
+        seeds = draw_seeds(generator.generator, n)
+        if isinstance(seeds, list):
+            return [fold_seed(x, generator.rank) for x in seeds]
+        return fold_seed(seeds, generator.rank)
     if _TAPE is not None:
         return _TAPE.seed_block(generator, n)
     return [host_seed(generator) for _ in range(n)]
@@ -65,7 +119,14 @@ def device_generator(generator: torch.Generator, device):
     """A generator on ``device`` seeded by one draw of the host
     ``generator``: what it draws never crosses from the host. Draw from it
     with ``rand``, ``randn``, ``randperm`` or ``random_bits``, which also
-    take a tape's generators."""
+    take a tape's generators. From a ``ShardStream``, a
+    ``SlicedGenerator`` over it."""
+    if isinstance(generator, ShardStream):
+        inner = device_generator(generator.generator, device)
+        if generator.world == 1:
+            return inner
+        return SlicedGenerator(inner, generator.rank, generator.world,
+                               generator.axis)
     if _TAPE is not None:
         return _TAPE.generator(generator, device)
     return torch.Generator(device=device).manual_seed(host_seed(generator))
@@ -86,9 +147,32 @@ _DTYPES = {"rand": torch.float32, "randn": torch.float32,
 
 
 def _draw(op: str, gen, size, device) -> torch.Tensor:
-    if isinstance(gen, TapeGenerator):
+    if isinstance(gen, ShardStream):   # a draw on the host generator itself
+        gen = (SlicedGenerator(gen.generator, gen.rank, gen.world, gen.axis)
+               if gen.world > 1 else gen.generator)
+    if isinstance(gen, (TapeGenerator, SlicedGenerator)):
         return gen.draw(op, size)
     return _DRAWS[op](size, gen, device, None)
+
+
+class SlicedGenerator:
+    """A device generator (or a tape's) seen from rank ``rank`` of
+    ``world``: a draw of shape s is made at s with s[axis] * world, and
+    the rank's slice of that axis is returned (contiguous). A permutation,
+    and a draw with no such axis, are the group's own: returned whole."""
+
+    def __init__(self, inner, rank: int, world: int, axis: int):
+        self.inner, self.rank, self.world, self.axis = inner, rank, world, axis
+        self.device = inner.device
+
+    def draw(self, op: str, size) -> torch.Tensor:
+        if op == "randperm" or len(size) <= self.axis:
+            return _draw(op, self.inner, size, self.device)
+        size = tuple(int(d) for d in size)
+        n = size[self.axis]
+        full = size[:self.axis] + (n * self.world,) + size[self.axis + 1:]
+        out = _draw(op, self.inner, full, self.device)
+        return out.narrow(self.axis, self.rank * n, n).contiguous()
 
 
 def rand(gen, shape, device) -> torch.Tensor:

@@ -138,19 +138,29 @@ def blocked_sweep(
         i1 = i0 + block_size
         hblk = torch.matmul(spins, problem.j[:, i0:i1]) + problem.h[i0:i1]
         jbb = problem.j[i0:i1, i0:i1]
-        thblk = accept_threshold(uniforms[:, i0:i1], beta[:, None], rule)
-        mblk = problem.active_mask[i0:i1] > 0
-        sblk = spins[:, i0:i1]  # view: updates land in ``spins``
-        for i in range(block_size):
-            s_j = sblk[:, i]
-            sf = s_j * hblk[:, i]
-            acc = (sf < thblk[:, i]) & mblk[i]
-            ds = torch.where(acc, -2.0 * s_j, 0.0)
-            sblk[:, i] = s_j + ds
-            hblk = hblk + ds[:, None] * jbb[i][None, :]
-            de_acc = de_acc + torch.where(acc, 2.0 * sf, 0.0)
-            cnt = cnt + acc.to(torch.int32)
+        de_acc, cnt = decide_block(
+            spins[:, i0:i1], hblk, jbb,
+            accept_threshold(uniforms[:, i0:i1], beta[:, None], rule),
+            problem.active_mask[i0:i1] > 0, de_acc, cnt)
     return spins, de_acc, cnt
+
+
+def decide_block(sblk, hblk, jbb, thblk, mblk, de_acc, cnt):
+    """The B sequential decisions of one block: spin i of the block flips
+    where s_i * f_i < th_i (and the mask allows), ``sblk`` [R, B] (a view of
+    the spins) is updated in place and the block's later fields move by
+    the flip through ``jbb`` [B, B]. Returns (dE sum, counts) with this
+    block's added."""
+    for i in range(sblk.shape[1]):
+        s_j = sblk[:, i]
+        sf = s_j * hblk[:, i]
+        acc = (sf < thblk[:, i]) & mblk[i]
+        ds = torch.where(acc, -2.0 * s_j, 0.0)
+        sblk[:, i] = s_j + ds
+        hblk = hblk + ds[:, None] * jbb[i][None, :]
+        de_acc = de_acc + torch.where(acc, 2.0 * sf, 0.0)
+        cnt = cnt + acc.to(torch.int32)
+    return de_acc, cnt
 
 
 # ---------------------------------------------------------------------------

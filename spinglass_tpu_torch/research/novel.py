@@ -154,6 +154,7 @@ def aqia_init(problem: IsingProblem, cfg: AQIAConfig,
                      generator=generator)
 
 
+@graphs.serialized
 def adaptive_quantum_inspired_annealing(
         problem: IsingProblem, cfg: Optional[AQIAConfig] = None,
         generator: Optional[torch.Generator] = None,
@@ -423,6 +424,7 @@ class LESDState:
     generator: torch.Generator
 
 
+@graphs.serialized
 def learning_enhanced_dynamics(problem: IsingProblem,
                                cfg: Optional[LESDConfig] = None,
                                generator: Optional[torch.Generator] = None,

@@ -174,6 +174,7 @@ class SQAConfig:
     seed: int = 42
 
 
+@graphs.serialized
 def simulated_quantum_annealing(problem: IsingProblem,
                                 cfg: Optional[SQAConfig] = None,
                                 generator: Optional[torch.Generator] = None,
@@ -252,6 +253,7 @@ class PIMCConfig:
     seed: int = 42
 
 
+@graphs.serialized
 def path_integral_monte_carlo(problem: IsingProblem,
                               cfg: Optional[PIMCConfig] = None,
                               generator: Optional[torch.Generator] = None,

@@ -166,7 +166,7 @@ def reset(problem, cfg: EnvConfig, generator: torch.Generator,
           engine=None) -> Tuple[EnvState, torch.Tensor]:
     """Fresh trajectories: random spins, initial temperature."""
     state = _fresh_state(problem, cfg, generator, engine)
-    return state, observe(problem, cfg, state)
+    return state, observe(problem, cfg, state, engine)
 
 
 @functools.lru_cache(maxsize=None)
@@ -286,7 +286,7 @@ def step(problem, cfg: EnvConfig, state: EnvState, action,
         spins=spins, energy=energy, best_energy=best,
         prev_energy=state.energy, temp=temp, acc_rate=acc_rate,
         step=new_step, plateau=plateau, reward_state=rstate, done=done)
-    return new_state, observe(problem, cfg, new_state), reward, done
+    return new_state, observe(problem, cfg, new_state, engine), reward, done
 
 
 def obs_dim(problem, cfg: EnvConfig) -> int:
@@ -299,16 +299,22 @@ def obs_dim(problem, cfg: EnvConfig) -> int:
                      f"got {cfg.obs_mode!r}")
 
 
-def observe(problem, cfg: EnvConfig, state: EnvState) -> torch.Tensor:
+def observe(problem, cfg: EnvConfig, state: EnvState,
+            engine=None) -> torch.Tensor:
     """[B, obs_dim] features. obs_mode="global": the 16 global features;
     obs_mode="spins": the spin vector (padding slots zeroed) followed by
     those 16. The energy z-score is over the env batch (population
-    statistics: the deviation divides by B)."""
+    statistics: the deviation divides by B); where the envs are sharded
+    over ranks (an ``engine`` with ``gather_envs``, ``distributed``'s
+    sharded engines) over all ranks' envs, as GSPMD reduces over the whole
+    sharded batch in the JAX package."""
     e0 = torch.abs(state.initial_energy) + 1e-8
     de = state.energy - state.prev_energy
     mag = energy_ops.magnetization(problem, state.spins)
-    zstat = (state.energy - torch.mean(state.energy)) / (
-        torch.std(state.energy, correction=0) + 1e-8)
+    batch = (engine.gather_envs(state.energy)
+             if hasattr(engine, "gather_envs") else state.energy)
+    zstat = (state.energy - torch.mean(batch)) / (
+        torch.std(batch, correction=0) + 1e-8)
     log_t = torch.log10(torch.clamp(state.temp, min=1e-8))
     feats = [
         state.energy / e0,
@@ -355,7 +361,7 @@ def auto_reset(problem, cfg: EnvConfig, state: EnvState,
         return torch.where(done.reshape((-1,) + (1,) * (s.ndim - 1)), f, s)
 
     mixed = pick(fresh, state)
-    return mixed, observe(problem, cfg, mixed)
+    return mixed, observe(problem, cfg, mixed, engine)
 
 
 def default_engine(problem, cfg: EnvConfig):

@@ -112,6 +112,7 @@ def episode_step(problem, env_cfg: EnvConfig, policy: Callable, engine):
 
 
 @torch.no_grad()
+@graphs.serialized
 def _episode(problem, env_cfg: EnvConfig, policy: Callable, engine,
              generator: torch.Generator, n: int, captured=None):
     """One fixed-length episode batch through ``policy``'s captured step:

@@ -427,6 +427,7 @@ class CapturedUpdates(graphs.CapturedLearner):
         self.state.update += 1
 
 
+@graphs.serialized
 def train(problem, env_cfg: Optional[EnvConfig] = None,
           cfg: Optional[PPOConfig] = None, verbose: bool = False,
           engine="auto", resume_state: Optional[TrainState] = None) -> dict:

@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spinglass_tpu_torch.anneal import graphs
 from spinglass_tpu_torch.core import topology
 from spinglass_tpu_torch.core.problem import IsingProblem
 from spinglass_tpu_torch.rl import dqn as dqn_mod
@@ -115,6 +116,7 @@ class RLTrainingPipeline:
         return [default_problem(n, self.cfg.problem_seed + i, self.device)
                 for i, n in enumerate(sizes)]
 
+    @graphs.serialized
     def train(self, verbose: bool = False) -> dict:
         if self.cfg.agent not in ("ppo", "dqn"):
             raise ValueError(self.cfg.agent)

@@ -1,7 +1,7 @@
 """The port's boundary: it runs without JAX and without spinglass_tpu (the
 captured drivers, the problem encoders, the command line, a checkpointed
 anneal, a PT super-step with cluster moves, a DQN step, the training
-pipeline and the gymnasium adapter included), it never launches (or builds) its CUDA kernels for CPU tensors, its builds
+pipeline, the gymnasium adapter and a one-rank sharded PT run included), it never launches (or builds) its CUDA kernels for CPU tensors, its builds
 target sm_90a and rebuild when a source or a header changes, and the smoke
 script refuses to report without a GPU."""
 
@@ -127,6 +127,15 @@ assert aq.algorithm == "aqia" and len(aq.energy_history) == 3
 agent = meta_rl.AdaptiveMetaRLAgent(meta_rl.MetaRLConfig(
     n_sweeps=2, n_replicas=4), device="cpu")
 assert agent.solve(p)[1]["source"] == "default"
+from spinglass_tpu_torch.distributed import multihost, pt_sharded
+assert multihost.initialize(device="cpu")["process_count"] == 1
+shr = pt_sharded.run(ell, pt.PTConfig(n_replicas=4, n_sweeps=5,
+                                      exchange_interval=5))
+multihost.shutdown()
+assert shr.algorithm == "pt_sharded/sparse_sortedx1", shr.algorithm
+assert shr.best_energy == ptr.best_energy
+from spinglass_tpu_torch.benchmarks.quality_gates import run_quality_gates
+assert run_quality_gates(["imports"], device="cpu")["summary"]["failed"] == 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "spinglass_tpu")
@@ -182,7 +191,15 @@ NEW_MODULES = (  # the batch, adaptive and operations slice
     "research/validation.py", "research/quantum.py",
     "research/novel.py", "research/pareto.py", "research/meta.py",
     "research/federated.py", "research/meta_rl.py", "research/unified.py",
-    "research/breakthrough.py", "research/scaling.py")
+    "research/breakthrough.py", "research/scaling.py",
+    # the distributed layer and the last operations modules
+    "distributed/multihost.py", "distributed/pt_sharded.py",
+    "distributed/model_sharded.py", "distributed/rl_sharded.py",
+    "distributed/_multihost_worker.py", "distributed/coordinator.py",
+    "distributed/workpool.py", "distributed/edge.py",
+    "benchmarks/multihost_scaling.py", "benchmarks/quality_gates.py",
+    "deployment/config.py", "deployment/global_infra.py",
+    "cli_interactive.py")
 
 
 @pytest.fixture(scope="module")
