@@ -1,10 +1,12 @@
 """Two checkouts' kernels timed in turns on one GPU.
 
     python -m spinglass_tpu_torch.benchmarks.kernel_turns PARENT_DIR [--sw]
+    python -m spinglass_tpu_torch.benchmarks.kernel_turns PARENT_DIR --dense
 
 times the dense sweep (``FusedSweep``, SK glass, beta = 1, Philox mode) at
 N=4096 x R=1024 with blocks 128 and 256 and at N=512 x R=256, its variants
-K5, K6 (2 and 4 chains) and K7 at N=4096 x R=1024, block 128, the sparse
+K5, K6 (2 and 4 chains) and K7 at N=4096 x R=1024, blocks 128 and 256
+(``--dense``: these alone), the sparse
 sweep (``SparseKernels.single_sweep``, the 10k bench graph) at R = 128, 256
 and 1024, the threshold kernel (``SparseKernels.thresholds``) at [10240,
 4096] and 1024, and the fused accept at [10240, 4096], 128 and 16 on int8
@@ -120,11 +122,12 @@ def sw_worker(timed, res) -> None:
             res["events"]["sw"][key] = start.elapsed_time(stop) * 1e3 / 20
 
 
-def worker(sw_only: bool = False) -> dict:
+def worker(sw_only: bool = False, dense_only: bool = False) -> dict:
     """Times this process's package (the first entry of sys.path): every
     kernel with its seed by value, and where the package has seed slots
     (``metropolis_cuda.seed_arg``) with the seed in device memory too; the
-    Swendsen-Wang sweep once (``sw_worker``). ``sw_only``: that alone."""
+    Swendsen-Wang sweep once (``sw_worker``). ``sw_only``: that alone;
+    ``dense_only``: the dense sweeps alone."""
     import numpy as np
     import torch
 
@@ -172,7 +175,7 @@ def worker(sw_only: bool = False) -> dict:
         out["value"] = {how: {"sw": {}} for how in ("events", "graph")}
         sw_worker(timed, out["value"])
     problems = {}
-    ell = headline.sparse_bench_problem()
+    ell = None if dense_only else headline.sparse_bench_problem()
     for mode in modes:
         gen = torch.Generator().manual_seed(1)
 
@@ -183,7 +186,7 @@ def worker(sw_only: bool = False) -> dict:
         res = out[mode] = {how: {"dense": {}, "sparse": {}, "thresholds": {},
                                  "accept": {}, "sw": {}}
                            for how in ("events", "graph")}
-        if mode == "value":
+        if mode == "value" and not dense_only:
             sw_worker(timed, res)
         for n, r, block in DENSE:
             if n not in problems:
@@ -194,13 +197,14 @@ def worker(sw_only: bool = False) -> dict:
             s = random_spins(gen, (r, p.n_padded),
                              p.active_mask).t().contiguous().cuda()
             beta = torch.ones(r, device="cuda")
-            flags = [("K1", {})] + (list(VARIANTS) if (n, block) == (4096, 128)
-                                    else [])
+            flags = [("K1", {})] + (list(VARIANTS) if n == 4096 else [])
             for label, kw in flags:
                 fused = mc.FusedSweep(p, block_size=block, **kw)
                 sd = seed(12345)
                 timed(lambda: fused(s, beta, sd), 30 if label == "K1" else 10,
                       res, "dense", f"{label} {n}x{r} B={block}")
+        if dense_only:
+            continue
         eng = SortedSparseTEngine(ell, accept_kernel="single")
         for r in SPARSE_R:
             s = eng.to_layout(random_spins(gen, (r, ell.n_padded),
@@ -241,9 +245,10 @@ def main(argv) -> int:
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     if argv[:1] == ["--worker"]:
-        print(json.dumps(worker(sw_only="--sw" in argv)))
+        print(json.dumps(worker(sw_only="--sw" in argv,
+                                dense_only="--dense" in argv)))
         return 0
-    extra = [a for a in argv[1:] if a == "--sw"]
+    extra = [a for a in argv[1:] if a in ("--sw", "--dense")]
     if len(argv) - len(extra) != 1 or not os.path.isdir(
             os.path.join(argv[0], "spinglass_tpu_torch")):
         print(__doc__, file=sys.stderr)

@@ -11,39 +11,457 @@
 //     H_pre(b+1) = J[rows of b+1, :] @ s + h       (s without block b's flips)
 //     block b decides on H(b), as in K1            (ds_b = its spin changes)
 //
-// Design. One thread block of 16 warps owns 8 replica columns, as K1 does.
-// Warps 8-15 are producers: they compute H_pre(b+1) with the shared field
-// phase (dense_sweep.cuh: field_partials) while warps 0-7, one per replica,
-// run block b's dependent decisions with K1's decide_block. The two groups use their own
-// named barriers (bar.sync 1 and 2, 256 threads each) and their own shared
-// scratch; H_pre is double-buffered in shared memory (the TPU kernel's
-// hpa/hpb). Then the whole block meets at __syncthreads (the handover).
+// What bounds it on the H100 (Np = 4096, R = 1024): the work of K1, 2 Np^2 R
+// = 3.44e10 FLOP per plane of J, 104 us on the bf16 tensor cores with three
+// planes (35 us with one); J once and the spins read and written are 30 us
+// at 3.35 TB/s. K1 spends ~58% of its time on the fields and ~23% on the B
+// dependent decisions of each row-block, one after the other; the pipeline
+// hides the decisions under the next row-block's fields.
 //
-// The race, and what the design does about it: the producers read every
-// spin row of the tile while the decision warps flip block b's rows. The
-// decision warps therefore keep block b's new spins in registers (and its
-// ds in shared memory) and store them only after the handover, when
-// H_pre(b+1) is complete. H_pre(b+1) then misses exactly block b's flips,
-// and all 512 threads repair it with J[b+1, b] @ ds_b (rows of J whose ds
-// is 0 are skipped) before the next round: the JAX algorithm, exactly.
+// Design: pipelined_cluster_kernel, on K1's cluster (cluster_sweep.cuh): a
+// 72-column replica tile per cluster of 8 blocks, each block keeping Np/8
+// spin rows as bf16, the fields from mma.sync on J's exact bf16 planes,
+// split-K over the cluster and reduced in block order. Each block runs two
+// groups of warps, in loops of their own:
+//   * warps 0..7 (fields) compute the partials of H_pre(b+1) while
+//   * warps 8..10 (decisions; 3 columns each, interleaved as in K6: 11
+//     warps keep K1's 168 registers a thread, 17 would not) decide block b
+//     with K1's in-block corrections, J's diagonal rows coming RS = 32
+//     (B = 256: 16) at a time through two cp.async buffers on the group's
+//     named barrier.
+//   * The repair, J[b+1, b] @ ds_b. At B = 128 the decision warps read J's
+//     rows 2B wide (the diagonal block and, by symmetry, the column of
+//     J[b+1, b]) and sum it flip by flip into registers (ds = 0 adds
+//     nothing), added to H_pre(b+1) when the next round starts. At
+//     B = 256, where those registers spill, the owner lane writes each ds
+//     (0, +-2: exact in bf16) to shared memory, and at the start of round
+//     b+1 the field warps add J's sub-diagonal block (split into its planes
+//     in registers) times ds_b (9 columns padded to 16) with mma.sync.
+//     Each block takes the faster of the two, measured both ways at
+//     4096 x 1024 (benchmarks/variant_parts.py, PERF.md section 6).
+//   * The race: the field warps read every spin row of the tile while the
+//     decisions flip block b's rows, so the decision warps keep block b's
+//     new spins in registers until a cluster barrier says that every
+//     block's H_pre(b+1) partials are in place; only then do they store
+//     them to the owners' shared memory (and out). H_pre(b+1) then misses
+//     exactly block b's flips, which the repair restores.
+// One round: H(b) (reduce, repair); cluster barrier (P(b) read, block
+// b-1's spins stored); the fields of b+1 beside the thresholds and the
+// decisions of b; cluster barrier; the stores. Two cluster barriers per
+// row-block, as K1. Shared memory: K1's, the J rows as above and (B = 256)
+// the ds operand, so the cluster kernel takes n_pad up to 6784 at B = 128
+// and 5632 at B = 256 (metropolis_cuda.pipelined_tile).
 //
-// What bounds it on the H100: as K1, the field phase streams all of J per
-// 8-column tile (8.6 GB from L2 per sweep at Np=4096, R=1024); the pipeline
-// can hide at most the decision phase (~5% of K1), and the 512-thread block
-// caps each thread at 128 registers, so the producers unroll 4 deep where
-// K1 unrolls 16.
+// Beyond that the wrapper asks for cluster = 1: the first version's
+// one-block float32 kernel, pipelined_kernel below. One thread block of 16
+// warps owns 8 replica columns: warps 8-15 compute H_pre(b+1) with the
+// shared float32 field phase (dense_sweep.cuh: field_partials) while warps
+// 0-7, one per replica, decide block b with K1's decide_block, on named
+// barriers of their own, H_pre double-buffered in shared memory; block b's
+// spins wait in registers for the handover (__syncthreads), and all 512
+// threads repair H_pre(b+1) with J[b+1, b] @ ds_b. It streams all of J per
+// 8-column tile from L2.
 //
 // Randomness and masks as in K1: Philox4x32-10, counter (spin, replica),
 // unless u is given; rows with mask == 0 get u = 2; columns beyond R never
-// flip and are never stored.
+// flip and are never stored. Precision: on the cluster every product is
+// exact and every sum float32 in an order fixed per launch shape; the repair
+// sums in the tensor core's order where K1 corrects flip by flip, so on
+// Gaussian couplings the fields differ from K1's and the twin's in their
+// last bits (on +-J with h on a dyadic grid every sum is exact: bitwise
+// equal to K1 and the twin).
 
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_sweep.cuh"
 #include "dense_sweep.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+// ---- the cluster kernel ------------------------------------------------
+constexpr int CS = sgt::kCS;
+constexpr int CPB = sgt::kCPB;
+constexpr int CRT = sgt::kRT;                  // 72 replica columns
+constexpr int DEC_WARPS = 3;                   // decision warps per block
+constexpr int NC = CPB / DEC_WARPS;            // columns per decision warp
+constexpr int DEC_THREADS = 32 * DEC_WARPS;
+constexpr int FIELD_THREADS = 32 * sgt::kMmaWarps;
+constexpr int CL_THREADS = FIELD_THREADS + DEC_THREADS;  // 352
+using ChooserSync = sgt::GroupSync<1, DEC_THREADS>;
+using FieldSync = sgt::GroupSync<2, FIELD_THREADS>;
+
+// Where the repair J[b+1, b] @ ds_b runs: flip by flip in the decision
+// warps' registers at B = 128, on the tensor cores by the field warps at
+// B = 256, where those registers spill (the faster at each block;
+// benchmarks/variant_parts.py).
+__host__ __device__ constexpr bool mma_repair(int B) { return B == 256; }
+
+// J rows per cp.async stage of the decisions; each 2B floats wide where the
+// decision warps repair (the diagonal block and, by symmetry, the column
+// of J[b+1, b]), else B
+__host__ __device__ constexpr int stage_rows(int B) {
+  return B == 256 ? 16 : 32;
+}
+__host__ __device__ constexpr int stage_width(int B) {
+  return mma_repair(B) ? B : 2 * B;
+}
+
+// 32-bit words per column of the tensor-core repair's ds operand: B / 2
+// bf16 pairs, padded to 8 mod 32 as the spins are
+__host__ __device__ constexpr int ds_stride_words(int B) {
+  return sgt::spin_stride_words(B);
+}
+
+__host__ __device__ constexpr size_t pipe_smem_bytes(int n_pad, int B) {
+  return sgt::cluster_spin_bytes(n_pad)                     // spins, bf16
+         + (size_t)CRT * B * 4                              // part[CS][B][CPB]
+         + (size_t)2 * stage_rows(B) * stage_width(B) * 4   // J rows, 2 bufs
+         + (size_t)B * CPB * 4                              // fields [B][CPB]
+         + (mma_repair(B) ? (size_t)16 * ds_stride_words(B) * 4 : 0);  // ds
+}
+
+// The B dependent decisions of the row-block at i0 for one decision warp's
+// NC columns (K1's decide_rows at NC chains): lane l holds the fields,
+// spins and thresholds of block rows l, l + 32, ...; for each row the owner
+// lane decides column 0, 1, 2 in turn, a shuffle per column broadcasts ds,
+// and every lane corrects its rows of each column with J's row, read from
+// shared memory before the decision is known. The repair of the next
+// block's fields (NEXT: there is one): at B = 128 every lane sums
+// J[i0 + B + l + 32k, i0 + i] ds_i (J's row i beyond the diagonal block,
+// by symmetry) into cn; at B = 256 the owner lane writes ds (0, +-2:
+// exact in bf16) to the column's row of ds_h, the tensor-core repair's
+// operand. J's rows come RS at a time through two cp.async buffers; the
+// caller has started the copy of the first RS (stage_pipe_rows).
+template <int B, bool NEXT>
+__device__ __forceinline__ void stage_pipe_rows(const float* __restrict__ J,
+                                                int n_pad, int row0, int i0,
+                                                int dt, float* dst) {
+  constexpr bool WIDE = !mma_repair(B) && NEXT;
+  sgt::stage_rows_async<WIDE ? 2 * B : B, stage_rows(B), DEC_THREADS,
+                        stage_width(B)>(J, n_pad, row0, i0, dt, dst);
+}
+
+template <int B, bool NEXT>
+__device__ __forceinline__ void decide_pipe(
+    const float* __restrict__ J, int n_pad, int i0, int dt, float* jst,
+    __nv_bfloat16* ds_h, int dcol, float (&f)[NC][B / 32],
+    float (&s)[NC][B / 32], const float (&th)[NC][B / 32],
+    float (&cn)[NC][B / 32], float (&de_acc)[NC], int (&cnt_acc)[NC]) {
+  constexpr int FPL = B / 32, RS = stage_rows(B), W = stage_width(B);
+  constexpr int NST = B / RS, DSH = 2 * ds_stride_words(B);
+  constexpr bool CN = !mma_repair(B) && NEXT;
+  // rows decided per unrolled step: at B = 256, 8 steps hoist 64 loads of
+  // J and spill the 168 registers of a thread
+  constexpr int QU = B == 256 ? 2 : 8;
+  const int lane = dt & 31;
+#pragma unroll
+  for (int st = 0; st < NST; ++st) {
+    sgt::cp_async_wait_all();
+    ChooserSync()();  // rows RS st.. are in place; the other buffer is free
+    if (st + 1 < NST)
+      stage_pipe_rows<B, NEXT>(J, n_pad, i0 + RS * (st + 1), i0, dt,
+                               jst + ((st + 1) & 1) * RS * W);
+    const int t0 = st * RS / 32;  // the owner lanes' slot
+    const float* jb = jst + (st & 1) * RS * W + lane;
+#pragma unroll (QU)
+    for (int q = 0; q < RS; ++q) {
+      const int src = st * RS % 32 + q;
+      float jv[FPL], jn[FPL];
+#pragma unroll
+      for (int k = 0; k < FPL; ++k) jv[k] = jb[q * W + 32 * k];
+      if (CN) {
+#pragma unroll
+        for (int k = 0; k < FPL; ++k) jn[k] = jb[q * W + B + 32 * k];
+      }
+      float dsb[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float sv = s[c][t0], fv = f[c][t0];
+        const bool accept = sv * fv < th[c][t0];
+        const float ds = accept ? -2.f * sv : 0.f;
+        dsb[c] = __shfl_sync(sgt::kFull, ds, src);
+        if (lane == src) {
+          s[c][t0] = sv + ds;
+          de_acc[c] -= ds * fv;
+          cnt_acc[c] += accept ? 1 : 0;
+          if (mma_repair(B) && NEXT)
+            ds_h[(dcol + c) * DSH + 32 * t0 + src] = __float2bfloat16_rn(ds);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int k = 0; k < FPL; ++k) f[c][k] = fmaf(jv[k], dsb[c], f[c][k]);
+      if (CN) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int k = 0; k < FPL; ++k)
+            cn[c][k] = fmaf(jn[k], dsb[c], cn[c][k]);
+      }
+    }
+  }
+}
+
+// The spins and thresholds of the decision warp's NC columns at block rows
+// lane, lane + 32, ... of the row-block at i0.
+template <int B, int RULE>
+__device__ __forceinline__ void draw_states(
+    const float* spins, const float* __restrict__ u,
+    const float* __restrict__ mask, int i0, int lane, const int (&col)[NC],
+    const bool (&live)[NC], int R, uint32_t k0, uint32_t k1,
+    const float (&nib)[NC], float (&s)[NC][B / 32], float (&th)[NC][B / 32]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int k = 0; k < B / 32; ++k)
+      sgt::spin_state<RULE>(spins, u, mask, i0 + lane + 32 * k, col[c],
+                            live[c], R, k0, k1, nib[c], s[c][k], th[c][k]);
+}
+
+// The repair of the row-block at i0 (b >= 1) on the tensor cores, by one of
+// the 8 field warps: h_blk[k][c] += sum_i J[i0 + k, i0 - B + i] ds[i][c]
+// for the warp's 16-row tiles, ds the previous block's flips of this
+// block's 9 columns (16 with zeros). Per k-step the planes' exact
+// products are chained in the tensor core from 0; the k-steps' sums are
+// added in float32, then to the field.
+template <int B, int PLANES>
+__device__ __forceinline__ void repair_fields(const float* __restrict__ J,
+                                              int n_pad, int i0, int warp,
+                                              int lane, const uint32_t* ds_w,
+                                              float* h_blk) {
+  // k-steps per batch of loads, one batch ahead (8 float4s a thread)
+  constexpr int MT = B / 128, KB = 4 / MT, NKS = B / 16;
+  constexpr int DSW = ds_stride_words(B);
+  const int g = lane >> 2, t = lane & 3;
+  const float* jbase =
+      J + (size_t)(i0 + 16 * MT * warp + g) * n_pad + (i0 - B) + 4 * t;
+  float acc[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  float4 cur[KB][MT][2], nxt[KB][MT][2];
+  sgt::load_batch<KB, MT>(cur, jbase, n_pad, 0, NKS);
+#pragma unroll 1
+  for (int ks = 0; ks < NKS; ks += KB) {
+    sgt::load_batch<KB, MT>(nxt, jbase, n_pad, ks + KB, NKS);
+#pragma unroll
+    for (int ku = 0; ku < KB; ++ku) {
+      uint2 bf[2];  // ds of rows 16 (ks + ku) + 4t .. + 3
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        bf[nt] = *reinterpret_cast<const uint2*>(
+            ds_w + (8 * nt + g) * DSW + 8 * (ks + ku) + 2 * t);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t ah[4], am[4], al[4];
+        sgt::split_tile<PLANES>(cur[ku][mt][0], cur[ku][mt][1], ah, am, al);
+        float d[2][4];
+        sgt::plane_products<PLANES, 2>(d, ah, am, al, bf);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] += d[nt][q];
+      }
+    }
+#pragma unroll
+    for (int ku = 0; ku < KB; ++ku)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) cur[ku][mt][hf] = nxt[ku][mt][hf];
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = 16 * (MT * warp + mt) + g + 8 * (q >> 1);
+        const int ct = 8 * nt + 2 * t + (q & 1);
+        if (ct < CPB) h_blk[row * CPB + ct] += acc[mt][nt][q];
+      }
+}
+
+template <int B, int RULE, int PLANES>
+__global__ void __launch_bounds__(CL_THREADS, 1)
+pipelined_cluster_kernel(const float* __restrict__ J,
+                         const float* __restrict__ h,
+                         const float* __restrict__ mask, float* spins,
+                         const float* __restrict__ beta,
+                         const float* __restrict__ u, uint32_t k0, uint32_t k1,
+                         const unsigned long long* __restrict__ seed_ptr,
+                         float* __restrict__ de_out, int* __restrict__ cnt_out,
+                         int n_pad, int R) {
+  sgt::device_seed(seed_ptr, k0, k1);
+  constexpr int FPL = B / 32;
+  extern __shared__ __align__(16) unsigned char cluster_smem[];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tile = (int)blockIdx.x / CS, n_tiles = (int)gridDim.x / CS;
+  const int rpb = n_pad / CS;  // spin rows this block keeps
+  const int sw = sgt::spin_stride_words(rpb);
+  uint32_t* spin_w = reinterpret_cast<uint32_t*>(cluster_smem);
+  __nv_bfloat16* spin_h = reinterpret_cast<__nv_bfloat16*>(cluster_smem);
+  float* part = reinterpret_cast<float*>(cluster_smem + (size_t)CRT * sw * 4);
+  float* jst = part + CRT * B;  // [2][RS][stage_width(B)]
+  float* h_blk = jst + 2 * stage_rows(B) * stage_width(B);        // [B][CPB]
+  uint32_t* ds_w = reinterpret_cast<uint32_t*>(h_blk + B * CPB);  // [16][.]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int r0 = tile * CRT;
+  const int nb = n_pad / B;
+  if (mma_repair(B))
+    for (int e = tid; e < 16 * ds_stride_words(B); e += CL_THREADS)
+      ds_w[e] = 0u;
+  sgt::load_tile_spins<CL_THREADS>(spins, spin_h, sw, rank, rpb, r0, R, tid);
+  __syncthreads();
+
+  // The two groups run loops of their own (so that neither holds the
+  // other's registers), meeting at the same barriers in the same order.
+  if (warp < sgt::kMmaWarps) {
+    // ---- the field warps: P(b+1), the partials of H_pre(b+1), in round b
+    sgt::cluster_field_partials<B, PLANES>(J, n_pad, 0, rank, rpb, warp, lane,
+                                           spin_w, sw, part);
+    cluster.sync();
+    for (int b = 0; b < nb; ++b) {
+      // H(b) of this block's columns: H_pre(b), then J[b, b-1] @ ds_{b-1}
+      sgt::cluster_reduce_fields<B, FIELD_THREADS>(cluster, part, rank, h,
+                                                   b * B, tid, h_blk);
+      if constexpr (mma_repair(B)) {
+        if (b > 0) {
+          FieldSync()();  // h_blk complete
+          repair_fields<B, PLANES>(J, n_pad, b * B, warp, lane, ds_w, h_blk);
+        }
+      }
+      __syncthreads();
+      cluster.sync();  // P(b) read everywhere; block b-1's spins in place
+      if (b + 1 < nb)
+        sgt::cluster_field_partials<B, PLANES>(J, n_pad, (b + 1) * B, rank,
+                                               rpb, warp, lane, spin_w, sw,
+                                               part);
+      cluster.sync();  // every block's P(b+1) is in place
+    }
+    cluster.sync();
+    return;
+  }
+
+  // ---- the decision warps: block b in round b --------------------------
+  const int dw = warp - sgt::kMmaWarps;      // 0..2
+  const int dt = tid - 32 * sgt::kMmaWarps;  // the thread's index in the group
+  __nv_bfloat16* ds_h = reinterpret_cast<__nv_bfloat16*>(ds_w);
+  int own[NC], col[NC];  // the warp's columns: of the tile, of R
+  bool live[NC];
+  float nib[NC], de_acc[NC];
+  int cnt_acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    own[c] = rank * CPB + dw * NC + c;
+    col[c] = r0 + own[c];
+    live[c] = col[c] < R;
+    nib[c] = live[c] ? -0.5f / beta[col[c]] : 0.f;
+    de_acc[c] = 0.f;
+    cnt_acc[c] = 0;
+  }
+  float cn[NC][FPL];  // B = 128: the repair of the next block's fields
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int k = 0; k < FPL; ++k) cn[c][k] = 0.f;
+  cluster.sync();  // P(0) in place
+  for (int b = 0; b < nb; ++b) {
+    const int i0 = b * B;
+    const bool next = b + 1 < nb;
+    // ---- (0) the decisions' first rows of J; (one cluster in turn) the
+    // slice of J that H_pre(b+2) multiplies, into L2
+    if (next)
+      stage_pipe_rows<B, true>(J, n_pad, i0, i0, dt, jst);
+    else
+      stage_pipe_rows<B, false>(J, n_pad, i0, i0, dt, jst);
+    if (b + 2 < nb && tile == b % n_tiles)
+      sgt::prefetch_rows_l2<B, DEC_THREADS>(J, n_pad, i0 + 2 * B, rank, rpb,
+                                            dt);
+    // ---- (1) the field warps make H(b) of this block's columns ---------
+    float f[NC][FPL], s[NC][FPL], th[NC][FPL];
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int k = 0; k < FPL; ++k) {
+        f[c][k] = h_blk[(lane + 32 * k) * CPB + dw * NC + c];
+        if (!mma_repair(B)) {
+          f[c][k] += cn[c][k];
+          cn[c][k] = 0.f;
+        }
+      }
+    cluster.sync();  // P(b) read everywhere; block b-1's spins in place
+
+    // ---- (2) block b's spins, thresholds and decisions beside the fields
+    // of b+1 (drawn in (1), the thresholds outlast the reduction and the
+    // repair: PERF.md section 6)
+    draw_states<B, RULE>(spins, u, mask, i0, lane, col, live, R, k0, k1, nib,
+                         s, th);
+    if (next)
+      decide_pipe<B, true>(J, n_pad, i0, dt, jst, ds_h, dw * NC, f, s, th, cn,
+                           de_acc, cnt_acc);
+    else
+      decide_pipe<B, false>(J, n_pad, i0, dt, jst, ds_h, dw * NC, f, s, th,
+                            cn, de_acc, cnt_acc);
+    cluster.sync();  // every block's P(b+1) is in place
+
+    // ---- (3) block b's new spins: the owners' shared memory, and out ---
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int k = 0; k < FPL; ++k) {
+        const int row = i0 + lane + 32 * k;
+        sgt::store_owner_spin(cluster, spin_h, sw, rpb, own[c], row, s[c][k]);
+        if (live[c]) spins[(size_t)row * R + col[c]] = s[c][k];
+      }
+  }
+  cluster.sync();  // the last stores are done; nobody exits early
+  sgt::store_totals<NC>(de_acc, cnt_acc, col, R, de_out, cnt_out);
+}
+
+template <int B, int RULE, int PLANES>
+cudaError_t launch_cluster(cudaStream_t stream, const float* J, const float* h,
+                           const float* mask, float* spins, const float* beta,
+                           const float* u, uint32_t k0, uint32_t k1,
+                           const unsigned long long* seed_ptr, float* de,
+                           int* cnt, int n_pad, int R) {
+  static size_t allowed = 0;
+  return sgt::launch_clusters(pipelined_cluster_kernel<B, RULE, PLANES>, R, 1,
+                              CL_THREADS, pipe_smem_bytes(n_pad, B), allowed,
+                              stream, nullptr, J, h, mask, spins, beta, u, k0,
+                              k1, seed_ptr, de, cnt, n_pad, R);
+}
+
+template <int B>
+cudaError_t dispatch_cluster(int rule, int planes, cudaStream_t stream,
+                             const float* J, const float* h,
+                             const float* mask, float* spins,
+                             const float* beta, const float* u, uint32_t k0,
+                             uint32_t k1, const unsigned long long* seed_ptr,
+                             float* de, int* cnt, int n_pad, int R) {
+  auto fn = rule == 0
+      ? (planes == 1 ? launch_cluster<B, 0, 1> : launch_cluster<B, 0, 3>)
+      : (planes == 1 ? launch_cluster<B, 1, 1> : launch_cluster<B, 1, 3>);
+  return fn(stream, J, h, mask, spins, beta, u, k0, k1, seed_ptr, de, cnt,
+            n_pad, R);
+}
+
+// ---- the one-block float32 kernel (cluster = 1) ------------------------
 constexpr int RT = 8;            // replica columns per thread block
 constexpr int GROUP = 256;       // threads per group (8 warps)
 constexpr int THREADS = 2 * GROUP;
@@ -168,21 +586,30 @@ int launch(int rule, dim3 grid, cudaStream_t stream, const float* J,
 extern "C" {
 
 // One sweep on `stream`; the arguments of sgt_metropolis_sweep (K1, with
-// seed_ptr). Returns cudaGetLastError() after the launch.
+// seed_ptr): cluster == 8 runs the cluster kernel on `planes` (1 or 3) bf16
+// planes of J, cluster == 1 the one-block float32 kernel. Returns the
+// launch's CUDA error (0 on success).
 int sgt_metropolis_pipelined(const float* J, const float* h, const float* mask,
                              float* spins, const float* beta, const float* u,
                              unsigned long long seed,
                              const unsigned long long* seed_ptr, float* de,
-                             int* cnt, int n_pad, int R, int block_size, int rule,
-                             void* stream) {
+                             int* cnt, int n_pad, int R, int block_size,
+                             int rule, int planes, int cluster, void* stream) {
   if (R < 1 || n_pad < 128 || n_pad % 128 != 0 || n_pad % block_size != 0 ||
       rule < 0 || rule > 1 || reinterpret_cast<uintptr_t>(J) % 16 != 0 ||
-      (block_size != 128 && block_size != 256))
+      (block_size != 128 && block_size != 256) ||
+      (planes != 1 && planes != 3) || (cluster != 1 && cluster != CS))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((R + RT - 1) / RT);
   const uint32_t k0 = (uint32_t)(seed & 0xffffffffull);
   const uint32_t k1 = (uint32_t)(seed >> 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster == CS)
+    return (int)(block_size == 256
+        ? dispatch_cluster<256>(rule, planes, s, J, h, mask, spins, beta, u,
+                                k0, k1, seed_ptr, de, cnt, n_pad, R)
+        : dispatch_cluster<128>(rule, planes, s, J, h, mask, spins, beta, u,
+                                k0, k1, seed_ptr, de, cnt, n_pad, R));
+  const dim3 grid((R + RT - 1) / RT);
   const int err = block_size == 256
       ? launch<256>(rule, grid, s, J, h, mask, spins, beta, u, k0, k1,
                     seed_ptr, de, cnt, n_pad, R)
@@ -190,6 +617,11 @@ int sgt_metropolis_pipelined(const float* J, const float* h, const float* mask,
                     seed_ptr, de, cnt, n_pad, R);
   if (err != 0) return err;
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory per block of the cluster kernel at this shape.
+long long sgt_metropolis_pipelined_smem(int n_pad, int block_size) {
+  return (long long)pipe_smem_bytes(n_pad, block_size);
 }
 
 const char* sgt_cuda_error_string(int err) {

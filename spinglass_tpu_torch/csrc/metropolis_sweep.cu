@@ -25,7 +25,10 @@
 //
 // Design: cluster_sweep_kernel. A replica tile of RT = 72 columns is shared
 // by a thread-block cluster of CS = 8 blocks of 9 warps, so J is streamed
-// once per tile (15 times per sweep at R = 1024, 1.0 GB from L2).
+// once per tile (15 times per sweep at R = 1024, 1.0 GB from L2). Its
+// small pieces (the bf16 split, mma.sync, cp.async, the batched loads of
+// J) are in cluster_sweep.cuh, whose field phase, reduction and stores
+// repeat this kernel's code for the cluster kernels of K5 and K7.
 //   * Why 72. The card holds 15 clusters of 8 at once (132 SMs in GPCs of
 //     which one cannot hold two such clusters), so 1024 columns in tiles of
 //     64 would be 16 clusters and two waves, twice the time (measured:
@@ -99,99 +102,36 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_sweep.cuh"
 #include "dense_sweep.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CS = 8;              // thread blocks per cluster
-constexpr int CPB = 9;             // columns a block decides: one per warp
-constexpr int RT = CS * CPB;       // 72 replica columns per cluster
-constexpr int NTILE = RT / 8;      // MMA n-tiles of 8 columns
-constexpr int MMA_WARPS = 8;       // warps 0..7 multiply; all 9 decide
+constexpr int CS = sgt::kCS;       // thread blocks per cluster
+constexpr int CPB = sgt::kCPB;     // columns a block decides: one per warp
+constexpr int RT = sgt::kRT;       // 72 replica columns per cluster
+constexpr int NTILE = sgt::kNTILE; // MMA n-tiles of 8 columns
+constexpr int MMA_WARPS = sgt::kMmaWarps;  // warps 0..7 multiply; 9 decide
 constexpr int THREADS = 32 * CPB;  // 288
 constexpr int TILE_RT = 8;         // the one-block kernel's tile (cluster = 1)
 
-// 32-bit words between two columns of a block's spin slice of `rpb` rows:
-// rpb / 2 words of bf16 pairs, padded to 8 mod 32 so that the 64-bit
-// B-fragment loads of a half-warp (4 columns x 4 word pairs) hit 32
-// different banks.
-__host__ __device__ constexpr int spin_stride_words(int rpb) {
-  return rpb / 2 + (40 - (rpb / 2) % 32) % 32;
-}
+// The kernel below keeps its field phase, reduction and stores inline: the
+// same code as cluster_sweep.cuh's functions, which K5 and K7 call, but
+// called through them K1 measured 1-2% slower at B = 128 (its registers
+// spilled elsewhere; PERF.md section 6).
+using sgt::cp_async_wait_all;
+using sgt::load_batch;
+using sgt::mma_bf16;
+using sgt::spin_stride_words;
+using sgt::split_pair;
 
 __host__ __device__ constexpr size_t cluster_smem_bytes(int n_pad, int B) {
   return (size_t)RT * spin_stride_words(n_pad / CS) * 4  // spins, bf16
          + (size_t)RT * B * 4                            // part[CS][B][CPB]
          + (size_t)2 * 32 * B * 4                        // J rows, 2 buffers
          + (size_t)B * CPB * 4;                          // fields [B][CPB]
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);  // x low, y high
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ float bf16_low(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_high(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// bf16 planes of the pair (x, y): hi + mid + lo == the float32 values.
-template <int PLANES>
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
-                                           uint32_t& mid, uint32_t& lo) {
-  hi = pack_bf16(x, y);
-  if (PLANES == 3) {
-    const float rx = x - bf16_low(hi), ry = y - bf16_high(hi);
-    mid = pack_bf16(rx, ry);
-    lo = pack_bf16(rx - bf16_low(mid), ry - bf16_high(mid));
-  }
-}
-
-// d += A (16 x 16, row) * B (16 x 8, col), bf16 in, float32 out
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint2& b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
-  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// One batch of A operands: for each of KB k-steps from `ks` and each of the
-// warp's MT MMA tiles, the float4s of J at rows g and g + 8 (zeros past the
-// block's last k-step).
-template <int KB, int MT>
-__device__ __forceinline__ void load_batch(float4 (&dst)[KB][MT][2],
-                                           const float* __restrict__ jbase,
-                                           int n_pad, int ks, int nks) {
-#pragma unroll
-  for (int ku = 0; ku < KB; ++ku)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        dst[ku][mt][hf] =
-            ks + ku < nks
-                ? __ldg(reinterpret_cast<const float4*>(
-                      jbase + (size_t)(16 * mt + 8 * hf) * n_pad +
-                      16 * (ks + ku)))
-                : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // J[row0 + i, i0 .. i0 + B) for i = 0..31 into dst[32][B] with cp.async, as
@@ -201,10 +141,7 @@ template <int B>
 __device__ __forceinline__ void stage_rows_async(const float* __restrict__ J,
                                                  int n_pad, int row0, int i0,
                                                  int tid, float* dst) {
-  for (int e = tid; e < 32 * B / 4; e += THREADS)
-    cp_async16(dst + 4 * e, J + (size_t)(row0 + e / (B / 4)) * n_pad + i0 +
-                                4 * (e % (B / 4)));
-  cp_async_commit();
+  sgt::stage_rows_async<B, 32, THREADS>(J, n_pad, row0, i0, tid, dst);
 }
 
 // The B dependent decisions of the row-block at i0 for one warp's column:
@@ -460,27 +397,12 @@ struct SweepArgs {
 template <int B, int RULE, int PLANES, bool STACKED>
 cudaError_t launch_cluster_kernel(const SweepArgs& a, cudaStream_t stream,
                                   int* clusters) {
-  auto kernel = cluster_sweep_kernel<B, RULE, PLANES, STACKED>;
-  const size_t smem = cluster_smem_bytes(a.n_pad, B);
   static size_t allowed = 0;
-  const cudaError_t err = sgt::allow_smem(kernel, smem, allowed);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((a.R + RT - 1) / RT) * CS, a.problems);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (clusters) return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
-  return cudaLaunchKernelEx(&cfg, kernel, a.J, a.h, a.mask, a.spins, a.beta,
-                            a.u, a.k0, a.k1, a.seed_ptr, a.de, a.cnt,
-                            a.n_pad, a.R);
+  return sgt::launch_clusters(
+      cluster_sweep_kernel<B, RULE, PLANES, STACKED>, a.R, a.problems,
+      THREADS, cluster_smem_bytes(a.n_pad, B), allowed, stream, clusters,
+      a.J, a.h, a.mask, a.spins, a.beta, a.u, a.k0, a.k1, a.seed_ptr, a.de,
+      a.cnt, a.n_pad, a.R);
 }
 
 // One problem runs the unmoved kernel (see dense_sweep.cuh).

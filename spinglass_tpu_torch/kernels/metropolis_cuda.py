@@ -17,13 +17,20 @@ here that expresses the same algorithm:
   path's sweep;
 * K5 ``csrc/metropolis_pipelined.cu`` (``_make_kernel_pipe``), twin
   ``pipelined_sweep_reference``: block b+1's fields are computed before
-  block b's flips and repaired with ``J[b+1, b] @ ds_b``;
+  block b's flips and repaired with ``J[b+1, b] @ ds_b``; on the card K1's
+  cluster design with the fields and the decisions in warps of their own
+  (``pipelined_tile`` says which shapes; beyond them a one-block float32
+  kernel);
 * K6 ``csrc/metropolis_interleaved.cu`` (``_make_kernel_interleaved``), twin
   ``interleaved_sweep_reference``: the replicas split into chains with
   private fields, stepped in interleaved order;
 * K7 ``csrc/metropolis_folded.cu`` (``_make_kernel_folded``), twin
   ``folded_sweep_reference``: immediate corrections inside a micro-block,
-  then one delayed ``jbb_od[:, lo:hi] @ ds[lo:hi]`` update of the block.
+  then one delayed ``jbb_od[:, lo:hi] @ ds[lo:hi]`` update of the block;
+  on the card K1's cluster design, one thread per column deciding a
+  micro-block and the delayed update on the tensor cores (``folded_tile``;
+  beyond it a one-block float32 kernel). The four dense kernels compute
+  one function and share one bound (``dense_sweep_bound``).
 
 All are built by ``kernels/build.py``. ``FusedSweep`` picks the variant and
 runs its twin only for tensors on the CPU. For a CUDA tensor it launches the
@@ -79,6 +86,8 @@ INTERLEAVE_CHAINS = (2, 4)  # chains per warp K6 is built for
 J_DTYPES = ("float32", "bfloat16")
 CLUSTER_TILE = (72, 8)   # K1's cluster kernel: replica columns, thread blocks
 BLOCK_TILE = (8, 1)      # K1's one-block kernel
+PIPELINED_BLOCK_TILE = (8, 1)   # K5's one-block kernel
+FOLDED_BLOCK_TILE = (32, 1)     # K7's one-block kernel
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a thread block can use (H100)
 
 # kernel name -> the launches counted by every dense sweep object, those
@@ -262,17 +271,56 @@ def plane_fields(j: torch.Tensor, spins_t: torch.Tensor,
             + torch.matmul(hi, spins_t))
 
 
+def _padded_words(words: int) -> int:
+    """``words`` padded to 8 mod 32 (``spin_stride_words`` in
+    ``csrc/cluster_sweep.cuh``)."""
+    return words + (40 - words % 32) % 32
+
+
+def _cluster_spin_bytes(n_pad: int) -> int:
+    """A cluster block's n_pad / 8 spin rows of the 72-column tile as bf16,
+    each column padded to 8 mod 32 words (``csrc/cluster_sweep.cuh``)."""
+    rt, cluster = CLUSTER_TILE
+    return rt * _padded_words(n_pad // cluster // 2) * 4
+
+
 def cluster_smem_bytes(n_pad: int, block_size: int) -> int:
     """Dynamic shared memory per thread block of K1's cluster kernel (as
-    ``csrc/metropolis_sweep.cu`` lays it out): the block's n_pad / 8 spin
-    rows of the 72-column tile as bf16, each column padded to 8 mod 32
-    words, the partial fields, two buffers of 32 rows of J's diagonal block
-    and the block's fields."""
+    ``csrc/metropolis_sweep.cu`` lays it out): the block's spin rows, the
+    partial fields, two buffers of 32 rows of J's diagonal block and the
+    block's fields."""
     rt, cluster = CLUSTER_TILE
-    words = n_pad // cluster // 2
-    stride = words + (40 - words % 32) % 32
-    return (rt * stride * 4 + rt * block_size * 4 + 2 * 32 * block_size * 4
-            + block_size * (rt // cluster) * 4)
+    return (_cluster_spin_bytes(n_pad) + rt * block_size * 4
+            + 2 * 32 * block_size * 4 + block_size * (rt // cluster) * 4)
+
+
+def pipelined_smem_bytes(n_pad: int, block_size: int) -> int:
+    """Dynamic shared memory per thread block of K5's cluster kernel
+    (``csrc/metropolis_pipelined.cu``): K1's spins, partials and fields and
+    two buffers of J rows. At block 128, 32 rows 256 floats wide (the
+    diagonal block and the repair's block beside it, which the decision
+    warps sum flip by flip); at 256, 16 rows of the diagonal block and the
+    tensor-core repair's ds operand, 16 columns of 128 bf16 pairs,
+    padded."""
+    rt, cluster = CLUSTER_TILE
+    common = (_cluster_spin_bytes(n_pad) + rt * block_size * 4
+              + block_size * (rt // cluster) * 4)
+    if block_size == 128:
+        return common + 2 * 32 * 2 * block_size * 4
+    return (common + 2 * 16 * block_size * 4
+            + 16 * _padded_words(block_size // 2) * 4)
+
+
+def folded_smem_bytes(n_pad: int, block_size: int) -> int:
+    """Dynamic shared memory per thread block of K7's cluster kernel
+    (``csrc/metropolis_folded.cu``): the spin rows and partial fields as
+    K1's, the block's diagonal micro-blocks (32 x block floats), its fields,
+    spins and thresholds [block][9], and the delayed product's ds operand
+    (16 columns of 20 words)."""
+    rt, cluster = CLUSTER_TILE
+    return (_cluster_spin_bytes(n_pad) + rt * block_size * 4
+            + MICRO * block_size * 4 + 3 * block_size * (rt // cluster) * 4
+            + 16 * 20 * 4)
 
 
 def dense_tile(n_pad: int, block_size: int):
@@ -287,6 +335,64 @@ def dense_tile(n_pad: int, block_size: int):
     if cluster_smem_bytes(n_pad, block_size) <= SMEM_PER_BLOCK:
         return CLUSTER_TILE
     return BLOCK_TILE
+
+
+def pipelined_tile(n_pad: int, block_size: int):
+    """K5's tile at this shape: the cluster kernel (72, 8) while
+    ``pipelined_smem_bytes`` fits a thread block (n_pad up to 6784 at block
+    128, 5632 at 256), else the one-block float32 kernel, 8 columns a block
+    (``PIPELINED_BLOCK_TILE``). A dispatch by shape, as ``dense_tile``."""
+    if pipelined_smem_bytes(n_pad, block_size) <= SMEM_PER_BLOCK:
+        return CLUSTER_TILE
+    return PIPELINED_BLOCK_TILE
+
+
+def folded_tile(n_pad: int, block_size: int):
+    """K7's tile at this shape: the cluster kernel (72, 8) while
+    ``folded_smem_bytes`` fits a thread block (n_pad up to 8832 at block
+    128, 5248 at 256), else the one-block float32 kernel, 32 columns a
+    block (``FOLDED_BLOCK_TILE``)."""
+    if folded_smem_bytes(n_pad, block_size) <= SMEM_PER_BLOCK:
+        return CLUSTER_TILE
+    return FOLDED_BLOCK_TILE
+
+
+# kernel name -> its tile rule (K6 has one tile: 8 columns per chain)
+TILE_RULES = {KERNEL_NAME: dense_tile, PIPELINED_KERNEL: pipelined_tile,
+              FOLDED_KERNEL: folded_tile}
+
+
+def cluster_envelope(kernel_name: str, block_size: int) -> int:
+    """The largest n_pad (a multiple of ``block_size``) at which the named
+    kernel runs its cluster kernel; one block more runs the one-block
+    float32 kernel."""
+    rule = TILE_RULES[kernel_name]
+    n_pad = block_size
+    while rule(n_pad + block_size, block_size) == CLUSTER_TILE:
+        n_pad += block_size
+    return n_pad
+
+
+# published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
+# the bf16 tensor cores
+HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
+DENSE_KERNELS = (KERNEL_NAME, PIPELINED_KERNEL, INTERLEAVED_KERNEL,
+                 FOLDED_KERNEL)
+
+
+def dense_sweep_bound(kernel_name: str, n_pad: int, r: int, planes: int):
+    """(least milliseconds the card could take, "bytes" or "operations") for
+    one dense sweep at [n_pad, r] by any of K1, K5, K6 and K7: they compute
+    one function, so they share one bound, the work's. Bytes: J read once,
+    the spins read and written, h, mask, beta, dE and counts. Operations:
+    ``planes`` x 2 n_pad^2 r on the bf16 tensor cores (J's exact planes;
+    one where J is exact in bf16)."""
+    if kernel_name not in DENSE_KERNELS:
+        raise ValueError(f"{kernel_name} is not a dense sweep kernel")
+    nbytes = 4 * n_pad * n_pad + 8 * n_pad * r + 8 * n_pad + 12 * r
+    ops = planes * 2.0 * n_pad * n_pad * r
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
 def diag_blocks(j: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -466,8 +572,9 @@ def load_kernel(name: str = KERNEL_NAME) -> ctypes.CDLL:
 
     lib = build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    extra = ([i] if name in (INTERLEAVED_KERNEL, FOLDED_KERNEL)
-             else [i, i] if name == KERNEL_NAME else [])
+    # K6: chains; K1 and K5: planes, cluster; K7: micro, planes, cluster
+    extra = {INTERLEAVED_KERNEL: [i], FOLDED_KERNEL: [i, i, i]}.get(name,
+                                                                  [i, i])
     fn = getattr(lib, f"sgt_{name}")
     fn.argtypes = ([p, p, p, p, p, p, ctypes.c_ulonglong, p, p, p, i, i, i, i]
                    + extra + [p])
@@ -477,8 +584,10 @@ def load_kernel(name: str = KERNEL_NAME) -> ctypes.CDLL:
         lib.sgt_metropolis_sweep_stacked.restype = i
         lib.sgt_metropolis_sweep_clusters.argtypes = [i, i, i, i, p]
         lib.sgt_metropolis_sweep_clusters.restype = i
-        lib.sgt_metropolis_sweep_smem.argtypes = [i, i]
-        lib.sgt_metropolis_sweep_smem.restype = ctypes.c_longlong
+    if name != INTERLEAVED_KERNEL:  # the cluster kernel's shared memory
+        smem = getattr(lib, f"sgt_{name}_smem")
+        smem.argtypes = [i, i]
+        smem.restype = ctypes.c_longlong
     lib.sgt_cuda_error_string.argtypes = [i]
     lib.sgt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -504,8 +613,10 @@ class FusedSweep(_Counted):
     float32 values, diagonal blocks included), as the JAX package's
     ``FusedSweep(j_dtype=jnp.bfloat16)`` does. The spins must be +-1: K1
     keeps them as bf16 in shared memory. ``tile`` is ``dense_tile``'s
-    answer for this problem, and ``planes`` the number of bf16 planes of J
-    that K1's cluster kernel multiplies (counted once: at construction on
+    answer for this problem (``pipelined_tile``, ``folded_tile`` for K5 and
+    K7, which have cluster kernels of their own; K6's is 8 columns per
+    chain), and ``planes`` the number of bf16 planes of J that the cluster
+    kernels multiply (counted once: at construction on
     the card, at first use on the CPU). A problem whose J changes in place
     after the sweep is built (``research.quantum.TrotterProblem``) declares
     ``j_planes = 3``: a count taken from its first J could be 1, and a later
@@ -545,7 +656,6 @@ class FusedSweep(_Counted):
         # the couplings every kernel and twin of this sweep reads
         self.j = (problem.j if j_dtype == "float32"
                   else problem.j.bfloat16().to(problem.j.dtype))
-        self.tile = dense_tile(n_pad, block_size)
         # on the card the planes are counted now: a later sweep must not
         # wait for the device. A problem whose J is rewritten in place
         # between sweeps names its count (``j_planes``) instead
@@ -566,6 +676,9 @@ class FusedSweep(_Counted):
             self.kernel_name = INTERLEAVED_KERNEL
         else:
             self.kernel_name = KERNEL_NAME
+        self.tile = (TILE_RULES[self.kernel_name](n_pad, block_size)
+                     if self.kernel_name in TILE_RULES
+                     else (8 * self.interleave, 1))
         self.launches = 0  # kernel launches made by this instance
         self._lib = None  # built and bound at the first CUDA launch
 
@@ -636,14 +749,13 @@ class FusedSweep(_Counted):
         beta = self._beta(beta, r, dev)
         de = torch.empty(r, dtype=torch.float32, device=dev)
         cnt = torch.empty(r, dtype=torch.int32, device=dev)
+        # K6: its chains; K1, K5 and K7 (after K7's micro): the planes of J
+        # and the cluster size of the tile
         if self.interleave:
             extra = [self.interleave]
-        elif self.folded:
-            extra = [self.micro]
-        elif self.pipelined:
-            extra = []
-        else:  # K1: the planes of J and the cluster size of its tile
-            extra = [self.planes, self.tile[1]]
+        else:
+            extra = ([self.micro] if self.folded else []) + [self.planes,
+                                                              self.tile[1]]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = getattr(lib, f"sgt_{self.kernel_name}")(

@@ -216,34 +216,29 @@ def test_one_seed_k2_k3_path_k4_path(cuda, rule):
         assert torch.equal(de2, de3) and torch.equal(de3, de4)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("flags,r,rule,block", [
-    (flags, r, rule, block)
-    for flags in (dict(pipelined=True), dict(interleave=2),
-                  dict(interleave=4), dict(folded=True))
-    for r, rule, block in ((1, "metropolis", 128), (37, "glauber", 256),
-                           (256, "metropolis", 256), (256, "glauber", 128))])
-def test_dense_variants_match_twins_and_k1_bitwise(cuda, flags, r, rule, block):
-    """K5, K6 and K7 equal their own twins and K1 on +-J, in both
-    random-number modes: spins, dE and counts bit for bit."""
-    rng = np.random.default_rng(r)
-    j = topology.fully_connected(500, dist="binary", seed=3)
-    p = IsingProblem.from_dense(j, rng.integers(-8, 9, 500) / 4.0, device=cuda)
+def _variant_against_twin_and_k1(cuda, n, flags, r, rule, block, sweeps=3):
+    """``sweeps`` sweeps of the variant (host uniforms, then Philox) on a
+    +-J problem of n spins, each against its twin and K1 on the same
+    uniforms: spins, dE and counts bit for bit. Returns the variant."""
+    rng = np.random.default_rng(r + n)
+    j = topology.fully_connected(n, dist="binary", seed=3)
+    p = IsingProblem.from_dense(j, rng.integers(-8, 9, n) / 4.0, device=cuda)
+    n_pad = p.n_padded
     fused = MC.FusedSweep(p, block_size=block, rule=rule, **flags)
     flat = MC.FusedSweep(p, block_size=block, rule=rule)
-    s = torch.as_tensor(np.where(rng.random((512, r)) < 0.5, -1.0, 1.0),
+    s = torch.as_tensor(np.where(rng.random((n_pad, r)) < 0.5, -1.0, 1.0),
                         dtype=torch.float32, device=cuda)
-    s[500:] = 1.0
+    s[n:] = 1.0
     beta = torch.as_tensor(rng.uniform(0.1, 2.0, r), dtype=torch.float32,
                            device=cuda)
-    for k in range(3):
+    for k in range(sweeps):
         s_ref, s_k1 = s.clone(), s.clone()
-        if k < 2:
-            u = torch.rand(512, r, device=cuda)
+        if k < sweeps - 1:
+            u = torch.rand(n_pad, r, device=cuda)
             _, de, cnt = fused.sweep_with_uniforms(s, beta, u)
         else:
             _, de, cnt = fused(s, beta, 77 + k)
-            u = MC.philox_uniforms(77 + k, 512, r, device=cuda)
+            u = MC.philox_uniforms(77 + k, n_pad, r, device=cuda)
         _, de_p, cnt_p = fused.reference(s_ref, beta, u)
         _, de_1, cnt_1 = flat.sweep_with_uniforms(s_k1, beta, u)
         torch.cuda.synchronize()
@@ -251,7 +246,77 @@ def test_dense_variants_match_twins_and_k1_bitwise(cuda, flags, r, rule, block):
         assert torch.equal(de, de_p)
         assert torch.equal(s, s_k1) and torch.equal(cnt, cnt_1)
         assert torch.equal(de, de_1)
-    assert fused.launches == 3
+    assert fused.launches == sweeps
+    return fused
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags,r,rule,block", [
+    (flags, r, rule, block)
+    for flags in (dict(pipelined=True), dict(interleave=2),
+                  dict(interleave=4), dict(folded=True))
+    for r, rule, block in ((1, "metropolis", 128), (16, "glauber", 256),
+                           (72, "metropolis", 256), (73, "glauber", 128),
+                           (1024, "metropolis", 128), (1100, "glauber", 256))])
+def test_dense_variants_match_twins_and_k1_bitwise(cuda, flags, r, rule, block):
+    """K5, K6 and K7 equal their own twins and K1 on +-J, in both
+    random-number modes: spins, dE and counts bit for bit. R covers a part
+    of K5's and K7's 72-column tile, one tile, a second, 15 tiles (one wave
+    of clusters on the H100) and 16 (a second wave)."""
+    fused = _variant_against_twin_and_k1(cuda, 500, flags, r, rule, block)
+    if not flags.get("interleave"):
+        assert fused.tile == MC.CLUSTER_TILE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags,block,beyond", [
+    (flags, block, beyond)
+    for flags in (dict(pipelined=True), dict(folded=True))
+    for block in (128, 256) for beyond in (False, True)])
+def test_cluster_variants_at_their_envelope(cuda, flags, block, beyond):
+    """K5 and K7 at the largest n_pad their cluster kernels take, and one
+    block beyond it, where the one-block float32 kernels run: bitwise equal
+    to their twins and K1 (R = 73, two tiles)."""
+    name = MC.FusedSweep(IsingProblem.from_dense(np.zeros((8, 8)),
+                                                 device="cpu"),
+                         **flags).kernel_name
+    n = MC.cluster_envelope(name, block) + (block if beyond else 0)
+    fused = _variant_against_twin_and_k1(cuda, n, flags, 73, "metropolis",
+                                         block, sweeps=2)
+    assert (fused.tile == MC.CLUSTER_TILE) == (not beyond)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", [dict(pipelined=True), dict(folded=True)])
+def test_cluster_variants_anneal_like_k1(cuda, flags):
+    """The SK glass (N=4096, R=1024, Gaussian couplings: K5's repair and
+    K7's delayed update sum in another order than K1): 500 sweeps of sa's
+    schedule through the variant's engine keep the energy identity (1e-4
+    relative per 50-sweep resync) and end within 0.005 of K1's best E/N
+    through the same driver."""
+    import dataclasses
+
+    from spinglass_tpu_torch.anneal import sa
+    from spinglass_tpu_torch.anneal.engines import CudaFusedEngine
+
+    j = topology.fully_connected(4096, dist="gaussian", scale=1.0 / 64,
+                                 seed=42)
+    p = IsingProblem.from_dense(j, device=cuda)
+    cfg = sa.SAConfig(n_sweeps=500, n_replicas=1024)
+    best = []
+    for kw in ({}, flags):
+        engine = CudaFusedEngine(p, block_size=cfg.block_size, **kw)
+        state = sa.init_state(p, cfg, engine)
+        for _ in range(10):
+            for _ in range(50):
+                state = sa._one_sweep(p, cfg, engine, state)
+            exact = engine.energy(state.spins)
+            rel = ((state.energy - exact).abs() / exact.abs().clamp(min=1.0))
+            assert float(rel.max()) <= 1e-4
+            state = dataclasses.replace(state, energy=exact)
+        best.append(float(state.best_energy.min()) / 4096)
+        assert engine.launches[engine.fused.kernel_name] == 500
+    assert best[1] <= -0.72 and abs(best[1] - best[0]) <= 0.005, best
 
 
 @pytest.mark.gpu

@@ -327,13 +327,14 @@ def test_nvcc_command_targets_sm90a_and_build_dir_is_ignored():
     assert "spinglass_tpu_torch/build/" in ignored
     philox = os.path.join(build.CSRC_DIR, "philox.cuh")
     dense = os.path.join(build.CSRC_DIR, "dense_sweep.cuh")
-    for name, headers in ((MC.KERNEL_NAME, [dense, philox]),
+    cluster = os.path.join(build.CSRC_DIR, "cluster_sweep.cuh")
+    for name, headers in ((MC.KERNEL_NAME, [cluster, dense, philox]),
                           (SC.SWEEP_KERNEL, [philox]),
                           (SC.THRESHOLD_KERNEL, [philox]),
                           (SC.ACCEPT_KERNEL, [philox]),
-                          (MC.PIPELINED_KERNEL, [dense, philox]),
+                          (MC.PIPELINED_KERNEL, [cluster, dense, philox]),
                           (MC.INTERLEAVED_KERNEL, [dense, philox]),
-                          (MC.FOLDED_KERNEL, [dense, philox]),
+                          (MC.FOLDED_KERNEL, [cluster, dense, philox]),
                           (CC.KERNEL_NAME, [philox]),
                           (CC.BONDS_KERNEL, [philox])):
         src = os.path.join(build.CSRC_DIR, f"{name}.cu")

@@ -11,6 +11,10 @@ threshold agree. The JAX side runs its XLA reference, not Pallas interpret
 mode.
 """
 
+import contextlib
+import os
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +28,9 @@ from spinglass_tpu.kernels import metropolis_pallas as JMP  # noqa: E402
 from spinglass_tpu.kernels import sweeps as JK  # noqa: E402
 from spinglass_tpu_torch.anneal import sa  # noqa: E402
 from spinglass_tpu_torch.anneal.engines import CudaFusedEngine  # noqa: E402
+from spinglass_tpu_torch.benchmarks import variant_parts as VP  # noqa: E402
 from spinglass_tpu_torch.core.convert import problem_from_numpy  # noqa: E402
+from spinglass_tpu_torch.core.problem import IsingProblem  # noqa: E402
 from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.kernels import metropolis_cuda as MC  # noqa: E402
 
@@ -194,3 +200,198 @@ def test_variant_engine_in_sa_driver_matches_flat(variant):
     for k in ("spins", "energy", "best_energy", "best_spins", "acc_rate"):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
     assert torch.equal(a.sched.temp, b.sched.temp)
+
+
+# ---- the cluster kernels of K5 and K7: shape rule, launch arguments, bound --
+
+# kernel -> (tile rule, shared-memory function, one-block tile)
+CLUSTER_VARIANTS = {
+    MC.KERNEL_NAME: (MC.dense_tile, MC.cluster_smem_bytes, MC.BLOCK_TILE),
+    MC.PIPELINED_KERNEL: (MC.pipelined_tile, MC.pipelined_smem_bytes,
+                          MC.PIPELINED_BLOCK_TILE),
+    MC.FOLDED_KERNEL: (MC.folded_tile, MC.folded_smem_bytes,
+                       MC.FOLDED_BLOCK_TILE),
+}
+
+
+def _spin_bytes(n_pad):
+    """72 columns of n_pad / 8 bf16 spins, each padded to 8 mod 32 words."""
+    words = n_pad // 16
+    return 72 * (words + (40 - words % 32) % 32) * 4
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_variant_smem_layouts(block):
+    """The bytes each cluster kernel lays out (csrc/metropolis_*.cu): K1's
+    spins, partials, two buffers of 32 J rows and the fields; K5's J rows
+    (32 a stage at 128, 16 at 256) and the repair's ds operand (16 columns
+    of block / 2 words, padded to 8 mod 32); K7's diagonal micro-blocks,
+    fields, spins and thresholds, and its ds operand (16 x 20 words)."""
+    for n_pad in (512, 4096, 6784):
+        spins, part = _spin_bytes(n_pad), 72 * block * 4
+        assert MC.cluster_smem_bytes(n_pad, block) == (
+            spins + part + 2 * 32 * block * 4 + block * 9 * 4)
+        # block 128: 32 J rows 2B wide; 256: 16 rows B wide and the ds
+        # operand, 16 columns of 128 + 8 words
+        extra = (2 * 32 * 2 * block * 4 if block == 128
+                 else 2 * 16 * block * 4 + 16 * 136 * 4)
+        assert MC.pipelined_smem_bytes(n_pad, block) == (
+            spins + part + block * 9 * 4 + extra)
+        assert MC.folded_smem_bytes(n_pad, block) == (
+            spins + part + 32 * block * 4 + 3 * block * 9 * 4 + 16 * 20 * 4)
+    # K5 needs K1's bytes and 32 KB more J rows at block 128, less at 256
+    # (16 J rows a stage); K7 less than K1 at both
+    assert (MC.pipelined_smem_bytes(4096, 128)
+            == MC.cluster_smem_bytes(4096, 128) + 32 * 1024)
+    assert MC.pipelined_smem_bytes(4096, 256) < MC.cluster_smem_bytes(4096,
+                                                                      256)
+    assert MC.folded_smem_bytes(4096, block) < MC.cluster_smem_bytes(4096,
+                                                                     block)
+
+
+@pytest.mark.parametrize("kernel,block,edge", [
+    (MC.KERNEL_NAME, 128, 8320), (MC.KERNEL_NAME, 256, 4096),
+    (MC.PIPELINED_KERNEL, 128, 6784), (MC.PIPELINED_KERNEL, 256, 5632),
+    (MC.FOLDED_KERNEL, 128, 8832), (MC.FOLDED_KERNEL, 256, 5120)])
+def test_variant_envelope(kernel, block, edge):
+    """Each kernel's shape rule: the cluster kernel up to the envelope edge
+    (a multiple of the block), the one-block float32 kernel one block
+    beyond it and at every larger n_pad; the rule is the shared-memory
+    arithmetic against a thread block's 232448 bytes, and K1's is
+    dense_tile."""
+    rule, smem, one_block = CLUSTER_VARIANTS[kernel]
+    assert MC.TILE_RULES[kernel] is rule
+    assert MC.cluster_envelope(kernel, block) == edge
+    assert rule(edge, block) == MC.CLUSTER_TILE
+    for n_pad in (edge + block, edge + 4 * block, 16384):
+        assert rule(n_pad, block) == one_block
+    for n_pad in range(block, edge + 8 * block, block):
+        fits = smem(n_pad, block) <= MC.SMEM_PER_BLOCK
+        assert (rule(n_pad, block) == MC.CLUSTER_TILE) == fits, n_pad
+    if kernel == MC.KERNEL_NAME:
+        for n_pad in range(block, edge + 8 * block, block):
+            assert rule(n_pad, block) == MC.dense_tile(n_pad, block)
+
+
+class _FakeLib:
+    """A stand-in for a built kernel library: records each entry point's
+    arguments and returns 0 (success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("sgt_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+def _shape_problem(n_pad):
+    """A problem of n_pad spins whose J is [1, n_pad] zeros: the wrapper
+    reads only its shape and its pointer (one bf16 plane)."""
+    return IsingProblem(j=torch.zeros(1, n_pad), h=torch.zeros(n_pad),
+                        active_mask=torch.ones(n_pad), n_spins=n_pad)
+
+
+@pytest.mark.parametrize("flags,n_pad,block,want_extra", [
+    ({}, 512, 128, [1, 8]),
+    ({}, 8448, 128, [1, 1]),
+    (dict(pipelined=True), 512, 256, [1, 8]),
+    (dict(pipelined=True), 6784, 128, [1, 8]),
+    (dict(pipelined=True), 6912, 128, [1, 1]),
+    (dict(pipelined=True), 5888, 256, [1, 1]),
+    (dict(folded=True), 512, 128, [32, 1, 8]),
+    (dict(folded=True), 8832, 128, [32, 1, 8]),
+    (dict(folded=True), 8960, 128, [32, 1, 1]),
+    (dict(folded=True), 5376, 256, [32, 1, 1]),
+    (dict(interleave=4), 512, 128, [4]),
+])
+def test_launch_arguments_per_variant(monkeypatch, flags, n_pad, block,
+                                      want_extra):
+    """What the wrapper hands each kernel's entry point, through a stand-in
+    for the built library: the shape, the block and the rule, then K1's
+    and K5's planes of J and cluster size (8 inside the envelope, 1 beyond
+    it), K7's micro, planes and cluster size, K6's chains; one launch
+    counted."""
+    fake = _FakeLib()
+    monkeypatch.setattr(MC, "load_kernel", lambda name: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    fused = MC.FusedSweep(_shape_problem(n_pad), block_size=block, **flags)
+    r = 5
+    fused._launch(torch.ones(n_pad, r), torch.ones(r), None, 2 ** 40 + 9)
+    (name, args), = fake.calls
+    assert name == f"sgt_{fused.kernel_name}"
+    # J, h, mask, spins, beta, u, seed, seed_ptr, dE, counts, n_pad, R,
+    # block, rule, *extra, stream
+    assert args[5] is None and args[6] == 2 ** 40 + 9 and args[7] is None
+    assert list(args[10:14]) == [n_pad, r, block, 0]
+    assert list(args[14:-1]) == want_extra and args[-1] == 0
+    assert fused.launches == 1
+
+
+@pytest.mark.parametrize("flags", [dict(pipelined=True), dict(folded=True),
+                                   {}])
+def test_launch_passes_three_planes_for_gaussian_couplings(monkeypatch, flags):
+    """J that bf16 cannot hold exactly (a Gaussian glass) goes to every
+    cluster kernel as three planes; the bfloat16 mode as one."""
+    fake = _FakeLib()
+    monkeypatch.setattr(MC, "load_kernel", lambda name: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    j = np.random.default_rng(3).normal(size=(200, 200)) / 16.0
+    ours = IsingProblem.from_dense((j + j.T) / 2, device="cpu")
+    for j_dtype, planes in (("float32", 3), ("bfloat16", 1)):
+        fused = MC.FusedSweep(ours, block_size=128, j_dtype=j_dtype, **flags)
+        fused._launch(torch.ones(ours.n_padded, 3), torch.ones(3), None, 1)
+        assert fake.calls[-1][1][-3:-1] == (planes, 8)
+
+
+@pytest.mark.parametrize("n_pad,r,planes", [(4096, 1024, 3), (4096, 1024, 1),
+                                            (512, 256, 3), (8192, 16, 3)])
+def test_dense_kernels_share_one_bound(n_pad, r, planes):
+    """K1, K5, K6 and K7 compute one function, so one helper gives all four
+    the same bound: J once, the spins read and written, and planes x 2
+    n_pad^2 r operations on the bf16 tensor cores."""
+    bounds = {k: MC.dense_sweep_bound(k, n_pad, r, planes)
+              for k in MC.DENSE_KERNELS}
+    assert len(set(bounds.values())) == 1
+    ms, by = bounds[MC.KERNEL_NAME]
+    nbytes = 4 * n_pad ** 2 + 8 * n_pad * r + 8 * n_pad + 12 * r
+    ops = planes * 2.0 * n_pad ** 2 * r
+    assert ms == pytest.approx(1e3 * max(nbytes / 3.35e12, ops / 989e12))
+    assert by == ("operations" if ops / 989e12 > nbytes / 3.35e12
+                  else "bytes")
+    if (n_pad, r, planes) == (4096, 1024, 3):
+        assert 1e3 * ms == pytest.approx(104.2, abs=0.05) and by == "operations"
+    with pytest.raises(ValueError, match="dense sweep"):
+        MC.dense_sweep_bound("sparse_sweep", n_pad, r, planes)
+
+
+@pytest.mark.parametrize("name,part", [
+    (name, part) for name, parts in ((MC.PIPELINED_KERNEL, VP.K5_PARTS),
+                                     (MC.FOLDED_KERNEL, VP.K7_PARTS))
+    for part in parts])
+def test_variant_parts_edit_the_sources_once(tmp_path, monkeypatch, name,
+                                             part):
+    """benchmarks/variant_parts.py's edits each match the kernel's source
+    once (the script stops on one that does not), and only that source
+    differs in the part's copy of csrc/."""
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    parts = VP.K5_PARTS if name == MC.PIPELINED_KERNEL else VP.K7_PARTS
+    src, lib = VP.part_source(name, part, parts[part])
+    assert lib.endswith(f"{name}.so") and str(tmp_path) in lib
+    with open(os.path.join(build.CSRC_DIR, f"{name}.cu")) as f:
+        original = f.read()
+    with open(src) as f:
+        edited = f.read()
+    assert (edited == original) == (not parts[part])
+    for fname in os.listdir(build.CSRC_DIR):
+        if fname != f"{name}.cu":
+            with open(os.path.join(build.CSRC_DIR, fname)) as a, \
+                    open(os.path.join(os.path.dirname(src), fname)) as b:
+                assert a.read() == b.read(), fname
