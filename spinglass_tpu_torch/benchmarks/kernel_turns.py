@@ -2,6 +2,7 @@
 
     python -m spinglass_tpu_torch.benchmarks.kernel_turns PARENT_DIR [--sw]
     python -m spinglass_tpu_torch.benchmarks.kernel_turns PARENT_DIR --dense
+    python -m spinglass_tpu_torch.benchmarks.kernel_turns PARENT_DIR --dense --rounds 5
 
 times the dense sweep (``FusedSweep``, SK glass, beta = 1, Philox mode) at
 N=4096 x R=1024 with blocks 128 and 256 and at N=512 x R=256, its variants
@@ -17,11 +18,12 @@ K4), and the Swendsen-Wang sweep on the TTT instance at 128 and 16 replicas
 (``sw_worker``: one SW sweep, C1, C2 where the checkout has it, the captured
 PT super-step with and without cluster_moves=1; ``--sw`` times that alone),
 in the order parent, this checkout, this checkout,
-parent: one process per turn, each building its own kernels, all on the
+parent (``--rounds N``: that order N times): one process per turn, each building its own kernels, all on the
 card this command runs on. Each kernel is timed with its seed by value and,
 where the checkout has seed slots, with the seed in device memory (the mode
 the captured drivers launch); the summary gives each mode's change against
-the parent's by-value time. PARENT_DIR is the root of another checkout of
+the parent's by-value time, and with more than two turns a side the
+medians and quartiles of both. PARENT_DIR is the root of another checkout of
 the repository unpacked inside this one (``git archive`` of the parent
 commit into a git-ignored directory), so that what it builds stays under
 this checkout; a directory elsewhere is refused. Prints one JSON line per
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 
@@ -248,8 +251,13 @@ def main(argv) -> int:
         print(json.dumps(worker(sw_only="--sw" in argv,
                                 dense_only="--dense" in argv)))
         return 0
+    rounds = 1
+    if "--rounds" in argv[1:-1]:
+        at = argv.index("--rounds")
+        rounds = int(argv[at + 1])
+        argv = argv[:at] + argv[at + 2:]
     extra = [a for a in argv[1:] if a in ("--sw", "--dense")]
-    if len(argv) - len(extra) != 1 or not os.path.isdir(
+    if len(argv) - len(extra) != 1 or rounds < 1 or not os.path.isdir(
             os.path.join(argv[0], "spinglass_tpu_torch")):
         print(__doc__, file=sys.stderr)
         return 2
@@ -263,7 +271,7 @@ def main(argv) -> int:
             "import runpy; runpy.run_path(sys.argv[0], run_name='__main__')")
     turns = []
     for label, root in (("parent", parent), ("change", here),
-                        ("change", here), ("parent", parent)):
+                        ("change", here), ("parent", parent)) * rounds:
         res = subprocess.run(
             [sys.executable, "-c", code, root, os.path.abspath(__file__),
              *extra],
@@ -283,19 +291,25 @@ def main(argv) -> int:
                 old = [t["value"][how].get(kind, {}).get(shape)
                        for lab, t in turns if lab == "parent"]
                 if None in old:   # the parent has no such entry
-                    old = [float("nan")] * 2
-                line = (f"{how}: {kind} {shape}: parent {old[0]:.1f} / "
-                        f"{old[1]:.1f}")
+                    old = [float("nan")] * len(old)
+                line = f"{how}: {kind} {shape}: parent {_times(old)}"
                 for mode in ("value", "slot"):
                     new = [t[mode][how][kind][shape] for lab, t in turns
                            if lab == "change" and mode in t
                            and shape in t[mode][how].get(kind, {})]
                     if new:
-                        line += (f", change ({mode}) {new[0]:.1f} / "
-                                 f"{new[1]:.1f} "
+                        line += (f", change ({mode}) {_times(new)} "
                                  f"({100 * (sum(new) / sum(old) - 1):+.1f}%)")
                 print(f"{line} us [{card}]")
     return 0
+
+
+def _times(ts) -> str:
+    """Two turns' times as "a / b"; more as their median and quartiles."""
+    if len(ts) <= 2:
+        return " / ".join(f"{t:.1f}" for t in ts)
+    q1, med, q3 = statistics.quantiles(ts, n=4)
+    return f"median {med:.1f} (quartiles {q1:.1f}-{q3:.1f}, {len(ts)} turns)"
 
 
 if __name__ == "__main__":

@@ -6,21 +6,25 @@ turns on one GPU.
 
 Builds K5 (``csrc/metropolis_pipelined.cu``) and K7
 (``csrc/metropolis_folded.cu``) as they are and with textual edits
-(``K5_PARTS``, ``K7_PARTS``) into ``build/parts/<kernel>-<part>/``, one
-nvcc per build, all at once, and times each build through ``FusedSweep``
+(``K5_PARTS``, ``K7_PARTS``) into ``build/parts/<kernel>-<part>-<hash>/``
+(the hash covers the edited source, the ``csrc/`` headers and the nvcc
+flags, as ``kernels/build.py``'s library paths do), one nvcc per build,
+all at once, and times each build through ``FusedSweep``
 (the wrapper's planes and tile) on the SK glass at N=4096, R=1024, beta = 1,
 Philox mode, blocks 128 and 256: CUDA events around 20 sweeps, in two rounds
 (forward, then backward), K1 first and last in each. A part that replaces a
 design by its alternative must make K1's decisions ("same": one +-J sweep
 at 4096 x 1024 bitwise equal to K1's); a part that leaves work out
 ("timing only") says how much of the time that work takes. An edit that
-does not match the source exactly once stops the script. Prints one line
+does not match the source exactly once stops the script before any
+build starts. Prints one line
 per build, block and round and, last, one JSON object of the times in
 microseconds per sweep.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -28,15 +32,10 @@ import sys
 
 _DRAW = ("    draw_states<B, RULE>(spins, u, mask, i0, lane, col, live, R, "
          "k0, k1, nib,\n                         s, th);\n")
-_H_READ = ("    __syncthreads();\n#pragma unroll\n"
+_H_READ = ("    sgt::block_barrier();\n#pragma unroll\n"
            "    for (int c = 0; c < NC; ++c)")
 K5_PARTS = {
     "as built": [],
-    # the repair J[b+1, b] @ ds_b: flip by flip in the decision warps'
-    # registers at both blocks, or on the tensor cores at both
-    "repair in registers": [("{ return B == 256; }", "{ return false; }")],
-    "repair on the tensor cores": [("{ return B == 256; }",
-                                    "{ return true; }")],
     # the decision warps' thresholds drawn while the field warps reduce
     # (and repair), before the block's barrier, not beside the fields
     "thresholds beside the reduction": [(_DRAW, ""),
@@ -45,8 +44,8 @@ K5_PARTS = {
         ("    for (int q = 0; q < RS; ++q) {",
          "    for (int q = 0; q < 0; ++q) {")],
     "no fields of the next block (timing only)": [
-        ("      if (b + 1 < nb)\n        sgt::cluster_field_partials",
-         "      if (false)\n        sgt::cluster_field_partials")],
+        ("      if (b + 1 < nb)\n        SGT_CLUSTER_FIELD_PARTIALS",
+         "      if (false)\n        SGT_CLUSTER_FIELD_PARTIALS")],
 }
 K7_PARTS = {
     "as built": [],
@@ -64,48 +63,57 @@ K7_PARTS = {
 
 def part_source(name: str, part: str, edits) -> tuple:
     """csrc/ copied with ``edits`` applied to ``<name>.cu`` into
-    ``build/parts/<name>-<part>/csrc``; returns (source, library path)."""
+    ``build/parts/<name>-<part>-<hash>/csrc``, the hash over the edited
+    source, every ``csrc/`` header and the nvcc flags; returns (source,
+    library path)."""
     from spinglass_tpu_torch.kernels import build
 
+    texts = {}
+    for fname in sorted(os.listdir(build.CSRC_DIR)):
+        with open(os.path.join(build.CSRC_DIR, fname)) as f:
+            texts[fname] = f.read()
+    text = texts[f"{name}.cu"]
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"{part}: {old[:60]!r} is not in {name}.cu once")
+        text = text.replace(old, new)
+    texts[f"{name}.cu"] = text
+    digest = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
+    for fname, text in texts.items():
+        if fname == f"{name}.cu" or fname.endswith(".cuh"):
+            digest.update(fname.encode() + b"\0" + text.encode())
     tag = "".join(ch if ch.isalnum() else "_" for ch in part)
-    root = os.path.join(build.BUILD_DIR, "parts", f"{name}-{tag}")
+    root = os.path.join(build.BUILD_DIR, "parts",
+                        f"{name}-{tag}-{digest.hexdigest()[:16]}")
     csrc = os.path.join(root, "csrc")
     os.makedirs(csrc, exist_ok=True)
-    for fname in os.listdir(build.CSRC_DIR):
-        with open(os.path.join(build.CSRC_DIR, fname)) as f:
-            text = f.read()
-        if fname == f"{name}.cu":
-            for old, new in edits:
-                if text.count(old) != 1:
-                    raise ValueError(f"{part}: {old[:60]!r} is not in "
-                                     f"{fname} once")
-                text = text.replace(old, new)
+    for fname, text in texts.items():
         with open(os.path.join(csrc, fname), "w") as f:
             f.write(text)
     return os.path.join(csrc, f"{name}.cu"), os.path.join(root, f"{name}.so")
 
 
 def build_parts(parts_by_kernel: dict) -> dict:
-    """Every part's library, one nvcc per missing one, all started together:
-    {(kernel, part): library path}."""
+    """Every part's library, one nvcc per missing one, all started together
+    once every edit has matched: {(kernel, part): library path}."""
     from spinglass_tpu_torch.kernels import build
 
-    jobs, out = [], {}
-    for name, parts in parts_by_kernel.items():
-        for part, edits in parts.items():
-            src, lib = part_source(name, part, edits)
-            out[(name, part)] = lib
-            if not os.path.exists(lib):
-                cmd = build.nvcc_command(src, lib, build.nvcc_path())
-                jobs.append((name, part, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                    text=True)))
+    out = {(name, part): part_source(name, part, edits)
+           for name, parts in parts_by_kernel.items()
+           for part, edits in parts.items()}
+    jobs = []
+    for (name, part), (src, lib) in out.items():
+        if not os.path.exists(lib):
+            cmd = build.nvcc_command(src, lib, build.nvcc_path())
+            jobs.append((name, part, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
     for name, part, proc in jobs:
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} ({part}):\n"
                                f"{err[-3000:]}")
-    return out
+    return {key: lib for key, (_, lib) in out.items()}
 
 
 def main() -> int:

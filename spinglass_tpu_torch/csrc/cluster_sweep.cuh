@@ -1,9 +1,7 @@
 // The cluster design of the dense sweep: K1's (metropolis_sweep.cu:
-// cluster_sweep_kernel), for the cluster kernels of its variants K5
-// (metropolis_pipelined.cu) and K7 (metropolis_folded.cu). K1 uses the
-// small pieces and the launch; it keeps the field phase, the reduction and
-// the stores inline, the same code as the functions below (called through
-// them, K1 measured 1-2% slower).
+// cluster_sweep_kernel), shared by K1 and the cluster kernels of its
+// variants K5 (metropolis_pipelined.cu) and K7 (metropolis_folded.cu): the
+// small pieces, the field phase, the reduction, the stores and the launch.
 //
 // A replica tile of kRT = 72 columns is shared by a thread-block cluster of
 // kCS = 8 blocks; block c keeps spin rows [c Np/8, (c+1) Np/8) of the tile
@@ -11,12 +9,20 @@
 // (spin_stride_words), and decides kCPB = 9 of the tile's columns. For a
 // row-block of B rows at i0, warps 0..7 of every block multiply
 // J[i0:i0+B, its rows] with its spin rows for all 72 columns on the tensor
-// cores (cluster_field_partials: mma.sync.m16n8k16 on an exact split of
+// cores (SGT_CLUSTER_FIELD_PARTIALS: mma.sync.m16n8k16 on an exact split of
 // float32 J into 1 or 3 bf16 planes, see metropolis_sweep.cu) and leave the
 // partial fields in shared memory as part[d][k][9]; after a cluster barrier
 // block d adds the 8 blocks' partials of its own 9 columns in block order
 // (cluster_reduce_fields: deterministic) and adds h. What the blocks then
 // do with the fields is the kernel's own.
+//
+// Barriers. __syncthreads() is bar.sync 0, which is barrier.sync.aligned:
+// every thread of the block must reach the same instruction. Where a kernel
+// splits its warps into roles with code paths of their own (K5, K7), the
+// roles meet at block_barrier() below, barrier.sync 0 without .aligned,
+// which threads may reach from different instructions, and at cg's
+// cluster.sync(), which lowers to barrier.cluster.arrive and
+// barrier.cluster.wait without .aligned (checked in the PTX of CUDA 12.8).
 
 #pragma once
 
@@ -198,77 +204,81 @@ __device__ __forceinline__ void prefetch_rows_l2(const float* __restrict__ J,
 
 // Partial block fields of the cluster's 72 columns for the row-block at i0,
 // over this block's rpb spin rows, by one of the 8 multiplying warps:
-// part[d][k][kCPB] for the columns block d decides, block row k.
-template <int B, int PLANES>
-__device__ __forceinline__ void cluster_field_partials(
-    const float* __restrict__ J, int n_pad, int i0, int rank, int rpb,
-    int warp, int lane, const uint32_t* spin_w, int sw, float* part) {
-  constexpr int MT = B / 128;  // 16-row MMA tiles per multiplying warp
-  // k-steps (16 spin rows) per batch of loads, fetched one batch ahead: 8
-  // float4s per thread in flight (2 k-steps at B = 128 measured 16% slower),
-  // but 4 at B = 256 with three planes, which otherwise spills its 168
-  // registers (920 us/sweep against 802)
-  constexpr int KB = (B == 256 && PLANES == 3) ? 1 : 4 / MT;
-  const int g = lane >> 2, t = lane & 3;  // MMA group and thread in group
-  const int nks = rpb / 16;
-  float acc[MT][kNTILE][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNTILE; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-  // rows g and g + 8 of each of the warp's MMA tiles, columns 4t..4t+3
-  // of each k-step of this block's slice of J
-  const float* jbase =
-      J + (size_t)(i0 + 16 * MT * warp + g) * n_pad + rank * rpb + 4 * t;
-  float4 cur[KB][MT][2], nxt[KB][MT][2];
-  load_batch<KB, MT>(cur, jbase, n_pad, 0, nks);
-  for (int ks = 0; ks < nks; ks += KB) {
-    load_batch<KB, MT>(nxt, jbase, n_pad, ks + KB, nks);
-#pragma unroll
-    for (int ku = 0; ku < KB; ++ku) {
-      if (ks + ku < nks) {
-        uint2 bf[kNTILE];  // spins of rows 16 (ks + ku) + 4t .. + 3
-#pragma unroll
-        for (int nt = 0; nt < kNTILE; ++nt)
-          bf[nt] = *reinterpret_cast<const uint2*>(
-              spin_w + (8 * nt + g) * sw + 8 * (ks + ku) + 2 * t);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          uint32_t ah[4], am[4], al[4];
-          split_tile<PLANES>(cur[ku][mt][0], cur[ku][mt][1], ah, am, al);
-          // the running field takes each k-step's exact sum with a float32
-          // add; chaining more k-steps in the tensor core measured slower
-          // (registers)
-          float d[kNTILE][4];
-          plane_products<PLANES, kNTILE>(d, ah, am, al, bf);
-#pragma unroll
-          for (int nt = 0; nt < kNTILE; ++nt)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[mt][nt][q] += d[nt][q];
-        }
-      }
-    }
-#pragma unroll
-    for (int ku = 0; ku < KB; ++ku)
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) cur[ku][mt][hf] = nxt[ku][mt][hf];
-  }
-  // part[d][k][kCPB]: the columns that block d decides, for block row k
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNTILE; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = 16 * (MT * warp + mt) + g + 8 * (q >> 1);
-        const int ct = 8 * nt + 2 * t + (q & 1);
-        part[((ct / kCPB) * B + row) * kCPB + ct % kCPB] = acc[mt][nt][q];
-      }
-}
+// part[d][k][kCPB] for the columns block d decides, block row k. g and t
+// are the lane's MMA group and thread in group (lane >> 2, lane & 3) and
+// nks = rpb / 16, all three declared by the kernel outside its row-block
+// loop. A macro, expanded in the kernel's own code: at its cap of 168
+// registers a thread, ptxas's allocation of K1 follows the order of the
+// kernel's statements, and through a __forceinline__ function of the same
+// text (or with g and t declared later) K1 measured 1-2% slower and its
+// machine code differed; expanded here it is K1's inline code, instruction
+// for instruction (PERF.md section 6, benchmarks/sass_diff.py).
+//
+// k-steps (16 spin rows) per batch of loads, fetched one batch ahead: 8
+// float4s per thread in flight (2 k-steps at B = 128 measured 16% slower),
+// but 4 at B = 256 with three planes, which otherwise spills its 168
+// registers (920 us/sweep against 802). Each k-step's exact sum of plane
+// products goes into the running field with a float32 add; chaining more
+// k-steps in the tensor core measured slower (registers).
+#define SGT_CLUSTER_FIELD_PARTIALS(B, PLANES, J, n_pad, i0, rank, rpb, warp,  \
+                                   g_, t_, nks_, spin_w, sw, part)            \
+  do {                                                                        \
+    constexpr int MT_ = (B) / 128;                                            \
+    constexpr int KB_ = ((B) == 256 && (PLANES) == 3) ? 1 : 4 / MT_;          \
+    float acc_[MT_][sgt::kNTILE][4];                                          \
+    _Pragma("unroll") for (int mt = 0; mt < MT_; ++mt)                        \
+    _Pragma("unroll") for (int nt = 0; nt < sgt::kNTILE; ++nt)                \
+    _Pragma("unroll") for (int q = 0; q < 4; ++q) acc_[mt][nt][q] = 0.f;      \
+    const float* jbase_ = (J) + (size_t)((i0) + 16 * MT_ * (warp) + g_) *     \
+                          (n_pad) + (rank) * (rpb) + 4 * t_;                  \
+    float4 cur_[KB_][MT_][2], nxt_[KB_][MT_][2];                              \
+    sgt::load_batch<KB_, MT_>(cur_, jbase_, (n_pad), 0, nks_);                \
+    for (int ks = 0; ks < nks_; ks += KB_) {                                  \
+      sgt::load_batch<KB_, MT_>(nxt_, jbase_, (n_pad), ks + KB_, nks_);       \
+      _Pragma("unroll") for (int ku = 0; ku < KB_; ++ku) {                    \
+        if (ks + ku < nks_) {                                                 \
+          uint2 bf_[sgt::kNTILE];                                             \
+          _Pragma("unroll") for (int nt = 0; nt < sgt::kNTILE; ++nt)          \
+            bf_[nt] = *reinterpret_cast<const uint2*>(                        \
+                (spin_w) + (8 * nt + g_) * (sw) + 8 * (ks + ku) + 2 * t_);    \
+          _Pragma("unroll") for (int mt = 0; mt < MT_; ++mt) {                \
+            const float4 top_ = cur_[ku][mt][0], bot_ = cur_[ku][mt][1];      \
+            uint32_t ah_[4], am_[4], al_[4];                                  \
+            sgt::split_pair<PLANES>(top_.x, top_.y, ah_[0], am_[0], al_[0]);  \
+            sgt::split_pair<PLANES>(bot_.x, bot_.y, ah_[1], am_[1], al_[1]);  \
+            sgt::split_pair<PLANES>(top_.z, top_.w, ah_[2], am_[2], al_[2]);  \
+            sgt::split_pair<PLANES>(bot_.z, bot_.w, ah_[3], am_[3], al_[3]);  \
+            float d_[sgt::kNTILE][4];                                         \
+            _Pragma("unroll") for (int nt = 0; nt < sgt::kNTILE; ++nt)        \
+            _Pragma("unroll") for (int q = 0; q < 4; ++q) d_[nt][q] = 0.f;    \
+            if ((PLANES) == 3) {                                              \
+              _Pragma("unroll") for (int nt = 0; nt < sgt::kNTILE; ++nt)      \
+                sgt::mma_bf16(d_[nt], al_, bf_[nt]);                          \
+              _Pragma("unroll") for (int nt = 0; nt < sgt::kNTILE; ++nt)      \
+                sgt::mma_bf16(d_[nt], am_, bf_[nt]);                          \
+            }                                                                 \
+            _Pragma("unroll") for (int nt = 0; nt < sgt::kNTILE; ++nt)        \
+              sgt::mma_bf16(d_[nt], ah_, bf_[nt]);                            \
+            _Pragma("unroll") for (int nt = 0; nt < sgt::kNTILE; ++nt)        \
+            _Pragma("unroll") for (int q = 0; q < 4; ++q)                     \
+              acc_[mt][nt][q] += d_[nt][q];                                   \
+          }                                                                   \
+        }                                                                     \
+      }                                                                       \
+      _Pragma("unroll") for (int ku = 0; ku < KB_; ++ku)                      \
+      _Pragma("unroll") for (int mt = 0; mt < MT_; ++mt)                      \
+      _Pragma("unroll") for (int hf = 0; hf < 2; ++hf)                        \
+        cur_[ku][mt][hf] = nxt_[ku][mt][hf];                                  \
+    }                                                                         \
+    _Pragma("unroll") for (int mt = 0; mt < MT_; ++mt)                        \
+    _Pragma("unroll") for (int nt = 0; nt < sgt::kNTILE; ++nt)                \
+    _Pragma("unroll") for (int q = 0; q < 4; ++q) {                           \
+      const int row_ = 16 * (MT_ * (warp) + mt) + g_ + 8 * (q >> 1);         \
+      const int ct_ = 8 * nt + 2 * t_ + (q & 1);                             \
+      (part)[((ct_ / sgt::kCPB) * (B) + row_) * sgt::kCPB + ct_ % sgt::kCPB] = \
+          acc_[mt][nt][q];                                                    \
+    }                                                                         \
+  } while (0)
 
 // This block's columns of the row-block at i0: the 8 blocks' partials in
 // block order, + h, into h_blk[B][kCPB], by NT threads (all loads in flight).
@@ -301,6 +311,9 @@ __device__ __forceinline__ void store_owner_spin(cg::cluster_group& cluster,
                        own * (2 * sw) + (row - owner * rpb);
   *dst = __float2bfloat16_rn(s);
 }
+
+// Every thread of the block, from any code path: barrier 0, not aligned.
+__device__ __forceinline__ void block_barrier() { __barrier_sync(0); }
 
 // Launches `kernel` on clusters of kCS blocks along x (grid: ceil(R / 72)
 // clusters by `problems`), or with `clusters` only asks how many of them

@@ -39,6 +39,9 @@
 //     the block's fields on the tensor cores (mma.sync.m16n8k16, J's planes
 //     split in registers from float4s fetched while the thread decides, ds
 //     in {0, +-2} exact in bf16 as the B operand, 9 columns padded to 16).
+// The two roles take code paths of their own through the micro-blocks and
+// meet there at the non-aligned block_barrier (cluster_sweep.cuh); every
+// other barrier is reached by all threads at one instruction.
 // A row-block ends as K1's: the new spins to the owners' shared memory and
 // out, two cluster barriers. Shared memory: K1's spins and partials, the
 // diagonal micro-blocks (32 B floats), fields, spins and thresholds [B][9]
@@ -249,6 +252,7 @@ folded_cluster_kernel(const float* __restrict__ J, const float* __restrict__ h,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;  // MMA group and thread in group
   const int r0 = tile * CRT;
   const int own = rank * CPB + warp;  // the column this warp draws for
   const bool live = r0 + own < R;
@@ -260,6 +264,7 @@ folded_cluster_kernel(const float* __restrict__ J, const float* __restrict__ h,
   sgt::load_tile_spins<CL_THREADS>(spins, spin_h, sw, rank, rpb, r0, R, tid);
   __syncthreads();
 
+  const int nks = rpb / 16;
   for (int i0 = 0; i0 < n_pad; i0 += B) {
     // ---- (0) ahead of time: the diagonal micro-blocks, and (one cluster
     // in turn) the next row-block's slice of J into L2
@@ -269,8 +274,8 @@ folded_cluster_kernel(const float* __restrict__ J, const float* __restrict__ h,
 
     // ---- (1) partial block fields of the cluster's 72 columns ----------
     if (warp < sgt::kMmaWarps)
-      sgt::cluster_field_partials<B, PLANES>(J, n_pad, i0, rank, rpb, warp,
-                                             lane, spin_w, sw, part);
+      SGT_CLUSTER_FIELD_PARTIALS(B, PLANES, J, n_pad, i0, rank, rpb, warp,
+                                 g, t, nks, spin_w, sw, part);
     // spins and thresholds of this warp's column, while others multiply
 #pragma unroll
     for (int k = 0; k < FPL; ++k) {
@@ -289,25 +294,26 @@ folded_cluster_kernel(const float* __restrict__ J, const float* __restrict__ h,
 
     // ---- (3) per micro-block: decisions, then the delayed update -------
     // (the two roles in code paths of their own, so that neither holds the
-    // other's registers: the barriers are met in the same order)
+    // other's registers: they meet at the same non-aligned barriers in the
+    // same order)
     if (warp < sgt::kMmaWarps) {
 #pragma unroll 1
       for (int m = 0; m + 1 < NM; ++m) {
         float4 a[B / 128][2][2];
         load_delayed<B>(a, J, n_pad, i0, C * m, warp, lane);
-        __syncthreads();  // ds and the micro-block's spins are in place
+        sgt::block_barrier();  // ds and the micro-block's spins in place
         delayed_update<B, PLANES>(a, C * m, warp, lane, ds_w, h_blk);
-        __syncthreads();  // the later rows' fields are up to date
+        sgt::block_barrier();  // the later rows' fields are up to date
       }
-      __syncthreads();  // the last micro-block's spins are in place
+      sgt::block_barrier();  // the last micro-block's spins are in place
     } else {
 #pragma unroll 1
       for (int m = 0; m < NM; ++m) {
         if (lane < CPB)
           decide_micro(m, lane, jmb, h_blk, s_blk, th_blk, ds_w, de_acc,
                        cnt_acc);
-        __syncthreads();
-        if (m + 1 < NM) __syncthreads();
+        sgt::block_barrier();
+        if (m + 1 < NM) sgt::block_barrier();
       }
     }
 

@@ -29,16 +29,13 @@
 //     with K1's in-block corrections, J's diagonal rows coming RS = 32
 //     (B = 256: 16) at a time through two cp.async buffers on the group's
 //     named barrier.
-//   * The repair, J[b+1, b] @ ds_b. At B = 128 the decision warps read J's
-//     rows 2B wide (the diagonal block and, by symmetry, the column of
-//     J[b+1, b]) and sum it flip by flip into registers (ds = 0 adds
-//     nothing), added to H_pre(b+1) when the next round starts. At
-//     B = 256, where those registers spill, the owner lane writes each ds
-//     (0, +-2: exact in bf16) to shared memory, and at the start of round
-//     b+1 the field warps add J's sub-diagonal block (split into its planes
-//     in registers) times ds_b (9 columns padded to 16) with mma.sync.
-//     Each block takes the faster of the two, measured both ways at
-//     4096 x 1024 (benchmarks/variant_parts.py, PERF.md section 6).
+//   * The repair, J[b+1, b] @ ds_b, on the tensor cores: the owner lane
+//     writes each ds (0, +-2: exact in bf16) to shared memory, and at the
+//     start of round b+1 the field warps add J's sub-diagonal block (split
+//     into its planes in registers) times ds_b (9 columns padded to 16)
+//     with mma.sync. (Summed flip by flip in the decision warps' registers
+//     instead, it measured ~3% faster at B = 128 and spilled at B = 256;
+//     one design for both blocks was kept: PERF.md section 6.)
 //   * The race: the field warps read every spin row of the tile while the
 //     decisions flip block b's rows, so the decision warps keep block b's
 //     new spins in registers until a cluster barrier says that every
@@ -48,9 +45,13 @@
 // One round: H(b) (reduce, repair); cluster barrier (P(b) read, block
 // b-1's spins stored); the fields of b+1 beside the thresholds and the
 // decisions of b; cluster barrier; the stores. Two cluster barriers per
-// row-block, as K1. Shared memory: K1's, the J rows as above and (B = 256)
-// the ds operand, so the cluster kernel takes n_pad up to 6784 at B = 128
-// and 5632 at B = 256 (metropolis_cuda.pipelined_tile).
+// row-block, as K1. The two groups meet there, and at the block barriers
+// around the reduction, from loops of their own, so those barriers are
+// forms without .aligned (cluster_sweep.cuh: block_barrier, cg's
+// cluster.sync); each group's own barriers are named (GroupSync), reached
+// by all its threads at one instruction. Shared memory: K1's, the J rows as above
+// and the ds operand, so the cluster kernel takes n_pad up to 8320 at
+// B = 128 and 5632 at B = 256 (metropolis_cuda.pipelined_tile).
 //
 // Beyond that the wrapper asks for cluster = 1: the first version's
 // one-block float32 kernel, pipelined_kernel below. One thread block of 16
@@ -95,20 +96,10 @@ constexpr int CL_THREADS = FIELD_THREADS + DEC_THREADS;  // 352
 using ChooserSync = sgt::GroupSync<1, DEC_THREADS>;
 using FieldSync = sgt::GroupSync<2, FIELD_THREADS>;
 
-// Where the repair J[b+1, b] @ ds_b runs: flip by flip in the decision
-// warps' registers at B = 128, on the tensor cores by the field warps at
-// B = 256, where those registers spill (the faster at each block;
-// benchmarks/variant_parts.py).
-__host__ __device__ constexpr bool mma_repair(int B) { return B == 256; }
-
-// J rows per cp.async stage of the decisions; each 2B floats wide where the
-// decision warps repair (the diagonal block and, by symmetry, the column
-// of J[b+1, b]), else B
+// J rows (of the diagonal block, B floats each) per cp.async stage of the
+// decisions
 __host__ __device__ constexpr int stage_rows(int B) {
   return B == 256 ? 16 : 32;
-}
-__host__ __device__ constexpr int stage_width(int B) {
-  return mma_repair(B) ? B : 2 * B;
 }
 
 // 32-bit words per column of the tensor-core repair's ds operand: B / 2
@@ -120,9 +111,9 @@ __host__ __device__ constexpr int ds_stride_words(int B) {
 __host__ __device__ constexpr size_t pipe_smem_bytes(int n_pad, int B) {
   return sgt::cluster_spin_bytes(n_pad)                     // spins, bf16
          + (size_t)CRT * B * 4                              // part[CS][B][CPB]
-         + (size_t)2 * stage_rows(B) * stage_width(B) * 4   // J rows, 2 bufs
+         + (size_t)2 * stage_rows(B) * B * 4                // J rows, 2 bufs
          + (size_t)B * CPB * 4                              // fields [B][CPB]
-         + (mma_repair(B) ? (size_t)16 * ds_stride_words(B) * 4 : 0);  // ds
+         + (size_t)16 * ds_stride_words(B) * 4;             // ds
 }
 
 // The B dependent decisions of the row-block at i0 for one decision warp's
@@ -130,20 +121,17 @@ __host__ __device__ constexpr size_t pipe_smem_bytes(int n_pad, int B) {
 // spins and thresholds of block rows l, l + 32, ...; for each row the owner
 // lane decides column 0, 1, 2 in turn, a shuffle per column broadcasts ds,
 // and every lane corrects its rows of each column with J's row, read from
-// shared memory before the decision is known. The repair of the next
-// block's fields (NEXT: there is one): at B = 128 every lane sums
-// J[i0 + B + l + 32k, i0 + i] ds_i (J's row i beyond the diagonal block,
-// by symmetry) into cn; at B = 256 the owner lane writes ds (0, +-2:
-// exact in bf16) to the column's row of ds_h, the tensor-core repair's
-// operand. J's rows come RS at a time through two cp.async buffers; the
-// caller has started the copy of the first RS (stage_pipe_rows).
-template <int B, bool NEXT>
+// shared memory before the decision is known. Where there is a next block
+// (NEXT), the owner lane also writes ds (0, +-2: exact in bf16) to the
+// column's row of ds_h, the operand of the next round's repair. J's rows
+// come RS at a time through two cp.async buffers; the caller has started
+// the copy of the first RS (stage_pipe_rows).
+template <int B>
 __device__ __forceinline__ void stage_pipe_rows(const float* __restrict__ J,
                                                 int n_pad, int row0, int i0,
                                                 int dt, float* dst) {
-  constexpr bool WIDE = !mma_repair(B) && NEXT;
-  sgt::stage_rows_async<WIDE ? 2 * B : B, stage_rows(B), DEC_THREADS,
-                        stage_width(B)>(J, n_pad, row0, i0, dt, dst);
+  sgt::stage_rows_async<B, stage_rows(B), DEC_THREADS>(J, n_pad, row0, i0, dt,
+                                                        dst);
 }
 
 template <int B, bool NEXT>
@@ -151,10 +139,9 @@ __device__ __forceinline__ void decide_pipe(
     const float* __restrict__ J, int n_pad, int i0, int dt, float* jst,
     __nv_bfloat16* ds_h, int dcol, float (&f)[NC][B / 32],
     float (&s)[NC][B / 32], const float (&th)[NC][B / 32],
-    float (&cn)[NC][B / 32], float (&de_acc)[NC], int (&cnt_acc)[NC]) {
-  constexpr int FPL = B / 32, RS = stage_rows(B), W = stage_width(B);
+    float (&de_acc)[NC], int (&cnt_acc)[NC]) {
+  constexpr int FPL = B / 32, RS = stage_rows(B);
   constexpr int NST = B / RS, DSH = 2 * ds_stride_words(B);
-  constexpr bool CN = !mma_repair(B) && NEXT;
   // rows decided per unrolled step: at B = 256, 8 steps hoist 64 loads of
   // J and spill the 168 registers of a thread
   constexpr int QU = B == 256 ? 2 : 8;
@@ -164,20 +151,16 @@ __device__ __forceinline__ void decide_pipe(
     sgt::cp_async_wait_all();
     ChooserSync()();  // rows RS st.. are in place; the other buffer is free
     if (st + 1 < NST)
-      stage_pipe_rows<B, NEXT>(J, n_pad, i0 + RS * (st + 1), i0, dt,
-                               jst + ((st + 1) & 1) * RS * W);
+      stage_pipe_rows<B>(J, n_pad, i0 + RS * (st + 1), i0, dt,
+                         jst + ((st + 1) & 1) * RS * B);
     const int t0 = st * RS / 32;  // the owner lanes' slot
-    const float* jb = jst + (st & 1) * RS * W + lane;
+    const float* jb = jst + (st & 1) * RS * B + lane;
 #pragma unroll (QU)
     for (int q = 0; q < RS; ++q) {
       const int src = st * RS % 32 + q;
-      float jv[FPL], jn[FPL];
+      float jv[FPL];
 #pragma unroll
-      for (int k = 0; k < FPL; ++k) jv[k] = jb[q * W + 32 * k];
-      if (CN) {
-#pragma unroll
-        for (int k = 0; k < FPL; ++k) jn[k] = jb[q * W + B + 32 * k];
-      }
+      for (int k = 0; k < FPL; ++k) jv[k] = jb[q * B + 32 * k];
       float dsb[NC];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
@@ -189,7 +172,7 @@ __device__ __forceinline__ void decide_pipe(
           s[c][t0] = sv + ds;
           de_acc[c] -= ds * fv;
           cnt_acc[c] += accept ? 1 : 0;
-          if (mma_repair(B) && NEXT)
+          if (NEXT)
             ds_h[(dcol + c) * DSH + 32 * t0 + src] = __float2bfloat16_rn(ds);
         }
       }
@@ -197,13 +180,6 @@ __device__ __forceinline__ void decide_pipe(
       for (int c = 0; c < NC; ++c)
 #pragma unroll
         for (int k = 0; k < FPL; ++k) f[c][k] = fmaf(jv[k], dsb[c], f[c][k]);
-      if (CN) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-#pragma unroll
-          for (int k = 0; k < FPL; ++k)
-            cn[c][k] = fmaf(jn[k], dsb[c], cn[c][k]);
-      }
     }
   }
 }
@@ -313,44 +289,43 @@ pipelined_cluster_kernel(const float* __restrict__ J,
   uint32_t* spin_w = reinterpret_cast<uint32_t*>(cluster_smem);
   __nv_bfloat16* spin_h = reinterpret_cast<__nv_bfloat16*>(cluster_smem);
   float* part = reinterpret_cast<float*>(cluster_smem + (size_t)CRT * sw * 4);
-  float* jst = part + CRT * B;  // [2][RS][stage_width(B)]
-  float* h_blk = jst + 2 * stage_rows(B) * stage_width(B);        // [B][CPB]
+  float* jst = part + CRT * B;                             // [2][RS][B]
+  float* h_blk = jst + 2 * stage_rows(B) * B;                     // [B][CPB]
   uint32_t* ds_w = reinterpret_cast<uint32_t*>(h_blk + B * CPB);  // [16][.]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;  // MMA group and thread in group
   const int r0 = tile * CRT;
   const int nb = n_pad / B;
-  if (mma_repair(B))
-    for (int e = tid; e < 16 * ds_stride_words(B); e += CL_THREADS)
-      ds_w[e] = 0u;
+  const int nks = rpb / 16;
+  for (int e = tid; e < 16 * ds_stride_words(B); e += CL_THREADS)
+    ds_w[e] = 0u;
   sgt::load_tile_spins<CL_THREADS>(spins, spin_h, sw, rank, rpb, r0, R, tid);
   __syncthreads();
 
   // The two groups run loops of their own (so that neither holds the
-  // other's registers), meeting at the same barriers in the same order.
+  // other's registers), meeting at the same non-aligned barriers in the
+  // same order.
   if (warp < sgt::kMmaWarps) {
     // ---- the field warps: P(b+1), the partials of H_pre(b+1), in round b
-    sgt::cluster_field_partials<B, PLANES>(J, n_pad, 0, rank, rpb, warp, lane,
-                                           spin_w, sw, part);
+    SGT_CLUSTER_FIELD_PARTIALS(B, PLANES, J, n_pad, 0, rank, rpb, warp, g, t,
+                               nks, spin_w, sw, part);
     cluster.sync();
     for (int b = 0; b < nb; ++b) {
       // H(b) of this block's columns: H_pre(b), then J[b, b-1] @ ds_{b-1}
       sgt::cluster_reduce_fields<B, FIELD_THREADS>(cluster, part, rank, h,
                                                    b * B, tid, h_blk);
-      if constexpr (mma_repair(B)) {
-        if (b > 0) {
-          FieldSync()();  // h_blk complete
-          repair_fields<B, PLANES>(J, n_pad, b * B, warp, lane, ds_w, h_blk);
-        }
+      if (b > 0) {
+        FieldSync()();  // h_blk complete
+        repair_fields<B, PLANES>(J, n_pad, b * B, warp, lane, ds_w, h_blk);
       }
-      __syncthreads();
-      cluster.sync();  // P(b) read everywhere; block b-1's spins in place
+      sgt::block_barrier();
+      cluster.sync();  // P(b) read everywhere; b-1's spins in place
       if (b + 1 < nb)
-        sgt::cluster_field_partials<B, PLANES>(J, n_pad, (b + 1) * B, rank,
-                                               rpb, warp, lane, spin_w, sw,
-                                               part);
+        SGT_CLUSTER_FIELD_PARTIALS(B, PLANES, J, n_pad, (b + 1) * B, rank,
+                                   rpb, warp, g, t, nks, spin_w, sw, part);
       cluster.sync();  // every block's P(b+1) is in place
     }
     cluster.sync();
@@ -374,38 +349,25 @@ pipelined_cluster_kernel(const float* __restrict__ J,
     de_acc[c] = 0.f;
     cnt_acc[c] = 0;
   }
-  float cn[NC][FPL];  // B = 128: the repair of the next block's fields
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int k = 0; k < FPL; ++k) cn[c][k] = 0.f;
   cluster.sync();  // P(0) in place
   for (int b = 0; b < nb; ++b) {
     const int i0 = b * B;
     const bool next = b + 1 < nb;
     // ---- (0) the decisions' first rows of J; (one cluster in turn) the
     // slice of J that H_pre(b+2) multiplies, into L2
-    if (next)
-      stage_pipe_rows<B, true>(J, n_pad, i0, i0, dt, jst);
-    else
-      stage_pipe_rows<B, false>(J, n_pad, i0, i0, dt, jst);
+    stage_pipe_rows<B>(J, n_pad, i0, i0, dt, jst);
     if (b + 2 < nb && tile == b % n_tiles)
       sgt::prefetch_rows_l2<B, DEC_THREADS>(J, n_pad, i0 + 2 * B, rank, rpb,
                                             dt);
     // ---- (1) the field warps make H(b) of this block's columns ---------
     float f[NC][FPL], s[NC][FPL], th[NC][FPL];
-    __syncthreads();
+    sgt::block_barrier();
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int k = 0; k < FPL; ++k) {
+      for (int k = 0; k < FPL; ++k)
         f[c][k] = h_blk[(lane + 32 * k) * CPB + dw * NC + c];
-        if (!mma_repair(B)) {
-          f[c][k] += cn[c][k];
-          cn[c][k] = 0.f;
-        }
-      }
-    cluster.sync();  // P(b) read everywhere; block b-1's spins in place
+    cluster.sync();  // P(b) read everywhere; b-1's spins in place
 
     // ---- (2) block b's spins, thresholds and decisions beside the fields
     // of b+1 (drawn in (1), the thresholds outlast the reduction and the
@@ -413,11 +375,11 @@ pipelined_cluster_kernel(const float* __restrict__ J,
     draw_states<B, RULE>(spins, u, mask, i0, lane, col, live, R, k0, k1, nib,
                          s, th);
     if (next)
-      decide_pipe<B, true>(J, n_pad, i0, dt, jst, ds_h, dw * NC, f, s, th, cn,
+      decide_pipe<B, true>(J, n_pad, i0, dt, jst, ds_h, dw * NC, f, s, th,
                            de_acc, cnt_acc);
     else
       decide_pipe<B, false>(J, n_pad, i0, dt, jst, ds_h, dw * NC, f, s, th,
-                            cn, de_acc, cnt_acc);
+                            de_acc, cnt_acc);
     cluster.sync();  // every block's P(b+1) is in place
 
     // ---- (3) block b's new spins: the owners' shared memory, and out ---

@@ -26,9 +26,9 @@
 // Design: cluster_sweep_kernel. A replica tile of RT = 72 columns is shared
 // by a thread-block cluster of CS = 8 blocks of 9 warps, so J is streamed
 // once per tile (15 times per sweep at R = 1024, 1.0 GB from L2). Its
-// small pieces (the bf16 split, mma.sync, cp.async, the batched loads of
-// J) are in cluster_sweep.cuh, whose field phase, reduction and stores
-// repeat this kernel's code for the cluster kernels of K5 and K7.
+// pieces (the bf16 split, mma.sync, cp.async, the field phase, the
+// reduction, the stores and the launch) are in cluster_sweep.cuh, which
+// the cluster kernels of K5 and K7 share.
 //   * Why 72. The card holds 15 clusters of 8 at once (132 SMs in GPCs of
 //     which one cannot hold two such clusters), so 1024 columns in tiles of
 //     64 would be 16 clusters and two waves, twice the time (measured:
@@ -112,20 +112,12 @@ namespace {
 constexpr int CS = sgt::kCS;       // thread blocks per cluster
 constexpr int CPB = sgt::kCPB;     // columns a block decides: one per warp
 constexpr int RT = sgt::kRT;       // 72 replica columns per cluster
-constexpr int NTILE = sgt::kNTILE; // MMA n-tiles of 8 columns
 constexpr int MMA_WARPS = sgt::kMmaWarps;  // warps 0..7 multiply; 9 decide
 constexpr int THREADS = 32 * CPB;  // 288
 constexpr int TILE_RT = 8;         // the one-block kernel's tile (cluster = 1)
 
-// The kernel below keeps its field phase, reduction and stores inline: the
-// same code as cluster_sweep.cuh's functions, which K5 and K7 call, but
-// called through them K1 measured 1-2% slower at B = 128 (its registers
-// spilled elsewhere; PERF.md section 6).
 using sgt::cp_async_wait_all;
-using sgt::load_batch;
-using sgt::mma_bf16;
 using sgt::spin_stride_words;
-using sgt::split_pair;
 
 __host__ __device__ constexpr size_t cluster_smem_bytes(int n_pad, int B) {
   return (size_t)RT * spin_stride_words(n_pad / CS) * 4  // spins, bf16
@@ -203,12 +195,6 @@ cluster_sweep_kernel(const float* __restrict__ J, const float* __restrict__ h,
   // problem blockIdx.y of a stacked launch (dense_sweep.cuh)
   if constexpr (STACKED) SGT_PROBLEM_SLICE(n_pad, R);
   sgt::device_seed(seed_ptr, k0, k1);
-  constexpr int MT = B / 128;  // 16-row MMA tiles per multiplying warp
-  // k-steps (16 spin rows) per batch of loads, fetched one batch ahead: 8
-  // float4s per thread in flight (2 k-steps at B = 128 measured 16% slower),
-  // but 4 at B = 256 with three planes, which otherwise spills its 168
-  // registers (920 us/sweep against 802)
-  constexpr int KB = (B == 256 && PLANES == 3) ? 1 : 4 / MT;
   constexpr int FPL = B / 32;
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -236,12 +222,7 @@ cluster_sweep_kernel(const float* __restrict__ J, const float* __restrict__ h,
   int cnt_acc[1] = {0};
 
   // this block's rows of the tile, [column][row] bf16; dead columns 0
-  for (int e = tid; e < rpb * RT; e += THREADS) {
-    const int c = e % RT, lr = e / RT;
-    const float v =
-        r0 + c < R ? spins[(size_t)(rank * rpb + lr) * R + r0 + c] : 0.f;
-    spin_h[c * (2 * sw) + lr] = __float2bfloat16_rn(v);
-  }
+  sgt::load_tile_spins<THREADS>(spins, spin_h, sw, rank, rpb, r0, R, tid);
   __syncthreads();
 
   const int nks = rpb / 16;
@@ -250,92 +231,13 @@ cluster_sweep_kernel(const float* __restrict__ J, const float* __restrict__ h,
     // the decisions, and (one cluster in turn) the next row-block's slice
     // of J into L2, so that no cluster waits for device memory
     stage_rows_async<B>(J, n_pad, i0, i0, tid, jst);
-    if (i0 + B < n_pad && tile == (i0 / B) % n_tiles) {
-      const int segs = (rpb + 31) / 32;  // 128-byte lines per row
-      for (int e = tid; e < B * segs; e += THREADS) {
-        const float* p = J + (size_t)(i0 + B + e / segs) * n_pad +
-                         rank * rpb + 32 * (e % segs);
-        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-      }
-    }
+    if (i0 + B < n_pad && tile == (i0 / B) % n_tiles)
+      sgt::prefetch_rows_l2<B, THREADS>(J, n_pad, i0 + B, rank, rpb, tid);
 
     // ---- (1) partial block fields of the cluster's 72 columns ----------
-    if (warp < MMA_WARPS) {
-      float acc[MT][NTILE][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NTILE; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-      // rows g and g + 8 of each of the warp's MMA tiles, columns 4t..4t+3
-      // of each k-step of this block's slice of J
-      const float* jbase =
-          J + (size_t)(i0 + 16 * MT * warp + g) * n_pad + rank * rpb + 4 * t;
-      float4 cur[KB][MT][2], nxt[KB][MT][2];
-      load_batch<KB, MT>(cur, jbase, n_pad, 0, nks);
-      for (int ks = 0; ks < nks; ks += KB) {
-        load_batch<KB, MT>(nxt, jbase, n_pad, ks + KB, nks);
-#pragma unroll
-        for (int ku = 0; ku < KB; ++ku) {
-          if (ks + ku < nks) {
-            uint2 bf[NTILE];  // spins of rows 16 (ks + ku) + 4t .. + 3
-#pragma unroll
-            for (int nt = 0; nt < NTILE; ++nt)
-              bf[nt] = *reinterpret_cast<const uint2*>(
-                  spin_w + (8 * nt + g) * sw + 8 * (ks + ku) + 2 * t);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              const float4 top = cur[ku][mt][0], bot = cur[ku][mt][1];
-              uint32_t ah[4], am[4], al[4];
-              split_pair<PLANES>(top.x, top.y, ah[0], am[0], al[0]);
-              split_pair<PLANES>(bot.x, bot.y, ah[1], am[1], al[1]);
-              split_pair<PLANES>(top.z, top.w, ah[2], am[2], al[2]);
-              split_pair<PLANES>(bot.z, bot.w, ah[3], am[3], al[3]);
-              // The planes' products of one k-step are chained in the
-              // tensor core from 0 (lo, mid, hi; each plane over all n-tiles
-              // before the next, so no MMA waits for the one before it);
-              // the running field takes the sum with a float32 add.
-              // Chaining more k-steps there measured slower (registers).
-              float d[NTILE][4];
-#pragma unroll
-              for (int nt = 0; nt < NTILE; ++nt)
-#pragma unroll
-                for (int q = 0; q < 4; ++q) d[nt][q] = 0.f;
-              if (PLANES == 3) {
-#pragma unroll
-                for (int nt = 0; nt < NTILE; ++nt) mma_bf16(d[nt], al, bf[nt]);
-#pragma unroll
-                for (int nt = 0; nt < NTILE; ++nt) mma_bf16(d[nt], am, bf[nt]);
-              }
-#pragma unroll
-              for (int nt = 0; nt < NTILE; ++nt) mma_bf16(d[nt], ah, bf[nt]);
-#pragma unroll
-              for (int nt = 0; nt < NTILE; ++nt)
-#pragma unroll
-                for (int q = 0; q < 4; ++q) acc[mt][nt][q] += d[nt][q];
-            }
-          }
-        }
-#pragma unroll
-        for (int ku = 0; ku < KB; ++ku)
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) cur[ku][mt][hf] = nxt[ku][mt][hf];
-      }
-      // part[d][k][CPB]: the columns that block d decides, for block row k
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NTILE; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int row = 16 * (MT * warp + mt) + g + 8 * (q >> 1);
-            const int ct = 8 * nt + 2 * t + (q & 1);
-            part[((ct / CPB) * B + row) * CPB + ct % CPB] = acc[mt][nt][q];
-          }
-    }
+    if (warp < MMA_WARPS)
+      SGT_CLUSTER_FIELD_PARTIALS(B, PLANES, J, n_pad, i0, rank, rpb, warp,
+                                 g, t, nks, spin_w, sw, part);
     // spins and thresholds of this warp's column, while others multiply
     float f[FPL], s[FPL], th[FPL];
 #pragma unroll
@@ -345,16 +247,8 @@ cluster_sweep_kernel(const float* __restrict__ J, const float* __restrict__ h,
     cluster.sync();  // every block's partials are in place
 
     // ---- (2) this block's columns: the partials in block order, + h ----
-    static_assert(B * CPB % THREADS == 0, "B * CPB fields over the threads");
-#pragma unroll
-    for (int it = 0; it < B * CPB / THREADS; ++it) {  // all loads in flight
-      const int e = tid + it * THREADS;
-      float v = 0.f;
-#pragma unroll
-      for (int c = 0; c < CS; ++c)
-        v += cluster.map_shared_rank(part, c)[rank * B * CPB + e];
-      h_blk[e] = v + h[i0 + e / CPB];
-    }
+    sgt::cluster_reduce_fields<B, THREADS>(cluster, part, rank, h, i0, tid,
+                                           h_blk);
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < FPL; ++k) f[k] = h_blk[(lane + 32 * k) * CPB + warp];
@@ -366,10 +260,7 @@ cluster_sweep_kernel(const float* __restrict__ J, const float* __restrict__ h,
 #pragma unroll
     for (int k = 0; k < FPL; ++k) {
       const int row = i0 + lane + 32 * k;
-      const int owner = row / rpb;
-      __nv_bfloat16* dst = cluster.map_shared_rank(spin_h, owner) +
-                           own * (2 * sw) + (row - owner * rpb);
-      *dst = __float2bfloat16_rn(s[k]);
+      sgt::store_owner_spin(cluster, spin_h, sw, rpb, own, row, s[k]);
       if (live) spins[(size_t)row * R + col[0]] = s[k];
     }
     cluster.sync();  // partials read, spins in place; nobody exits early

@@ -296,18 +296,14 @@ def cluster_smem_bytes(n_pad: int, block_size: int) -> int:
 
 def pipelined_smem_bytes(n_pad: int, block_size: int) -> int:
     """Dynamic shared memory per thread block of K5's cluster kernel
-    (``csrc/metropolis_pipelined.cu``): K1's spins, partials and fields and
-    two buffers of J rows. At block 128, 32 rows 256 floats wide (the
-    diagonal block and the repair's block beside it, which the decision
-    warps sum flip by flip); at 256, 16 rows of the diagonal block and the
-    tensor-core repair's ds operand, 16 columns of 128 bf16 pairs,
-    padded."""
+    (``csrc/metropolis_pipelined.cu``): K1's spins, partials and fields,
+    two buffers of rows of J's diagonal block (32 rows at block 128, 16 at
+    256) and the tensor-core repair's ds operand, 16 columns of
+    block / 2 bf16 pairs, padded to 8 mod 32 words."""
     rt, cluster = CLUSTER_TILE
-    common = (_cluster_spin_bytes(n_pad) + rt * block_size * 4
-              + block_size * (rt // cluster) * 4)
-    if block_size == 128:
-        return common + 2 * 32 * 2 * block_size * 4
-    return (common + 2 * 16 * block_size * 4
+    rows = 32 if block_size == 128 else 16
+    return (_cluster_spin_bytes(n_pad) + rt * block_size * 4
+            + block_size * (rt // cluster) * 4 + 2 * rows * block_size * 4
             + 16 * _padded_words(block_size // 2) * 4)
 
 
@@ -339,7 +335,7 @@ def dense_tile(n_pad: int, block_size: int):
 
 def pipelined_tile(n_pad: int, block_size: int):
     """K5's tile at this shape: the cluster kernel (72, 8) while
-    ``pipelined_smem_bytes`` fits a thread block (n_pad up to 6784 at block
+    ``pipelined_smem_bytes`` fits a thread block (n_pad up to 8320 at block
     128, 5632 at 256), else the one-block float32 kernel, 8 columns a block
     (``PIPELINED_BLOCK_TILE``). A dispatch by shape, as ``dense_tile``."""
     if pipelined_smem_bytes(n_pad, block_size) <= SMEM_PER_BLOCK:
@@ -350,7 +346,7 @@ def pipelined_tile(n_pad: int, block_size: int):
 def folded_tile(n_pad: int, block_size: int):
     """K7's tile at this shape: the cluster kernel (72, 8) while
     ``folded_smem_bytes`` fits a thread block (n_pad up to 8832 at block
-    128, 5248 at 256), else the one-block float32 kernel, 32 columns a
+    128, 5120 at 256), else the one-block float32 kernel, 32 columns a
     block (``FOLDED_BLOCK_TILE``)."""
     if folded_smem_bytes(n_pad, block_size) <= SMEM_PER_BLOCK:
         return CLUSTER_TILE

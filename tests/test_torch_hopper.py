@@ -404,3 +404,67 @@ def test_kernel_turns_refuses_a_parent_outside_the_checkout(tmp_path, capsys):
     assert kernel_turns.main([str(tmp_path)]) == 2
     assert "must lie inside" in capsys.readouterr().err
     assert kernel_turns.main([]) == 2
+
+
+def test_kernel_turns_rounds_and_summary(tmp_path, capsys):
+    """``--rounds N`` repeats parent, change, change, parent N times (a
+    count below 1 is refused); the summary gives two turns as "a / b" and
+    more as their median and quartiles."""
+    from spinglass_tpu_torch.benchmarks import kernel_turns
+
+    (tmp_path / "spinglass_tpu_torch").mkdir()
+    assert kernel_turns.main([str(tmp_path), "--rounds", "0"]) == 2
+    assert kernel_turns.main([str(tmp_path), "--rounds"]) == 2
+    capsys.readouterr()
+    assert kernel_turns._times([780.04, 790.0]) == "780.0 / 790.0"
+    assert kernel_turns._times([1.0, 2.0, 3.0, 4.0, 5.0]) == (
+        "median 3.0 (quartiles 1.5-4.5, 5 turns)")
+
+
+_SASS = """
+	code for sm_90a
+		Function : _ZN52_GLOBAL__N__18b40ee5_19_metropolis_sweep_cu_7415b53920cluster_sweep_kernelILi128EEEvv
+	.headerflags	@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                  /* 0x00000a0000017a02 */
+                                                                           /* 0x000fe40000000f00 */
+        /*0010*/                   S2R R0, SR_TID.X ;                      /* 0x0000000000007919 */
+        /*0020*/                   EXIT ;                                  /* 0x000000000000794d */
+		..........
+		Function : _Z4tinyv
+        /*0000*/                   EXIT ;                                  /* 0x000000000000794d */
+"""
+
+
+def test_sass_diff_reads_functions_and_spills():
+    """sass_diff.py parses cuobjdump's functions (addresses, encodings and
+    the anonymous namespace's per-file tag removed) and ptxas's spill
+    bytes, and counts the lines one side lacks."""
+    from spinglass_tpu_torch.benchmarks import sass_diff as SD
+
+    fns = SD.sass_functions(_SASS)
+    key = "_ZN52_GLOBAL__N_20cluster_sweep_kernelILi128EEEvv"
+    assert list(fns) == [key, "_Z4tinyv"]
+    assert fns[key] == ['.headerflags @"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"',
+                        "MOV R1, c[0x0][0x28] ;", "S2R R0, SR_TID.X ;",
+                        "EXIT ;", ".........."]
+    other = SD.sass_functions(_SASS.replace("18b40ee5", "0badf00d")
+                              .replace("7415b539", "01234567"))
+    assert other == fns
+    ptxas = ("ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__"
+             "18b40ee5_19_metropolis_sweep_cu_7415b53920cluster_sweep_"
+             "kernelILi128EEEvv' for 'sm_90a'\nptxas info    : Function "
+             "properties for x\n    8 bytes stack frame, 4 bytes spill "
+             "stores, 12 bytes spill loads\n")
+    assert SD.ptxas_spills(ptxas) == {key: (4, 12)}
+    assert SD.lacking(["a", "b", "b"], ["b", "c"]) == 2
+    assert SD.lacking(["b"], ["b", "c"]) == 0
+
+
+def test_sass_diff_refuses_a_parent_outside_the_checkout(tmp_path, capsys):
+    """As kernel_turns.py: the parent's build stays inside this checkout."""
+    from spinglass_tpu_torch.benchmarks import sass_diff as SD
+
+    (tmp_path / "spinglass_tpu_torch").mkdir()
+    assert SD.main([str(tmp_path)]) == 2
+    assert "must lie inside" in capsys.readouterr().err
+    assert SD.main([]) == 2

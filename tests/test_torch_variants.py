@@ -231,18 +231,18 @@ def test_variant_smem_layouts(block):
         spins, part = _spin_bytes(n_pad), 72 * block * 4
         assert MC.cluster_smem_bytes(n_pad, block) == (
             spins + part + 2 * 32 * block * 4 + block * 9 * 4)
-        # block 128: 32 J rows 2B wide; 256: 16 rows B wide and the ds
-        # operand, 16 columns of 128 + 8 words
-        extra = (2 * 32 * 2 * block * 4 if block == 128
-                 else 2 * 16 * block * 4 + 16 * 136 * 4)
+        # J rows B wide, 32 a stage at 128 and 16 at 256, and the ds
+        # operand: 16 columns of 64 + 8 words at 128, 128 + 8 at 256
+        rows, ds_words = (32, 72) if block == 128 else (16, 136)
         assert MC.pipelined_smem_bytes(n_pad, block) == (
-            spins + part + block * 9 * 4 + extra)
+            spins + part + block * 9 * 4 + 2 * rows * block * 4
+            + 16 * ds_words * 4)
         assert MC.folded_smem_bytes(n_pad, block) == (
             spins + part + 32 * block * 4 + 3 * block * 9 * 4 + 16 * 20 * 4)
-    # K5 needs K1's bytes and 32 KB more J rows at block 128, less at 256
+    # K5 needs K1's bytes and the ds operand at block 128, less at 256
     # (16 J rows a stage); K7 less than K1 at both
     assert (MC.pipelined_smem_bytes(4096, 128)
-            == MC.cluster_smem_bytes(4096, 128) + 32 * 1024)
+            == MC.cluster_smem_bytes(4096, 128) + 16 * 72 * 4)
     assert MC.pipelined_smem_bytes(4096, 256) < MC.cluster_smem_bytes(4096,
                                                                       256)
     assert MC.folded_smem_bytes(4096, block) < MC.cluster_smem_bytes(4096,
@@ -251,7 +251,7 @@ def test_variant_smem_layouts(block):
 
 @pytest.mark.parametrize("kernel,block,edge", [
     (MC.KERNEL_NAME, 128, 8320), (MC.KERNEL_NAME, 256, 4096),
-    (MC.PIPELINED_KERNEL, 128, 6784), (MC.PIPELINED_KERNEL, 256, 5632),
+    (MC.PIPELINED_KERNEL, 128, 8320), (MC.PIPELINED_KERNEL, 256, 5632),
     (MC.FOLDED_KERNEL, 128, 8832), (MC.FOLDED_KERNEL, 256, 5120)])
 def test_variant_envelope(kernel, block, edge):
     """Each kernel's shape rule: the cluster kernel up to the envelope edge
@@ -297,8 +297,8 @@ def _shape_problem(n_pad):
     ({}, 512, 128, [1, 8]),
     ({}, 8448, 128, [1, 1]),
     (dict(pipelined=True), 512, 256, [1, 8]),
-    (dict(pipelined=True), 6784, 128, [1, 8]),
-    (dict(pipelined=True), 6912, 128, [1, 1]),
+    (dict(pipelined=True), 8320, 128, [1, 8]),
+    (dict(pipelined=True), 8448, 128, [1, 1]),
     (dict(pipelined=True), 5888, 256, [1, 1]),
     (dict(folded=True), 512, 128, [32, 1, 8]),
     (dict(folded=True), 8832, 128, [32, 1, 8]),
@@ -372,26 +372,73 @@ def test_dense_kernels_share_one_bound(n_pad, r, planes):
         MC.dense_sweep_bound("sparse_sweep", n_pad, r, planes)
 
 
-@pytest.mark.parametrize("name,part", [
-    (name, part) for name, parts in ((MC.PIPELINED_KERNEL, VP.K5_PARTS),
-                                     (MC.FOLDED_KERNEL, VP.K7_PARTS))
-    for part in parts])
-def test_variant_parts_edit_the_sources_once(tmp_path, monkeypatch, name,
-                                             part):
-    """benchmarks/variant_parts.py's edits each match the kernel's source
-    once (the script stops on one that does not), and only that source
-    differs in the part's copy of csrc/."""
-    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
-    parts = VP.K5_PARTS if name == MC.PIPELINED_KERNEL else VP.K7_PARTS
-    src, lib = VP.part_source(name, part, parts[part])
-    assert lib.endswith(f"{name}.so") and str(tmp_path) in lib
-    with open(os.path.join(build.CSRC_DIR, f"{name}.cu")) as f:
-        original = f.read()
+def _toy_csrc(tmp_path, monkeypatch):
+    """A csrc/ of one kernel source and one header, and an empty build
+    directory, in place of the package's."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "toy.cu").write_text('#include "toy.cuh"\nint a = 1; int b = 2;'
+                                 '\nint c = 2;\n')
+    (csrc / "toy.cuh").write_text("int d = 4;\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    return csrc
+
+
+@pytest.mark.parametrize("edits,want", [
+    ([], '#include "toy.cuh"\nint a = 1; int b = 2;\nint c = 2;\n'),
+    ([("a = 1", "a = 5")], '#include "toy.cuh"\nint a = 5; int b = 2;'
+                           '\nint c = 2;\n'),
+    ([("a = 1", "a = 5"), ("int c = 2;\n", "")],
+     '#include "toy.cuh"\nint a = 5; int b = 2;\n'),
+    ([("= 2", "= 3")], ValueError),  # twice
+    ([("e = 5", "e = 6")], ValueError),  # nowhere
+    ([("a = 1", "a = 5"), ("a = 1", "a = 6")], ValueError),  # gone
+])
+def test_variant_parts_edit_the_sources_once(tmp_path, monkeypatch, edits,
+                                             want):
+    """benchmarks/variant_parts.py applies each part's edits to the kernel's
+    source, each matching exactly once (else it stops), copies the rest of
+    csrc/ unchanged, and builds into a path under the build directory that
+    names the kernel and the part."""
+    csrc = _toy_csrc(tmp_path, monkeypatch)
+    if want is ValueError:
+        with pytest.raises(ValueError, match="toy.cu once"):
+            VP.part_source("toy", "a part", edits)
+        return
+    src, lib = VP.part_source("toy", "a part", edits)
     with open(src) as f:
-        edited = f.read()
-    assert (edited == original) == (not parts[part])
-    for fname in os.listdir(build.CSRC_DIR):
-        if fname != f"{name}.cu":
-            with open(os.path.join(build.CSRC_DIR, fname)) as a, \
-                    open(os.path.join(os.path.dirname(src), fname)) as b:
-                assert a.read() == b.read(), fname
+        assert f.read() == want
+    with open(os.path.join(os.path.dirname(src), "toy.cuh")) as f:
+        assert f.read() == (csrc / "toy.cuh").read_text()
+    assert lib.startswith(str(tmp_path / "build" / "parts" / "toy-a_part-"))
+    assert lib.endswith("toy.so")
+
+
+def test_variant_parts_library_path_follows_the_sources(tmp_path,
+                                                        monkeypatch):
+    """A part's library path changes with the edited source, with any csrc/
+    header and with the nvcc flags, so that a rerun after an edit never
+    times a stale build; it stays the same when nothing changed."""
+    csrc = _toy_csrc(tmp_path, monkeypatch)
+    first = VP.part_source("toy", "p", [("a = 1", "a = 5")])[1]
+    assert VP.part_source("toy", "p", [("a = 1", "a = 5")])[1] == first
+    assert VP.part_source("toy", "p", [("a = 1", "a = 7")])[1] != first
+    (csrc / "toy.cuh").write_text("int d = 5;\n")
+    second = VP.part_source("toy", "p", [("a = 1", "a = 5")])[1]
+    assert second != first
+    monkeypatch.setattr(build, "NVCC_FLAGS", [*build.NVCC_FLAGS, "-G"])
+    assert VP.part_source("toy", "p", [("a = 1", "a = 5")])[1] != second
+
+
+def test_variant_parts_stop_before_building(tmp_path, monkeypatch):
+    """An edit that misses stops build_parts before any nvcc starts."""
+    _toy_csrc(tmp_path, monkeypatch)
+    started = []
+    monkeypatch.setattr(VP.subprocess, "Popen",
+                        lambda *a, **k: started.append(a))
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    with pytest.raises(ValueError, match="nowhere"):
+        VP.build_parts({"toy": {"fine": [("a = 1", "a = 5")],
+                                "nowhere": [("e = 5", "e = 6")]}})
+    assert started == []
