@@ -6,8 +6,8 @@
 Builds the port's kernels from csrc/ with nvcc (one process per source, all
 at once): K1 (dense sweep: a thread-block cluster per 72 replica columns,
 bf16 tensor-core fields from an exact 3-plane split of J), its variants K5
-(pipelined) and K7 (folded) on K1's cluster design within their shared
-memory envelopes, K6 (interleaved), K2 (single-call sparse
+(pipelined), K6 (interleaved) and K7 (folded) on K1's cluster design within
+their shared memory envelopes, K2 (single-call sparse
 sweep, the tile's spins in shared memory), K3 (sparse thresholds, four per
 Philox run) and K4 (one colour of the sparse sweep per launch: it gathers
 its own fields), and the Swendsen-Wang sweep's two kernels, which have no
@@ -32,8 +32,9 @@ the kernels against the twins. Phases:
   1. device and build: nvidia-smi name and power limit, build seconds,
      registers, spills and shared memory of every kernel, how many of
      K1's clusters the card holds at once, and the shared memory of K1's,
-     K5's and K7's cluster kernels as built against the wrapper's shape
-     rules (at Np=4096, at each envelope's edge and one block beyond);
+     K5's, K6's and K7's cluster kernels as built against the wrapper's
+     shape rules (at Np=4096, at each envelope's edge and one block
+     beyond); the host C++ library (native) built from the checkout;
   2. parity with the twins. +-J couplings with h on a quarter grid make every
      field exact, so spins, dE and counts must be equal bit for bit.
      K1: N=500 padded to 512, R in {1, 37, 256}, both rules, both block
@@ -60,7 +61,7 @@ the kernels against the twins. Phases:
      tile, two, 15 tiles and a second wave; both rules, both blocks, a
      host-uniform or a Philox sweep at each), and at N=4096, R=1024 against
      its twin and K1 (block 128, Philox) and against K1 (block 256, host
-     uniforms); K5 and K7 at n_pad on each block's envelope edge (their
+     uniforms); K5, K6 and K7 at n_pad on each block's envelope edge (their
      cluster kernels; against twin and K1) and one block beyond (the
      one-block float32 kernels; against K1), R=73: spins, dE, counts
      bitwise.
@@ -114,11 +115,12 @@ the kernels against the twins. Phases:
      128) must take the fused sweep, K4 once per colour and sweep. The
      sparse anneal's E/N must lie within 0.01 of -1.63. Each run's
      best_energy must equal the energy of its best_spins (1e-3 relative).
-     Then K5 and K7 run 500 sweeps of the SK anneal (its seeds, its
-     schedule, sa's sweep step) and K6 100: E/N <= -0.72, energy identity
-     within 1e-4 relative per 50-sweep chunk, K5's and K7's best E/N within
-     0.005 of K1's 500 sweeps through the same driver (their fields sum in
-     another order); on a +-J N=4096 instance 50
+     Then K5, K6 (2 and 4 chains) and K7 run 500 sweeps of the SK anneal
+     (its seeds, its schedule, sa's sweep step): E/N <= -0.72, energy
+     identity within 1e-4 relative per 50-sweep chunk, best E/N within
+     0.005 of K1's 500 sweeps through the same driver (K5's and K7's fields
+     sum in another order; K6's in K1's, so its spins and best energies
+     must equal K1's run bit for bit); on a +-J N=4096 instance 50
      such sweeps must end bitwise equal to K1's spins. PT at R=4096 through
      make_pt_step with SortedSparseTEngine(accept_kernel="fused") for 200
      sweeps on the +-J 10k graph must equal the K3 path
@@ -241,7 +243,12 @@ the kernels against the twins. Phases:
      running 8 SA seeds through K1 from their threads == each seed's call
      alone; EdgeOrchestrator's sa, pt and sqa on the card; then
      `sgt-torch quality-gates` over every gate but suite_budget (printed as
-     excluded), all passing;
+     excluded), all passing. The host C++ routines (native): the greedy
+     colourings, plain and balanced, and build_ell at 100k spins through
+     the C++ library and through their numpy versions, bitwise equal, both
+     times printed; every other native call of the run (make_engine's
+     colourings, EllProblem.from_coo's ELL build, from_terms' scatter) must
+     have gone through the C++ library;
   5. timing: each kernel's bound (bytes over 3.35 TB/s against operations
      over the peak of their type) and the two library yardsticks for K1's
      and K2's field work alone (torch.matmul, torch.sparse.mm; the port
@@ -794,30 +801,34 @@ def variant_parity(torch, mc, stats):
                 "variant's twin and to K1; at N=4096, R=1024 (the slice's "
                 "shape) bitwise equal to the twin and K1 at block 128 "
                 "(Philox) and to K1 at block 256 (host uniforms)")
-    # K5's and K7's cluster kernels at their envelope's edge, and one block
-    # beyond it, where the one-block float32 kernels run
+    # K5's, K6's and K7's cluster kernels at their envelope's edge, and one
+    # block beyond it, where the one-block float32 kernels run
     edges = []
-    for label, name in (("K5", mc.PIPELINED_KERNEL), ("K7", mc.FOLDED_KERNEL)):
+    for label, name in (("K5", mc.PIPELINED_KERNEL),
+                        ("K6x2", mc.INTERLEAVED_KERNEL),
+                        ("K6x4", mc.INTERLEAVED_KERNEL),
+                        ("K7", mc.FOLDED_KERNEL)):
         for block in (128, 256):
             edge = mc.cluster_envelope(name, block)
-            for n_pad, want in ((edge, mc.CLUSTER_TILE),
-                                (edge + block, mc.TILE_RULES[name](
-                                    edge + block, block))):
+            for n_pad in (edge, edge + block):
                 problem = big if n_pad == 4096 else pm_j_problem(n_pad, 11,
                                                                  "cuda")
                 fused = mc.FusedSweep(problem, block_size=block,
                                       **VARIANTS[label])
-                check(fused.tile == want and (want == mc.CLUSTER_TILE) ==
-                      (n_pad == edge), f"{label} at n_pad {n_pad}, block "
-                      f"{block}: tile {fused.tile}")
+                # the rule's cluster size (K6's one-block tile is wider)
+                want = mc.TILE_RULES[name](n_pad, block)
+                check(fused.tile[1] == want[1] and (fused.tile ==
+                      mc.CLUSTER_TILE) == (n_pad == edge),
+                      f"{label} at n_pad {n_pad}, block {block}: tile "
+                      f"{fused.tile}")
                 # the twin at the edge; beyond it K1, which phase 2 holds to
                 # its twin in both designs
                 compare(problem, label, 73, "metropolis", block, True,
                         twin=n_pad == edge)
                 edges.append(f"{label} {n_pad}/{block} {fused.tile}")
-    check(True, "K5 and K7 at the edge of their cluster kernels (+-J, R=73, "
-                "Philox: bitwise equal to their twins and to K1) and one "
-                "block beyond (bitwise equal to K1): " + ", ".join(edges))
+    check(True, "K5, K6 and K7 at the edge of their cluster kernels (+-J, "
+                "R=73, Philox: bitwise equal to their twins and to K1) and "
+                "one block beyond (bitwise equal to K1): " + ", ".join(edges))
     stats["variant_err"] = worst
     stats["variant_twin_us"] = twin_us
 
@@ -856,8 +867,8 @@ ANNEAL_EN_TOL = 0.005
 
 def variant_slice(torch, mc, stats):
     """Phase 4 (variants): the dense slice through each variant on the SK
-    instance (K5 and K7 500 sweeps against K1's 500 through the same
-    driver, K6 100), and 50 on a +-J instance against K1."""
+    instance (500 sweeps against K1's 500 through the same driver), and 50
+    on a +-J instance against K1."""
     sk = stats["sk"]
     stats["variant_launches"] = {}
     ref, _, _ = _variant_run(torch, mc, sk, {}, 500, 50)
@@ -866,20 +877,24 @@ def variant_slice(torch, mc, stats):
     print(f"  K1 through the same driver, 500 sweeps: best E/N {e_k1:.5f} "
           f"(anneal's {res.best_energy / 4096:.5f})")
     for label, flags in VARIANTS.items():
-        sweeps = 100 if label.startswith("K6") else 500
+        sweeps = 500
         state, engine, rel = _variant_run(torch, mc, sk, flags, sweeps, 50)
         name = engine.fused.kernel_name
         launches = engine.launches[name]
         stats["variant_launches"][name] = (
             stats["variant_launches"].get(name, 0) + launches)
         e_n = float(state.best_energy.min()) / 4096
-        near = sweeps == 100 or abs(e_n - e_k1) <= ANNEAL_EN_TOL
+        near = abs(e_n - e_k1) <= ANNEAL_EN_TOL
+        if label.startswith("K6"):  # K1's sums in K1's order: K1's run
+            near = near and torch.equal(state.spins, ref.spins) and \
+                torch.equal(state.best_energy, ref.best_energy)
         check(launches == sweeps and e_n <= -0.72 and rel <= 1e-4 and near,
               f"{label} ({name}, tile {engine.fused.tile}): SK N=4096 "
               f"R=1024, {sweeps} sweeps of the SA schedule: launched "
-              f"{launches} times, best E/N {e_n:.5f} <= -0.72"
-              + (f" and within {ANNEAL_EN_TOL} of K1's {e_k1:.5f}"
-                 if sweeps == 500 else "")
+              f"{launches} times, best E/N {e_n:.5f} <= -0.72 and within "
+              f"{ANNEAL_EN_TOL} of K1's {e_k1:.5f}"
+              + (", spins and best energies bitwise K1's"
+                 if label.startswith("K6") else "")
               + f", energy identity max rel err {rel:.3e} <= 1e-4")
     pm = pm_j_problem(4096, 9, "cuda")
     ref, _, _ = _variant_run(torch, mc, pm, {}, 50, 50)
@@ -4472,6 +4487,39 @@ def distributed_slice(torch, mc, stats, card):
     print(f"  distributed path launches: {launches} [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# The host C++ routines (native): colourings and the ELL build
+# ---------------------------------------------------------------------------
+
+def native_slice(stats, card):
+    """Phase 4 (native): the C++ library built from the checkout serves
+    the colourings (plain and balanced) and build_ell at 100k spins, each
+    bitwise equal to its numpy version; both times printed. Every other
+    native call of the run must be the C++ path's too (checked at the
+    end)."""
+    from spinglass_tpu_torch import native
+    from spinglass_tpu_torch.benchmarks.native_host import compare
+
+    check(native.available() and native.BACKEND == "native",
+          f"the native library is built and loaded "
+          f"({os.path.relpath(native.library_path('g++'), HERE)})")
+    before = dict(native.CALLS)
+    res = compare(100_000)
+    new = {k: v - before.get(k, 0) for k, v in native.CALLS.items()
+           if v != before.get(k, 0)}
+    want = {(fn, path): 1 for fn in ("greedy_coloring",
+                                     "greedy_coloring_balanced", "build_ell")
+            for path in ("native", "numpy")}
+    check(new == want, f"each step once through C++ and once through numpy: "
+                       f"{sorted(new.items())}")
+    stats["native_numpy_calls"] = sum(new[k] for k in want if k[1] == "numpy")
+    for name, r in res.items():
+        check(r["same"], f"{name} at 100000 spins (sparse_random_graph_coo, "
+                         f"degree 6, seed 42): native {r['native_s']:.4f} s, "
+                         f"numpy {r['numpy_s']:.4f} s, bitwise equal "
+                         f"[host: {os.cpu_count()} CPUs; {card}]")
+
+
 def quality_gates_slice(torch, card):
     """Phase 4 (quality gates): ``sgt-torch quality-gates`` in process over
     every gate but suite_budget (the port's GPU tests: a run of their own,
@@ -4612,6 +4660,12 @@ def main() -> int:
                     elif ("registers" in line or "spill" in line
                           or "seconds" in line):
                         print("    " + line.strip())
+        from spinglass_tpu_torch import native
+
+        t0 = time.perf_counter()
+        native.CALLS.clear()
+        check(native.available(), f"native (host C++) built and loaded in "
+                                  f"{time.perf_counter() - t0:.2f} s")
         for name in (mc.KERNEL_NAME, mc.PIPELINED_KERNEL, mc.INTERLEAVED_KERNEL,
                      mc.FOLDED_KERNEL):
             mc.load_kernel(name)
@@ -4632,6 +4686,7 @@ def main() -> int:
         # against the wrapper's shape rule (metropolis_cuda.*_smem_bytes)
         for name, smem in ((mc.KERNEL_NAME, mc.cluster_smem_bytes),
                            (mc.PIPELINED_KERNEL, mc.pipelined_smem_bytes),
+                           (mc.INTERLEAVED_KERNEL, mc.cluster_smem_bytes),
                            (mc.FOLDED_KERNEL, mc.folded_smem_bytes)):
             lib = mc.load_kernel(name)
             for block in (128, 256):
@@ -4691,6 +4746,9 @@ def main() -> int:
                  lambda: distributed_slice(torch, mc, stats, card)),
                 ("phase 4: sgt-torch quality-gates",
                  lambda: quality_gates_slice(torch, card)),
+                ("phase 4: the host C++ routines (native: colourings and "
+                 "build_ell at 100k spins against numpy)",
+                 lambda: native_slice(stats, card)),
                 ("phase 5: timing (K1)", lambda: phase_timing(torch, mc, stats, card)),
                 ("phase 5: timing (K2, K3)", lambda: sparse_timing(torch, stats, card)),
                 ("phase 5: timing (K5, K6, K7)", lambda: variant_timing(torch, mc, stats, card)),
@@ -4718,6 +4776,14 @@ def main() -> int:
             t0 = time.perf_counter()
             phase()
             print(f"  ({time.perf_counter() - t0:.1f} s)")
+        # every native call but the native phase's numpy comparisons went
+        # through the C++ library
+        numpy_calls = sum(v for (_, path), v in native.CALLS.items()
+                          if path == "numpy")
+        check(numpy_calls == stats["native_numpy_calls"],
+              f"native: {sum(native.CALLS.values()) - numpy_calls} calls "
+              f"through C++ over the run, numpy only for the "
+              f"{numpy_calls} comparisons")
     except Exception:  # report any failure of any phase, then exit non-zero
         traceback.print_exc()
         print("FAIL", file=sys.stderr)

@@ -1,12 +1,14 @@
-"""The design parts of K5's and K7's cluster kernels, each replaced by its
-alternative or left out, timed against the kernels as built and K1, in
+"""The design parts of K5's, K6's and K7's cluster kernels, each replaced by
+its alternative or left out, timed against the kernels as built and K1, in
 turns on one GPU.
 
-    python -m spinglass_tpu_torch.benchmarks.variant_parts
+    python -m spinglass_tpu_torch.benchmarks.variant_parts [K5] [K6] [K7]
 
-Builds K5 (``csrc/metropolis_pipelined.cu``) and K7
-(``csrc/metropolis_folded.cu``) as they are and with textual edits
-(``K5_PARTS``, ``K7_PARTS``) into ``build/parts/<kernel>-<part>-<hash>/``
+Builds K5 (``csrc/metropolis_pipelined.cu``), K6
+(``csrc/metropolis_interleaved.cu``, timed at 2 and 4 chains) and K7
+(``csrc/metropolis_folded.cu``), or those named, as they are and with
+textual edits (``K5_PARTS``, ``K6_PARTS``, ``K7_PARTS``) into
+``build/parts/<kernel>-<part>-<hash>/``
 (the hash covers the edited source, the ``csrc/`` headers and the nvcc
 flags, as ``kernels/build.py``'s library paths do), one nvcc per build,
 all at once, and times each build through ``FusedSweep``
@@ -46,6 +48,12 @@ K5_PARTS = {
     "no fields of the next block (timing only)": [
         ("      if (b + 1 < nb)\n        SGT_CLUSTER_FIELD_PARTIALS",
          "      if (false)\n        SGT_CLUSTER_FIELD_PARTIALS")],
+}
+K6_PARTS = {
+    "as built": [],
+    "no decisions (timing only)": [
+        ("  for (int src = 0; src < 32; ++src) {",
+         "  for (int src = 0; src < 0; ++src) {")],
 }
 K7_PARTS = {
     "as built": [],
@@ -132,10 +140,19 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     card = device_description()
-    flags = {mc.PIPELINED_KERNEL: dict(pipelined=True),
-             mc.FOLDED_KERNEL: dict(folded=True)}
-    paths = build_parts({mc.PIPELINED_KERNEL: K5_PARTS,
-                         mc.FOLDED_KERNEL: K7_PARTS})
+    # label -> (kernel, its parts, [(sweep label, FusedSweep flags)])
+    kernels = {
+        "K5": (mc.PIPELINED_KERNEL, K5_PARTS, [("K5", dict(pipelined=True))]),
+        "K6": (mc.INTERLEAVED_KERNEL, K6_PARTS,
+               [("K6x2", dict(interleave=2)), ("K6x4", dict(interleave=4))]),
+        "K7": (mc.FOLDED_KERNEL, K7_PARTS, [("K7", dict(folded=True))]),
+    }
+    chosen = sys.argv[1:] or list(kernels)
+    if not set(chosen) <= set(kernels):
+        print(f"kernels are named {sorted(kernels)}", file=sys.stderr)
+        return 1
+    flags = {kernels[k][0]: kernels[k][2] for k in chosen}
+    paths = build_parts({kernels[k][0]: kernels[k][1] for k in chosen})
     libs = {}
     for (name, part), path in paths.items():
         bound = mc.load_kernel(name)  # the committed build's signatures
@@ -160,8 +177,8 @@ def main() -> int:
     def sweep(problem, block, key):
         if key == "K1":
             return mc.FusedSweep(problem, block_size=block)
-        fused = mc.FusedSweep(problem, block_size=block, **flags[key[0]])
-        fused._lib = libs[key]
+        fused = mc.FusedSweep(problem, block_size=block, **sweeps[key[2]])
+        fused._lib = libs[key[:2]]
         return fused
 
     def us_per_sweep(fused):
@@ -175,13 +192,17 @@ def main() -> int:
         return start.elapsed_time(stop) * 1e3 / 20
 
     times: dict = {}
-    keys = ["K1"] + list(libs) + ["K1"]
+    # (kernel, part, sweep label) per timed sweep; the label's flags
+    sweeps = {lab: f for name in flags for lab, f in flags[name]}
+    runs = [(name, part, lab) for name, part in libs
+            for lab, _ in flags[name]]
+    keys = ["K1"] + runs + ["K1"]
     for block in (128, 256):
         same = {}
         b_pm = torch.full((1024,), 0.05, device="cuda")
         ref = s0.clone()
         mc.FusedSweep(pm, block_size=block)(ref, b_pm, 99)
-        for key in libs:
+        for key in runs:
             if "timing only" not in key[1]:
                 got = s0.clone()
                 sweep(pm, block, key)(got, b_pm, 99)
@@ -189,7 +210,7 @@ def main() -> int:
         for rnd, order in enumerate((1, -1)):
             for key in keys[::order]:
                 us = us_per_sweep(sweep(sk, block, key))
-                label = key if key == "K1" else f"{key[0]} {key[1]}"
+                label = key if key == "K1" else f"{key[2]} {key[1]}"
                 times.setdefault(f"{label} B={block}", []).append(us)
                 note = ("" if key not in same else
                         ", same as K1 on +-J" if same[key] else

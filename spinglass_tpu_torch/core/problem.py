@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spinglass_tpu_torch import native
 from spinglass_tpu_torch.core import rng
 
 # The JAX package pads spin counts to the TPU lane width; the port keeps the
@@ -134,14 +135,9 @@ class IsingProblem:
         device=None,
     ) -> "IsingProblem":
         """Build from sparse term lists: J[i, j] += v and J[j, i] += v for
-        each quadratic term, h[i] += v for each linear term."""
-        qi = np.asarray(quad_i, dtype=np.int64)
-        qj = np.asarray(quad_j, dtype=np.int64)
-        qv = np.asarray(quad_val, dtype=np.float64)
-        j = np.zeros((n_spins, n_spins), dtype=np.float64)
-        np.add.at(j, (qi, qj), qv)
-        np.add.at(j, (qj, qi), qv)
-        np.fill_diagonal(j, 0.0)
+        each quadratic term (``native.scatter_add_symmetric``), h[i] += v
+        for each linear term."""
+        j = native.scatter_add_symmetric(quad_i, quad_j, quad_val, n_spins)
         h = np.zeros((n_spins,), dtype=np.float64)
         if lin_i is not None:
             np.add.at(h, np.asarray(lin_i, dtype=np.int64),

@@ -5,15 +5,17 @@ A copy of ``spinglass_tpu.core.topology``: the same seeds give the same
 matrices and COO lists, so a test can build one instance and hand it to both
 packages.
 The port keeps its own copy because importing ``spinglass_tpu`` pulls in
-JAX, which the GPU machine does not have. The native C++ colourings are not
-ported; the pure-Python greedy colourings below are the JAX package's
-reference implementations and give the native output (10k spins, average
-degree 6: 0.06 s).
+JAX, which the GPU machine does not have. The greedy colourings go through
+the port's ``native`` C++ routines, as the JAX package's do; their numpy
+versions (``native.greedy_coloring_csr``'s fallback, the JAX package's
+reference loop) give the same colours.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from spinglass_tpu_torch import native
 
 
 def _sample(rng: np.random.Generator, size: int, dist: str, scale: float) -> np.ndarray:
@@ -172,36 +174,15 @@ def greedy_coloring_coo(rows: np.ndarray, cols: np.ndarray, n: int,
     with the smallest class so far, and opens a new colour only when every
     opened one is blocked: the sorted sparse layouts pad each colour span,
     so even classes waste less. Raises ``ValueError`` beyond ``max_colors``.
+    The colouring is ``native.greedy_coloring_csr``'s.
     """
     order = np.argsort(rows, kind="stable")
     r_s, c_s = np.asarray(rows)[order], np.asarray(cols)[order]
     indptr = np.zeros(n + 1, np.int64)
     np.add.at(indptr, r_s + 1, 1)
     indptr = np.cumsum(indptr)
-    colors = np.full(n, -1, dtype=np.int64)
-    deg = np.diff(indptr)
-    class_size = np.zeros(max_colors, np.int64)
-    for v in np.argsort(-deg, kind="stable"):
-        nb = c_s[indptr[v]:indptr[v + 1]]
-        used = set(colors[nb][colors[nb] >= 0].tolist())
-        if balanced:
-            opened = int(np.count_nonzero(class_size))
-            feasible = [c for c in range(opened) if c not in used]
-            if feasible:
-                c = min(feasible, key=lambda c: (class_size[c], c))
-            elif opened < max_colors:
-                c = opened
-            else:
-                raise ValueError(f"graph needs >{max_colors} colors")
-        else:
-            c = 0
-            while c in used:
-                c += 1
-            if c >= max_colors:
-                raise ValueError(f"graph needs >{max_colors} colors")
-        colors[v] = c
-        class_size[c] += 1
-    return colors
+    return native.greedy_coloring_csr(indptr, c_s.astype(np.int64), n,
+                                      max_colors, balanced=balanced)
 
 
 def density(j: np.ndarray) -> float:
@@ -240,19 +221,18 @@ def greedy_coloring(j: np.ndarray, max_colors: int = 256) -> np.ndarray:
     Returns color[i] in [0, n_colors). No edge joins two same-colour
     vertices, so a sweep may propose flips for a whole colour class at once
     with exact Metropolis semantics. Raises ``ValueError`` when more than
-    ``max_colors`` colours are needed (dense J: use the blocked sweep).
+    ``max_colors`` colours are needed (dense J: use the blocked sweep). The
+    colouring is ``native.greedy_coloring_csr``'s on J's non-zeros.
     """
     n = j.shape[0]
-    colors = np.full(n, -1, dtype=np.int64)
-    order = np.argsort(-np.count_nonzero(j, axis=1), kind="stable")
-    adj = [np.nonzero(j[i])[0] for i in range(n)]
-    for v in order:
-        used = set(colors[adj[v]][colors[adj[v]] >= 0].tolist())
-        c = 0
-        while c in used:
-            c += 1
-        if c >= max_colors:
-            raise ValueError(
-                f"graph needs >{max_colors} colors; use the blocked sweep for dense J")
-        colors[v] = c
-    return colors
+    rows, cols = np.nonzero(j)
+    indptr = np.zeros(n + 1, np.int64)
+    np.add.at(indptr, rows + 1, 1)
+    try:
+        return native.greedy_coloring_csr(np.cumsum(indptr),
+                                          cols.astype(np.int64), n,
+                                          max_colors)
+    except ValueError:
+        raise ValueError(
+            f"graph needs >{max_colors} colors; use the blocked sweep for "
+            "dense J") from None

@@ -23,7 +23,10 @@ here that expresses the same algorithm:
   kernel);
 * K6 ``csrc/metropolis_interleaved.cu`` (``_make_kernel_interleaved``), twin
   ``interleaved_sweep_reference``: the replicas split into chains with
-  private fields, stepped in interleaved order;
+  private fields, stepped in interleaved order; on the card K1's cluster
+  design, the chains' columns one per decision warp, stepped side by side
+  by the warp schedulers (at K1's shapes, ``dense_tile``; beyond them the
+  one-block float32 kernel at 8 columns per chain);
 * K7 ``csrc/metropolis_folded.cu`` (``_make_kernel_folded``), twin
   ``folded_sweep_reference``: immediate corrections inside a micro-block,
   then one delayed ``jbb_od[:, lo:hi] @ ds[lo:hi]`` update of the block;
@@ -353,9 +356,11 @@ def folded_tile(n_pad: int, block_size: int):
     return FOLDED_BLOCK_TILE
 
 
-# kernel name -> its tile rule (K6 has one tile: 8 columns per chain)
+# kernel name -> its tile rule. K6's cluster kernel lays out K1's shared
+# memory, so K1's rule decides between it and the one-block kernel (whose
+# tile FusedSweep widens to 8 columns per chain)
 TILE_RULES = {KERNEL_NAME: dense_tile, PIPELINED_KERNEL: pipelined_tile,
-              FOLDED_KERNEL: folded_tile}
+              INTERLEAVED_KERNEL: dense_tile, FOLDED_KERNEL: folded_tile}
 
 
 def cluster_envelope(kernel_name: str, block_size: int) -> int:
@@ -568,9 +573,8 @@ def load_kernel(name: str = KERNEL_NAME) -> ctypes.CDLL:
 
     lib = build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    # K6: chains; K1 and K5: planes, cluster; K7: micro, planes, cluster
-    extra = {INTERLEAVED_KERNEL: [i], FOLDED_KERNEL: [i, i, i]}.get(name,
-                                                                  [i, i])
+    # K1 and K5: planes, cluster; K6: chains, K7: micro, then planes, cluster
+    extra = [i, i, i] if name in (INTERLEAVED_KERNEL, FOLDED_KERNEL) else [i, i]
     fn = getattr(lib, f"sgt_{name}")
     fn.argtypes = ([p, p, p, p, p, p, ctypes.c_ulonglong, p, p, p, i, i, i, i]
                    + extra + [p])
@@ -580,10 +584,9 @@ def load_kernel(name: str = KERNEL_NAME) -> ctypes.CDLL:
         lib.sgt_metropolis_sweep_stacked.restype = i
         lib.sgt_metropolis_sweep_clusters.argtypes = [i, i, i, i, p]
         lib.sgt_metropolis_sweep_clusters.restype = i
-    if name != INTERLEAVED_KERNEL:  # the cluster kernel's shared memory
-        smem = getattr(lib, f"sgt_{name}_smem")
-        smem.argtypes = [i, i]
-        smem.restype = ctypes.c_longlong
+    smem = getattr(lib, f"sgt_{name}_smem")  # the cluster kernel's bytes
+    smem.argtypes = [i, i]
+    smem.restype = ctypes.c_longlong
     lib.sgt_cuda_error_string.argtypes = [i]
     lib.sgt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -602,18 +605,19 @@ class FusedSweep(_Counted):
     for any other. Flags that cannot go together raise, as in the JAX
     package; the TPU-only rules (per-chain width % 128 lanes, replica tile
     % 8 for folding) are dropped, since CUDA columns beyond R are masked in
-    every kernel. K6's tile is 8 * nchains columns, so the JAX rule
-    "replica tile % nchains == 0" holds by construction.
+    every kernel. K6's tiles (72 columns, or 8 * nchains in its one-block
+    kernel) hold every chain's columns, so the JAX rule "replica tile %
+    nchains == 0" needs no check.
 
     ``j_dtype`` "bfloat16" sweeps on J rounded once to bfloat16 (kept as
     float32 values, diagonal blocks included), as the JAX package's
     ``FusedSweep(j_dtype=jnp.bfloat16)`` does. The spins must be +-1: K1
     keeps them as bf16 in shared memory. ``tile`` is ``dense_tile``'s
-    answer for this problem (``pipelined_tile``, ``folded_tile`` for K5 and
-    K7, which have cluster kernels of their own; K6's is 8 columns per
-    chain), and ``planes`` the number of bf16 planes of J that the cluster
-    kernels multiply (counted once: at construction on
-    the card, at first use on the CPU). A problem whose J changes in place
+    answer for this problem (``pipelined_tile`` and ``folded_tile`` for K5
+    and K7, which have cluster kernels of their own; K6's one-block tile is
+    8 columns per chain), and ``planes`` the number of bf16 planes of J
+    that the cluster kernels multiply (counted once: at construction on the
+    card, at first use on the CPU). A problem whose J changes in place
     after the sweep is built (``research.quantum.TrotterProblem``) declares
     ``j_planes = 3``: a count taken from its first J could be 1, and a later
     J would then be swept on its hi plane alone.
@@ -672,9 +676,9 @@ class FusedSweep(_Counted):
             self.kernel_name = INTERLEAVED_KERNEL
         else:
             self.kernel_name = KERNEL_NAME
-        self.tile = (TILE_RULES[self.kernel_name](n_pad, block_size)
-                     if self.kernel_name in TILE_RULES
-                     else (8 * self.interleave, 1))
+        self.tile = TILE_RULES[self.kernel_name](n_pad, block_size)
+        if self.interleave and self.tile != CLUSTER_TILE:
+            self.tile = (8 * self.interleave, 1)  # K6's one-block kernel
         self.launches = 0  # kernel launches made by this instance
         self._lib = None  # built and bound at the first CUDA launch
 
@@ -745,13 +749,11 @@ class FusedSweep(_Counted):
         beta = self._beta(beta, r, dev)
         de = torch.empty(r, dtype=torch.float32, device=dev)
         cnt = torch.empty(r, dtype=torch.int32, device=dev)
-        # K6: its chains; K1, K5 and K7 (after K7's micro): the planes of J
-        # and the cluster size of the tile
-        if self.interleave:
-            extra = [self.interleave]
-        else:
-            extra = ([self.micro] if self.folded else []) + [self.planes,
-                                                              self.tile[1]]
+        # K6's chains or K7's micro, then the planes of J and the cluster
+        # size of the tile
+        extra = ([self.interleave] if self.interleave else
+                 [self.micro] if self.folded else []) + [self.planes,
+                                                         self.tile[1]]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = getattr(lib, f"sgt_{self.kernel_name}")(

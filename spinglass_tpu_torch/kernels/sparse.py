@@ -32,10 +32,10 @@ Three engines (``anneal.engines.make_engine`` picks):
   in plain PyTorch, for ``sweep_method="sparse_compact"``; its JAX
   counterpart runs through XLA, with no Pallas kernel.
 
-The host-side layout functions (``build_ell``, ``build_sorted_buckets``,
-``build_sorted_t``, ``build_single_tables``) are numpy, and give the JAX
-package's arrays entry for entry; the engines move their output to the
-problem's device.
+The host-side layout functions (``build_ell``, through the port's
+``native`` C++ routine, ``build_sorted_buckets``, ``build_sorted_t``,
+``build_single_tables``) give the JAX package's arrays entry for entry;
+the engines move their output to the problem's device.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spinglass_tpu_torch import native
 from spinglass_tpu_torch.core import topology
 from spinglass_tpu_torch.core.problem import (IsingProblem, resolve_device,
                                               round_up)
@@ -62,24 +63,11 @@ KS_BLOCK = 256  # the TPU kernel streamed its per-step degree table in
 
 def build_ell(rows, cols, vals, n_pad: int, k: int):
     """Symmetric COO (both directions) -> (idx [Np, K] int32, val [Np, K]
-    float32, max_degree). Each row keeps its entries in COO order, as the
-    JAX package's native C++ routine does; empty slots point at the row
-    itself with value 0."""
-    rows = np.asarray(rows, np.int64)
-    cols = np.asarray(cols, np.int64)
-    vals = np.asarray(vals, np.float64)
-    idx = np.tile(np.arange(n_pad, dtype=np.int32)[:, None], (1, k))
-    val = np.zeros((n_pad, k), np.float32)
-    ok = (rows >= 0) & (rows < n_pad)
-    rows, cols, vals = rows[ok], cols[ok], vals[ok]
-    order = np.argsort(rows, kind="stable")
-    r_s = rows[order]
-    counts = np.bincount(r_s, minlength=n_pad)
-    pos = np.arange(len(r_s)) - (np.cumsum(counts) - counts)[r_s]
-    keep = pos < k
-    idx[r_s[keep], pos[keep]] = cols[order][keep].astype(np.int32)
-    val[r_s[keep], pos[keep]] = vals[order][keep].astype(np.float32)
-    return idx, val, int(counts.max(initial=0))
+    float32, max_degree): ``native.build_ell`` (the C++ routine, or its
+    vectorised numpy version where no compiler built it). Each row keeps
+    its entries in COO order; empty slots point at the row itself with
+    value 0."""
+    return native.build_ell(rows, cols, vals, n_pad, k)
 
 
 @dataclass(frozen=True)

@@ -264,19 +264,19 @@ def test_dense_variants_match_twins_and_k1_bitwise(cuda, flags, r, rule, block):
     of K5's and K7's 72-column tile, one tile, a second, 15 tiles (one wave
     of clusters on the H100) and 16 (a second wave)."""
     fused = _variant_against_twin_and_k1(cuda, 500, flags, r, rule, block)
-    if not flags.get("interleave"):
-        assert fused.tile == MC.CLUSTER_TILE
+    assert fused.tile == MC.CLUSTER_TILE
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("flags,block,beyond", [
     (flags, block, beyond)
-    for flags in (dict(pipelined=True), dict(folded=True))
+    for flags in (dict(pipelined=True), dict(folded=True),
+                  dict(interleave=2), dict(interleave=4))
     for block in (128, 256) for beyond in (False, True)])
 def test_cluster_variants_at_their_envelope(cuda, flags, block, beyond):
-    """K5 and K7 at the largest n_pad their cluster kernels take, and one
-    block beyond it, where the one-block float32 kernels run: bitwise equal
-    to their twins and K1 (R = 73, two tiles)."""
+    """K5, K6 and K7 at the largest n_pad their cluster kernels take, and
+    one block beyond it, where the one-block float32 kernels run: bitwise
+    equal to their twins and K1 (R = 73, two tiles)."""
     name = MC.FusedSweep(IsingProblem.from_dense(np.zeros((8, 8)),
                                                  device="cpu"),
                          **flags).kernel_name

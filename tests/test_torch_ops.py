@@ -296,6 +296,51 @@ def test_quality_gates_pass_on_the_cpu(tmp_path):
         run_quality_gates(["no_such_gate"], device="cpu")
 
 
+_DURATIONS = """\
+============================= slowest 15 durations =============================
+{slow:.2f}s call     tests/test_torch_x.py::test_slow
+3.10s setup    tests/test_torch_y.py::test_setup
+1.20s call     tests/test_torch_z.py::test_quick
+3 passed in 9.12s
+"""
+
+
+@pytest.mark.parametrize("xdist,slow,passes", [
+    (True, 29.0, True), (True, 31.0, False),
+    (False, 14.0, True), (False, 16.0, False)])
+def test_suite_budget_gate_per_mode(monkeypatch, xdist, slow, passes):
+    """The suite-budget gate as the JAX package's: under 2 xdist workers
+    (``-n 2``, where xdist imports) a test may take 30 s, in one process
+    15 s; the detail names the mode, the slowest test and its ceiling. The
+    suite is a stub of ``subprocess.run`` that prints a --durations
+    table."""
+    import subprocess
+    import sys
+
+    from spinglass_tpu_torch.benchmarks import quality_gates as qg
+
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0,
+                                           _DURATIONS.format(slow=slow), "")
+
+    monkeypatch.delenv("PYTEST_CURRENT_TEST", raising=False)
+    monkeypatch.setattr(subprocess, "run", run)
+    if not xdist:
+        monkeypatch.setitem(sys.modules, "xdist", None)  # import fails
+    res = qg._gate_suite_budget(torch.device("cpu"))
+    (cmd,) = calls
+    assert (cmd[-2:] == ["-n", "2"]) == xdist and ("-n" in cmd) == xdist
+    ceiling = 30 if xdist else 15
+    mode = "2 xdist workers" if xdist else "sequential"
+    assert res.name == "suite_budget" and res.passed is passes
+    assert res.detail.startswith(f"{mode}: wall ")
+    assert (f"slowest test {slow:.1f}s tests/test_torch_x.py::test_slow "
+            f"(ceiling {ceiling}s)") in res.detail
+
+
 def test_perf_targets_are_the_cards_and_not_the_tpus():
     import spinglass_tpu_torch.benchmarks as tb
     from spinglass_tpu_torch.benchmarks.quality_gates import (

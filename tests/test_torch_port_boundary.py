@@ -1,5 +1,6 @@
 """The port's boundary: it runs without JAX and without spinglass_tpu (the
-captured drivers, the problem encoders, the command line, a checkpointed
+captured drivers, the host C++ routines of ``native``, the problem
+encoders, the command line, a checkpointed
 anneal, a PT super-step with cluster moves, a DQN step, the training
 pipeline, the gymnasium adapter and a one-rank sharded PT run included), it never launches (or builds) its CUDA kernels for CPU tensors, its builds
 target sm_90a and rebuild when a source or a header changes, and the smoke
@@ -45,6 +46,9 @@ from spinglass_tpu_torch.anneal import pt
 from spinglass_tpu_torch.benchmarks import planted
 from spinglass_tpu_torch.kernels.sparse import EllProblem
 ell = EllProblem.from_coo(60, *topology.sparse_random_graph_coo(60, seed=2), device="cpu")
+from spinglass_tpu_torch import native
+assert native.BACKEND == "native" and native.CALLS[("build_ell", "native")] == 1
+assert {path for _, path in native.CALLS} == {"native"}, native.CALLS
 sp = sgt.anneal(ell, sgt.SAConfig(n_sweeps=2, n_replicas=2, record_interval=1))
 inst = planted.planted_gauge_coo(60, 4.0, seed=1)
 ell = EllProblem.from_coo(60, inst.rows, inst.cols, inst.vals, device="cpu")
@@ -293,14 +297,15 @@ def test_fused_sweep_on_cpu_never_launches_or_builds(monkeypatch):
 def test_sparse_kernels_on_cpu_never_launch_or_build(monkeypatch):
     """K2, K3 and K4 forced on (accept_kernel="single" or "fused",
     threshold_rng="kernel") run their twins for CPU tensors: no compiler,
-    no launches counted."""
+    no launches counted. (The problem is built first: from_coo's host C++
+    routine, ``native.build_ell``, builds at its first use on any device.)"""
     def no_subprocess(*a, **k):
         raise AssertionError("a CPU sweep must not invoke a compiler")
 
-    monkeypatch.setattr(build.subprocess, "Popen", no_subprocess)
-    monkeypatch.setattr(build.subprocess, "run", no_subprocess)
     coo = topology.sparse_random_graph_coo(100, avg_degree=4.0, seed=1)
     ell = S.EllProblem.from_coo(100, *coo, device="cpu")
+    monkeypatch.setattr(build.subprocess, "Popen", no_subprocess)
+    monkeypatch.setattr(build.subprocess, "run", no_subprocess)
     gen = torch.Generator().manual_seed(0)
     for kw in (dict(accept_kernel="single"), dict(threshold_rng="kernel"),
                dict(accept_kernel="fused")):
@@ -333,7 +338,7 @@ def test_nvcc_command_targets_sm90a_and_build_dir_is_ignored():
                           (SC.THRESHOLD_KERNEL, [philox]),
                           (SC.ACCEPT_KERNEL, [philox]),
                           (MC.PIPELINED_KERNEL, [cluster, dense, philox]),
-                          (MC.INTERLEAVED_KERNEL, [dense, philox]),
+                          (MC.INTERLEAVED_KERNEL, [cluster, dense, philox]),
                           (MC.FOLDED_KERNEL, [cluster, dense, philox]),
                           (CC.KERNEL_NAME, [philox]),
                           (CC.BONDS_KERNEL, [philox])):

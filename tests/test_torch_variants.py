@@ -202,13 +202,16 @@ def test_variant_engine_in_sa_driver_matches_flat(variant):
     assert torch.equal(a.sched.temp, b.sched.temp)
 
 
-# ---- the cluster kernels of K5 and K7: shape rule, launch arguments, bound --
+# ---- the cluster kernels of K5-K7: shape rule, launch arguments, bound ----
 
 # kernel -> (tile rule, shared-memory function, one-block tile)
 CLUSTER_VARIANTS = {
     MC.KERNEL_NAME: (MC.dense_tile, MC.cluster_smem_bytes, MC.BLOCK_TILE),
     MC.PIPELINED_KERNEL: (MC.pipelined_tile, MC.pipelined_smem_bytes,
                           MC.PIPELINED_BLOCK_TILE),
+    # K6 lays out K1's shared memory, so K1's rule is its rule
+    MC.INTERLEAVED_KERNEL: (MC.dense_tile, MC.cluster_smem_bytes,
+                            MC.BLOCK_TILE),
     MC.FOLDED_KERNEL: (MC.folded_tile, MC.folded_smem_bytes,
                        MC.FOLDED_BLOCK_TILE),
 }
@@ -252,12 +255,13 @@ def test_variant_smem_layouts(block):
 @pytest.mark.parametrize("kernel,block,edge", [
     (MC.KERNEL_NAME, 128, 8320), (MC.KERNEL_NAME, 256, 4096),
     (MC.PIPELINED_KERNEL, 128, 8320), (MC.PIPELINED_KERNEL, 256, 5632),
+    (MC.INTERLEAVED_KERNEL, 128, 8320), (MC.INTERLEAVED_KERNEL, 256, 4096),
     (MC.FOLDED_KERNEL, 128, 8832), (MC.FOLDED_KERNEL, 256, 5120)])
 def test_variant_envelope(kernel, block, edge):
     """Each kernel's shape rule: the cluster kernel up to the envelope edge
     (a multiple of the block), the one-block float32 kernel one block
     beyond it and at every larger n_pad; the rule is the shared-memory
-    arithmetic against a thread block's 232448 bytes, and K1's is
+    arithmetic against a thread block's 232448 bytes; K1's and K6's is
     dense_tile."""
     rule, smem, one_block = CLUSTER_VARIANTS[kernel]
     assert MC.TILE_RULES[kernel] is rule
@@ -271,6 +275,24 @@ def test_variant_envelope(kernel, block, edge):
     if kernel == MC.KERNEL_NAME:
         for n_pad in range(block, edge + 8 * block, block):
             assert rule(n_pad, block) == MC.dense_tile(n_pad, block)
+
+
+@pytest.mark.parametrize("nchains", MC.INTERLEAVE_CHAINS)
+@pytest.mark.parametrize("block", [128, 256])
+def test_interleaved_tile_per_chain_count(nchains, block):
+    """K6's tile at 2 and 4 chains: the cluster tile wherever K1 runs its
+    cluster kernel, else the one-block kernel's 8 columns per chain; the
+    rule (K1's) says which kernel, the wrapper widens the one-block tile."""
+    edge = MC.cluster_envelope(MC.INTERLEAVED_KERNEL, block)
+    assert edge == MC.cluster_envelope(MC.KERNEL_NAME, block)
+    for n_pad, want in ((edge, MC.CLUSTER_TILE),
+                        (edge + block, (8 * nchains, 1))):
+        assert MC.TILE_RULES[MC.INTERLEAVED_KERNEL](n_pad,
+                                                    block)[1] == want[1]
+        fused = MC.FusedSweep(_shape_problem(n_pad), block_size=block,
+                              interleave=nchains)
+        assert fused.kernel_name == MC.INTERLEAVED_KERNEL
+        assert fused.tile == want
 
 
 class _FakeLib:
@@ -304,15 +326,18 @@ def _shape_problem(n_pad):
     (dict(folded=True), 8832, 128, [32, 1, 8]),
     (dict(folded=True), 8960, 128, [32, 1, 1]),
     (dict(folded=True), 5376, 256, [32, 1, 1]),
-    (dict(interleave=4), 512, 128, [4]),
+    (dict(interleave=4), 512, 128, [4, 1, 8]),
+    (dict(interleave=2), 8320, 128, [2, 1, 8]),
+    (dict(interleave=2), 8448, 128, [2, 1, 1]),
+    (dict(interleave=4), 4352, 256, [4, 1, 1]),
 ])
 def test_launch_arguments_per_variant(monkeypatch, flags, n_pad, block,
                                       want_extra):
     """What the wrapper hands each kernel's entry point, through a stand-in
     for the built library: the shape, the block and the rule, then K1's
     and K5's planes of J and cluster size (8 inside the envelope, 1 beyond
-    it), K7's micro, planes and cluster size, K6's chains; one launch
-    counted."""
+    it), K6's chains and K7's micro before their planes and cluster size;
+    one launch counted."""
     fake = _FakeLib()
     monkeypatch.setattr(MC, "load_kernel", lambda name: fake)
     monkeypatch.setattr(torch.cuda, "device",
@@ -333,7 +358,7 @@ def test_launch_arguments_per_variant(monkeypatch, flags, n_pad, block,
 
 
 @pytest.mark.parametrize("flags", [dict(pipelined=True), dict(folded=True),
-                                   {}])
+                                   {}, dict(interleave=2)])
 def test_launch_passes_three_planes_for_gaussian_couplings(monkeypatch, flags):
     """J that bf16 cannot hold exactly (a Gaussian glass) goes to every
     cluster kernel as three planes; the bfloat16 mode as one."""
@@ -442,3 +467,20 @@ def test_variant_parts_stop_before_building(tmp_path, monkeypatch):
         VP.build_parts({"toy": {"fine": [("a = 1", "a = 5")],
                                 "nowhere": [("e = 5", "e = 6")]}})
     assert started == []
+
+
+@pytest.mark.parametrize("kernel,parts", [
+    (MC.PIPELINED_KERNEL, VP.K5_PARTS), (MC.INTERLEAVED_KERNEL, VP.K6_PARTS),
+    (MC.FOLDED_KERNEL, VP.K7_PARTS)])
+def test_variant_parts_match_the_kernel_sources(tmp_path, monkeypatch,
+                                                kernel, parts):
+    """Every design part of K5, K6 and K7 applies to the committed source
+    (each edit matching once), so that variant_parts.py on the card builds
+    them all."""
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    texts = {}
+    for part, edits in parts.items():
+        src, _ = VP.part_source(kernel, part, edits)
+        with open(src) as f:
+            texts[part] = f.read()
+    assert len(set(texts.values())) == len(parts)
