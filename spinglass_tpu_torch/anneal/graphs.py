@@ -56,6 +56,7 @@ from typing import Callable, Hashable, Optional, Sequence
 import torch
 
 from spinglass_tpu_torch.core.rng import RandomTape
+from spinglass_tpu_torch.utils.profiling import global_profiler
 
 
 # a process-wide re-entrant lock: a driver may call another driver
@@ -261,12 +262,15 @@ class CapturedStep:
         """One step: the tape's draws from ``generator`` (default: the one
         given at construction), then the graph (on the CPU: the step, run
         eagerly). Returns the step's outputs (static tensors on the card)."""
-        self.tape.fill(generator if generator is not None else self.generator)
+        with global_profiler.phase("step.fill"):
+            self.tape.fill(generator if generator is not None
+                           else self.generator)
         if self.graph is None:
-            with self.tape.serving():
+            with global_profiler.phase("step.launch"), self.tape.serving():
                 self.outputs = self._run()
             return self.outputs
-        self.graph.replay()
+        with global_profiler.phase("step.launch"):
+            self.graph.replay()
         for name, obj, attr in self.counters:
             setattr(obj, attr, getattr(obj, attr) + self.launches[name])
         return self.outputs
@@ -412,6 +416,10 @@ class HostRead:
         self._event = None
 
     def __call__(self, tensors: Sequence[torch.Tensor]) -> list:
+        with global_profiler.phase("read"):
+            return self._read(tensors)
+
+    def _read(self, tensors: Sequence[torch.Tensor]) -> list:
         if not tensors or not tensors[0].is_cuda:
             return [t.detach().clone() for t in tensors]
         out = []

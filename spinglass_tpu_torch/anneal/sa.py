@@ -48,6 +48,7 @@ from spinglass_tpu_torch.anneal.schedules import ScheduleConfig, ScheduleState
 from spinglass_tpu_torch.core.problem import IsingProblem, random_spins
 from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES
 from spinglass_tpu_torch.utils.checkpoint import CheckpointManager
+from spinglass_tpu_torch.utils.profiling import global_profiler
 
 
 @dataclass(frozen=True)
@@ -249,69 +250,74 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
     metadata says what it took). ``kernel_launches`` are this call's.
     """
     config = config or SAConfig()
-    lengths = _chunk_lengths(config)
-    key = ("anneal", graphs.config_key(config))
-    entry = graphs.SA_CACHE.get(problem, key)
-    engine = entry[0] if entry else make_sweep_engine(problem, config)
-    launches0 = kernel_launches(engine)
-    state = init_state(problem, config, engine, generator, init_spins)
-    generator = state.generator
-    e_hist, me_hist, t_hist, a_hist = [], [], [], []
-    converged, conv_sweep = False, None
-    sweeps_done = 0
-    read = graphs.HostRead()
+    with global_profiler.phase("sa.anneal"):
+        lengths = _chunk_lengths(config)
+        key = ("anneal", graphs.config_key(config))
+        entry = graphs.SA_CACHE.get(problem, key)
+        engine = entry[0] if entry else make_sweep_engine(problem, config)
+        launches0 = kernel_launches(engine)
+        e_hist, me_hist, t_hist, a_hist = [], [], [], []
+        converged, conv_sweep = False, None
+        sweeps_done = 0
+        read = graphs.HostRead()
 
-    _sync(problem.device)
-    t0 = time.perf_counter()
-    if entry is None:
-        steps = {}   # chunk length -> its captured step, all on one state
-        for n in lengths:
-            if n not in steps:
-                steps[n] = capture_chunk(problem, config, engine, state, n)
-                state = steps[n].state
-        graphs.SA_CACHE.put(problem, key, (engine, steps))
-        capture_s = sum(st.capture_seconds for st in steps.values())
-    else:
-        capture_s = 0.0
-        steps = entry[1]
-        if steps:   # all on one state
-            steps[lengths[0]].load(graphs.device_counter(state))
-            state = steps[lengths[0]].state
-    mgr = None
-    if checkpoint_dir is not None:
-        mgr = CheckpointManager(checkpoint_dir, every=checkpoint_every)
-        if resume:
-            restored = mgr.restore_latest(_ckpt_tree(
-                state, generator, {k: np.zeros(0) for k in HIST_KEYS}, 0))
-            if restored is not None:
-                steps[lengths[0]].load(restored["state"])
-                generator.set_state(restored["state"].generator.get_state())
-                hist = restored["hist"]
-                e_hist, me_hist, t_hist, a_hist = (
-                    hist[k].tolist() for k in HIST_KEYS)
-                sweeps_done = int(restored["sweeps_done"])
-    for n in lengths[len(e_hist):]:
-        e, me, t, a = read([steps[n].replay(generator)])[0].tolist()
-        sweeps_done += n
-        e_hist.append(e)
-        me_hist.append(me)
-        t_hist.append(t)
-        a_hist.append(a)
-        if mgr is not None:
-            mgr.maybe_save(len(e_hist), _ckpt_tree(
-                state, generator, {"e": e_hist, "me": me_hist, "t": t_hist,
-                                   "a": a_hist}, sweeps_done))
-        if config.enable_early_stop and len(e_hist) >= 20:
-            tail = np.asarray(e_hist[-20:])
-            denom = max(abs(float(np.mean(tail))), 1e-10)
-            if float(np.std(tail)) / denom < config.convergence_tolerance:
-                converged, conv_sweep = True, sweeps_done
-                break
-    _sync(problem.device)
-    total = time.perf_counter() - t0
-    return _result(problem, config, engine, state, launches0,
-                   (e_hist, me_hist, t_hist, a_hist), sweeps_done, total,
-                   capture_s, converged, conv_sweep)
+        with global_profiler.phase("sa.start"):
+            state = init_state(problem, config, engine, generator, init_spins)
+            generator = state.generator
+            _sync(problem.device)
+            t0 = time.perf_counter()
+            if entry is None:
+                steps = {}   # chunk length -> its captured step, one state
+                for n in lengths:
+                    if n not in steps:
+                        steps[n] = capture_chunk(problem, config, engine,
+                                                 state, n)
+                        state = steps[n].state
+                graphs.SA_CACHE.put(problem, key, (engine, steps))
+                capture_s = sum(st.capture_seconds for st in steps.values())
+            else:
+                capture_s = 0.0
+                steps = entry[1]
+                if steps:   # all on one state
+                    steps[lengths[0]].load(graphs.device_counter(state))
+                    state = steps[lengths[0]].state
+        mgr = None
+        if checkpoint_dir is not None:
+            mgr = CheckpointManager(checkpoint_dir, every=checkpoint_every)
+            if resume:
+                restored = mgr.restore_latest(_ckpt_tree(
+                    state, generator, {k: np.zeros(0) for k in HIST_KEYS}, 0))
+                if restored is not None:
+                    steps[lengths[0]].load(restored["state"])
+                    generator.set_state(
+                        restored["state"].generator.get_state())
+                    hist = restored["hist"]
+                    e_hist, me_hist, t_hist, a_hist = (
+                        hist[k].tolist() for k in HIST_KEYS)
+                    sweeps_done = int(restored["sweeps_done"])
+        for n in lengths[len(e_hist):]:
+            e, me, t, a = read([steps[n].replay(generator)])[0].tolist()
+            sweeps_done += n
+            e_hist.append(e)
+            me_hist.append(me)
+            t_hist.append(t)
+            a_hist.append(a)
+            if mgr is not None:
+                mgr.maybe_save(len(e_hist), _ckpt_tree(
+                    state, generator, {"e": e_hist, "me": me_hist, "t": t_hist,
+                                       "a": a_hist}, sweeps_done))
+            if config.enable_early_stop and len(e_hist) >= 20:
+                tail = np.asarray(e_hist[-20:])
+                denom = max(abs(float(np.mean(tail))), 1e-10)
+                if (float(np.std(tail)) / denom
+                        < config.convergence_tolerance):
+                    converged, conv_sweep = True, sweeps_done
+                    break
+        _sync(problem.device)
+        total = time.perf_counter() - t0
+        return _result(problem, config, engine, state, launches0,
+                       (e_hist, me_hist, t_hist, a_hist), sweeps_done, total,
+                       capture_s, converged, conv_sweep)
 
 
 def _anneal_given(problem: IsingProblem, config: SAConfig, uniforms,
@@ -344,46 +350,47 @@ def _result(problem, config, engine, state, launches0, hists, sweeps_done,
             ) -> AnnealResult:
     """The run's ``AnnealResult`` from its last state and the histories
     (best, mean energy, temperature, acceptance per chunk), published."""
-    e_hist, me_hist, t_hist, a_hist = hists
-    best_r = torch.argmin(state.best_energy)
-    best_spins = best_row(engine, state.best_spins, best_r).cpu().numpy()[
-        : problem.n_spins]
-    flips = sweeps_done * config.n_replicas * problem.n_spins
-    launches = kernel_launches(engine)
-    result = AnnealResult(
-        best_spins=best_spins,
-        best_energy=float(state.best_energy[best_r]),
-        # one copy on either device: on the CPU .cpu() would be the cached
-        # state's own tensor
-        replica_best_energy=state.best_energy.to("cpu", copy=True).numpy(),
-        energy_history=np.asarray(e_hist),
-        mean_energy_history=np.asarray(me_hist),
-        temperature_history=np.asarray(t_hist),
-        acceptance_history=np.asarray(a_hist),
-        n_sweeps=sweeps_done,
-        n_replicas=config.n_replicas,
-        total_time=total,
-        sweeps_per_second=sweeps_done / total if total > 0 else 0.0,
-        spin_flips_per_second=flips / total if total > 0 else 0.0,
-        algorithm=f"sa/{engine.name}/{config.update_rule}",
-        device=problem.device.type,
-        seed=config.seed,
-        converged=converged,
-        convergence_sweep=conv_sweep,
-        metadata={"schedule": config.schedule.schedule_type.value,
-                  "engine": engine.name,
-                  "kernel_launches": {k: v - launches0.get(k, 0)
-                                      for k, v in launches.items()},
-                  "capture_seconds": capture_s},
-    )
-    try:  # prometheus gauges (host values only: no read of the device)
-        from spinglass_tpu_torch.utils.metrics_exporter import (
-            publish_anneal_result)
+    with global_profiler.phase("sa.result"):
+        e_hist, me_hist, t_hist, a_hist = hists
+        best_r = torch.argmin(state.best_energy)
+        best_spins = best_row(engine, state.best_spins, best_r).cpu().numpy()[
+            : problem.n_spins]
+        flips = sweeps_done * config.n_replicas * problem.n_spins
+        launches = kernel_launches(engine)
+        result = AnnealResult(
+            best_spins=best_spins,
+            best_energy=float(state.best_energy[best_r]),
+            # one copy on either device: on the CPU .cpu() would be the cached
+            # state's own tensor
+            replica_best_energy=state.best_energy.to("cpu", copy=True).numpy(),
+            energy_history=np.asarray(e_hist),
+            mean_energy_history=np.asarray(me_hist),
+            temperature_history=np.asarray(t_hist),
+            acceptance_history=np.asarray(a_hist),
+            n_sweeps=sweeps_done,
+            n_replicas=config.n_replicas,
+            total_time=total,
+            sweeps_per_second=sweeps_done / total if total > 0 else 0.0,
+            spin_flips_per_second=flips / total if total > 0 else 0.0,
+            algorithm=f"sa/{engine.name}/{config.update_rule}",
+            device=problem.device.type,
+            seed=config.seed,
+            converged=converged,
+            convergence_sweep=conv_sweep,
+            metadata={"schedule": config.schedule.schedule_type.value,
+                      "engine": engine.name,
+                      "kernel_launches": {k: v - launches0.get(k, 0)
+                                          for k, v in launches.items()},
+                      "capture_seconds": capture_s},
+        )
+        try:  # prometheus gauges (host values only: no read of the device)
+            from spinglass_tpu_torch.utils.metrics_exporter import (
+                publish_anneal_result)
 
-        publish_anneal_result(result, solver="sa")
-    except Exception:  # metrics must never break a solve
-        pass
-    return result
+            publish_anneal_result(result, solver="sa")
+        except Exception:  # metrics must never break a solve
+            pass
+        return result
 
 
 @graphs.serialized

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from spinglass_tpu_torch.anneal import graphs
+from spinglass_tpu_torch.utils.profiling import global_profiler
 
 
 @dataclass(frozen=True)
@@ -140,17 +141,19 @@ def time_to_target(problem, target_energy: float, cfg=None,
     read = graphs.HostRead()
     runs = []
     for gen in gens:
-        captured.load(graphs.device_counter(
-            pt_mod.init_state(problem, cfg, gen, engine)))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        n_super, best = 0, float("inf")
-        while best > threshold and n_super < max_super:
-            out = captured.replay(gen)
-            n_super += 1
-            best = min(best, float(read([out])[0]))  # 4-byte read
-        elapsed = time.perf_counter() - t0
+        with global_profiler.phase("ttt.solve"):
+            with global_profiler.phase("ttt.start"):
+                captured.load(graphs.device_counter(
+                    pt_mod.init_state(problem, cfg, gen, engine)))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            n_super, best = 0, float("inf")
+            while best > threshold and n_super < max_super:
+                out = captured.replay(gen)
+                n_super += 1
+                best = min(best, float(read([out])[0]))  # 4-byte read
+            elapsed = time.perf_counter() - t0
         runs.append({
             "seconds": elapsed,
             "sweeps": n_super * cfg.exchange_interval,

@@ -449,19 +449,25 @@ class TestCache:
 
 class TestProfiler:
     def test_phase_and_decorator(self):
+        """Spans by name with their self time: a span's time less what its
+        children cover (the decorator form is gone: drivers open spans)."""
         prof = PerformanceProfiler()
-        with prof.phase("a"):
-            pass
-
-        @prof.profile(name="b")
-        def g():
-            return 1
-
-        g(); g()
+        assert prof.summary() == {}
+        with prof.recording() as spans:
+            with prof.phase("a"):
+                time.sleep(0.02)
+                for _ in range(2):
+                    with prof.phase("b"):
+                        time.sleep(0.01)
         s = prof.summary()
         assert s["a"]["n"] == 1 and s["b"]["n"] == 2
-        prof.reset()
-        assert prof.summary() == {}
+        a, b = s["a"], s["b"]
+        assert a["total_s"] >= 0.04 and b["total_s"] >= 0.02
+        assert a["self_s"] == pytest.approx(a["total_s"] - b["total_s"])
+        assert b["self_s"] == b["total_s"]
+        assert b["mean_s"] == pytest.approx(b["total_s"] / 2)
+        assert b["max_s"] <= b["total_s"]
+        assert prof.summary(spans) == s and prof.last is spans
 
 
 class TestAnomaly:
