@@ -45,6 +45,7 @@ from spinglass_tpu_torch.anneal.engines import (GivenUniforms, SweepEngine,
                                                 launch_counters, make_engine)
 from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.anneal.schedules import ScheduleConfig, ScheduleState
+from spinglass_tpu_torch.core import rng
 from spinglass_tpu_torch.core.problem import IsingProblem, random_spins
 from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES
 from spinglass_tpu_torch.utils.checkpoint import CheckpointManager
@@ -116,11 +117,14 @@ def init_state(problem: IsingProblem, config: SAConfig, engine: SweepEngine,
                generator: Optional[torch.Generator] = None,
                init_spins: Optional[torch.Tensor] = None) -> SAState:
     """init_spins, when given, is [R, Np] whatever the engine's layout; it is
-    copied, never modified."""
+    copied, never modified. Without it the start spins are drawn on the
+    problem's device, from a generator there seeded by one draw of the host
+    ``generator``: nothing of the [R, Np] draw is made on the host."""
     if generator is None:
         generator = torch.Generator().manual_seed(config.seed)
     if init_spins is None:
-        spins_rn = random_spins(generator, (config.n_replicas, problem.n_padded),
+        spins_rn = random_spins(rng.device_generator(generator, problem.device),
+                                (config.n_replicas, problem.n_padded),
                                 problem.active_mask)
     else:
         spins_rn = init_spins.to(device=problem.device, dtype=torch.float32)
@@ -317,7 +321,8 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
         total = time.perf_counter() - t0
         return _result(problem, config, engine, state, launches0,
                        (e_hist, me_hist, t_hist, a_hist), sweeps_done, total,
-                       capture_s, converged, conv_sweep)
+                       capture_s, init_spins is not None, converged,
+                       conv_sweep)
 
 
 def _anneal_given(problem: IsingProblem, config: SAConfig, uniforms,
@@ -342,14 +347,17 @@ def _anneal_given(problem: IsingProblem, config: SAConfig, uniforms,
             h.append(float(stats[k]))
     _sync(problem.device)
     return _result(problem, config, engine, state, launches0, hists,
-                   config.n_sweeps, time.perf_counter() - t0, 0.0)
+                   config.n_sweeps, time.perf_counter() - t0, 0.0,
+                   init_spins is not None)
 
 
 def _result(problem, config, engine, state, launches0, hists, sweeps_done,
-            total, capture_s, converged=False, conv_sweep=None
+            total, capture_s, given, converged=False, conv_sweep=None
             ) -> AnnealResult:
     """The run's ``AnnealResult`` from its last state and the histories
-    (best, mean energy, temperature, acceptance per chunk), published."""
+    (best, mean energy, temperature, acceptance per chunk), published.
+    ``given``: the start spins were passed in, not drawn (``metadata``'s
+    ``start_spins``)."""
     with global_profiler.phase("sa.result"):
         e_hist, me_hist, t_hist, a_hist = hists
         best_r = torch.argmin(state.best_energy)
@@ -381,7 +389,8 @@ def _result(problem, config, engine, state, launches0, hists, sweeps_done,
                       "engine": engine.name,
                       "kernel_launches": {k: v - launches0.get(k, 0)
                                           for k, v in launches.items()},
-                      "capture_seconds": capture_s},
+                      "capture_seconds": capture_s,
+                      "start_spins": "given" if given else "drawn"},
         )
         try:  # prometheus gauges (host values only: no read of the device)
             from spinglass_tpu_torch.utils.metrics_exporter import (

@@ -1825,3 +1825,40 @@ def test_threaded_anneals_through_k1_equal_sequential_calls(cuda):
         assert out[s].best_energy == seq[s].best_energy
         assert np.array_equal(out[s].best_spins, seq[s].best_spins)
         assert np.array_equal(out[s].energy_history, seq[s].energy_history)
+
+
+@pytest.mark.gpu
+def test_sa_start_is_drawn_on_the_card(cuda, tmp_path):
+    """At the sparse SA cell's shape (1024 replicas of a 10,000-spin graph
+    of degree 6, K2's engine) ``sa.init_state`` draws its start spins on the
+    card: no host-to-device copy over 1 MB, the spins on the card, and
+    under 20 ms a call (the median of three) after a warm-up call."""
+    import json
+    import time
+
+    from spinglass_tpu_torch.anneal import sa
+    from spinglass_tpu_torch.utils.profiling import device_trace
+
+    p = _pm_j_ell(10000, 4, cuda)
+    cfg = sa.SAConfig(n_sweeps=1000, n_replicas=1024, enable_early_stop=False)
+    eng = sa.make_sweep_engine(p, cfg)
+    assert eng.name == "sparse_sorted_t"
+    sa.init_state(p, cfg, eng, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    with device_trace(str(tmp_path)):
+        state = sa.init_state(p, cfg, eng, torch.Generator().manual_seed(2))
+        torch.cuda.synchronize()
+    ev = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in ev)   # the card was traced
+    copies = [e for e in ev if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    assert all(e["args"]["bytes"] <= 1 << 20 for e in copies), copies
+    assert state.spins.is_cuda and state.best_spins.is_cuda
+    assert eng.from_layout(state.spins).shape == (1024, p.n_padded)
+    times = []
+    for s in range(3, 6):
+        t0 = time.perf_counter()
+        sa.init_state(p, cfg, eng, torch.Generator().manual_seed(s))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    assert sorted(times)[1] < 0.020, times

@@ -32,6 +32,8 @@ from spinglass_tpu_torch.anneal import engines, sa  # noqa: E402
 from spinglass_tpu_torch.core import topology  # noqa: E402
 from spinglass_tpu_torch.core.convert import (  # noqa: E402
     problem_from_numpy, sa_state_from_numpy)
+from spinglass_tpu_torch.core.problem import random_spins  # noqa: E402
+from spinglass_tpu_torch.core.rng import host_seed  # noqa: E402
 from spinglass_tpu_torch.kernels import sweeps as K  # noqa: E402
 
 N, R, SWEEPS = 64, 4, 200
@@ -146,7 +148,7 @@ def test_ferromagnet_reaches_ground_state():
     assert res.replica_best_energy.shape == (4,)
     capture_s = res.metadata.pop("capture_seconds")
     assert res.metadata == {"schedule": "geometric", "engine": "blocked",
-                            "kernel_launches": {}}
+                            "kernel_launches": {}, "start_spins": "drawn"}
     assert capture_s >= 0.0   # 0.0 where the problem's steps were cached
     assert res.sweeps_per_second > 0 and res.spin_flips_per_second > 0
 
@@ -241,3 +243,114 @@ def test_sa_state_from_numpy_layouts():
     with pytest.raises(ValueError):
         sa_state_from_numpy(s_nr, e, e, s_nr, 1.0, 0.4, 0, src_layout="xy",
                             device="cpu")
+
+
+# -- the start spins: drawn on the problem's device -----------------------------
+
+def _glass(n=100, seed=5):
+    """A +-J glass of n spins, padded to 128: 28 padded positions."""
+    return IsingProblem.from_dense(topology.fully_connected(
+        n, dist="binary", seed=seed), device="cpu")
+
+
+def test_init_state_draws_the_start_from_one_host_seed():
+    """The start spins come from a generator on the problem's device seeded
+    by one draw of the run's host generator: the same seed gives the same
+    start, another seed another, and the host generator moves by that one
+    draw."""
+    p = _glass()
+    cfg = SAConfig(n_sweeps=10, n_replicas=8, sweep_method="blocked")
+    eng = sa.make_sweep_engine(p, cfg)
+    g = torch.Generator().manual_seed(3)
+    a = sa.init_state(p, cfg, eng, g)
+    b = sa.init_state(p, cfg, eng, torch.Generator().manual_seed(3))
+    c = sa.init_state(p, cfg, eng, torch.Generator().manual_seed(4))
+    assert a.generator is g
+    assert torch.equal(a.spins, b.spins) and not torch.equal(a.spins, c.spins)
+    host = torch.Generator().manual_seed(3)
+    dev = torch.Generator(device=p.device).manual_seed(host_seed(host))
+    start = random_spins(dev, (8, p.n_padded), p.active_mask)
+    assert torch.equal(eng.from_layout(a.spins), start)
+    assert torch.equal(g.get_state(), host.get_state())
+    assert torch.equal(a.energy, eng.energy(a.spins))
+    assert torch.equal(a.best_spins, a.spins) and a.best_spins is not a.spins
+
+
+def test_drawn_start_is_uniform_with_the_padding_up():
+    """[1024, Np]: every active spin is +-1 and their mean lies within 5
+    standard deviations of 0; every padded position is +1."""
+    p = _glass()
+    cfg = SAConfig(n_replicas=1024, sweep_method="blocked")
+    eng = sa.make_sweep_engine(p, cfg)
+    s = eng.from_layout(sa.init_state(p, cfg, eng,
+                                      torch.Generator().manual_seed(9)).spins)
+    assert s.shape == (1024, p.n_padded) and p.n_padded > p.n_spins
+    assert torch.all(s[:, p.n_spins:] == 1.0)
+    active = s[:, :p.n_spins]
+    assert torch.all(active.abs() == 1.0)
+    # the mean of n independent +-1 has standard deviation 1 / sqrt(n)
+    assert abs(float(active.mean())) < 5.0 / active.numel() ** 0.5
+
+
+def test_anneal_reports_whether_its_start_was_drawn_or_given():
+    p = _glass()
+    cfg = SAConfig(n_sweeps=4, n_replicas=2, record_interval=2,
+                   enable_early_stop=False)
+    assert anneal(p, cfg).metadata["start_spins"] == "drawn"
+    given = torch.ones(2, p.n_padded)
+    res = anneal(p, cfg, init_spins=given)
+    assert res.metadata["start_spins"] == "given"
+    assert torch.all(given == 1.0)            # copied, never modified
+    uniforms = np.full((4, 2, p.n_padded), 0.5, np.float32)
+    assert sa._anneal_given(p, cfg, uniforms).metadata["start_spins"] == \
+        "drawn"
+    assert sa._anneal_given(p, cfg, uniforms, init_spins=given).metadata[
+        "start_spins"] == "given"
+
+
+@pytest.mark.parametrize("kind", ["blocked", "sparse"])
+def test_drawn_start_eager_and_captured_runs_agree(kind):
+    """``anneal`` (captured chunks) and the eager loop of ``run_chunk``
+    from ``init_state`` on one seed: the same histories and best energies,
+    and the host generator left in the same state."""
+    p = _glass()
+    cfg = SAConfig(n_sweeps=30, n_replicas=4, record_interval=10,
+                   sweep_method=kind, enable_early_stop=False)
+    g_cap, g_eager = (torch.Generator().manual_seed(21),
+                      torch.Generator().manual_seed(21))
+    res = anneal(p, cfg, generator=g_cap)
+    eng = sa.make_sweep_engine(p, cfg)
+    st = sa.init_state(p, cfg, eng, g_eager)
+    best, mean = [], []
+    for _ in range(3):
+        st, stats = sa.run_chunk(p, cfg, eng, st, 10)
+        best.append(float(stats["best_energy"]))
+        mean.append(float(stats["mean_energy"]))
+    np.testing.assert_array_equal(res.energy_history, best)
+    np.testing.assert_array_equal(res.mean_energy_history, mean)
+    np.testing.assert_array_equal(res.replica_best_energy,
+                                  st.best_energy.numpy())
+    assert torch.equal(g_cap.get_state(), g_eager.get_state())
+
+
+def test_drawn_start_resumes_bit_for_bit(tmp_path):
+    """Checkpoint every chunk, keep only the earliest kept, resume: the
+    resumed run draws its start, then takes the checkpoint's state and
+    generator, and equals the uninterrupted run."""
+    p = _glass()
+    cfg = SAConfig(n_sweeps=40, n_replicas=4, record_interval=10,
+                   enable_early_stop=False, seed=13)
+    ref = anneal(p, cfg)
+    d = str(tmp_path / "ck")
+    anneal(p, cfg, checkpoint_dir=d, checkpoint_every=1)
+    steps = sorted(int(f[5:-3]) for f in os.listdir(d))
+    assert steps[0] < 4
+    for s in steps[1:]:
+        os.remove(os.path.join(d, f"ckpt_{s}.pt"))
+    res = anneal(p, cfg, checkpoint_dir=d, resume=True)
+    assert res.metadata["start_spins"] == "drawn"
+    assert res.best_energy == ref.best_energy
+    for name in ("best_spins", "replica_best_energy", "energy_history",
+                 "mean_energy_history", "temperature_history",
+                 "acceptance_history"):
+        np.testing.assert_array_equal(getattr(res, name), getattr(ref, name))

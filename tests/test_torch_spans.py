@@ -136,7 +136,7 @@ def test_a_profiler_session_records_spans_of_its_own(dense):
 
 def test_device_trace_puts_the_spans_on_the_traces_clock(dense, tmp_path):
     """On the CPU the trace holds the host's operators: the start spins'
-    draw (``aten::randint``) lies inside the ``sa.start`` span."""
+    draws (``aten::randint``) lie inside the ``sa.start`` span."""
     with device_trace(str(tmp_path)):
         sa.anneal(dense, SA_CFG)
     doc = json.loads((tmp_path / "trace.json").read_text())
@@ -151,8 +151,9 @@ def test_device_trace_puts_the_spans_on_the_traces_clock(dense, tmp_path):
     inside = [e for e in draws if start["ts"] <= e["ts"]
               and e["ts"] + e["dur"] <= start["ts"] + start["dur"]]
     # the tape's fills draw seeds on the host, not through randint: the
-    # start spins' draw is the one inside sa.start
-    assert len(inside) == 1
+    # two inside sa.start are the start's one seed from the run's host
+    # generator and the start spins' draw on the problem's device
+    assert len(inside) == 2
     # every operator of the run lies inside the root span
     root = spans[0]
     ops = [e for e in ev if e.get("cat") == "cpu_op"]
