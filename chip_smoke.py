@@ -71,6 +71,11 @@ the kernels against the twins. Phases:
      spins, both rules, R in {128, 4096}; on given fields against its twin
      (R in {128, 4096, 130}); one K4-path sweep == one K3-path sweep == one
      K2 sweep at [10240, 1024] and [10240, 130] under one seed, bitwise.
+     The overlap kernel against its twin at [32768, 136] (4 chains of 34
+     slots), int8 and float32, with and without padding rows, and at 2, 3
+     and 8 chains: q bitwise; K4 over 3 whole sweeps of the L=32 +-J
+     lattice (2 colours) at R=136, int8 and float32, both rules, against
+     its plain version, bitwise.
      RL: two env steps of 10 sweeps through make_engine's engine against
      the same steps through the twin under one generator seed, in all three
      action modes with sweep fractions below 1 for some envs (the kernels
@@ -158,8 +163,9 @@ the kernels against the twins. Phases:
      R=4096 must hit that cache and give the first call's result bit for
      bit; and each captured driver against the eager loop of its step under
      one seed, bit for bit: anneal on the SK glass (K1 500 launches on both
-     paths, E/N -0.75785) and anneal_scan against it; the sparse anneal (K2
-     500, E/N -1.63124); pt.run at 16 replicas (1000 sweeps) and at R=4096
+     paths, E/N -0.75696 since the start is drawn on the card) and
+     anneal_scan against it; the sparse anneal (K2 500, E/N -1.63106);
+     pt.run at 16 replicas (1000 sweeps) and at R=4096
      (200 sweeps), K4 (spins, slots, energies, exchange counts, histories);
      time_to_target's sweeps per seed (42-44, all hit); the first 16 of
      bench_rl's 48 captured PPO updates against 16 eager ones (history; E/N
@@ -260,8 +266,12 @@ the kernels against the twins. Phases:
      and K7 at N=4096, R=1024, blocks 128 and 256, in turns, beside the
      twins' sweeps at that shape (timed in phase 2); K4 in gather mode alone
      over one sweep's colours beside its plain version and K4 on given
-     fields; PT at R=4096 three ways in turns (the K3 path, the K4 path, K2
-     with its budget lifted) with each way's device breakdown; PT at 16
+     fields; an ea3d-shaped pt.run (L=32, R=136, heat bath, overlaps on)
+     whose launches must be one overlap a super-step and two K4 a sweep,
+     its last q the twin's, and the overlap kernel at [32768, 136] as a
+     graph beside its plain version and its bound; PT at R=4096 three
+     ways in turns (the K3 path, the K4 path, K2 with its budget lifted)
+     with each way's device breakdown; PT at 16
      replicas through K4 and through the plain [R, N] engine; bench_rl's
      env steps/s with its window rates, and profile_rl's breakdown of one
      PPO update (us per env step, device-busy share, launches per env
@@ -332,6 +342,9 @@ KERNELS = {
     # labelling while_loop and flips; the bond and ghost activation)
     "sw_labels": "spinglass_tpu/core/cluster.py:291",
     "sw_bonds": "spinglass_tpu/core/cluster.py:240",
+    # the overlap kernel replaces nothing: the JAX package measures no
+    # overlap of real replicas
+    "replica_overlap": None,
 }
 # FusedSweep flags of the dense variants, by label
 VARIANTS = {"K5": dict(pipelined=True), "K6x2": dict(interleave=2),
@@ -1496,6 +1509,166 @@ def accept_parity(torch, stats):
               f"(acceptance {float(c4.sum()) / (r * 1e4):.4f})")
 
 
+# ---------------------------------------------------------------------------
+# the replica overlap kernel and K4 on the 3-D +-J lattice (ea3d-l32.pt)
+# ---------------------------------------------------------------------------
+EA_L, EA_CHAINS, EA_SLOTS = 32, 4, 34   # the ea3d-l32 cell's lattice and PT
+
+
+def _random_pm(torch, gen, shape, dtype):
+    return (2 * torch.randint(0, 2, shape, generator=gen, device="cuda")
+            - 1).to(dtype)
+
+
+def _slots(torch, gen, c, t):
+    return torch.cat([torch.randperm(t, generator=gen, device="cuda")
+                      for _ in range(c)]).to(torch.int32)
+
+
+def overlap_parity(torch, stats):
+    """Phase 2 (overlap, K4 on the lattice): the overlap kernel against its
+    plain twin at [32768, 136] (4 chains of 34 slots), int8 and float32,
+    with every row real and with padding rows, and at other chain counts
+    and slot blocks; K4 in gather mode over whole sweeps of the L=32 +-J
+    lattice at R=136, both rules, against its plain version."""
+    from spinglass_tpu_torch.core.problem import random_spins
+    from spinglass_tpu_torch.core.topology import lattice_coo
+    from spinglass_tpu_torch.kernels import overlap_cuda as oc
+    from spinglass_tpu_torch.kernels import sparse as sp
+    from spinglass_tpu_torch.kernels import sparse_cuda as sc
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cases = [(32768, EA_CHAINS, EA_SLOTS, dtype, pad)
+             for dtype in (torch.int8, torch.float32) for pad in (0, 1000)]
+    # two chains over two slot blocks, three, and the most chains
+    cases += [(5000, 2, 300, torch.int8, 77), (5000, 3, 34, torch.int8, 0),
+              (5000, 8, 17, torch.float32, 77)]
+    for ns, c, t, dtype, pad in cases:
+        s = _random_pm(torch, gen, (ns, c * t), dtype)
+        slot = _slots(torch, gen, c, t)
+        mask = torch.zeros(ns, device="cuda")
+        mask[ns - pad:] = -torch.inf
+        op = oc.ReplicaOverlap(mask, c, ns - pad)
+        got, again = op(s, slot), op(s, slot)
+        want = oc.overlap_reference(s.cpu(), mask.cpu(), slot.cpu(), c,
+                                    ns - pad)
+        torch.cuda.synchronize()
+        if not (got.shape == (t, c * (c - 1) // 2) and op.launches == 2
+                and torch.equal(got.cpu(), want) and torch.equal(again, got)):
+            raise CheckFailed(
+                f"overlap kernel != twin at [{ns}, {c * t}], {c} chains, "
+                f"{dtype}, {pad} padding rows: max |q - q_twin| "
+                f"{float((got.cpu() - want).abs().max()):.3e}")
+    stats["overlap_max_abs_err"] = 0.0
+    check(True, "overlap kernel == its twin bit for bit (q, and a second "
+                "launch on the zeroed scratch): [32768, 136] (4 chains of "
+                "34) int8 and float32 with 0 and 1000 padding rows; [5000, "
+                "600] 2 chains (two slot blocks), [5000, 102] 3, [5000, 136] "
+                "8 chains")
+    ell = sp.EllProblem.from_coo(*lattice_coo(EA_L, seed=20100602),
+                                 device="cuda")
+    r = EA_CHAINS * EA_SLOTS
+    hgen = torch.Generator().manual_seed(32)
+    start = random_spins(hgen, (r, ell.n_padded), ell.active_mask)
+    for dtype in (torch.int8, torch.float32):
+        for rule in ("glauber", "metropolis"):
+            eng = sp.SortedSparseTEngine(ell, rule=rule, spin_dtype=dtype,
+                                         accept_kernel="fused")
+            k = eng.kernels
+            s_k = eng.to_layout(start)
+            s_p = s_k.clone()
+            beta = (torch.rand(r, generator=hgen) * 1.5 + 0.1).cuda()
+            for sweep in range(3):
+                _, de_k, c_k = k.accept_sweep(s_k, beta, 91 + sweep)
+                de_p = torch.zeros(r, device="cuda")
+                c_p = torch.zeros(r, dtype=torch.int32, device="cuda")
+                for off, mc_, _ in eng.groups:
+                    sc.accept_gather_reference(k.tables, s_p, off, mc_,
+                                               eng.mask_col, beta, 91 + sweep,
+                                               rule, de_p, c_p)
+                torch.cuda.synchronize()
+                if not (torch.equal(s_k, s_p) and torch.equal(c_k, c_p)
+                        and torch.equal(de_k, de_p)):
+                    raise CheckFailed(
+                        f"K4 on the L={EA_L} lattice != plain version: "
+                        f"{dtype} {rule} R={r} sweep {sweep}: "
+                        f"{int((s_k != s_p).sum())} spins, "
+                        f"{int((c_k != c_p).sum())} counts differ")
+    check(eng.n_colors == 2 and [m for _, m, _ in eng.groups] == [16384] * 2,
+          f"K4 in gather mode, 3 whole sweeps of the L={EA_L} +-J lattice "
+          f"(2 colours of 16384 rows) at R={r}, int8 and float32, glauber "
+          f"and metropolis: spins, dE and counts bitwise equal to the "
+          f"slot-ordered plain version")
+
+
+def overlap_timing(torch, stats, card):
+    """Phase 5 (overlap): an ea3d-shaped pt.run (L=32, 4 chains of 34
+    slots, heat bath, overlaps every super-step) with the overlap kernel's
+    counter set to 0 before it: one overlap launch a super-step and two K4
+    launches a sweep, the last q equal to the twin's on the final state;
+    the kernel at [32768, 136] int8 as a graph against its plain version
+    and its bound."""
+    from spinglass_tpu_torch.anneal import graphs, pt
+    from spinglass_tpu_torch.core.topology import lattice_coo
+    from spinglass_tpu_torch.kernels import overlap_cuda as oc
+    from spinglass_tpu_torch.kernels import sparse as sp
+
+    ell = sp.EllProblem.from_coo(*lattice_coo(EA_L, seed=20100602),
+                                 device="cuda")
+    cfg = pt.PTConfig(n_replicas=EA_SLOTS, n_chains=EA_CHAINS,
+                      ladder="linear", min_temp=0.703, max_temp=1.6,
+                      update_rule="heat_bath", exchange_interval=10,
+                      n_sweeps=1000, measure_overlaps=True)
+    n_super = cfg.n_sweeps // cfg.exchange_interval
+    pt.run(ell, cfg, generator=torch.Generator().manual_seed(1))  # capture
+    _, engine, step = graphs.PT_CACHE.get(ell, ("run",
+                                                graphs.config_key(cfg)))
+    op = next(o for name, o, _ in step.counters if name == oc.KERNEL)
+    op.launches = 0
+    t0 = time.perf_counter()
+    res = pt.run(ell, cfg, generator=torch.Generator().manual_seed(2))
+    run_s = time.perf_counter() - t0
+    kl = res.metadata["kernel_launches"]
+    st = step.state
+    want = oc.overlap_reference(st.spins.cpu(), engine.row_mask().cpu(),
+                                st.slot.cpu(), EA_CHAINS, ell.n_spins)
+    got = res.metadata["slot_overlap_history"][-1]
+    check(engine.name == "sparse_sorted_t" and op.launches == n_super
+          and kl[oc.KERNEL] == n_super
+          and kl["sparse_accept"] == 2 * cfg.n_sweeps
+          and kl["sparse_sweep"] == 0 and kl["sparse_thresholds"] == 0
+          and res.metadata["overlap_measurements"] == n_super
+          and torch.equal(torch.as_tensor(got), want),
+          f"pt.run at the ea3d-l32 shape ([{engine.n_sorted}, "
+          f"{EA_CHAINS * EA_SLOTS}], heat bath, {cfg.n_sweeps} sweeps): "
+          f"{op.launches} overlap launches ({n_super} super-steps), "
+          f"{kl['sparse_accept']} K4 launches (2 a sweep), no K2 or K3; the "
+          f"last q == the twin's on the final state; {run_s:.3f} s a run")
+    stats["overlap_launches"] = op.launches
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    ns, r = 32768, EA_CHAINS * EA_SLOTS
+    s = _random_pm(torch, gen, (ns, r), torch.int8)
+    slot = _slots(torch, gen, EA_CHAINS, EA_SLOTS)
+    mask = torch.zeros(ns, device="cuda")
+    timed = oc.ReplicaOverlap(mask, EA_CHAINS, ns)
+    ms = _graph_ms(torch, lambda: timed(s, slot), 50)
+    oc.overlap_reference(s, mask, slot, EA_CHAINS, ns)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        oc.overlap_reference(s, mask, slot, EA_CHAINS, ns)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / 5
+    pairs = EA_CHAINS * (EA_CHAINS - 1) // 2
+    b = bound(1.0 * ns * r + 4.0 * r + 4.0 * EA_SLOTS * pairs, 0.0,
+              FP32_FLOPS)
+    stats["overlap"] = (ms, plain_ms) + b
+    print(f"  overlap kernel at [{ns}, {r}] int8, as a graph: "
+          f"{1e3 * ms:.2f} us (bound {1e3 * b[0]:.2f} us, {b[1]}: "
+          f"{100 * b[0] / ms:.1f}% of it); plain version {plain_ms:.3f} ms "
+          f"[{card}]")
+
+
 def _pt_run(torch, ell, cfg, engine, gen_seed, n_super):
     """n_super super-steps of pt's step through ``engine`` from a fresh
     state; returns (state, seconds of the super-steps)."""
@@ -2261,8 +2434,8 @@ def captured_parity(torch, mc, stats):
 
     stats["captured"] = cap = {}
     read = graphs.HostRead()
-    for kind, kernel, known in (("dense", mc.KERNEL_NAME, "-0.75785"),
-                                ("sparse", "sparse_sweep", "-1.63124")):
+    for kind, kernel, known in (("dense", mc.KERNEL_NAME, "-0.75696"),
+                                ("sparse", "sparse_sweep", "-1.63106")):
         problem, cfg, first = stats[f"{kind}_first"]
         hits = graphs.SA_CACHE.hits
         res = anneal(problem, cfg)
@@ -4705,6 +4878,8 @@ def main() -> int:
                 ("phase 2: parity with the twins and K1 (K5, K6, K7)",
                  lambda: variant_parity(torch, mc, stats)),
                 ("phase 2: parity with the twin, K3 and K2 (K4)", lambda: accept_parity(torch, stats)),
+                ("phase 2: parity with the twin (overlap) and K4 on the "
+                 "3-D lattice", lambda: overlap_parity(torch, stats)),
                 ("phase 2: parity with the plain versions (C2, C1)",
                  lambda: cluster_parity(torch, stats)),
                 ("phase 2: env.step through K1, K2 and K4 against the twins (RL)",
@@ -4754,6 +4929,9 @@ def main() -> int:
                 ("phase 5: timing (K5, K6, K7)", lambda: variant_timing(torch, mc, stats, card)),
                 ("phase 5: timing (K4, PT at R=4096 three ways)",
                  lambda: accept_timing(torch, stats, card)),
+                ("phase 5: timing (overlap: an ea3d-shaped pt.run, the "
+                 "kernel against its plain version)",
+                 lambda: overlap_timing(torch, stats, card)),
                 ("phase 5: timing (RL: bench_rl, profile_rl)",
                  lambda: rl_timing(torch, stats, card)),
                 ("phase 5: timing (RL training: bench_dqn, profile_dqn, the "
@@ -4812,6 +4990,10 @@ def main() -> int:
         k_ms, k_plain_ms, k_bound, k_by = stats[key]
         rows.append((name, 0, stats[f"{key}_max_abs_err"], k_ms, k_plain_ms))
         stats["bounds"][name] = (k_bound, k_by)
+    o_ms, o_plain_ms, o_bound, o_by = stats["overlap"]
+    rows.append(("replica_overlap", stats["overlap_launches"],
+                 stats["overlap_max_abs_err"], o_ms, o_plain_ms))
+    stats["bounds"]["replica_overlap"] = (o_bound, o_by)
     b4 = stats["bounds"]["sparse_accept"][0]
     print(f"K4 {1e3 * stats['k4_ms']:.1f} us per sweep is "
           f"{100 * b4 / stats['k4_ms']:.1f}% of its bound's rate [{card}]")

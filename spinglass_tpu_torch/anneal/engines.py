@@ -39,13 +39,15 @@ same numbers in the same order.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from spinglass_tpu_torch.core import energy as energy_ops
 from spinglass_tpu_torch.core import rng
 from spinglass_tpu_torch.core import topology
-from spinglass_tpu_torch.core.problem import IsingProblem
+from spinglass_tpu_torch.core.problem import IsingProblem, real_rows
 from spinglass_tpu_torch.kernels import sweeps as sweep_kernels
 from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES, FusedSweep
 
@@ -98,13 +100,21 @@ class SweepEngine:
     def __init__(self, problem: IsingProblem):
         self.problem = problem
 
-    def to_layout(self, spins_rn: torch.Tensor) -> torch.Tensor:
-        """[R, Np] -> this engine's layout, as a new contiguous tensor."""
+    def to_layout(self, spins_rn: torch.Tensor,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """[R, Np] -> this engine's layout, as a new contiguous tensor (in
+        ``dtype`` if given)."""
         s = spins_rn.t() if self.layout == "nr" else spins_rn
-        return s.clone(memory_format=torch.contiguous_format)
+        s = s.clone(memory_format=torch.contiguous_format)
+        return s if dtype is None else s.to(dtype)
 
     def from_layout(self, spins: torch.Tensor) -> torch.Tensor:
         return spins.t() if self.layout == "nr" else spins
+
+    def row_mask(self) -> torch.Tensor:
+        """[rows] float32 over the spin axis of this engine's layout: 0 on
+        a real spin, -inf on padding."""
+        return real_rows(self.problem.active_mask)
 
     def energy(self, spins: torch.Tensor) -> torch.Tensor:
         """Exact energies [R] in this engine's layout."""
@@ -195,17 +205,23 @@ class CudaFusedEngine(SweepEngine):
 
 
 class GivenUniforms(SweepEngine):
-    """A dense engine (blocked, coloured or K1) sweeping on a given tape of
-    uniforms [S, R, Np] in place of its generator's draws: sweep t of the
-    run reads row t. The entry through which the CPU tests feed a driver the
-    JAX package's own draws. Eager only: ``t`` counts the sweeps on the
-    host, so a captured step would freeze it."""
+    """An engine (blocked, coloured, K1, or a sorted sparse engine on its
+    threshold path) sweeping on a given tape of uniforms [S, R, Np] in
+    place of its generator's draws: sweep t of the run reads row t, spin i
+    of replica r consuming uniforms[t, r, i] in the problem's own order
+    (the engine's ``to_layout`` puts them in its layout). The entry through
+    which the CPU tests feed a driver the JAX package's draws, or a plain
+    reference's. Eager only: ``t`` counts the sweeps on the host, so a
+    captured step would freeze it."""
+
+    ENGINES = ("blocked", "colored", "cuda_fused", "sparse_sorted",
+               "sparse_sorted_t")
 
     def __init__(self, engine: SweepEngine, uniforms):
-        if not hasattr(engine, "sweep_with_uniforms") or engine.name not in (
-                "blocked", "colored", "cuda_fused"):
-            raise ValueError(f"given uniforms need a dense engine, got "
-                             f"{engine.name!r}")
+        if not hasattr(engine, "sweep_with_uniforms") or \
+                engine.name not in self.ENGINES:
+            raise ValueError(f"given uniforms need one of the engines "
+                             f"{self.ENGINES}, got {engine.name!r}")
         super().__init__(engine.problem)
         self.engine, self.layout, self.name = engine, engine.layout, engine.name
         self.uniforms = torch.as_tensor(np.asarray(uniforms, np.float32),
@@ -216,12 +232,23 @@ class GivenUniforms(SweepEngine):
     def launches(self) -> dict:
         return kernel_launches(self.engine)
 
+    def to_layout(self, spins_rn, dtype=None):
+        return self.engine.to_layout(spins_rn, dtype)
+
+    def from_layout(self, spins):
+        return self.engine.from_layout(spins)
+
+    def row_mask(self):
+        return self.engine.row_mask()
+
+    def energy(self, spins):
+        return self.engine.energy(spins)
+
     def sweep(self, spins, beta, generator):
         u = self.uniforms[self.t]
         self.t += 1
-        if self.layout == "nr":
-            u = u.t().contiguous()
-        return self.engine.sweep_with_uniforms(spins, beta, u)
+        return self.engine.sweep_with_uniforms(
+            spins, beta, self.engine.to_layout(u, torch.float32))
 
 
 def make_engine(problem, *, sweep_method: str = "auto",

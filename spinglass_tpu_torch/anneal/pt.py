@@ -31,6 +31,18 @@ graph. ``run(checkpoint_dir=...)`` saves the state every
 ``checkpoint_every`` replays of the same captured super-step (the JAX
 ``_run_segmented``), and ``tune_ladder`` respaces the ladder from pilot
 runs.
+
+``measure_overlaps`` (with ``n_chains`` >= 2) adds the spin-glass overlap of
+the chains' replicas at equal temperature to every super-step's stats,
+after the energy resync: ``slot_overlap`` [n_replicas, P], q_ab(t) for each
+ladder slot t and each pair of chains a < b (``kernels.overlap_cuda``: one
+launch of the overlap kernel on the card, its plain twin on the CPU). Off,
+the super-step is unchanged.
+
+``run`` records spans (``utils.profiling``): ``pt.run`` over the call, with
+``pt.start`` (the start state, the load into the captured super-step, the
+synchronise) and ``pt.result`` (the best row, the copies, the history read
+and the result) under it.
 """
 
 from __future__ import annotations
@@ -54,10 +66,11 @@ from spinglass_tpu_torch.core import energy as energy_ops
 from spinglass_tpu_torch.core.cluster import SwendsenWang
 from spinglass_tpu_torch.core.problem import random_spins
 from spinglass_tpu_torch.core.rng import device_uniforms, host_seed
-from spinglass_tpu_torch.kernels import cluster_cuda
+from spinglass_tpu_torch.kernels import cluster_cuda, overlap_cuda
 from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES
 from spinglass_tpu_torch.utils.checkpoint import CheckpointManager
 from spinglass_tpu_torch.utils.exceptions import CheckpointError
+from spinglass_tpu_torch.utils.profiling import global_profiler
 
 
 @dataclass(frozen=True)
@@ -83,11 +96,18 @@ class PTConfig:
     j_dtype: str = "float32"
     record_interval: int = 50
     seed: int = 42
+    measure_overlaps: bool = False     # slot_overlap in every super-step's
+    # stats: q_ab(t) of each pair of chains at each slot (2..8 chains)
 
     def __post_init__(self):
         if self.j_dtype not in J_DTYPES:
             raise ValueError(f"j_dtype must be one of {J_DTYPES}, got "
                              f"{self.j_dtype!r}")
+        if self.measure_overlaps and not (
+                2 <= self.n_chains <= overlap_cuda.MAX_CHAINS):
+            raise ValueError(f"measure_overlaps needs 2 to "
+                             f"{overlap_cuda.MAX_CHAINS} chains, got "
+                             f"n_chains={self.n_chains}")
 
 
 @dataclass
@@ -302,8 +322,9 @@ def make_pt_step(problem, cfg: PTConfig,
     Returns (super_step, betas_ladder, engine); ``super_step(state,
     betas=None)`` returns (state, stats) with the stats as device tensors,
     and ``super_step.counters`` lists the launch counters of the kernels it
-    runs (the engine's, and C2's and C1's with cluster moves). ``engine``
-    overrides make_engine's choice."""
+    runs (the engine's, C2's and C1's with cluster moves, the overlap
+    kernel's with ``measure_overlaps``). ``engine`` overrides make_engine's
+    choice."""
     if engine is None:
         engine = make_engine(problem, sweep_method=cfg.sweep_method,
                              update_rule=cfg.update_rule,
@@ -315,6 +336,9 @@ def make_pt_step(problem, cfg: PTConfig,
              if ladder_override is not None else temperature_ladder(cfg))
     betas_ladder = torch.as_tensor(1.0 / temps, device=problem.device)
     sw = SwendsenWang(problem) if cfg.cluster_moves > 0 else None
+    overlap = (overlap_cuda.ReplicaOverlap(engine.row_mask(), cfg.n_chains,
+                                           problem.n_spins)
+               if cfg.measure_overlaps else None)
 
     def super_step(state: PTState, betas: Optional[torch.Tensor] = None):
         betas = betas_ladder if betas is None else betas
@@ -344,11 +368,16 @@ def make_pt_step(problem, cfg: PTConfig,
             "slot_energy": torch.mean(e_by_slot, dim=0),
             "slot_of_replica": state.slot,
         }
+        if overlap is not None:
+            stats["slot_overlap"] = overlap(
+                state.spins if engine.layout == "nr" else state.spins.t(),
+                state.slot)
         return state, stats
 
     super_step.counters = launch_counters(engine) + (
         [(cluster_cuda.BONDS_KERNEL, sw.bonds, "launches"),
-         (cluster_cuda.KERNEL_NAME, sw.labeller, "launches")] if sw else [])
+         (cluster_cuda.KERNEL_NAME, sw.labeller, "launches")] if sw else []
+    ) + ([(overlap_cuda.KERNEL, overlap, "launches")] if overlap else [])
     super_step.sw = sw
     return super_step, betas_ladder, engine
 
@@ -409,6 +438,13 @@ def run(problem, cfg: Optional[PTConfig] = None,
     if resume and checkpoint_dir is None:
         raise ValueError("resume=True requires checkpoint_dir")
     cfg = cfg or PTConfig()
+    with global_profiler.phase("pt.run"):
+        return _run(problem, cfg, generator, ladder_override, checkpoint_dir,
+                    checkpoint_every, resume)
+
+
+def _run(problem, cfg: PTConfig, generator, ladder_override, checkpoint_dir,
+         checkpoint_every: int, resume: bool) -> AnnealResult:
     n_super = max(1, cfg.n_sweeps // cfg.exchange_interval)
     key = ("run", graphs.config_key(cfg))
     entry = graphs.PT_CACHE.get(problem, key)
@@ -425,44 +461,49 @@ def run(problem, cfg: Optional[PTConfig] = None,
     launches0 = _counts(counters)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    _sync(problem.device)
-    t0 = time.perf_counter()
-    state = init_state(problem, cfg, generator, engine)
-    if entry is None:
-        step = capture_super_step(super_step, engine, state, record=n_super)
-        graphs.PT_CACHE.put(problem, key,
-                            (betas_ladder, engine, step))
-        capture_s = step.capture_seconds
-    else:
-        step.load(graphs.device_counter(state))
-        capture_s = 0.0
+    with global_profiler.phase("pt.start"):
+        _sync(problem.device)
+        t0 = time.perf_counter()
+        state = init_state(problem, cfg, generator, engine)
+        if entry is None:
+            step = capture_super_step(super_step, engine, state,
+                                      record=n_super)
+            graphs.PT_CACHE.put(problem, key,
+                                (betas_ladder, engine, step))
+            capture_s = step.capture_seconds
+        else:
+            step.load(graphs.device_counter(state))
+            capture_s = 0.0
     if checkpoint_dir is None:
         for _ in range(n_super):
             step.replay(generator)
     else:
         _run_segmented(step, engine, cfg, generator, checkpoint_dir,
                        checkpoint_every, resume, n_super)
-    state = step.state
-    best_r = torch.argmin(state.best_energy)
-    dev_out = {
-        "best_spins": best_row(engine, state.best_spins, best_r),
-        "best_energy": torch.min(state.best_energy),
-        "replica_best": state.best_energy,
-        "exch_attempts": state.exch_attempts,
-        "exch_accepts": state.exch_accepts,
-    }
-    # read at the end, as one copy on either device: on the CPU .cpu() would
-    # be the cached step's own tensor, which the next call overwrites
-    out = {k: v.to("cpu", copy=True).numpy() for k, v in dev_out.items()}
-    out["hist"] = {k: v.to("cpu", copy=True).numpy()
-                   for k, v in step.history.items()}
-    _sync(problem.device)
-    total = time.perf_counter() - t0
-    launches = _counts(counters)
-    res = _assemble_result(problem, cfg, out, betas_ladder, n_super, total,
-                           engine, {k: v - launches0.get(k, 0)
-                                    for k, v in launches.items()})
-    res.metadata["capture_seconds"] = capture_s
+    with global_profiler.phase("pt.result"):
+        state = step.state
+        best_r = torch.argmin(state.best_energy)
+        dev_out = {
+            "best_spins": best_row(engine, state.best_spins, best_r),
+            "best_energy": torch.min(state.best_energy),
+            "replica_best": state.best_energy,
+            "exch_attempts": state.exch_attempts,
+            "exch_accepts": state.exch_accepts,
+        }
+        # read at the end, as one copy on either device: on the CPU .cpu()
+        # would be the cached step's own tensor, which the next call
+        # overwrites
+        out = {k: v.to("cpu", copy=True).numpy() for k, v in dev_out.items()}
+        out["hist"] = {k: v.to("cpu", copy=True).numpy()
+                       for k, v in step.history.items()}
+        _sync(problem.device)
+        total = time.perf_counter() - t0
+        launches = _counts(counters)
+        res = _assemble_result(problem, cfg, out, betas_ladder, n_super,
+                               total, engine,
+                               {k: v - launches0.get(k, 0)
+                                for k, v in launches.items()})
+        res.metadata["capture_seconds"] = capture_s
     try:  # prometheus gauges (host values only: no read of the device)
         from spinglass_tpu_torch.utils.metrics_exporter import (
             publish_anneal_result)
@@ -577,8 +618,21 @@ def _assemble_result(problem, cfg: PTConfig, out: dict, betas_ladder,
             "exchange_method": cfg.exchange_method,
             "engine": getattr(engine, "name", None),
             "kernel_launches": launches,
+            "overlap_measurements": n_super if cfg.measure_overlaps else 0,
+            **(_overlap_metadata(hist["slot_overlap"])
+               if cfg.measure_overlaps else {}),
         },
     )
+
+
+def _overlap_metadata(q: np.ndarray) -> dict:
+    """The overlaps' record [n_super, T, P] and their moments per slot
+    (cold -> hot) over the recorded super-steps and the pairs of chains:
+    <q^2> and <q^4>."""
+    q = np.asarray(q, np.float64)
+    return {"slot_overlap_history": np.asarray(q, np.float32),
+            "overlap_moments": {"q2": (q ** 2).mean(axis=(0, 2)).tolist(),
+                                "q4": (q ** 4).mean(axis=(0, 2)).tolist()}}
 
 
 def tune_ladder(problem, cfg: PTConfig, n_pilot_sweeps: int = 200,

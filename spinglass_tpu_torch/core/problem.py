@@ -176,6 +176,13 @@ class IsingProblem:
                                            device=device)
 
 
+def real_rows(active_mask: torch.Tensor) -> torch.Tensor:
+    """[Np] float32 from an active mask: 0 on a real spin, -inf on
+    padding (an engine's ``row_mask``)."""
+    return torch.where(active_mask.reshape(-1) > 0, 0.0,
+                       -torch.inf).to(torch.float32)
+
+
 def random_spins(generator: torch.Generator, shape: tuple,
                  mask: Optional[torch.Tensor] = None,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -80,6 +80,42 @@ def grid_2d(width: int, height: int, *, periodic: bool = False,
     return _from_edges(n, rows, cols, vals)
 
 
+def lattice_coo(L: int, dims: int = 3, *, periodic: bool = True,
+                dist: str = "binary", scale: float = 1.0, seed: int = 0):
+    """Hypercubic nearest-neighbour lattice of side ``L`` in ``dims``
+    dimensions as COO, with no dense [N, N] intermediate: the
+    Edwards-Anderson glass for ``dist="binary"`` (J = +-1, p = 1/2).
+
+    Site (x_0, ..., x_{dims-1}) has index x_0 L^(dims-1) + ... + x_{dims-1}
+    (C order on an [L] * dims grid). Bonds are taken axis by axis, and on
+    each axis site by site in index order, each to its +1 neighbour
+    (periodic: wrapped; open: the last layer has none); their couplings are
+    drawn in that order from ``np.random.default_rng(seed)`` (``_sample``).
+    Returns (n, rows, cols, vals) with both directions of every bond, for
+    ``EllProblem.from_coo``. A periodic lattice needs L >= 3 (at L = 2 the
+    +1 and -1 neighbours are one site)."""
+    if L < 2 or dims < 1 or (periodic and L < 3):
+        raise ValueError(f"no {'periodic ' if periodic else ''}lattice of "
+                         f"side {L} in {dims} dimensions")
+    n = L ** dims
+    idx = np.arange(n, dtype=np.int64).reshape((L,) * dims)
+    a, b = [], []
+    for d in range(dims):
+        nb = np.roll(idx, -1, axis=d)
+        if not periodic:
+            keep = [slice(None)] * dims
+            keep[d] = slice(0, L - 1)
+            a.append(idx[tuple(keep)].ravel())
+            b.append(nb[tuple(keep)].ravel())
+        else:
+            a.append(idx.ravel())
+            b.append(nb.ravel())
+    a, b = np.concatenate(a), np.concatenate(b)
+    vals = _sample(np.random.default_rng(seed), len(a), dist, scale)
+    return (n, np.concatenate([a, b]), np.concatenate([b, a]),
+            np.concatenate([vals, vals]))
+
+
 def random_graph(n: int, *, density: float = 0.1, dist: str = "gaussian",
                  scale: float = 1.0, seed: int = 0) -> np.ndarray:
     """Erdos-Renyi G(n, p) couplings."""

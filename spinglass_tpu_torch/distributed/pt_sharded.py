@@ -116,11 +116,14 @@ class ShardedEngine:
         return rng.ShardStream(generator, self.rank, self.world,
                                self.replica_dim)
 
-    def to_layout(self, spins_rn):
-        return self.inner.to_layout(spins_rn)
+    def to_layout(self, spins_rn, dtype=None):
+        return self.inner.to_layout(spins_rn, dtype)
 
     def from_layout(self, spins):
         return self.inner.from_layout(spins)
+
+    def row_mask(self):
+        return self.inner.row_mask()
 
     def energy(self, spins):
         return self.inner.energy(spins)

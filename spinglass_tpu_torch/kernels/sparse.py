@@ -49,8 +49,8 @@ import torch
 
 from spinglass_tpu_torch import native
 from spinglass_tpu_torch.core import topology
-from spinglass_tpu_torch.core.problem import (IsingProblem, resolve_device,
-                                              round_up)
+from spinglass_tpu_torch.core.problem import (IsingProblem, real_rows,
+                                              resolve_device, round_up)
 from spinglass_tpu_torch.kernels.sparse_cuda import SparseKernels
 from spinglass_tpu_torch.core.rng import device_uniforms, draw_seed
 from spinglass_tpu_torch.kernels.sweeps import (accept_threshold,
@@ -664,16 +664,23 @@ class SortedSparseTEngine:
         replicas: float32 where K2 takes the sweep, else the narrow dtype."""
         return torch.float32 if self._takes_single(r) else self._narrow_dtype
 
-    def to_layout(self, spins_rn: torch.Tensor) -> torch.Tensor:
-        """[R, Np] -> [NS, R] sorted rows, as a new contiguous tensor."""
+    def to_layout(self, spins_rn: torch.Tensor,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """[R, Np] -> [NS, R] sorted rows, as a new contiguous tensor in
+        ``dtype`` (default ``state_dtype``; uniforms keep float32)."""
         s_t = spins_rn[:, self._perm_gather].t()
-        return s_t.to(self.state_dtype(spins_rn.shape[0])).contiguous()
+        return s_t.to(dtype or self.state_dtype(spins_rn.shape[0])).contiguous()
 
     def from_layout(self, spins_t: torch.Tensor) -> torch.Tensor:
         """[NS, R] -> [R, Np] float32; padding spins restored to +1."""
         s_rn = spins_t[self._inv_map].t().to(torch.float32)
         return torch.where(self.ell.active_mask[None, :] > 0, s_rn,
                            torch.ones_like(s_rn))
+
+    def row_mask(self) -> torch.Tensor:
+        """[NS] float32: 0 on the sorted rows of real spins, -inf on
+        padding."""
+        return self.mask_col.reshape(-1)
 
     # -- energy (exact, in the transposed layout) --------------------------
     def energy(self, spins_t: torch.Tensor) -> torch.Tensor:
@@ -765,11 +772,16 @@ class SortedSparseEngine:
     def energy(self, spins: torch.Tensor) -> torch.Tensor:
         return sparse_energy(self.ell_sorted, spins)
 
-    def to_layout(self, spins_rn: torch.Tensor) -> torch.Tensor:
-        return spins_rn[:, self._perm].contiguous()
+    def to_layout(self, spins_rn: torch.Tensor,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        s = spins_rn[:, self._perm].contiguous()
+        return s if dtype is None else s.to(dtype)
 
     def from_layout(self, spins: torch.Tensor) -> torch.Tensor:
         return spins[:, self._inv_perm]
+
+    def row_mask(self) -> torch.Tensor:
+        return real_rows(self.ell_sorted.active_mask)
 
     def sweep(self, spins, beta, generator: torch.Generator):
         uniforms = device_uniforms(generator, spins.shape, spins.device)
@@ -901,11 +913,16 @@ class SparseEngine:
     def energy(self, spins: torch.Tensor) -> torch.Tensor:
         return sparse_energy(self.ell, spins)
 
-    def to_layout(self, spins_rn: torch.Tensor) -> torch.Tensor:
-        return spins_rn.clone(memory_format=torch.contiguous_format)
+    def to_layout(self, spins_rn: torch.Tensor,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        s = spins_rn.clone(memory_format=torch.contiguous_format)
+        return s if dtype is None else s.to(dtype)
 
     def from_layout(self, spins: torch.Tensor) -> torch.Tensor:
         return spins
+
+    def row_mask(self) -> torch.Tensor:
+        return real_rows(self.ell.active_mask)
 
     def sweep(self, spins, beta, generator: torch.Generator):
         return self.sweep_with_uniforms(

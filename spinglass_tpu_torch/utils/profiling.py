@@ -14,6 +14,10 @@ their host work happens:
 * ``ttt.solve`` (root): one seed of ``benchmarks.planted.time_to_target``;
   ``ttt.start`` its start state, the load and the synchronise before its
   clock starts;
+* ``pt.run`` (root): one ``anneal.pt.run`` call; ``pt.start`` the
+  synchronise before its clock, its start state and the load into the
+  captured super-step (the capture on a first call); ``pt.result`` the best
+  row, the copies, the history read and the result;
 * ``step.fill``: a captured step's random tape filled before a replay;
   ``step.launch``: the graph's replay (on the CPU: the eager step);
 * ``read``: a small read to the host (``anneal.graphs.HostRead``), the

@@ -1862,3 +1862,57 @@ def test_sa_start_is_drawn_on_the_card(cuda, tmp_path):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     assert sorted(times)[1] < 0.020, times
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ns,n_chains,t,dtype", [
+    (32768, 4, 34, torch.int8), (32768, 4, 34, torch.float32),
+    (5000, 2, 300, torch.int8), (5000, 3, 34, torch.int8),
+    (5000, 8, 17, torch.float32)])
+def test_overlap_kernel_matches_twin_at_l32(cuda, ns, n_chains, t, dtype):
+    """The overlap kernel at the 3-D glass's shape, [32768, 136] (4 chains
+    of 34 slots), and at other chain counts (a bound of the kernel's loops,
+    not a template: two chains over two slot blocks of 300 slots, three,
+    the most) equals its plain twin bit for bit, with every row real and
+    with padding rows; one launch a call, and its scratch is left zeroed
+    (a second call gives the same)."""
+    from spinglass_tpu_torch.kernels import overlap_cuda as OC
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    s = (2 * torch.randint(0, 2, (ns, n_chains * t), generator=g,
+                           device=cuda) - 1).to(dtype)
+    slot = torch.cat([torch.randperm(t, generator=g, device=cuda)
+                      for _ in range(n_chains)]).to(torch.int32)
+    for n_pad in (0, 1000):
+        mask = torch.zeros(ns, device=cuda)
+        mask[ns - n_pad:] = -torch.inf
+        op = OC.ReplicaOverlap(mask, n_chains, ns - n_pad)
+        got = op(s, slot)
+        again = op(s, slot)
+        want = OC.overlap_reference(s.cpu(), mask.cpu(), slot.cpu(),
+                                    n_chains, ns - n_pad)
+        torch.cuda.synchronize()
+        assert got.shape == (t, n_chains * (n_chains - 1) // 2)
+        assert op.launches == 2
+        assert torch.equal(got.cpu(), want) and torch.equal(again, got)
+
+
+@pytest.mark.gpu
+def test_make_engine_on_the_l32_lattice_takes_k4_with_two_colours(cuda):
+    """The 3-D +-J lattice at L=32 with 4 chains of 34 replicas (R=136, no
+    multiple of 128): the transposed sparse engine on K4, two colours of
+    16,384 rows, two K4 launches a sweep."""
+    from spinglass_tpu_torch.anneal.engines import make_engine
+    from spinglass_tpu_torch.core.topology import lattice_coo
+
+    p = S.EllProblem.from_coo(*lattice_coo(32, seed=1), device=cuda)
+    eng = make_engine(p, update_rule="heat_bath", r_hint=136)
+    assert eng.name == "sparse_sorted_t" and eng.n_colors == 2
+    assert eng.n_sorted == 32768 and eng.state_dtype(136) == torch.int8
+    assert [size for _, size, _ in eng.groups] == [16384, 16384]
+    s = eng.to_layout(torch.ones(136, p.n_padded, device=cuda))
+    beta = torch.full((136,), 1.0, device=cuda)
+    eng.sweep(s, beta, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert eng.launches == {"sparse_sweep": 0, "sparse_thresholds": 0,
+                            "sparse_accept": 2}
