@@ -75,7 +75,10 @@ the kernels against the twins. Phases:
      slots), int8 and float32, with and without padding rows, and at 2, 3
      and 8 chains: q bitwise; K4 over 3 whole sweeps of the L=32 +-J
      lattice (2 colours) at R=136, int8 and float32, both rules, against
-     its plain version, bitwise.
+     its plain version, bitwise. The SA driver's best-tracking kernel
+     (sa_track) against its twin at the SA shapes ([10240, 1024] and
+     [4096, 1024] float32) and at [32768, 136] int8, with some, all and no
+     replicas improved: every output bitwise.
      RL: two env steps of 10 sweeps through make_engine's engine against
      the same steps through the twin under one generator seed, in all three
      action modes with sweep fractions below 1 for some envs (the kernels
@@ -269,7 +272,10 @@ the kernels against the twins. Phases:
      fields; an ea3d-shaped pt.run (L=32, R=136, heat bath, overlaps on)
      whose launches must be one overlap a super-step and two K4 a sweep,
      its last q the twin's, and the overlap kernel at [32768, 136] as a
-     graph beside its plain version and its bound; PT at R=4096 three
+     graph beside its plain version and its bound; SA anneals at the two
+     SA cells' shapes (one sa_track launch a sweep, best_copy_share) and
+     sa_track at both shapes as a graph at their copy shares beside its
+     bound, its twin and torch.where alone; PT at R=4096 three
      ways in turns (the K3 path, the K4 path, K2 with its budget lifted)
      with each way's device breakdown; PT at 16
      replicas through K4 and through the plain [R, N] engine; bench_rl's
@@ -345,6 +351,9 @@ KERNELS = {
     # the overlap kernel replaces nothing: the JAX package measures no
     # overlap of real replicas
     "replica_overlap": None,
+    # nor the SA driver's best tracking: the JAX package has it inside its
+    # jitted scan (XLA fuses it), not as a Pallas kernel
+    "sa_track": None,
 }
 # FusedSweep flags of the dense variants, by label
 VARIANTS = {"K5": dict(pipelined=True), "K6x2": dict(interleave=2),
@@ -1669,6 +1678,117 @@ def overlap_timing(torch, stats, card):
           f"[{card}]")
 
 
+# the SA driver's best tracking (sa_track) at the SA cells' shapes
+TRACK_SHAPES = (("planted10k", 10240), ("sk4096", 4096))   # rows at R=1024
+
+
+def _track_case(torch, layout, dtype, rows, r, share, seed):
+    """A sweep's [R] state on the card with each replica improved with
+    probability ``share`` (some of the others tied, the rest worse), and
+    random spins and int8 best spins in ``layout``; n_spins is rows - rows
+    // 33 (the rest padding)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (rows, r) if layout == "nr" else (r, rows)
+    spins, best = (_random_pm(torch, g, shape, t)
+                   for t in (dtype, torch.int8))
+    energy = torch.randn(r, generator=g, device="cuda") * 1e4
+    de = torch.randn(r, generator=g, device="cuda") * 30
+    e = energy + de
+    u = torch.rand(r, generator=g, device="cuda")
+    step = torch.where(u < share, 0.5, torch.where(u < (1 + share) / 2, 0.0,
+                                                    -0.5))
+    cnt = torch.randint(0, rows, (r,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    return energy, de, e + step, cnt, spins, best, layout, rows - rows // 33
+
+
+def track_parity(torch, stats):
+    """Phase 2 (sa_track): the best-tracking kernel against its twin on the
+    same card tensors at [10240, 1024] and [4096, 1024] float32 and
+    [32768, 136] int8 ("nr"), and at [64, 4096] float32 ("rn"), with a
+    random share, all and none of the replicas improved: energies, best
+    energies, acceptance rates, best spins (int8, in place) and copy counts
+    bitwise."""
+    from spinglass_tpu_torch.kernels import track_cuda as tc
+
+    cases = [("nr", torch.float32, rows, 1024) for _, rows in TRACK_SHAPES]
+    cases += [("nr", torch.int8, 32768, 136), ("rn", torch.float32, 4096, 64)]
+    for k, (layout, dtype, rows, r) in enumerate(cases):
+        for share in (0.22, 1.0, 0.0):
+            args = _track_case(torch, layout, dtype, rows, r, share, 40 + k)
+            want = tc.track_reference(*args)
+            track = tc.BestTrack()
+            got = track(*args)
+            torch.cuda.synchronize()
+            want = want[:2] + (want[2].to(torch.int8),) + want[3:]
+            same = (got[2] is args[5] and track.launches == 1
+                    and all(torch.equal(a, b) for a, b in zip(got, want[:4]))
+                    and torch.equal(track.copies, want[4].to(torch.int32)))
+            if not same:
+                raise CheckFailed(
+                    f"sa_track != twin at {layout} {dtype} [{rows}, {r}], "
+                    f"share {share}: "
+                    + ", ".join(n for n, a, b in zip(
+                        ("energy", "best_energy", "best_spins", "acc_rate"),
+                        got, want) if not torch.equal(a, b)))
+    check(True, "sa_track == its twin bit for bit (energy, best energy, "
+                "acceptance, best spins in place, copies; one launch): nr "
+                "float32 [10240, 1024], [4096, 1024], nr int8 [32768, 136], "
+                "rn float32 [64, 4096]; shares 0.22, 1 and 0")
+
+
+def track_timing(torch, stats, card):
+    """Phase 5 (sa_track): 1000-sweep SA anneals at R=1024 on the 10k
+    sparse bench graph (K2) and the SK glass (K1), a repeat call each:
+    one sa_track launch a sweep, and their best_copy_share; then the kernel
+    at each shape as a graph at that share (and at share 1) against its
+    byte bound, its twin (the six ops) and torch.where over every spin
+    alone, both on float32 best spins as the driver had them."""
+    from spinglass_tpu_torch.anneal import sa
+    from spinglass_tpu_torch.benchmarks import headline
+    from spinglass_tpu_torch.kernels import track_cuda as tc
+
+    cfg = sa.SAConfig(n_sweeps=1000, n_replicas=1024, enable_early_stop=False)
+    problems = {"planted10k": headline.sparse_bench_problem(),
+                "sk4096": sk_problem("cuda")}
+    launches, shares = 0, {}
+    for name, p in problems.items():
+        sa.anneal(p, cfg)                           # captures
+        res = sa.anneal(p, cfg, generator=torch.Generator().manual_seed(5))
+        n = res.metadata["kernel_launches"]["sa_track"]
+        launches += n
+        shares[name] = res.metadata["best_copy_share"]
+        check(n == res.n_sweeps == 1000 and 0 < shares[name] < 1,
+              f"{name}-shaped SA (R=1024, 1000 sweeps, engine "
+              f"{res.metadata['engine']}): sa_track {n} launches, "
+              f"best_copy_share {shares[name]:.4f}, {res.total_time:.3f} s "
+              f"[{card}]")
+    stats["track_launches"] = launches
+    r = 1024
+    for k, (name, rows) in enumerate(TRACK_SHAPES):
+        for share in (shares[name], 1.0):
+            args = _track_case(torch, "nr", torch.float32, rows, r, share,
+                               50 + k)
+            track = tc.BestTrack()
+            ms = _graph_ms(torch, lambda: track(*args), 50)
+            # the twin and the torch.where as the driver ran them: best
+            # spins in the spins' float32
+            plain = args[:5] + (args[5].float(),) + args[6:]
+            plain_ms = _graph_ms(torch, lambda: tc.track_reference(*plain), 50)
+            imp = tc.track_reference(*plain)[4]
+            where_ms = _graph_ms(torch, lambda: torch.where(
+                imp[None, :], plain[4], plain[5]), 50)
+            got = float(imp.float().mean())
+            b = bound(36.0 * r + 5.0 * rows * r * got, 0.0, FP32_FLOPS)
+            if k == 0 and share != 1.0:
+                stats["track"] = (ms, plain_ms) + b
+            print(f"  sa_track at [{rows}, {r}] float32, share {got:.4f}, as "
+                  f"a graph: {1e3 * ms:.2f} us (bound {1e3 * b[0]:.2f} us, "
+                  f"{b[1]}: {100 * b[0] / ms:.1f}% of it); twin (six ops) "
+                  f"{1e3 * plain_ms:.2f} us; torch.where alone "
+                  f"{1e3 * where_ms:.2f} us [{card}]")
+
+
 def _pt_run(torch, ell, cfg, engine, gen_seed, n_super):
     """n_super super-steps of pt's step through ``engine`` from a fresh
     state; returns (state, seconds of the super-steps)."""
@@ -2826,10 +2946,11 @@ def problems_slice(torch, mc, stats, card):
         count(meta)
         got = meta["kernel_launches"]
         check(got.get(kernel, 0) == per * meta["n_sweeps"]
-              and sum(got.values()) == got[kernel],
+              and got.get("sa_track") == meta["n_sweeps"]
+              and sum(got.values()) == got[kernel] + got["sa_track"],
               f"sparse MaxCut SA R={r}: {kernel} launched {got.get(kernel)} "
-              f"times = {per} x {meta['n_sweeps']} sweeps, no other kernel "
-              f"({got})")
+              f"times = {per} x {meta['n_sweeps']} sweeps, sa_track once a "
+              f"sweep, no other kernel ({got})")
         _energy_check(torch, sparse, sol.variables["partition"], sol,
                       f"sparse MaxCut SA R={r}")
         cut = sol.variables["cut_value"]
@@ -2910,8 +3031,10 @@ def problems_slice(torch, mc, stats, card):
           f"{out.exit_code} on the card ({wall:.3f} s) [{card}]")
     check(len(engines) == 1 and engines[0].name == "cuda_fused"
           and cli_launches.get(mc.KERNEL_NAME, 0) > 0
-          and sum(cli_launches.values()) == cli_launches[mc.KERNEL_NAME],
-          f"the command's run swept through K1 alone: engine "
+          and cli_launches.get("sa_track") == cli_launches[mc.KERNEL_NAME]
+          and sum(cli_launches.values()) == 2 * cli_launches[mc.KERNEL_NAME],
+          f"the command's run swept through K1 alone (and sa_track once a "
+          f"sweep): engine "
           f"{[e.name for e in engines]}, launches {cli_launches}")
     for k, v in cli_launches.items():
         launches[k] = launches.get(k, 0) + v
@@ -3901,16 +4024,18 @@ def batch_slice(torch, mc, stats, card):
               f"on its history (stagnation fired)")
         sweeps = res.n_sweeps
         if "SK" in label:
-            check(kl == {mc.KERNEL_NAME: sweeps}, f"{label}: K1 {sweeps} "
-                                                  f"launches")
+            check(kl == {mc.KERNEL_NAME: sweeps, "sa_track": sweeps},
+                  f"{label}: K1 and sa_track {sweeps} launches")
             ok = _identity_ok(torch, prob, res.best_spins, res.best_energy)
         else:
             eng = make_engine(prob, r_hint=r)
             colours = eng.n_colors
             key = "sparse_sweep" if r % 128 == 0 else "sparse_accept"
             per = 1 if key == "sparse_sweep" else colours
-            check(kl[key] == per * sweeps and sum(kl.values()) == per * sweeps,
-                  f"{label}: {key} {per} x {sweeps} launches, no other kernel")
+            check(kl[key] == per * sweeps and kl["sa_track"] == sweeps
+                  and sum(kl.values()) == (per + 1) * sweeps,
+                  f"{label}: {key} {per} x {sweeps} launches, sa_track "
+                  f"{sweeps}, no other kernel")
             from spinglass_tpu_torch.kernels.sparse import sparse_energy
 
             s = np.ones(prob.n_padded, np.float32)
@@ -3931,9 +4056,11 @@ def batch_slice(torch, mc, stats, card):
           f"sgt-torch health exits 0, the annealer healthy on K1: "
           f"{rep.get('checks', {}).get('device_compute', {}).get('message')}")
     hc = health.check_annealer()
-    check(hc.details["kernel_launches"] == {mc.KERNEL_NAME: 50},
-          "the micro-anneal launches K1 50 times")
-    launches[mc.KERNEL_NAME] += hc.details["kernel_launches"][mc.KERNEL_NAME]
+    check(hc.details["kernel_launches"] == {mc.KERNEL_NAME: 50,
+                                            "sa_track": 50},
+          "the micro-anneal launches K1 and sa_track 50 times")
+    for k, v in hc.details["kernel_launches"].items():
+        launches[k] = launches.get(k, 0) + v
     for case in runner.standard_suite((20, 50), device="cuda"):
         prob = case.make_problem().encode_to_ising()
         sa_eng = make_engine(prob, r_hint=32)
@@ -4880,6 +5007,8 @@ def main() -> int:
                 ("phase 2: parity with the twin, K3 and K2 (K4)", lambda: accept_parity(torch, stats)),
                 ("phase 2: parity with the twin (overlap) and K4 on the "
                  "3-D lattice", lambda: overlap_parity(torch, stats)),
+                ("phase 2: parity with the twin (sa_track) at the SA "
+                 "shapes", lambda: track_parity(torch, stats)),
                 ("phase 2: parity with the plain versions (C2, C1)",
                  lambda: cluster_parity(torch, stats)),
                 ("phase 2: env.step through K1, K2 and K4 against the twins (RL)",
@@ -4932,6 +5061,9 @@ def main() -> int:
                 ("phase 5: timing (overlap: an ea3d-shaped pt.run, the "
                  "kernel against its plain version)",
                  lambda: overlap_timing(torch, stats, card)),
+                ("phase 5: timing (sa_track: SA anneals at the cells' "
+                 "shapes, the kernel against its bound, its twin and "
+                 "torch.where)", lambda: track_timing(torch, stats, card)),
                 ("phase 5: timing (RL: bench_rl, profile_rl)",
                  lambda: rl_timing(torch, stats, card)),
                 ("phase 5: timing (RL training: bench_dqn, profile_dqn, the "
@@ -4994,6 +5126,9 @@ def main() -> int:
     rows.append(("replica_overlap", stats["overlap_launches"],
                  stats["overlap_max_abs_err"], o_ms, o_plain_ms))
     stats["bounds"]["replica_overlap"] = (o_bound, o_by)
+    t_ms, t_plain_ms, t_bound, t_by = stats["track"]
+    rows.append(("sa_track", stats["track_launches"], 0.0, t_ms, t_plain_ms))
+    stats["bounds"]["sa_track"] = (t_bound, t_by)
     b4 = stats["bounds"]["sparse_accept"][0]
     print(f"K4 {1e3 * stats['k4_ms']:.1f} us per sweep is "
           f"{100 * b4 / stats['k4_ms']:.1f}% of its bound's rate [{card}]")

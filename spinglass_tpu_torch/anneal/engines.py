@@ -50,6 +50,8 @@ from spinglass_tpu_torch.core import topology
 from spinglass_tpu_torch.core.problem import IsingProblem, real_rows
 from spinglass_tpu_torch.kernels import sweeps as sweep_kernels
 from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES, FusedSweep
+from spinglass_tpu_torch.kernels.track_cuda import KERNEL as TRACK_KERNEL
+from spinglass_tpu_torch.kernels.track_cuda import BestTrack
 
 SPARSE_DENSITY_THRESHOLD = 0.05
 SPARSE_MIN_SPINS = 2048
@@ -63,30 +65,47 @@ SPARSE_T_MIN_REPLICAS = 128
 SPARSE_T_MIN_REPLICAS_CUDA = 16
 
 
+def best_track(engine) -> BestTrack:
+    """The SA driver's best tracking of states in ``engine``'s layout
+    (``kernels.track_cuda.BestTrack``), made on first use: one per engine,
+    so an engine's captured chunks share its launch count and its copies."""
+    if getattr(engine, "best_track", None) is None:
+        engine.best_track = BestTrack()
+    return engine.best_track
+
+
 def kernel_launches(engine) -> dict:
     """Kernel name -> launches made through ``engine`` (empty for the plain
-    PyTorch engines)."""
-    return dict(getattr(engine, "launches", {}))
+    PyTorch engines), with the SA driver's ``sa_track`` once ``best_track``
+    has made it for the engine."""
+    out = dict(getattr(engine, "launches", {}))
+    track = getattr(engine, "best_track", None)
+    if track is not None:
+        out[TRACK_KERNEL] = track.launches
+    return out
 
 
 def launch_counters(engine) -> list:
     """(kernel name, object, attribute) of each launch count behind
-    ``engine.launches`` (``graphs.CapturedStep`` adds a replay's launches
-    there); empty for the plain PyTorch engines."""
+    ``kernel_launches(engine)`` (``graphs.CapturedStep`` adds a replay's
+    launches there); empty for the plain PyTorch engines until
+    ``best_track`` adds its own."""
+    track = getattr(engine, "best_track", None)
+    out = [] if track is None else [(TRACK_KERNEL, track, "launches")]
     if hasattr(engine, "fused"):
-        return [(engine.fused.kernel_name, engine.fused, "launches")]
+        return [(engine.fused.kernel_name, engine.fused, "launches")] + out
     kernels = getattr(engine, "kernels", None)
     if kernels is None:
-        return []
+        return out
     return [("sparse_sweep", kernels, "sweep_launches"),
             ("sparse_thresholds", kernels, "threshold_launches"),
-            ("sparse_accept", kernels, "accept_launches")]
+            ("sparse_accept", kernels, "accept_launches")] + out
 
 
 def best_row(engine, spins: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Replica ``r`` (a 0-d index tensor on the spins' device) of spins in
-    ``engine``'s layout, as an [Np] row: only that replica is converted, and
-    nothing waits for the device."""
+    ``engine``'s layout, as an [Np] float32 row: only that replica is
+    converted, and nothing waits for the device."""
     dim = 1 if engine.layout == "nr" else 0
     return engine.from_layout(spins.index_select(dim, r.reshape(1)))[0]
 
@@ -109,7 +128,9 @@ class SweepEngine:
         return s if dtype is None else s.to(dtype)
 
     def from_layout(self, spins: torch.Tensor) -> torch.Tensor:
-        return spins.t() if self.layout == "nr" else spins
+        """This engine's layout -> [R, Np] float32: a view of float32
+        spins, a copy of others (the SA best spins are int8 on the card)."""
+        return (spins.t() if self.layout == "nr" else spins).to(torch.float32)
 
     def row_mask(self) -> torch.Tensor:
         """[rows] float32 over the spin axis of this engine's layout: 0 on

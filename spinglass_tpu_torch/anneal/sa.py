@@ -14,9 +14,14 @@ chunk, which removes the float32 drift of the incremental energies.
 
 Annealing state lives in the engine's layout (see ``engines``). The kernel
 engines (K1, and K2 for sparse problems) update ``SAState.spins`` in place;
-``best_spins`` is always a separate tensor. ``anneal`` takes a dense
-``IsingProblem`` or a sparse ``kernels.sparse.EllProblem``: anything with
-``n_padded``, ``active_mask``, ``n_spins`` and ``device``.
+``best_spins`` is always a separate tensor. After each sweep the best
+tracking (energies, best energies and spins, acceptance) is one launch of
+the ``sa_track`` kernel on the card (``engines.best_track``,
+``kernels.track_cuda``), which copies only the improved replicas' spins,
+into ``best_spins`` in place (int8 on the card, +-1 exact); on the CPU its
+plain twin makes new tensors. ``anneal`` takes a dense ``IsingProblem`` or
+a sparse ``kernels.sparse.EllProblem``: anything with ``n_padded``,
+``active_mask``, ``n_spins`` and ``device``.
 
 Early stopping: relative std of the last 20 recorded best energies below
 ``convergence_tolerance``, checked between chunks.
@@ -41,13 +46,15 @@ import torch
 
 from spinglass_tpu_torch.anneal import graphs, schedules
 from spinglass_tpu_torch.anneal.engines import (GivenUniforms, SweepEngine,
-                                                best_row, kernel_launches,
+                                                best_row, best_track,
+                                                kernel_launches,
                                                 launch_counters, make_engine)
 from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.anneal.schedules import ScheduleConfig, ScheduleState
 from spinglass_tpu_torch.core import rng
 from spinglass_tpu_torch.core.problem import IsingProblem, random_spins
 from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES
+from spinglass_tpu_torch.kernels.track_cuda import start_best
 from spinglass_tpu_torch.utils.checkpoint import CheckpointManager
 from spinglass_tpu_torch.utils.profiling import global_profiler
 
@@ -87,7 +94,9 @@ class SAConfig:
 class SAState:
     """Carried annealing state. ``spins``/``best_spins`` are in the engine's
     layout; the tensors live on the problem's device, ``generator`` on the
-    host."""
+    host. On the card ``best_spins`` is int8 and a sweep updates it in
+    place (the ``sa_track`` kernel), as the kernel engines update
+    ``spins``."""
 
     spins: torch.Tensor
     energy: torch.Tensor        # [R] f32 (incrementally tracked)
@@ -134,7 +143,7 @@ def init_state(problem: IsingProblem, config: SAConfig, engine: SweepEngine,
         spins=spins,
         energy=e,
         best_energy=e.clone(),
-        best_spins=spins.clone(),
+        best_spins=start_best(spins),
         sched=schedules.init_state(config.schedule, device=problem.device),
         generator=generator,
         sweep=0,
@@ -147,12 +156,9 @@ def _one_sweep(problem: IsingProblem, config: SAConfig, engine: SweepEngine,
                state: SAState) -> SAState:
     beta = 1.0 / torch.clamp(state.sched.temp, min=1e-10)
     spins, de, cnt = engine.sweep(state.spins, beta, state.generator)
-    energy = state.energy + de
-    improved = energy < state.best_energy
-    imp_b = improved[None, :] if engine.layout == "nr" else improved[:, None]
-    best_energy = torch.where(improved, energy, state.best_energy)
-    best_spins = torch.where(imp_b, spins, state.best_spins)
-    acc_rate = cnt.to(torch.float32) / problem.n_spins
+    energy, best_energy, best_spins, acc_rate = best_track(engine)(
+        state.energy, de, state.best_energy, cnt, spins, state.best_spins,
+        engine.layout, problem.n_spins)
     sched = schedules.update(config.schedule, state.sched, state.sweep,
                              torch.mean(acc_rate))
     return SAState(spins=spins, energy=energy, best_energy=best_energy,
@@ -198,6 +204,7 @@ def capture_chunk(problem: IsingProblem, config: SAConfig,
         st, stats = run_chunk(problem, config, engine, st, n_sweeps)
         return st, torch.stack([stats[k].reshape(()) for k in STAT_KEYS])
 
+    best_track(engine)   # its launches are among the counters
     state = graphs.device_counter(state)
     return graphs.CapturedStep(chunk, state, state.generator,
                                launch_counters(engine), record=record)
@@ -285,6 +292,7 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
                 if steps:   # all on one state
                     steps[lengths[0]].load(graphs.device_counter(state))
                     state = steps[lengths[0]].state
+            best_track(engine).reset(state.energy)   # after the warm-up
         mgr = None
         if checkpoint_dir is not None:
             mgr = CheckpointManager(checkpoint_dir, every=checkpoint_every)
@@ -299,6 +307,7 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
                     e_hist, me_hist, t_hist, a_hist = (
                         hist[k].tolist() for k in HIST_KEYS)
                     sweeps_done = int(restored["sweeps_done"])
+        sweeps0 = sweeps_done
         for n in lengths[len(e_hist):]:
             e, me, t, a = read([steps[n].replay(generator)])[0].tolist()
             sweeps_done += n
@@ -320,9 +329,9 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
         _sync(problem.device)
         total = time.perf_counter() - t0
         return _result(problem, config, engine, state, launches0,
-                       (e_hist, me_hist, t_hist, a_hist), sweeps_done, total,
-                       capture_s, init_spins is not None, converged,
-                       conv_sweep)
+                       (e_hist, me_hist, t_hist, a_hist), sweeps_done,
+                       sweeps_done - sweeps0, total, capture_s,
+                       init_spins is not None, converged, conv_sweep)
 
 
 def _anneal_given(problem: IsingProblem, config: SAConfig, uniforms,
@@ -339,6 +348,7 @@ def _anneal_given(problem: IsingProblem, config: SAConfig, uniforms,
     engine = GivenUniforms(make_sweep_engine(problem, config), uniforms)
     launches0 = kernel_launches(engine)
     state = init_state(problem, config, engine, generator, init_spins)
+    best_track(engine).reset(state.energy)
     hists = ([], [], [], [])
     t0 = time.perf_counter()
     for n in _chunk_lengths(config):
@@ -347,17 +357,20 @@ def _anneal_given(problem: IsingProblem, config: SAConfig, uniforms,
             h.append(float(stats[k]))
     _sync(problem.device)
     return _result(problem, config, engine, state, launches0, hists,
-                   config.n_sweeps, time.perf_counter() - t0, 0.0,
-                   init_spins is not None)
+                   config.n_sweeps, config.n_sweeps,
+                   time.perf_counter() - t0, 0.0, init_spins is not None)
 
 
 def _result(problem, config, engine, state, launches0, hists, sweeps_done,
-            total, capture_s, given, converged=False, conv_sweep=None
-            ) -> AnnealResult:
+            sweeps_run, total, capture_s, given, converged=False,
+            conv_sweep=None) -> AnnealResult:
     """The run's ``AnnealResult`` from its last state and the histories
     (best, mean energy, temperature, acceptance per chunk), published.
-    ``given``: the start spins were passed in, not drawn (``metadata``'s
-    ``start_spins``)."""
+    ``sweeps_run``: the sweeps of this call (fewer than ``sweeps_done`` on
+    a resume). ``given``: the start spins were passed in, not drawn
+    (``metadata``'s ``start_spins``). ``best_copy_share`` is the share of
+    (sweep, replica) pairs of this call whose spins the best tracking
+    copied: the copies counted since the call's start over sweeps_run x R."""
     with global_profiler.phase("sa.result"):
         e_hist, me_hist, t_hist, a_hist = hists
         best_r = torch.argmin(state.best_energy)
@@ -365,6 +378,9 @@ def _result(problem, config, engine, state, launches0, hists, sweeps_done,
             : problem.n_spins]
         flips = sweeps_done * config.n_replicas * problem.n_spins
         launches = kernel_launches(engine)
+        copies = best_track(engine).copies
+        share = (int(copies.sum()) / (sweeps_run * copies.numel())
+                 if sweeps_run > 0 else 0.0)
         result = AnnealResult(
             best_spins=best_spins,
             best_energy=float(state.best_energy[best_r]),
@@ -390,7 +406,8 @@ def _result(problem, config, engine, state, launches0, hists, sweeps_done,
                       "kernel_launches": {k: v - launches0.get(k, 0)
                                           for k, v in launches.items()},
                       "capture_seconds": capture_s,
-                      "start_spins": "given" if given else "drawn"},
+                      "start_spins": "given" if given else "drawn",
+                      "best_copy_share": share},
         )
         try:  # prometheus gauges (host values only: no read of the device)
             from spinglass_tpu_torch.utils.metrics_exporter import (

@@ -284,6 +284,7 @@ KERNEL_SYMBOLS = {
     "sparse_accept": ("sparse_accept_kernel",),
     "sw_labels": ("sw_labels_kernel",),
     "sw_bonds": ("sw_bonds_kernel",),
+    "sa_track": ("sa_track_nr_kernel", "sa_track_rn_kernel"),
 }
 
 

@@ -778,7 +778,7 @@ class SortedSparseEngine:
         return s if dtype is None else s.to(dtype)
 
     def from_layout(self, spins: torch.Tensor) -> torch.Tensor:
-        return spins[:, self._inv_perm]
+        return spins[:, self._inv_perm].to(torch.float32)
 
     def row_mask(self) -> torch.Tensor:
         return real_rows(self.ell_sorted.active_mask)
@@ -919,7 +919,7 @@ class SparseEngine:
         return s if dtype is None else s.to(dtype)
 
     def from_layout(self, spins: torch.Tensor) -> torch.Tensor:
-        return spins
+        return spins.to(torch.float32)
 
     def row_mask(self) -> torch.Tensor:
         return real_rows(self.ell.active_mask)

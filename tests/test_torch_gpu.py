@@ -699,6 +699,7 @@ def test_captured_anneal_equals_eager(cuda, kind):
     np.testing.assert_array_equal(res.replica_best_energy,
                                   state.best_energy.cpu().numpy())
     assert res.metadata["kernel_launches"][key] == 35 * per
+    assert res.metadata["kernel_launches"]["sa_track"] == 35
     assert engine.launches[key] == 35 * per
     hits = graphs.SA_CACHE.hits
     # the profiler misses the first events it sees: the second call counts
@@ -713,10 +714,11 @@ def test_captured_anneal_equals_eager(cuda, kind):
     np.testing.assert_array_equal(again.energy_history, res.energy_history)
     np.testing.assert_array_equal(again.best_spins, res.best_spins)
     assert again.metadata["kernel_launches"] == res.metadata["kernel_launches"]
-    seen = sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and any(sym in e.key for sym in KERNEL_SYMBOLS[key]))
-    assert seen == 35 * per
+    seen = {k: sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and any(sym in e.key for sym in KERNEL_SYMBOLS[k]))
+            for k in (key, "sa_track")}
+    assert seen == {key: 35 * per, "sa_track": 35}
 
 
 @pytest.mark.gpu
@@ -838,7 +840,8 @@ def test_encoded_problems_reach_k1_once_per_sweep(cuda):
     meta = sol.metadata["anneal"]
     assert tsp.problem.n_padded == 4096
     assert meta["engine"] == "cuda_fused" and meta["device"] == "cuda"
-    assert meta["kernel_launches"] == {MC.KERNEL_NAME: meta["n_sweeps"]}
+    assert meta["kernel_launches"] == {MC.KERNEL_NAME: meta["n_sweeps"],
+                                       "sa_track": meta["n_sweeps"]}
     assert tsp.validate_tour(sol.variables["tour"])
     w = bipartite_weights(300, 150 * 150 // 2, 1)
     mc = MaxCutProblem(weights=w, device=cuda)
@@ -848,7 +851,8 @@ def test_encoded_problems_reach_k1_once_per_sweep(cuda):
                                sweep_method="blocked"))
     meta = sol.metadata["anneal"]
     assert meta["engine"] == "cuda_fused"
-    assert meta["kernel_launches"] == {MC.KERNEL_NAME: meta["n_sweeps"]}
+    assert meta["kernel_launches"] == {MC.KERNEL_NAME: meta["n_sweeps"],
+                                       "sa_track": meta["n_sweeps"]}
     assert sol.variables["cut_value"] == 0.5 * w.sum()
 
 
@@ -872,7 +876,9 @@ def test_sparse_maxcut_reaches_k4_and_k2(cuda, r, kernel):
     meta = sol.metadata["anneal"]
     per = len(engine.groups) if kernel == "sparse_accept" else 1
     assert meta["kernel_launches"][kernel] == meta["n_sweeps"] * per
-    assert sum(meta["kernel_launches"].values()) == meta["n_sweeps"] * per
+    assert meta["kernel_launches"]["sa_track"] == meta["n_sweeps"]
+    assert sum(meta["kernel_launches"].values()) == \
+        meta["n_sweeps"] * (per + 1)
     s = torch.ones(mc.problem.n_padded, device=cuda)
     s[:3000] = torch.as_tensor(np.where(sol.variables["partition"] > 0,
                                         1.0, -1.0))
@@ -907,7 +913,8 @@ def test_benchmark_trials_equal_fresh_calls_on_the_card(cuda):
         np.testing.assert_array_equal(res.replica_best_energy,
                                       fresh.replica_best_energy)
         assert res.metadata["kernel_launches"] == \
-            fresh.metadata["kernel_launches"] == {MC.KERNEL_NAME: 100}
+            fresh.metadata["kernel_launches"] == {MC.KERNEL_NAME: 100,
+                                                  "sa_track": 100}
 
 
 def _sw_bond_sets(ell, r, cuda, case):
@@ -1550,7 +1557,7 @@ def test_adaptive_anneal_on_the_card(cuda, kind, r):
     assert res.metadata["interventions"] >= 1
     launches = res.metadata["kernel_launches"]
     if kind == "dense":
-        assert launches == {MC.KERNEL_NAME: 400}
+        assert launches == {MC.KERNEL_NAME: 400, "sa_track": 400}
         e = E.energy(p, torch.as_tensor(
             np.concatenate([res.best_spins, np.ones(p.n_padded - 300)]),
             dtype=torch.float32, device=cuda))
@@ -1916,3 +1923,107 @@ def test_make_engine_on_the_l32_lattice_takes_k4_with_two_colours(cuda):
     torch.cuda.synchronize()
     assert eng.launches == {"sparse_sweep": 0, "sparse_thresholds": 0,
                             "sparse_accept": 2}
+
+
+def _track_case(cuda, layout, dtype, rows, r, mask, seed):
+    """A sweep's [R] state on the card with improved replicas as ``mask``
+    says ("random": below, equal or above at random; "all"; "none"),
+    random spins and int8 best spins in ``layout`` and the last 3% of rows
+    padding (n_spins below rows)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shape = (rows, r) if layout == "nr" else (r, rows)
+    spins, best = ((2 * torch.randint(0, 2, shape, generator=g, device=cuda)
+                    - 1).to(t) for t in (dtype, torch.int8))
+    energy = torch.randn(r, generator=g, device=cuda) * 1e4
+    de = torch.randn(r, generator=g, device=cuda) * 30
+    e = energy + de
+    if mask == "random":
+        step = torch.randint(-1, 2, (r,), generator=g, device=cuda) * 0.5
+        best_e = e + step.float()
+    else:
+        best_e = torch.full_like(e, torch.inf if mask == "all" else -torch.inf)
+    cnt = torch.randint(0, rows, (r,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    return energy, de, best_e, cnt, spins, best, layout, rows - rows // 33
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask", ["random", "all", "none"])
+@pytest.mark.parametrize("layout,dtype,rows,r", [
+    ("nr", torch.float32, 10240, 1024), ("nr", torch.float32, 4096, 1024),
+    ("nr", torch.int8, 32768, 136), ("nr", torch.float32, 700, 37),
+    ("rn", torch.float32, 4096, 64), ("rn", torch.int8, 10001, 24)],
+    ids=["planted10k", "sk4096", "int8-136", "f32-37", "rn", "rn-int8-odd"])
+def test_sa_track_kernel_matches_twin(cuda, layout, dtype, rows, r, mask):
+    """The best-tracking kernel against its twin on the same card tensors,
+    bit for bit: energies, best energies, acceptance rates (the float32
+    reciprocal's product), best spins (int8, updated in place; the twin's
+    in the spins' type; every vector width: 16-byte rows, 8 spins at R=136
+    int8, 1 at R=37 and at an odd int8 row) and the copy counts; one
+    launch each."""
+    from spinglass_tpu_torch.kernels import track_cuda as TC
+
+    args = _track_case(cuda, layout, dtype, rows, r, mask, rows + r)
+    want = TC.track_reference(*args)
+    track = TC.BestTrack()
+    best_in = args[5]
+    got = track(*args)
+    torch.cuda.synchronize()
+    assert got[2] is best_in and track.launches == 1
+    assert got[2].dtype == torch.int8
+    assert torch.equal(got[2], want[2].to(torch.int8))
+    for i in (0, 1, 3):
+        assert got[i].dtype == want[i].dtype and torch.equal(got[i], want[i])
+    assert torch.equal(track.copies, want[4].to(torch.int32))
+    n_imp = int(want[4].sum())
+    assert n_imp == {"all": r, "none": 0}.get(mask, n_imp)
+    if mask == "random":
+        assert 0 < n_imp < r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["planted10k", "sk4096"])
+def test_captured_anneal_equals_the_twin_stream(cuda, monkeypatch, kind):
+    """A captured ``sa.anneal`` through the best-tracking kernel equals the
+    same run with the twin (the six ops the driver ran before the kernel)
+    forced on the card's tensors, bit for bit: best energy and spins, every
+    replica's best and the four histories; the kernel launched once a
+    sweep, and best_copy_share equal."""
+    from spinglass_tpu_torch.anneal import graphs, sa
+    from spinglass_tpu_torch.kernels import track_cuda as TC
+
+    if kind == "sk4096":
+        p = IsingProblem.from_dense(topology.fully_connected(
+            4096, dist="gaussian", scale=1.0 / 64, seed=42), device=cuda)
+    else:
+        coo = topology.sparse_random_graph_coo(10000, avg_degree=6.0,
+                                               dist="gaussian", seed=42)
+        p = S.EllProblem.from_coo(10000, *coo, device=cuda)
+    cfg = sa.SAConfig(n_sweeps=150, n_replicas=1024, record_interval=50,
+                      enable_early_stop=False)
+    graphs.clear_caches()
+    res = sa.anneal(p, cfg, generator=torch.Generator().manual_seed(2 ** 33))
+
+    def twin_launch(self, energy, de, best_energy, cnt, spins, best_spins,
+                    layout, n_spins):
+        *out, improved = TC.track_reference(energy, de, best_energy, cnt,
+                                            spins, best_spins, layout,
+                                            n_spins)
+        self.copies += improved.to(torch.int32)
+        return tuple(out)
+
+    monkeypatch.setattr(TC.BestTrack, "_launch", twin_launch)
+    graphs.clear_caches()
+    ref = sa.anneal(p, cfg, generator=torch.Generator().manual_seed(2 ** 33))
+    graphs.clear_caches()
+    assert res.metadata["engine"] == ("cuda_fused" if kind == "sk4096"
+                                      else "sparse_sorted_t")
+    assert res.metadata["kernel_launches"]["sa_track"] == 150
+    assert ref.metadata["kernel_launches"]["sa_track"] == 0
+    assert res.best_energy == ref.best_energy
+    for name in ("best_spins", "replica_best_energy", "energy_history",
+                 "mean_energy_history", "temperature_history",
+                 "acceptance_history"):
+        np.testing.assert_array_equal(getattr(res, name), getattr(ref, name))
+    assert res.metadata["best_copy_share"] == ref.metadata["best_copy_share"]
+    assert 0.0 < res.metadata["best_copy_share"] < 1.0

@@ -147,8 +147,12 @@ def test_ferromagnet_reaches_ground_state():
     assert len(res.energy_history) == len(res.temperature_history) == 10
     assert res.replica_best_energy.shape == (4,)
     capture_s = res.metadata.pop("capture_seconds")
+    share = res.metadata.pop("best_copy_share")
+    # sa_track's twin runs on the CPU: no kernel launch
     assert res.metadata == {"schedule": "geometric", "engine": "blocked",
-                            "kernel_launches": {}, "start_spins": "drawn"}
+                            "kernel_launches": {"sa_track": 0},
+                            "start_spins": "drawn"}
+    assert 0.0 < share <= 1.0
     assert capture_s >= 0.0   # 0.0 where the problem's steps were cached
     assert res.sweeps_per_second > 0 and res.spin_flips_per_second > 0
 
@@ -354,3 +358,260 @@ def test_drawn_start_resumes_bit_for_bit(tmp_path):
                  "mean_energy_history", "temperature_history",
                  "acceptance_history"):
         np.testing.assert_array_equal(getattr(res, name), getattr(ref, name))
+
+
+# ---- best tracking: the sa_track kernel's twin and the driver around it ----
+
+def _six_ops(energy, de, best_energy, cnt, spins, best_spins, layout,
+             n_spins):
+    """The driver's bookkeeping after a sweep before the kernel: six
+    PyTorch ops, verbatim."""
+    energy = energy + de
+    improved = energy < best_energy
+    imp_b = improved[None, :] if layout == "nr" else improved[:, None]
+    best_energy = torch.where(improved, energy, best_energy)
+    best_spins = torch.where(imp_b, spins, best_spins)
+    acc_rate = cnt.to(torch.float32) / n_spins
+    return energy, best_energy, best_spins, acc_rate, improved
+
+
+def _track_inputs(layout, dtype, case, rows=100, pad=28, r=12, seed=0):
+    """A sweep's [R] state and spins with ``pad`` padding rows: energies
+    and changes on a quarter grid, each replica's best set against its new
+    energy e by ``case`` ("random": below, equal or above at random; "ties":
+    equal; "none": below; "all": above)."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (rows + pad, r) if layout == "nr" else (r, rows + pad)
+    spins, best_spins = ((2 * torch.randint(0, 2, shape, generator=g)
+                          - 1).to(dtype) for _ in range(2))
+    energy = torch.randint(-400, 400, (r,), generator=g).float() / 4
+    de = torch.randint(-40, 41, (r,), generator=g).float() / 4
+    e = energy + de
+    step = {"random": torch.randint(-1, 2, (r,), generator=g).float() / 4,
+            "ties": torch.zeros(r), "none": -torch.ones(r),
+            "all": torch.ones(r)}[case]
+    cnt = torch.randint(0, rows, (r,), generator=g, dtype=torch.int32)
+    return energy, de, e + step, cnt, spins, best_spins, layout, rows
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "none", "all"])
+@pytest.mark.parametrize("layout,dtype", [("nr", torch.float32),
+                                          ("nr", torch.int8),
+                                          ("rn", torch.float32)])
+def test_best_track_twin_is_the_six_ops(layout, dtype, case):
+    """On the CPU the best tracking gives exactly the six ops' energies,
+    best energies, best spins (padding rows included) and acceptance
+    rates, and counts each improved replica's copy (a tie is not one)."""
+    from spinglass_tpu_torch.kernels import track_cuda as TC
+
+    args = _track_inputs(layout, dtype, case)
+    want = _six_ops(*(a.clone() if torch.is_tensor(a) else a for a in args))
+    track = TC.BestTrack()
+    got = track(*args)
+    for g, w in zip(got, want[:4]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    n_imp = {"ties": 0, "none": 0, "all": 12}.get(case)
+    if n_imp is not None:
+        assert int(want[4].sum()) == n_imp
+    assert torch.equal(track.copies, want[4].to(torch.int32))
+    track(*args)
+    assert torch.equal(track.copies, 2 * want[4].to(torch.int32))
+    assert track.launches == 0      # the twin is no kernel launch
+    track.reset(args[0])
+    assert not track.copies.any()
+
+
+class _FakeLib:
+    """A stand-in for the built library: records each entry point's
+    arguments and returns 0 (success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("sgt_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("layout,dtype,elem", [("nr", torch.float32, 4),
+                                               ("nr", torch.int8, 1),
+                                               ("rn", torch.float32, 4)])
+def test_best_track_launch_arguments(monkeypatch, layout, dtype, elem):
+    """What the wrapper hands the kernel, through a stand-in for the built
+    library: the [R] tensors, 1.0f / n in float32, the spin bytes, the
+    layout, the spin rows and R; one launch counted; best_spins (int8)
+    given back as it is. A state the kernel does not take is refused:
+    float64 spins, float32 best spins, an int64 count."""
+    import contextlib
+    import types
+
+    from spinglass_tpu_torch.kernels import track_cuda as TC
+
+    fake = _FakeLib()
+    monkeypatch.setattr(TC, "load_kernel", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    args = list(_track_inputs(layout, dtype, "random", rows=3000, pad=72))
+    args[5] = args[5].to(torch.int8)       # best spins as on the card
+    track = TC.BestTrack()
+    track.reset(args[0])
+    out = track._launch(*args)
+    (name, a), = fake.calls
+    assert name == "sgt_sa_track" and track.launches == 1
+    assert a[4] == float(np.float32(1.0) / np.float32(3000))
+    assert a[4] != 1.0 / 3000          # the float32 reciprocal, as PyTorch's
+    assert a[8] == track.copies.data_ptr()
+    assert a[10] == args[5].data_ptr() and out[2] is args[5]
+    assert list(a[11:]) == [elem, int(layout == "nr"), 3072, 12, 0]
+    bad = list(args)
+    bad[4] = args[4].double()
+    with pytest.raises(ValueError):
+        track._launch(*bad)
+    bad = list(args)
+    bad[5] = args[5].float()
+    with pytest.raises(ValueError):
+        track._launch(*bad)
+    bad = list(args)
+    bad[3] = args[3].long()
+    with pytest.raises(ValueError):
+        track._launch(*bad)
+    with pytest.raises(ValueError):
+        track(*args[:6], "cols", args[7])
+    assert track.launches == 1
+
+
+def _six_op_sweep(log, problem, config, engine, state):
+    """``sa._one_sweep`` as it was before the kernel (the six ops after the
+    sweep, verbatim); appends each sweep's improved replicas to ``log``."""
+    from spinglass_tpu_torch.anneal import schedules
+
+    beta = 1.0 / torch.clamp(state.sched.temp, min=1e-10)
+    spins, de, cnt = engine.sweep(state.spins, beta, state.generator)
+    energy = state.energy + de
+    improved = energy < state.best_energy
+    imp_b = improved[None, :] if engine.layout == "nr" else improved[:, None]
+    best_energy = torch.where(improved, energy, state.best_energy)
+    best_spins = torch.where(imp_b, spins, state.best_spins)
+    acc_rate = cnt.to(torch.float32) / problem.n_spins
+    sched = schedules.update(config.schedule, state.sched, state.sweep,
+                             torch.mean(acc_rate))
+    log.append(int(improved.sum()))
+    return sa.SAState(spins=spins, energy=energy, best_energy=best_energy,
+                      best_spins=best_spins, sched=sched,
+                      generator=state.generator, sweep=state.sweep + 1,
+                      acc_rate=acc_rate)
+
+
+def _sparse_cpu(n=300, seed=4):
+    from spinglass_tpu_torch.kernels.sparse import EllProblem
+
+    coo = topology.sparse_random_graph_coo(n, avg_degree=6.0, dist="binary",
+                                           seed=seed)
+    return EllProblem.from_coo(n, *coo, device="cpu")
+
+
+@pytest.mark.parametrize("kind,engine_name", [
+    ("dense", "blocked"), ("sparse", "sparse_sorted"),
+    ("sparse_t", "sparse_sorted_t")])
+def test_anneal_equals_the_six_op_path(monkeypatch, kind, engine_name):
+    """``anneal`` on the CPU (the twin) against the driver with the six ops
+    in its sweep, on one seed: histories, best energy and spins and every
+    replica's best bit for bit; ``best_copy_share`` is the six ops' count of
+    improved replicas over sweeps x R. Dense (blocked, [R, Np] float32), a
+    sparse graph ([R, N] float32) and its transposed engine ([NS, R]
+    int8)."""
+    from spinglass_tpu_torch.anneal import graphs
+
+    p = _glass() if kind == "dense" else _sparse_cpu()
+    cfg = SAConfig(n_sweeps=30, n_replicas=6, record_interval=10,
+                   enable_early_stop=False,
+                   sweep_method="blocked" if kind == "dense" else kind)
+    graphs.clear_caches()
+    res = anneal(p, cfg, generator=torch.Generator().manual_seed(8))
+    log = []
+    monkeypatch.setattr(sa, "_one_sweep",
+                        lambda *a: _six_op_sweep(log, *a))
+    graphs.clear_caches()
+    ref = anneal(p, cfg, generator=torch.Generator().manual_seed(8))
+    graphs.clear_caches()
+    assert res.metadata["engine"] == engine_name
+    assert res.best_energy == ref.best_energy
+    for name in ("best_spins", "replica_best_energy", "energy_history",
+                 "mean_energy_history", "temperature_history",
+                 "acceptance_history"):
+        np.testing.assert_array_equal(getattr(res, name), getattr(ref, name))
+    # the warm-up's sweeps come first in the log: the run's are the last 30
+    share = res.metadata["best_copy_share"]
+    assert share == sum(log[-30:]) / (30 * 6)
+    assert 0.0 < share < 1.0
+    assert res.metadata["kernel_launches"]["sa_track"] == 0
+
+
+def test_anneal_counts_one_track_launch_a_sweep(monkeypatch):
+    """With a stand-in that counts each call of the best tracking as a
+    launch, ``kernel_launches["sa_track"]`` is the sweeps done: through two
+    captured chunk lengths (10 and a last of 5; their warm-ups taken back),
+    on a repeat call that replays them, on a resumed call and through
+    ``_anneal_given``; ``best_copy_share`` lies in [0, 1]."""
+    import tempfile
+
+    from spinglass_tpu_torch.anneal import graphs
+    from spinglass_tpu_torch.kernels import track_cuda as TC
+
+    call = TC.BestTrack.__call__
+
+    def counted(self, *args):
+        self.launches += 1
+        return call(self, *args)
+
+    monkeypatch.setattr(TC.BestTrack, "__call__", counted)
+    p = _glass()
+    cfg = SAConfig(n_sweeps=35, n_replicas=4, record_interval=10,
+                   enable_early_stop=False, seed=2)
+    graphs.clear_caches()
+    first, again = anneal(p, cfg), anneal(p, cfg)
+    for res in (first, again):
+        assert res.n_sweeps == 35
+        assert res.metadata["kernel_launches"]["sa_track"] == 35
+        assert 0.0 <= res.metadata["best_copy_share"] <= 1.0
+    assert again.metadata["best_copy_share"] == \
+        first.metadata["best_copy_share"]
+    with tempfile.TemporaryDirectory() as d:
+        anneal(p, cfg, checkpoint_dir=d, checkpoint_every=2)
+        os.remove(os.path.join(d, "ckpt_4.pt"))
+        res = anneal(p, cfg, checkpoint_dir=d, resume=True)
+    assert res.metadata["kernel_launches"]["sa_track"] == 35 - 20
+    assert 0.0 <= res.metadata["best_copy_share"] <= 1.0
+    given = sa._anneal_given(p, dataclasses.replace(cfg, record_interval=7),
+                             np.full((35, 4, p.n_padded), 0.5, np.float32))
+    assert given.metadata["kernel_launches"]["sa_track"] == 35
+    graphs.clear_caches()
+
+
+@pytest.mark.parametrize("kind", ["blocked", "nr", "sparse", "sparse_t",
+                                  "sparse_compact"])
+def test_from_layout_copies_int8_best_spins_to_float32(kind):
+    """On the card the SA best spins are int8: every engine's
+    ``from_layout`` gives them as [R, Np] float32, a copy that later
+    updates of the state leave alone (a reader that keeps the best spins of
+    a run holds its own); float32 spins come back as float32."""
+    cfg = SAConfig(n_replicas=3, sweep_method={
+        "blocked": "blocked", "nr": "blocked"}.get(kind, kind))
+    p = _glass() if kind in ("blocked", "nr") else _sparse_cpu()
+    eng = sa.make_sweep_engine(p, cfg)
+    if kind == "nr":   # the base class's "nr" layout, K1's on the card
+        eng = type("NR", (engines.SweepEngine,), {"layout": "nr"})(p)
+    start = random_spins(torch.Generator().manual_seed(1), (3, p.n_padded),
+                         p.active_mask)
+    s = eng.to_layout(start)
+    best = s.to(torch.int8)
+    out = eng.from_layout(best)
+    assert out.dtype == torch.float32 and out.shape == (3, p.n_padded)
+    assert torch.equal(out, eng.from_layout(s))
+    want = out.clone()
+    best.neg_()
+    assert torch.equal(out, want)
+    assert eng.from_layout(s.float()).dtype == torch.float32
