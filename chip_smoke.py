@@ -194,7 +194,7 @@ the kernels against the twins. Phases:
      capture, each trial equal to a fresh call bit for bit; and
      `sgt-torch solve -p tsp -s 20 --sweeps 2000` on the card through
      click's CliRunner (exit 0, objective, energy, feasible; K1 alone, its
-     launches read from the counters of the engine the run cached). The
+     launches read from the launch ledger over the command). The
      drivers' remaining paths: (a) anneal on the SK glass (K1, R=1024, 500
      sweeps, chunks of 50, early stop off) checkpointed every 2 chunks, cut
      back to its first kept checkpoint and resumed; (b) the same for pt.run
@@ -291,7 +291,7 @@ the kernels against the twins. Phases:
      bench_pt10k's shape: the eager loop, a first call with its capture, a
      repeat call), the captured paths' busy shares and graph launches per
      sweep or env step, and in each profile the kernels the profiler counts
-     per name against what the launch counters added over the same
+     per name against what the launch ledger counted over the same
      replays (the cluster-move super-steps' C2 and C1 too). The drivers'
      remaining paths: C2 and C1 at [128, 10112] and [16, 10112] in both
      draw modes beside their plain versions and bounds, C1's table at 16
@@ -564,19 +564,20 @@ def driver_parity(torch, mc, problem):
           f"make_engine picks CudaFusedEngine, block {SA_BLOCK}")
     twin = TwinFusedEngine(problem, block_size=cfg.block_size,
                            rule=cfg.update_rule)
-    out = []
+    out, launched = [], []
     for eng in (engine, twin):
+        l0 = build.launch_snapshot()
         state = sa.init_state(problem, cfg, eng)
         state, _ = sa.run_chunk(problem, cfg, eng, state, 3)
         out.append(state)
+        launched.append(build.launches_since(l0, [mc.KERNEL_NAME]))
     a, b = out
     torch.cuda.synchronize()
     fields = ("spins", "energy", "best_energy", "best_spins", "acc_rate")
     diff = [k for k in fields if not torch.equal(getattr(a, k), getattr(b, k))]
     if not torch.equal(a.sched.temp, b.sched.temp):
         diff.append("sched.temp")
-    check(not diff and engine.launches == {mc.KERNEL_NAME: 3}
-          and twin.launches == {mc.KERNEL_NAME: 0},
+    check(not diff and launched == [{mc.KERNEL_NAME: 3}, {mc.KERNEL_NAME: 0}],
           f"+-J N=4096 R=1024: 3 sweeps of sa.run_chunk, kernel engine == "
           f"twin engine bitwise in {', '.join(fields)}, sched.temp "
           f"(differ: {diff or 'none'}; acceptance of the last sweep "
@@ -647,8 +648,7 @@ def phase_slice(torch, mc, stats):
         torch.cuda.set_sync_debug_mode("default")
     check(True, "a chunk of sweeps runs under set_sync_debug_mode('error'): "
                 "no host sync inside a chunk")
-    # the count is the launches of this call (the first on this problem:
-    # it builds the engine, so its counters start at 0), the main path's
+    # the count is the launches of this call, the main path's
     t0 = time.perf_counter()
     res = anneal(problem, cfg)
     wall = time.perf_counter() - t0
@@ -900,9 +900,10 @@ def variant_slice(torch, mc, stats):
           f"(anneal's {res.best_energy / 4096:.5f})")
     for label, flags in VARIANTS.items():
         sweeps = 500
+        l0 = build.launch_snapshot()
         state, engine, rel = _variant_run(torch, mc, sk, flags, sweeps, 50)
         name = engine.fused.kernel_name
-        launches = engine.launches[name]
+        launches = build.launches_since(l0, [name])[name]
         stats["variant_launches"][name] = (
             stats["variant_launches"].get(name, 0) + launches)
         e_n = float(state.best_energy.min()) / 4096
@@ -1038,11 +1039,13 @@ def sparse_parity(torch, stats):
                     (4096, "glauber"), (130, "metropolis"), (130, "glauber")):
         k3 = SortedSparseTEngine(ell, rule=rule, accept_kernel="none").kernels
         beta = torch.linspace(0.05, 3.0, r, device="cuda")
+        l0 = build.launch_snapshot()
         th_k = k3.thresholds(beta, 2 ** 63 + r, r)
         th_p = sc.thresholds_reference(eng.mask_col, beta, 2 ** 63 + r, r,
                                        rule)
         torch.cuda.synchronize()
-        check(torch.equal(th_k, th_p) and k3.threshold_launches == 1,
+        check(torch.equal(th_k, th_p) and build.launches_since(
+                  l0, [sc.THRESHOLD_KERNEL]) == {sc.THRESHOLD_KERNEL: 1},
               f"K3 == twin bitwise at [{eng.n_sorted}, {r}] {rule} (64-bit "
               f"seed{'; R % 4 != 0: scalar stores' if r % 4 else ''})")
     stats["k2_max_abs_err"], stats["k3_max_abs_err"] = worst["k2"], worst["k3"]
@@ -1121,20 +1124,22 @@ def pt_driver_parity(torch):
           "make_engine picks SortedSparseTEngine (K2 path) for the 128-replica PT")
     twin = TwinSparseTEngine(ell)
     twin_step, _, _ = pt.make_pt_step(ell, cfg, engine=twin)
-    out = []
+    out, launched = [], []
     for st_fn, eng in ((step, engine), (twin_step, twin)):
+        l0 = build.launch_snapshot()
         state = pt.init_state(ell, cfg, torch.Generator().manual_seed(3), eng)
         for _ in range(2):
             state, _ = st_fn(state)
         out.append(state)
+        launched.append(build.launches_since(l0, engine.kernel_names))
     a, b = out
     torch.cuda.synchronize()
     fields = ("spins", "slot", "energy", "best_energy", "best_spins",
               "exch_attempts", "exch_accepts", "acc_rate")
     diff = [k for k in fields if not torch.equal(getattr(a, k), getattr(b, k))]
-    check(not diff and engine.launches["sparse_sweep"] == 20
-          and twin.launches["sparse_sweep"] == 0
-          and engine.launches["sparse_accept"] == 0,
+    check(not diff and launched[0]["sparse_sweep"] == 20
+          and launched[1]["sparse_sweep"] == 0
+          and launched[0]["sparse_accept"] == 0,
           f"+-J planted 10k, 128 replicas: 2 super-steps of pt's step, kernel "
           f"engine == twin engine bitwise in {', '.join(fields)} (differ: "
           f"{diff or 'none'}; exchanges accepted {int(a.exch_accepts.sum())})")
@@ -1162,12 +1167,12 @@ def gaussian_identity(torch):
                                 "sparse_thresholds", 1)):
         s = e.to_layout(random_spins(gen, (r, ell.n_padded), ell.active_mask))
         e0 = e.energy(s)
-        before = dict(e.launches)
+        before = build.launch_snapshot()
         s, de, cnt = e.sweep(s, torch.full((r,), 1.0, device="cuda"), gen)
         e1 = e.energy(s)
         torch.cuda.synchronize()
         rel = float(((e0 + de - e1).abs() / e1.abs().clamp(min=1.0)).max())
-        check(rel <= 1e-4 and e.launches[key] == before[key] + n,
+        check(rel <= 1e-4 and build.launches_since(before, [key]) == {key: n},
               f"Gaussian 10k R={r} ({path}, {s.dtype}): E0 + dE == E1, max "
               f"rel err {rel:.3e} <= 1e-4; acceptance "
               f"{float(cnt.sum()) / (r * 1e4):.4f}")
@@ -1195,6 +1200,7 @@ def sparse_philox(torch):
     gen = torch.Generator().manual_seed(1)
     s = eng.to_layout(random_spins(gen, (r, ell.n_padded), ell.active_mask))
     beta = torch.full((r,), beta_v, device="cuda")
+    l0 = build.launch_snapshot()
     trace = []
     for k in range(sweeps):
         s, _, _ = eng.sweep(s, beta, gen)
@@ -1205,7 +1211,7 @@ def sparse_philox(torch):
     state_codes = ((states > 0) * (2 ** np.arange(n))).sum(axis=1).astype(int)
     emp = np.bincount(codes, minlength=2 ** n) / len(codes)
     tv = 0.5 * np.abs(emp[state_codes] - probs).sum()
-    check(tv < 0.05 and eng.launches["sparse_sweep"] == sweeps,
+    check(tv < 0.05 and build.launches_since(l0, ["sparse_sweep"]) == {"sparse_sweep": sweeps},
           f"6-spin EllProblem ({eng.n_colors} colours), R=512, 400 K2 Philox "
           f"sweeps, beta=0.6: TV {tv:.4f} < 0.05")
 
@@ -1558,11 +1564,13 @@ def overlap_parity(torch, stats):
         mask = torch.zeros(ns, device="cuda")
         mask[ns - pad:] = -torch.inf
         op = oc.ReplicaOverlap(mask, c, ns - pad)
+        l0 = build.launch_snapshot()
         got, again = op(s, slot), op(s, slot)
         want = oc.overlap_reference(s.cpu(), mask.cpu(), slot.cpu(), c,
                                     ns - pad)
         torch.cuda.synchronize()
-        if not (got.shape == (t, c * (c - 1) // 2) and op.launches == 2
+        if not (got.shape == (t, c * (c - 1) // 2)
+                and build.launches_since(l0, [oc.KERNEL]) == {oc.KERNEL: 2}
                 and torch.equal(got.cpu(), want) and torch.equal(again, got)):
             raise CheckFailed(
                 f"overlap kernel != twin at [{ns}, {c * t}], {c} chains, "
@@ -1612,8 +1620,8 @@ def overlap_parity(torch, stats):
 
 def overlap_timing(torch, stats, card):
     """Phase 5 (overlap): an ea3d-shaped pt.run (L=32, 4 chains of 34
-    slots, heat bath, overlaps every super-step) with the overlap kernel's
-    counter set to 0 before it: one overlap launch a super-step and two K4
+    slots, heat bath, overlaps every super-step), its launches read from the
+    ledger over the call: one overlap launch a super-step and two K4
     launches a sweep, the last q equal to the twin's on the final state;
     the kernel at [32768, 136] int8 as a graph against its plain version
     and its bound."""
@@ -1632,17 +1640,17 @@ def overlap_timing(torch, stats, card):
     pt.run(ell, cfg, generator=torch.Generator().manual_seed(1))  # capture
     _, engine, step = graphs.PT_CACHE.get(ell, ("run",
                                                 graphs.config_key(cfg)))
-    op = next(o for name, o, _ in step.counters if name == oc.KERNEL)
-    op.launches = 0
+    l0 = build.launch_snapshot()
     t0 = time.perf_counter()
     res = pt.run(ell, cfg, generator=torch.Generator().manual_seed(2))
     run_s = time.perf_counter() - t0
+    n_op = build.launches_since(l0, [oc.KERNEL])[oc.KERNEL]
     kl = res.metadata["kernel_launches"]
     st = step.state
     want = oc.overlap_reference(st.spins.cpu(), engine.row_mask().cpu(),
                                 st.slot.cpu(), EA_CHAINS, ell.n_spins)
     got = res.metadata["slot_overlap_history"][-1]
-    check(engine.name == "sparse_sorted_t" and op.launches == n_super
+    check(engine.name == "sparse_sorted_t" and n_op == n_super
           and kl[oc.KERNEL] == n_super
           and kl["sparse_accept"] == 2 * cfg.n_sweeps
           and kl["sparse_sweep"] == 0 and kl["sparse_thresholds"] == 0
@@ -1650,10 +1658,10 @@ def overlap_timing(torch, stats, card):
           and torch.equal(torch.as_tensor(got), want),
           f"pt.run at the ea3d-l32 shape ([{engine.n_sorted}, "
           f"{EA_CHAINS * EA_SLOTS}], heat bath, {cfg.n_sweeps} sweeps): "
-          f"{op.launches} overlap launches ({n_super} super-steps), "
+          f"{n_op} overlap launches ({n_super} super-steps), "
           f"{kl['sparse_accept']} K4 launches (2 a sweep), no K2 or K3; the "
           f"last q == the twin's on the final state; {run_s:.3f} s a run")
-    stats["overlap_launches"] = op.launches
+    stats["overlap_launches"] = n_op
     gen = torch.Generator(device="cuda").manual_seed(33)
     ns, r = 32768, EA_CHAINS * EA_SLOTS
     s = _random_pm(torch, gen, (ns, r), torch.int8)
@@ -1718,10 +1726,11 @@ def track_parity(torch, stats):
             args = _track_case(torch, layout, dtype, rows, r, share, 40 + k)
             want = tc.track_reference(*args)
             track = tc.BestTrack()
+            l0 = build.launch_snapshot()
             got = track(*args)
             torch.cuda.synchronize()
             want = want[:2] + (want[2].to(torch.int8),) + want[3:]
-            same = (got[2] is args[5] and track.launches == 1
+            same = (got[2] is args[5] and build.launches_since(l0) == {tc.KERNEL: 1}
                     and all(torch.equal(a, b) for a, b in zip(got, want[:4]))
                     and torch.equal(track.copies, want[4].to(torch.int32)))
             if not same:
@@ -1817,12 +1826,11 @@ def accept_slice(torch, stats):
 
     ell = pm_j_ell(10000, 42)
     cfg = headline.pt_wide_config(n_sweeps=200)
-    # new engines: their launch counts start at 0 and hold only this run's
     eng4 = headline.pt_wide_engine(ell, "fused")
     eng3 = headline.pt_wide_engine(ell, "threshold")
     gathers = {"fused": 0, "threshold": 0}
     plain_fields = sp._colour_fields
-    out = {}
+    out, launched = {}, {}
     try:
         for path, eng in (("fused", eng4), ("threshold", eng3)):
             def counted(*args, path=path):
@@ -1830,11 +1838,13 @@ def accept_slice(torch, stats):
                 return plain_fields(*args)
 
             sp._colour_fields = counted  # the plain per-colour gathers
+            l0 = build.launch_snapshot()
             out[path] = _pt_run(torch, ell, cfg, eng, cfg.seed, 20)
+            launched[path] = build.launches_since(l0, eng.kernel_names)
     finally:
         sp._colour_fields = plain_fields
     (a, sec4), (b, sec3) = out["fused"], out["threshold"]
-    stats["k3_launches"] = eng3.launches["sparse_thresholds"]
+    stats["k3_launches"] = launched["threshold"]["sparse_thresholds"]
     rel = float(((a.best_energy - b.best_energy).abs()
                  / b.best_energy.abs().clamp(min=1.0)).max())
     rel_e = float(((a.energy - b.energy).abs()
@@ -1846,7 +1856,7 @@ def accept_slice(torch, stats):
           f"make_pt_step(SortedSparseTEngine(accept_kernel='fused')), 32 "
           f"chains x 128, 200 sweeps == the K3 path under one seed: spins and "
           f"slots bitwise, energies within {max(rel, rel_e):.2e} <= 1e-4")
-    l4, l3 = eng4.launches, eng3.launches
+    l4, l3 = launched["fused"], launched["threshold"]
     n_col = len(eng4.groups)
     check(l4 == {"sparse_sweep": 0, "sparse_thresholds": 0,
                  "sparse_accept": 200 * n_col}
@@ -2000,18 +2010,21 @@ def rl_parity(torch, mc, stats):
                                                 else torch.int8),
                   f"default_engine picks SortedSparseTEngine at {b} envs, "
                   f"state {engine.state_dtype(b)}")
+        counts = [0, 0]   # the engine's launches of ``key``, the twin's
         for mode in RL_MODES:
             cfg = env.EnvConfig(n_envs=b, sweeps_per_step=10, max_steps=50,
                                 action_mode=mode, init_temp_range=(0.1, 20.0))
             out = []
-            for eng in (engine, twin):
+            for i, eng in enumerate((engine, twin)):
                 gen = torch.Generator().manual_seed(31)
+                l0 = build.launch_snapshot()
                 state, _ = env.reset(problem, cfg, gen, eng)
                 for t in range(2):
                     state, obs, reward, done = env.step(
                         problem, cfg, state, _rl_actions(torch, mode, b, t),
                         gen, eng)
                 out.append((state, obs, reward, done))
+                counts[i] += build.launches_since(l0, [key])[key]
             torch.cuda.synchronize()
             (a, *a_rest), (t_, *t_rest) = out
             fields = ("spins", "energy", "best_energy", "acc_rate", "temp",
@@ -2023,13 +2036,12 @@ def rl_parity(torch, mc, stats):
             if diff:
                 raise CheckFailed(f"env.step through the kernel != through "
                                   f"the twin ({what}, {mode}): {diff} differ")
-        launches[key] = engine.launches[key]
-        check(engine.launches[key] == 3 * 2 * 10 * per_sweep
-              and twin.launches[key] == 0,
+        launches[key] = counts[0]
+        check(counts == [3 * 2 * 10 * per_sweep, 0],
               f"{what}: two env steps of 10 sweeps in each action mode, "
               f"kernel engine == twin engine bitwise in spins, energies, "
               f"counts (acc_rate), rewards, observations and done "
-              f"({engine.launches[key]} launches; acceptance of the last "
+              f"({counts[0]} launches; acceptance of the last "
               f"step {float(a.acc_rate.mean()):.4f})")
 
 
@@ -2088,6 +2100,7 @@ def rl_slice(torch, mc, stats):
         s_env = type(env_cfg)(n_envs=n_envs, sweeps_per_step=10, max_steps=50,
                               init_temp_range=(0.1, 20.0))
         s_ppo = ppo.PPOConfig(rollout_len=4, hidden_sizes=(128, 128), seed=42)
+        l0 = build.launch_snapshot()
         init_fn, update_fn, _ = ppo.make_ppo(ell, s_env, s_ppo)
         eng = update_fn.engine
         state = init_fn()
@@ -2097,18 +2110,19 @@ def rl_slice(torch, mc, stats):
             state, metrics = update_fn(state)
             hist.append(dict(zip(ppo.METRIC_KEYS, torch.stack(
                 [metrics[k] for k in ppo.METRIC_KEYS]).tolist())))
+        got = build.launches_since(l0, eng.kernel_names)
         # the eager reference of the captured run in captured_parity
         stats.setdefault("rl_sparse_eager", {})[n_envs] = (
             s_env, s_ppo, hist, state.params)
         best = float(metrics["mean_best_energy"])
         per_sweep = 1 if path == "K2" else len(eng.groups)
-        others = [v for k, v in eng.launches.items() if k != key]
-        rl_launches[key] = eng.launches[key]
+        others = [v for k, v in got.items() if k != key]
+        rl_launches[key] = got[key]
         check(eng.name == "sparse_sorted_t"
-              and eng.launches[key] == 2 * 4 * 10 * per_sweep
+              and got[key] == 2 * 4 * 10 * per_sweep
               and not any(others) and math.isfinite(best) and best < e0,
               f"make_ppo on the 10k bench graph, {n_envs} envs, 2 updates of "
-              f"rollout 4: {path} launched {eng.launches[key]} times "
+              f"rollout 4: {path} launched {got[key]} times "
               f"(2 x 4 x 10 x {per_sweep}), no other sparse kernel; mean best "
               f"energy {best:.1f} below the reset energy {e0:.1f}")
     stats["rl_launches"] = rl_launches
@@ -2120,12 +2134,13 @@ def rl_slice(torch, mc, stats):
         refused = True
     check(refused, "env.reset without an engine on a problem on the card "
                    "raises: the plain sweep is not reachable there")
-    engine = env.default_engine(problem, env_cfg)   # new: counts from 0
+    engine = env.default_engine(problem, env_cfg)
     policy = evaluate.make_geometric_policy(env_cfg, 0.05)
+    l0 = build.launch_snapshot()
     best = evaluate.rollout_best_energy(problem, env_cfg, policy,
                                         torch.Generator().manual_seed(42),
                                         engine=engine)
-    n = engine.launches[mc.KERNEL_NAME]
+    n = build.launches_since(l0, [mc.KERNEL_NAME])[mc.KERNEL_NAME]
     check(n == env_cfg.max_steps * env_cfg.sweeps_per_step
           and bool(torch.isfinite(best).all()),
           f"rollout_best_energy, the geometric controller at the bench shape: "
@@ -2224,27 +2239,29 @@ def dqn_parity(torch, mc, stats):
         twin = (TwinFusedEngine(problem, block_size=env_cfg.block_size)
                 if key == mc.KERNEL_NAME else TwinSparseTEngine(problem))
         per_sweep = len(engine.groups) if key == "sparse_accept" else 1
+        counts = [0, 0]   # the engine's launches of ``key``, the twin's
         for per in (False, True):
             cfg = dqn.DQNConfig(prioritized_replay=per, seed=42)
             states = []
-            for eng in (engine, twin):
+            for i, eng in enumerate((engine, twin)):
+                l0 = build.launch_snapshot()
                 init_fn, step_fn, _ = dqn.make_dqn(problem, env_cfg, cfg,
                                                    engine=eng)
                 st = init_fn(torch.Generator().manual_seed(7))
                 for _ in range(2):
                     st, m = step_fn(st)
                 states.append(st)
+                counts[i] += build.launches_since(l0, [key])[key]
             torch.cuda.synchronize()
             diff = _dqn_diff(torch, *states)
             if diff:
                 raise CheckFailed(f"DQN steps through the kernel != through "
                                   f"the twin ({what}, PER {per}): {diff}")
-        check(engine.launches[key] == 2 * 2 * 10 * per_sweep
-              and twin.launches[key] == 0,
+        check(counts == [2 * 2 * 10 * per_sweep, 0],
               f"{what}: two act_and_learn steps (without and with PER), "
               f"kernel engine == twin engine bitwise in the env state, the "
               f"buffer, the priorities, the parameters, the target network, "
-              f"Adam and the counters ({engine.launches[key]} launches; "
+              f"Adam and the counters ({counts[0]} launches; "
               f"last loss {float(m['loss']):.4f})")
 
 
@@ -2273,8 +2290,8 @@ def rl_training_slice(torch, mc, stats, card):
 
     launches = {}   # kernel -> launches of this part's main-path runs
 
-    def add(eng):
-        for k, v in eng.launches.items():
+    def add(got):
+        for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
 
     # 1. the captured DQN step (k=8) against the eager loop, both with PER
@@ -2284,6 +2301,7 @@ def rl_training_slice(torch, mc, stats, card):
         cfg = dqn.DQNConfig(prioritized_replay=per, steps_per_dispatch=8,
                             seed=42)
         init_fn, step_fn, _ = dqn.make_dqn(problem, env_cfg, cfg)
+        l0 = build.launch_snapshot()
         cap = dqn.CapturedSteps(step_fn, init_fn(), 8)
         rows = []
 
@@ -2295,8 +2313,9 @@ def rl_training_slice(torch, mc, stats, card):
 
         _sync_free(torch, f"captured DQN (PER {per}), {DQN_STEPS} steps in "
                           f"blocks of 8", replays)
-        n1 = step_fn.engine.launches[mc.KERNEL_NAME]
-        add(step_fn.engine)
+        got = build.launches_since(l0, step_fn.engine.kernel_names)
+        n1 = got[mc.KERNEL_NAME]
+        add(got)
         init_e, step_e, _ = dqn.make_dqn(problem, env_cfg, cfg)
         st = init_e()
         want = []
@@ -2321,18 +2340,20 @@ def rl_training_slice(torch, mc, stats, card):
         s_env = env.EnvConfig(n_envs=n_envs, sweeps_per_step=10, max_steps=50,
                               init_temp_range=(0.1, 20.0))
         init_fn, step_fn, _ = dqn.make_dqn(ell, s_env, dqn.DQNConfig(seed=42))
+        l0 = build.launch_snapshot()
         cap = dqn.CapturedSteps(step_fn, init_fn(), 4)
         for _ in range(4):
             cap.replay()
         rows = cap.read(4)
         eng = step_fn.engine
         per_sweep = len(eng.groups) if path == "K4" else 1
-        others = [v for k, v in eng.launches.items() if k != key]
-        add(eng)
-        check(eng.launches[key] == 4 * 10 * per_sweep and not any(others)
+        got = build.launches_since(l0, eng.kernel_names)
+        others = [v for k, v in got.items() if k != key]
+        add(got)
+        check(got[key] == 4 * 10 * per_sweep and not any(others)
               and all(math.isfinite(v) for r in rows for v in r.values()),
               f"captured DQN on the 10k bench graph, {n_envs} envs, 4 steps: "
-              f"{path} launched {eng.launches[key]} times (4 x 10 x "
+              f"{path} launched {got[key]} times (4 x 10 x "
               f"{per_sweep}), no other sparse kernel, every metric finite")
 
     # 3. the pipeline: the curriculum (32, 64, 128) on the card, train-rl's
@@ -2393,22 +2414,24 @@ def rl_training_slice(torch, mc, stats, card):
     genv = adapter(dense, g_cfg)
     twin_env = adapter(dense, g_cfg, engine=TwinFusedEngine(
         dense, block_size=g_cfg.block_size))
-    runs = []
+    runs, got = [], []
     for e in (genv, twin_env):
+        l0 = build.launch_snapshot()
         rows = [e.reset(seed=5)[0].tolist()]
         for t in range(g_cfg.max_steps):
             obs, r, term, trunc, info = e.step((3 * t) % 10)
             rows.append((obs.tolist(), r, term, trunc, info))
         runs.append(rows)
+        got.append(build.launches_since(l0, e._engine.kernel_names))
     g_eng = genv._engine
-    add(g_eng)
+    add(got[0])
     check(type(g_eng) is CudaFusedEngine and runs[0] == runs[1]
           and runs[0][-1][3]
-          and g_eng.launches[mc.KERNEL_NAME] == 20 * 10,
+          and got[0][mc.KERNEL_NAME] == 20 * 10,
           f"a gym episode ({adapter.__name__}, N=512, 20 steps) on K1 at "
           f"R=1 == the same episode "
           f"through K1's twin bit for bit, truncated at the budget, "
-          f"{g_eng.launches[mc.KERNEL_NAME]} K1 launches; best energy "
+          f"{got[0][mc.KERNEL_NAME]} K1 launches; best energy "
           f"{runs[0][-1][4]['best_energy']:.1f}")
 
     # 6. the captured evaluate_controllers against the eager loop
@@ -2424,18 +2447,20 @@ def rl_training_slice(torch, mc, stats, card):
     # 7. a short learning_report at the RL bench's width
     problem, env_cfg, _ = headline.rl_bench_setup(n_updates=1)
     engine = env.default_engine(problem, env_cfg)
+    l0 = build.launch_snapshot()
     rep = evaluate.learning_report(
         problem, env_cfg, ppo.PPOConfig(n_updates=8, rollout_len=8, seed=42),
         n_seeds=2, engine=engine)
-    add(engine)
+    got = build.launches_since(l0, engine.kernel_names)
+    add(got)
     check(set(rep["per_seed"]) == {"trained_ppo", "geometric", "random"}
           and all(math.isfinite(v) for v in rep["mean_best_energy"].values())
           and rep["n_updates"] == 8
-          and engine.launches[mc.KERNEL_NAME] == 8 * 8 * 10 + 3 * 2 * 50 * 10,
+          and got[mc.KERNEL_NAME] == 8 * 8 * 10 + 3 * 2 * 50 * 10,
           f"learning_report (8 PPO updates, 2 seeds, N=512 x 256 envs): "
           f"mean best energy per spin "
           f"{ {k: round(v / 512, 4) for k, v in rep['mean_best_energy'].items()} }, "
-          f"K1 launched {engine.launches[mc.KERNEL_NAME]} times")
+          f"K1 launched {got[mc.KERNEL_NAME]} times")
     stats["rl_training_launches"] = launches
     for k, v in launches.items():
         stats["rl_launches"][k] = stats["rl_launches"].get(k, 0) + v
@@ -2525,7 +2550,6 @@ def captured_parity(torch, mc, stats):
 
     from spinglass_tpu_torch import anneal
     from spinglass_tpu_torch.anneal import graphs, pt, sa
-    from spinglass_tpu_torch.anneal.engines import kernel_launches
     from spinglass_tpu_torch.benchmarks import headline
     from spinglass_tpu_torch.rl import ppo
 
@@ -2560,17 +2584,18 @@ def captured_parity(torch, mc, stats):
         hits = graphs.SA_CACHE.hits
         res = anneal(problem, cfg)
         repeat(first, res, graphs.SA_CACHE, f"{kind} anneal")
+        l0 = build.launch_snapshot()
         state, hist, eng = headline.eager_anneal(problem, cfg)
+        n_eager = build.launches_since(l0, [kernel])[kernel]
         what = (f"{kind} {problem.n_spins} x {cfg.n_replicas}, "
                 f"{cfg.n_sweeps} sweeps")
         same_anneal(res, state, hist, eng, problem, what)
         n = res.metadata["kernel_launches"].get(kernel, 0)
         e_n = res.best_energy / problem.n_spins
         cap[f"{kind}_e_n"] = e_n
-        check(n == 500 and kernel_launches(eng).get(kernel, 0) == 500
-              and f"{e_n:.5f}" == known,
+        check(n == 500 and n_eager == 500 and f"{e_n:.5f}" == known,
               f"{kernel} launched {n} times through the replays and "
-              f"{kernel_launches(eng).get(kernel, 0)} in the eager loop (500 "
+              f"{n_eager} in the eager loop (500 "
               f"each); E/N {e_n:.5f} (the known-good {known})")
         if kind == "dense":
             s_state, s_hist = sa.anneal_scan(problem, dataclasses.replace(
@@ -2602,7 +2627,9 @@ def captured_parity(torch, mc, stats):
         res = pt.run(ell, pcfg)
         if pcfg.n_chains > 1:
             repeat(stats["pt_wide_first"][1], res, graphs.PT_CACHE, label)
+        l0 = build.launch_snapshot()
         state, hist, eng = headline.eager_pt(ell, pcfg)
+        n_eager = build.launches_since(l0, ["sparse_accept"])["sparse_accept"]
         rates = (state.exch_accepts.cpu().numpy()
                  / np.maximum(state.exch_attempts.cpu().numpy(), 1))
         best = int(torch.argmin(state.best_energy))
@@ -2626,7 +2653,7 @@ def captured_parity(torch, mc, stats):
               and np.array_equal(res.best_spins, row[:ell.n_spins]))
         n4 = res.metadata["kernel_launches"].get("sparse_accept", 0)
         check(ok and n4 == pcfg.n_sweeps * len(getattr(eng, "groups", ()))
-              and kernel_launches(eng).get("sparse_accept", 0) == n4,
+              and n_eager == n4,
               f"{label}: pt.run == the eager loop: final spins, slots, "
               f"energies, exchange counts and the histories bit for bit; K4 "
               f"{n4} launches through the replays and in the eager loop")
@@ -2659,7 +2686,7 @@ def captured_parity(torch, mc, stats):
         st, out = super_step(st)
         return st, out["best_energy"]
 
-    step = pt.capture_super_step(best_of, eng, pt.init_state(
+    step = pt.capture_super_step(best_of, pt.init_state(
         tell, tcfg, torch.Generator().manual_seed(42), eng))
     _sync_free(torch, "TTT super-step (K2 at 128 replicas) with its 4-byte "
                       "read", lambda: [read([step.replay()])
@@ -2755,13 +2782,15 @@ def _sparse_twin_check(torch, problem) -> dict:
         s_ref = s.clone()
         beta = torch.as_tensor(np.random.default_rng(r).uniform(0.05, 3.0, r),
                                dtype=torch.float32, device="cuda")
-        before = dict(eng.launches)
-        same, flips, err = True, 0, 0.0
+        before = build.launch_snapshot()
+        same, flips, err, twin_n = True, 0, 0.0, 0
         g_k, g_t = (torch.Generator().manual_seed(7 + r) for _ in range(2))
         for k in range(3 + n_host):
             if k < 3:
                 _, de, cnt = eng.sweep(s, beta, g_k)
+                t0 = build.launch_snapshot()
                 _, de_p, cnt_p = twin.sweep(s_ref, beta, g_t)
+                twin_n += sum(build.launches_since(t0).values())
             else:
                 u = torch.rand(eng.n_sorted, r, device="cuda")
                 _, de, cnt = eng.sweep_with_uniforms(s, beta, u)
@@ -2777,10 +2806,9 @@ def _sparse_twin_check(torch, problem) -> dict:
             flips += int(cnt.sum())
         worst[kernel] = err
         per = len(eng.groups) if kernel == "sparse_accept" else 1
-        got = {k: v - before[k] for k, v in eng.launches.items()}
+        got = build.launches_since(before, eng.kernel_names)
         check(same and flips > 0 and got[kernel] == (3 + n_host) * per
-              and sum(got.values()) == got[kernel]
-              and sum(twin.launches.values()) == 0,
+              and sum(got.values()) == got[kernel] and twin_n == 0,
               f"encoded sparse MaxCut ({problem.n_spins} nodes, {s.dtype} "
               f"spins), R={r}: {kernel} == twin bit for bit in spins, dE and "
               f"counts over 3 Philox"
@@ -2799,8 +2827,7 @@ def problems_slice(torch, mc, stats, card):
 
     from spinglass_tpu_torch import cli
     from spinglass_tpu_torch.anneal import graphs, pt, sa
-    from spinglass_tpu_torch.anneal.engines import (ColoredEngine,
-                                                    kernel_launches)
+    from spinglass_tpu_torch.anneal.engines import ColoredEngine
     from spinglass_tpu_torch.benchmarks.exact_instances import (
         bipartite_weights, grid_tsp)
     from spinglass_tpu_torch.problems import MaxCutProblem, TSPProblem
@@ -3016,15 +3043,18 @@ def problems_slice(torch, mc, stats, card):
           f"{bench['mean_time']:.3f} s [{card}]")
 
     # 6. the README's quick start through the console script's entry; its
-    # launches are read from the counters of the engine it left in the cache
+    # launches are read from the ledger, for the kernels of the engine it
+    # left in the cache
     graphs.clear_caches()
+    l0 = build.launch_snapshot()
     t0 = time.perf_counter()
     out = CliRunner().invoke(cli.main, ["solve", "-p", "tsp", "-s", "20",
                                         "--sweeps", "2000"])
     wall = time.perf_counter() - t0
     print("  " + out.output.replace("\n", "\n  ").rstrip())
     engines = [entry[0] for entry in graphs.SA_CACHE.values()]
-    cli_launches = kernel_launches(engines[0]) if len(engines) == 1 else {}
+    cli_launches = (build.launches_since(l0, sa.step_kernels(engines[0]))
+                    if len(engines) == 1 else {})
     check(out.exit_code == 0 and "objective:" in out.output
           and "energy:" in out.output and "feasible:" in out.output,
           f"sgt-torch solve -p tsp -s 20 --sweeps 2000 exits "
@@ -3047,7 +3077,7 @@ def captured_timing(torch, stats, card):
     its step in turns, and whole driver calls three ways
     (headline.captured_vs_plain); the captured paths' busy shares and graph
     launches, and their kernels per name by the profiler against the
-    launch counters (the profiles of the phases above)."""
+    launch ledger (the profiles of the phases above)."""
     from spinglass_tpu_torch.benchmarks import headline
 
     b = headline.captured_vs_plain()
@@ -3057,7 +3087,7 @@ def captured_timing(torch, stats, card):
         print(f"  {label}: {ways} (in turns) [{card}]")
     for name, prof in stats["profiles"].items():
         # the kernels a replayed graph ran, counted by the profiler, against
-        # what the wrappers' counters added over the same replays
+        # what the launch ledger counted over the same replays
         lc = prof["launch_check"]
         check(lc and all(c["counter"] == c["profiler"] for c in lc.values())
               and any(c["counter"] > 0 for c in lc.values()),
@@ -3212,6 +3242,7 @@ def cluster_parity(torch, stats):
     c1 = cc.ClusterLabels()
     err1 = err2 = bonds_launches = 0
     stats["sw_cases"] = {}
+    l0 = build.launch_snapshot()
     for name, (sw, r) in cases.items():
         s, beta = _sw_spins(torch, sw, r, r + 1)
         n, k = sw._idx.shape
@@ -3242,6 +3273,7 @@ def cluster_parity(torch, stats):
                   f"plan {plan} (mode, blocks, log2 chunk)")
         bonds_launches += 2
         stats["sw_cases"][name] = (sw, s, beta, seed)
+    c1_launches = build.launches_since(l0, [cc.KERNEL_NAME])[cc.KERNEL_NAME]   # c1's alone
     check(cc.labels_plan(ttt.n_padded, 16, sms)[:2] == (1, 8)
           and cc.labels_plan(ttt.n_padded, 128, sms)[:2] == (0, 1),
           f"C1 takes a cluster of 8 blocks per replica at 16 replicas and one "
@@ -3270,10 +3302,9 @@ def cluster_parity(torch, stats):
                   f"{'in a cluster' if blocks is None else 'in one block'}): "
                   f"{n_cl} clusters per replica, the plain loop "
                   f"{plain_rounds} rounds")
-    distinct = {id(sw): sw for sw, _ in cases.values()}.values()
-    c2_launches = sum(sw.bonds.launches for sw in distinct)
-    check(c1.launches == 2 * len(cases) and c2_launches == bonds_launches + 1,
-          f"C1 launched {c1.launches} times, C2 {c2_launches}")
+    c2_launches = build.launches_since(l0, [cc.BONDS_KERNEL])[cc.BONDS_KERNEL]
+    check(c1_launches == 2 * len(cases) and c2_launches == bonds_launches + 1,
+          f"C1 launched {c1_launches} times, C2 {c2_launches}")
     stats["c1_max_abs_err"], stats["c2_max_abs_err"] = err1, err2
 
 
@@ -3674,7 +3705,7 @@ def drivers_timing(torch, stats, card):
         stats["profiles"][f"PT + SW, {r} replicas (K{2 if r == 128 else 4} "
                           f"+ C2 + C1)"] = _profile(
             steps["captured"], 100, 8, graph_launches=10,
-            counters=steps["counters"])
+            kernels=steps["kernels"])
     times, nbytes = stats["ckpt_save"]
     print(f"  checkpoint save, dense SA: {nbytes} bytes, {min(times):.4f}-"
           f"{max(times):.4f} s; _ell_reverse_slots on the TTT instance "
@@ -3853,29 +3884,29 @@ def _identity_ok(torch, problem, best_spins, best_energy) -> bool:
 
 
 class _RunTracker:
-    """The captured stacked runs a call uses (``batch.stacked_run`` wrapped),
-    so that their K1 launches are counted even if the cache drops one."""
+    """The captured stacked runs a call uses (``batch.stacked_run`` wrapped)
+    and the K1 launches counted while it runs."""
 
     def __init__(self, batch):
         self.batch, self.orig, self.runs = batch, batch.stacked_run, []
-        self.before = {}
 
     def __enter__(self):
         def tracked(stacked, cfg):
             run = self.orig(stacked, cfg)
             if all(run is not r for r in self.runs):
                 self.runs.append(run)
-                self.before[id(run)] = run.sweep.launches
             return run
 
         self.batch.stacked_run = tracked
+        self.before = build.launch_snapshot()
         return self
 
     def __exit__(self, *exc):
         self.batch.stacked_run = self.orig
+        self.k1 = build.launches_since(self.before, ["metropolis_sweep"])["metropolis_sweep"]
 
     def launches(self) -> int:
-        return sum(r.sweep.launches - self.before[id(r)] for r in self.runs)
+        return self.k1
 
 
 def _adaptive_expected(history, cfg) -> int:
@@ -3945,7 +3976,7 @@ def batch_slice(torch, mc, stats, card):
     # the captured run against its eager loop, one batch; no sync in a replay
     st = batch.stack_problems(problems[:16])
     run = batch.stacked_run(st, cfg)
-    k0 = run.sweep.launches
+    l0 = build.launch_snapshot()
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
         run.j.copy_(st.j)
@@ -3961,7 +3992,7 @@ def batch_slice(torch, mc, stats, card):
     got = [t.cpu() for t in out]
     (be, bs, rep), n_eager = batch.eager_stacked(
         st, cfg, torch.Generator().manual_seed(3))
-    launches[mc.KERNEL_NAME] += run.sweep.launches - k0 + n_eager
+    launches[mc.KERNEL_NAME] += build.launches_since(l0, [mc.KERNEL_NAME])[mc.KERNEL_NAME]
     check(all(torch.equal(a, b.cpu()) for a, b in zip(got, (be, bs, rep))),
           "the captured stacked run == its eager loop bit for bit (best "
           "energies, best spins, replica bests), no host sync in the replay")
@@ -4229,9 +4260,9 @@ def research_problem(device, n: int = RESEARCH_N, seed: int = 42):
     return IsingProblem.from_dense(j, device=device)
 
 
-def _k1(mc) -> int:
-    """K1's launches since ``mc.LAUNCHES`` was last cleared."""
-    return mc.LAUNCHES[mc.KERNEL_NAME]
+def _k1(mc, l0: dict) -> int:
+    """K1's launches since the launch ledger's snapshot ``l0``."""
+    return build.launches_since(l0, [mc.KERNEL_NAME])[mc.KERNEL_NAME]
 
 
 def research_parity(torch, mc, stats):
@@ -4260,17 +4291,19 @@ def research_parity(torch, mc, stats):
     check(engine.fused.planes == 3 and engine.name == "cuda_fused",
           f"the Trotter problem [{tp.n_padded}, 16] takes K1 with 3 planes "
           f"(J_perp 0.25 alone would need 1)")
-    out = []
+    out, launched = [], []
     for eng in (engine, twin):
+        l0 = build.launch_snapshot()
         st = sa.init_state(tp, cfg, eng, torch.Generator().manual_seed(3))
         st, _ = sa.run_chunk(tp, cfg, eng, st, 40)
         out.append(st)
+        launched.append(build.launches_since(l0, [mc.KERNEL_NAME]))
     a, b = out
     torch.cuda.synchronize()
     fields = ("spins", "energy", "best_energy", "best_spins", "acc_rate")
     diff = [k for k in fields if not torch.equal(getattr(a, k), getattr(b, k))]
-    check(not diff and engine.fused.launches == 40 and twin.launches ==
-          {mc.KERNEL_NAME: 0},
+    check(not diff and launched == [{mc.KERNEL_NAME: 40},
+                                    {mc.KERNEL_NAME: 0}],
           f"+-J N=128 P=4 Trotter stage (40 sweeps, R=16, J_perp 0.25): K1 "
           f"== twin bitwise in {', '.join(fields)} (differ: {diff or 'none'})")
     tp.set_field(beta, gammas[1])
@@ -4311,7 +4344,7 @@ def research_slice(torch, mc, stats, card):
     """Phase 4 (research): the research layer's entry points on the SK glass
     at N=1024 (and its federated, Pareto and meta-RL companions), each call
     with its seconds, captures (``graphs.CapturedStep.made``) and K1
-    launches (``mc.LAUNCHES`` cleared before each call)."""
+    launches (the launch ledger over each call)."""
     import numpy as np
 
     from spinglass_tpu_torch.anneal import graphs
@@ -4329,13 +4362,13 @@ def research_slice(torch, mc, stats, card):
 
     def call(name, fn, want=None):
         made0 = graphs.CapturedStep.made
-        mc.LAUNCHES.clear()
+        l0 = build.launch_snapshot()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        k1 = _k1(mc)
+        k1 = _k1(mc, l0)
         total[mc.KERNEL_NAME] += k1
         caps = graphs.CapturedStep.made - made0
         rows[name] = {"seconds": secs, "k1_launches": k1, "captures": caps}
@@ -4379,7 +4412,7 @@ def research_slice(torch, mc, stats, card):
           and _identity(torch, sk, res) <= 1e-5,
           f"MSHO: {lv} levels, one anneal each (300 + 200 x {lv - 1} K1 "
           f"launches), E/N {res.best_energy / n:.5f}")
-    mc.LAUNCHES.clear()
+    l0 = build.launch_snapshot()
     made0 = graphs.CapturedStep.made
     t0 = time.perf_counter()
     res = novel.adaptive_quantum_inspired_annealing(sk)
@@ -4388,14 +4421,14 @@ def research_slice(torch, mc, stats, card):
         "seconds": secs, "k1_launches": 0,
         "captures": graphs.CapturedStep.made - made0,
         "capture_seconds": res.metadata["capture_seconds"]}
-    check(_k1(mc) == 0 and len(res.energy_history) == 500
+    check(_k1(mc, l0) == 0 and len(res.energy_history) == 500
           and graphs.CapturedStep.made - made0 == 1
           and _identity(torch, sk, res) <= 1e-5,
           f"AQIA (R=32, 500 iterations as replays of one captured "
           f"iteration, no K1: it measures, it does not sweep): {secs:.3f} s "
           f"(capture {res.metadata['capture_seconds']:.3f} s), E/N "
           f"{res.best_energy / n:.5f} [{card}]")
-    mc.LAUNCHES.clear()
+    l0 = build.launch_snapshot()
     made0 = graphs.CapturedStep.made
     t0 = time.perf_counter()
     res = novel.learning_enhanced_dynamics(sk)
@@ -4404,7 +4437,7 @@ def research_slice(torch, mc, stats, card):
         "seconds": secs, "k1_launches": 0,
         "captures": graphs.CapturedStep.made - made0,
         "capture_seconds": res.metadata["capture_seconds"]}
-    check(_k1(mc) == 0 and np.isfinite(res.metadata["final_loss"])
+    check(_k1(mc, l0) == 0 and np.isfinite(res.metadata["final_loss"])
           and graphs.CapturedStep.made - made0 == 1
           and _identity(torch, sk, res) <= 1e-4,
           f"LESD (R=16, 300 replays of one captured iteration, Adam "
@@ -4607,7 +4640,7 @@ def distributed_slice(torch, mc, stats, card):
     edge orchestrator running SA seeds through K1 from several threads.
     ``stats["dist_launches"]``: the K1, K2 and K4 launches of the
     distributed runs (the sharded PT runs' ``kernel_launches``, the sharded
-    PPO engine's count, ``mc.LAUNCHES`` around the pools and the edge
+    PPO engine's count, the launch ledger around the pools and the edge
     orchestrator); the reference calls they are held against do not
     count."""
     import numpy as np
@@ -4719,7 +4752,7 @@ def distributed_slice(torch, mc, stats, card):
         else:
             init_fn, update_fn, _ = ppo_mod.make_ppo(problem, env_cfg,
                                                      ppo_cfg)
-        l0 = update_fn.engine.launches
+        l0 = build.launch_snapshot()
         cap = ppo_mod.CapturedUpdates(update_fn, init_fn(), 1)
         hist = []
         for _ in range(DIST_PPO_UPDATES):
@@ -4728,7 +4761,7 @@ def distributed_slice(torch, mc, stats, card):
         histories.append(hist)
         params.append({k: v.detach().clone() for k, v in
                        cap.state.params.items()})
-        got = {k: v - l0.get(k, 0) for k, v in update_fn.engine.launches.items()}
+        got = build.launches_since(l0, update_fn.engine.kernel_names)
         if make == "sharded":
             k1_ppo = got[mc.KERNEL_NAME]
             launches[mc.KERNEL_NAME] += k1_ppo
@@ -4751,7 +4784,7 @@ def distributed_slice(torch, mc, stats, card):
                                        seed=seed))
 
     seq = {s: job(s) for s in range(8)}
-    k1_0 = mc.LAUNCHES[mc.KERNEL_NAME]
+    l0 = build.launch_snapshot()
     c = JobCoordinator(n_workers=2).start()
     ids = c.map(job, list(range(8)), prefix="seed")
     ok = c.wait(timeout=300)
@@ -4759,7 +4792,7 @@ def distributed_slice(torch, mc, stats, card):
     c.shutdown()
     items = WorkerPool(4).map([lambda s=s: job(s) for s in range(8)],
                               timeout=300)
-    k1_pools = mc.LAUNCHES[mc.KERNEL_NAME] - k1_0
+    k1_pools = _k1(mc, l0)
 
     def same(a, b):
         return (a.best_energy == b.best_energy
@@ -4774,7 +4807,7 @@ def distributed_slice(torch, mc, stats, card):
           f"(+-J N=512, R=64, 200 sweeps) through K1 from several threads "
           f"== each seed's call made alone, bit for bit; K1 {k1_pools} "
           f"launches")
-    k1_0 = mc.LAUNCHES[mc.KERNEL_NAME]
+    l0 = build.launch_snapshot()
     orch = EdgeOrchestrator(n_sweeps=200, n_replicas=16, seed=0)
     outs = [orch.submit(pool_p, prefer_backend=b) for b in ("sa", "pt", "sqa")]
     check(all(np.isfinite(o.best_energy) for o in outs)
@@ -4782,8 +4815,7 @@ def distributed_slice(torch, mc, stats, card):
           "EdgeOrchestrator on the card: " + ", ".join(
               f"{o.backend} on {o.node} E {o.best_energy:.1f} in "
               f"{o.runtime:.3f} s" for o in outs))
-    launches[mc.KERNEL_NAME] += (k1_pools + mc.LAUNCHES[mc.KERNEL_NAME]
-                                 - k1_0)
+    launches[mc.KERNEL_NAME] += k1_pools + _k1(mc, l0)
     print(f"  distributed path launches: {launches} [{card}]")
 
 
@@ -4940,6 +4972,7 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         from spinglass_tpu_torch.benchmarks.headline import device_description
+        global build  # the launch ledger's module, read by every phase
         from spinglass_tpu_torch.kernels import build
         from spinglass_tpu_torch.kernels import metropolis_cuda as mc
         from spinglass_tpu_torch.kernels import sparse_cuda as sc

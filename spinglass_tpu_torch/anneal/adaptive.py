@@ -23,13 +23,15 @@ import numpy as np
 import torch
 
 from spinglass_tpu_torch.anneal import graphs
-from spinglass_tpu_torch.anneal.engines import best_row, kernel_launches
+from spinglass_tpu_torch.anneal.engines import best_row
 from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.anneal.sa import (SAConfig, SAState, capture_chunk,
-                                           init_state, make_sweep_engine)
+                                           init_state, make_sweep_engine,
+                                           step_kernels)
 from spinglass_tpu_torch.anneal.schedules import ScheduleConfig, ScheduleType
 from spinglass_tpu_torch.core import rng
 from spinglass_tpu_torch.core.problem import random_spins
+from spinglass_tpu_torch.kernels import build
 
 
 @dataclass(frozen=True)
@@ -60,7 +62,7 @@ def adaptive_anneal(problem, cfg: Optional[AdaptiveSAConfig] = None,
     cfg = cfg or AdaptiveSAConfig()
     sa = cfg.base
     engine = make_sweep_engine(problem, sa)
-    launches0 = kernel_launches(engine)
+    launches0 = build.launch_snapshot()
     state = init_state(problem, sa, engine, generator)
     generator = state.generator
     step = capture_chunk(problem, sa, engine, state, sa.record_interval)
@@ -96,7 +98,6 @@ def adaptive_anneal(problem, cfg: Optional[AdaptiveSAConfig] = None,
     b = torch.argmin(state.best_energy)
     best = best_row(engine, state.best_spins, b).cpu().numpy()
     sweeps = n_chunks * sa.record_interval
-    launches = kernel_launches(engine)
     return AnnealResult(
         best_spins=best[: problem.n_spins],
         best_energy=float(state.best_energy[b]),
@@ -111,8 +112,8 @@ def adaptive_anneal(problem, cfg: Optional[AdaptiveSAConfig] = None,
         algorithm=f"adaptive_sa/{engine.name}",
         device=problem.device.type, seed=sa.seed,
         metadata={"interventions": interventions, "engine": engine.name,
-                  "kernel_launches": {k: v - launches0.get(k, 0)
-                                      for k, v in launches.items()},
+                  "kernel_launches": build.launches_since(
+                      launches0, step_kernels(engine)),
                   "capture_seconds": step.capture_seconds},
     )
 

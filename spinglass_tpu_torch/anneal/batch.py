@@ -49,6 +49,7 @@ from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.anneal.sa import SAConfig
 from spinglass_tpu_torch.core import rng
 from spinglass_tpu_torch.core.problem import IsingProblem, random_spins
+from spinglass_tpu_torch.kernels import build
 from spinglass_tpu_torch.kernels.metropolis_cuda import (KERNEL_NAME,
                                                          StackedFusedSweep,
                                                          planes_needed)
@@ -174,8 +175,8 @@ class _StackedRun:
     """The stacked anneal of one (P, Np, config, planes) on a device, as a
     captured step: static problem buffers (each batch's J, h and mask are
     copied in), the start spins as the step's state (loaded before each
-    replay), the results as its outputs. ``sweep.launches`` counts K1's
-    launches through it (a replay adds ``n_sweeps``)."""
+    replay), the results as its outputs. A replay counts ``n_sweeps`` K1
+    launches."""
 
     def __init__(self, n_problems: int, n_pad: int, sa_cfg: SAConfig,
                  planes: int, device):
@@ -194,9 +195,8 @@ class _StackedRun:
             return state, _anneal_steps(self.sweep, sa_cfg, state["spins"],
                                         self.generator)
 
-        self.step = graphs.CapturedStep(
-            step, {"spins": spins}, self.generator,
-            [(KERNEL_NAME, self.sweep, "launches")])
+        self.step = graphs.CapturedStep(step, {"spins": spins},
+                                        self.generator)
         self._read = graphs.HostRead()
 
     @property
@@ -284,7 +284,9 @@ def eager_stacked(stacked: StackedProblem, sa_cfg: SAConfig,
                               block_size=sa_cfg.block_size,
                               rule=sa_cfg.update_rule)
     spins = _start_spins(generator, stacked.active_mask, sa_cfg.n_replicas)
-    return _anneal_steps(sweep, sa_cfg, spins, generator), sweep.launches
+    launches0 = build.launch_snapshot()
+    out = _anneal_steps(sweep, sa_cfg, spins, generator)
+    return out, build.launches_since(launches0, (KERNEL_NAME,))[KERNEL_NAME]
 
 
 class BatchProcessor:

@@ -7,7 +7,9 @@ spin layout:
     [NS, R] in a colour-sorted order for the sparse engine of
     ``kernels/sparse.py`` (K2/K3/K4); the kernels update them in place.
 The drivers keep annealing state in the engine's layout and convert only at
-the edges of a run.
+the edges of a run. An engine's ``kernel_names`` name the kernels its sweeps
+can launch (none for the plain PyTorch engines): the keys under which a
+driver reports its launches from the ledger of ``kernels.build``.
 
 Engine selection (make_engine), as in the JAX package with "the problem
 lies on a CUDA device" where it tests for a TPU:
@@ -50,7 +52,6 @@ from spinglass_tpu_torch.core import topology
 from spinglass_tpu_torch.core.problem import IsingProblem, real_rows
 from spinglass_tpu_torch.kernels import sweeps as sweep_kernels
 from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES, FusedSweep
-from spinglass_tpu_torch.kernels.track_cuda import KERNEL as TRACK_KERNEL
 from spinglass_tpu_torch.kernels.track_cuda import BestTrack
 
 SPARSE_DENSITY_THRESHOLD = 0.05
@@ -68,38 +69,10 @@ SPARSE_T_MIN_REPLICAS_CUDA = 16
 def best_track(engine) -> BestTrack:
     """The SA driver's best tracking of states in ``engine``'s layout
     (``kernels.track_cuda.BestTrack``), made on first use: one per engine,
-    so an engine's captured chunks share its launch count and its copies."""
+    so an engine's captured chunks share its copies."""
     if getattr(engine, "best_track", None) is None:
         engine.best_track = BestTrack()
     return engine.best_track
-
-
-def kernel_launches(engine) -> dict:
-    """Kernel name -> launches made through ``engine`` (empty for the plain
-    PyTorch engines), with the SA driver's ``sa_track`` once ``best_track``
-    has made it for the engine."""
-    out = dict(getattr(engine, "launches", {}))
-    track = getattr(engine, "best_track", None)
-    if track is not None:
-        out[TRACK_KERNEL] = track.launches
-    return out
-
-
-def launch_counters(engine) -> list:
-    """(kernel name, object, attribute) of each launch count behind
-    ``kernel_launches(engine)`` (``graphs.CapturedStep`` adds a replay's
-    launches there); empty for the plain PyTorch engines until
-    ``best_track`` adds its own."""
-    track = getattr(engine, "best_track", None)
-    out = [] if track is None else [(TRACK_KERNEL, track, "launches")]
-    if hasattr(engine, "fused"):
-        return [(engine.fused.kernel_name, engine.fused, "launches")] + out
-    kernels = getattr(engine, "kernels", None)
-    if kernels is None:
-        return out
-    return [("sparse_sweep", kernels, "sweep_launches"),
-            ("sparse_thresholds", kernels, "threshold_launches"),
-            ("sparse_accept", kernels, "accept_launches")] + out
 
 
 def best_row(engine, spins: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -115,6 +88,7 @@ class SweepEngine:
 
     layout = "rn"
     name = "base"
+    kernel_names: tuple = ()
 
     def __init__(self, problem: IsingProblem):
         self.problem = problem
@@ -211,11 +185,7 @@ class CudaFusedEngine(SweepEngine):
         super().__init__(problem)
         self.fused = FusedSweep(problem, block_size=block_size, rule=rule,
                                 j_dtype=j_dtype, **variant)
-
-    @property
-    def launches(self) -> dict:
-        """Launches of the engine's kernel made through this engine."""
-        return {self.fused.kernel_name: self.fused.launches}
+        self.kernel_names = (self.fused.kernel_name,)
 
     def sweep(self, spins_t, beta, generator):
         return self.fused(spins_t, beta, rng.draw_seed(generator))
@@ -245,13 +215,10 @@ class GivenUniforms(SweepEngine):
                              f"{self.ENGINES}, got {engine.name!r}")
         super().__init__(engine.problem)
         self.engine, self.layout, self.name = engine, engine.layout, engine.name
+        self.kernel_names = engine.kernel_names
         self.uniforms = torch.as_tensor(np.asarray(uniforms, np.float32),
                                         device=engine.problem.device)
         self.t = 0
-
-    @property
-    def launches(self) -> dict:
-        return kernel_launches(self.engine)
 
     def to_layout(self, spins_rn, dtype=None):
         return self.engine.to_layout(spins_rn, dtype)

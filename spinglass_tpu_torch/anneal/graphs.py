@@ -9,7 +9,7 @@ update) once in a ``torch.cuda.CUDAGraph`` and replays it, so a step costs
 one launch from the host whatever it holds, and ``StepCache`` keeps the
 captured steps of a problem and configuration for the calls after.
 
-``CapturedStep(step, state, generator, counters)``:
+``CapturedStep(step, state, generator)``:
 
 * ``step(state) -> (state, outputs)`` is the driver's eager step. The
   state's tensors are the graph's static inputs: the captured step ends by
@@ -26,10 +26,9 @@ captured steps of a problem and configuration for the calls after.
 * Randomness: the step's draws go through a ``core.rng.RandomTape``,
   recorded in the warm-up and refilled from the run's host generator before
   every replay (see ``core.rng``).
-* Launches: ``counters`` lists (kernel name, object, attribute) of the
-  kernel wrappers' launch counts. What warm-up and capture add is taken
-  back; the launches captured are counted per kernel name once and added to
-  the counts at every replay, so an engine's ``launches`` stay exact.
+* Launches: what the warm-up and the capture count in the launch ledger
+  (``kernels.build.LAUNCHES``) is given back; the capture's count is the
+  graph's launches, which every replay adds to the ledger.
 * On the CPU there is no graph: ``replay`` runs the step eagerly, through
   the same tape and the same static state.
 * ``capture_seconds``: what the warm-up and the capture took.
@@ -56,11 +55,25 @@ from typing import Callable, Hashable, Optional, Sequence
 import torch
 
 from spinglass_tpu_torch.core.rng import RandomTape
+from spinglass_tpu_torch.kernels import build
 from spinglass_tpu_torch.utils.profiling import global_profiler
 
 
 # a process-wide re-entrant lock: a driver may call another driver
 DRIVER_LOCK = threading.RLock()
+
+
+def sync(device: torch.device) -> None:
+    """Wait for ``device``'s work (a CUDA device; nothing on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _give_back(snapshot: dict) -> dict:
+    """The launches counted since ``snapshot``, taken out of the ledger."""
+    counted = build.launches_since(snapshot)
+    build.count_launches({k: -n for k, n in counted.items()})
+    return counted
 
 
 def serialized(fn: Callable) -> Callable:
@@ -157,21 +170,20 @@ def assign(static, new) -> None:
 class CapturedStep:
     """A driver step captured once and replayed (see the module
     docstring). ``state`` becomes ``self.state`` (storage shared between
-    leaves is split first); ``counters`` are (kernel name, object,
-    attribute) triples; ``record`` > 0 keeps the outputs of the last
+    leaves is split first); ``record`` > 0 keeps the outputs of the last
     ``record`` replays in ``history`` (the outputs' tree, each tensor with
     a leading [record] axis; ``row`` is the next row);
     ``warm_up(state) -> (throwaway state, restore)``
     replaces the default throwaway copy where a step must run on some of the
     run's own objects (PPO's parameters and optimizer: ``restore`` puts them
-    back after the warm-up). ``CapturedStep.made`` counts the steps
-    captured in this process."""
+    back after the warm-up). ``launches`` are the graph's per replay (kernel
+    name -> launches; empty on the CPU, whose replays count themselves).
+    ``CapturedStep.made`` counts the steps captured in this process."""
 
     made = 0
 
     def __init__(self, step: Callable, state, generator: torch.Generator,
-                 counters: Sequence = (), record: int = 0,
-                 warm_up: Optional[Callable] = None):
+                 record: int = 0, warm_up: Optional[Callable] = None):
         CapturedStep.made += 1
         self.step = step
         self.generator = generator
@@ -180,14 +192,13 @@ class CapturedStep:
         if not tensors:
             raise ValueError("a captured step needs a state on a device")
         self.device = tensors[0].device
-        self.counters = list(counters)
         self.tape = RandomTape(self.device)
-        self.launches = {name: 0 for name, _, _ in self.counters}
+        self.launches = {}
         self.graph = None
         self.outputs = None
         self.record = record
         t0 = time.perf_counter()
-        before = self._counts()
+        before = build.launch_snapshot()
         if warm_up is None:
             warm, restore = clone(self.state), None
         else:
@@ -210,7 +221,7 @@ class CapturedStep:
         del warm, out
         if restore is not None:
             restore()
-        self._set_counts(before)
+        _give_back(before)
         self.tape.allocate()
         if cuda:
             self.graph = torch.cuda.CUDAGraph()
@@ -220,25 +231,17 @@ class CapturedStep:
             # the capture fails)
             gc_was_on = gc.isenabled()
             gc.disable()
+            before = build.launch_snapshot()
             try:
                 with self.tape.serving(), torch.cuda.graph(self.graph):
                     self.outputs = self._run()
             finally:
                 if gc_was_on:
                     gc.enable()
-            after = self._counts()
-            self.launches = {k: after[k] - before[k] for k in before}
-            self._set_counts(before)
+            self.launches = _give_back(before)
         # warm-up and capture on the host clock (the capture waits for the
         # warm-up's device work, and instantiates the graph)
         self.capture_seconds = time.perf_counter() - t0
-
-    def _counts(self) -> dict:
-        return {name: getattr(obj, attr) for name, obj, attr in self.counters}
-
-    def _set_counts(self, counts: dict) -> None:
-        for name, obj, attr in self.counters:
-            setattr(obj, attr, counts[name])
 
     def _run(self):
         new, out = self.step(self.state)
@@ -271,8 +274,7 @@ class CapturedStep:
             return self.outputs
         with global_profiler.phase("step.launch"):
             self.graph.replay()
-        for name, obj, attr in self.counters:
-            setattr(obj, attr, getattr(obj, attr) + self.launches[name])
+        build.count_launches(self.launches)
         return self.outputs
 
 
@@ -286,11 +288,11 @@ class CapturedLearner:
     parameters and optimizer (Adam's state is built there, outside the
     graph, on the tensors the graph updates) and on a throwaway copy of the
     rest of the state, the generator included; then it puts the parameters
-    and the optimizer's state back as they were. ``counters`` are the
-    engine's launch counters; ``done`` counts replays."""
+    and the optimizer's state back as they were. ``done`` counts
+    replays."""
 
     def __init__(self, step_fn: Callable, state, keys: Sequence[str],
-                 counters: Sequence = (), k: int = 1):
+                 k: int = 1):
         self.k = k
         self.keys = keys = tuple(keys)
         self.done = 0
@@ -321,8 +323,8 @@ class CapturedLearner:
             warm = clone(dataclasses.replace(st, params=None, opt=None))
             return dataclasses.replace(warm, params=params, opt=opt), restore
 
-        self.step = CapturedStep(step, state, state.generator, counters,
-                                 record=k, warm_up=warm_up)
+        self.step = CapturedStep(step, state, state.generator, record=k,
+                                 warm_up=warm_up)
         self.state = self.step.state
         self._read = HostRead()
 

@@ -59,14 +59,14 @@ import torch
 
 from spinglass_tpu_torch.anneal import graphs
 from spinglass_tpu_torch.anneal.engines import (SweepEngine, best_row,
-                                                launch_counters, make_engine)
+                                                make_engine)
 from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.core import dynamics_analysis as dyn
 from spinglass_tpu_torch.core import energy as energy_ops
 from spinglass_tpu_torch.core.cluster import SwendsenWang
 from spinglass_tpu_torch.core.problem import random_spins
 from spinglass_tpu_torch.core.rng import device_uniforms, host_seed
-from spinglass_tpu_torch.kernels import cluster_cuda, overlap_cuda
+from spinglass_tpu_torch.kernels import build, overlap_cuda
 from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES
 from spinglass_tpu_torch.utils.checkpoint import CheckpointManager
 from spinglass_tpu_torch.utils.exceptions import CheckpointError
@@ -277,18 +277,27 @@ def _exchange_draws(cfg: PTConfig, generator: torch.Generator, device):
     return None, device_uniforms(generator, (c, nr - 1), device)
 
 
-def _one_sweep(problem, engine: SweepEngine, state: PTState,
-               betas: torch.Tensor) -> PTState:
-    beta = betas[state.slot.long()]
-    spins, de, cnt = engine.sweep(state.spins, beta, state.generator)
+def _tracked(engine: SweepEngine, state: PTState, spins: torch.Tensor,
+             de: torch.Tensor) -> PTState:
+    """``state`` after a move to ``spins`` that changed the energies by
+    ``de`` [R]: the energies, and the best energies and best spins where the
+    new energy is strictly lower."""
     energy = state.energy + de
     improved = energy < state.best_energy
     imp_b = improved[None, :] if engine.layout == "nr" else improved[:, None]
     return dataclasses.replace(
         state, spins=spins, energy=energy,
         best_energy=torch.where(improved, energy, state.best_energy),
-        best_spins=torch.where(imp_b, spins, state.best_spins),
-        sweep=state.sweep + 1,
+        best_spins=torch.where(imp_b, spins, state.best_spins))
+
+
+def _one_sweep(problem, engine: SweepEngine, state: PTState,
+               betas: torch.Tensor) -> PTState:
+    beta = betas[state.slot.long()]
+    spins, de, cnt = engine.sweep(state.spins, beta, state.generator)
+    state = _tracked(engine, state, spins, de)
+    return dataclasses.replace(
+        state, sweep=state.sweep + 1,
         acc_rate=cnt.to(torch.float32) / problem.n_spins)
 
 
@@ -303,14 +312,7 @@ def _cluster_moves(engine: SweepEngine, sw: SwendsenWang, state: PTState,
         s_rn, de_i, _ = sw.sweep(s_rn, betas[state.slot.long()],
                                  state.generator)
         de = de + de_i
-    spins = engine.to_layout(s_rn)
-    energy = state.energy + de
-    improved = energy < state.best_energy
-    imp_b = improved[None, :] if engine.layout == "nr" else improved[:, None]
-    return dataclasses.replace(
-        state, spins=spins, energy=energy,
-        best_energy=torch.where(improved, energy, state.best_energy),
-        best_spins=torch.where(imp_b, spins, state.best_spins))
+    return _tracked(engine, state, engine.to_layout(s_rn), de)
 
 
 def make_pt_step(problem, cfg: PTConfig,
@@ -320,11 +322,9 @@ def make_pt_step(problem, cfg: PTConfig,
     """The PT super-step: ``exchange_interval`` sweeps, ``cluster_moves``
     Swendsen-Wang sweeps, one exchange pass and an exact energy resync.
     Returns (super_step, betas_ladder, engine); ``super_step(state,
-    betas=None)`` returns (state, stats) with the stats as device tensors,
-    and ``super_step.counters`` lists the launch counters of the kernels it
-    runs (the engine's, C2's and C1's with cluster moves, the overlap
-    kernel's with ``measure_overlaps``). ``engine`` overrides make_engine's
-    choice."""
+    betas=None)`` returns (state, stats) with the stats as device tensors;
+    ``super_step.kernel_names`` names the kernels it can launch.
+    ``engine`` overrides make_engine's choice."""
     if engine is None:
         engine = make_engine(problem, sweep_method=cfg.sweep_method,
                              update_rule=cfg.update_rule,
@@ -374,20 +374,18 @@ def make_pt_step(problem, cfg: PTConfig,
                 state.slot)
         return state, stats
 
-    super_step.counters = launch_counters(engine) + (
-        [(cluster_cuda.BONDS_KERNEL, sw.bonds, "launches"),
-         (cluster_cuda.KERNEL_NAME, sw.labeller, "launches")] if sw else []
-    ) + ([(overlap_cuda.KERNEL, overlap, "launches")] if overlap else [])
     super_step.sw = sw
+    super_step.kernel_names = kernel_names_of(engine, sw, overlap)
     return super_step, betas_ladder, engine
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def kernel_names_of(*parts) -> tuple:
+    """The kernels a step can launch: the ``kernel_names`` of the engine and
+    of the other kernel objects it built (None for one it did not)."""
+    return sum((p.kernel_names for p in parts if p is not None), ())
 
 
-def capture_super_step(super_step: Callable, engine, state: PTState,
+def capture_super_step(super_step: Callable, state: PTState,
                        record: int = 0) -> graphs.CapturedStep:
     """``super_step`` (``make_pt_step``'s) as a captured step on ``state``
     (its sweep counter made a device tensor); each replay's output is the
@@ -395,14 +393,8 @@ def capture_super_step(super_step: Callable, engine, state: PTState,
     them in the step's ``history`` (each stat with a leading [record]
     axis)."""
     state = graphs.device_counter(state)
-    counters = getattr(super_step, "counters", None)
     return graphs.CapturedStep(super_step, state, state.generator,
-                               launch_counters(engine) if counters is None
-                               else counters, record=record)
-
-
-def _counts(counters) -> dict:
-    return {name: getattr(obj, attr) for name, obj, attr in counters}
+                               record=record)
 
 
 @graphs.serialized
@@ -447,27 +439,24 @@ def _run(problem, cfg: PTConfig, generator, ladder_override, checkpoint_dir,
          checkpoint_every: int, resume: bool) -> AnnealResult:
     n_super = max(1, cfg.n_sweeps // cfg.exchange_interval)
     key = ("run", graphs.config_key(cfg))
+    launches0 = build.launch_snapshot()
     entry = graphs.PT_CACHE.get(problem, key)
     if entry is None:
         super_step, betas_ladder, engine = make_pt_step(problem, cfg,
                                                         ladder_override)
-        counters = super_step.counters
     else:
         betas_ladder, engine, step = entry
         temps = (np.asarray(ladder_override, np.float32)
                  if ladder_override is not None else temperature_ladder(cfg))
         betas_ladder.copy_(torch.as_tensor(1.0 / temps))
-        counters = step.counters
-    launches0 = _counts(counters)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     with global_profiler.phase("pt.start"):
-        _sync(problem.device)
+        graphs.sync(problem.device)
         t0 = time.perf_counter()
         state = init_state(problem, cfg, generator, engine)
         if entry is None:
-            step = capture_super_step(super_step, engine, state,
-                                      record=n_super)
+            step = capture_super_step(super_step, state, record=n_super)
             graphs.PT_CACHE.put(problem, key,
                                 (betas_ladder, engine, step))
             capture_s = step.capture_seconds
@@ -496,13 +485,11 @@ def _run(problem, cfg: PTConfig, generator, ladder_override, checkpoint_dir,
         out = {k: v.to("cpu", copy=True).numpy() for k, v in dev_out.items()}
         out["hist"] = {k: v.to("cpu", copy=True).numpy()
                        for k, v in step.history.items()}
-        _sync(problem.device)
+        graphs.sync(problem.device)
         total = time.perf_counter() - t0
-        launches = _counts(counters)
         res = _assemble_result(problem, cfg, out, betas_ladder, n_super,
-                               total, engine,
-                               {k: v - launches0.get(k, 0)
-                                for k, v in launches.items()})
+                               total, engine, build.launches_since(
+                                   launches0, step.step.kernel_names))
         res.metadata["capture_seconds"] = capture_s
     try:  # prometheus gauges (host values only: no read of the device)
         from spinglass_tpu_torch.utils.metrics_exporter import (

@@ -47,12 +47,12 @@ import torch
 from spinglass_tpu_torch.anneal import graphs, schedules
 from spinglass_tpu_torch.anneal.engines import (GivenUniforms, SweepEngine,
                                                 best_row, best_track,
-                                                kernel_launches,
-                                                launch_counters, make_engine)
+                                                make_engine)
 from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.anneal.schedules import ScheduleConfig, ScheduleState
 from spinglass_tpu_torch.core import rng
 from spinglass_tpu_torch.core.problem import IsingProblem, random_spins
+from spinglass_tpu_torch.kernels import build, track_cuda
 from spinglass_tpu_torch.kernels.metropolis_cuda import J_DTYPES
 from spinglass_tpu_torch.kernels.track_cuda import start_best
 from spinglass_tpu_torch.utils.checkpoint import CheckpointManager
@@ -187,9 +187,9 @@ def run_chunk(problem: IsingProblem, config: SAConfig, engine: SweepEngine,
     return state, stats
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def step_kernels(engine) -> tuple:
+    """The kernels a chunk can launch: the engine's and ``sa_track``."""
+    return engine.kernel_names + (track_cuda.KERNEL,)
 
 
 def capture_chunk(problem: IsingProblem, config: SAConfig,
@@ -204,10 +204,8 @@ def capture_chunk(problem: IsingProblem, config: SAConfig,
         st, stats = run_chunk(problem, config, engine, st, n_sweeps)
         return st, torch.stack([stats[k].reshape(()) for k in STAT_KEYS])
 
-    best_track(engine)   # its launches are among the counters
     state = graphs.device_counter(state)
-    return graphs.CapturedStep(chunk, state, state.generator,
-                               launch_counters(engine), record=record)
+    return graphs.CapturedStep(chunk, state, state.generator, record=record)
 
 
 def _chunk_lengths(config: SAConfig) -> list:
@@ -266,7 +264,7 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
         key = ("anneal", graphs.config_key(config))
         entry = graphs.SA_CACHE.get(problem, key)
         engine = entry[0] if entry else make_sweep_engine(problem, config)
-        launches0 = kernel_launches(engine)
+        launches0 = build.launch_snapshot()
         e_hist, me_hist, t_hist, a_hist = [], [], [], []
         converged, conv_sweep = False, None
         sweeps_done = 0
@@ -275,7 +273,7 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
         with global_profiler.phase("sa.start"):
             state = init_state(problem, config, engine, generator, init_spins)
             generator = state.generator
-            _sync(problem.device)
+            graphs.sync(problem.device)
             t0 = time.perf_counter()
             if entry is None:
                 steps = {}   # chunk length -> its captured step, one state
@@ -326,7 +324,7 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
                         < config.convergence_tolerance):
                     converged, conv_sweep = True, sweeps_done
                     break
-        _sync(problem.device)
+        graphs.sync(problem.device)
         total = time.perf_counter() - t0
         return _result(problem, config, engine, state, launches0,
                        (e_hist, me_hist, t_hist, a_hist), sweeps_done,
@@ -346,7 +344,7 @@ def _anneal_given(problem: IsingProblem, config: SAConfig, uniforms,
     if config.enable_early_stop:
         raise ValueError("given uniforms run every sweep: no early stop")
     engine = GivenUniforms(make_sweep_engine(problem, config), uniforms)
-    launches0 = kernel_launches(engine)
+    launches0 = build.launch_snapshot()
     state = init_state(problem, config, engine, generator, init_spins)
     best_track(engine).reset(state.energy)
     hists = ([], [], [], [])
@@ -355,7 +353,7 @@ def _anneal_given(problem: IsingProblem, config: SAConfig, uniforms,
         state, stats = run_chunk(problem, config, engine, state, n)
         for h, k in zip(hists, STAT_KEYS):
             h.append(float(stats[k]))
-    _sync(problem.device)
+    graphs.sync(problem.device)
     return _result(problem, config, engine, state, launches0, hists,
                    config.n_sweeps, config.n_sweeps,
                    time.perf_counter() - t0, 0.0, init_spins is not None)
@@ -377,7 +375,6 @@ def _result(problem, config, engine, state, launches0, hists, sweeps_done,
         best_spins = best_row(engine, state.best_spins, best_r).cpu().numpy()[
             : problem.n_spins]
         flips = sweeps_done * config.n_replicas * problem.n_spins
-        launches = kernel_launches(engine)
         copies = best_track(engine).copies
         share = (int(copies.sum()) / (sweeps_run * copies.numel())
                  if sweeps_run > 0 else 0.0)
@@ -403,8 +400,8 @@ def _result(problem, config, engine, state, launches0, hists, sweeps_done,
             convergence_sweep=conv_sweep,
             metadata={"schedule": config.schedule.schedule_type.value,
                       "engine": engine.name,
-                      "kernel_launches": {k: v - launches0.get(k, 0)
-                                          for k, v in launches.items()},
+                      "kernel_launches": build.launches_since(
+                          launches0, step_kernels(engine)),
                       "capture_seconds": capture_s,
                       "start_spins": "given" if given else "drawn",
                       "best_copy_share": share},

@@ -6,8 +6,8 @@ They exist to check ``sa``, ``pt`` and the RL env end to end: a run through
 an engine and a run through its twin under one generator seed draw the same
 seeds, so on exact couplings (+-J, fields on a quarter grid) every piece of
 the state must be equal bit for bit. A seed may be a captured step's seed
-slot: the plain versions then compute on it where it lies. ``make_engine`` never picks them, and they launch no
-kernel: their ``launches`` stay at 0.
+slot: the plain versions then compute on it where it lies. ``make_engine``
+never picks them, and they launch no kernel.
 """
 
 from __future__ import annotations

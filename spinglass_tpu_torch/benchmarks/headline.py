@@ -57,7 +57,7 @@ import time
 import numpy as np
 import torch
 
-from spinglass_tpu_torch.anneal.engines import launch_counters
+from spinglass_tpu_torch.kernels import build
 
 N_SPINS = 4096
 N_REPLICAS = 1024
@@ -276,7 +276,7 @@ def bench_ttt(max_sweeps: int = 0, seeds=TTT_SEEDS) -> dict:
     }
 
 
-# the kernel symbols behind each launch counter (``engines.launch_counters``)
+# the kernel symbols behind each kernel name of the launch ledger
 KERNEL_SYMBOLS = {
     "metropolis_sweep": ("cluster_sweep_kernel", "tile_sweep_kernel"),
     "sparse_sweep": ("sparse_sweep_kernel",),
@@ -289,7 +289,7 @@ KERNEL_SYMBOLS = {
 
 
 def _profile(step, sweeps: int, top: int, graph_launches: int = 0,
-             counters=()) -> dict:
+             kernels=()) -> dict:
     """Where ``step`` (a closure that runs ``sweeps`` sweeps of a driver's
     loop and synchronises nothing itself) spends its time on the GPU.
 
@@ -300,9 +300,9 @@ def _profile(step, sweeps: int, top: int, graph_launches: int = 0,
     device-busy share (device time over the unprofiled run's wall time: the
     profiler's own host cost would otherwise count as idle) and the ``top``
     kernels. ``graph_launches`` is the number of graph replays in a step.
-    ``counters`` (``engines.launch_counters``): ``launch_check`` holds, per
-    counter, what it added over the recorded step against the profiler's
-    count of that kernel's symbols (``KERNEL_SYMBOLS``) in the same step.
+    ``kernels`` (names): ``launch_check`` holds, per name, what the launch
+    ledger counted over the recorded step against the profiler's count of
+    that kernel's symbols (``KERNEL_SYMBOLS``) in the same step.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -317,12 +317,12 @@ def _profile(step, sweeps: int, top: int, graph_launches: int = 0,
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         for _ in range(2):
-            before = {n: getattr(o, a) for n, o, a in counters}
+            before = build.launch_snapshot()
             t0 = time.perf_counter()
             step()
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
-            added = {n: getattr(o, a) - before[n] for n, o, a in counters}
+            added = build.launches_since(before, kernels)
             prof.step()
     # kernels only: an operator's entry repeats its kernels' device time,
     # and the step annotation ("ProfilerStep*") spans the whole run
@@ -369,8 +369,7 @@ def profile_batch(problems, top: int = 8) -> dict:
     run = batch.stacked_run(st, cfg)
     gen = torch.Generator().manual_seed(SEED)
     out = _profile(lambda: run.run(st, gen), cfg.n_sweeps, top,
-                   graph_launches=1,
-                   counters=[(run.sweep.kernel_name, run.sweep, "launches")])
+                   graph_launches=1, kernels=(run.sweep.kernel_name,))
     out.update(n_problems=st.n_problems, n_padded=st.n_padded,
                n_replicas=cfg.n_replicas)
     return out
@@ -428,9 +427,11 @@ def _sa_steppers(problem, r: int, sweeps: int, **cfg_kw) -> dict:
 
 
 def _profile_sa(problem, r: int, sweeps: int, top: int, **cfg_kw) -> dict:
+    from spinglass_tpu_torch.anneal import sa
+
     steps = _sa_steppers(problem, r, sweeps, **cfg_kw)
     out = _profile(steps["captured"], sweeps, top, graph_launches=1,
-                   counters=launch_counters(steps["engine"]))
+                   kernels=sa.step_kernels(steps["engine"]))
     out.update(n_spins=problem.n_spins, n_replicas=r,
                engine=steps["engine"].name)
     return out
@@ -459,8 +460,7 @@ def _pt_steppers(ell, cfg, engine, super_steps: int, read_each: bool) -> dict:
     runs of ``super_steps`` PT super-steps on states of their own; with
     ``read_each`` each super-step is followed by the 4-byte read of the best
     energy (the TTT loop), else one read ends the run (``pt.run``). Also
-    the engine and the super-step's launch counters (C1's too, with cluster
-    moves)."""
+    the engine and the super-step's kernel names."""
     from spinglass_tpu_torch.anneal import graphs
     from spinglass_tpu_torch.anneal import pt as pt_mod
 
@@ -470,9 +470,8 @@ def _pt_steppers(ell, cfg, engine, super_steps: int, read_each: bool) -> dict:
         st, stats = super_step(st)
         return st, stats["best_energy"]
 
-    best_of.counters = super_step.counters
     state = None   # the plain run's, made at its first call
-    captured = pt_mod.capture_super_step(best_of, engine, pt_mod.init_state(
+    captured = pt_mod.capture_super_step(best_of, pt_mod.init_state(
         ell, cfg, torch.Generator().manual_seed(SEED), engine))
     read = graphs.HostRead()
 
@@ -495,7 +494,7 @@ def _pt_steppers(ell, cfg, engine, super_steps: int, read_each: bool) -> dict:
         read([best])
 
     return {"plain": plain, "captured": replayed, "engine": engine,
-            "counters": super_step.counters}
+            "kernels": super_step.kernel_names}
 
 
 def profile_ttt(super_steps: int = 20, top: int = 8) -> dict:
@@ -509,7 +508,7 @@ def profile_ttt(super_steps: int = 20, top: int = 8) -> dict:
     steps = _pt_steppers(ell, cfg, None, super_steps, read_each=True)
     out = _profile(steps["captured"], super_steps * cfg.exchange_interval,
                    top, graph_launches=super_steps,
-                   counters=launch_counters(steps["engine"]))
+                   kernels=steps["kernels"])
     out.update(n_spins=ell.n_spins, n_replicas=cfg.n_replicas,
                engine=steps["engine"].name, super_steps=super_steps)
     return out
@@ -556,12 +555,13 @@ def profile_pt_wide(path: str = "threshold", super_steps: int = 3,
     ell = sparse_bench_problem()
     cfg = pt_wide_config()
     engine = pt_wide_engine(ell, path)
+    launches0 = build.launch_snapshot()
     out = _profile(_pt_stepper(ell, cfg, engine, super_steps),
                    super_steps * cfg.exchange_interval, top,
-                   graph_launches=super_steps,
-                   counters=launch_counters(engine))
+                   graph_launches=super_steps, kernels=engine.kernel_names)
     out.update(n_spins=ell.n_spins, n_replicas=cfg.n_replicas * cfg.n_chains,
-               path=path, launches=engine.launches)
+               path=path, launches=build.launches_since(launches0,
+                                                        engine.kernel_names))
     return out
 
 
@@ -611,13 +611,18 @@ def bench_pt16(super_steps: int = 30) -> dict:
     cfg = pt_mod.PTConfig(n_replicas=16, seed=SEED)
     engines = {"plain [R, N]": SortedSparseEngine(ell),
                "make_engine's": make_engine(ell, r_hint=16)}
+    launches0 = build.launch_snapshot()
     steppers = {label: _pt_stepper(ell, cfg, engine, super_steps)
                 for label, engine in engines.items()}
+    value = _in_turns(steppers, super_steps * cfg.exchange_interval)
     return {"metric": "pt16_ms_per_sweep", "unit": "ms/sweep",
-            "value": _in_turns(steppers, super_steps * cfg.exchange_interval),
+            "value": value,
             "extras": {"n_spins": ell.n_spins, "n_replicas": 16,
                        "engines": {k: e.name for k, e in engines.items()},
-                       "launches": {k: dict(getattr(e, "launches", {}))
+                       # the plain engine launches no kernel: the ledger's
+                       # counts are make_engine's
+                       "launches": {k: build.launches_since(launches0,
+                                                            e.kernel_names)
                                     for k, e in engines.items()},
                        "nvidia_smi": device_description()}}
 
@@ -694,11 +699,13 @@ def profile_rl(n: int = RL_SPINS, n_envs: int = RL_ENVS, top: int = 8) -> dict:
     update's wall time split into its rollout (the env steps, the
     auto-resets and the policy's forward passes) and its learning phase
     (GAE and the minibatch Adam steps), each synchronised."""
+    launches0 = build.launch_snapshot()
     steps = _rl_steppers(n, n_envs)
     init_fn, update_fn = steps["init_fn"], steps["update_fn"]
+    kernels = update_fn.engine.kernel_names
     rollout_len = steps["env_steps"] // n_envs
     prof = _profile(steps["captured"], rollout_len, top, graph_launches=1,
-                    counters=launch_counters(update_fn.engine))
+                    kernels=kernels)
     state = init_fn()
     split = {"rollout": [], "learn": []}
     for _ in range(3):
@@ -723,7 +730,8 @@ def profile_rl(n: int = RL_SPINS, n_envs: int = RL_ENVS, top: int = 8) -> dict:
         sweep_kernel_share=sweep_us / prof["device_us_per_sweep"],
         rollout_seconds=min(split["rollout"]),
         learn_seconds=min(split["learn"]),
-        engine=update_fn.engine.name, launches=dict(update_fn.engine.launches))
+        engine=update_fn.engine.name,
+        launches=build.launches_since(launches0, kernels))
     return out
 
 
@@ -756,6 +764,7 @@ def bench_dqn(n_steps: int = 512, k: int = 1, n: int = RL_SPINS,
     if n_steps % k or n_steps < 2 * k:
         raise ValueError(f"n_steps {n_steps} must be a multiple of k {k}, "
                          f"at least two blocks")
+    launches0 = build.launch_snapshot()
     problem, env_cfg, cfg, init_fn, step_fn = _dqn_setup(n, n_envs, k)
     state = init_fn()
     torch.cuda.synchronize()
@@ -789,7 +798,8 @@ def bench_dqn(n_steps: int = 512, k: int = 1, n: int = RL_SPINS,
                    "final_mean_best_energy_per_spin":
                        rows[-1]["mean_best_energy"] / problem.n_spins,
                    "engine": step_fn.engine.name,
-                   "kernel_launches": dict(step_fn.engine.launches),
+                   "kernel_launches": build.launches_since(
+                       launches0, step_fn.engine.kernel_names),
                    "device": torch.cuda.get_device_name(0),
                    "nvidia_smi": device_description()},
     }
@@ -807,7 +817,9 @@ def profile_dqn(n: int = RL_SPINS, n_envs: int = RL_ENVS,
     from spinglass_tpu_torch.rl import dqn as dqn_mod
 
     _need_cuda()
+    launches0 = build.launch_snapshot()
     _, _, _, init_fn, step_fn = _dqn_setup(n, n_envs, 1)
+    kernels = step_fn.engine.kernel_names
     cap = dqn_mod.CapturedSteps(step_fn, init_fn(), 1)
     for _ in range(16):
         cap.replay()
@@ -816,8 +828,7 @@ def profile_dqn(n: int = RL_SPINS, n_envs: int = RL_ENVS,
         cap.replay()
         cap.read(1)
 
-    prof = _profile(replayed, 1, top, graph_launches=1,
-                    counters=launch_counters(step_fn.engine))
+    prof = _profile(replayed, 1, top, graph_launches=1, kernels=kernels)
     state = init_fn()
     split = {"act": [], "learn": []}
     for i in range(20):
@@ -843,7 +854,8 @@ def profile_dqn(n: int = RL_SPINS, n_envs: int = RL_ENVS,
         sweep_kernel_share=sweep_us / prof["device_us_per_sweep"],
         eager_act_seconds=min(split["act"]),
         eager_learn_seconds=min(split["learn"]),
-        engine=step_fn.engine.name, launches=dict(step_fn.engine.launches))
+        engine=step_fn.engine.name,
+        launches=build.launches_since(launches0, kernels))
     return out
 
 

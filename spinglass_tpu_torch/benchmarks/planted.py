@@ -131,9 +131,8 @@ def time_to_target(problem, target_energy: float, cfg=None,
             st, stats = super_step(st)
             return st, stats["best_energy"]
 
-        best_of.counters = super_step.counters  # C1's too, with cluster moves
         captured = pt_mod.capture_super_step(
-            best_of, engine, pt_mod.init_state(
+            best_of, pt_mod.init_state(
                 problem, cfg, torch.Generator().manual_seed(0), engine))
         graphs.PT_CACHE.put(problem, key, (engine, captured))
     else:

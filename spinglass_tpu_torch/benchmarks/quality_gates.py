@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from spinglass_tpu_torch.core.problem import resolve_device
+from spinglass_tpu_torch.kernels import build
 
 
 @dataclass
@@ -230,14 +231,14 @@ def _gate_sharded_kernel_cuda(device) -> GateResult:
         return GateResult("sharded_kernel_cuda", False,
                           f"dispatch picked {engine.name}, not the "
                           f"sharded K1 engine")
-    launches0 = engine.launches
+    launches0 = build.launch_snapshot()
     state = init()
     state, stats = step(state)
     torch.cuda.synchronize(device)
     ok = bool(torch.all(torch.isfinite(state.energy)))
     slots = np.sort(stats["slot_of_replica"].cpu().numpy())
     slots_ok = bool((slots == np.arange(cfg.n_replicas)).all())
-    moved = {k: v - launches0.get(k, 0) for k, v in engine.launches.items()}
+    moved = build.launches_since(launches0, engine.kernel_names)
     return GateResult("sharded_kernel_cuda",
                       ok and slots_ok and sum(moved.values()) > 0,
                       f"K1 under the sharded engine on the card: finite="

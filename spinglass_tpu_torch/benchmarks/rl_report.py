@@ -36,6 +36,7 @@ def run(name: str, updates: int, seeds: int) -> dict:
     import torch
 
     from spinglass_tpu_torch.benchmarks import headline
+    from spinglass_tpu_torch.kernels import build
     from spinglass_tpu_torch.rl import env as env_mod
     from spinglass_tpu_torch.rl import evaluate
 
@@ -46,6 +47,7 @@ def run(name: str, updates: int, seeds: int) -> dict:
         env_cfg = dataclasses.replace(env_cfg, n_envs=128)
         best_known = prov["best_known_energy"]
     engine = env_mod.default_engine(problem, env_cfg)
+    launches0 = build.launch_snapshot()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     report = evaluate.learning_report(problem, env_cfg, ppo_cfg,
@@ -61,7 +63,8 @@ def run(name: str, updates: int, seeds: int) -> dict:
                 for i in sorted({0, len(curve) // 4, len(curve) // 2,
                                  len(curve) - 1})],
             "best_known_energy": best_known,
-            "engine": engine.name, "kernel_launches": dict(engine.launches),
+            "engine": engine.name, "kernel_launches": build.launches_since(
+                launches0, engine.kernel_names),
             "nvidia_smi": headline.device_description(), **report}
 
 

@@ -206,9 +206,11 @@ def _ell_reverse_slots(idx, val):
 class SwendsenWang:
     """Swendsen-Wang multi-cluster updates, batched over replicas, on a
     dense ``IsingProblem`` (converted to ELL once) or an ``EllProblem``
-    (see the module docstring). ``bonds`` is C2 and ``labeller`` C1, each
-    with its launch count; ``last_rounds`` [R] holds the labelling rounds
-    of the last sweep."""
+    (see the module docstring). ``bonds`` is C2 and ``labeller`` C1
+    (``kernel_names``); ``last_rounds`` [R] holds the labelling rounds of
+    the last sweep."""
+
+    kernel_names = (cluster_cuda.BONDS_KERNEL, cluster_cuda.KERNEL_NAME)
 
     def __init__(self, problem):
         ell = problem if isinstance(problem, EllProblem) \

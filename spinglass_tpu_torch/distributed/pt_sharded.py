@@ -41,14 +41,14 @@ import torch.distributed as dist
 from spinglass_tpu_torch.anneal import graphs
 from spinglass_tpu_torch.anneal import pt as pt_mod
 from spinglass_tpu_torch.anneal.engines import (CudaFusedEngine, best_row,
-                                                launch_counters, make_engine)
+                                                make_engine)
 from spinglass_tpu_torch.anneal.pt import PTConfig, PTState
 from spinglass_tpu_torch.anneal.result import AnnealResult
 from spinglass_tpu_torch.core import rng
 from spinglass_tpu_torch.core.cluster import SwendsenWang
 from spinglass_tpu_torch.core.problem import random_spins
 from spinglass_tpu_torch.distributed import multihost
-from spinglass_tpu_torch.kernels import cluster_cuda
+from spinglass_tpu_torch.kernels import build
 from spinglass_tpu_torch.kernels.sparse import SortedSparseTEngine
 
 
@@ -101,16 +101,10 @@ class ShardedEngine:
         # the replica axis of the engine's layout
         self.replica_dim = 1 if engine.layout == "nr" else 0
         self.name = self._name(engine)
-        for attr in ("fused", "kernels"):   # launch counters
-            if hasattr(engine, attr):
-                setattr(self, attr, getattr(engine, attr))
+        self.kernel_names = engine.kernel_names
 
     def _name(self, engine) -> str:
         return engine.name
-
-    @property
-    def launches(self) -> dict:
-        return dict(getattr(self.inner, "launches", {}))
 
     def stream(self, generator) -> rng.ShardStream:
         return rng.ShardStream(generator, self.rank, self.world,
@@ -187,9 +181,11 @@ def make_sharded_pt_step(problem, cfg: PTConfig, mesh,
     shard: ``exchange_interval`` sweeps, ``cluster_moves`` Swendsen-Wang
     sweeps, the gather, the exchange pass and the energy resync; its stats
     are ``pt.make_pt_step``'s, from the gathered vectors (the same on every
-    rank). ``init(generator=None)`` is the rank's start state (the slice of
-    ``pt.init_state``'s). ``shard`` is the rank's slice of the replica axis.
-    ``engine`` overrides ``make_sharded_engine``'s choice."""
+    rank); ``step.kernel_names`` names the kernels it can launch (it
+    measures no overlaps). ``init(generator=None)`` is the rank's start
+    state (the slice of ``pt.init_state``'s). ``shard`` is the rank's slice
+    of the replica axis. ``engine`` overrides ``make_sharded_engine``'s
+    choice."""
     rank, world, group = mesh_rank(mesh)
     if cfg.n_replicas % world != 0:
         raise ValueError(
@@ -245,9 +241,7 @@ def make_sharded_pt_step(problem, cfg: PTConfig, mesh,
         }
         return state, stats
 
-    step.counters = launch_counters(engine) + (
-        [(cluster_cuda.BONDS_KERNEL, sw.bonds, "launches"),
-         (cluster_cuda.KERNEL_NAME, sw.labeller, "launches")] if sw else [])
+    step.kernel_names = pt_mod.kernel_names_of(engine, sw)
 
     def init(generator: Optional[torch.Generator] = None) -> PTState:
         if generator is None:
@@ -273,11 +267,6 @@ def make_sharded_pt_step(problem, cfg: PTConfig, mesh,
 SHARDED_CACHE = graphs.StepCache("pt_sharded_steps")
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 @graphs.serialized
 def run(problem, cfg: Optional[PTConfig] = None, mesh=None,
         generator: Optional[torch.Generator] = None) -> AnnealResult:
@@ -294,24 +283,21 @@ def run(problem, cfg: Optional[PTConfig] = None, mesh=None,
     rank, world, group = mesh_rank(mesh)
     n_super = max(1, cfg.n_sweeps // cfg.exchange_interval)
     key = ("run", graphs.config_key(cfg), id(mesh))
+    launches0 = build.launch_snapshot()
     entry = SHARDED_CACHE.get(problem, key)
     step_fn, init = None, None
     if entry is None:
         step_fn, init, betas_ladder, engine, _ = make_sharded_pt_step(
             problem, cfg, mesh)
-        counters = step_fn.counters
     else:
         _, betas_ladder, engine, init, captured = entry
-        counters = captured.counters
-    launches0 = pt_mod._counts(counters)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    _sync(problem.device)
+    graphs.sync(problem.device)
     t0 = time.perf_counter()
     state = init(generator)
     if entry is None:
-        captured = pt_mod.capture_super_step(step_fn, engine, state,
-                                             record=n_super)
+        captured = pt_mod.capture_super_step(step_fn, state, record=n_super)
         SHARDED_CACHE.put(problem, key,
                           (mesh, betas_ladder, engine, init, captured))
         capture_s = captured.capture_seconds
@@ -337,12 +323,11 @@ def run(problem, cfg: Optional[PTConfig] = None, mesh=None,
     out = {k: v.to("cpu", copy=True).numpy() for k, v in dev_out.items()}
     out["hist"] = {k: v.to("cpu", copy=True).numpy()
                    for k, v in captured.history.items()}
-    _sync(problem.device)
+    graphs.sync(problem.device)
     total = time.perf_counter() - t0
-    launches = pt_mod._counts(counters)
     res = pt_mod._assemble_result(
         problem, cfg, out, betas_ladder, n_super, total, engine,
-        {k: v - launches0.get(k, 0) for k, v in launches.items()})
+        build.launches_since(launches0, captured.step.kernel_names))
     res.algorithm = f"pt_sharded/{engine.name}x{world}"
     res.metadata["n_devices"] = world
     res.metadata["capture_seconds"] = capture_s

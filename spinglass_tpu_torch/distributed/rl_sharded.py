@@ -117,7 +117,7 @@ def make_sharded_ppo(problem, env_cfg: EnvConfig,
     whole learner); ``update_fn(state)`` one PPO iteration: the rank's
     rollout, the gather, the replicated learning phase. Its metrics are the
     global ones (0-d device tensors), the same on every rank.
-    ``update_fn.engine`` is the sharded engine (its launch counters)."""
+    ``update_fn.engine`` is the sharded engine (its ``kernel_names``)."""
     mesh = mesh if mesh is not None else make_mesh(problem.device, axis)
     rank, world, group = mesh_rank(mesh)
     if env_cfg.n_envs % world != 0:

@@ -7,6 +7,14 @@ includes, and the nvcc command, so an edited source, header or flag builds
 anew and an unchanged one is reused. ``build_many`` starts one nvcc per
 source, all at once. Nothing here runs at import time; a failed build
 raises.
+
+The launch ledger, ``LAUNCHES``: kernel name -> launches made in this
+process, a read-only view. Every kernel wrapper counts a launch there once
+it has succeeded (``count_launches``), and only there; a reader takes a
+``launch_snapshot`` and reads ``launches_since`` it. A captured step
+(``anneal.graphs.CapturedStep``) gives back what its warm-up and capture
+counted and adds its graph's launches at every replay; a driver reports
+``launches_since`` its start for the kernels its step can launch.
 """
 
 from __future__ import annotations
@@ -17,7 +25,11 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
+from collections import Counter
+from types import MappingProxyType
+from typing import Iterable, Mapping, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -120,3 +132,34 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(build(name))
     return _LIBS[name]
+
+
+# -- the launch ledger ---------------------------------------------------------
+
+_LEDGER: Counter = Counter()
+_LAUNCH_LOCK = threading.Lock()
+LAUNCHES = MappingProxyType(_LEDGER)
+
+
+def count_launches(counts: Mapping[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches; negative ones give launches
+    back) to the ledger."""
+    with _LAUNCH_LOCK:
+        for name, n in counts.items():
+            _LEDGER[name] += n
+
+
+def launch_snapshot() -> dict:
+    """The ledger's counts now."""
+    with _LAUNCH_LOCK:
+        return dict(_LEDGER)
+
+
+def launches_since(snapshot: Mapping[str, int],
+                   names: Optional[Iterable[str]] = None) -> dict:
+    """Launches counted since ``snapshot``: for each of ``names`` (zeros
+    included), or, without names, for every kernel whose count moved."""
+    now = launch_snapshot()
+    if names is None:
+        names = [k for k in now if now[k] != snapshot.get(k, 0)]
+    return {k: now.get(k, 0) - snapshot.get(k, 0) for k in names}

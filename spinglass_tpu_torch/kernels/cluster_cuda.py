@@ -26,7 +26,8 @@ equal the JAX loop's.
 The Philox mode's draws are ``metropolis_cuda.sw_philox_draws`` (the
 counter layout is in ``csrc/philox.cuh``). For CPU tensors each wrapper runs
 its plain version; for CUDA tensors it launches its kernel or raises, and
-adds one to ``launches``. Nothing is built at import time.
+counts the launch in the launch ledger (``build.LAUNCHES``). Nothing is
+built at import time.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from typing import Optional
 import torch
 
 from spinglass_tpu_torch.kernels import metropolis_cuda as mc
+from spinglass_tpu_torch.kernels.build import count_launches
 
 KERNEL_NAME = "sw_labels"      # C1
 BONDS_KERNEL = "sw_bonds"      # C2
@@ -224,8 +226,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 class BondActivation:
-    """C2 on one ELL problem's operands, with its launch count (see the
-    module docstring). idx [Np, K] int32, val [Np, K] float32, h [Np]
+    """C2 on one ELL problem's operands (see the module docstring). idx [Np, K] int32, val [Np, K] float32, h [Np]
     float32, active [Np] bool, rev_i / rev_k [Np, K] int32 (the lower end's
     slot of each edge, ``core.cluster._ell_reverse_slots``)."""
 
@@ -236,7 +237,6 @@ class BondActivation:
         self.active = active.to(torch.bool).contiguous()
         self.rev_i = rev_i.to(torch.int32).contiguous()
         self.rev_k = rev_k.to(torch.int32).contiguous()
-        self.launches = 0
         self._lib = None
 
     def __call__(self, spins: torch.Tensor, beta: torch.Tensor,
@@ -279,17 +279,16 @@ class BondActivation:
                 _ptr(u_dir), _ptr(u_ghost), value, address, masks.data_ptr(),
                 init.data_ptr(), n, k, r, stream)
         _raise_on(self._lib, err, BONDS_KERNEL)
-        self.launches += 1
+        count_launches({BONDS_KERNEL: 1})
         return masks, init
 
 
 class ClusterLabels:
-    """C1 with its launch count (see the module docstring). ``blocks``
+    """C1 (see the module docstring). ``blocks``
     fixes where the parent table lives (``labels_plan``); None lets the
     shapes pick."""
 
     def __init__(self, blocks: Optional[int] = None):
-        self.launches = 0
         self.blocks = blocks
         self._lib = None
 
@@ -351,5 +350,5 @@ class ClusterLabels:
                 labels.data_ptr(), n_clusters.data_ptr(), rounds.data_ptr(),
                 _ptr(scratch), n, k, r, mode, blocks, shift, stream)
         _raise_on(self._lib, err, KERNEL_NAME)
-        self.launches += 1
+        count_launches({KERNEL_NAME: 1})
         return out, n_clusters, labels, rounds

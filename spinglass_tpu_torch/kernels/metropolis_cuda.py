@@ -38,8 +38,8 @@ here that expresses the same algorithm:
 All are built by ``kernels/build.py``. ``FusedSweep`` picks the variant and
 runs its twin only for tensors on the CPU. For a CUDA tensor it launches the
 kernel or raises: a failed build or launch is an exception, never a
-fallback. Each launch adds one to ``FusedSweep.launches``, and nothing else
-does; ``FusedSweep.kernel_name`` names the variant's kernel.
+fallback. Each launch is counted under ``FusedSweep.kernel_name``, the
+variant's kernel, in the launch ledger (``build.LAUNCHES``).
 
 ``j_dtype="bfloat16"`` (the JAX package's mode) rounds J once to bfloat16:
 every kernel and twin then sweeps on ``j.bfloat16().float()``, diagonal
@@ -69,7 +69,6 @@ The two agree for u <= 0.999999.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 from typing import Tuple
 
@@ -77,6 +76,8 @@ import numpy as np
 import torch
 
 from spinglass_tpu_torch.core.problem import IsingProblem
+# LAUNCHES, the launch ledger's read-only view, stays importable from here
+from spinglass_tpu_torch.kernels.build import LAUNCHES, count_launches  # noqa
 from spinglass_tpu_torch.kernels.sweeps import canonical_rule
 
 GLAUBER_U_MAX = 0.999999
@@ -93,25 +94,6 @@ PIPELINED_BLOCK_TILE = (8, 1)   # K5's one-block kernel
 FOLDED_BLOCK_TILE = (32, 1)     # K7's one-block kernel
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a thread block can use (H100)
 
-# kernel name -> the launches counted by every dense sweep object, those
-# since collected included: each object's ``launches`` moves it by as much
-# as it moves itself (a captured step's replays, and the warm-up launches it
-# takes back, included), so a caller can zero it before a path that builds
-# its sweep objects inside and read the path's launches after
-LAUNCHES: collections.Counter = collections.Counter()
-
-
-class _Counted:
-    """``launches`` of a dense sweep object, tallied in ``LAUNCHES``."""
-
-    @property
-    def launches(self) -> int:
-        return self._launches
-
-    @launches.setter
-    def launches(self, value: int) -> None:
-        LAUNCHES[self.kernel_name] += value - getattr(self, "_launches", 0)
-        self._launches = value
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -592,7 +574,7 @@ def load_kernel(name: str = KERNEL_NAME) -> ctypes.CDLL:
     return lib
 
 
-class FusedSweep(_Counted):
+class FusedSweep:
     """Per-problem fused sweep, [Np, R] spin layout, updated in place.
 
     ``block_size`` 0 picks 256 when it divides Np, else 128 (the kernels
@@ -679,7 +661,6 @@ class FusedSweep(_Counted):
         self.tile = TILE_RULES[self.kernel_name](n_pad, block_size)
         if self.interleave and self.tile != CLUSTER_TILE:
             self.tile = (8 * self.interleave, 1)  # K6's one-block kernel
-        self.launches = 0  # kernel launches made by this instance
         self._lib = None  # built and bound at the first CUDA launch
 
     def __call__(self, spins_t: torch.Tensor, beta, seed):
@@ -766,7 +747,7 @@ class FusedSweep(_Counted):
             msg = lib.sgt_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.kernel_name} launch failed: CUDA error "
                                f"{err} ({msg})")
-        self.launches += 1
+        count_launches({self.kernel_name: 1})
         return spins_t, de, cnt
 
 
@@ -810,7 +791,7 @@ def _seed_list(seeds, problems: int) -> list:
     return seeds
 
 
-class StackedFusedSweep(_Counted):
+class StackedFusedSweep:
     """K1 over P stacked problems of one padded size, in one launch: the
     port's counterpart of the JAX batch path's ``vmap`` of the blocked sweep
     (``anneal/batch.py``). Problem p is the kernel's ``blockIdx.y``; J is
@@ -822,7 +803,7 @@ class StackedFusedSweep(_Counted):
     ``planes`` is counted over the stack (3 if any problem's J needs them)
     unless given; ``tile`` is ``dense_tile``'s answer. On CPU tensors the
     plain twin (``fused_sweep_reference`` per problem) runs; on CUDA tensors
-    the kernel launches or raises. Each launch adds one to ``launches``."""
+    the kernel launches or raises. Each launch is counted in the ledger."""
 
     layout = "nr"
     kernel_name = KERNEL_NAME
@@ -847,7 +828,6 @@ class StackedFusedSweep(_Counted):
         self.rule = canonical_rule(rule)
         self.tile = dense_tile(n_pad, block_size)
         self._planes = planes
-        self.launches = 0
         self._lib = None
 
     @property
@@ -929,7 +909,7 @@ class StackedFusedSweep(_Counted):
             raise RuntimeError(f"{KERNEL_NAME} (stacked, P={n_problems}) "
                                f"launch failed: CUDA error {err} ({msg})")
         del keep   # freed to this stream: reused only after the launch
-        self.launches += 1
+        count_launches({KERNEL_NAME: 1})
         return spins, de, cnt
 
 

@@ -17,7 +17,8 @@ computes the same numbers in one launch and reads the state once. Pairs are
 
 ``ReplicaOverlap`` runs the twin for tensors on the CPU and the kernel for
 tensors on a CUDA device (a failed build or launch raises, never falls
-back); each launch adds one to ``launches``. Nothing is built at import.
+back); each launch is counted in the launch ledger (``build.LAUNCHES``).
+Nothing is built at import.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from spinglass_tpu_torch.kernels.build import count_launches
 
 KERNEL = "replica_overlap"
 MAX_CHAINS = 8
@@ -89,6 +92,8 @@ class ReplicaOverlap:
     integer sums and a ticket, left zeroed by every launch) is kept per
     replica count, so one instance serves one stream at a time."""
 
+    kernel_names = (KERNEL,)
+
     def __init__(self, mask: torch.Tensor, n_chains: int, n_real: int):
         if not 2 <= n_chains <= MAX_CHAINS:
             raise ValueError(f"overlaps need 2 to {MAX_CHAINS} chains, got "
@@ -97,7 +102,6 @@ class ReplicaOverlap:
         self.n_chains = n_chains
         self.n_real = int(n_real)
         self.n_pairs = n_chains * (n_chains - 1) // 2
-        self.launches = 0
         self._lib = None
         self._scratch = {}
 
@@ -135,5 +139,5 @@ class ReplicaOverlap:
             msg = self._lib.sgt_cuda_error_string(err).decode()
             raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err} "
                                f"({msg})")
-        self.launches += 1
+        count_launches({KERNEL: 1})
         return out

@@ -51,7 +51,10 @@ from spinglass_tpu_torch import native
 from spinglass_tpu_torch.core import topology
 from spinglass_tpu_torch.core.problem import (IsingProblem, real_rows,
                                               resolve_device, round_up)
-from spinglass_tpu_torch.kernels.sparse_cuda import SparseKernels
+from spinglass_tpu_torch.kernels.sparse_cuda import (ACCEPT_KERNEL,
+                                                     SWEEP_KERNEL,
+                                                     THRESHOLD_KERNEL,
+                                                     SparseKernels)
 from spinglass_tpu_torch.core.rng import device_uniforms, draw_seed
 from spinglass_tpu_torch.kernels.sweeps import (accept_threshold,
                                                 canonical_rule,
@@ -567,11 +570,12 @@ class SortedSparseTEngine:
 
     * ``bucket_order`` is ``build_sorted_t``'s row order inside a bucket.
 
-    K2 and K4 update the spins in place; so do their twins. Launches of K2,
-    K3 and K4 are counted in ``kernels`` (``launches`` reads them)."""
+    K2 and K4 update the spins in place; so do their twins.
+    ``kernel_names`` are K2's, K3's and K4's."""
 
     layout = "nr"
     name = "sparse_sorted_t"
+    kernel_names = (SWEEP_KERNEL, THRESHOLD_KERNEL, ACCEPT_KERNEL)
     # the TPU kernel kept [NS, R] f32 resident in VMEM up to this many bytes.
     # The limit stays on the card, by measurement: beyond it K4 is faster.
     # PT at [10240, 4096] on the H100 (700 W), ms/sweep in turns: K2 with the
@@ -644,13 +648,6 @@ class SortedSparseTEngine:
         self._sweep = make_sorted_t_sweep(self.groups)
         self._sweep_fused = (make_sorted_t_sweep_fused(self.kernels)
                              if tables is not None else None)
-
-    @property
-    def launches(self) -> dict:
-        """K2, K3 and K4 launches made through this engine."""
-        return {"sparse_sweep": self.kernels.sweep_launches,
-                "sparse_thresholds": self.kernels.threshold_launches,
-                "sparse_accept": self.kernels.accept_launches}
 
     def _single_fits(self, r: int) -> bool:
         return self.n_sorted * r * 4 <= self.SINGLE_VMEM_SPIN_BYTES
@@ -747,6 +744,7 @@ class SortedSparseEngine:
 
     layout = "rn"
     name = "sparse_sorted"
+    kernel_names = ()
 
     def __init__(self, problem, rule: str = "metropolis",
                  max_colors: int = 256, n_buckets: int = 4):
@@ -897,6 +895,7 @@ class SparseEngine:
 
     layout = "rn"
     name = "sparse_colored"
+    kernel_names = ()
 
     def __init__(self, problem, rule: str = "metropolis",
                  max_colors: int = 256, compact: bool = True):

@@ -28,8 +28,8 @@ beta)``, masked), ``accept_reference`` (the same on the colour's rows) and
 ``accept_gather_reference`` (slot-ordered fields, then ``accept_reference``),
 only for tensors on the CPU. For CUDA tensors they launch the kernel or
 raise: a failed build or launch is an exception, never a fallback. Each
-launch adds one to ``SparseKernels.sweep_launches``, ``threshold_launches``
-or ``accept_launches``, and nothing else does. The kernels and the twins use
+launch is counted under its kernel's name in the launch ledger
+(``build.LAUNCHES``). The kernels and the twins use
 the clamped Glauber threshold of ``metropolis_cuda.kernel_threshold``.
 Every ``seed`` is a host int or a seed slot (``metropolis_cuda.seed_arg``):
 the kernels take it by value or read it from the card's memory.
@@ -43,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spinglass_tpu_torch.kernels.build import count_launches
 from spinglass_tpu_torch.kernels.metropolis_cuda import (kernel_threshold,
                                                          philox_uniforms4,
                                                          seed_arg)
@@ -250,9 +251,6 @@ class SparseKernels:
             # row and reads its slots from the row-major tables)
             self._idx_t = tables["idx"].t().contiguous()
             self._val_t = tables["val"].t().contiguous()
-        self.sweep_launches = 0       # K2 launches made by this instance
-        self.threshold_launches = 0   # K3 launches made by this instance
-        self.accept_launches = 0      # K4 launches made by this instance
         self._libs = None             # built and bound at the first launch
         self._accept_lib = None
         self._accept_scratch = {}     # R -> (dE partials, count partials, tickets)
@@ -309,7 +307,7 @@ class SparseKernels:
                 cnt.data_ptr(), ns, t["idx"].shape[1], r, tile,
                 0 if self.rule == "metropolis" else 1, stream)
         _check(lib, err, SWEEP_KERNEL)
-        self.sweep_launches += 1
+        count_launches({SWEEP_KERNEL: 1})
         return spins_t, de, cnt
 
     def thresholds(self, beta, seed, r: int) -> torch.Tensor:
@@ -329,7 +327,7 @@ class SparseKernels:
                 th.data_ptr(), ns,
                 r, 0 if self.rule == "metropolis" else 1, stream)
         _check(lib, err, THRESHOLD_KERNEL)
-        self.threshold_launches += 1
+        count_launches({THRESHOLD_KERNEL: 1})
         return th
 
     def accept(self, f: torch.Tensor, spins_t: torch.Tensor, off: int,
@@ -411,8 +409,8 @@ class SparseKernels:
                 (ctypes.c_int * n_colors)(*rows), n_colors, r,
                 0 if self.rule == "metropolis" else 1, stream)
         _check(lib, err, ACCEPT_KERNEL)
-        self.accept_launches += sum(hi > lo for lo, hi
-                                    in zip(spans[:-1], spans[1:]))
+        count_launches({ACCEPT_KERNEL: sum(hi > lo for lo, hi
+                                           in zip(spans[:-1], spans[1:]))})
         return spins_t, de, cnt
 
     def _check_accept(self, spins_t, off: int, mc: int, beta, seed, de,
@@ -480,4 +478,4 @@ class SparseKernels:
                 off, mc, r,
                 rows, 0 if self.rule == "metropolis" else 1, stream)
         _check(lib, err, ACCEPT_KERNEL)
-        self.accept_launches += 1
+        count_launches({ACCEPT_KERNEL: 1})

@@ -13,7 +13,8 @@ bytes of float32 spins to read and write.
 
 ``BestTrack`` runs the twin for tensors on the CPU and the kernel for
 tensors on a CUDA device (a failed build or launch raises, never falls
-back); each launch adds one to ``launches``. ``copies`` [R] int32 counts,
+back); each launch is counted in the launch ledger (``build.LAUNCHES``).
+``copies`` [R] int32 counts,
 per replica, the sweeps whose spins were copied since the last ``reset``
 (the twin counts them too). Nothing is built at import.
 """
@@ -24,6 +25,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from spinglass_tpu_torch.kernels.build import count_launches
 
 KERNEL = "sa_track"
 LAYOUTS = ("nr", "rn")
@@ -74,7 +77,6 @@ class BestTrack:
     [R] outputs are new tensors; on the CPU all four are new tensors."""
 
     def __init__(self):
-        self.launches = 0
         self.copies = None
         self._lib = None
 
@@ -148,5 +150,5 @@ class BestTrack:
             msg = self._lib.sgt_cuda_error_string(err).decode()
             raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err} "
                                f"({msg})")
-        self.launches += 1
+        count_launches({KERNEL: 1})
         return e_out, b_out, best_spins, acc

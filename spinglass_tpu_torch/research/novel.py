@@ -280,7 +280,8 @@ def multi_scale_optimization(problem: IsingProblem,
     ``generator`` (default: seeded by ``cfg.seed``). ``metadata`` is the
     finest level's anneal's with the levels and the captures of all levels
     (one per level on a first call) and without its ``kernel_launches``:
-    ``metropolis_cuda.LAUNCHES`` counts those of all levels."""
+    the launch ledger (``kernels.build.LAUNCHES``) counts those of all
+    levels."""
     cfg = cfg or MSHOConfig()
     n = problem.n_spins
     j = problem.j[:n, :n].double().cpu().numpy()

@@ -190,7 +190,7 @@ def simulated_quantum_annealing(problem: IsingProblem,
     replaces them (``anneal_drawn``): the tests feed the JAX function's
     own. ``metadata`` holds the gammas, this call's captures
     (``graphs.CapturedStep.made``) and their seconds; its K1 launches are
-    counted in ``metropolis_cuda.LAUNCHES``."""
+    counted in the launch ledger (``kernels.build.LAUNCHES``)."""
     cfg = cfg or SQAConfig()
     n = problem.n_spins
     gammas = np.geomspace(cfg.gamma_start, max(cfg.gamma_end, 1e-3),

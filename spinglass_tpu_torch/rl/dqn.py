@@ -43,7 +43,6 @@ from torch import nn
 from torch.func import functional_call
 
 from spinglass_tpu_torch.anneal import graphs
-from spinglass_tpu_torch.anneal.engines import launch_counters
 from spinglass_tpu_torch.core.convert import flax_path, flax_transposed
 from spinglass_tpu_torch.core.problem import resolve_device
 from spinglass_tpu_torch.core.rng import device_generator, rand, randint
@@ -420,8 +419,7 @@ class CapturedSteps(graphs.CapturedLearner):
     is the captured ``DQNState``: its ``step`` counts on the device."""
 
     def __init__(self, act_and_learn, state: DQNState, k: int = 1):
-        super().__init__(act_and_learn, state, METRIC_KEYS,
-                         launch_counters(act_and_learn.engine), k)
+        super().__init__(act_and_learn, state, METRIC_KEYS, k)
 
 
 def _keystr(name: str) -> str:

@@ -37,7 +37,6 @@ import torch
 from torch.func import functional_call
 
 from spinglass_tpu_torch.anneal import graphs
-from spinglass_tpu_torch.anneal.engines import launch_counters
 from spinglass_tpu_torch.core.rng import device_generator, randint
 from spinglass_tpu_torch.research.validation import welch_t
 from spinglass_tpu_torch.rl import env as env_mod
@@ -123,8 +122,7 @@ def _episode(problem, env_cfg: EnvConfig, policy: Callable, engine,
     start = {"env_state": env_state, "obs": obs, "generator": generator}
     if captured is None:
         captured = graphs.CapturedStep(
-            episode_step(problem, env_cfg, policy, engine), start, generator,
-            launch_counters(engine))
+            episode_step(problem, env_cfg, policy, engine), start, generator)
     else:
         captured.load(start)
     for _ in range(n):

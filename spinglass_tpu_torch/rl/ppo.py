@@ -37,9 +37,9 @@ from torch import nn
 from torch.func import functional_call
 
 from spinglass_tpu_torch.anneal import graphs
-from spinglass_tpu_torch.anneal.engines import kernel_launches, launch_counters
 from spinglass_tpu_torch.core.rng import (device_generator, rand, randn,
                                           randperm)
+from spinglass_tpu_torch.kernels import build
 from spinglass_tpu_torch.rl import env as env_mod
 from spinglass_tpu_torch.rl.env import EnvConfig, EnvState
 
@@ -418,8 +418,7 @@ class CapturedUpdates(graphs.CapturedLearner):
     ``TrainState`` (its ``update`` counts replays)."""
 
     def __init__(self, update_fn, state: TrainState, k: int = 1):
-        super().__init__(update_fn, state, METRIC_KEYS,
-                         launch_counters(update_fn.engine), k)
+        super().__init__(update_fn, state, METRIC_KEYS, k)
 
     def replay(self) -> None:
         """One PPO update."""
@@ -442,9 +441,10 @@ def train(problem, env_cfg: Optional[EnvConfig] = None,
     rate leaves out the remainder and the first block (k = 1: the first two
     updates). The capture counts in the first update's time, where the JAX
     package compiles. The reads wait for the device, so the times are honest
-    wall times."""
+    wall times. ``kernel_launches`` are this call's."""
     env_cfg = env_cfg or EnvConfig()
     cfg = cfg or PPOConfig()
+    launches0 = build.launch_snapshot()
     init_fn, update_fn, model = make_ppo(problem, env_cfg, cfg, engine)
     state = resume_state if resume_state is not None else init_fn()
     start = int(state.update)
@@ -497,5 +497,6 @@ def train(problem, env_cfg: Optional[EnvConfig] = None,
         "final_mean_best_energy": history[-1]["mean_best_energy"]
         if history else float("nan"),
         "engine": getattr(update_fn.engine, "name", None),
-        "kernel_launches": kernel_launches(update_fn.engine),
+        "kernel_launches": build.launches_since(
+            launches0, getattr(update_fn.engine, "kernel_names", ())),
     }

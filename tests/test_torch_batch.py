@@ -32,6 +32,7 @@ from spinglass_tpu_torch.anneal.sa import SAConfig  # noqa: E402
 from spinglass_tpu_torch.anneal.schedules import ScheduleConfig  # noqa: E402
 from spinglass_tpu_torch.core import topology  # noqa: E402
 from spinglass_tpu_torch.core.problem import IsingProblem  # noqa: E402
+from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.kernels import metropolis_cuda as MC  # noqa: E402
 
 
@@ -105,13 +106,14 @@ def test_stacked_twin_matches_vmapped_blocked_sweep(n, r, rule):
     sw = MC.StackedFusedSweep(st.j, st.h, st.active_mask, block_size=128,
                               rule=rule)
     spins = torch.tensor(s0).transpose(1, 2).contiguous()
+    before = build.launch_snapshot()
     _, de, cnt = sw.sweep_with_uniforms(
         spins, torch.from_numpy(beta),
         torch.from_numpy(u).transpose(1, 2).contiguous())
     np.testing.assert_array_equal(spins.transpose(1, 2).numpy(), js)
     np.testing.assert_array_equal(de.numpy(), jde)
     np.testing.assert_array_equal(cnt.numpy(), jcnt)
-    assert sw.launches == 0
+    assert build.launches_since(before, [MC.KERNEL_NAME]) == {MC.KERNEL_NAME: 0}
 
 
 def _jax_draws(key, jst, cfg):
@@ -187,13 +189,15 @@ def test_captured_stacked_run_equals_eager_loop():
     B.clear_runs()
     cfg = SAConfig(n_sweeps=8, n_replicas=4, use_kernel="never")
     st = B.stack_problems(_both(_pm_j([20, 25], seed=2))[0])
+    before = build.launch_snapshot()
     run = B.stacked_run(st, cfg)
     got = run.run(st, torch.Generator().manual_seed(4))
     (be, bs, rep), launches = B.eager_stacked(st, cfg,
                                               torch.Generator().manual_seed(4))
     for a, b in zip(got, (be, bs, rep)):
         np.testing.assert_array_equal(a, b.numpy())
-    assert launches == 0 and run.sweep.launches == 0
+    assert launches == 0 and build.launches_since(
+        before, [MC.KERNEL_NAME]) == {MC.KERNEL_NAME: 0}
     st2 = B.stack_problems(_both(_pm_j([20, 25], seed=9))[0])
     assert B.stacked_run(st2, cfg) is run
     got2 = run.run(st2, torch.Generator().manual_seed(4))

@@ -31,6 +31,7 @@ from spinglass_tpu_torch.core import cluster as TC  # noqa: E402
 from spinglass_tpu_torch.core import topology  # noqa: E402
 from spinglass_tpu_torch.core.convert import pt_state_from_numpy  # noqa: E402
 from spinglass_tpu_torch.core.problem import IsingProblem  # noqa: E402
+from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.kernels import cluster_cuda as CC  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse as S  # noqa: E402
 
@@ -198,9 +199,12 @@ def test_labels_reference_reaches_the_unique_fixed_point(case):
         assert (lab.numpy() == -1).all()
     # on CUDA tensors the wrapper launches C1; here it runs the plain loop
     labeller = CC.ClusterLabels()
+    before = build.launch_snapshot()
     got, rounds_t = labeller(torch.as_tensor(idx), torch.as_tensor(bond),
                              torch.as_tensor(init))
-    assert torch.equal(got, lab) and labeller.launches == 0
+    assert torch.equal(got, lab)
+    assert build.launches_since(before, [CC.KERNEL_NAME]) == {
+        CC.KERNEL_NAME: 0}
     assert labeller._lib is None and rounds_t.tolist() == [rounds] * r
 
 
@@ -382,7 +386,8 @@ def test_super_step_with_cluster_moves_matches_jax(monkeypatch):
     jeng, teng = _JaxKeyUniforms(jell), _TorchGivenUniforms(tell, queue)
     jstep, _, _ = jpt.make_pt_step(jell, jcfg, engine=jeng)
     tstep, _, _ = pt.make_pt_step(tell, tcfg, engine=teng)
-    assert tstep.sw is not None and tstep.counters[-1][0] == "sw_labels"
+    assert tstep.sw is not None
+    assert tstep.kernel_names[-1] == "sw_labels"
     jstep = jax.jit(jstep)
     jst = jpt.init_state(jell, jcfg, jax.random.key(5), jeng)
     tst = pt_state_from_numpy(

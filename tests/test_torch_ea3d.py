@@ -16,9 +16,9 @@ torch.set_num_threads(1)
 
 from spinglass_tpu_torch.anneal import pt  # noqa: E402
 from spinglass_tpu_torch.anneal.engines import (GivenUniforms,  # noqa: E402
-                                                launch_counters, make_engine)
+                                                make_engine)
 from spinglass_tpu_torch.core.topology import lattice_coo  # noqa: E402
-from spinglass_tpu_torch.kernels import overlap_cuda  # noqa: E402
+from spinglass_tpu_torch.kernels import build, overlap_cuda  # noqa: E402
 from spinglass_tpu_torch.kernels.sparse import EllProblem  # noqa: E402
 from spinglass_tpu_torch.utils.profiling import global_profiler  # noqa: E402
 
@@ -144,7 +144,10 @@ def test_overlap_twin_matches_the_reference(dtype, n_chains):
     assert got.shape == (t, n_chains * (n_chains - 1) // 2)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     op = overlap_cuda.ReplicaOverlap(mask, n_chains, n_real)
-    assert torch.equal(op(s, slot), got) and op.launches == 0
+    before = build.launch_snapshot()
+    assert torch.equal(op(s, slot), got)
+    assert build.launches_since(before, [overlap_cuda.KERNEL]) == {
+        overlap_cuda.KERNEL: 0}
 
 
 @pytest.mark.parametrize("method", ["sparse", "sparse_t", "sparse_compact",
@@ -179,8 +182,8 @@ def test_each_engine_masks_the_padding_of_its_own_layout(method):
 
 def test_overlaps_off_leave_the_super_step_unchanged():
     """``measure_overlaps`` False (the default): today's stats keys and
-    counters; on: one more key and the overlap kernel's counter, and the
-    same states from the same generator."""
+    step kernels; on: one more key and the overlap kernel, and the same
+    states from the same generator."""
     p = _problem(4)
     kw = dict(n_replicas=4, n_chains=2, exchange_interval=3,
               sweep_method="sparse_t")
@@ -191,11 +194,10 @@ def test_overlaps_off_leave_the_super_step_unchanged():
         st = pt.init_state(p, cfg, torch.Generator().manual_seed(4), eng)
         for _ in range(2):
             st, stats = step(st)
-        out[on] = (st, stats, [c[0] for c in step.counters],
-                   [c[0] for c in launch_counters(eng)])
+        out[on] = (st, stats, step.kernel_names, eng.kernel_names)
     (a, sa, ca, la), (b, sb, cb, lb) = out[False], out[True]
     assert set(sa) == STATS and set(sb) == STATS | {"slot_overlap"}
-    assert ca == la and cb == lb + [overlap_cuda.KERNEL]
+    assert ca == la and cb == lb + (overlap_cuda.KERNEL,)
     for name in ("spins", "slot", "energy", "best_energy", "best_spins"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     assert pt.PTConfig().measure_overlaps is False

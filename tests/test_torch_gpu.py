@@ -16,6 +16,7 @@ from spinglass_tpu_torch.benchmarks.exact_instances import (  # noqa: E402
     bipartite_weights, grid_tsp)
 from spinglass_tpu_torch.core import topology  # noqa: E402
 from spinglass_tpu_torch.core.problem import IsingProblem  # noqa: E402
+from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.kernels import metropolis_cuda as MC  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse as S  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse_cuda as SC  # noqa: E402
@@ -39,6 +40,7 @@ def test_kernel_matches_twin_bitwise(cuda, r, rule, block):
     j = topology.fully_connected(500, dist="binary", seed=3)
     p = IsingProblem.from_dense(j, rng.integers(-8, 9, 500) / 4.0, device=cuda)
     fused = MC.FusedSweep(p, block_size=block, rule=rule)
+    l0 = build.launch_snapshot()
     s = torch.as_tensor(np.where(rng.random((512, r)) < 0.5, -1.0, 1.0),
                         dtype=torch.float32, device=cuda)
     s[500:] = 1.0
@@ -57,7 +59,7 @@ def test_kernel_matches_twin_bitwise(cuda, r, rule, block):
         torch.cuda.synchronize()
         assert torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
         assert torch.equal(de, de_p)
-    assert fused.launches == 3
+    assert build.launches_since(l0, [MC.KERNEL_NAME]) == {MC.KERNEL_NAME: 3}
 
 
 def _pm_j_ell(n, seed, device):
@@ -75,6 +77,7 @@ def test_sparse_kernels_match_twins_bitwise(cuda, r, rule):
     the same thresholds, bit for bit in spins, dE and counts."""
     ell = _pm_j_ell(500, 3, cuda)
     eng = S.SortedSparseTEngine(ell, rule=rule, accept_kernel="single")
+    l0 = build.launch_snapshot()
     gen = torch.Generator().manual_seed(r)
     s = eng.to_layout(torch.where(torch.rand(r, ell.n_padded, generator=gen)
                                   < 0.5, -1.0, 1.0).to(cuda))
@@ -92,8 +95,8 @@ def test_sparse_kernels_match_twins_bitwise(cuda, r, rule):
         torch.cuda.synchronize()
         assert torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
         assert torch.equal(de, de_p)
-    assert eng.launches == {"sparse_sweep": 3, "sparse_thresholds": 1,
-                            "sparse_accept": 0}
+    assert build.launches_since(l0, eng.kernel_names) == {
+        "sparse_sweep": 3, "sparse_thresholds": 1, "sparse_accept": 0}
 
 
 @pytest.mark.gpu
@@ -104,6 +107,7 @@ def test_sparse_engine_dispatch_on_cuda(cuda):
     from spinglass_tpu_torch.anneal.engines import make_engine
 
     ell = _pm_j_ell(500, 4, cuda)
+    l0 = build.launch_snapshot()
     eng = make_engine(ell, r_hint=128)
     assert eng.name == "sparse_sorted_t" and eng.spin_dtype == torch.float32
     assert make_engine(ell, r_hint=16).name == "sparse_sorted_t"
@@ -118,13 +122,15 @@ def test_sparse_engine_dispatch_on_cuda(cuda):
         assert s.dtype == torch.int8
         eng.sweep(s, torch.full((r,), 0.5, device=cuda), gen)
     torch.cuda.synchronize()
-    assert eng.launches == {"sparse_sweep": 1, "sparse_thresholds": 0,
-                            "sparse_accept": 2 * len(eng.groups)}
+    assert build.launches_since(l0, eng.kernel_names) == {
+        "sparse_sweep": 1, "sparse_thresholds": 0,
+        "sparse_accept": 2 * len(eng.groups)}
     none = S.SortedSparseTEngine(ell, accept_kernel="none")
     s = none.to_layout(torch.ones(256, ell.n_padded, device=cuda))
+    l1 = build.launch_snapshot()
     none.sweep(s, torch.full((256,), 0.5, device=cuda), gen)
-    assert none.launches == {"sparse_sweep": 0, "sparse_thresholds": 1,
-                             "sparse_accept": 0}
+    assert build.launches_since(l1, none.kernel_names) == {
+        "sparse_sweep": 0, "sparse_thresholds": 1, "sparse_accept": 0}
 
 
 @pytest.mark.gpu
@@ -137,11 +143,13 @@ def test_threshold_kernel_matches_twin_bitwise(cuda, r, rule):
     eng = S.SortedSparseTEngine(ell, rule=rule, accept_kernel="none")
     beta = torch.linspace(0.05, 3.0, r, device=cuda)
     seed = 2 ** 63 + r
+    l0 = build.launch_snapshot()
     th = eng.kernels.thresholds(beta, seed, r)
     want = SC.thresholds_reference(eng.mask_col, beta, seed, r, rule)
     torch.cuda.synchronize()
     assert torch.equal(th, want)
-    assert eng.kernels.threshold_launches == 1
+    assert build.launches_since(l0, [SC.THRESHOLD_KERNEL]) == {
+        SC.THRESHOLD_KERNEL: 1}
 
 
 @pytest.mark.gpu
@@ -160,6 +168,7 @@ def test_accept_gather_matches_plain_version_bitwise(cuda, spin_dtype, rule, r):
         eng = S.SortedSparseTEngine(ell, rule=rule, spin_dtype=spin_dtype,
                                     accept_kernel="fused")
         k = eng.kernels
+        l0 = build.launch_snapshot()
         gen = torch.Generator().manual_seed(r)
         s = eng.to_layout(torch.where(torch.rand(r, ell.n_padded, generator=gen)
                                       < 0.5, -1.0, 1.0).to(cuda))
@@ -185,7 +194,8 @@ def test_accept_gather_matches_plain_version_bitwise(cuda, spin_dtype, rule, r):
             tol = 1e-5 * float(out[1][0].abs().max())
             assert float((out[0][0] - out[1][0]).abs().max()) <= tol
             assert float((de_w - out[1][0]).abs().max()) <= tol
-        assert k.accept_launches == 2 * len(eng.groups)
+        assert build.launches_since(l0, [SC.ACCEPT_KERNEL]) == {
+            SC.ACCEPT_KERNEL: 2 * len(eng.groups)}
 
 
 @pytest.mark.gpu
@@ -226,6 +236,7 @@ def _variant_against_twin_and_k1(cuda, n, flags, r, rule, block, sweeps=3):
     n_pad = p.n_padded
     fused = MC.FusedSweep(p, block_size=block, rule=rule, **flags)
     flat = MC.FusedSweep(p, block_size=block, rule=rule)
+    l0 = build.launch_snapshot()
     s = torch.as_tensor(np.where(rng.random((n_pad, r)) < 0.5, -1.0, 1.0),
                         dtype=torch.float32, device=cuda)
     s[n:] = 1.0
@@ -246,7 +257,8 @@ def _variant_against_twin_and_k1(cuda, n, flags, r, rule, block, sweeps=3):
         assert torch.equal(de, de_p)
         assert torch.equal(s, s_k1) and torch.equal(cnt, cnt_1)
         assert torch.equal(de, de_1)
-    assert fused.launches == sweeps
+    assert build.launches_since(l0, [fused.kernel_name]) == {
+        fused.kernel_name: sweeps}
     return fused
 
 
@@ -306,6 +318,7 @@ def test_cluster_variants_anneal_like_k1(cuda, flags):
     best = []
     for kw in ({}, flags):
         engine = CudaFusedEngine(p, block_size=cfg.block_size, **kw)
+        l0 = build.launch_snapshot()
         state = sa.init_state(p, cfg, engine)
         for _ in range(10):
             for _ in range(50):
@@ -315,7 +328,8 @@ def test_cluster_variants_anneal_like_k1(cuda, flags):
             assert float(rel.max()) <= 1e-4
             state = dataclasses.replace(state, energy=exact)
         best.append(float(state.best_energy.min()) / 4096)
-        assert engine.launches[engine.fused.kernel_name] == 500
+        assert build.launches_since(l0, engine.kernel_names) == {
+            engine.fused.kernel_name: 500}
     assert best[1] <= -0.72 and abs(best[1] - best[0]) <= 0.005, best
 
 
@@ -329,6 +343,7 @@ def test_fused_accept_matches_twin_and_threshold_path(cuda, spin_dtype, r):
     ell = _pm_j_ell(500, 5, cuda)
     eng = S.SortedSparseTEngine(ell, accept_kernel="fused",
                                 spin_dtype=spin_dtype)
+    l0 = build.launch_snapshot()
     gen = torch.Generator().manual_seed(r)
     s = eng.to_layout(torch.where(torch.rand(r, ell.n_padded, generator=gen)
                                   < 0.5, -1.0, 1.0).to(cuda))
@@ -352,7 +367,8 @@ def test_fused_accept_matches_twin_and_threshold_path(cuda, spin_dtype, r):
     torch.cuda.synchronize()
     assert torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
     assert torch.equal(de, de_p)
-    assert eng.launches["sparse_accept"] == 1 + len(eng.groups)
+    assert build.launches_since(l0, [SC.ACCEPT_KERNEL]) == {
+        SC.ACCEPT_KERNEL: 1 + len(eng.groups)}
 
 
 def _three_plane_problem(n, seed, device):
@@ -399,6 +415,7 @@ def test_cluster_kernel_matches_twin_bitwise(cuda, r, rule, block, planes):
     beta = torch.as_tensor(rng.uniform(0.1, 2.0, r), dtype=torch.float32,
                            device=cuda)
     for sweep in sweeps:
+        l0 = build.launch_snapshot()
         s = torch.as_tensor(np.where(rng.random((n_pad, r)) < 0.5, -1.0, 1.0),
                             dtype=torch.float32, device=cuda)
         s[n:] = 1.0
@@ -419,7 +436,8 @@ def test_cluster_kernel_matches_twin_bitwise(cuda, r, rule, block, planes):
                 assert torch.equal(de, de_p)
             else:  # dE sums 2^-16 steps beyond 24 bits: its order shows
                 assert float((de - de_p).abs().max()) <= 1e-3
-        assert sweep.launches == 2
+        assert build.launches_since(l0, [sweep.kernel_name]) == {
+            sweep.kernel_name: 2}
 
 
 @pytest.mark.gpu
@@ -463,6 +481,7 @@ def test_sparse_sweep_at_the_shared_memory_envelope(cuda, n, tile):
     ell = _pm_j_ell(n, 11, cuda)
     eng = S.SortedSparseTEngine(ell, accept_kernel="single")
     k = eng.kernels
+    l0 = build.launch_snapshot()
     r = 1024 + 16  # dead columns in the last block
     assert SC.default_tile(r, eng.n_sorted) == tile
     assert (eng.n_sorted * 8 <= SC.TILE_SMEM_BYTES) == (tile == 8)
@@ -482,14 +501,16 @@ def test_sparse_sweep_at_the_shared_memory_envelope(cuda, n, tile):
         torch.cuda.synchronize()
         assert torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
         assert torch.equal(de, de_p) and int(cnt.sum()) > 0
-    assert k.sweep_launches == 2
+    assert build.launches_since(l0, [SC.SWEEP_KERNEL]) == {
+        SC.SWEEP_KERNEL: 2}
     big = SC.SparseKernels(torch.zeros(SC.TILE_SMEM_BYTES + 256, 1, device=cuda),
                            "metropolis", k.groups, k.tables)
     big.tables = dict(k.tables, idx=torch.zeros(SC.TILE_SMEM_BYTES + 256, 1))
     with pytest.raises(ValueError, match="shared memory"):
         big.single_sweep(torch.ones(SC.TILE_SMEM_BYTES + 256, 128, device=cuda),
                          beta[:128], seed=1)
-    assert big.sweep_launches == 0
+    assert build.launches_since(l0, [SC.SWEEP_KERNEL]) == {
+        SC.SWEEP_KERNEL: 2}   # the refused launch counted nothing
 
 
 @pytest.mark.gpu
@@ -531,14 +552,16 @@ def test_env_step_through_kernels_matches_twins(cuda, kind, n_envs, mode):
     action = {"discrete": idx,
               "continuous": torch.stack([frac + 0.6, frac], dim=-1),
               "hybrid": {"temp_index": idx, "sweep_frac": frac}}[mode]
-    out = []
+    out, launched = [], []
     for eng in (engine, twin):
         gen = torch.Generator().manual_seed(9)
+        l0 = build.launch_snapshot()
         state, _ = E.reset(problem, cfg, gen, eng)
         for _ in range(2):
             state, obs, reward, done = E.step(problem, cfg, state, action,
                                               gen, eng)
         out.append((state, obs, reward, done))
+        launched.append(build.launches_since(l0, [key])[key])
     torch.cuda.synchronize()
     (a, *a_rest), (b, *b_rest) = out
     for name in ("spins", "energy", "best_energy", "acc_rate", "temp",
@@ -546,8 +569,7 @@ def test_env_step_through_kernels_matches_twins(cuda, kind, n_envs, mode):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     assert all(torch.equal(x, y) for x, y in zip(a_rest, b_rest))
     assert a.spins.dtype == torch.float32 and float(a.acc_rate.sum()) > 0
-    assert engine.launches[key] == 2 * 4 * per_sweep
-    assert twin.launches[key] == 0
+    assert launched == [2 * 4 * per_sweep, 0]   # the engine's, the twin's
 
 
 @pytest.mark.gpu
@@ -573,13 +595,17 @@ def test_rl_entry_points_reach_the_kernel_by_default(cuda, monkeypatch):
     monkeypatch.setattr(E, "default_engine", counting)
     policies = {"geometric": V.make_geometric_policy(cfg),
                 "random": V.make_random_policy()}
+    l0 = build.launch_snapshot()
     report, _ = V.evaluate_controllers(problem, cfg, policies, n_seeds=2)
     assert len(built) == 1 and type(built[0]) is CudaFusedEngine
-    assert built[0].launches[MC.KERNEL_NAME] == 2 * 2 * 5 * 3
+    assert build.launches_since(l0, [MC.KERNEL_NAME]) == {
+        MC.KERNEL_NAME: 2 * 2 * 5 * 3}
     assert all(np.isfinite(v) for v in report["mean_best_energy"].values())
+    l1 = build.launch_snapshot()
     best = V.rollout_best_energy(problem, cfg, policies["random"],
                                  torch.Generator().manual_seed(0))
-    assert len(built) == 2 and built[1].launches[MC.KERNEL_NAME] == 5 * 3
+    assert len(built) == 2 and build.launches_since(
+        l1, [MC.KERNEL_NAME]) == {MC.KERNEL_NAME: 5 * 3}
     assert best.is_cuda and bool(torch.isfinite(best).all())
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(ValueError, match="default_engine"):
@@ -616,12 +642,14 @@ def test_dense_device_seed_equals_by_value(cuda, flags, n):
                                   1.0), dtype=torch.float32, device=cuda)
     beta = torch.full((80,), 0.7, device=cuda)
     a, b = s0.clone(), s0.clone()
+    l0 = build.launch_snapshot()
     _, de_a, cnt_a = fused(a, beta, 2 ** 61 + 12345)
     _, de_b, cnt_b = fused(b, beta, _slot(2 ** 61 + 12345, cuda))
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(de_a, de_b)
     assert torch.equal(cnt_a, cnt_b) and not torch.equal(a, s0)
-    assert fused.launches == 2
+    assert build.launches_since(l0, [fused.kernel_name]) == {
+        fused.kernel_name: 2}
 
 
 @pytest.mark.gpu
@@ -662,6 +690,36 @@ def test_sparse_device_seed_equals_by_value(cuda, r):
 
 
 @pytest.mark.gpu
+def test_captured_step_counts_its_graphs_launches(cuda):
+    """A step of three K1 sweeps captured on the card: the warm-up's and
+    the capture's launches are given back, the graph's launches per replay
+    are kept, and each replay adds them to the ledger."""
+    from spinglass_tpu_torch.anneal import graphs
+
+    p = IsingProblem.from_dense(
+        topology.fully_connected(300, dist="binary", seed=1), device=cuda)
+    fused = MC.FusedSweep(p, block_size=128)
+    gen = torch.Generator().manual_seed(0)
+    beta = torch.full((16,), 0.5, device=cuda)
+
+    def step(st):
+        s = st["s"]
+        for _ in range(3):
+            s, _, _ = fused(s, beta, 7)
+        return {"s": s}, None
+
+    l0 = build.launch_snapshot()
+    cap = graphs.CapturedStep(
+        step, {"s": torch.ones(p.n_padded, 16, device=cuda)}, gen)
+    assert build.launches_since(l0) == {}
+    assert cap.launches == {MC.KERNEL_NAME: 3}
+    for _ in range(2):
+        cap.replay()
+    torch.cuda.synchronize()
+    assert build.launches_since(l0) == {MC.KERNEL_NAME: 6}
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["K1", "K2", "K4"])
 def test_captured_anneal_equals_eager(cuda, kind):
     """anneal (two graphs: chunks of 10 and a last of 5) against the eager
@@ -688,7 +746,9 @@ def test_captured_anneal_equals_eager(cuda, kind):
     cfg = sa.SAConfig(n_sweeps=35, n_replicas=r, record_interval=10,
                       enable_early_stop=False, seed=11)
     res = sa.anneal(problem, cfg)
+    l0 = build.launch_snapshot()
     state, hist, engine = eager_anneal(problem, cfg)
+    eager = build.launches_since(l0, [key])[key]
     if kind == "K4":
         per = len(engine.groups)
     elif kind == "K2":
@@ -700,7 +760,7 @@ def test_captured_anneal_equals_eager(cuda, kind):
                                   state.best_energy.cpu().numpy())
     assert res.metadata["kernel_launches"][key] == 35 * per
     assert res.metadata["kernel_launches"]["sa_track"] == 35
-    assert engine.launches[key] == 35 * per
+    assert eager == 35 * per
     hits = graphs.SA_CACHE.hits
     # the profiler misses the first events it sees: the second call counts
     with profile(activities=[ProfilerActivity.CUDA],
@@ -748,7 +808,7 @@ def test_captured_pt_run_equals_eager_and_makes_no_sync(cuda):
         st, stats = super_step(st)
         return st, stats["best_energy"]
 
-    step = pt.capture_super_step(best_of, engine, pt.init_state(
+    step = pt.capture_super_step(best_of, pt.init_state(
         ell, cfg, torch.Generator().manual_seed(3), engine))
     read = graphs.HostRead()
     torch.cuda.synchronize()
@@ -807,6 +867,7 @@ def test_kernel_matches_twin_on_encoded_tsp(cuda, n_cities, n_pad, r):
     beta = torch.as_tensor(rng.uniform(0.005, 0.2, r), dtype=torch.float32,
                            device=cuda)
     flips = 0
+    l0 = build.launch_snapshot()
     for k in range(4):
         s_ref = s.clone()
         if k < 2:
@@ -821,7 +882,8 @@ def test_kernel_matches_twin_on_encoded_tsp(cuda, n_cities, n_pad, r):
         assert torch.equal(s, s_ref) and torch.equal(cnt, cnt_p)
         assert torch.equal(de, de_p)
         flips += int(cnt.sum())
-    assert fused.launches == 4 and flips > 0
+    assert build.launches_since(l0, [MC.KERNEL_NAME]) == {
+        MC.KERNEL_NAME: 4} and flips > 0
 
 
 @pytest.mark.gpu
@@ -974,10 +1036,12 @@ def test_sw_labels_kernel_matches_plain_labels(cuda, r, case):
     ell = _pm_j_ell(3000, 5, cuda)
     idx, bond, init = _sw_bond_sets(ell, r, cuda, case)
     c1 = CC.ClusterLabels()
+    l0 = build.launch_snapshot()
     labels, rounds = _c1_labels(c1, idx, bond, init)
     torch.cuda.synchronize()
     want, plain_rounds = CC.labels_reference(idx.cpu(), bond.cpu(), init.cpu())
-    assert torch.equal(labels.cpu(), want) and c1.launches == 1
+    assert torch.equal(labels.cpu(), want)
+    assert build.launches_since(l0, [CC.KERNEL_NAME]) == {CC.KERNEL_NAME: 1}
     assert (rounds.cpu() >= 1).all() and (rounds.cpu() <= ell.n_padded).all()
     assert int(rounds.max()) <= plain_rounds
 
@@ -1004,6 +1068,7 @@ def _sw_kernels_vs_plain(sw, s, beta, seed, blocks=None):
     k = sw._idx.shape[1]
     b = sw.bonds
     c1 = CC.ClusterLabels(blocks)
+    l0 = build.launch_snapshot()
     draws = MC.sw_philox_draws(seed, r, n, k, device=s.device)
     for mode in ({"seed": seed}, {"u_dir": draws[0], "u_ghost": draws[1]}):
         masks, init = b(s, beta, **mode)
@@ -1019,7 +1084,8 @@ def _sw_kernels_vs_plain(sw, s, beta, seed, blocks=None):
         want_s, want_n = CC.flip_reference(s, want_l, init, **flip)
         assert torch.equal(labels, want_l) and torch.equal(new, want_s)
         assert torch.equal(n_cl, want_n) and (rounds == 1).all()
-    assert b.launches == 2 and c1.launches == 2
+    assert build.launches_since(l0, [CC.BONDS_KERNEL, CC.KERNEL_NAME]) == {
+        CC.BONDS_KERNEL: 2, CC.KERNEL_NAME: 2}
     return CC.labels_plan(n, r, torch.cuda.get_device_properties(
         s.device).multi_processor_count, blocks)
 
@@ -1266,20 +1332,21 @@ def test_dqn_steps_through_kernels_equal_twins(cuda, kind, n_envs, per):
     engine = E.default_engine(problem, env_cfg)
     twin = (TwinFusedEngine(problem, block_size=128) if kind == "K1"
             else TwinSparseTEngine(problem))
-    states = []
+    key = {"K1": MC.KERNEL_NAME, "K2": "sparse_sweep",
+           "K4": "sparse_accept"}[kind]
+    states, launched = [], []
     for eng in (engine, twin):
+        l0 = build.launch_snapshot()
         init_fn, step_fn, _ = dqn.make_dqn(problem, env_cfg, cfg, engine=eng)
         st = init_fn(torch.Generator().manual_seed(4))
         for _ in range(3):
             st, _ = step_fn(st)
         states.append(st)
+        launched.append(build.launches_since(l0, [key])[key])
     torch.cuda.synchronize()
     assert _dqn_diff(*states) == []
-    key = {"K1": MC.KERNEL_NAME, "K2": "sparse_sweep",
-           "K4": "sparse_accept"}[kind]
     per_sweep = len(engine.groups) if kind == "K4" else 1
-    assert engine.launches[key] == 3 * 10 * per_sweep
-    assert twin.launches[key] == 0
+    assert launched == [3 * 10 * per_sweep, 0]   # the engine's, the twin's
 
 
 @pytest.mark.gpu
@@ -1297,6 +1364,7 @@ def test_captured_dqn_steps_equal_eager_on_the_card(cuda, per):
     cfg = dqn.DQNConfig(hidden_sizes=(32, 32), buffer_size=256,
                         batch_size=64, prioritized_replay=per)
     init_fn, step_fn, _ = dqn.make_dqn(problem, env_cfg, cfg)
+    l0 = build.launch_snapshot()
     cap = dqn.CapturedSteps(step_fn, init_fn(torch.Generator().manual_seed(6)),
                             4)
     assert cap.state.opt.defaults["capturable"]
@@ -1310,7 +1378,8 @@ def test_captured_dqn_steps_equal_eager_on_the_card(cuda, per):
             rows += cap.read(4)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert step_fn.engine.launches[MC.KERNEL_NAME] == 8 * 10
+    assert build.launches_since(l0, [MC.KERNEL_NAME]) == {
+        MC.KERNEL_NAME: 8 * 10}
     init_e, step_e, _ = dqn.make_dqn(problem, env_cfg, cfg)
     st = init_e(torch.Generator().manual_seed(6))
     want = []
@@ -1340,15 +1409,17 @@ def test_gym_episode_runs_k1_at_one_replica(cuda):
     assert type(env._engine) is CudaFusedEngine
     twin = adapter(problem, cfg,
                    engine=TwinFusedEngine(problem, block_size=128))
-    runs = []
+    runs, launched = [], []
     for e in (env, twin):
+        l0 = build.launch_snapshot()
         rows = [e.reset(seed=3)[0].tolist()]
         for t in range(8):
             obs, r, term, trunc, info = e.step((3 * t) % 10)
             rows.append((obs.tolist(), r, term, trunc, info))
         runs.append(rows)
+        launched.append(build.launches_since(l0, [MC.KERNEL_NAME]))
     assert runs[0] == runs[1] and runs[0][-1][3]
-    assert env._engine.launches[MC.KERNEL_NAME] == 8 * 5
+    assert launched[0] == {MC.KERNEL_NAME: 8 * 5}
 
 
 @pytest.mark.gpu
@@ -1477,9 +1548,11 @@ def test_stacked_k1_equals_single_launches_and_twin(cuda, n_problems, n, r,
                            dtype=torch.float32, device=cuda)
     seeds = torch.as_tensor(rng.integers(0, 2 ** 62, n_problems),
                             dtype=torch.int64, device=cuda)
+    stacked = 0   # the stacked sweep's launches (the single ones not counted)
     for k in range(2):
         singles = s.clone()
         twin = s.clone()
+        l0 = build.launch_snapshot()
         if k == 0:
             _, de, cnt = sw(s, beta, seeds)
             u = torch.stack([MC.philox_uniforms(seeds[p], n_pad, r, cuda)
@@ -1487,6 +1560,7 @@ def test_stacked_k1_equals_single_launches_and_twin(cuda, n_problems, n, r,
         else:
             u = torch.rand(n_problems, n_pad, r, device=cuda)
             _, de, cnt = sw.sweep_with_uniforms(s, beta, u)
+        stacked += build.launches_since(l0, [MC.KERNEL_NAME])[MC.KERNEL_NAME]
         for p, prob in enumerate(ps):
             one = MC.FusedSweep(prob, block_size=128, rule=rule)
             if k == 0:
@@ -1499,7 +1573,7 @@ def test_stacked_k1_equals_single_launches_and_twin(cuda, n_problems, n, r,
         torch.cuda.synchronize()
         assert torch.equal(s, singles) and torch.equal(s, twin)
         assert torch.equal(de, de_t) and torch.equal(cnt, cnt_t)
-    assert sw.launches == 2
+    assert stacked == 2
 
 
 @pytest.mark.gpu
@@ -1512,9 +1586,10 @@ def test_batch_captured_run_equals_eager_loop(cuda):
     cfg = SAConfig(n_sweeps=40, n_replicas=16)
     ps, st = _stacked_pm_j(4, 300, cuda, seed=5)
     batch.clear_runs()
+    l0 = build.launch_snapshot()
     run = batch.stacked_run(st, cfg)
     got = run.run(st, torch.Generator().manual_seed(9))
-    assert run.sweep.launches == 40
+    assert build.launches_since(l0, [MC.KERNEL_NAME]) == {MC.KERNEL_NAME: 40}
     (be, bs, rep), n = batch.eager_stacked(st, cfg,
                                            torch.Generator().manual_seed(9))
     assert n == 40
@@ -1596,14 +1671,16 @@ def test_sqa_stage_through_k1_equals_twin(cuda):
     cfg = Q.stage_config(Q.SQAConfig(n_trotter=4, n_replicas=16), 100, 0)
     eng = sa.make_sweep_engine(tp, cfg)
     assert eng.name == "cuda_fused" and eng.fused.planes == 3
-    out = []
+    out, launched = [], []
     for e in (eng, TwinFusedEngine(tp, block_size=cfg.block_size)):
+        l0 = build.launch_snapshot()
         st = sa.init_state(tp, cfg, e, torch.Generator().manual_seed(3))
         out.append(sa.run_chunk(tp, cfg, e, st, 100)[0])
+        launched.append(build.launches_since(l0, [MC.KERNEL_NAME]))
     torch.cuda.synchronize()
     for k in ("spins", "energy", "best_energy", "best_spins", "acc_rate"):
         assert torch.equal(getattr(out[0], k), getattr(out[1], k)), k
-    assert eng.fused.launches == 100
+    assert launched[0] == {MC.KERNEL_NAME: 100}
 
 
 @pytest.mark.gpu
@@ -1614,17 +1691,18 @@ def test_sqa_on_the_card_equals_per_stage_rebuild(cuda):
     first call captures once, a repeat call not at all; K1 launched once
     per sweep."""
     from spinglass_tpu_torch.anneal import graphs, sa
+    from spinglass_tpu_torch.kernels import track_cuda as TC
     from spinglass_tpu_torch.research import quantum as Q
 
     base, (g0, g1) = _trotter_case(cuda, n=200, seed=2)
     cfg = Q.SQAConfig(n_trotter=4, gamma_start=g0, gamma_end=g1, n_stages=3,
                       sweeps_per_stage=50, n_replicas=16)
     graphs.clear_caches()
-    MC.LAUNCHES.clear()
+    l0 = build.launch_snapshot()
     got = Q.simulated_quantum_annealing(
         base, cfg, generator=torch.Generator().manual_seed(8))
     assert got.metadata["captures"] == 1
-    assert MC.LAUNCHES == {MC.KERNEL_NAME: 150}
+    assert build.launches_since(l0) == {MC.KERNEL_NAME: 150, TC.KERNEL: 150}
     gen = torch.Generator().manual_seed(8)
     best, spins = np.inf, None
     for stage, gamma in enumerate(np.geomspace(g0, g1, 3)):
@@ -1667,7 +1745,7 @@ def test_aqia_captured_equals_eager_on_the_card(cuda):
 @pytest.mark.gpu
 def test_research_paths_launch_k1_on_the_card(cuda):
     """QEC, MSHO, PIMC and a meta-RL solve on the card launch K1 once per
-    sweep (``metropolis_cuda.LAUNCHES``); LESD and a meta-network fit run
+    sweep (the launch ledger over each call); LESD and a meta-network fit run
     with capturable Adam there."""
     from spinglass_tpu_torch.research import meta_rl, novel, quantum
 
@@ -1680,15 +1758,15 @@ def test_research_paths_launch_k1_on_the_card(cuda):
                 p, quantum.PIMCConfig(n_sweeps=30)), 30),
             (lambda: meta_rl.AdaptiveMetaRLAgent(meta_rl.MetaRLConfig(
                 n_sweeps=20), device=cuda).solve(p)[0], 20)):
-        MC.LAUNCHES.clear()
+        l0 = build.launch_snapshot()
         res = fn()
-        assert MC.LAUNCHES[MC.KERNEL_NAME] == want and np.isfinite(
-            res.best_energy)
-    MC.LAUNCHES.clear()
+        assert build.launches_since(l0, [MC.KERNEL_NAME]) == {
+            MC.KERNEL_NAME: want} and np.isfinite(res.best_energy)
+    l0 = build.launch_snapshot()
     res = novel.multi_scale_optimization(p, novel.MSHOConfig(
         coarse_sweeps=30, refine_sweeps=20))
-    assert MC.LAUNCHES[MC.KERNEL_NAME] == 30 + 20 * (
-        res.metadata["n_levels"] - 1)
+    assert build.launches_since(l0, [MC.KERNEL_NAME]) == {
+        MC.KERNEL_NAME: 30 + 20 * (res.metadata["n_levels"] - 1)}
     res = novel.learning_enhanced_dynamics(p, novel.LESDConfig(
         n_iterations=20))
     assert np.isfinite(res.metadata["final_loss"])
@@ -1894,13 +1972,14 @@ def test_overlap_kernel_matches_twin_at_l32(cuda, ns, n_chains, t, dtype):
         mask = torch.zeros(ns, device=cuda)
         mask[ns - n_pad:] = -torch.inf
         op = OC.ReplicaOverlap(mask, n_chains, ns - n_pad)
+        l0 = build.launch_snapshot()
         got = op(s, slot)
         again = op(s, slot)
         want = OC.overlap_reference(s.cpu(), mask.cpu(), slot.cpu(),
                                     n_chains, ns - n_pad)
         torch.cuda.synchronize()
         assert got.shape == (t, n_chains * (n_chains - 1) // 2)
-        assert op.launches == 2
+        assert build.launches_since(l0, [OC.KERNEL]) == {OC.KERNEL: 2}
         assert torch.equal(got.cpu(), want) and torch.equal(again, got)
 
 
@@ -1919,10 +1998,11 @@ def test_make_engine_on_the_l32_lattice_takes_k4_with_two_colours(cuda):
     assert [size for _, size, _ in eng.groups] == [16384, 16384]
     s = eng.to_layout(torch.ones(136, p.n_padded, device=cuda))
     beta = torch.full((136,), 1.0, device=cuda)
+    l0 = build.launch_snapshot()
     eng.sweep(s, beta, torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
-    assert eng.launches == {"sparse_sweep": 0, "sparse_thresholds": 0,
-                            "sparse_accept": 2}
+    assert build.launches_since(l0, eng.kernel_names) == {
+        "sparse_sweep": 0, "sparse_thresholds": 0, "sparse_accept": 2}
 
 
 def _track_case(cuda, layout, dtype, rows, r, mask, seed):
@@ -1967,9 +2047,11 @@ def test_sa_track_kernel_matches_twin(cuda, layout, dtype, rows, r, mask):
     want = TC.track_reference(*args)
     track = TC.BestTrack()
     best_in = args[5]
+    l0 = build.launch_snapshot()
     got = track(*args)
     torch.cuda.synchronize()
-    assert got[2] is best_in and track.launches == 1
+    assert got[2] is best_in
+    assert build.launches_since(l0, [TC.KERNEL]) == {TC.KERNEL: 1}
     assert got[2].dtype == torch.int8
     assert torch.equal(got[2], want[2].to(torch.int8))
     for i in (0, 1, 3):

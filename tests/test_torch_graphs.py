@@ -11,6 +11,7 @@ draws otherwise than it recorded.
 """
 
 import dataclasses
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,14 +25,18 @@ from spinglass_tpu.anneal import schedules as JS  # noqa: E402
 from spinglass_tpu.core.problem import IsingProblem as JaxProblem  # noqa: E402
 from spinglass_tpu_torch.anneal import graphs, pt, sa  # noqa: E402
 from spinglass_tpu_torch.anneal import schedules as S  # noqa: E402
-from spinglass_tpu_torch.anneal.engines import CudaFusedEngine  # noqa: E402
+from spinglass_tpu_torch.anneal import engines  # noqa: E402
+from spinglass_tpu_torch.anneal.engines import (CudaFusedEngine,  # noqa: E402
+                                                GivenUniforms)
 from spinglass_tpu_torch.anneal.twins import (TwinFusedEngine,  # noqa: E402
                                               TwinSparseTEngine)
 from spinglass_tpu_torch.benchmarks import planted  # noqa: E402
 from spinglass_tpu_torch.benchmarks.headline import eager_anneal  # noqa: E402
 from spinglass_tpu_torch.core import rng, topology  # noqa: E402
 from spinglass_tpu_torch.core.problem import IsingProblem  # noqa: E402
+from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.kernels.sparse import (EllProblem,  # noqa: E402
+                                                SortedSparseEngine,
                                                 SortedSparseTEngine)
 from spinglass_tpu_torch.rl import env as env_mod  # noqa: E402
 from spinglass_tpu_torch.rl import ppo  # noqa: E402
@@ -212,7 +217,7 @@ def test_pt_super_step_parity_alternates_under_capture():
     super_step, _, engine = pt.make_pt_step(problem, cfg)
     plain = pt.init_state(problem, cfg, torch.Generator().manual_seed(1),
                           engine)
-    step = pt.capture_super_step(super_step, engine, pt.init_state(
+    step = pt.capture_super_step(super_step, pt.init_state(
         problem, cfg, torch.Generator().manual_seed(1), engine))
     for _ in range(3):
         plain, _ = super_step(plain)
@@ -400,24 +405,156 @@ def test_tape_refuses_a_step_that_draws_otherwise():
 
 
 def test_warm_up_launches_are_taken_back():
-    """A step that counts a launch: warm-up leaves the count as it was, and
-    the eager replays on the CPU count for themselves."""
-    class Counter:
-        launches = 5
-
-    counter = Counter()
+    """A step that counts a launch: warm-up leaves the ledger's count as it
+    was, and the eager replays on the CPU count for themselves."""
+    build.count_launches({"k": 5})
+    before = build.launch_snapshot()
     gen = torch.Generator().manual_seed(0)
 
     def step(st):
-        counter.launches += 1
+        build.count_launches({"k": 1})
         return {"s": st["s"] + rng.draw_seed(st["g"]) % 7, "g": st["g"]}, None
 
     cap = graphs.CapturedStep(step, {"s": torch.zeros((), dtype=torch.int64),
-                                     "g": gen}, gen,
-                              [("k", counter, "launches")])
-    assert counter.launches == 5 and cap.tape.entries == ["seed"]
+                                     "g": gen}, gen)
+    assert build.LAUNCHES["k"] == before["k"] and cap.tape.entries == ["seed"]
+    assert cap.launches == {}
     ref = torch.Generator().manual_seed(0)
     cap.replay()
     cap.replay()
     want = sum(rng.host_seed(ref) % 7 for _ in range(2))
-    assert counter.launches == 7 and int(cap.state["s"]) == want
+    assert build.launches_since(before, ["k"]) == {"k": 2}
+    assert int(cap.state["s"]) == want
+
+
+def test_captured_step_gives_back_and_replays_its_graphs_launches():
+    """What a warm-up or a capture counts is given back (``_give_back``:
+    the launches since a snapshot, taken out); a replay of a graph adds the
+    graph's launches per replay, ``launches``, in one update of the
+    ledger."""
+    before = build.launch_snapshot()
+    build.count_launches({"a": 3, "b": 1})
+    assert graphs._give_back(before) == {"a": 3, "b": 1}
+    assert build.launches_since(before, ["a", "b"]) == {"a": 0, "b": 0}
+    gen = torch.Generator().manual_seed(0)
+
+    def step(st):
+        build.count_launches({"a": 2})
+        return {"s": st["s"] + 1}, None
+
+    cap = graphs.CapturedStep(step, {"s": torch.zeros(())}, gen)
+    assert build.launches_since(before) == {}
+
+    class Graph:            # a captured graph: its replay runs nothing here
+        def replay(self):
+            pass
+
+    # a capture on the card keeps the launches it counted (here: one step's)
+    cap.graph, cap.launches = Graph(), {"a": 2, "b": 1}
+    for _ in range(3):
+        cap.replay()
+    assert build.launches_since(before, ["a", "b", "c"]) == {
+        "a": 6, "b": 3, "c": 0}
+    assert float(cap.state["s"]) == 0.0      # the graph ran nothing
+
+
+def test_launch_ledger_counts_threads_exactly():
+    """Eight threads counting at once: the ledger holds their exact sum."""
+    before = build.launch_snapshot()
+
+    def count():
+        for _ in range(5000):
+            build.count_launches({"threads": 1, "pairs": 2})
+
+    threads = [threading.Thread(target=count) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert build.launches_since(before) == {"threads": 40000, "pairs": 80000}
+
+
+def _engines():
+    """name -> (engine, its problem)."""
+    dense, ell = _dense(), _ell()
+    return {"blocked": (engines.BlockedEngine(dense), dense),
+            "cuda_fused": (CudaFusedEngine(dense, block_size=128), dense),
+            "sparse_sorted": (SortedSparseEngine(ell), ell),
+            "sparse_sorted_t": (SortedSparseTEngine(
+                ell, accept_kernel="fused"), ell)}
+
+
+K123 = ("sparse_sweep", "sparse_thresholds", "sparse_accept")
+
+
+@pytest.mark.parametrize("name,want", [
+    ("blocked", ()), ("cuda_fused", ("metropolis_sweep",)),
+    ("sparse_sorted", ()), ("sparse_sorted_t", K123)])
+def test_engine_kernel_names_give_the_drivers_launch_keys(name, want):
+    """Each engine's ``kernel_names``, and the keys of ``kernel_launches``
+    made from them: SA adds ``sa_track``; a PT super-step adds C2 and C1
+    with cluster moves and the overlap kernel with ``measure_overlaps``;
+    a given-uniform engine has its engine's."""
+    eng, problem = _engines()[name]
+    assert eng.kernel_names == want
+    assert GivenUniforms(eng, np.zeros((1, 1, 1))).kernel_names == want
+    assert sa.step_kernels(eng) == want + ("sa_track",)
+
+    def pt_kernels(**kw):
+        cfg = pt.PTConfig(n_replicas=4, **kw)
+        return pt.make_pt_step(problem, cfg, engine=eng)[0].kernel_names
+
+    assert pt_kernels() == want
+    assert pt_kernels(cluster_moves=2) == want + ("sw_bonds", "sw_labels")
+    assert pt_kernels(n_chains=2, measure_overlaps=True) == want + (
+        "replica_overlap",)
+    assert pt_kernels(n_chains=2, cluster_moves=1, measure_overlaps=True) \
+        == want + ("sw_bonds", "sw_labels", "replica_overlap")
+
+
+class _OneRankMesh:
+    """A mesh of one rank, enough to build a sharded step (no group)."""
+
+    def get_local_rank(self):
+        return 0
+
+    def size(self):
+        return 1
+
+    def get_group(self):
+        return None
+
+
+@pytest.mark.parametrize("kind", ["sparse_t", "blocked"])
+def test_sharded_step_names_the_kernels_it_built(kind):
+    """The sharded super-step's ``kernel_names`` are its engine's and, with
+    cluster moves, C2's and C1's; it builds no overlap kernel, so
+    ``measure_overlaps`` adds no key to ``pt_sharded.run``'s launches."""
+    from spinglass_tpu_torch.distributed import pt_sharded
+
+    problem = _ell() if kind == "sparse_t" else _dense()
+    cfg = pt.PTConfig(n_replicas=4, n_chains=2, sweep_method=kind,
+                      measure_overlaps=True)
+    for moves, extra in ((0, ()), (1, ("sw_bonds", "sw_labels"))):
+        step, _, _, eng, _ = pt_sharded.make_sharded_pt_step(
+            problem, dataclasses.replace(cfg, cluster_moves=moves),
+            _OneRankMesh())
+        assert step.kernel_names == eng.kernel_names + extra
+
+
+@pytest.mark.parametrize("kind,cluster_moves,overlaps", [
+    ("sparse_t", 0, False), ("sparse_t", 1, False), ("sparse_t", 0, True),
+    ("blocked", 1, True)])
+def test_pt_run_reports_its_step_kernels(kind, cluster_moves, overlaps):
+    """``pt.run``'s ``kernel_launches`` on the CPU: every kernel its step
+    can launch, each at 0 (no kernel runs on CPU tensors)."""
+    problem = _ell() if kind == "sparse_t" else _dense()
+    cfg = pt.PTConfig(n_replicas=4, n_chains=2, n_sweeps=10,
+                      exchange_interval=5, sweep_method=kind,
+                      cluster_moves=cluster_moves, measure_overlaps=overlaps)
+    want = (dict.fromkeys(K123, 0) if kind == "sparse_t" else {})
+    if cluster_moves:
+        want.update(sw_bonds=0, sw_labels=0)
+    if overlaps:
+        want["replica_overlap"] = 0
+    assert pt.run(problem, cfg).metadata["kernel_launches"] == want

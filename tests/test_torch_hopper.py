@@ -27,6 +27,7 @@ from spinglass_tpu.kernels import sweeps as JK  # noqa: E402
 from spinglass_tpu_torch.anneal import engines, pt, sa  # noqa: E402
 from spinglass_tpu_torch.core import convert, topology  # noqa: E402
 from spinglass_tpu_torch.core.convert import problem_from_numpy  # noqa: E402
+from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.core.problem import (  # noqa: E402
     IsingProblem, resolve_device)
 from spinglass_tpu_torch.kernels import metropolis_cuda as MC  # noqa: E402
@@ -120,9 +121,10 @@ def test_bf16_fused_sweep_matches_jax_blocked_sweep_pm_j(rule, block):
                           j_dtype="bfloat16")
     assert fused.planes == 1 and torch.equal(fused.j, ours.j)
     s_t = torch.as_tensor(s.T.copy())
+    before = build.launch_snapshot()
     out = fused.sweep_with_uniforms(s_t, torch.as_tensor(beta),
                                     torch.as_tensor(u.T.copy()))
-    assert out[0] is s_t and fused.launches == 0
+    assert out[0] is s_t and build.launches_since(before) == {}
     np.testing.assert_array_equal(out[0].t().numpy(), np.asarray(theirs[0]))
     np.testing.assert_array_equal(out[1].numpy(), np.asarray(theirs[1]))
     np.testing.assert_array_equal(out[2].numpy(), np.asarray(theirs[2]))
@@ -196,10 +198,12 @@ def test_bf16_engine_in_sa_run_chunk(kind):
         eng = engines.CudaFusedEngine(ours, block_size=cfg.block_size,
                                       rule=cfg.update_rule, j_dtype=jd)
         assert eng.fused.j_dtype == jd
+        before = build.launch_snapshot()
         state = sa.init_state(ours, cfg, eng)
         state, _ = sa.run_chunk(ours, cfg, eng, state, 4)
         out[jd] = state
-        assert eng.launches == {MC.KERNEL_NAME: 0}
+        assert build.launches_since(before, eng.kernel_names) == {
+            MC.KERNEL_NAME: 0}
     same = torch.equal(out["float32"].spins, out["bfloat16"].spins)
     assert same == (kind == "pm_j")
     assert bool(torch.isfinite(out["bfloat16"].energy).all())
@@ -320,9 +324,11 @@ def test_single_sweep_ordered_matches_reference(dist):
 def test_sparse_kernels_argument_checks():
     coo = topology.sparse_random_graph_coo(100, seed=9)
     ell = S.EllProblem.from_coo(100, *coo, device="cpu")
+    before = build.launch_snapshot()
     eng = S.SortedSparseTEngine(ell, accept_kernel="single")
     k = eng.kernels
-    assert k.sweep_launches == 0
+    assert build.launches_since(before, [SC.SWEEP_KERNEL]) == {
+        SC.SWEEP_KERNEL: 0}
     assert k._idx_t.shape == k.tables["idx"].t().shape
     assert k._idx_t.is_contiguous() and k._val_t.is_contiguous()
     assert torch.equal(k._val_t.t(), k.tables["val"])

@@ -98,12 +98,16 @@ again = sgt.anneal(p, sgt.SAConfig(n_sweeps=4, n_replicas=2, record_interval=1),
                    checkpoint_dir=ck, resume=True)
 assert again.best_energy == ckr.best_energy and len(os.listdir(ck)) == 2
 cm_cfg = pt.PTConfig(n_replicas=4, exchange_interval=2, cluster_moves=1)
+from spinglass_tpu_torch.kernels import build
+l0 = build.launch_snapshot()
 step, _, eng = pt.make_pt_step(ell, cm_cfg)
 st, stats = step(pt.init_state(ell, cm_cfg, engine=eng))
 assert int(st.sweep) == 2 and np.isfinite(float(stats["best_energy"]))
-assert step.sw.last_rounds is not None and step.sw.labeller.launches == 0
+assert step.sw.last_rounds is not None and build.launches_since(
+    l0, ["sw_labels"]) == {"sw_labels": 0}
 from spinglass_tpu_torch.kernels import cluster_cuda
-assert step.sw.bonds.launches == 0 and cluster_cuda.labels_plan(10112, 16)[1] == 8
+assert build.launches_since(l0, ["sw_bonds"]) == {"sw_bonds": 0}
+assert cluster_cuda.labels_plan(10112, 16)[1] == 8
 from spinglass_tpu_torch.anneal import adaptive, batch
 from spinglass_tpu_torch.core import minimal
 from spinglass_tpu_torch.benchmarks import runner
@@ -253,10 +257,12 @@ def test_stacked_sweep_on_cpu_never_launches_or_builds(monkeypatch):
     j[:, torch.arange(128), torch.arange(128)] = 0.0
     sw = MC.StackedFusedSweep(j, torch.zeros(2, 128), torch.ones(2, 128))
     s = torch.ones(2, 128, 4)
+    before = build.launch_snapshot()
     sw(s, torch.ones(2, 4), [1, 2])
     sw(s, 0.5, torch.tensor([3, 4]))
     sw.sweep_with_uniforms(s, 0.5, torch.rand(2, 128, 4))
-    assert sw.launches == 0 and sw._lib is None
+    assert build.launches_since(before, [MC.KERNEL_NAME]) == {
+        MC.KERNEL_NAME: 0} and sw._lib is None
     with pytest.raises(ValueError, match="3 seeds for 2 problems"):
         sw(s, 0.5, [1, 2, 3])
 
@@ -288,9 +294,11 @@ def test_fused_sweep_on_cpu_never_launches_or_builds(monkeypatch):
                   dict(interleave=4), dict(folded=True)):
         fused = MC.FusedSweep(p, **flags)
         s = torch.ones(p.n_padded, 8)
+        before = build.launch_snapshot()
         fused(s, torch.ones(8), 1234)
         fused.sweep_with_uniforms(s, 0.5, u)
-        assert fused.launches == 0 and fused._lib is None, flags
+        assert build.launches_since(before, [fused.kernel_name]) == {
+            fused.kernel_name: 0} and fused._lib is None, flags
         assert fused.block_size == 128  # Np = 128: 256 does not divide it
 
 
@@ -311,10 +319,11 @@ def test_sparse_kernels_on_cpu_never_launch_or_build(monkeypatch):
                dict(accept_kernel="fused")):
         eng = S.SortedSparseTEngine(ell, **kw)
         s = eng.to_layout(torch.ones(128, ell.n_padded))
+        before = build.launch_snapshot()
         for _ in range(2):
             s, _, _ = eng.sweep(s, torch.full((128,), 0.5), gen)
-        assert eng.launches == {"sparse_sweep": 0, "sparse_thresholds": 0,
-                                "sparse_accept": 0}
+        assert build.launches_since(before, eng.kernel_names) == {
+            "sparse_sweep": 0, "sparse_thresholds": 0, "sparse_accept": 0}
         assert eng.kernels._libs is None and eng.kernels._accept_lib is None
 
 

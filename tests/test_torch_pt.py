@@ -25,6 +25,7 @@ from spinglass_tpu.kernels import sparse as JS  # noqa: E402
 from spinglass_tpu_torch.anneal import pt  # noqa: E402
 from spinglass_tpu_torch.benchmarks import planted  # noqa: E402
 from spinglass_tpu_torch.core.convert import pt_state_from_numpy  # noqa: E402
+from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse as S  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -213,11 +214,12 @@ def test_super_steps_fused_engine_match_threshold_path():
     out = []
     for kw in (dict(accept_kernel="fused"), dict(threshold_rng="kernel")):
         eng = S.SortedSparseTEngine(tell, **kw)
+        before = build.launch_snapshot()
         step, _, eng = pt.make_pt_step(tell, cfg, engine=eng)
         state = pt.init_state(tell, cfg, torch.Generator().manual_seed(3), eng)
         for _ in range(2):
             state, _ = step(state)
-        out.append((state, eng.launches))
+        out.append((state, build.launches_since(before, eng.kernel_names)))
     (a, la), (b, lb) = out
     for name in ("spins", "slot", "energy", "best_energy", "best_spins",
                  "exch_attempts", "exch_accepts", "acc_rate"):

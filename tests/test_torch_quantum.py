@@ -31,7 +31,7 @@ from spinglass_tpu_torch.anneal import sa  # noqa: E402
 from spinglass_tpu_torch.core import topology  # noqa: E402
 from spinglass_tpu_torch.core.convert import problem_from_numpy  # noqa: E402
 from spinglass_tpu_torch.core.problem import IsingProblem  # noqa: E402
-from spinglass_tpu_torch.kernels import metropolis_cuda as MC  # noqa: E402
+from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.research import quantum as Q  # noqa: E402
 
 
@@ -222,12 +222,12 @@ def test_j_perp_positive_and_monotone():
 
 def test_sqa_finds_ferro_ground_state():
     p, ground = _ferro(10)
-    MC.LAUNCHES.clear()
+    l0 = build.launch_snapshot()
     res = Q.simulated_quantum_annealing(p, Q.SQAConfig(
         n_trotter=4, n_stages=4, sweeps_per_stage=80, n_replicas=8))
     assert res.best_energy == pytest.approx(ground, rel=1e-5)
     assert res.algorithm == "sqa" and res.device == "cpu"
-    assert sum(MC.LAUNCHES.values()) == 0
+    assert build.launches_since(l0) == {}
 
 
 def test_pimc_reports_the_classical_energy_of_its_slice():

@@ -34,6 +34,7 @@ from spinglass_tpu_torch.core import topology  # noqa: E402
 from spinglass_tpu_torch.core.convert import (  # noqa: E402
     actor_critic_from_flax, env_state_from_numpy, problem_from_numpy)
 from spinglass_tpu_torch.core.problem import IsingProblem  # noqa: E402
+from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse as S  # noqa: E402
 from spinglass_tpu_torch.rl import env as E  # noqa: E402
 from spinglass_tpu_torch.rl import evaluate as V  # noqa: E402
@@ -963,12 +964,13 @@ def test_twin_engines_sweep_as_the_engines_do_for_cpu_tensors():
         for e in (eng, twin):
             gen = torch.Generator().manual_seed(4)
             s = e.to_layout(torch.ones(r, npad))
+            before = build.launch_snapshot()
             for _ in range(2):
                 s, de, cnt = e.sweep(s, torch.full((r,), 0.4), gen)
             out.append((s, de, cnt))
         assert int(out[0][2].sum()) > 0
         assert all(torch.equal(a, b) for a, b in zip(*out))
-        assert not any(twin.launches.values())
+        assert not any(build.launches_since(before, twin.kernel_names).values())
 
 
 @pytest.mark.parametrize("accept_kernel", ["single", "fused", "auto"])

@@ -34,6 +34,7 @@ from spinglass_tpu_torch.core.convert import (  # noqa: E402
     problem_from_numpy, sa_state_from_numpy)
 from spinglass_tpu_torch.core.problem import random_spins  # noqa: E402
 from spinglass_tpu_torch.core.rng import host_seed  # noqa: E402
+from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.kernels import sweeps as K  # noqa: E402
 
 N, R, SWEEPS = 64, 4, 200
@@ -407,6 +408,7 @@ def test_best_track_twin_is_the_six_ops(layout, dtype, case):
     args = _track_inputs(layout, dtype, case)
     want = _six_ops(*(a.clone() if torch.is_tensor(a) else a for a in args))
     track = TC.BestTrack()
+    before = build.launch_snapshot()
     got = track(*args)
     for g, w in zip(got, want[:4]):
         assert g.dtype == w.dtype and torch.equal(g, w)
@@ -416,7 +418,8 @@ def test_best_track_twin_is_the_six_ops(layout, dtype, case):
     assert torch.equal(track.copies, want[4].to(torch.int32))
     track(*args)
     assert torch.equal(track.copies, 2 * want[4].to(torch.int32))
-    assert track.launches == 0      # the twin is no kernel launch
+    # the twin is no kernel launch
+    assert build.launches_since(before, [TC.KERNEL]) == {TC.KERNEL: 0}
     track.reset(args[0])
     assert not track.copies.any()
 
@@ -458,9 +461,11 @@ def test_best_track_launch_arguments(monkeypatch, layout, dtype, elem):
     args[5] = args[5].to(torch.int8)       # best spins as on the card
     track = TC.BestTrack()
     track.reset(args[0])
+    before = build.launch_snapshot()
     out = track._launch(*args)
     (name, a), = fake.calls
-    assert name == "sgt_sa_track" and track.launches == 1
+    assert name == "sgt_sa_track"
+    assert build.launches_since(before, [TC.KERNEL]) == {TC.KERNEL: 1}
     assert a[4] == float(np.float32(1.0) / np.float32(3000))
     assert a[4] != 1.0 / 3000          # the float32 reciprocal, as PyTorch's
     assert a[8] == track.copies.data_ptr()
@@ -480,7 +485,7 @@ def test_best_track_launch_arguments(monkeypatch, layout, dtype, elem):
         track._launch(*bad)
     with pytest.raises(ValueError):
         track(*args[:6], "cols", args[7])
-    assert track.launches == 1
+    assert build.launches_since(before, [TC.KERNEL]) == {TC.KERNEL: 1}
 
 
 def _six_op_sweep(log, problem, config, engine, state):
@@ -564,7 +569,7 @@ def test_anneal_counts_one_track_launch_a_sweep(monkeypatch):
     call = TC.BestTrack.__call__
 
     def counted(self, *args):
-        self.launches += 1
+        build.count_launches({TC.KERNEL: 1})
         return call(self, *args)
 
     monkeypatch.setattr(TC.BestTrack, "__call__", counted)

@@ -28,6 +28,7 @@ from spinglass_tpu_torch.core import topology as T  # noqa: E402
 from spinglass_tpu_torch.core.convert import (  # noqa: E402
     ell_from_numpy, problem_from_numpy)
 from spinglass_tpu_torch.kernels import sparse as S  # noqa: E402
+from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse_cuda as SC  # noqa: E402
 from spinglass_tpu_torch.kernels.metropolis_cuda import (  # noqa: E402
     kernel_threshold, philox_uniforms4)
@@ -271,6 +272,7 @@ def test_thresholds_reference_and_philox_twin():
     mode makes the decisions of the per-colour sweep on K3's twin."""
     _, te = _pair()
     eng = S.SortedSparseTEngine(te, rule="glauber", accept_kernel="single")
+    before = build.launch_snapshot()
     r, seed = 128, 2 ** 40 + 77
     beta = torch.linspace(0.2, 3.0, r)
     th = eng.kernels.thresholds(beta, seed, r)
@@ -283,8 +285,8 @@ def test_thresholds_reference_and_philox_twin():
     a, de_a, c_a = eng.kernels.single_sweep(s0.clone(), beta, seed=seed)
     b, de_b, c_b = SC.single_sweep_reference(eng.groups, s0.clone(), th)
     assert torch.equal(a, b) and torch.equal(c_a, c_b) and torch.equal(de_a, de_b)
-    assert eng.launches == {"sparse_sweep": 0, "sparse_thresholds": 0,
-                            "sparse_accept": 0}
+    assert build.launches_since(before, eng.kernel_names) == {
+        "sparse_sweep": 0, "sparse_thresholds": 0, "sparse_accept": 0}
     with pytest.raises(ValueError, match="exactly one"):
         eng.kernels.single_sweep(s0, beta)
     ns = eng.n_sorted
@@ -305,6 +307,7 @@ def test_fused_sweep_twin_matches_jax_sorted_t_sweep(rule, spin_dtype):
     r = 128
     eng = S.SortedSparseTEngine(te, rule=rule, spin_dtype=spin_dtype,
                                 accept_kernel="fused", bucket_order="index")
+    before = build.launch_snapshot()
     jeng = JS.SortedSparseTEngine(je, rule=rule, bucket_order="index")
     np.testing.assert_array_equal(eng.perm, jeng.perm)
     jsweep = jax.jit(JS.make_sorted_t_sweep(jeng.groups))
@@ -334,7 +337,8 @@ def test_fused_sweep_twin_matches_jax_sorted_t_sweep(rule, spin_dtype):
     acc = s_b[off:off + mc].float() * f < th
     s_b[off:off + mc] = torch.where(acc, -s_b[off:off + mc], s_b[off:off + mc])
     assert torch.equal(s_a, s_b) and torch.equal(cnt, acc.sum(0, dtype=torch.int32))
-    assert eng.launches["sparse_accept"] == 0
+    assert build.launches_since(before, [SC.ACCEPT_KERNEL]) == {
+        SC.ACCEPT_KERNEL: 0}
 
 
 def test_t_engine_layout_energy_and_dispatch(monkeypatch):
@@ -360,10 +364,12 @@ def test_t_engine_layout_energy_and_dispatch(monkeypatch):
     assert fused.spin_dtype == torch.int8 and not fused._use_single
     s128 = fused.to_layout(torch.as_tensor(_spins(128, te.n_padded, N, seed=6)))
     e0 = fused.energy(s128)
+    before = build.launch_snapshot()
     s128, de, cnt = fused.sweep(s128, 0.7, gen)
     np.testing.assert_allclose((e0 + de).numpy(), fused.energy(s128).numpy(),
                                rtol=1e-4, atol=1e-3)
-    assert int(cnt.sum()) > 0 and fused.launches == {
+    assert int(cnt.sum()) > 0 and build.launches_since(
+        before, fused.kernel_names) == {
         "sparse_sweep": 0, "sparse_thresholds": 0, "sparse_accept": 0}
     with pytest.raises(ValueError, match="128"):
         fused.sweep(fused.to_layout(s_rn), 1.0, gen)

@@ -27,6 +27,7 @@ from spinglass_tpu_torch.benchmarks import planted  # noqa: E402
 from spinglass_tpu_torch.core import cluster as TC  # noqa: E402
 from spinglass_tpu_torch.core import topology  # noqa: E402
 from spinglass_tpu_torch.core.problem import IsingProblem  # noqa: E402
+from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.kernels import cluster_cuda as CC  # noqa: E402
 from spinglass_tpu_torch.kernels import metropolis_cuda as MC  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse as S  # noqa: E402
@@ -98,6 +99,7 @@ def test_bond_masks_and_start_labels_equal_jax(monkeypatch, kind, beta):
     k = tsw.ell.idx.shape[1]
     if kind == "dense":
         assert k == 39
+    before = build.launch_snapshot()
     betas = np.float32(beta) * np.linspace(0.5, 1.5, r, dtype=np.float32)
     s = _spins(r, n_pad, tp.n_spins, 23)
     for trial in range(2):
@@ -112,7 +114,8 @@ def test_bond_masks_and_start_labels_equal_jax(monkeypatch, kind, beta):
         assert masks.dtype == torch.int32 and t_init.dtype == torch.int32
         np.testing.assert_array_equal(CC.unpack_masks(masks, k).numpy(), bond)
         np.testing.assert_array_equal(t_init.numpy(), init)
-        assert bond.any() and tsw.bonds.launches == 0
+        assert bond.any() and build.launches_since(
+            before, [CC.BONDS_KERNEL]) == {CC.BONDS_KERNEL: 0}
 
 
 @pytest.mark.parametrize("kind,beta", [("ell", 0.4), ("ell", 1.3),
@@ -129,6 +132,7 @@ def test_plain_labels_and_flip_equal_jax_sweep(monkeypatch, kind, beta):
     betas = torch.as_tensor(np.float32(beta)
                             * np.linspace(0.5, 1.5, r, dtype=np.float32))
     s = _spins(r, n_pad, tp.n_spins, 24)
+    before = build.launch_snapshot()
     for trial in range(3):
         key = jax.random.key(60 + trial)
         js, jde, jnc, _, _ = _jax_sweep_inside(monkeypatch, jsw, s,
@@ -144,7 +148,8 @@ def test_plain_labels_and_flip_equal_jax_sweep(monkeypatch, kind, beta):
         np.testing.assert_array_equal(new.numpy(), js)
         np.testing.assert_array_equal(n_cl.numpy(), jnc)
         np.testing.assert_allclose(de.numpy(), jde, rtol=1e-5)
-        assert c1.launches == 0 and (rounds >= 1).all()
+        assert build.launches_since(before, [CC.KERNEL_NAME]) == {
+            CC.KERNEL_NAME: 0} and (rounds >= 1).all()
         assert (rounds <= n_pad).all()
         act = tp.active_mask.numpy() > 0
         assert (labels.numpy()[:, ~act] == n_pad).all()

@@ -143,6 +143,7 @@ def test_fused_sweep_variant_on_cpu_runs_its_twin(variant, monkeypatch):
     fused = MC.FusedSweep(ours, block_size=128, **flags)
     assert fused.kernel_name == name
     s1, s2, s3 = s0.clone(), s0.clone(), s0.clone()
+    before = build.launch_snapshot()
     _, de1, c1 = fused(s1, beta, 2 ** 41 + 3)
     u = MC.philox_uniforms(2 ** 41 + 3, ours.n_padded, 9)
     _, de2, c2 = twin(ours.j, ours.h, ours.active_mask, s2, beta, u,
@@ -150,7 +151,8 @@ def test_fused_sweep_variant_on_cpu_runs_its_twin(variant, monkeypatch):
     _, de3, c3 = MC.FusedSweep(ours, block_size=128)(s3, beta, 2 ** 41 + 3)
     assert torch.equal(s1, s2) and torch.equal(c1, c2) and torch.equal(de1, de2)
     assert torch.equal(s1, s3) and torch.equal(c1, c3)
-    assert fused.launches == 0 and fused._lib is None and int(c1.sum()) > 0
+    assert build.launches_since(before) == {} and fused._lib is None
+    assert int(c1.sum()) > 0
 
 
 def test_variant_validation_matches_jax():
@@ -175,9 +177,10 @@ def test_variant_validation_matches_jax():
     # before a build, never running another kernel
     fused = MC.FusedSweep(ours, folded=True, micro=16)
     s = torch.ones(ours.n_padded, 4)
+    before = build.launch_snapshot()
     with pytest.raises(ValueError, match="micro=32"):
         fused._launch(s, torch.ones(4), None, 1)
-    assert fused._lib is None and fused.launches == 0
+    assert fused._lib is None and build.launches_since(before) == {}
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
@@ -192,10 +195,12 @@ def test_variant_engine_in_sa_driver_matches_flat(variant):
     states = []
     for eng in (CudaFusedEngine(ours, block_size=128, **flags),
                 CudaFusedEngine(ours, block_size=128)):
+        before = build.launch_snapshot()
         st = sa.init_state(ours, cfg, eng)
         st, _ = sa.run_chunk(ours, cfg, eng, st, 3)
         states.append(st)
-        assert eng.launches == {eng.fused.kernel_name: 0}
+        assert build.launches_since(before, eng.kernel_names) == {
+            eng.fused.kernel_name: 0}
     a, b = states
     for k in ("spins", "energy", "best_energy", "best_spins", "acc_rate"):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
@@ -346,6 +351,7 @@ def test_launch_arguments_per_variant(monkeypatch, flags, n_pad, block,
                         lambda dev: types.SimpleNamespace(cuda_stream=0))
     fused = MC.FusedSweep(_shape_problem(n_pad), block_size=block, **flags)
     r = 5
+    before = build.launch_snapshot()
     fused._launch(torch.ones(n_pad, r), torch.ones(r), None, 2 ** 40 + 9)
     (name, args), = fake.calls
     assert name == f"sgt_{fused.kernel_name}"
@@ -354,7 +360,7 @@ def test_launch_arguments_per_variant(monkeypatch, flags, n_pad, block,
     assert args[5] is None and args[6] == 2 ** 40 + 9 and args[7] is None
     assert list(args[10:14]) == [n_pad, r, block, 0]
     assert list(args[14:-1]) == want_extra and args[-1] == 0
-    assert fused.launches == 1
+    assert build.launches_since(before) == {fused.kernel_name: 1}
 
 
 @pytest.mark.parametrize("flags", [dict(pipelined=True), dict(folded=True),

@@ -24,6 +24,7 @@ from spinglass_tpu.kernels import sparse as JS  # noqa: E402
 from spinglass_tpu_torch.anneal import engines, pt  # noqa: E402
 from spinglass_tpu_torch.benchmarks import headline, planted  # noqa: E402
 from spinglass_tpu_torch.core import topology as T  # noqa: E402
+from spinglass_tpu_torch.kernels import build  # noqa: E402
 from spinglass_tpu_torch.kernels import metropolis_cuda as MC  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse as S  # noqa: E402
 from spinglass_tpu_torch.kernels import sparse_cuda as SC  # noqa: E402
@@ -116,6 +117,7 @@ def test_fused_sweep_cpu_path_matches_jax_sorted_t_sweep(dist, rule):
     r = 128
     eng = S.SortedSparseTEngine(te, rule=rule, accept_kernel="fused",
                                 bucket_order="index")
+    before = build.launch_snapshot()
     jeng = JS.SortedSparseTEngine(je, rule=rule, bucket_order="index")
     np.testing.assert_array_equal(eng.perm, jeng.perm)
     jsweep = jax.jit(JS.make_sorted_t_sweep(jeng.groups))
@@ -145,7 +147,8 @@ def test_fused_sweep_cpu_path_matches_jax_sorted_t_sweep(dist, rule):
             # be reading a buffer that aliases ts
             js = jnp.asarray(ts.numpy().copy())
     assert int(tc.sum()) > 0
-    assert eng.launches["sparse_accept"] == 0
+    assert build.launches_since(before, [SC.ACCEPT_KERNEL]) == {
+        SC.ACCEPT_KERNEL: 0}
 
 
 @pytest.mark.parametrize("dist", ["binary", "gaussian"])
@@ -166,6 +169,7 @@ def test_ordered_fields_match_colour_fields(dist):
 def test_accept_gather_is_fields_then_accept_and_needs_tables():
     _, te = _pair()
     eng = S.SortedSparseTEngine(te, accept_kernel="fused", rule="glauber")
+    before = build.launch_snapshot()
     k, r = eng.kernels, 8
     s = eng.to_layout(torch.as_tensor(_spins(r, te.n_padded, N, seed=3)))
     beta = torch.linspace(0.5, 1.5, r)
@@ -183,7 +187,8 @@ def test_accept_gather_is_fields_then_accept_and_needs_tables():
         bare.accept_gather(s, off, mc, beta, 5, *out[0])
     with pytest.raises(ValueError, match="tables"):
         bare.accept_sweep(s, beta, 5)
-    assert k.accept_launches == 0 and bare.accept_launches == 0
+    assert build.launches_since(before, [SC.ACCEPT_KERNEL]) == {
+        SC.ACCEPT_KERNEL: 0}
 
 
 # ---- one seed, three paths --------------------------------------------------
@@ -199,6 +204,7 @@ def test_one_seed_three_paths_through_the_engines(rule):
              dict(accept_kernel="none", threshold_rng="kernel"),
              dict(accept_kernel="fused"))
     engs = [S.SortedSparseTEngine(te, rule=rule, **kw) for kw in kinds]
+    before = build.launch_snapshot()
     s_rn = torch.as_tensor(_spins(r, te.n_padded, N, seed=8))
     states = [e.to_layout(s_rn) for e in engs]
     assert [s.dtype for s in states] == [torch.float32, torch.int8, torch.int8]
@@ -212,8 +218,8 @@ def test_one_seed_three_paths_through_the_engines(rule):
         assert torch.equal(de2, de3) and torch.equal(de3, de4)
         assert int(c4.sum()) > 0
     for e in engs:
-        assert e.launches == {"sparse_sweep": 0, "sparse_thresholds": 0,
-                              "sparse_accept": 0}
+        assert build.launches_since(before, e.kernel_names) == {
+            "sparse_sweep": 0, "sparse_thresholds": 0, "sparse_accept": 0}
 
 
 @pytest.mark.parametrize("spin_dtype", [torch.int8, torch.float32])
@@ -257,11 +263,13 @@ def test_pt_fused_engine_matches_threshold_path_two_chains_of_128():
     for kw in (dict(accept_kernel="fused"),
                dict(accept_kernel="none", threshold_rng="kernel")):
         eng = S.SortedSparseTEngine(ell, **kw)
+        before = build.launch_snapshot()
         step, _, eng = pt.make_pt_step(ell, cfg, engine=eng)
         state = pt.init_state(ell, cfg, torch.Generator().manual_seed(4), eng)
         for _ in range(2):
             state, stats = step(state)
-        out.append((state, stats, eng.launches))
+        out.append((state, stats, build.launches_since(before,
+                                                       eng.kernel_names)))
     (a, sa, la), (b, sb, lb) = out
     for name in ("spins", "slot", "energy", "best_energy", "best_spins",
                  "exch_attempts", "exch_accepts", "acc_rate"):
