@@ -78,7 +78,10 @@ the kernels against the twins. Phases:
      its plain version, bitwise. The SA driver's best-tracking kernel
      (sa_track) against its twin at the SA shapes ([10240, 1024] and
      [4096, 1024] float32) and at [32768, 136] int8, with some, all and no
-     replicas improved: every output bitwise.
+     replicas improved: every output bitwise. The time-to-target latch
+     (pt_latch) against its twin on the TTT state's nine leaves
+     ([10240, 128] float32 spins): a no-op step, the hit and a step after
+     it, snapshot and flag bitwise.
      RL: two env steps of 10 sweeps through make_engine's engine against
      the same steps through the twin under one generator seed, in all three
      action modes with sweep fractions below 1 for some envs (the kernels
@@ -119,7 +122,8 @@ the kernels against the twins. Phases:
      R=1024, 500 sweeps) must run
      SortedSparseTEngine with K2 500 times; time_to_target on the
      ttt_provenance.json instance (hash checked) must hit its threshold for
-     seeds 42, 43, 44 within 20000 sweeps; pt.run with R=4096 (32 chains of
+     seeds 42, 43, 44 within 20000 sweeps, with pt_latch launched once a
+     replay over that run and one replay discarded a hit; pt.run with R=4096 (32 chains of
      128) must take the fused sweep, K4 once per colour and sweep. The
      sparse anneal's E/N must lie within 0.01 of -1.63. Each run's
      best_energy must equal the energy of its best_spins (1e-3 relative).
@@ -275,7 +279,9 @@ the kernels against the twins. Phases:
      graph beside its plain version and its bound; SA anneals at the two
      SA cells' shapes (one sa_track launch a sweep, best_copy_share) and
      sa_track at both shapes as a graph at their copy shares beside its
-     bound, its twin and torch.where alone; PT at R=4096 three
+     bound, its twin and torch.where alone; pt_latch on the TTT state as a
+     graph with nothing to copy (at most 5 us) and on a hit, beside its
+     byte bounds and its twin; PT at R=4096 three
      ways in turns (the K3 path, the K4 path, K2 with its budget lifted)
      with each way's device breakdown; PT at 16
      replicas through K4 and through the plain [R, N] engine; bench_rl's
@@ -354,6 +360,9 @@ KERNELS = {
     # nor the SA driver's best tracking: the JAX package has it inside its
     # jitted scan (XLA fuses it), not as a Pallas kernel
     "sa_track": None,
+    # nor the time-to-target latch: the JAX package runs the whole solve as
+    # one lax.while_loop on the device, whose state is the answer at its end
+    "pt_latch": None,
 }
 # FusedSweep flags of the dense variants, by label
 VARIANTS = {"K5": dict(pipelined=True), "K6x2": dict(interleave=2),
@@ -1270,12 +1279,24 @@ def sparse_slice(torch, stats):
     check(abs(e_n + 1.63) <= 0.01, f"sparse anneal E/N {e_n:.5f} within 0.01 "
                                    f"of -1.63")
 
+    l0 = build.launch_snapshot()
     ttt = headline.bench_ttt(max_sweeps=20000)
+    latch_n = build.launches_since(l0, ["pt_latch"])["pt_latch"]
     stats["ttt"] = ttt
+    stats["latch_launches"] = latch_n
     ex = ttt["extras"]
     for run in ex["per_seed"]:
         print(f"    seed run: {run['seconds']:.4f} s, {run['sweeps']} sweeps, "
-              f"best {run['best_energy']:.3f}, hit {run['hit']}")
+              f"best {run['best_energy']:.3f}, hit {run['hit']}, "
+              f"{run['launched']} replays launched, {run['discarded']} "
+              f"discarded")
+    launched = sum(run["launched"] for run in ex["per_seed"])
+    check(latch_n == launched and all(
+              run["discarded"] == 1 and run["launched"] == run["sweeps"] // 10
+              + 1 for run in ex["per_seed"] if run["hit"]),
+          f"time_to_target: pt_latch launched {latch_n} times over the run, "
+          f"once a replay ({launched}); one replay discarded a hit, queued "
+          f"behind the super-step that hit")
     check(ex["all_hit"] and ex["engine"] == "sparse_sorted_t",
           f"time_to_target on the provenance instance (hash checked), 3 seeds, "
           f"<= 20000 sweeps: all hit threshold {ex['threshold']:.3f}; median "
@@ -1796,6 +1817,111 @@ def track_timing(torch, stats, card):
                   f"{b[1]}: {100 * b[0] / ms:.1f}% of it); twin (six ops) "
                   f"{1e3 * plain_ms:.2f} us; torch.where alone "
                   f"{1e3 * where_ms:.2f} us [{card}]")
+
+
+# the time-to-target latch (pt_latch) on the TTT loop's own state
+def _ttt_leaves(torch, seed):
+    """The leaves of a fresh PT state of the TTT bench (the planted 10k
+    instance, ttt_config's 128 replicas) on the card, as time_to_target's
+    captured state holds them: nine tensors, spins and best spins
+    [10240, 128] float32."""
+    from spinglass_tpu_torch.anneal import graphs, pt
+    from spinglass_tpu_torch.benchmarks import headline
+
+    ell, _ = headline.ttt_instance()
+    cfg = headline.ttt_config()
+    _, _, engine = pt.make_pt_step(ell, cfg)
+    state = graphs.distinct(graphs.device_counter(pt.init_state(
+        ell, cfg, torch.Generator().manual_seed(seed), engine)))
+    return graphs.leaves(state)
+
+
+def latch_parity(torch, stats):
+    """Phase 2 (pt_latch): the latch against its twin on the same card
+    tensors, the TTT loop's nine state leaves at [10240, 128] float32, over
+    a solve's three kinds of super-step: above the threshold (no copy), the
+    hit (every leaf copied, the flag set) and one after the hit (below the
+    threshold again, on other tensors: no copy); snapshot and flag bitwise,
+    one launch each."""
+    from spinglass_tpu_torch.kernels import latch_cuda as lc
+
+    first, later = _ttt_leaves(torch, 1), _ttt_leaves(torch, 2)
+    kernel, twin = lc.Latch(first), lc.Latch(first)
+    for latch in (kernel, twin):
+        latch.arm(-1000.0)
+    l0 = build.launch_snapshot()
+    for what, best, src, flag in (("no-op", -999.5, first, 0),
+                                  ("hit", -1000.0, first, 1),
+                                  ("after the hit", -2000.0, later, 1)):
+        b = torch.tensor(best, dtype=torch.float32, device="cuda")
+        kernel(b, src)
+        lc.latch_reference(b, twin.threshold, twin.flag, src, twin.snapshot)
+        torch.cuda.synchronize()
+        bad = [k for k, (a, w) in enumerate(zip(kernel.snapshot,
+                                                twin.snapshot))
+               if not torch.equal(a, w)]
+        if kernel.flag.tolist() != [flag, 0] or twin.flag.tolist() != \
+                [flag, 0] or bad:
+            raise CheckFailed(f"pt_latch != twin on the {what} step: flags "
+                              f"{kernel.flag.tolist()} / "
+                              f"{twin.flag.tolist()}, leaves {bad} differ")
+    kept = all(torch.equal(a, w) for a, w in zip(kernel.snapshot, first))
+    n = build.launches_since(l0, [lc.KERNEL])[lc.KERNEL]
+    shapes = [tuple(t.shape) for t in first]
+    check(kept and n == 3,
+          f"pt_latch == its twin bit for bit on the TTT state's {len(first)} "
+          f"leaves ({shapes[0]} {first[0].dtype} spins): no-op, hit and "
+          f"after the hit (snapshot and flag); the snapshot holds the hit's "
+          f"state; {n} launches (3)")
+
+
+def latch_timing(torch, stats, card):
+    """Phase 5 (pt_latch): the latch on the TTT state's leaves as a graph of
+    100 launches, where it copies nothing (every super-step but the hit;
+    bound 16 bytes read: best, threshold, flag) and on a hit (the flag
+    cleared before each launch inside the graph; bound twice the state's
+    bytes), against the twin (eager: its flag read waits on the card); the
+    no-op latch at most 5 us."""
+    from spinglass_tpu_torch.kernels import latch_cuda as lc
+
+    src = _ttt_leaves(torch, 3)
+    nbytes = float(sum(t.numel() * t.element_size() for t in src))
+    best = torch.tensor(-1.0, dtype=torch.float32, device="cuda")
+    latch, twin = lc.Latch(src), lc.Latch(src)
+
+    def twin_call():
+        lc.latch_reference(best, twin.threshold, twin.flag, src,
+                           twin.snapshot)
+
+    def hit():
+        latch.flag.zero_()
+        latch(best, src)
+
+    def twin_hit():
+        twin.flag.zero_()
+        twin_call()
+
+    latch.arm(-10.0)
+    twin.arm(-10.0)
+    ms = _graph_ms(torch, lambda: latch(best, src), 100)
+    plain_ms = _event_ms(torch, twin_call, 50)
+    b = bound(16.0, 0.0, FP32_FLOPS)
+    latch.arm(0.0)
+    twin.arm(0.0)
+    hit_ms = _graph_ms(torch, hit, 100)
+    hit_plain_ms = _event_ms(torch, twin_hit, 50)
+    hb = bound(2.0 * nbytes, 0.0, FP32_FLOPS)
+    stats["latch"] = (ms, plain_ms) + b
+    print(f"  pt_latch on the TTT state ({nbytes / 1e6:.2f} MB in "
+          f"{len(src)} leaves), as a graph: no copy {1e3 * ms:.3f} us (bound "
+          f"{1e6 * b[0]:.4f} ns, {b[1]}); hit {1e3 * hit_ms:.2f} us with its "
+          f"flag reset (bound {1e3 * hb[0]:.2f} us, {hb[1]}: "
+          f"{100 * hb[0] / hit_ms:.1f}% of it); twin {1e3 * plain_ms:.2f} / "
+          f"{1e3 * hit_plain_ms:.2f} us [{card}]")
+    check(1e3 * ms <= 5.0, f"pt_latch with nothing to copy costs "
+                           f"{1e3 * ms:.3f} us a super-step (<= 5 us)")
+    check(all(torch.equal(a, w) for a, w in zip(latch.snapshot, src)),
+          "the timed hits left the state in the snapshot")
 
 
 def _pt_run(torch, ell, cfg, engine, gen_seed, n_super):
@@ -5042,6 +5168,8 @@ def main() -> int:
                  "3-D lattice", lambda: overlap_parity(torch, stats)),
                 ("phase 2: parity with the twin (sa_track) at the SA "
                  "shapes", lambda: track_parity(torch, stats)),
+                ("phase 2: parity with the twin (pt_latch) on the TTT "
+                 "state", lambda: latch_parity(torch, stats)),
                 ("phase 2: parity with the plain versions (C2, C1)",
                  lambda: cluster_parity(torch, stats)),
                 ("phase 2: env.step through K1, K2 and K4 against the twins (RL)",
@@ -5097,6 +5225,9 @@ def main() -> int:
                 ("phase 5: timing (sa_track: SA anneals at the cells' "
                  "shapes, the kernel against its bound, its twin and "
                  "torch.where)", lambda: track_timing(torch, stats, card)),
+                ("phase 5: timing (pt_latch: no copy and a hit, against "
+                 "its bounds and its twin)",
+                 lambda: latch_timing(torch, stats, card)),
                 ("phase 5: timing (RL: bench_rl, profile_rl)",
                  lambda: rl_timing(torch, stats, card)),
                 ("phase 5: timing (RL training: bench_dqn, profile_dqn, the "
@@ -5162,6 +5293,9 @@ def main() -> int:
     t_ms, t_plain_ms, t_bound, t_by = stats["track"]
     rows.append(("sa_track", stats["track_launches"], 0.0, t_ms, t_plain_ms))
     stats["bounds"]["sa_track"] = (t_bound, t_by)
+    l_ms, l_plain_ms, l_bound, l_by = stats["latch"]
+    rows.append(("pt_latch", stats["latch_launches"], 0.0, l_ms, l_plain_ms))
+    stats["bounds"]["pt_latch"] = (l_bound, l_by)
     b4 = stats["bounds"]["sparse_accept"][0]
     print(f"K4 {1e3 * stats['k4_ms']:.1f} us per sweep is "
           f"{100 * b4 / stats['k4_ms']:.1f}% of its bound's rate [{card}]")

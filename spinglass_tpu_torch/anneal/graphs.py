@@ -437,3 +437,51 @@ class HostRead:
         self._event.record()
         self._event.synchronize()
         return [b.clone() for b in out]
+
+
+class ReadRing:
+    """Reads of a small device tensor kept in flight: ``push(t)`` queues a
+    copy of ``t`` into the next of ``depth`` pinned host buffers and
+    records that buffer's event, so the copy takes ``t``'s value at that
+    point of the stream; ``pop()`` waits for the oldest copy only and
+    returns it (a host tensor). Reads come back in the order pushed, at most
+    ``depth`` at a time; ``clear()`` forgets those still in flight. On the
+    CPU a push keeps a copy."""
+
+    def __init__(self, depth: int):
+        self.depth = depth
+        self._bufs = [None] * depth
+        self._events = [None] * depth
+        self._first = 0     # the slot of the oldest read in flight
+        self._count = 0
+
+    def push(self, t: torch.Tensor) -> None:
+        if self._count == self.depth:
+            raise RuntimeError(f"{self.depth} reads are in flight already")
+        i = (self._first + self._count) % self.depth
+        self._count += 1
+        if not t.is_cuda:
+            self._bufs[i] = t.detach().clone()
+            return
+        buf = self._bufs[i]
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = self._bufs[i] = torch.empty(t.shape,
+                                              dtype=t.dtype).pin_memory()
+        buf.copy_(t, non_blocking=True)
+        if self._events[i] is None:
+            self._events[i] = torch.cuda.Event()
+        self._events[i].record()
+
+    def pop(self) -> torch.Tensor:
+        if not self._count:
+            raise RuntimeError("no read is in flight")
+        i = self._first
+        self._first = (i + 1) % self.depth
+        self._count -= 1
+        with global_profiler.phase("read"):
+            if self._events[i] is not None:
+                self._events[i].synchronize()
+            return self._bufs[i].clone()
+
+    def clear(self) -> None:
+        self._first = self._count = 0

@@ -14,6 +14,7 @@ upper bound on the ground energy.
 
 from __future__ import annotations
 
+import collections
 import time
 from dataclasses import dataclass
 
@@ -86,6 +87,10 @@ def instance_hash(inst: PlantedInstance) -> str:
     return h.hexdigest()
 
 
+# replays in flight in time_to_target: one being read, one queued behind it
+DEPTH = 2
+
+
 @graphs.serialized
 def time_to_target(problem, target_energy: float, cfg=None,
                    rel_gap: float = 1e-3, max_sweeps: int = 20000,
@@ -100,15 +105,29 @@ def time_to_target(problem, target_energy: float, cfg=None,
     per (problem object, cfg) (``pt.capture_super_step``, kept in
     ``graphs.PT_CACHE``; its warm-up builds and loads the kernels before any
     timing) and shared by the seeds and the calls: each seed's fresh state
-    is copied into the captured state, and each replay is followed by one
-    4-byte read of the best energy through a pinned buffer and an event (the
-    only wait of a run). The check has the JAX granularity, one super-step.
+    is copied into the captured state, and each replay's best energy is
+    read back through a ring of pinned buffers (``graphs.ReadRing``): the
+    host queues ``DEPTH`` - 1 replays ahead of the one it reads, so the card
+    has the next super-step while the host reads, fills and launches. The
+    check has the JAX granularity, one super-step: ``sweeps`` counts the
+    super-steps up to the first whose best is at or below the threshold.
+    A replay queued behind that hit changes nothing: the captured
+    super-step ends in a latch (``kernels.latch_cuda``) that keeps the state
+    of the hit, which is copied back into the captured state, and the
+    generator is set back to where the hit left it. No replay is launched
+    beyond ``max_sweeps``.
 
     ``seeds``: optional ints; one run per seed (a fresh generator each), the
     median-by-seconds run reported at the top level and every run under
     "per_seed". Without seeds, one run with ``generator`` (or cfg.seed).
-    Returns seconds, sweeps used and whether the target was hit."""
+    Returns seconds, sweeps used, whether the target was hit, and the
+    replays ``launched`` and ``discarded`` (launched after the hit). A
+    run's ``seconds`` end when the host has read the hit, as the serial
+    loop's did; the discarded replay and the copy back into the captured
+    state are still queued on the stream then, and drain before the next
+    seed's start (its synchronize)."""
     from spinglass_tpu_torch.anneal import pt as pt_mod
+    from spinglass_tpu_torch.kernels.latch_cuda import Latch
 
     cfg = cfg or pt_mod.PTConfig(n_replicas=16, exchange_interval=10,
                                  min_temp=0.1, max_temp=5.0)
@@ -126,38 +145,58 @@ def time_to_target(problem, target_energy: float, cfg=None,
     entry = graphs.PT_CACHE.get(problem, key)
     if entry is None:
         super_step, _, engine = pt_mod.make_pt_step(problem, cfg)
+        start = graphs.device_counter(pt_mod.init_state(
+            problem, cfg, torch.Generator().manual_seed(0), engine))
+        latch = Latch(graphs.leaves(start))
 
         def best_of(st):
             st, stats = super_step(st)
+            latch(stats["best_energy"], graphs.leaves(st))
             return st, stats["best_energy"]
 
-        captured = pt_mod.capture_super_step(
-            best_of, pt_mod.init_state(
-                problem, cfg, torch.Generator().manual_seed(0), engine))
+        captured = pt_mod.capture_super_step(best_of, start)
+        captured.latch = latch
         graphs.PT_CACHE.put(problem, key, (engine, captured))
     else:
         engine, captured = entry
-    read = graphs.HostRead()
+    latch = captured.latch
+    ring = graphs.ReadRing(DEPTH)
     runs = []
     for gen in gens:
         with global_profiler.phase("ttt.solve"):
             with global_profiler.phase("ttt.start"):
                 captured.load(graphs.device_counter(
                     pt_mod.init_state(problem, cfg, gen, engine)))
+                latch.arm(threshold)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            n_super, best = 0, float("inf")
+            n_super, launched, best = 0, 0, float("inf")
+            kept = collections.deque(maxlen=DEPTH)   # generator states
             while best > threshold and n_super < max_super:
-                out = captured.replay(gen)
+                # queue replays up to DEPTH ahead of the read. The tape's
+                # fill is stream-ordered: its seed slots come from a fresh
+                # pinned buffer and its device draws are enqueued on the
+                # replay's stream, so a fill never overtakes a replay
+                while launched < min(n_super + DEPTH, max_super):
+                    kept.append(gen.get_state())
+                    ring.push(captured.replay(gen))
+                    launched += 1
+                best = min(best, float(ring.pop()))  # 4-byte read
                 n_super += 1
-                best = min(best, float(read([out])[0]))  # 4-byte read
+            discarded = launched - n_super
+            if discarded:
+                latch.restore(graphs.leaves(captured.state))
+                gen.set_state(kept[-discarded])
+                ring.clear()
             elapsed = time.perf_counter() - t0
         runs.append({
             "seconds": elapsed,
             "sweeps": n_super * cfg.exchange_interval,
             "best_energy": best,
             "hit": best <= threshold,
+            "launched": launched,
+            "discarded": discarded,
         })
 
     med = sorted(runs, key=lambda r: r["seconds"])[len(runs) // 2]

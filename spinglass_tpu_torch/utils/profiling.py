@@ -20,8 +20,9 @@ their host work happens:
   row, the copies, the history read and the result;
 * ``step.fill``: a captured step's random tape filled before a replay;
   ``step.launch``: the graph's replay (on the CPU: the eager step);
-* ``read``: a small read to the host (``anneal.graphs.HostRead``), the
-  wait included.
+* ``read``: a small read to the host (``anneal.graphs.HostRead``; in
+  ``time_to_target`` a ``graphs.ReadRing.pop``, which waits for a copy
+  queued at its replay), the wait included.
 
 Recording is off by default, and then ``phase`` returns one shared no-op
 context manager. It is on inside ``recording()``, which yields the list of

@@ -2109,3 +2109,152 @@ def test_captured_anneal_equals_the_twin_stream(cuda, monkeypatch, kind):
         np.testing.assert_array_equal(getattr(res, name), getattr(ref, name))
     assert res.metadata["best_copy_share"] == ref.metadata["best_copy_share"]
     assert 0.0 < res.metadata["best_copy_share"] < 1.0
+
+
+def _pt_leaves(cuda, seed, rows=10240, r=128):
+    """The nine tensors of a PT state at [rows, R] float32 spins, in the
+    order of its leaves; the energies a view at a 4-byte offset, so that
+    the kernel's byte-wise path copies them (and the [R - 1] counters)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    spins = (2 * torch.randint(0, 2, (rows, r), generator=g, device=cuda)
+             - 1).float()
+    energy = torch.randn(r + 1, generator=g, device=cuda)[1:]
+    return [spins, torch.randperm(r, generator=g, device=cuda).int(), energy,
+            torch.randn(r, generator=g, device=cuda) * 1e4,
+            (2 * torch.randint(0, 2, (rows, r), generator=g, device=cuda)
+             - 1).float(),
+            torch.tensor(10 * seed, dtype=torch.int64, device=cuda),
+            torch.randint(0, 99, (r - 1,), generator=g, device=cuda,
+                          dtype=torch.int32),
+            torch.randint(0, 99, (r - 1,), generator=g, device=cuda,
+                          dtype=torch.int32),
+            torch.rand(r, generator=g, device=cuda)]
+
+
+@pytest.mark.gpu
+def test_latch_kernel_matches_twin(cuda):
+    """The time-to-target latch against its twin on the same card tensors
+    at [10240, 128] float32, bit for bit, over a solve's three kinds of
+    super-step: above the threshold (no copy), the hit (every leaf copied,
+    the flag set), and one after the hit (no copy); one launch each."""
+    from spinglass_tpu_torch.kernels import latch_cuda as LC
+
+    first, later = _pt_leaves(cuda, 1), _pt_leaves(cuda, 2)
+    kernel, twin = LC.Latch(first), LC.Latch(first)
+    l0 = build.launch_snapshot()
+    for latch in (kernel, twin):
+        latch.arm(-1000.0)
+    for best, src, flag in ((-999.5, first, 0), (-1000.0, first, 1),
+                            (-2000.0, later, 1)):
+        b = torch.tensor(best, dtype=torch.float32, device=cuda)
+        kernel(b, src)
+        LC.latch_reference(b, twin.threshold, twin.flag, src, twin.snapshot)
+        torch.cuda.synchronize()
+        assert kernel.flag.tolist() == twin.flag.tolist() == [flag, 0]
+        for got, want in zip(kernel.snapshot, twin.snapshot):
+            assert torch.equal(got, want)
+    for got, want in zip(kernel.snapshot, first):
+        assert torch.equal(got, want)
+    assert build.launches_since(l0, [LC.KERNEL]) == {LC.KERNEL: 3}
+
+
+@pytest.mark.gpu
+def test_time_to_target_equals_serial_replay_loop(cuda):
+    """``time_to_target`` (replays queued ahead of the read, the latch)
+    against a plain serial loop of replays and 4-byte reads of the same
+    captured super-step under the same seeds, on a small planted instance
+    at 128 replicas (K2): sweeps, best energy, every leaf of the captured
+    state and the generator, bit for bit; one replay discarded a hit."""
+    from spinglass_tpu_torch.anneal import graphs, pt
+    from spinglass_tpu_torch.benchmarks import planted
+
+    inst = planted.planted_gauge_coo(2000, 6.0, seed=4, frustration=0.3)
+    ell = S.EllProblem.from_coo(2000, inst.rows, inst.cols, inst.vals,
+                                device=cuda)
+    cfg = pt.PTConfig(n_replicas=128, exchange_interval=10, min_temp=0.05,
+                      max_temp=3.0)
+    graphs.clear_caches()
+    miss = planted.time_to_target(ell, -1e12, cfg, rel_gap=0.0,
+                                  max_sweeps=300, seeds=[11])
+    assert miss["per_seed"][0]["launched"] == 30
+    assert miss["per_seed"][0]["discarded"] == 0 and not miss["hit"]
+    engine, captured = graphs.PT_CACHE.get(
+        ell, ("time_to_target", graphs.config_key(cfg)))
+    assert engine.name == "sparse_sorted_t"
+    read = graphs.HostRead()
+
+    def serial(seed, threshold, max_super):
+        gen = torch.Generator().manual_seed(seed)
+        captured.load(graphs.device_counter(pt.init_state(ell, cfg, gen,
+                                                          engine)))
+        n, best, bests = 0, float("inf"), []
+        while best > threshold and n < max_super:
+            out = captured.replay(gen)
+            n += 1
+            best = min(best, float(read([out])[0]))
+            bests.append(best)
+        return n, best, bests, [t.clone() for t in
+                                graphs.leaves(captured.state)], gen
+
+    for seed in (11, 12, 13):
+        bests = serial(seed, -float("inf"), 30)[2]
+        steps = [k + 1 for k in range(1, 30) if bests[k] < bests[k - 1]]
+        k = steps[len(steps) // 2]
+        threshold = bests[k - 1]
+        gen = torch.Generator().manual_seed(seed)
+        out = planted.time_to_target(ell, threshold, cfg, rel_gap=0.0,
+                                     max_sweeps=300, generator=gen)
+        got = [t.clone() for t in graphs.leaves(captured.state)]
+        n, best, _, want, gen_serial = serial(seed, threshold, 30)
+        assert n == k and out["sweeps"] == 10 * k and out["hit"]
+        assert out["best_energy"] == best
+        assert out["launched"] == k + 1 and out["discarded"] == 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert torch.equal(gen.get_state(), gen_serial.get_state())
+    graphs.clear_caches()
+
+
+@pytest.mark.gpu
+def test_latch_costs_at_most_5_us_a_super_step(cuda):
+    """The latch where it copies nothing (every super-step but the hit) at
+    [10240, 128] float32, 100 launches as one graph, by CUDA events: at
+    most 5 us each. The hit's copy is timed too (the flag cleared before
+    each launch inside the graph) and printed."""
+    from spinglass_tpu_torch.kernels import latch_cuda as LC
+
+    src = _pt_leaves(cuda, 3)
+    latch = LC.Latch(src)
+    best = torch.tensor(-1.0, dtype=torch.float32, device=cuda)
+    times = {}
+    for kind in ("no_op", "hit"):
+        latch.arm(0.0 if kind == "hit" else -10.0)
+
+        def launches():
+            for _ in range(100):
+                if kind == "hit":
+                    latch.flag.zero_()
+                latch(best, src)
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            launches()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            launches()
+        graph.replay()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(10):
+            graph.replay()
+        stop.record()
+        stop.synchronize()
+        times[kind] = start.elapsed_time(stop) * 1e3 / 1000
+    print(f"pt_latch at [10240, 128] float32, as a graph: no copy "
+          f"{times['no_op']:.3f} us, hit (with a flag reset) "
+          f"{times['hit']:.3f} us a launch")
+    assert times["no_op"] <= 5.0
+    for got, want in zip(latch.snapshot, src):
+        assert torch.equal(got, want)

@@ -251,6 +251,71 @@ def test_time_to_target_sweep_counts_equal_eager_loop():
         assert run["sweeps"] == 5 * n and run["best_energy"] == best, seed
 
 
+PT_LEAVES = ("spins", "slot", "energy", "best_energy", "best_spins", "sweep",
+             "exch_attempts", "exch_accepts", "acc_rate")
+
+
+@pytest.mark.parametrize("case", ["first", "before_last", "at_last", "miss"])
+def test_time_to_target_pipelined_equals_serial_loop(case):
+    """The pipelined loop (replays queued ``DEPTH`` - 1 ahead of the read,
+    the latch at the end of the captured super-step) against the eager
+    serial loop of the same super-step under one seed: sweeps, best energy,
+    every leaf of the captured state after the call (the state at the hit,
+    sweep counter included) and the generator, bit for bit. Cases: a hit on
+    the first super-step, one a super-step before the cap, one on the cap
+    itself, and a miss; no replay launched beyond the cap, one discarded
+    after a hit before the cap."""
+    inst = planted.planted_gauge_coo(80, 4.0, seed=3, frustration=0.3)
+    ell = EllProblem.from_coo(80, inst.rows, inst.cols, inst.vals,
+                              device="cpu")
+    cfg = pt.PTConfig(n_replicas=4, exchange_interval=3, min_temp=0.3,
+                      max_temp=3.0)
+    super_step, _, engine = pt.make_pt_step(ell, cfg)
+
+    def serial(threshold, max_super):
+        gen = torch.Generator().manual_seed(7)
+        state = graphs.device_counter(pt.init_state(ell, cfg, gen, engine))
+        n, best, bests = 0, float("inf"), []
+        while best > threshold and n < max_super:
+            state, stats = super_step(state)
+            n += 1
+            best = min(best, float(stats["best_energy"]))
+            bests.append(best)
+        return n, best, bests, state, gen
+
+    # the best energy after each of 40 super-steps picks the thresholds
+    _, _, bests, _, _ = serial(-float("inf"), 40)
+    steps = [k + 1 for k in range(1, 40) if bests[k] < bests[k - 1]]
+    assert len(steps) >= 2
+    k = steps[1]                      # a hit after a strict improvement
+    threshold, max_super = {
+        "first": (bests[0], 40),
+        "before_last": (bests[k - 1], k + 1),
+        "at_last": (bests[k - 1], k),
+        "miss": (bests[-1] - 1.0, 12)}[case]
+    n, best, _, state, gen_serial = serial(threshold, max_super)
+    assert n == {"first": 1, "before_last": k, "at_last": k,
+                 "miss": 12}[case]
+    graphs.clear_caches()
+    gen = torch.Generator().manual_seed(7)
+    out = planted.time_to_target(ell, threshold, cfg, rel_gap=0.0,
+                                 max_sweeps=max_super * 3, generator=gen)
+    assert out["sweeps"] == 3 * n and out["best_energy"] == best
+    assert out["hit"] == (case != "miss")
+    assert out["launched"] <= max_super
+    assert out["discarded"] == (1 if case in ("first", "before_last")
+                                else 0)
+    assert out["launched"] == n + out["discarded"]
+    _, captured = graphs.PT_CACHE.get(ell, ("time_to_target",
+                                            graphs.config_key(cfg)))
+    for name in PT_LEAVES:
+        assert torch.equal(getattr(captured.state, name),
+                           getattr(state, name)), name
+    assert int(captured.state.sweep) == 3 * n
+    assert torch.equal(gen.get_state(), gen_serial.get_state())
+    graphs.clear_caches()
+
+
 def _result_arrays(res):
     return [res.best_spins, res.replica_best_energy, res.energy_history,
             res.mean_energy_history, res.temperature_history,

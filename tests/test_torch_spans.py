@@ -80,19 +80,36 @@ def test_time_to_target_spans_one_root_per_seed():
                               device="cpu")
     cfg = pt.PTConfig(n_replicas=4, exchange_interval=5, min_temp=0.1,
                       max_temp=3.0)
+    # two seeds that hit at once, then two that never hit (a target below
+    # the ground state): 20 super-steps each
     with global_profiler.recording() as spans:
-        out = planted.time_to_target(ell, inst.e0, cfg, rel_gap=0.05,
-                                     max_sweeps=100, seeds=[1, 2])
+        runs = [run for target in (inst.e0, 2 * inst.e0)
+                for run in planted.time_to_target(
+                    ell, target, cfg, rel_gap=0.05, max_sweeps=100,
+                    seeds=[1, 2])["per_seed"]]
+    assert [r["hit"] for r in runs] == [True, True, False, False]
     roots = [i for i, s in enumerate(spans) if s.parent == -1]
-    assert [spans[i].name for i in roots] == ["ttt.solve"] * 2
+    assert [spans[i].name for i in roots] == ["ttt.solve"] * 4
     for k, r in enumerate(roots):
         end = roots[k + 1] if k + 1 < len(roots) else len(spans)
         mine = range(r + 1, end)
         assert all(spans.root(i) == r and spans[i].parent == r for i in mine)
         names = [spans[i].name for i in mine]
         assert names[0] == "ttt.start"
-        n_super = out["per_seed"][k]["sweeps"] // cfg.exchange_interval
-        assert names[1:] == ["step.fill", "step.launch", "read"] * n_super
+        run = runs[k]
+        n_super = run["sweeps"] // cfg.exchange_interval
+        launched = run["launched"]
+        # the pipelined order: DEPTH replays queued, then a read before
+        # each further replay, then the reads of those still in flight
+        ahead = min(planted.DEPTH, launched)
+        fill_launch = ["step.fill", "step.launch"]
+        assert names[1:] == (fill_launch * ahead
+                             + (["read"] + fill_launch) * (launched - ahead)
+                             + ["read"] * (n_super - launched + ahead))
+        assert names.count("step.launch") == launched
+        assert names.count("step.fill") == launched
+        assert names.count("read") == n_super
+        assert launched - n_super == run["discarded"] <= planted.DEPTH - 1
 
 
 def test_parents_are_per_thread_and_the_cap_counts_drops():
