@@ -316,8 +316,14 @@ the kernels against the twins. Phases:
      against its bound; K1 against its twin there on the same spins and
      uniforms (the SK glass's Trotter problem: energy identity within 1e-4
      relative, counts within 0.5%; a +-J SK glass at N=1024, P=8 with
-     J_perp 0.25: spins, dE and counts bitwise); and
-     headline.profile_research's breakdowns of SQA, PIMC, AQIA and LESD.
+     J_perp 0.25: spins, dE and counts bitwise);
+     headline.profile_research's breakdowns of SQA, PIMC, AQIA and LESD;
+     and sparse SQA at the ea2d-l80.sqa shape (80x80, P=20, R=128): a
+     short carried run's launches from the ledger (K2 and sa_track once a
+     sweep), the replayed engine's tables against a fresh build after the
+     field rewrites, K2 at [128000, 128] on that engine against the fresh
+     engine's twins, and K2 there as a graph against its plain version and
+     its bound.
      The distributed layer: the sharded PT super-step against pt.run's at
      the three shapes in turns and the all-gather of [5, R] alone (a graph
      of 20); the captured model-sharded blocked sweep against the plain
@@ -4732,6 +4738,142 @@ def research_timing(torch, mc, stats, card):
                   f"{k['calls']:5d} calls  {k['name'][:80]}")
 
 
+# the ea2d-l80.sqa cell's shape: the 80 x 80 glass (J uniform in (-2, 2),
+# its instance seed), P=20 slices at T=0.05, R=128: K2 at [128000, 128]
+SQA_L, SQA_SEED, SQA_P, SQA_R, SQA_BETA = 80, 20020329, 20, 128, 20.0
+
+
+def sqa_sparse(torch, stats, card):
+    """Phase 5 (research, sparse SQA) at the ea2d-l80.sqa shape: a short
+    carried SQA (4 stages of 25 sweeps, linear ramp; ``write_couplings``
+    runs between the replays of the captured chunk), its launches read from
+    the ledger over the second call alone: K2 and ``sa_track`` once a
+    sweep, no K3 or K4; its best energy against the float64 energy of its
+    spins; every coupling table of the engine it replays equal to a fresh
+    build at the last Gamma. Then K2 on that rewritten engine against the
+    fresh engine's twins on the same spins and thresholds (K3's): the
+    slot-ordered twin (spins, counts bitwise, dE within 1e-5 of its largest
+    entry) and the per-colour twin (counts within 0.5%); K2 there as a
+    graph against its plain version and its bound."""
+    import numpy as np
+
+    from spinglass_tpu_torch.anneal import graphs
+    from spinglass_tpu_torch.core.problem import random_spins
+    from spinglass_tpu_torch.core.topology import lattice_coo
+    from spinglass_tpu_torch.kernels import sparse_cuda as sc
+    from spinglass_tpu_torch.kernels import track_cuda
+    from spinglass_tpu_torch.kernels.sparse import (EllProblem,
+                                                    SortedSparseTEngine)
+    from spinglass_tpu_torch.research import quantum as Q
+
+    n, rows, cols, vals = lattice_coo(SQA_L, dims=2, dist="uniform",
+                                      scale=2.0, seed=SQA_SEED)
+    ell = EllProblem.from_coo(n, rows, cols, vals, device="cuda")
+    cfg = Q.SQAConfig(n_trotter=SQA_P, beta=SQA_BETA, gamma_start=2.5,
+                      n_stages=4, sweeps_per_stage=25, n_replicas=SQA_R,
+                      carry_state=True, gamma_schedule="linear")
+    names = (sc.SWEEP_KERNEL, track_cuda.KERNEL, sc.THRESHOLD_KERNEL,
+             sc.ACCEPT_KERNEL)
+    graphs.clear_caches()
+    Q.simulated_quantum_annealing(ell, cfg,
+                                  generator=torch.Generator().manual_seed(1))
+    l0 = build.launch_snapshot()
+    t0 = time.perf_counter()
+    res = Q.simulated_quantum_annealing(
+        ell, cfg, generator=torch.Generator().manual_seed(2))
+    run_s = time.perf_counter() - t0
+    got = build.launches_since(l0, names)
+    md = res.metadata
+    sweeps = cfg.n_stages * cfg.sweeps_per_stage
+    s = res.best_spins.astype(np.float64)
+    j64 = np.asarray(vals, np.float32).astype(np.float64)
+    e64 = -0.5 * float(np.sum(j64 * s[rows] * s[cols]))
+    rel = abs(res.best_energy - e64) / abs(e64)
+    check(got == {sc.SWEEP_KERNEL: sweeps, track_cuda.KERNEL: sweeps,
+                  sc.THRESHOLD_KERNEL: 0, sc.ACCEPT_KERNEL: 0}
+          and md["kernel_launches"][sc.SWEEP_KERNEL] == sweeps
+          and md["sweeps"] == sweeps and md["captures"] == 0
+          and md["stages"] == md["field_writes"] == cfg.n_stages
+          and rel <= 1e-5,
+          f"carried SQA at the ea2d-l80.sqa shape ({SQA_L}x{SQA_L}, P="
+          f"{SQA_P}, R={SQA_R}, {cfg.n_stages} stages of "
+          f"{cfg.sweeps_per_stage} sweeps, replayed, no capture): launches "
+          f"{got} ({sweeps} sweeps, {md['field_writes']} field writes); best "
+          f"{res.best_energy:.4f} against its spins' float64 energy "
+          f"{e64:.4f} (rel {rel:.2e} <= 1e-5); {run_s:.3f} s a call")
+    for k in (sc.SWEEP_KERNEL, track_cuda.KERNEL):
+        stats["research_launches"][k] = (stats["research_launches"].get(k, 0)
+                                         + got[k])
+    tp = Q.TROTTER_CACHE.get(ell, ("trotter", SQA_P))
+    engine, = graphs.sa_engines_of(tp)
+    fresh = SortedSparseTEngine(Q.trotterize(ell, SQA_P, SQA_BETA,
+                                             md["gammas"][-1]))
+
+    def tables(eng):
+        return ([b.val for _, _, bs in eng.groups for b in bs]
+                + [eng.kernels.tables["val"], eng.kernels._val_t,
+                   eng._coupling.values()])
+
+    same = [torch.equal(a, b) for a, b in zip(tables(engine), tables(fresh))]
+    ns, r = engine.n_sorted, SQA_R
+    check(all(same) and len(same) > 3 and engine.state_dtype(r) ==
+          torch.float32,
+          f"after the run every coupling table of the replayed engine ("
+          f"{len(same)}: buckets, K4's, K2's, the CSR) == a fresh build at "
+          f"Gamma {md['gammas'][-1]} bitwise; K2 takes [{ns}, {r}] "
+          f"(tile {sc.default_tile(r, ns)})")
+    gen = torch.Generator().manual_seed(23)
+    s_k = engine.to_layout(random_spins(gen, (r, tp.n_padded),
+                                        tp.active_mask))
+    s_o, s_p = s_k.clone(), s_k.clone()
+    beta = torch.linspace(0.5, SQA_BETA, r, device="cuda")
+    k, kf = engine.kernels, fresh.kernels
+    err = 0.0
+    for mode in ("philox", "host thresholds"):
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+        th = kf.thresholds(beta, seed, r)
+        kw = dict(seed=seed) if mode == "philox" else dict(th=th)
+        _, de_k, c_k = k.single_sweep(s_k, beta, **kw)
+        _, de_o, c_o = sc.single_sweep_ordered(kf.tables, kf.span_list, s_o,
+                                               th)
+        _, de_p, c_p = sc.single_sweep_reference(fresh.groups, s_p, th)
+        torch.cuda.synchronize()
+        e = float((de_k - de_o).abs().max())
+        err = max(err, e)
+        tol = 1e-5 * float(de_o.abs().max())
+        ck, cp = int(c_k.sum()), int(c_p.sum())
+        check(torch.equal(s_k, s_o) and torch.equal(c_k, c_o) and e <= tol
+              and abs(ck - cp) <= 0.005 * cp and ck > 0,
+              f"K2 ({mode}) on the rewritten engine at [{ns}, {r}] == the "
+              f"fresh engine's slot-ordered twin: spins, counts bitwise, dE "
+              f"within {e:.2e} <= {tol:.2e}; per-colour twin counts {cp} "
+              f"against {ck}")
+        s_p.copy_(s_k)
+    ms = _graph_ms(torch, lambda: k.single_sweep(s_k, beta, seed=7), 20)
+    th = kf.thresholds(beta, 7, r)
+    sc.single_sweep_reference(fresh.groups, s_p, th)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sc.single_sweep_reference(fresh.groups, s_p, th)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / 3
+    # bound as phase 5 (K2, K3) counts it, at [NS, 128]
+    kmax = k.tables["idx"].shape[1]
+    nnz = int(k.tables["deg"].sum())
+    b = bound(8.0 * ns * r + ns * (8 * kmax + 12) + 12 * r,
+              ns * r * SPARSE_DRAW_OPS + 2.0 * nnz * r, FP32_FLOPS)
+    stats["k2_sqa"] = {"shape": [ns, r], "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b[0], "bound_by": b[1],
+                       "max_abs_err": err}
+    print(f"  K2 at the ea2d-l80.sqa shape [{ns}, {r}] ({nnz} entries, "
+          f"one replica column a block), as a graph: {1e3 * ms:.2f} us a "
+          f"sweep (bound {1e3 * b[0]:.2f} us, {b[1]}: {100 * b[0] / ms:.1f}% "
+          f"of it); per-colour twin {plain_ms:.3f} ms [{card}]")
+    print("  " + json.dumps({"k2_sqa": stats["k2_sqa"]}))
+    graphs.clear_caches()
+
+
 def _same_pt(np, a, b) -> bool:
     """Two PT results equal bit for bit: ``_same_result``'s arrays and
     launches, the best energy, the slot records and exchange rates."""
@@ -5243,6 +5385,10 @@ def main() -> int:
                 ("phase 5: timing (research: K1 at the Trotter shape, the "
                  "profiles of SQA, PIMC, AQIA and LESD)",
                  lambda: research_timing(torch, mc, stats, card)),
+                ("phase 5: timing (research, sparse SQA at the ea2d-l80.sqa "
+                 "shape: a carried run's launches, K2 at [128000, 128] "
+                 "against its twins after a field rewrite)",
+                 lambda: sqa_sparse(torch, stats, card)),
                 ("phase 5: timing (distributed: the sharded PT super-step "
                  "and its all-gather, the model-sharded sweeps, the sharded "
                  "PPO)", lambda: distributed_timing(torch, mc, stats, card))):

@@ -384,6 +384,10 @@ class StepCache:
         """The cached entries, least recently used first."""
         return [value for value, _ in self._d.values()]
 
+    def values_of(self, problem) -> list:
+        """The cached entries of ``problem``, least recently used first."""
+        return [value for value, p in self._d.values() if p is problem]
+
     def clear(self) -> None:
         self._d.clear()
 
@@ -399,6 +403,12 @@ def config_key(config):
 
 SA_CACHE = StepCache("sa_steps")   # sa.anneal / sa.anneal_scan
 PT_CACHE = StepCache("pt_steps")   # pt.run / planted.time_to_target
+
+
+def sa_engines_of(problem) -> list:
+    """The sweep engines of ``problem``'s cached ``sa.anneal`` and
+    ``sa.anneal_scan`` runs (each ``SA_CACHE`` entry is (engine, steps))."""
+    return [entry[0] for entry in SA_CACHE.values_of(problem)]
 
 
 def clear_caches() -> None:

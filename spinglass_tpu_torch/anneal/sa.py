@@ -234,7 +234,8 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
            init_spins: Optional[torch.Tensor] = None,
            checkpoint_dir: Optional[str] = None,
            checkpoint_every: int = 10,
-           resume: bool = False) -> AnnealResult:
+           resume: bool = False,
+           final_spins: Optional[torch.Tensor] = None) -> AnnealResult:
     """Full annealing run with history recording and optional early stop.
 
     Each chunk of ``record_interval`` sweeps is one replay of the captured
@@ -257,6 +258,11 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
     the first call it includes the capture (the JAX package's compile falls
     there too), on a repeat call there is none (``capture_seconds`` in the
     metadata says what it took). ``kernel_launches`` are this call's.
+
+    ``final_spins``, an [R, Np] float32 tensor on the problem's device,
+    receives the run's last spins of every replica, copied on the device
+    with no read (it may be the ``init_spins`` of the call: a run that
+    continues another passes one tensor as both).
     """
     config = config or SAConfig()
     with global_profiler.phase("sa.anneal"):
@@ -324,6 +330,7 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
                         < config.convergence_tolerance):
                     converged, conv_sweep = True, sweeps_done
                     break
+        _copy_final(engine, state, final_spins)
         graphs.sync(problem.device)
         total = time.perf_counter() - t0
         return _result(problem, config, engine, state, launches0,
@@ -334,10 +341,14 @@ def anneal(problem: IsingProblem, config: Optional[SAConfig] = None,
 
 def _anneal_given(problem: IsingProblem, config: SAConfig, uniforms,
                   generator: Optional[torch.Generator] = None,
-                  init_spins: Optional[torch.Tensor] = None) -> AnnealResult:
-    """``anneal`` of a dense problem on given uniforms [S, R, Np]: sweep t
-    reads row t (``engines.GivenUniforms``) in place of the generator's
-    draws; the start spins still come from ``init_spins`` or the generator.
+                  init_spins: Optional[torch.Tensor] = None,
+                  final_spins: Optional[torch.Tensor] = None
+                  ) -> AnnealResult:
+    """``anneal`` of a problem on given uniforms [S, R, Np]: sweep t reads
+    row t (``engines.GivenUniforms``: the dense engines and the sorted
+    sparse ones) in place of the generator's draws; the start spins still
+    come from ``init_spins`` or the generator, and ``final_spins`` is
+    ``anneal``'s.
     The chunks run eagerly (``run_chunk``), nothing is captured or cached,
     and every sweep runs (no early stop). The research functions' ``draws``
     come here: the tests feed them the JAX package's own."""
@@ -353,10 +364,19 @@ def _anneal_given(problem: IsingProblem, config: SAConfig, uniforms,
         state, stats = run_chunk(problem, config, engine, state, n)
         for h, k in zip(hists, STAT_KEYS):
             h.append(float(stats[k]))
+    _copy_final(engine, state, final_spins)
     graphs.sync(problem.device)
     return _result(problem, config, engine, state, launches0, hists,
                    config.n_sweeps, config.n_sweeps,
                    time.perf_counter() - t0, 0.0, init_spins is not None)
+
+
+def _copy_final(engine, state: SAState,
+                final_spins: Optional[torch.Tensor]) -> None:
+    """The state's spins of every replica into ``final_spins`` ([R, Np]
+    float32), on the device, where it is given."""
+    if final_spins is not None:
+        final_spins.copy_(engine.from_layout(state.spins))
 
 
 def _result(problem, config, engine, state, launches0, hists, sweeps_done,

@@ -520,8 +520,9 @@ def make_sorted_t_sweep_fused(kernels: SparseKernels):
     return sweep
 
 
-def _csr(groups, n_sorted: int, device) -> torch.Tensor:
-    """The sorted-layout coupling matrix as a CSR tensor (energy only)."""
+def _sorted_coo(groups):
+    """The sorted layout's non-zero couplings (rows, cols, vals) in CSR
+    order, by row and then by column (``build_sorted_t``'s host groups)."""
     rows, cols, vals = [], [], []
     for _, _, bs in groups:
         for b in bs:
@@ -532,15 +533,34 @@ def _csr(groups, n_sorted: int, device) -> torch.Tensor:
     rows, cols, vals = (np.concatenate(a) if a else np.zeros(0)
                         for a in (rows, cols, vals))
     order = np.lexsort((cols, rows))
+    return (rows[order].astype(np.int64), cols[order].astype(np.int64),
+            vals[order])
+
+
+def _csr(groups, n_sorted: int, device) -> torch.Tensor:
+    """The sorted-layout coupling matrix as a CSR tensor (energy only)."""
+    rows, cols, vals = _sorted_coo(groups)
     crow = np.zeros(n_sorted + 1, np.int64)
-    np.add.at(crow, rows.astype(np.int64) + 1, 1)
+    np.add.at(crow, rows + 1, 1)
     with warnings.catch_warnings():  # CSR support is marked beta in torch
         warnings.simplefilter("ignore", UserWarning)
         return torch.sparse_csr_tensor(
             torch.as_tensor(np.cumsum(crow), device=device),
-            torch.as_tensor(cols[order].astype(np.int64), device=device),
-            torch.as_tensor(vals[order].astype(np.float32), device=device),
+            torch.as_tensor(cols, device=device),
+            torch.as_tensor(vals.astype(np.float32), device=device),
             size=(n_sorted, n_sorted), check_invariants=False)
+
+
+@dataclass(frozen=True, eq=False)
+class CouplingSet:
+    """A fixed set of directed entries (rows[k], cols[k]) of a sparse
+    problem's couplings, in the problem's own spin order, that an engine
+    rewrites in place (``SortedSparseTEngine.write_couplings``). Compared
+    and hashed by identity: an engine maps one set through its layout
+    once."""
+
+    rows: np.ndarray
+    cols: np.ndarray
 
 
 class SortedSparseTEngine:
@@ -620,6 +640,8 @@ class SortedSparseTEngine:
             for b in bs:
                 self._h_sorted[b.off:b.off + b.m, 0] = b.h
         self._coupling = _csr(groups_np, self.n_sorted, dev)
+        self._groups_np = groups_np       # host copy: write_couplings maps
+        self._written = {}                # CouplingSet -> [(table, flat slots)]
         self._accept_kernel = accept_kernel
         self._use_kernel_rng = (threshold_rng == "kernel"
                                 or (threshold_rng == "auto" and on_cuda))
@@ -685,6 +707,59 @@ class SortedSparseTEngine:
         f_j = self._coupling @ s32
         return (-0.5 * torch.sum(s32 * f_j, dim=0)
                 - torch.sum(self._h_sorted * s32, dim=0))
+
+    # -- couplings rewritten in place --------------------------------------
+    def write_couplings(self, entries: CouplingSet,
+                        value: torch.Tensor) -> None:
+        """Set the directed couplings ``entries`` (each a non-zero coupling
+        of the problem when the engine was built) to ``value``, a
+        one-element float32 tensor on the problem's device, in every copy
+        this engine keeps: the threshold path's bucket values, K2's
+        transposed and K4's row-major slot tables, and the CSR matrix of
+        ``energy``. The first call with ``entries`` maps them through the
+        sorted layout from the layout's host arrays; every call is one
+        indexed write per table on the device's current stream, with no
+        read and no synchronise, so the next sweep, or the next replay of a
+        captured chunk, reads the new value."""
+        slots = self._written.get(entries)
+        if slots is None:
+            slots = self._written[entries] = self._coupling_slots(entries)
+        v = value.reshape(())
+        for table, flat in slots:
+            table.view(-1).index_put_((flat,), v)
+
+    def _coupling_slots(self, entries: CouplingSet) -> list:
+        """(table, flat positions) of ``entries`` in each coupling table:
+        sorted row ``inv_map[row]``, and the slot that holds the sorted
+        column ``inv_map[col]`` with a non-zero value."""
+        sr = self.inv_map[np.asarray(entries.rows, np.int64)]
+        sc = self.inv_map[np.asarray(entries.cols, np.int64)]
+        idx_all, val_all = build_single_tables(self._groups_np,
+                                               self.n_sorted)[:2]
+        hit = (idx_all[sr] == sc[:, None]) & (val_all[sr] != 0)
+        if not (hit.sum(axis=1) == 1).all():
+            raise ValueError("each entry must be one non-zero coupling of "
+                             "the problem")
+        k = hit.argmax(axis=1)
+        dev = self.ell.device
+
+        def on(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+        out = []
+        for _, _, bs in self.groups:
+            for b in bs:
+                sel = (sr >= b.off) & (sr < b.off + b.m)
+                if sel.any():
+                    out.append((b.val, on((sr[sel] - b.off) * b.k + k[sel])))
+        tables = self.kernels.tables
+        if tables is not None:
+            out.append((tables["val"], on(sr * idx_all.shape[1] + k)))
+            out.append((self.kernels._val_t, on(k * self.n_sorted + sr)))
+        rows, cols, _ = _sorted_coo(self._groups_np)
+        out.append((self._coupling.values(), on(np.searchsorted(
+            rows * self.n_sorted + cols, sr * self.n_sorted + sc))))
+        return out
 
     # -- sweeps ------------------------------------------------------------
     def _thresholds(self, r: int, beta, generator: torch.Generator,

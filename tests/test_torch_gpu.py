@@ -2258,3 +2258,81 @@ def test_latch_costs_at_most_5_us_a_super_step(cuda):
     assert times["no_op"] <= 5.0
     for got, want in zip(latch.snapshot, src):
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_sparse_sqa_takes_k2_and_decodes_as_the_reference(cuda, monkeypatch):
+    """SQA of an 8 x 8 glass at P=4, R=128 with the state carried: K2
+    takes every sweep, one launch a sweep by the launch ledger; every
+    replica's slice energies, least slice energy and action at the last
+    Gamma match the plain reference's float64 values on the card (2e-6
+    relative: float32 sums over couplings rounded once to float32); and
+    J_perp is written with no synchronise."""
+    import importlib.util
+    import pathlib
+
+    from spinglass_tpu_torch.research import quantum as Q
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_reference_sqa2d",
+        pathlib.Path(__file__).parent / "torch_reference" / "sqa2d.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    ref.exact()
+    L, p, r = 8, 4, 128
+    ell = S.EllProblem.from_coo(*topology.lattice_coo(
+        L, dims=2, dist="uniform", scale=2.0, seed=3), device=cuda)
+    cfg = Q.SQAConfig(n_trotter=p, beta=4.0, n_stages=4, sweeps_per_stage=25,
+                      n_replicas=r, carry_state=True, gamma_schedule="linear")
+    finals = []
+    drawn = Q.anneal_drawn
+
+    def spy(*args, final_spins=None, **kw):
+        res = drawn(*args, final_spins=final_spins, **kw)
+        finals.append(final_spins.clone())
+        return res
+
+    monkeypatch.setattr(Q, "anneal_drawn", spy)
+    l0 = build.launch_snapshot()
+    res = Q.simulated_quantum_annealing(ell, cfg)
+    torch.cuda.synchronize()
+    assert build.launches_since(l0, [SC.SWEEP_KERNEL, SC.THRESHOLD_KERNEL,
+                                     SC.ACCEPT_KERNEL]) == {
+        SC.SWEEP_KERNEL: 100, SC.THRESHOLD_KERNEL: 0, SC.ACCEPT_KERNEL: 0}
+    assert res.metadata["kernel_launches"][SC.SWEEP_KERNEL] == 100
+    j = ref.couplings(L, 3, device=cuda)
+    final = ref.lattice(finals[-1][:, : p * L * L], L, p)
+    e, least = ref.decode(j, final)
+    np.testing.assert_allclose(res.metadata["slice_energies"],
+                               e.cpu().numpy(), rtol=2e-6)
+    np.testing.assert_allclose(res.replica_best_energy, least.cpu().numpy(),
+                               rtol=2e-6)
+    jp = ref.j_perp(cfg.beta, res.metadata["gammas"][-1], p)
+    np.testing.assert_allclose(res.metadata["final_action"],
+                               ref.action(j, final, jp).cpu().numpy(),
+                               rtol=2e-6)
+    spins = torch.as_tensor(res.metadata["replica_spins"], device=cuda)
+    np.testing.assert_allclose(
+        ref.energies(j, ref.lattice(spins, L)).cpu().numpy(),
+        res.replica_best_energy, rtol=2e-6)
+    tp = Q.TROTTER_CACHE.get(ell, ("trotter", p))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tp.set_field(cfg.beta, 1.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert float(tp.field) == float(np.float32(Q.j_perp(cfg.beta, 1.0, p)))
+    # the engine that the stages replay holds the new J_perp in every table
+    from spinglass_tpu_torch.anneal import graphs
+
+    engine, = graphs.sa_engines_of(tp)
+    fresh = S.SortedSparseTEngine(Q.trotterize(ell, p, cfg.beta, 1.0))
+
+    def tables(eng):
+        return ([b.val for _, _, bs in eng.groups for b in bs]
+                + [eng.kernels.tables["val"], eng.kernels._val_t,
+                   eng._coupling.values()])
+
+    for x, y in zip(tables(engine), tables(fresh)):
+        assert torch.equal(x, y)

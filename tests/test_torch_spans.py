@@ -112,6 +112,35 @@ def test_time_to_target_spans_one_root_per_seed():
         assert launched - n_super == run["discarded"] <= planted.DEPTH - 1
 
 
+def test_sqa_spans_nest_sa_anneal_under_sqa_run():
+    """Carried SQA on a sparse lattice: one ``sqa.run`` root over the call,
+    ``sqa.start``, one ``sqa.stage`` a stage and ``sqa.decode`` under it,
+    and each stage's ``sa.anneal`` under its ``sqa.stage``, so no longer a
+    request root."""
+    from spinglass_tpu_torch.core.topology import lattice_coo
+    from spinglass_tpu_torch.research import quantum
+
+    ell = EllProblem.from_coo(*lattice_coo(4, dims=2, dist="uniform",
+                                           scale=2.0, seed=1), device="cpu")
+    cfg = quantum.SQAConfig(n_trotter=4, beta=4.0, n_stages=3,
+                            sweeps_per_stage=10, n_replicas=4,
+                            carry_state=True, gamma_schedule="linear")
+    quantum.simulated_quantum_annealing(ell, cfg)   # builds and captures
+    with global_profiler.recording() as spans:
+        quantum.simulated_quantum_annealing(ell, cfg)
+    names = _names(spans)
+    assert names[0] == "sqa.run" and spans[0].parent == -1
+    assert [i for i, s in enumerate(spans) if s.parent == -1] == [0]
+    top = [s.name for s in spans if s.parent == 0]
+    assert top == ["sqa.start"] + ["sqa.stage"] * 3 + ["sqa.decode"]
+    stages = [i for i, s in enumerate(spans) if s.name == "sqa.stage"]
+    anneals = [i for i, s in enumerate(spans) if s.name == "sa.anneal"]
+    assert [spans[i].parent for i in anneals] == stages
+    assert all(spans.root(i) == 0 for i in range(len(spans)))
+    assert all(s.end_ns is not None for s in spans)
+    assert spans[0].end_ns >= max(s.end_ns for s in spans[1:])
+
+
 def test_parents_are_per_thread_and_the_cap_counts_drops():
     prof = PerformanceProfiler(cap=3)
     seen = {}
